@@ -5,6 +5,9 @@
 - ``stream``: online detection over one experiment (or ``--all`` of a
   testbed's taxonomy, in distribution): alert timelines, ranked culprits
   and top-1 per label, one JSON line each.
+- ``serve``: the multi-tenant serve plane over a seeded power-law fleet
+  on a virtual clock; prints the ``ServeReport`` as JSON (the
+  counterpart of ``anomod serve``).
 """
 
 from __future__ import annotations
@@ -40,7 +43,82 @@ def _parser() -> argparse.ArgumentParser:
     s.add_argument("--seed", type=int, default=0)
     s.add_argument("--device", default=None,
                    help="cuda (default) or cpu (plain PyTorch versions)")
+
+    v = sub.add_parser("serve", help="multi-tenant serving plane: "
+                       "admission, fused lane dispatch, device state pool "
+                       "and batched scoring over a seeded power-law fleet")
+    v.add_argument("--tenants", type=int, default=200)
+    v.add_argument("--services", type=int, default=8)
+    v.add_argument("--duration", type=float, default=120.0,
+                   help="virtual seconds to serve")
+    v.add_argument("--tick", type=float, default=1.0,
+                   help="virtual scheduler tick (seconds)")
+    v.add_argument("--capacity", type=float, default=20_000.0,
+                   help="serving capacity in spans/sec")
+    v.add_argument("--overload", type=float, default=1.0,
+                   help="offered load as a multiple of capacity")
+    v.add_argument("--alpha", type=float, default=1.2,
+                   help="power-law exponent of the tenant rates")
+    v.add_argument("--seed", type=int, default=0)
+    v.add_argument("--window-seconds", type=float, default=5.0)
+    v.add_argument("--baseline-windows", type=int, default=4)
+    v.add_argument("--threshold", type=float, default=4.0)
+    v.add_argument("--pipeline", type=int, default=None,
+                   help="in-flight fused dispatches plus one (default 2)")
+    v.add_argument("--no-fuse", action="store_true",
+                   help="one dispatch per tenant micro-batch")
+    v.add_argument("--buckets", default=None,
+                   help="comma-separated micro-batch bucket widths")
+    v.add_argument("--lane-buckets", default=None,
+                   help="comma-separated fused-dispatch lane counts")
+    v.add_argument("--max-backlog", type=int, default=None,
+                   help="global backlog bound in spans (default 200000)")
+    v.add_argument("--fault-tenants", type=int, default=2)
+    v.add_argument("--state", choices=["host", "device"], default="device",
+                   help="tenant states in the device pool or on the host")
+    v.add_argument("--no-score", action="store_true",
+                   help="fold only; no detectors")
+    v.add_argument("--device", default=None,
+                   help="cuda (default) or cpu (plain PyTorch versions)")
     return parser
+
+
+def _serve(args, parser) -> int:
+    from anomod_torch.serve.config import (validate_lane_buckets,
+                                           validate_serve_buckets)
+    from anomod_torch.serve.engine import run_power_law
+    for flag, val in (("--tenants", args.tenants),
+                      ("--services", args.services)):
+        if val < 1:
+            parser.error(f"{flag} must be >= 1")
+    for flag, val in (("--capacity", args.capacity), ("--tick", args.tick),
+                      ("--window-seconds", args.window_seconds),
+                      ("--overload", args.overload)):
+        if val <= 0:
+            parser.error(f"{flag} must be positive")
+    if args.fault_tenants < 0:
+        parser.error("--fault-tenants must be >= 0")
+    if args.pipeline is not None and args.pipeline < 1:
+        parser.error("--pipeline must be >= 1")
+    try:
+        buckets = (None if args.buckets is None else validate_serve_buckets(
+            p for p in args.buckets.split(",") if p.strip()))
+        lanes = (None if args.lane_buckets is None else validate_lane_buckets(
+            p for p in args.lane_buckets.split(",") if p.strip()))
+    except ValueError as e:
+        parser.error(str(e))
+    _, report = run_power_law(
+        n_tenants=args.tenants, n_services=args.services,
+        capacity_spans_per_s=args.capacity, overload=args.overload,
+        duration_s=args.duration, tick_s=args.tick, seed=args.seed,
+        alpha=args.alpha, window_s=args.window_seconds,
+        baseline_windows=args.baseline_windows, z_threshold=args.threshold,
+        buckets=buckets, max_backlog=args.max_backlog,
+        fault_tenants=args.fault_tenants, score=not args.no_score,
+        fuse=not args.no_fuse, lane_buckets=lanes, pipeline=args.pipeline,
+        state=args.state, device=args.device)
+    print(json.dumps(report.to_dict()))
+    return 0
 
 
 def _replay(args) -> int:
@@ -88,6 +166,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     args = parser.parse_args(argv)
     if args.cmd == "replay":
         return _replay(args)
+    if args.cmd == "serve":
+        return _serve(args, parser)
     return _stream(args, parser)
 
 

@@ -20,9 +20,10 @@ import numpy as np
 import torch
 
 from anomod_torch.device import DeviceLike, resolve_device
-from anomod_torch.ops.replay_kernels import (replay_dense, replay_payload,
-                                             replay_sorted,
+from anomod_torch.ops.replay_kernels import (PLANES, replay_dense,
+                                             replay_payload, replay_sorted,
                                              stage_sorted_planes)
+from anomod_torch.ops.serve_kernels import lane_delta, window_gather
 from anomod_torch.schemas import SpanBatch
 
 # Feature plane order: the three exact 0/1 columns, then the three latency
@@ -186,6 +187,183 @@ def make_chunk_step(cfg: ReplayConfig):
         return state._replace(agg=state.agg + dagg, hist=state.hist + dhist)
 
     return step
+
+
+def stage_lane_planes(chunks):
+    """Lane-stacked chunk columns (each ``[L, W]``) -> the lane kernel's
+    layout: ``sid int32[L, W]`` and the lane-major ``planes f32[L, 6, W]``
+    (valid, err, 5xx, dur_raw, dur, dur²)."""
+    dur = chunks["dur"]
+    planes = torch.stack([chunks[k] for k in PLANES[:5]] + [dur * dur],
+                         dim=1)
+    return chunks["sid"].contiguous(), planes
+
+
+def make_lane_delta(cfg: ReplayConfig):
+    """The fused (lane-stacked) dispatch surface of the chunk step.
+
+    Returns ``delta(chunks) -> (dagg, dhist)``: every column in ``chunks``
+    is ``[lanes, width]`` (one staged chunk per lane; dead-padded lanes
+    carry all-pad rows) and the outputs are ``[lanes, SW, F]`` /
+    ``[lanes, SW, H]`` per-lane deltas, through the lane kernel
+    (``ops.serve_kernels.lane_delta``; its plain version on the CPU).  A
+    lane's delta sums its rows in row order, so ``state + delta[i]`` is
+    bit-identical to the JAX scatter engine's step on that lane's chunk,
+    whatever the lane count or position."""
+    SW, H = cfg.sw, cfg.n_hist_buckets
+
+    def delta(chunks):
+        out = lane_delta(*stage_lane_planes(chunks), SW, H)
+        return out[..., :N_FEATS], out[..., N_FEATS:]
+
+    return delta
+
+
+def fold_delta(state: ReplayState, dagg, dhist) -> ReplayState:
+    """THE host-seam fold: one lane's delta added to a tenant state with
+    one elementwise f32 add per cell (``state + delta``).  The device
+    pool's :meth:`TenantStatePool.scatter_fold` performs the same add."""
+    return ReplayState(agg=state.agg + dagg, hist=state.hist + dhist)
+
+
+class TenantStatePool:
+    """Per-tenant replay states of the serving plane, resident on one
+    device: ``[P+1, SW, F]`` agg and ``[P+1, SW, H]`` hist planes.
+
+    Tenants map to slots at first service (:meth:`acquire`); row 0 is the
+    DEAD slot and is never read.  A retired dispatch's fold is
+    :meth:`scatter_fold`, ``state + delta`` per live slot in dispatch
+    order, never a float atomic; :meth:`gather` and :meth:`put` are pure
+    copies, so the ``get_state``/``set_state`` round trip is byte-exact;
+    :meth:`roll` is :func:`anomod_torch.stream.roll_ring_state`'s shift
+    and zero on one row; :meth:`gather_window` feeds batched window
+    scoring through the window-gather kernel.  Every operation does the
+    same f32 arithmetic as the per-tenant host seam, so serving with the
+    pool and with host states is byte-identical."""
+
+    def __init__(self, cfg: ReplayConfig, capacity: int = 32,
+                 device: DeviceLike = None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        cap = max(int(capacity), 1)
+        # +1: row 0 is the dead slot
+        self.agg = torch.zeros((cap + 1, cfg.sw, N_FEATS),
+                               dtype=torch.float32, device=self.device)
+        self.hist = torch.zeros((cap + 1, cfg.sw, cfg.n_hist_buckets),
+                                dtype=torch.float32, device=self.device)
+        self._free: list = []
+        self._next = 1
+
+    @property
+    def capacity(self) -> int:
+        return int(self.agg.shape[0]) - 1
+
+    def acquire(self) -> int:
+        """Map a new tenant to a zeroed slot (>= 1); the pool doubles when
+        full (existing rows keep their bits)."""
+        if self._free:
+            return self._free.pop()
+        if self._next > self.capacity:
+            grow = max(self.capacity, 1)
+            self.agg = torch.cat([self.agg, torch.zeros(
+                (grow,) + tuple(self.agg.shape[1:]), dtype=torch.float32,
+                device=self.device)])
+            self.hist = torch.cat([self.hist, torch.zeros(
+                (grow,) + tuple(self.hist.shape[1:]), dtype=torch.float32,
+                device=self.device)])
+        slot = self._next
+        self._next += 1
+        return slot
+
+    def release(self, slot: int) -> None:
+        """Return a churned tenant's slot to the free list, zeroed."""
+        self.put(slot, zero_state(self.cfg, "cpu"))
+        self._free.append(int(slot))
+
+    def gather(self, slot: int) -> ReplayState:
+        """Host copy of one tenant's state (the get_state seam)."""
+        slot = int(slot)   # a None slot must raise, not broadcast
+        return ReplayState(agg=self.agg[slot].cpu().clone(),
+                           hist=self.hist[slot].cpu().clone())
+
+    def put(self, slot: int, state: ReplayState) -> None:
+        """Install a state (numpy or tensors) into a slot (the set_state
+        seam); ``put(gather())`` is byte-identical."""
+        slot = int(slot)
+
+        def f32(x):
+            return (x.to(torch.float32) if torch.is_tensor(x)
+                    else torch.as_tensor(np.asarray(x, np.float32)))
+        self.agg[slot] = f32(state.agg)
+        self.hist[slot] = f32(state.hist)
+
+    def roll(self, slot: int, k: int) -> None:
+        """Evict the oldest ``k`` ring windows of one tenant's row: values
+        pass through verbatim, the tail is exact 0.0."""
+        slot = int(slot)
+        cfg = self.cfg
+        S, W = cfg.n_services, cfg.n_windows
+        shift = min(int(k), W)
+        for plane, width in ((self.agg, N_FEATS),
+                             (self.hist, cfg.n_hist_buckets)):
+            x = plane[slot].view(S, W, width)
+            if shift < W:
+                x[:, :W - shift] = x[:, shift:].clone()
+                x[:, W - shift:] = 0.0
+            else:
+                x.zero_()
+
+    def scatter_fold(self, slots, dagg: torch.Tensor,
+                     dhist: torch.Tensor) -> None:
+        """Fold one retired dispatch's deltas: ``pool[slots[i]] +=
+        delta[i]`` for the live lanes ``i < len(slots)`` (dead pad lanes
+        are skipped).  The lanes split into WAVES (the k-th occurrence of
+        a slot in wave k), each an index_put of ``row + delta`` over
+        distinct slots, so a duplicated slot folds in lane order,
+        ``(state + d_i) + d_j``."""
+        waves: list = []
+        seen: dict = {}
+        for i, s in enumerate(int(s) for s in slots):
+            k = seen.get(s, 0)
+            seen[s] = k + 1
+            if k == len(waves):
+                waves.append(([], []))
+            waves[k][0].append(i)
+            waves[k][1].append(s)
+        for lanes, wslots in waves:
+            li = torch.as_tensor(lanes, device=self.device)
+            si = torch.as_tensor(wslots, device=self.device)
+            self.agg.index_put_((si,), self.agg[si] + dagg[li])
+            self.hist.index_put_((si,), self.hist[si] + dhist[li])
+
+    def gather_window(self, slots, cols) -> np.ndarray:
+        """``[T, S, F]`` host copy of one window column per tenant (the
+        batched scorer's gather): only the scored columns leave the
+        device, through the window-gather kernel."""
+        slots = np.asarray(slots, np.int32)
+        cols = np.asarray(cols, np.int32)
+        cfg = self.cfg
+        if slots.size and (slots.min() < 0 or slots.max() > self.capacity
+                           or cols.min() < 0
+                           or cols.max() >= cfg.n_windows):
+            raise IndexError("gather_window: slot or column out of range")
+        out = window_gather(self.agg, torch.from_numpy(slots).to(self.device),
+                            torch.from_numpy(cols).to(self.device),
+                            cfg.n_services, cfg.n_windows)
+        return out.cpu().numpy()
+
+    def gather_rows(self, slots) -> np.ndarray:
+        """``[T, SW, F]`` host copy of whole agg rows."""
+        idx = torch.as_tensor(np.asarray(slots, np.int64), device=self.device)
+        return self.agg[idx].cpu().numpy()
+
+    def warm(self) -> float:
+        """One gather of the dead slot: builds and first-launches the
+        gather kernel outside the measured serve wall.  Returns the
+        wall."""
+        t0 = time.perf_counter()
+        self.gather_window([0], [0])
+        return time.perf_counter() - t0
 
 
 def _as_tensors(chunks, device: torch.device) -> dict:

@@ -1,0 +1,457 @@
+"""Dynamic micro-batching into fixed padded bucket shapes, with the fused
+lane-stacked dispatch of the multi-tenant tick (counterpart of
+``anomod/serve/batcher.py``).
+
+Each admitted micro-batch is split at ``cfg.chunk_size`` boundaries and
+its tail padded to the smallest bucket width that holds it
+(:func:`split_plan`).  Per tick, same-width staged chunks from many
+tenants stack into ``[lanes, width]`` dispatches of the lane kernel
+(``ops.serve_kernels.lane_delta``), the lane count padded to a fixed
+lane-bucket set; dead pad lanes carry all-pad rows and give zero deltas.
+
+Parity is exact by construction:
+
+- padding rows target the dead segment (sid = SW, valid = 0), which no
+  live segment reads;
+- the lane kernel sums each lane's rows in row order, whatever the lane
+  count, so a lane's delta equals a one-lane dispatch of the same chunk;
+  the single-chunk :meth:`BucketRunner.dispatch` IS a one-lane dispatch
+  of the same kernel, so fused == sequential holds by construction;
+- a delta folds into its tenant's state with one f32 add a cell, in
+  dispatch order, through the device pool (``TenantStatePool``) or the
+  per-tenant host seam (``replay.fold_delta``): device == host.
+
+Staging fills pinned host scratch in the kernel's layout (``sid[L, W]``,
+``planes[L, 6, W]``); the copy to the card and the launch are queued on
+the current stream.  At pipeline depth d up to d - 1 dispatches stay in
+flight while the next one stages; a scratch slot is refilled only after
+the event recorded behind the launch that read it has completed.
+"""
+
+from __future__ import annotations
+
+import collections
+import time
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from anomod_torch.device import DeviceLike, resolve_device
+from anomod_torch.ops.replay_kernels import PLANES
+from anomod_torch.ops.serve_kernels import lane_delta
+from anomod_torch.replay import (N_FEATS, ReplayConfig, ReplayState,
+                                 TenantStatePool, fold_delta,
+                                 stage_columns_fused, zero_state)
+from anomod_torch.schemas import SpanBatch
+from anomod_torch.serve.config import (DEFAULT_SERVE_BUCKETS,
+                                       DEFAULT_SERVE_LANE_BUCKETS,
+                                       validate_lane_buckets,
+                                       validate_serve_buckets)
+from anomod_torch.stream import StreamReplay
+
+#: the staged columns a lane dispatch copies; the sixth plane, dur², is
+#: computed at fill
+PLANE_KEYS = PLANES[:5]
+
+
+def split_plan(n_spans: int, chunk_size: int,
+               buckets: Tuple[int, ...]) -> List[Tuple[int, int, int]]:
+    """(lo, hi, staged_width) slices for one micro-batch: full
+    ``chunk_size`` slices first, then the tail padded to the smallest
+    bucket that holds it (``chunk_size`` when every bucket is narrower)."""
+    plan: List[Tuple[int, int, int]] = []
+    lo = 0
+    while n_spans - lo >= chunk_size:
+        plan.append((lo, lo + chunk_size, chunk_size))
+        lo += chunk_size
+    rem = n_spans - lo
+    if rem > 0:
+        width = next((b for b in buckets if b >= rem and b <= chunk_size),
+                     chunk_size)
+        plan.append((lo, n_spans, width))
+    return plan
+
+
+class BucketRunner:
+    """The shared dispatcher of one serve plane: bucketed staging, the
+    lane kernel per (width, lane-bucket) shape, and the tenant-state fold.
+
+    ``state="device"`` keeps tenant states in a :class:`TenantStatePool`
+    on ``device`` (the retire fold is an on-device ``state + delta`` per
+    slot); ``state="host"`` keeps each tenant's state as host tensors and
+    folds the read-back deltas there.  Book counters (dispatches per
+    width, fused dispatches per lane bucket, staged and live lanes, the
+    stage/dispatch/fold/score walls, the first-launch wall per shape) feed
+    the :class:`~anomod_torch.serve.engine.ServeReport`."""
+
+    def __init__(self, cfg: ReplayConfig,
+                 buckets: Optional[Tuple[int, ...]] = None,
+                 lane_buckets: Optional[Tuple[int, ...]] = None,
+                 pipeline: int = 1, state: str = "device",
+                 pool_slots: int = 32, device: DeviceLike = None):
+        if pipeline < 1:
+            raise ValueError("pipeline depth must be >= 1")
+        if state not in ("host", "device"):
+            raise ValueError(f"unknown serve state mode {state!r} "
+                             "(host|device)")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self._cuda = self.device.type == "cuda"
+        self.state_mode = state
+        self.pool = (TenantStatePool(cfg, capacity=max(int(pool_slots), 1),
+                                     device=self.device)
+                     if state == "device" else None)
+        self.pipeline = int(pipeline)
+        self.buckets = validate_serve_buckets(
+            DEFAULT_SERVE_BUCKETS if buckets is None else buckets)
+        self.lane_buckets = validate_lane_buckets(
+            DEFAULT_SERVE_LANE_BUCKETS if lane_buckets is None
+            else lane_buckets)
+        #: first-launch wall of the one-lane dispatch per width, and of
+        #: the fused dispatch per (width, lane-bucket) shape
+        self.compile_s_by_width: Dict[int, float] = {}
+        self._lane_compile_s: Dict[Tuple[int, int], float] = {}
+        self.dispatches_by_width: Dict[int, int] = {}
+        self.n_dispatches = 0
+        self.fused_dispatches = 0
+        self.lanes_by_bucket: Dict[int, int] = {}
+        self.staged_lanes = 0
+        self.live_lanes = 0
+        #: the tick's wall decomposition: host packing, copy + launch
+        #: enqueue, fold (the retire barrier plus the state adds), and
+        #: window scoring (the engine's commit phase adds there)
+        self.stage_wall_s = 0.0
+        self.dispatch_wall_s = 0.0
+        self.fold_wall_s = 0.0
+        self.score_wall_s = 0.0
+        # host scratch (pinned on the card), ``pipeline`` slots per
+        # (width, lanes) shape, each (sid [L, W] int32, planes [L, 6, W])
+        self._scratch: Dict[Tuple[int, int, int],
+                            Tuple[torch.Tensor, torch.Tensor]] = {}
+        self._slot_next: Dict[Tuple[int, int], int] = {}
+        #: FIFO of in-flight dispatches: (replays, out, slot key, event)
+        self._inflight: "collections.deque" = collections.deque()
+
+    @property
+    def widths(self) -> Tuple[int, ...]:
+        """Every chunk width this runner may dispatch."""
+        per_bucket = tuple(b for b in self.buckets
+                           if b <= self.cfg.chunk_size)
+        return tuple(sorted(set(per_bucket) | {self.cfg.chunk_size}))
+
+    @property
+    def compile_s(self) -> float:
+        return float(sum(self.compile_s_by_width.values()))
+
+    @property
+    def lane_compile_s(self) -> float:
+        return float(sum(self._lane_compile_s.values()))
+
+    def _sync(self) -> None:
+        if self._cuda:
+            torch.cuda.synchronize(self.device)
+
+    def _dead_launch(self, width: int, lanes: int) -> float:
+        """Wall of one all-dead dispatch of a shape (numerically a no-op
+        on any state), the kernel build included on the first call."""
+        t0 = time.perf_counter()
+        scratch, key = self._fill_slot(width, lanes, [])
+        self._launch(scratch)
+        self._sync()
+        return time.perf_counter() - t0
+
+    def warm(self) -> float:
+        """First-launch every width as a one-lane dispatch, outside the
+        serve wall; idempotent.  Returns the total wall."""
+        total = 0.0
+        for width in self.widths:
+            if width not in self.compile_s_by_width:
+                self.compile_s_by_width[width] = self._dead_launch(width, 1)
+                total += self.compile_s_by_width[width]
+        return total
+
+    def warm_lanes(self) -> float:
+        """First-launch the whole (width x lane-bucket) grid, and the
+        pool's gather kernel; idempotent.  Returns the total wall."""
+        total = 0.0
+        for width in self.widths:
+            for lanes in self.lane_buckets:
+                if (width, lanes) not in self._lane_compile_s:
+                    wall = self._dead_launch(width, lanes)
+                    self._lane_compile_s[(width, lanes)] = wall
+                    total += wall
+        if self.pool is not None:
+            total += self.pool.warm()
+        return total
+
+    # -- staging ----------------------------------------------------------
+
+    def stage_plan(self, batch: SpanBatch,
+                   t0_us: int) -> List[Tuple[int, dict]]:
+        """Host staging of one micro-batch into its bucket plan: the
+        ordered ``(width, columns)`` chunks a push dispatches, with
+        UNPADDED columns (the pad to ``width`` happens at scratch fill).
+        The one staging definition of the sequential and fused paths."""
+        cfg = self.cfg
+        t0 = time.perf_counter()
+        _, raw = stage_columns_fused(batch, cfg, t0_us)
+        out: List[Tuple[int, dict]] = []
+        for lo, hi, width in split_plan(batch.n_spans, cfg.chunk_size,
+                                        self.buckets):
+            out.append((width, {k: v[lo:hi] for k, v in raw.items()}))
+            self.n_dispatches += 1
+            self.dispatches_by_width[width] = \
+                self.dispatches_by_width.get(width, 0) + 1
+        self.stage_wall_s += time.perf_counter() - t0
+        return out
+
+    def _fill_slot(self, width: int, lanes: int, group_cols: List[dict]):
+        """Stage ``group_cols`` (one unpadded chunk per live lane) into
+        the next scratch slot of the (width, lanes) shape, dead-padding
+        the row tails and the dead lanes.  Any in-flight dispatch still
+        reading the slot is retired first."""
+        shape = (width, lanes)
+        slot = self._slot_next.get(shape, 0)
+        self._slot_next[shape] = (slot + 1) % self.pipeline
+        key = (width, lanes, slot)
+        while any(e[2] == key for e in self._inflight):
+            self._retire_one()
+        t0 = time.perf_counter()
+        scratch = self._scratch.get(key)
+        if scratch is None:
+            pin = self._cuda
+            scratch = (torch.empty((lanes, width), dtype=torch.int32,
+                                   pin_memory=pin),
+                       torch.empty((lanes, len(PLANES), width),
+                                   dtype=torch.float32, pin_memory=pin))
+            self._scratch[key] = scratch
+        sid, planes = scratch[0].numpy(), scratch[1].numpy()
+        sw = self.cfg.sw
+        for i, cols in enumerate(group_cols):
+            m = cols["sid"].shape[0]
+            sid[i, :m] = cols["sid"]
+            sid[i, m:] = sw
+            for p, k in enumerate(PLANE_KEYS):
+                planes[i, p, :m] = cols[k]
+            np.multiply(cols["dur"], cols["dur"], out=planes[i, 5, :m])
+            planes[i, :, m:] = 0.0
+        n_live = len(group_cols)
+        sid[n_live:] = sw
+        planes[n_live:] = 0.0
+        self.stage_wall_s += time.perf_counter() - t0
+        return scratch, key
+
+    def _launch(self, scratch) -> torch.Tensor:
+        """Queue the copy of a filled slot to the device and the lane
+        kernel on it; returns the ``[L, SW, 6+H]`` deltas."""
+        sid, planes = scratch
+        if self._cuda:
+            sid = sid.to(self.device, non_blocking=True)
+            planes = planes.to(self.device, non_blocking=True)
+        return lane_delta(sid, planes, self.cfg.sw, self.cfg.n_hist_buckets)
+
+    def _event(self):
+        if not self._cuda:
+            return None
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(self.device))
+        return ev
+
+    def _fold(self, replays: list, out: torch.Tensor) -> None:
+        """Fold a dispatch's deltas into its lanes' replay planes: one
+        pool scatter-fold when every plane lives in this runner's pool,
+        else per lane through the get_state/set_state seam on the host."""
+        pool = self.pool
+        if pool is not None and replays and all(
+                getattr(r, "_slot", None) is not None
+                and getattr(r, "_runner", None) is self for r in replays):
+            pool.scatter_fold([r._slot for r in replays],
+                              out[..., :N_FEATS], out[..., N_FEATS:])
+            return
+        out = out.cpu()
+        for i, replay in enumerate(replays):
+            replay.set_state(fold_delta(replay.get_state(),
+                                        out[i, :, :N_FEATS],
+                                        out[i, :, N_FEATS:]))
+
+    # -- the single-chunk path --------------------------------------------
+
+    def dispatch(self, replay, cols: dict, width: int) -> None:
+        """Fold ONE staged chunk into ``replay``'s state: a one-lane
+        dispatch of the lane kernel, folded before return (after every
+        in-flight dispatch, so folds never leave dispatch order)."""
+        self.drain_lanes()
+        scratch, key = self._fill_slot(width, 1, [cols])
+        t0 = time.perf_counter()
+        out = self._launch(scratch)
+        ev = self._event()
+        t1 = time.perf_counter()
+        self._fold([replay], out)
+        if ev is not None:
+            ev.synchronize()            # the scratch-reuse barrier
+        t2 = time.perf_counter()
+        self.dispatch_wall_s += t1 - t0
+        self.fold_wall_s += t2 - t1
+
+    # -- the fused (lane-stacked) path ------------------------------------
+
+    def lane_plan(self, n: int) -> List[Tuple[int, int]]:
+        """``(n_live, lane_bucket)`` dispatch groups covering ``n`` lanes:
+        the largest bucket repeatedly, then the smallest bucket covering
+        the remainder (dead-padded)."""
+        out: List[Tuple[int, int]] = []
+        big = self.lane_buckets[-1]
+        while n > big:
+            out.append((big, big))
+            n -= big
+        if n > 0:
+            out.append((n, next(b for b in self.lane_buckets if b >= n)))
+        return out
+
+    def _account_group(self, n_live: int, lanes: int) -> None:
+        self.fused_dispatches += 1
+        self.lanes_by_bucket[lanes] = self.lanes_by_bucket.get(lanes, 0) + 1
+        self.staged_lanes += lanes
+        self.live_lanes += n_live
+
+    def submit_lanes(self, width: int, work: List[Tuple[object, dict]]
+                     ) -> None:
+        """Stage and launch ``work`` (replay plane, unpadded chunk) pairs
+        as lane-bucketed fused dispatches.  Folds are deferred until a
+        dispatch retires, in dispatch order; at most ``pipeline - 1``
+        stay in flight.  Callers :meth:`drain_lanes` before reading the
+        planes."""
+        pos = 0
+        for n_live, lanes in self.lane_plan(len(work)):
+            group = work[pos:pos + n_live]
+            pos += n_live
+            scratch, key = self._fill_slot(width, lanes,
+                                           [cols for _, cols in group])
+            t0 = time.perf_counter()
+            out = self._launch(scratch)
+            self._inflight.append(([replay for replay, _ in group], out,
+                                   key, self._event()))
+            self.dispatch_wall_s += time.perf_counter() - t0
+            self._account_group(n_live, lanes)
+            while len(self._inflight) > self.pipeline - 1:
+                self._retire_one()
+
+    def _retire_one(self) -> None:
+        """Retire the OLDEST in-flight dispatch: fold its deltas, then
+        wait on its event, after which its scratch slot may refill."""
+        replays, out, _, ev = self._inflight.popleft()
+        t0 = time.perf_counter()
+        self._fold(replays, out)
+        if ev is not None:
+            ev.synchronize()
+        self.fold_wall_s += time.perf_counter() - t0
+
+    def drain_lanes(self) -> None:
+        """Retire every in-flight dispatch (the tick-end barrier)."""
+        while self._inflight:
+            self._retire_one()
+
+    def abort_lanes(self) -> None:
+        """Failed-tick cleanup: wait for every in-flight dispatch (its
+        scratch must not refill under it) WITHOUT folding, so the planes
+        keep their last-folded states."""
+        while self._inflight:
+            _, _, _, ev = self._inflight.popleft()
+            if ev is not None:
+                ev.synchronize()
+
+    @property
+    def inflight_dispatches(self) -> int:
+        return len(self._inflight)
+
+    @property
+    def lane_pad_waste(self) -> float:
+        """Dead-lane fraction of every fused dispatch so far."""
+        return (1.0 - self.live_lanes / self.staged_lanes
+                if self.staged_lanes else 0.0)
+
+
+class BucketedStreamReplay(StreamReplay):
+    """A :class:`~anomod_torch.stream.StreamReplay` whose dispatch rides a
+    shared :class:`BucketRunner`; its state is host tensors (the host
+    seam).  Same ring and anchor bookkeeping as the parent (``_roll`` is
+    inherited); :meth:`plan_push` exposes the staging half alone, for the
+    fused engine's lane-stacked dispatch."""
+
+    def __init__(self, cfg: ReplayConfig, t0_us: int, runner: BucketRunner):
+        if runner.cfg != cfg:
+            raise ValueError("runner cfg disagrees with the replay cfg")
+        # not super().__init__: the runner owns the kernel dispatch and
+        # the device; this plane holds only its state and ring anchor
+        self.cfg = cfg
+        self.device = runner.device
+        self.t0_us = int(t0_us)
+        self.window_offset = 0
+        self.n_spans = 0
+        self._step = None
+        self.compile_s = 0.0
+        self._warmed = False
+        self._runner = runner
+        self.state = zero_state(cfg, "cpu")
+
+    def _warm(self) -> None:
+        self._runner.warm()
+        self.compile_s = self._runner.compile_s
+        self._warmed = True
+
+    def plan_push(self, batch: SpanBatch):
+        """The staging half of :meth:`push`: roll the ring, account the
+        spans, stage the bucket plan, WITHOUT dispatching.  Returns
+        ``(newest absolute window, ordered (width, columns) chunks)``."""
+        if batch.n_spans == 0:
+            return -1, []
+        if not self._warmed:
+            self._warm()
+        w_need = int((int(batch.start_us.max()) - self.t0_us)
+                     // self.cfg.window_us)
+        if w_need > self.cfg.n_windows - 1:
+            self._roll(w_need - (self.cfg.n_windows - 1))
+            w_need = self.cfg.n_windows - 1
+        plan = self._runner.stage_plan(batch, self.t0_us)
+        self.n_spans += batch.n_spans
+        return self.window_offset + max(w_need, 0), plan
+
+    def push(self, batch: SpanBatch) -> int:
+        w_ret, plan = self.plan_push(batch)
+        for width, cols in plan:
+            self._runner.dispatch(self, cols, width)
+        return w_ret
+
+
+class PooledStreamReplay(BucketedStreamReplay):
+    """A :class:`BucketedStreamReplay` whose state lives in the runner's
+    device pool.  ``state`` stays the official surface (reads gather the
+    slot to the host, writes put it back) but the hot paths never touch
+    it: the lane fold is the pool's scatter-fold, the ring roll runs on
+    the pool row, and batched scoring gathers only the scored columns."""
+
+    def __init__(self, cfg: ReplayConfig, t0_us: int, runner: BucketRunner):
+        if runner.pool is None:
+            raise ValueError("runner keeps host-seam states (state='host'); "
+                             "use BucketedStreamReplay")
+        self._slot = runner.pool.acquire()
+        try:
+            super().__init__(cfg, t0_us, runner)
+        except BaseException:
+            # a failed construction hands its slot back
+            runner.pool.release(self._slot)
+            raise
+
+    @property
+    def state(self) -> ReplayState:
+        return self._runner.pool.gather(self._slot)
+
+    @state.setter
+    def state(self, st: ReplayState) -> None:
+        self._runner.pool.put(self._slot, st)
+
+    def _roll(self, k: int) -> None:
+        self._runner.pool.roll(self._slot, k)
+        self.t0_us += k * self.cfg.window_us
+        self.window_offset += k

@@ -3,18 +3,21 @@
 A replay state built by the JAX package (its ``ReplayState`` fields read
 back as numpy arrays) moves into the port with :func:`from_numpy_state`,
 and back with :func:`to_numpy_state`; a stream can start in one package
-and continue in the other.
+and continue in the other.  The serve plane's tenant pool moves across
+whole with :func:`load_pool`, or tenant by tenant with
+:func:`load_tenant_states`.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from anomod_torch.device import DeviceLike, resolve_device
-from anomod_torch.replay import ReplayState
+from anomod_torch.replay import (N_FEATS, ReplayConfig, ReplayState,
+                                 TenantStatePool)
 
 
 def from_numpy_state(agg, hist, hll=None,
@@ -28,6 +31,41 @@ def from_numpy_state(agg, hist, hll=None,
         return torch.tensor(np.asarray(a, dtype), device=device)
     return ReplayState(agg=put(agg, np.float32), hist=put(hist, np.float32),
                        hll=None if hll is None else put(hll, np.int32))
+
+
+def load_pool(cfg: ReplayConfig, agg, hist, device: DeviceLike = None,
+              next_slot: Optional[int] = None,
+              free: Sequence[int] = ()) -> TenantStatePool:
+    """A JAX ``TenantStatePool``'s planes (``pool.agg`` ``[P+1, SW, F]``
+    and ``pool.hist`` ``[P+1, SW, H]`` as numpy, row 0 the dead slot) ->
+    the port's pool on ``device`` with the same rows in the same slots.
+    ``next_slot`` and ``free`` carry the JAX pool's ``_next`` and
+    ``_free`` (default: every row in use).  The planes are copied."""
+    agg = np.asarray(agg, np.float32)
+    hist = np.asarray(hist, np.float32)
+    if agg.ndim != 3 or agg.shape[0] < 2 \
+            or agg.shape[1:] != (cfg.sw, N_FEATS) \
+            or hist.shape != (agg.shape[0], cfg.sw, cfg.n_hist_buckets):
+        raise ValueError(f"pool planes {agg.shape} / {hist.shape} do not "
+                         f"fit SW={cfg.sw}, H={cfg.n_hist_buckets}")
+    pool = TenantStatePool(cfg, capacity=agg.shape[0] - 1, device=device)
+    pool.agg.copy_(torch.from_numpy(agg))
+    pool.hist.copy_(torch.from_numpy(hist))
+    pool._next = int(agg.shape[0] if next_slot is None else next_slot)
+    pool._free = [int(s) for s in free]
+    return pool
+
+
+def load_tenant_states(pool: TenantStatePool,
+                       states: Sequence[ReplayState]) -> List[int]:
+    """Per-tenant replay states (numpy or tensors, e.g. the JAX host
+    seam's) -> fresh slots of ``pool``; returns the slots in order."""
+    slots = []
+    for st in states:
+        slot = pool.acquire()
+        pool.put(slot, st)
+        slots.append(slot)
+    return slots
 
 
 def to_numpy_state(state: ReplayState

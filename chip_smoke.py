@@ -5,11 +5,25 @@
 
 Builds the port's CUDA kernels from ``anomod_torch/csrc/`` with nvcc,
 holds each kernel against its plain PyTorch version on the card, then
-drives the main path at the TT deployment's full width (45 services x 32
-windows x 16 buckets): the bench corpus replay (13 labels x 2000 traces)
-through both kernels, and the online detector over all 13 TT labels
-(400 traces each, 3S = 135-row edge id space) through the dense kernel,
-checked against the same detector run with the plain version on the card.
+drives two paths:
+
+- replay (phases 2-5), at the TT deployment's full width (45 services x
+  32 windows x 16 buckets): the bench corpus replay (13 labels x 2000
+  traces) through both replay kernels, and the online detector over all
+  13 TT labels (400 traces each, 3S = 135-row edge id space) through the
+  dense kernel, checked against the same detector run with the plain
+  version on the card;
+- serve (phases 6-8), at the serve bench's deployment (200 tenants, 12
+  services x 32 windows of 5 s, 25,000 spans/s capacity at 2x overload,
+  60 virtual seconds in 0.5 s ticks, seed 7): the lane-delta and
+  window-gather kernels against their plain versions, then the serve
+  tick (admission, fused lane dispatch, device state pool, batched
+  scoring), checked against the decision pins of the JAX package's
+  captures (p99 22.998135 s, shed 0.437567, 158 alerts), against the
+  same coalesced batches pushed through one-lane dispatches and against
+  its depth-1, host-state and CPU twins, byte for byte; the unfused run
+  is held to its CPU twin byte for byte and to the fused run's admission
+  and SLO fields.
 
 Prints progress, the card's name and power limit, one ``{"kernels": ...}``
 JSON line and, last, ``{"ok": true, "device": ...}``.  Any failed phase
@@ -105,12 +119,14 @@ def cuda_ms(fn, iters=20):
     return sum(s.elapsed_time(e) for s, e in pairs) / iters
 
 
-def bound(n_spans, n_out):
+def bound(n_spans, n_out, n_dead=0):
     """(bound_ms, bound_by) of one fold of ``n_spans`` real spans: each
     input byte read once (sid + 6 planes, 28 B a span), each output byte
     written once, against the f32 operations.  Padding that a kernel's
-    staging adds is not part of the function, so it is not counted."""
-    t_bytes = (n_spans * 28 + n_out * 4) / PEAK_BYTES_PER_S
+    staging adds is not part of the function, so it is not counted.
+    ``n_dead`` dead rows that are part of the function's input (a lane's
+    dead tail) cost their 4 B sid alone: it is what tells them dead."""
+    t_bytes = (n_spans * 28 + n_dead * 4 + n_out * 4) / PEAK_BYTES_PER_S
     t_ops = n_spans * (6 + H + OPS_PER_SPAN_EXTRA) / PEAK_F32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
@@ -136,6 +152,310 @@ def device_busy_ms(prof):
     return (busy + hi - lo) / 1e3
 
 
+#: the serve bench's deployment (bench.py --mode serve)
+SERVE_KW = dict(n_tenants=200, n_services=12, capacity_spans_per_s=25_000.0,
+                overload=2.0, duration_s=60.0, tick_s=0.5, seed=7,
+                window_s=5.0, baseline_windows=4, fault_tenants=2,
+                max_backlog=200_000)
+#: decision pins of every committed JAX serve capture at the bench seed
+SERVE_PINS = {"p99_latency_s": 22.998135, "shed_fraction": 0.437567,
+              "n_alerts": 158}
+#: report fields set by admission and the tick clock alone
+ADMISSION_FIELDS = ("offered_spans", "admitted_spans", "served_spans",
+                    "shed_spans", "shed_fraction", "served_batches",
+                    "peak_backlog_spans", "latency", "per_priority")
+
+
+def serve_fingerprint(eng):
+    """Per tenant: its alert stream and its replay state's bytes."""
+    import dataclasses
+
+    import numpy as np
+    out = {}
+    for tid in sorted(eng._tenant_replay):
+        st = eng._tenant_replay[tid].state
+        out[tid] = ([dataclasses.asdict(a) for a in eng.alerts_for(tid)],
+                    np.asarray(st.agg).tobytes(),
+                    np.asarray(st.hist).tobytes())
+    return out
+
+
+def serve_phases(dev, card) -> dict:
+    """Phases 6-8: the serve kernels against their plain versions, then
+    the serve path at the bench deployment with its launches counted.
+    Returns the summary fields and the two kernels' report entries."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from anomod_torch.ops import replay_kernels as rk
+    from anomod_torch.ops import serve_kernels as sk
+    from anomod_torch.replay import stage_columns_fused
+    from anomod_torch.schemas import concat_span_batches
+    from anomod_torch.serve.engine import (VARIANT_REPORT_FIELDS,
+                                           ServeEngine, power_law_traffic,
+                                           replay_served_sequentially,
+                                           run_power_law, serve_plane_cfg)
+    from anomod_torch.serve.traffic import PowerLawTraffic
+
+    cfg = serve_plane_cfg(SERVE_KW["n_services"])
+    SW = cfg.sw
+    # -- phase 6: lane_delta vs plain -------------------------------------
+    # serve traffic spread over all 32 windows: a 0.1 s slice of arrivals
+    # at the start of every window, staged as the serve plane stages them
+    traffic = PowerLawTraffic(
+        n_tenants=SERVE_KW["n_tenants"],
+        total_rate_spans_per_s=SERVE_KW["capacity_spans_per_s"]
+        * SERVE_KW["overload"], seed=SERVE_KW["seed"],
+        n_services=SERVE_KW["n_services"])
+    win_s = SERVE_KW["window_s"]
+    spans = concat_span_batches([
+        b for w in range(cfg.n_windows)
+        for _, b in traffic.arrivals(w * win_s, w * win_s + 0.1)])
+    _, cols = stage_columns_fused(spans, cfg, 0)
+    n = spans.n_spans
+    keys = ("valid", "err", "s5", "dur_raw", "dur")
+
+    def lanes(L, W):
+        """[L, W] lanes of staged rows with ragged dead tails; the last
+        lane of a multi-lane stack is all dead."""
+        sid = np.full((L, W), SW, np.int32)
+        planes = np.zeros((L, 6, W), np.float32)
+        for i in range(L - 1 if L > 1 else L):
+            m = W - (i % 4) * (W // 8)
+            lo = (i * W) % (n - W)
+            sid[i, :m] = cols["sid"][lo:lo + m]
+            for p, k in enumerate(keys):
+                planes[i, p, :m] = cols[k][lo:lo + m]
+            planes[i, 5, :m] = planes[i, 4, :m] * planes[i, 4, :m]
+        return (torch.from_numpy(sid).to(dev),
+                torch.from_numpy(planes).to(dev))
+
+    log(f"[6] serve traffic: {n} spans over {cfg.n_windows} windows, "
+        f"SW={SW}, H={H}")
+    lane_err = 0.0
+    for W in (64, 256, 1024, 4096):
+        for L in (1, 32):
+            s, p = lanes(L, W)
+            got = sk.lane_delta(s, p, SW, H)
+            again = sk.lane_delta(s, p, SW, H)
+            torch.cuda.synchronize()
+            check(torch.equal(got, again),
+                  f"lane_delta W={W} L={L}: two runs differ")
+            check(torch.equal(got.cpu(), sk.lane_delta_plain(
+                s.cpu(), p.cpu(), SW, H)),
+                f"lane_delta W={W} L={L}: not bit-identical to the "
+                "row-ordered plain version on the host")
+            lane_err = max(lane_err, compare(
+                f"lane_delta W={W} L={L}", got.reshape(-1, 6 + H).cpu(),
+                sk.lane_delta_plain(s, p, SW, H).reshape(-1, 6 + H).cpu(),
+                RTOL_CARD))
+            if L > 1:
+                check(bool((got[L - 1] == 0).all()),
+                      f"lane_delta W={W}: dead lane not zero")
+                for i in range(L):
+                    one = sk.lane_delta(s[i:i + 1].contiguous(),
+                                        p[i:i + 1].contiguous(), SW, H)
+                    check(torch.equal(one[0], got[i]),
+                          f"lane_delta W={W}: lane {i} of {L} differs "
+                          "from its one-lane dispatch")
+    log("[6] lane_delta: deterministic, L-invariant, equal to the host's "
+        "row-ordered plain version at every width")
+    s, p = lanes(32, 4096)
+    lane_ms = cuda_ms(lambda: sk.lane_delta(s, p, SW, H))
+    lane_plain_ms = cuda_ms(lambda: sk.lane_delta_plain(s, p, SW, H),
+                            iters=5)
+    pay = sk.lane_payload(p, H).reshape(32 * 4096, -1)
+    idx = (torch.arange(32, device=dev)[:, None] * (SW + 1)
+           + s.long()).reshape(-1)
+    acc = torch.zeros((32 * (SW + 1), pay.shape[1]), device=dev)
+    lane_lib_ms = cuda_ms(lambda: acc.index_add_(0, idx, pay))
+    live = int((s < SW).sum())
+    lane_bound, lane_by = bound(live, 32 * SW * (6 + H),
+                                n_dead=s.numel() - live)
+    log(f"[6] lane_delta W=4096 L=32: kernel {lane_ms:.4f} ms, plain "
+        f"{lane_plain_ms:.4f} ms, index_add_ {lane_lib_ms:.4f} ms, bound "
+        f"{lane_bound:.6f} ms ({lane_by}; {live} live rows of "
+        f"{s.numel()}) on {card}")
+
+    # -- phase 7: window_gather vs advanced indexing ----------------------
+    P, S, Wn = SERVE_KW["n_tenants"], cfg.n_services, cfg.n_windows
+    rng = np.random.default_rng(7)
+    pool = torch.from_numpy(rng.normal(size=(P + 1, SW, 6)).astype(
+        np.float32) * 1e3).to(dev)
+    for T in (1, 64, 256):
+        slots = torch.from_numpy(rng.integers(1, P + 1, T).astype(
+            np.int32)).to(dev)
+        wcols = torch.from_numpy(rng.integers(0, Wn, T).astype(
+            np.int32)).to(dev)
+        got = sk.window_gather(pool, slots, wcols, S, Wn)
+        torch.cuda.synchronize()
+        check(torch.equal(got, sk.window_gather_plain(pool, slots, wcols,
+                                                      S, Wn)),
+              f"window_gather T={T}: differs from advanced indexing")
+    log("[7] window_gather: bit-identical at T = 1, 64, 256")
+    gather_ms = cuda_ms(lambda: sk.window_gather(pool, slots, wcols, S, Wn))
+    gather_plain_ms = cuda_ms(lambda: sk.window_gather_plain(
+        pool, slots, wcols, S, Wn))
+    rows = pool.view(P + 1, S, Wn, 6)
+    si, sv, ci = (slots.long()[:, None], torch.arange(S, device=dev)[None],
+                  wcols.long()[:, None])
+    gather_lib_ms = cuda_ms(lambda: rows[si, sv, ci])
+    # a pure copy: T*S*F f32 read and written, plus the two index arrays
+    gather_bound = (2 * 256 * S * 6 * 4 + 256 * 8) / PEAK_BYTES_PER_S * 1e3
+    log(f"[7] window_gather T=256: kernel {gather_ms:.4f} ms, plain "
+        f"{gather_plain_ms:.4f} ms, indexing {gather_lib_ms:.4f} ms, bound "
+        f"{gather_bound:.6f} ms (bytes) on {card}")
+
+    # -- phase 8: the serve path at the bench deployment ------------------
+    sk.reset_launches()
+    rk.reset_launches()
+    t0 = time.perf_counter()
+    eng, rep = run_power_law(device=dev, **SERVE_KW)
+    run_s = time.perf_counter() - t0
+    launches = dict(sk.launches)
+    for k, v in launches.items():
+        check(v > 0, f"kernel {k} was not launched on the serve path")
+    got = {"p99_latency_s": rep.latency["p99_latency_s"],
+           "shed_fraction": rep.shed_fraction, "n_alerts": rep.n_alerts}
+    check(got == SERVE_PINS, f"serve pins: {got} != {SERVE_PINS}")
+    spans_per_s = rep.served_spans / rep.serve_wall_s
+    log(f"[8] serve: p99 {got['p99_latency_s']} s, shed "
+        f"{got['shed_fraction']}, alerts {got['n_alerts']} (pins held); "
+        f"{rep.served_spans} spans served in {rep.serve_wall_s:.4f} s of "
+        f"serve wall = {spans_per_s:.6g} spans/s on {card}; "
+        f"{sum(rep.dispatches_by_width.values())} staged chunks by width "
+        f"{rep.dispatches_by_width}; {rep.fused_dispatches} fused "
+        f"dispatches, lanes {rep.lanes_by_bucket}; stage "
+        f"{rep.stage_wall_s} s, dispatch "
+        f"{rep.dispatch_wall_s} s, fold {rep.fold_wall_s} s, score "
+        f"{rep.score_wall_s} s; launches {launches}; whole call "
+        f"{run_s:.3f} s")
+
+    def decisions(r):
+        return {k: v for k, v in dataclasses.asdict(r).items()
+                if k not in VARIANT_REPORT_FIELDS and k != "device"}
+    want = serve_fingerprint(eng)
+
+    # fused == sequential: the same run tick by tick, its served batches
+    # logged, then pushed per tenant (coalesced per tick, as the fused
+    # tick coalesces them) through one-lane dispatches of the kernel
+    t0 = time.perf_counter()
+    traffic = power_law_traffic(
+        SERVE_KW["n_tenants"], SERVE_KW["n_services"],
+        SERVE_KW["capacity_spans_per_s"], SERVE_KW["overload"],
+        SERVE_KW["duration_s"], SERVE_KW["seed"], 1.2,
+        SERVE_KW["window_s"], SERVE_KW["baseline_windows"],
+        SERVE_KW["fault_tenants"])
+    e_log = ServeEngine(traffic.specs, traffic.services, cfg,
+                        capacity_spans_per_s=SERVE_KW["capacity_spans_per_s"],
+                        tick_s=SERVE_KW["tick_s"],
+                        max_backlog=SERVE_KW["max_backlog"],
+                        baseline_windows=SERVE_KW["baseline_windows"],
+                        device=dev)
+    served_log = []
+    for _ in range(int(round(SERVE_KW["duration_s"] / SERVE_KW["tick_s"]))):
+        lo = e_log.clock.now_s
+        served_log.append(e_log.tick(traffic.arrivals(
+            lo, lo + e_log.clock.tick_s)))
+    for det in e_log._tenant_det.values():
+        det.finish()
+    check(serve_fingerprint(e_log) == want,
+          "serve tick by tick: states or alert streams differ")
+    seq = replay_served_sequentially(e_log, served_log)
+    check(sorted(seq) == sorted(eng._tenant_det), "sequential: tenants")
+    for tid, det in seq.items():
+        st = det.replay.state
+        check(([dataclasses.asdict(a) for a in det.alerts],
+               np.asarray(st.agg).tobytes(),
+               np.asarray(st.hist).tobytes()) == want[tid],
+              f"sequential: tenant {tid} differs from the fused engine")
+    log(f"[8] fused == sequential one-lane dispatch of the same coalesced "
+        f"batches: byte-identical states and alerts for {len(seq)} tenants "
+        f"({time.perf_counter() - t0:.3f} s)")
+
+    twins = {}
+    unfused = None
+    for name, variant in (("pipeline=1", dict(pipeline=1)),
+                          ("host state", dict(state="host")),
+                          ("cpu plain", dict(device="cpu")),
+                          ("unfused", dict(fuse=False)),
+                          ("unfused cpu plain", dict(fuse=False,
+                                                     device="cpu"))):
+        t0 = time.perf_counter()
+        e2, r2 = run_power_law(**dict(dict(SERVE_KW, device=dev),
+                                      **variant))
+        # unfused runs push each batch alone, where the fused tick
+        # coalesces a tenant's batches of one tick: staging plans and f32
+        # sums regroup, as in the JAX package, so unfused is held to the
+        # fused run's admission and SLO fields and to its own CPU twin
+        fields = ADMISSION_FIELDS if name.startswith("unfused") \
+            else decisions(rep)
+        diff = [k for k in fields
+                if getattr(r2, k) != getattr(rep, k)]
+        check(not diff, f"serve {name}: report fields {diff} differ")
+        fp = serve_fingerprint(e2)
+        if name == "unfused":
+            unfused = fp
+            same = sum(fp[t] == want[t] for t in want)
+            what = (f"{same} of {len(want)} tenants byte-identical to the "
+                    "fused run (coalescing regroups the rest)")
+        else:
+            ref = unfused if name.startswith("unfused") else want
+            check(fp == ref, f"serve {name}: states or alert streams differ")
+            what = ("byte-identical states and alerts to the "
+                    + ("unfused" if ref is unfused else "fused")
+                    + " card run")
+        twins[name] = r2.serve_wall_s
+        log(f"[8] serve {name}: {what}, equal "
+            f"{'admission and SLO fields' if fields is ADMISSION_FIELDS else 'decisions'}"
+            f"; serve wall {r2.serve_wall_s:.4f} s "
+            f"(call {time.perf_counter() - t0:.3f} s)")
+
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, rep_prof = run_power_law(device=dev, **SERVE_KW)
+        torch.cuda.synchronize()
+    busy = device_busy_ms(prof)
+    # the share is of the profiled run's own serve wall: walls of separate
+    # runs differ by tens of percent on a shared host
+    busy_share = (None if busy is None
+                  else busy / 1e3 / rep_prof.serve_wall_s)
+    log(f"[8] serve trace: device busy "
+        f"{'not measured (no device events)' if busy is None else f'{busy:.3f} ms'}"
+        f" in a {rep_prof.serve_wall_s:.4f} s profiled serve wall (the "
+        f"un-profiled run's {rep.serve_wall_s:.4f} s); busy share "
+        f"{busy_share if busy_share is None else f'{busy_share:.4g}'}")
+
+    kernels = [
+        {"name": "lane_delta", "route": "cuda",
+         "source": "anomod_torch/csrc/serve.cu",
+         "replaces": "anomod/ops/pallas_replay.py:150",
+         "launches": launches["lane_delta"], "max_abs_err": lane_err,
+         "ms": lane_ms, "plain_ms": lane_plain_ms, "bound_ms": lane_bound,
+         "bound_by": lane_by, "library_ms": lane_lib_ms},
+        {"name": "window_gather", "route": "cuda",
+         "source": "anomod_torch/csrc/serve.cu",
+         "replaces": "anomod/ops/pallas_replay.py:354",
+         "launches": launches["window_gather"], "max_abs_err": 0.0,
+         "ms": gather_ms, "plain_ms": gather_plain_ms,
+         "bound_ms": gather_bound, "bound_by": "bytes",
+         "library_ms": gather_lib_ms},
+    ]
+    return {"kernels": kernels, "serve_spans_per_sec": spans_per_s,
+            "serve_wall_s": rep.serve_wall_s,
+            "serve_twin_walls_s": twins,
+            "serve_fused_dispatches": rep.fused_dispatches,
+            "serve_chunks_by_width": rep.dispatches_by_width,
+            "serve_split_s": {"stage": rep.stage_wall_s,
+                              "dispatch": rep.dispatch_wall_s,
+                              "fold": rep.fold_wall_s,
+                              "score": rep.score_wall_s},
+            "serve_pins": got, "serve_device_busy_ms": busy,
+            "serve_profiled_wall_s": rep_prof.serve_wall_s,
+            "serve_device_busy_share": busy_share}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -154,6 +474,7 @@ def main() -> int:
     from anomod_torch.io.dataset import load_bench_corpus
     from anomod_torch.ops import _build
     from anomod_torch.ops import replay_kernels as rk
+    from anomod_torch.ops import serve_kernels as sk
     from anomod_torch.replay import (ReplayConfig, measure_throughput,
                                      segment_ids, stage_columns,
                                      stage_planes)
@@ -193,7 +514,7 @@ def main() -> int:
     # -- phase 1: build -------------------------------------------------
     log(f"[1] card: {card}")
     t0 = time.perf_counter()
-    _build.build(["replay"])
+    _build.build(["replay", "serve"])
     log(f"[1] kernels built in {time.perf_counter() - t0:.1f} s")
     for name, text in _build.build_logs.items():
         for line in text.splitlines():
@@ -335,17 +656,26 @@ def main() -> int:
     # the stream once more under the profiler: the device's busy time,
     # read from the trace, against the un-profiled wall above
     from torch.profiler import ProfilerActivity, profile
-    t0 = time.perf_counter()
+    # the profiler's first start in a process sets its tracing up for
+    # seconds: pay that on a throw-away trace, outside the timed wall
+    with profile(activities=[ProfilerActivity.CUDA]):
+        torch.ones(1, device=dev).add_(1)
+        torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         stream_quality("TT", n_traces=400, seed=0, device=dev)
         torch.cuda.synchronize()
-    prof_s = time.perf_counter() - t0
+        prof_s = time.perf_counter() - t0
     busy = device_busy_ms(prof)
-    busy_share = None if busy is None else busy / 1e3 / stream_s
+    # the share is of the profiled run's own wall, as in phase 8
+    busy_share = None if busy is None else busy / 1e3 / prof_s
     log(f"[5] stream trace: device busy "
         f"{'not measured (no device events)' if busy is None else f'{busy:.3f} ms'}"
-        f" in a {prof_s:.3f} s profiled wall; busy share of the un-profiled "
-        f"wall {busy_share if busy_share is None else f'{busy_share:.4g}'}")
+        f" in a {prof_s:.3f} s profiled wall (the un-profiled run's "
+        f"{stream_s:.3f} s); busy share "
+        f"{busy_share if busy_share is None else f'{busy_share:.4g}'}")
+
+    serve = serve_phases(dev, card)
 
     # -- report -----------------------------------------------------------
     kernels = [
@@ -363,12 +693,13 @@ def main() -> int:
          "ms": sorted_ms, "plain_ms": sorted_plain_ms,
          "bound_ms": fold_bound, "bound_by": fold_by,
          "library_ms": sorted_lib_ms},
-    ]
+    ] + serve.pop("kernels")
     log(json.dumps({"replay_spans_per_sec": rates, "replicate": replicate,
                     "stream_top1": sum(hits) / len(hits),
                     "stream_chunk_ms": chunk_ms, "stream_wall_s": stream_s,
                     "stream_device_busy_ms": busy,
-                    "stream_device_busy_share": busy_share,
+                    "stream_profiled_wall_s": prof_s,
+                    "stream_device_busy_share": busy_share, **serve,
                     "wall_s": time.perf_counter() - t_all}))
     log(json.dumps({"kernels": kernels}))
     log(card)

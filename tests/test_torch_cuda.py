@@ -8,8 +8,11 @@ suite's JAX-pinning conftest:
 
 Tolerance: count / err / 5xx / histogram planes are small-integer f32 sums
 and must be EQUAL; the moment planes are f32 sums taken in another order
-(shared-memory atomics in the kernel, ``index_add_`` in the plain version)
-and agree to ``rtol=1e-4, atol=1e-3`` at these sizes.
+(shared-memory atomics in the replay kernels, ``index_add_`` in the plain
+version on the card) and agree to ``rtol=1e-4, atol=1e-3`` at these
+sizes.  The lane-delta kernel sums in row order and must equal the plain
+version run on the host bit for bit; the window gather is a copy and
+must equal its plain version bit for bit.
 """
 
 import numpy as np
@@ -81,6 +84,134 @@ def test_sorted_kernel_matches_plain(cuda_device, sw):
     assert rk.launches["replay_sorted"] == before + 1
     _assert_planes(got, rk.replay_sorted_plain(*args, sw, H,
                                                inner_repeats=2))
+
+
+def _lane_inputs(L, W, sw, seed):
+    """[L, W] span ids (dead-lane padded, one all-dead lane) and the
+    lane-major [L, 6, W] planes, from numpy."""
+    sid, planes = _inputs(L * W, sw, seed)
+    sid = sid.reshape(L, W)
+    sid[L // 2] = sw
+    planes = planes.reshape(6, L, W).transpose(1, 0, 2).copy()
+    planes[L // 2] = 0.0
+    return sid, planes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [64, 4096])
+def test_lane_delta_kernel_matches_plain(cuda_device, width):
+    """The lane kernel sums in row order: bit-identical to the CPU plain
+    version (row-ordered index_add_), to itself across runs and lane
+    counts; within tolerance of the card's unordered index_add_."""
+    from anomod_torch.ops import serve_kernels as sk
+    sw = 384
+    sid, planes = _lane_inputs(32, width, sw, seed=11)
+    s = torch.from_numpy(sid).to(cuda_device)
+    p = torch.from_numpy(planes).to(cuda_device)
+    before = sk.launches["lane_delta"]
+    got = sk.lane_delta(s, p, sw, H)
+    again = sk.lane_delta(s, p, sw, H)
+    torch.cuda.synchronize()
+    assert sk.launches["lane_delta"] == before + 2
+    assert torch.equal(got, again)
+    cpu = sk.lane_delta_plain(torch.from_numpy(sid), torch.from_numpy(planes),
+                              sw, H)
+    assert torch.equal(got.cpu(), cpu)
+    assert bool((got[16] == 0).all())                # the all-dead lane
+    for lane in (0, 7, 31):
+        one = sk.lane_delta(s[lane:lane + 1].contiguous(),
+                            p[lane:lane + 1].contiguous(), sw, H)
+        assert torch.equal(one[0], got[lane])
+    plain = sk.lane_delta_plain(s, p, sw, H)
+    _assert_planes(got.reshape(-1, 6 + H), plain.reshape(-1, 6 + H))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 64, 256])
+def test_window_gather_kernel_matches_plain(cuda_device, T):
+    from anomod_torch.ops import serve_kernels as sk
+    rng = np.random.default_rng(T)
+    pool = torch.from_numpy(
+        rng.random((201, 384, 6)).astype(np.float32)).to(cuda_device)
+    slots = torch.from_numpy(
+        rng.integers(0, 201, T).astype(np.int32)).to(cuda_device)
+    cols = torch.from_numpy(
+        rng.integers(0, 32, T).astype(np.int32)).to(cuda_device)
+    got = sk.window_gather(pool, slots, cols, 12, 32)
+    torch.cuda.synchronize()
+    assert torch.equal(got, sk.window_gather_plain(pool, slots, cols, 12, 32))
+
+
+@pytest.mark.cuda
+def test_pool_ops_on_card_equal_host(cuda_device):
+    """The device pool's fold (contiguous slice add and the wave split of
+    duplicated slots), roll and window gather give the same bytes on the
+    card as on the host."""
+    from anomod_torch.replay import ReplayConfig, TenantStatePool
+    cfg = ReplayConfig(n_services=12, n_windows=32)
+    rng = np.random.default_rng(3)
+    pools = [TenantStatePool(cfg, capacity=8, device=d)
+             for d in (cuda_device, "cpu")]
+    for slots in ([1, 2, 3], [3, 1, 3, 2, 3], [5, 5]):
+        da = rng.normal(size=(6, cfg.sw, 6)).astype(np.float32) * 1e3
+        dh = rng.normal(size=(6, cfg.sw, H)).astype(np.float32)
+        for pool in pools:
+            pool.scatter_fold(slots, torch.from_numpy(da).to(pool.device),
+                              torch.from_numpy(dh).to(pool.device))
+    for pool in pools:
+        pool.roll(3, 7)
+    assert torch.equal(pools[0].agg.cpu(), pools[1].agg)
+    assert torch.equal(pools[0].hist.cpu(), pools[1].hist)
+    slots, cols = rng.integers(0, 9, 40), rng.integers(0, 32, 40)
+    assert (pools[0].gather_window(slots, cols).tobytes()
+            == pools[1].gather_window(slots, cols).tobytes())
+
+
+def _serve_fingerprint(eng):
+    import dataclasses
+    out = {}
+    for tid in sorted(eng._tenant_replay):
+        st = eng._tenant_replay[tid].state
+        out[tid] = ([dataclasses.asdict(a) for a in eng.alerts_for(tid)],
+                    np.asarray(st.agg).tobytes(),
+                    np.asarray(st.hist).tobytes())
+    return out
+
+
+@pytest.mark.cuda
+def test_fused_serve_on_card_equals_host_and_cpu_twins(cuda_device):
+    """A small overloaded serve run on the card (fused, device pool,
+    depth 2) is byte-identical to its host-seam and depth-1 twins on the
+    card and to the same run on the CPU through the plain versions; the
+    unfused run on the card equals the unfused run on the CPU."""
+    import dataclasses
+
+    from anomod_torch.ops import serve_kernels as sk
+    from anomod_torch.serve.engine import VARIANT_REPORT_FIELDS, run_power_law
+    kw = dict(n_tenants=6, n_services=4, capacity_spans_per_s=1000,
+              overload=2.0, duration_s=60, tick_s=1.0, seed=5, window_s=5.0,
+              baseline_windows=4, fault_tenants=1, buckets=(64, 256),
+              lane_buckets=(1, 2, 4), max_backlog=1500, n_windows=8)
+
+    def decisions(rep):
+        return {k: v for k, v in dataclasses.asdict(rep).items()
+                if k not in VARIANT_REPORT_FIELDS and k != "device"}
+    sk.reset_launches()
+    eng, rep = run_power_law(device=cuda_device, **kw)
+    assert sk.launches["lane_delta"] > 0 and sk.launches["window_gather"] > 0
+    assert rep.n_alerts > 0 and rep.fused_dispatches > 0
+    want = _serve_fingerprint(eng)
+    for variant in (dict(state="host"), dict(pipeline=1),
+                    dict(device="cpu")):
+        run_kw = dict(dict(kw, device=cuda_device), **variant)
+        e2, r2 = run_power_law(**run_kw)
+        assert _serve_fingerprint(e2) == want, variant
+        assert decisions(r2) == decisions(rep), variant
+    unfused = [run_power_law(**dict(kw, device=d, fuse=False))
+               for d in (cuda_device, "cpu")]
+    assert _serve_fingerprint(unfused[0][0]) == \
+        _serve_fingerprint(unfused[1][0])
+    assert decisions(unfused[0][1]) == decisions(unfused[1][1])
 
 
 @pytest.mark.cuda

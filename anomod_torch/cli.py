@@ -1,7 +1,10 @@
 """``python -m anomod_torch``: the port's command line.
 
 - ``replay``: time the TT/SN span replay fold and print one JSON line
-  (the counterpart of ``anomod replay``).
+  (the counterpart of ``anomod replay``); ``--percentiles`` adds the
+  corpus p50/p95/p99 from the per-segment t-digest plane,
+  ``--edge-percentiles`` the five slowest cross edges by p99 with their
+  HLL distinct-trace counts.
 - ``stream``: online detection over one experiment (or ``--all`` of a
   testbed's taxonomy, in distribution): alert timelines, ranked culprits
   and top-1 per label, one JSON line each.
@@ -32,6 +35,13 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--kernel", choices=KERNELS, default="cuda")
     p.add_argument("--device", default=None,
                    help="cuda (default) or cpu (plain PyTorch versions)")
+    p.add_argument("--percentiles", action="store_true",
+                   help="also report corpus-wide p50/p95/p99 from the "
+                        "per-segment t-digest plane")
+    p.add_argument("--edge-percentiles", action="store_true",
+                   help="also report the slowest call-graph edges by p99 "
+                        "from the per-edge t-digest plane, with their HLL "
+                        "distinct-trace counts")
 
     s = sub.add_parser("stream", help="online detection: replay an "
                        "experiment's spans in arrival order")
@@ -129,12 +139,54 @@ def _replay(args) -> int:
     r = measure_throughput(batch, cfg, repeats=args.repeats,
                            replicate=args.replicate, kernel=args.kernel,
                            device=args.device)
-    print(json.dumps({
+    out = {
         "n_spans": r.n_spans, "wall_s": round(r.wall_s, 6),
         "spans_per_sec": round(r.spans_per_sec, 1),
         "compile_s": round(r.compile_s, 3), "kernel": r.kernel,
-        "device": r.device}))
+        "device": r.device}
+    if args.percentiles:
+        out["latency_us"] = corpus_latency_us(batch, cfg, args.device)
+    if args.edge_percentiles:
+        out["edge_p99_us_top"] = edge_p99_top(batch, cfg, args.device)
+    print(json.dumps(out))
     return 0
+
+
+def corpus_latency_us(batch, cfg, device=None) -> dict:
+    """Corpus-wide p50/p95/p99 in µs: the per-segment digest plane, built
+    on ``device``, merged on the host (a weighted rebuild) into ONE corpus
+    digest, so the tail is the corpus's, not a median across segments.
+    Empty when the corpus has no spans."""
+    import numpy as np
+
+    from anomod_torch.ops.tdigest import tdigest_build, tdigest_quantile
+    from anomod_torch.replay import replay_digests
+    d = replay_digests(batch, cfg, device=device)
+    if not float(d.weight.sum()) > 0:
+        return {}
+    corpus = tdigest_build(d.mean.reshape(-1), k=64,
+                           weights=d.weight.reshape(-1))
+    return {name: round(float(np.expm1(tdigest_quantile(corpus, q))), 1)
+            for name, q in (("p50", 0.5), ("p95", 0.95), ("p99", 0.99))}
+
+
+def edge_p99_top(batch, cfg, device=None, top: int = 5) -> list:
+    """The ``top`` cross edges (caller != callee) by their worst window's
+    p99, with their distinct-trace counts, from one
+    ``replay_edge_features`` pass on ``device``."""
+    import numpy as np
+
+    from anomod_torch.replay import replay_edge_features
+    pct, distinct, table = replay_edge_features(batch, cfg, device=device)
+    p99 = np.nan_to_num(pct[:, -1].reshape(len(table), cfg.n_windows))
+    worst = p99.max(axis=1)
+    rows = sorted(((float(worst[i]), i, a, b)
+                   for i, (a, b) in enumerate(table)
+                   if a != b and worst[i] > 0), reverse=True)
+    return [{"edge": f"{batch.services[a]}->{batch.services[b]}",
+             "p99_us": round(v, 1),
+             "distinct_traces": round(float(distinct[i]), 1)}
+            for v, i, a, b in rows[:top]]
 
 
 def _stream(args, parser) -> int:

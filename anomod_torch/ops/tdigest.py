@@ -1,12 +1,24 @@
-"""Fixed-capacity t-digest on the host (counterpart of the numpy path of
-``anomod/ops/tdigest.py``).
+"""Fixed-capacity t-digest (counterpart of ``anomod/ops/tdigest.py`` and
+of the framework half of ``anomod/ops/pallas_tdigest.py``).
 
 A digest keeps K centroids and rebuilds by sort + quantile bucketing +
 segment reduction: build sorts the values, maps each normalized rank q to
 a centroid bucket with the k1 scale ``K * (asin(2q - 1) / pi + 1/2)`` and
 takes the weighted mean per bucket; merge rebuilds over the concatenated
-centroid sets; a quantile interpolates the centroid CDF.  The serve plane
-keeps one per tenant for its admission-to-scored latency SLO.
+centroid sets; a quantile interpolates the centroid CDF.
+
+Two builds share the bucket rule, each under its own name:
+- :func:`tdigest_build` / :func:`tdigest_merge_many` on numpy arrays, on
+  the host (the serve plane keeps one digest per tenant for its
+  admission-to-scored latency SLO, and the replay CLI merges its digest
+  plane into one corpus digest);
+- :func:`tdigest_build_tensor` / :func:`tdigest_merge_tensor` /
+  :func:`tdigest_by_segment` on tensors, through :func:`scale_pass` (sort,
+  cumsum, k1 buckets in torch) and the ``tdigest_reduce`` kernel wrapper:
+  the CUDA kernel for tensors on the card, its plain version on the CPU.
+  Every leading index is one digest lane.
+
+Quantiles are queried on the host, from numpy digests.
 """
 
 from __future__ import annotations
@@ -14,9 +26,14 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import numpy as np
+import torch
+
+from anomod_torch.device import DeviceLike, resolve_device
+from anomod_torch.ops import sketch_kernels
 
 
 class TDigest(NamedTuple):
+    # numpy arrays from the host build; tensors from the tensor build
     mean: np.ndarray     # [..., K] float32 — centroid means (sorted)
     weight: np.ndarray   # [..., K] float32 — centroid weights (0 = empty)
 
@@ -40,8 +57,28 @@ def _segment_mean(bucket, values, weights, k: int):
     return np.where(w > 0, m / np.where(w > 0, w, 1.0), 0.0), w
 
 
+def scale_pass(values: torch.Tensor, weights: torch.Tensor, k: int):
+    """The build's prolog on tensors (``pallas_tdigest._scale_pass``):
+    stable sort by value, f32 cumulative weight, k1 scale buckets.
+    Returns ``(bucket int32, w, w * v)``, each ``[..., L]`` in sorted
+    order."""
+    v, order = torch.sort(values, dim=-1, stable=True)
+    w = torch.gather(weights, -1, order)
+    cum = torch.cumsum(w, dim=-1)
+    total = cum[..., -1:]
+    q = (cum - 0.5 * w) / torch.where(total > 0, total, 1.0)
+    z = torch.clamp(2.0 * q - 1.0, -1.0, 1.0)
+    # a true f32 division by f32(pi), as XLA and numpy divide: on the card
+    # a Python-scalar divisor becomes a multiply by its reciprocal
+    pi = torch.tensor(np.pi, dtype=torch.float32, device=values.device)
+    s = (torch.asin(z) / pi + 0.5) * k
+    bucket = torch.clamp(s.to(torch.int32), 0, k - 1)
+    return bucket, w, w * v
+
+
 def tdigest_build(values, k: int = 64, weights=None) -> TDigest:
-    """Build a K-centroid digest from a value batch (last axis reduced)."""
+    """Build a K-centroid digest from a host value batch (last axis
+    reduced)."""
     values = np.asarray(values, dtype=np.float32)
     if weights is None:
         weights = np.ones_like(values)
@@ -56,10 +93,80 @@ def tdigest_build(values, k: int = 64, weights=None) -> TDigest:
 
 
 def tdigest_merge_many(digests) -> TDigest:
-    """Merge digests of one capacity by a weighted rebuild."""
+    """Merge host digests of one capacity by a weighted rebuild."""
     mean = np.concatenate([d.mean for d in digests], axis=-1)
     weight = np.concatenate([d.weight for d in digests], axis=-1)
     return tdigest_build(mean, k=digests[0].capacity, weights=weight)
+
+
+def tdigest_build_tensor(values: torch.Tensor, k: int = 64,
+                         weights: torch.Tensor | None = None) -> TDigest:
+    """Build K-centroid digests from a value tensor (last axis reduced;
+    ``tdigest_build_pallas``): :func:`scale_pass`, then one launch of the
+    reduction kernel's wrapper over every leading index."""
+    values = values.to(torch.float32)
+    weights = (torch.ones_like(values) if weights is None
+               else weights.to(torch.float32))
+    lead, L = values.shape[:-1], values.shape[-1]
+    R = int(np.prod(lead)) if lead else 1
+    bucket, w, wv = scale_pass(values, weights, k)
+    mean, weight = sketch_kernels.tdigest_reduce(
+        bucket.reshape(R, L).contiguous(), w.reshape(R, L).contiguous(),
+        wv.reshape(R, L).contiguous(), k)
+    return TDigest(mean=mean.reshape(*lead, k),
+                   weight=weight.reshape(*lead, k))
+
+
+def tdigest_merge_tensor(a: TDigest, b: TDigest) -> TDigest:
+    """Merge two tensor digests of one capacity by a weighted rebuild
+    (``tdigest_merge_pallas``)."""
+    return tdigest_build_tensor(torch.cat([a.mean, b.mean], -1),
+                                k=a.capacity,
+                                weights=torch.cat([a.weight, b.weight], -1))
+
+
+def segment_pad(values, segment_ids, n_segments: int, pad_to: int = 1):
+    """Scatter a flat value stream into padded per-segment lanes, on the
+    host: sort once by segment (stable), place each segment's run in a
+    ``[n_segments, L_max]`` matrix (weight 0 = padding), ``L_max`` rounded
+    up to ``pad_to``.  Returns ``(padded_values, weights)`` float32; no
+    values give ``[n_segments, pad_to]`` zeros."""
+    values = np.asarray(values, dtype="float32")
+    segment_ids = np.asarray(segment_ids)
+    n = values.shape[0]
+    if n == 0:
+        z = np.zeros((n_segments, pad_to), dtype="float32")
+        return z, np.zeros_like(z)
+    order = np.argsort(segment_ids, kind="stable")
+    seg_s = segment_ids[order]
+    val_s = values[order]
+    starts = np.searchsorted(seg_s, np.arange(n_segments))
+    pos = np.arange(n) - starts[seg_s]
+    counts = np.bincount(seg_s, minlength=n_segments)
+    l_max = max(int(counts.max()), 1)
+    l_max += (-l_max) % pad_to
+    padded = np.zeros((n_segments, l_max), dtype="float32")
+    weights = np.zeros((n_segments, l_max), dtype="float32")
+    padded[seg_s, pos] = val_s
+    weights[seg_s, pos] = 1.0
+    return padded, weights
+
+
+#: lane width multiple of the per-segment staging (the JAX kernel path's)
+SEGMENT_PAD_TO = 128
+
+
+def tdigest_by_segment(values, segment_ids, n_segments: int, k: int = 64,
+                       device: DeviceLike = None) -> TDigest:
+    """Per-segment digests from a flat host value stream (the contract of
+    ``tdigest_by_segment_pallas``): one :func:`segment_pad` staging at
+    ``pad_to=128``, then every lane in one tensor build on ``device``.
+    Returns tensors ``[n_segments, K]``."""
+    device = resolve_device(device)
+    padded, weights = segment_pad(values, segment_ids, n_segments,
+                                  pad_to=SEGMENT_PAD_TO)
+    return tdigest_build_tensor(torch.from_numpy(padded).to(device), k=k,
+                                weights=torch.from_numpy(weights).to(device))
 
 
 def _fill_empty_means(mean, weight):

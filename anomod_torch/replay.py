@@ -4,10 +4,17 @@ An experiment corpus is replayed *as data*: span columns are staged on the
 host (``stage_columns``), copied to the card, and folded into the
 per-(service, window) planes — a ``[S*W, 6]`` moment plane (count, errors,
 5xx, latency, log-latency, log-latency²) and a ``[S*W, H]`` log-latency
-histogram.  The fold is the hand-written dense CUDA kernel
+histogram, plus, with ``with_hll``, per-service distinct-trace HLL
+registers.  The fold is the hand-written dense CUDA kernel
 (``ops.replay_kernels.replay_dense``); the sorted-window kernel and the
 one-hot matmul are the other engines ``measure_throughput`` can time.
 Spans per second of that fold is the replay's headline metric.
+
+The sketch featurization path (``replay_digests`` / ``replay_percentiles``
+over (service, window) segments, ``replay_edge_features`` over
+(caller->callee edge, window) segments) builds t-digest planes through
+the ``tdigest_reduce`` kernel and per-edge distinct-trace counts through
+the ``hll_update`` kernel (``ops.sketch_kernels``).
 """
 
 from __future__ import annotations
@@ -20,10 +27,13 @@ import numpy as np
 import torch
 
 from anomod_torch.device import DeviceLike, resolve_device
+from anomod_torch.ops.hll import hll_add, hll_estimate, hll_init
 from anomod_torch.ops.replay_kernels import (PLANES, replay_dense,
                                              replay_payload, replay_sorted,
                                              stage_sorted_planes)
 from anomod_torch.ops.serve_kernels import lane_delta, window_gather
+from anomod_torch.ops.tdigest import (TDigest, tdigest_by_segment,
+                                      tdigest_quantile)
 from anomod_torch.schemas import SpanBatch
 
 # Feature plane order: the three exact 0/1 columns, then the three latency
@@ -37,7 +47,7 @@ KERNELS = ("cuda", "cuda-sorted", "matmul", "numpy")
 class ReplayState(NamedTuple):
     agg: "object"          # [S*W, F] float32
     hist: "object"         # [S*W, H] float32 — log-latency histogram
-    hll: "object" = None   # [S, 2^p] int32 — carried, not yet computed
+    hll: "object" = None   # [S, 2^p] int32 — distinct-trace registers (opt.)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,10 +57,15 @@ class ReplayConfig:
     n_hist_buckets: int = 16
     chunk_size: int = 1 << 15
     window_us: int = 60_000_000  # 60 s windows
+    hll_p: int = 8               # per-service distinct-trace HLL precision
 
     @property
     def sw(self) -> int:
         return self.n_services * self.n_windows
+
+    @property
+    def hll_m(self) -> int:
+        return 1 << self.hll_p
 
 
 def segment_ids(batch: SpanBatch, cfg: ReplayConfig,
@@ -131,13 +146,30 @@ def dead_chunk(cfg: ReplayConfig, device: DeviceLike = None,
             "valid": z(torch.float32), "tid": z(torch.int32)}
 
 
-def zero_state(cfg: ReplayConfig, device: DeviceLike = None) -> ReplayState:
+def zero_state(cfg: ReplayConfig, device: DeviceLike = None,
+               with_hll: bool = False) -> ReplayState:
     device = resolve_device(device)
     return ReplayState(
         agg=torch.zeros((cfg.sw, N_FEATS), dtype=torch.float32,
                         device=device),
         hist=torch.zeros((cfg.sw, cfg.n_hist_buckets), dtype=torch.float32,
-                         device=device))
+                         device=device),
+        hll=(hll_init(cfg.hll_p, lanes=cfg.n_services, device=device)
+             if with_hll else None))
+
+
+def hll_scatter_update(regs: torch.Tensor, sid: torch.Tensor,
+                       tid: torch.Tensor, cfg: ReplayConfig) -> torch.Tensor:
+    """New per-service HLL registers with the staged rows' trace ids
+    added (``regs`` is not modified): the one definition of the
+    distinct-trace plane.  A row's lane is its service ``clip(sid // W, 0,
+    S-1)``; rows with ``sid >= SW`` are padding and go to lane S, which
+    the ``hll_update`` kernel drops."""
+    sid = sid.reshape(-1)
+    svc = torch.clamp(torch.div(sid, cfg.n_windows, rounding_mode="floor"),
+                      0, cfg.n_services - 1)
+    lane = torch.where(sid < cfg.sw, svc, cfg.n_services)
+    return hll_add(regs, tid.reshape(-1), p=cfg.hll_p, lane=lane)
 
 
 def stage_planes(chunks, xp=np):
@@ -175,16 +207,21 @@ def _split(acc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return acc[:, :N_FEATS], acc[:, N_FEATS:]
 
 
-def make_chunk_step(cfg: ReplayConfig):
+def make_chunk_step(cfg: ReplayConfig, with_hll: bool = False):
     """The per-chunk fold shared by the stream: ``step(state, chunk) ->
     state`` through :func:`replay_dense` (the CUDA kernel for tensors on
-    the card, its plain version on the CPU)."""
+    the card, its plain version on the CPU); ``with_hll`` also folds the
+    chunk's trace ids into ``state.hll`` through :func:`hll_scatter_update`
+    (the ``hll_update`` kernel)."""
     SW, H = cfg.sw, cfg.n_hist_buckets
 
     def step(state: ReplayState, chunk) -> ReplayState:
         sid, planes = stage_planes(chunk, xp=torch)
         dagg, dhist = _split(replay_dense(sid, planes, SW, H))
-        return state._replace(agg=state.agg + dagg, hist=state.hist + dhist)
+        hll = (hll_scatter_update(state.hll, chunk["sid"], chunk["tid"], cfg)
+               if with_hll else None)
+        return ReplayState(agg=state.agg + dagg, hist=state.hist + dhist,
+                           hll=hll)
 
     return step
 
@@ -371,19 +408,28 @@ def _as_tensors(chunks, device: torch.device) -> dict:
 
 
 def make_replay_fn(cfg: ReplayConfig, inner_repeats: int = 1,
-                   device: DeviceLike = None):
+                   device: DeviceLike = None, with_hll: bool = False):
     """``replay(chunks) -> ReplayState`` over staged ``[n_chunks, C]``
     chunk columns: the whole corpus in ONE dense-kernel launch, which folds
     it ``inner_repeats`` times (device-side replication for throughput
-    measurement; the counterpart of the JAX scan + fori_loop)."""
+    measurement; the counterpart of the JAX scan + fori_loop).
+    ``with_hll`` adds the per-service distinct-trace registers ``[S,
+    2^p]`` in ONE ``hll_update`` launch (a register max: replicating the
+    corpus leaves it unchanged)."""
     device = resolve_device(device)
     SW, H = cfg.sw, cfg.n_hist_buckets
 
     def replay(chunks) -> ReplayState:
-        sid, planes = stage_planes(_as_tensors(chunks, device), xp=torch)
+        staged = _as_tensors(chunks, device)
+        sid, planes = stage_planes(staged, xp=torch)
         agg, hist = _split(replay_dense(sid.contiguous(), planes, SW, H,
                                         inner_repeats=inner_repeats))
-        return ReplayState(agg=agg, hist=hist)
+        hll = None
+        if with_hll:
+            hll = hll_scatter_update(
+                hll_init(cfg.hll_p, lanes=cfg.n_services, device=device),
+                staged["sid"], staged["tid"], cfg)
+        return ReplayState(agg=agg, hist=hist, hll=hll)
 
     return replay
 
@@ -458,6 +504,116 @@ def percentile_from_hist(hist: np.ndarray, q: float,
     p = idx.astype(np.float32) + np.clip(frac, 0.0, 1.0).astype(np.float32)
     p = np.where(total[..., 0] > 0, p, 0.0).astype(np.float32)  # empty row = 0
     return np.expm1(p).astype(np.float32) if as_us else p
+
+
+def _digests_from_staged(chunks, cfg: ReplayConfig, k: int,
+                         device: DeviceLike) -> TDigest:
+    """Per-segment t-digest plane from already-staged host chunk columns:
+    the log1p-µs durations of the real rows, staged per segment on the
+    host, built on ``device`` through the ``tdigest_reduce`` kernel, read
+    back as host numpy ``[SW, K]``."""
+    sid = chunks["sid"].reshape(-1)
+    dur = chunks["dur"].reshape(-1)       # log1p(duration_us), staged
+    real = sid < cfg.sw
+    d = tdigest_by_segment(dur[real], sid[real], cfg.sw, k=k, device=device)
+    return TDigest(mean=d.mean.cpu().numpy(), weight=d.weight.cpu().numpy())
+
+
+def _quantiles_us(digests: TDigest, qs) -> np.ndarray:
+    out = np.stack([np.expm1(tdigest_quantile(digests, q)) for q in qs],
+                   axis=-1)
+    return out.astype(np.float32)
+
+
+def replay_digests(batch: SpanBatch, cfg: Optional[ReplayConfig] = None,
+                   k: int = 64, device: DeviceLike = None) -> TDigest:
+    """The per-(service, window) t-digest plane over the exact segments the
+    replay aggregates: ``[S*W, K]`` log1p-µs digests, host numpy (one
+    device transfer however many quantiles are queried afterwards)."""
+    cfg = cfg or ReplayConfig(n_services=len(batch.services))
+    chunks, _ = stage_columns(batch, cfg)
+    return _digests_from_staged(chunks, cfg, k, device)
+
+
+def replay_percentiles(batch: SpanBatch, cfg: Optional[ReplayConfig] = None,
+                       qs: Tuple[float, ...] = (0.5, 0.95, 0.99),
+                       k: int = 64, device: DeviceLike = None) -> np.ndarray:
+    """Per-(service, window) latency percentiles in µs from the
+    :func:`replay_digests` plane: ``[S*W, len(qs)]`` float32."""
+    return _quantiles_us(replay_digests(batch, cfg, k=k, device=device), qs)
+
+
+def edge_keyed_batch(batch: SpanBatch):
+    """Re-key spans to observed call-graph edges: each span maps to the
+    (parent-service, own-service) edge (roots and own-parented spans to
+    the (svc, svc) self-edge).  Returns ``(batch', edge_table)`` where
+    ``batch'.service`` holds dense edge ids and ``edge_table[i]`` is the
+    (caller, callee) service-id pair of edge ``i``.  ``parent`` holds
+    batch-global row indices, so this runs on a FULL corpus."""
+    psvc = batch.service.copy()            # default: self-edge
+    has = batch.parent >= 0
+    psvc[has] = batch.service[batch.parent[has]]
+    pairs = psvc.astype(np.int64) * len(batch.services) + batch.service
+    uniq, inv = np.unique(pairs, return_inverse=True)
+    table = tuple((int(p // len(batch.services)),
+                   int(p % len(batch.services))) for p in uniq.tolist())
+    return batch._replace(service=inv.astype(np.int32)), table
+
+
+def _edge_staged(batch: SpanBatch, cfg: Optional[ReplayConfig]):
+    """One edge re-key + staging pass shared by every per-edge plane."""
+    eb, table = edge_keyed_batch(batch)
+    base = cfg or ReplayConfig(n_services=len(batch.services))
+    cfg_e = dataclasses.replace(base, n_services=len(table))
+    chunks, _ = stage_columns(eb, cfg_e)
+    return chunks, cfg_e, table
+
+
+def _edge_distinct_from_staged(chunks, cfg_e: ReplayConfig,
+                               device: DeviceLike) -> np.ndarray:
+    """Per-edge HLL estimates: the ``with_hll`` plane of the edge-keyed
+    replay (only its ``sid`` and ``tid`` columns go to the device)."""
+    device = resolve_device(device)
+    regs = hll_scatter_update(
+        hll_init(cfg_e.hll_p, lanes=cfg_e.n_services, device=device),
+        torch.as_tensor(chunks["sid"], device=device),
+        torch.as_tensor(chunks["tid"], device=device), cfg_e)
+    return hll_estimate(regs)
+
+
+def replay_edge_distinct(batch: SpanBatch,
+                         cfg: Optional[ReplayConfig] = None,
+                         device: DeviceLike = None):
+    """Per-edge distinct-trace counts from the HLL register plane of the
+    edge-keyed replay.  Returns ``(counts, edge_table)``: float64 ``[E]``
+    estimates and the edge id -> (caller, callee) service-id table."""
+    chunks, cfg_e, table = _edge_staged(batch, cfg)
+    return _edge_distinct_from_staged(chunks, cfg_e, device), table
+
+
+def replay_edge_percentiles(batch: SpanBatch,
+                            cfg: Optional[ReplayConfig] = None,
+                            qs: Tuple[float, ...] = (0.5, 0.95, 0.99),
+                            k: int = 64, device: DeviceLike = None):
+    """Per-edge latency percentiles: the t-digest plane over (call-graph
+    edge, window) segments.  Returns ``(percentiles, edge_table)``:
+    ``[E*W, len(qs)]`` float32 µs and the edge table."""
+    chunks, cfg_e, table = _edge_staged(batch, cfg)
+    return _quantiles_us(_digests_from_staged(chunks, cfg_e, k, device),
+                         qs), table
+
+
+def replay_edge_features(batch: SpanBatch,
+                         cfg: Optional[ReplayConfig] = None,
+                         qs: Tuple[float, ...] = (0.5, 0.95, 0.99),
+                         k: int = 64, device: DeviceLike = None):
+    """Both per-edge planes, t-digest percentiles and HLL distinct-trace
+    counts, from ONE edge re-key + staging pass.  Returns
+    ``(percentiles, counts, edge_table)`` as the two single-plane
+    entries."""
+    chunks, cfg_e, table = _edge_staged(batch, cfg)
+    pct = _quantiles_us(_digests_from_staged(chunks, cfg_e, k, device), qs)
+    return pct, _edge_distinct_from_staged(chunks, cfg_e, device), table
 
 
 @dataclasses.dataclass

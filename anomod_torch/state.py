@@ -5,7 +5,9 @@ back as numpy arrays) moves into the port with :func:`from_numpy_state`,
 and back with :func:`to_numpy_state`; a stream can start in one package
 and continue in the other.  The serve plane's tenant pool moves across
 whole with :func:`load_pool`, or tenant by tenant with
-:func:`load_tenant_states`.
+:func:`load_tenant_states`.  A t-digest (``TDigest`` mean and weight
+``[..., K]``) moves with :func:`from_numpy_digest` /
+:func:`to_numpy_digest`.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import numpy as np
 import torch
 
 from anomod_torch.device import DeviceLike, resolve_device
+from anomod_torch.ops.tdigest import TDigest
 from anomod_torch.replay import (N_FEATS, ReplayConfig, ReplayState,
                                  TenantStatePool)
 
@@ -74,3 +77,24 @@ def to_numpy_state(state: ReplayState
     def host(t):
         return None if t is None else np.array(t.cpu())
     return host(state.agg), host(state.hist), host(state.hll)
+
+
+def from_numpy_digest(mean, weight, device: DeviceLike = None) -> TDigest:
+    """A digest's ``[..., K]`` float32 mean and weight (e.g. the JAX
+    package's ``TDigest`` read back as numpy) -> tensors on ``device``.
+    The arrays are copied."""
+    device = resolve_device(device)
+    mean = np.asarray(mean, np.float32)
+    weight = np.asarray(weight, np.float32)
+    if mean.shape != weight.shape or mean.ndim < 1:
+        raise ValueError(f"digest mean {mean.shape} and weight "
+                         f"{weight.shape} must share a [..., K] shape")
+    return TDigest(mean=torch.tensor(mean, device=device),
+                   weight=torch.tensor(weight, device=device))
+
+
+def to_numpy_digest(d: TDigest) -> TDigest:
+    """A digest of tensors (or arrays) as host numpy copies."""
+    def host(t):
+        return np.array(t.cpu()) if torch.is_tensor(t) else np.array(t)
+    return TDigest(mean=host(d.mean), weight=host(d.weight))

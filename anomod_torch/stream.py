@@ -169,18 +169,20 @@ class StreamReplay:
     push whose spans start past the last column evicts the oldest windows
     and advances the anchor; ``window_offset`` is the absolute index of
     plane column 0.  The state lives on ``device``; each staged chunk is
-    folded by the chunk step, the dense CUDA kernel's wrapper.
+    folded by the chunk step, the dense CUDA kernel's wrapper;
+    ``with_hll`` adds per-service distinct-trace registers (``state.hll``,
+    one ``hll_update`` launch per chunk), which a roll leaves untouched.
     """
 
     def __init__(self, cfg: ReplayConfig, t0_us: int,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, with_hll: bool = False):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.t0_us = int(t0_us)
         self.window_offset = 0     # absolute window index of plane column 0
         self.n_spans = 0
-        self._step = make_chunk_step(cfg)
-        self.state = zero_state(cfg, self.device)
+        self._step = make_chunk_step(cfg, with_hll=with_hll)
+        self.state = zero_state(cfg, self.device, with_hll=with_hll)
         #: one-time warm-up wall (kernel build + first launch), measured
         #: at the first push
         self.compile_s = 0.0
@@ -258,8 +260,9 @@ class OnlineDetector:
     (the caller's out-edge slot 2S+p for a cross-service parent, else its
     own self-edge slot S+c).  ``replay`` injects a pre-built plane with
     the same contract; otherwise the detector builds its own as
-    ``replay_factory(cfg, t0_us, device=device)`` (a
-    :class:`StreamReplay` unless the caller supplies another).
+    ``replay_factory(cfg, t0_us, device=device, with_hll=with_hll)`` (a
+    :class:`StreamReplay` unless the caller supplies another);
+    ``with_hll`` gives that plane distinct-trace registers.
     """
 
     def __init__(self, batch_services: Sequence[str], cfg: ReplayConfig,
@@ -267,6 +270,7 @@ class OnlineDetector:
                  z_threshold: float = 4.0, min_count: float = 5.0,
                  consecutive: int = 1, drop_memory: int = 8,
                  call_edges: Optional[set] = None, replay=None,
+                 with_hll: bool = False,
                  edge_attribution: Optional[bool] = None,
                  edge_pool: int = 12, edge_mass: float = 8.0,
                  device: DeviceLike = None,
@@ -279,6 +283,10 @@ class OnlineDetector:
         if consecutive < 1:
             raise ValueError("consecutive must be >= 1 (0 would alert "
                              "every service in every window)")
+        if replay is not None and with_hll:
+            raise ValueError("with_hll configures the detector's OWN "
+                             "plane; an injected replay manages its own "
+                             "HLL state")
         self.services = tuple(batch_services)
         S = len(self.services)
         self._n_svc = S
@@ -306,7 +314,7 @@ class OnlineDetector:
                    f"replay with n_services = 3*S = {K})"
                    if self.edge_attribution else ""))
         self.replay = replay if replay is not None else \
-            replay_factory(cfg, t0_us, device=device)
+            replay_factory(cfg, t0_us, device=device, with_hll=with_hll)
         #: spans fed by the caller (the combined-id replay counts each
         #: span twice internally)
         self.n_spans_in = 0

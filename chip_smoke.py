@@ -5,7 +5,7 @@
 
 Builds the port's CUDA kernels from ``anomod_torch/csrc/`` with nvcc,
 holds each kernel against its plain PyTorch version on the card, then
-drives two paths:
+drives three paths:
 
 - replay (phases 2-5), at the TT deployment's full width (45 services x
   32 windows x 16 buckets): the bench corpus replay (13 labels x 2000
@@ -23,7 +23,15 @@ drives two paths:
   same coalesced batches pushed through one-lane dispatches and against
   its depth-1, host-state and CPU twins, byte for byte; the unfused run
   is held to its CPU twin byte for byte and to the fused run's admission
-  and SLO fields.
+  and SLO fields;
+- sketches (phases 9-11), on the replay's bench corpus at its full width
+  (45 services x 32 windows, K = 64 centroids, HLL p = 8 per edge and
+  p = 10 for the single sketch): the t-digest reduction and HLL update
+  kernels against their plain versions and a numpy HLL oracle at the
+  service- and edge-plane shapes, then ``replay_percentiles`` and
+  ``replay_edge_features`` with the launches counted, held against the
+  same path run with the plain versions on the card, and the CLI's
+  ``replay --percentiles --edge-percentiles``.
 
 Prints progress, the card's name and power limit, one ``{"kernels": ...}``
 JSON line and, last, ``{"ok": true, "device": ...}``.  Any failed phase
@@ -32,6 +40,7 @@ exits non-zero without the last line; so does a host without CUDA.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -54,6 +63,21 @@ H = 16
 RTOL_CARD, ATOL = 1e-4, 1e-3
 # against the un-rounded numpy oracle: the bf16 hi/lo split's envelope
 RTOL_ORACLE = 2e-3
+# int32 ALU rate: Hopper has half as many INT32 as FP32 lanes per SM
+# (NVIDIA's Hopper white paper), so half the f32 CUDA-core rate
+PEAK_INT32_OPS_PER_S = PEAK_F32_OPS_PER_S / 2
+# t-digest means: each centroid sums ~L/K = 46 f32 terms, in warp-slice
+# order in the kernel and in no fixed order in the card's index_add_, so
+# relative differences stay near 46 * 2^-24 ~ 3e-6
+RTOL_DIGEST = 1e-5
+# percentiles (µs) of the path with the kernels against the path with the
+# plain versions: the means' 1e-5 passes through the CDF interpolation
+# and expm1 of log1p-µs values near 10
+RTOL_PCT, ATOL_PCT = 1e-4, 1e-2
+K_DIGEST = 64
+# HLL ops a item: two fmix32 rounds (8 each), the bucket, the clz and
+# rank, the lane test, the address and the max
+HLL_OPS_PER_ITEM = 26
 
 
 class SmokeFailure(Exception):
@@ -456,6 +480,338 @@ def serve_phases(dev, card) -> dict:
             "serve_device_busy_share": busy_share}
 
 
+def hll_numpy(items, p, lane=None, n_lanes=1):
+    """numpy HLL oracle, independent of the port: uint32 fmix32, clz in
+    float64 (exact for uint32), ``np.maximum.at`` into ``[n_lanes, 2^p]``
+    registers; items whose lane is outside ``[0, n_lanes)`` are dropped."""
+    import numpy as np
+
+    def fmix(v):
+        v = v ^ (v >> np.uint32(16))
+        v = v * np.uint32(0x85EBCA6B)
+        v = v ^ (v >> np.uint32(13))
+        v = v * np.uint32(0xC2B2AE35)
+        return v ^ (v >> np.uint32(16))
+    h = fmix(np.asarray(items).astype(np.uint32))
+    bucket = (h >> np.uint32(32 - p)).astype(np.int64)
+    h2 = fmix(h ^ np.uint32(0x9E3779B9))
+    msb = np.floor(np.log2(np.maximum(h2, 1).astype(np.float64)))
+    clz = np.where(h2 > 0, 31 - msb.astype(np.int32), 32)
+    rank = np.minimum(clz + 1, 32).astype(np.int32)
+    lane = np.zeros(len(h), np.int64) if lane is None \
+        else np.asarray(lane).astype(np.int64)
+    keep = (lane >= 0) & (lane < n_lanes)
+    regs = np.zeros(n_lanes << p, np.int32)
+    np.maximum.at(regs, (lane[keep] << p) + bucket[keep], rank[keep])
+    return regs.reshape(n_lanes, 1 << p)
+
+
+def sketch_bound(n_bytes, n_ops, peak_ops):
+    """(bound_ms, bound_by): the larger of the bytes at the HBM rate and
+    the operations at ``peak_ops``."""
+    t_bytes = n_bytes / PEAK_BYTES_PER_S
+    t_ops = n_ops / peak_ops
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+@contextlib.contextmanager
+def plain_sketch_kernels():
+    """Run the sketch path with the kernels' plain versions in place of
+    their wrappers (the path calls ``sketch_kernels.tdigest_reduce`` and
+    ``.hll_update`` by module attribute): the reference on the card."""
+    from anomod_torch.ops import sketch_kernels as sk
+    saved = sk.tdigest_reduce, sk.hll_update
+    sk.tdigest_reduce, sk.hll_update = (sk.tdigest_reduce_plain,
+                                        sk.hll_update_plain)
+    try:
+        yield
+    finally:
+        sk.tdigest_reduce, sk.hll_update = saved
+
+
+def sketch_phases(dev, card, batch, cfg) -> dict:
+    """Phases 9-11: the t-digest reduction and HLL update kernels against
+    their plain versions at the bench shapes, then the sketch path with
+    its launches counted.  Returns the summary fields and the two
+    kernels' report entries."""
+    import dataclasses
+    import io
+
+    import numpy as np
+    import torch
+    from anomod_torch import cli
+    from anomod_torch.ops import replay_kernels as rk
+    from anomod_torch.ops import sketch_kernels as sk
+    from anomod_torch.ops.tdigest import SEGMENT_PAD_TO, scale_pass, segment_pad
+    from anomod_torch.replay import (edge_keyed_batch, replay_edge_features,
+                                     replay_percentiles, segment_ids,
+                                     stage_columns)
+
+    t_phases = time.perf_counter()
+    K = K_DIGEST
+    eb, table = edge_keyed_batch(batch)
+    ecfg = dataclasses.replace(cfg, n_services=len(table))
+    planes = {}
+    for name, c, b in (("service", cfg, batch), ("edge", ecfg, eb)):
+        ch, _ = stage_columns(b, c)
+        sid, dur = ch["sid"].reshape(-1), ch["dur"].reshape(-1)
+        real = sid < c.sw
+        padded, weights = segment_pad(dur[real], sid[real], c.sw,
+                                      pad_to=SEGMENT_PAD_TO)
+        planes[name] = (c, ch, padded, weights, int(real.sum()))
+
+    # -- phase 9: tdigest_reduce vs plain ----------------------------------
+    digest_err = 0.0
+    digest_times = {}
+    for name, (c, _, padded, weights, n_real) in planes.items():
+        v = torch.from_numpy(padded).to(dev)
+        w = torch.from_numpy(weights).to(dev)
+        bucket, ws, wv = scale_pass(v, w, K)
+        host_b = scale_pass(v.cpu(), w.cpu(), K)[0]
+        flips = (bucket.cpu() != host_b)
+        got = sk.tdigest_reduce(bucket, ws, wv, K)
+        again = sk.tdigest_reduce(bucket, ws, wv, K)
+        plain = sk.tdigest_reduce_plain(bucket, ws, wv, K)
+        torch.cuda.synchronize()
+        check(torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]),
+              f"tdigest_reduce {name}: two launches differ")
+        check(torch.equal(got[1], plain[1]),
+              f"tdigest_reduce {name}: weights differ from the plain version")
+        check(float(got[1].double().sum()) == n_real,
+              f"tdigest_reduce {name}: weight total != {n_real} spans")
+        gm, pm = got[0].cpu().numpy(), plain[0].cpu().numpy()
+        check(np.isfinite(gm).all(), f"tdigest_reduce {name}: non-finite")
+        bad = ~np.isclose(gm, pm, rtol=RTOL_DIGEST, atol=0.0)
+        check(not bad.any(), f"tdigest_reduce {name}: {int(bad.sum())} means "
+              f"outside rtol={RTOL_DIGEST}")
+        err = float(np.abs(gm.astype(np.float64) - pm).max())
+        rel = float((np.abs(gm.astype(np.float64) - pm)
+                     / np.maximum(np.abs(pm), 1e-30)).max())
+        digest_err = max(digest_err, err)
+        R, L = bucket.shape
+        ms = cuda_ms(lambda: sk.tdigest_reduce(bucket, ws, wv, K))
+        plain_ms = cuda_ms(lambda: sk.tdigest_reduce_plain(bucket, ws, wv, K),
+                           iters=5)
+        idx = (torch.arange(R, device=dev)[:, None] * K
+               + bucket.long()).reshape(-1)
+        pay = torch.stack([ws.reshape(-1), wv.reshape(-1)], dim=1)
+        acc = torch.zeros((R * K, 2), device=dev)
+        lib_ms = cuda_ms(lambda: acc.index_add_(0, idx, pay))
+        bnd, by = sketch_bound(R * L * 12 + R * K * 8,
+                               2 * R * L + R * K * 17, PEAK_F32_OPS_PER_S)
+        digest_times[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                  bound_ms=bnd, bound_by=by)
+        log(f"[9] tdigest_reduce {name} plane R={R} L={L} K={K} ({n_real} "
+            f"real spans): launches bit-identical, weights equal, means "
+            f"max_abs_err={err:.3g} max_rel_err={rel:.3g}; scale_pass bucket "
+            f"rows card vs host differ in {int(flips.any(1).sum())} rows, "
+            f"{int(flips.sum())} slots; kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, index_add_ {lib_ms:.4f} ms, bound "
+            f"{bnd:.6f} ms ({by}) on {card}")
+    # a weighted merge: the service plane's even windows' digests with the
+    # odd windows', one weighted rebuild per pair
+    c, _, padded, weights, n_real = planes["service"]
+    bucket, ws, wv = scale_pass(torch.from_numpy(padded).to(dev),
+                                torch.from_numpy(weights).to(dev), K)
+    mean, weight = sk.tdigest_reduce(bucket, ws, wv, K)
+    m2 = mean.reshape(-1, 2 * K)
+    w2 = weight.reshape(-1, 2 * K)
+    mb, mw, mwv = scale_pass(m2, w2, K)
+    got = sk.tdigest_reduce(mb, mw, mwv, K)
+    plain = sk.tdigest_reduce_plain(mb, mw, mwv, K)
+    torch.cuda.synchronize()
+    check(torch.equal(got[1], plain[1]), "weighted merge: weights differ")
+    check(float(got[1].double().sum()) == n_real, "weighted merge: total")
+    check(np.allclose(got[0].cpu().numpy(), plain[0].cpu().numpy(),
+                      rtol=RTOL_DIGEST, atol=0.0),
+          "weighted merge: means outside rtol")
+    merge_flips = int((mb.cpu() != scale_pass(m2.cpu(), w2.cpu(), K)[0])
+                      .any(1).sum())
+    log(f"[9] weighted merge of {m2.shape[0]} digest pairs: weights equal, "
+        f"means within rtol={RTOL_DIGEST}; scale_pass rows card vs host "
+        f"differ in {merge_flips}")
+
+    # -- phase 10: hll_update vs plain and the numpy oracle ----------------
+    items = torch.from_numpy(batch.trace.astype(np.int32)).to(dev)
+    n_items = items.shape[0]
+    single = hll_numpy(batch.trace, 10)[0]
+    got = sk.hll_update(torch.zeros(1 << 10, dtype=torch.int32, device=dev),
+                        items, p=10)
+    plain = sk.hll_update_plain(torch.zeros(1 << 10, dtype=torch.int32,
+                                            device=dev), items, p=10)
+    torch.cuda.synchronize()
+    check(torch.equal(got, plain), "hll_update p=10: differs from plain")
+    check(np.array_equal(got.cpu().numpy(), single),
+          "hll_update p=10: differs from the numpy oracle")
+    _, ech, _, _, _ = planes["edge"]
+    esid = ech["sid"].reshape(-1)
+    etid = ech["tid"].reshape(-1)
+    E = ecfg.n_services
+    elane = np.where(esid < ecfg.sw, np.clip(esid // ecfg.n_windows, 0,
+                                             E - 1), E).astype(np.int32)
+    e_items = torch.from_numpy(etid).to(dev)
+    e_lane = torch.from_numpy(elane).to(dev)
+    got_e = sk.hll_update(torch.zeros((E, 1 << 8), dtype=torch.int32,
+                                      device=dev), e_items, e_lane, p=8)
+    plain_e = sk.hll_update_plain(torch.zeros((E, 1 << 8), dtype=torch.int32,
+                                              device=dev), e_items, e_lane,
+                                  p=8)
+    torch.cuda.synchronize()
+    check(torch.equal(got_e, plain_e), "hll_update edge plane: differs from "
+          "plain")
+    check(np.array_equal(got_e.cpu().numpy(), hll_numpy(etid, 8, elane, E)),
+          "hll_update edge plane: differs from the numpy oracle")
+    log(f"[10] hll_update: single sketch p=10 over {n_items} trace ids and "
+        f"the edge plane p=8 over {E}+1 lanes ({etid.size} staged rows, "
+        f"{int((elane == E).sum())} on the dead lane): registers equal to "
+        "the plain version and the numpy oracle")
+    hll_times = {}
+    for name, regs, it, ln, p in (
+            ("single p=10", torch.zeros(1 << 10, dtype=torch.int32,
+                                        device=dev), items, None, 10),
+            ("edge p=8", torch.zeros((E, 1 << 8), dtype=torch.int32,
+                                     device=dev), e_items, e_lane, 8)):
+        ms = cuda_ms(lambda: sk.hll_update(regs, it, ln, p))
+        plain_ms = cuda_ms(lambda: sk.hll_update_plain(regs, it, ln, p),
+                           iters=5)
+        bucket, rank = sk.hll_hash(it, p)
+        # what the kernel must move: the item of each row it keeps (and
+        # that row's lane), only the lane of each dead-lane row, and the
+        # registers read and written; only the kept rows are hashed
+        n_live, n_dead = it.shape[0], 0
+        if ln is not None:
+            keep = ln < E
+            n_live = int(keep.sum())
+            n_dead = it.shape[0] - n_live
+            bucket = (ln.long() << p)[keep] + bucket[keep]
+            rank = rank[keep]
+        rank = rank.to(torch.int32)
+        flat = regs.view(-1)
+        lib_ms = cuda_ms(lambda: flat.scatter_reduce_(0, bucket, rank,
+                                                      reduce="amax"))
+        bnd, by = sketch_bound(n_live * (4 if ln is None else 8)
+                               + n_dead * 4 + 2 * regs.numel() * 4,
+                               n_live * HLL_OPS_PER_ITEM, PEAK_INT32_OPS_PER_S)
+        hll_times[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                               bound_ms=bnd, bound_by=by)
+        log(f"[10] hll_update {name}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, scatter_reduce_ {lib_ms:.4f} ms, bound "
+            f"{bnd:.6f} ms ({by}) on {card}")
+
+    # -- phase 11: the sketch path, launches counted -----------------------
+    sk.reset_launches()
+    rk.reset_launches()
+    t0 = time.perf_counter()
+    pct = replay_percentiles(batch, cfg, device=dev)
+    epct, counts, etable = replay_edge_features(batch, cfg, device=dev)
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    launches = dict(sk.launches)
+    for k, v in launches.items():
+        check(v > 0, f"kernel {k} was not launched on the sketch path")
+    check(pct.shape == (cfg.sw, 3) and np.isfinite(pct).all(),
+          "replay_percentiles: shape or non-finite")
+    check(etable == table and epct.shape == (E * cfg.n_windows, 3)
+          and np.isfinite(epct).all() and counts.shape == (E,),
+          "replay_edge_features: shapes")
+    with plain_sketch_kernels():
+        t0 = time.perf_counter()
+        pct_p = replay_percentiles(batch, cfg, device=dev)
+        epct_p, counts_p, table_p = replay_edge_features(batch, cfg,
+                                                         device=dev)
+        torch.cuda.synchronize()
+        plain_path_s = time.perf_counter() - t0
+    check(table_p == etable, "sketch path: edge tables differ from plain")
+    check(np.array_equal(counts, counts_p),
+          "sketch path: distinct counts differ from plain")
+    for what, a, b in (("service", pct, pct_p), ("edge", epct, epct_p)):
+        bad = ~np.isclose(a, b, rtol=RTOL_PCT, atol=ATOL_PCT)
+        check(not bad.any(), f"sketch path {what} percentiles: "
+              f"{int(bad.sum())} outside rtol={RTOL_PCT}, atol={ATOL_PCT}")
+    pct_err = float(max(np.abs(pct.astype(np.float64) - pct_p).max(),
+                        np.abs(epct.astype(np.float64) - epct_p).max()))
+    # against exact quantiles of the five busiest service segments, at
+    # the JAX package's own accuracy bar (tests/test_replay.py)
+    sid = segment_ids(batch, cfg)
+    busiest = np.argsort(np.bincount(sid, minlength=cfg.sw))[-5:]
+    worst = {}
+    for j, q, bar in ((0, 0.5, 0.08), (2, 0.99, 0.20)):
+        worst[q] = max(
+            abs(float(pct[seg, j]) - exact) / exact for seg in busiest
+            for exact in [float(np.quantile(batch.duration_us[sid == seg],
+                                            q))])
+        check(worst[q] <= bar, f"sketch path: q={q} of the busiest segments "
+              f"{worst[q]:.3g} off the exact quantile (bar {bar})")
+    exact_d = np.array([len(np.unique(batch.trace[eb.service == i]))
+                        for i in range(E)], np.float64)
+    d_rel = np.abs(counts - exact_d) / exact_d
+    check(float(np.median(d_rel)) < 0.1, "sketch path: distinct counts "
+          f"median relative error {float(np.median(d_rel)):.3g}")
+    log(f"[11] sketch path: replay_percentiles [{cfg.sw}, 3] + "
+        f"replay_edge_features ({E} edges, [{E * cfg.n_windows}, 3]) in "
+        f"{path_s:.3f} s on {card} (plain versions on the card "
+        f"{plain_path_s:.3f} s); launches {launches}; edge table and "
+        f"distinct counts equal to the plain run, percentiles within "
+        f"rtol={RTOL_PCT} (max abs {pct_err:.3g} us); busiest segments' "
+        f"p50 within {worst[0.5]:.3g}, p99 within {worst[0.99]:.3g} of "
+        f"exact; distinct counts vs exact: "
+        f"median {float(np.median(d_rel)):.3g}, max {float(d_rel.max()):.3g}")
+    # the path once more under the profiler: the device's busy time
+    # against that profiled run's own wall (the profiler was started once
+    # already, in phase 5)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        replay_percentiles(batch, cfg, device=dev)
+        replay_edge_features(batch, cfg, device=dev)
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
+    busy = device_busy_ms(prof)
+    busy_share = None if busy is None else busy / 1e3 / prof_s
+    log(f"[11] sketch path trace: device busy "
+        f"{'not measured (no device events)' if busy is None else f'{busy:.3f} ms'}"
+        f" in a {prof_s:.3f} s profiled wall; busy share "
+        f"{busy_share if busy_share is None else f'{busy_share:.4g}'}")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["replay", "--percentiles", "--edge-percentiles",
+                       "--repeats", "1"])
+    cli_s = time.perf_counter() - t0
+    check(rc == 0, f"cli replay exited {rc}")
+    out = json.loads(buf.getvalue().strip().splitlines()[-1])
+    check(set(out["latency_us"]) == {"p50", "p95", "p99"}
+          and len(out["edge_p99_us_top"]) == 5, f"cli replay output {out}")
+    log(f"[11] python -m anomod_torch replay --percentiles "
+        f"--edge-percentiles ({cli_s:.3f} s): latency_us "
+        f"{out['latency_us']}")
+    for row in out["edge_p99_us_top"]:
+        log(f"[11]   {row['edge']}: p99 {row['p99_us']} us, "
+            f"{row['distinct_traces']} distinct traces")
+    total = dict(sk.launches)
+
+    def entry(name, replaces, times, err):
+        return {"name": name, "route": "cuda",
+                "source": "anomod_torch/csrc/sketch.cu",
+                "replaces": replaces, "launches": launches[name],
+                "max_abs_err": err, **times}
+    kernels = [
+        entry("tdigest_reduce", "anomod/ops/pallas_tdigest.py:34",
+              digest_times["edge"], digest_err),
+        entry("hll_update", "anomod/ops/pallas_hll.py:19",
+              hll_times["edge p=8"], 0.0)]
+    return {"kernels": kernels, "sketch_path_wall_s": path_s,
+            "sketch_device_busy_ms": busy,
+            "sketch_profiled_wall_s": prof_s,
+            "sketch_device_busy_share": busy_share,
+            "sketch_phases_wall_s": time.perf_counter() - t_phases,
+            "sketch_plain_path_wall_s": plain_path_s,
+            "sketch_cli_wall_s": cli_s, "sketch_launches_with_cli": total,
+            "sketch_latency_us": out["latency_us"],
+            "tdigest_times": digest_times, "hll_times": hll_times}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -488,8 +844,8 @@ def main() -> int:
         chunk fold, on the card: the reference the kernel's stream is held
         against."""
 
-        def __init__(self, cfg, t0_us, device=None):
-            super().__init__(cfg, t0_us, device=device)
+        def __init__(self, cfg, t0_us, device=None, with_hll=False):
+            super().__init__(cfg, t0_us, device=device, with_hll=with_hll)
             SW, H = cfg.sw, cfg.n_hist_buckets
 
             def step(state, chunk):
@@ -514,7 +870,7 @@ def main() -> int:
     # -- phase 1: build -------------------------------------------------
     log(f"[1] card: {card}")
     t0 = time.perf_counter()
-    _build.build(["replay", "serve"])
+    _build.build(["replay", "serve", "sketch"])
     log(f"[1] kernels built in {time.perf_counter() - t0:.1f} s")
     for name, text in _build.build_logs.items():
         for line in text.splitlines():
@@ -676,6 +1032,7 @@ def main() -> int:
         f"{busy_share if busy_share is None else f'{busy_share:.4g}'}")
 
     serve = serve_phases(dev, card)
+    sketch = sketch_phases(dev, card, batch, cfg)
 
     # -- report -----------------------------------------------------------
     kernels = [
@@ -693,13 +1050,14 @@ def main() -> int:
          "ms": sorted_ms, "plain_ms": sorted_plain_ms,
          "bound_ms": fold_bound, "bound_by": fold_by,
          "library_ms": sorted_lib_ms},
-    ] + serve.pop("kernels")
+    ] + serve.pop("kernels") + sketch.pop("kernels")
     log(json.dumps({"replay_spans_per_sec": rates, "replicate": replicate,
                     "stream_top1": sum(hits) / len(hits),
                     "stream_chunk_ms": chunk_ms, "stream_wall_s": stream_s,
                     "stream_device_busy_ms": busy,
                     "stream_profiled_wall_s": prof_s,
                     "stream_device_busy_share": busy_share, **serve,
+                    **sketch,
                     "wall_s": time.perf_counter() - t_all}))
     log(json.dumps({"kernels": kernels}))
     log(card)

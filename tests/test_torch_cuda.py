@@ -12,7 +12,9 @@ and must be EQUAL; the moment planes are f32 sums taken in another order
 version on the card) and agree to ``rtol=1e-4, atol=1e-3`` at these
 sizes.  The lane-delta kernel sums in row order and must equal the plain
 version run on the host bit for bit; the window gather is a copy and
-must equal its plain version bit for bit.
+must equal its plain version bit for bit.  The t-digest reduction's
+weights (integer sums) must equal its plain version's and its means agree
+to ``rtol=1e-5``; HLL registers (integer maxima) must be equal.
 """
 
 import numpy as np
@@ -222,3 +224,106 @@ def test_empty_corpus_gives_zeros_on_card(cuda_device):
                 rk.replay_sorted(z32, zp, z32, 1440, H)):
         assert out.shape == (1440, 6 + H)
         assert bool((out == 0).all())
+
+
+def _digest_inputs(R, L, K, seed):
+    """Scale-pass-shaped t-digest lanes from numpy: non-decreasing bucket
+    rows (a few outside [0, K)), 0/1 weights with a zero padding tail."""
+    rng = np.random.default_rng(seed)
+    bucket = np.sort(rng.integers(-1, K + 1, (R, L)), axis=1).astype(np.int32)
+    w = (rng.random((R, L)) < 0.9).astype(np.float32)
+    w[:, L - L // 4:] = 0.0
+    v = np.log1p(rng.lognormal(8.0, 1.0, (R, L))).astype(np.float32)
+    return bucket, w, w * v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,L", [(1, 1), (1, 2944), (7, 33), (1440, 2944),
+                                 (2880, 300)])
+def test_tdigest_reduce_kernel_matches_plain(cuda_device, R, L):
+    """Weights (integer sums) equal; means within rtol=1e-5 (each centroid
+    sums tens of f32 terms in another order); two launches bit-identical."""
+    from anomod_torch.ops import sketch_kernels as sk
+    K = 64
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in _digest_inputs(R, L, K, seed=R + L)]
+    before = sk.launches["tdigest_reduce"]
+    mean, weight = sk.tdigest_reduce(*args, K)
+    mean2, weight2 = sk.tdigest_reduce(*args, K)
+    torch.cuda.synchronize()
+    assert sk.launches["tdigest_reduce"] == before + 2
+    assert torch.equal(mean, mean2) and torch.equal(weight, weight2)
+    pm, pw = sk.tdigest_reduce_plain(*args, K)
+    assert torch.equal(weight, pw)
+    np.testing.assert_allclose(mean.cpu().numpy(), pm.cpu().numpy(),
+                               rtol=1e-5, atol=0.0)
+    cm, cw = sk.tdigest_reduce_plain(*[a.cpu() for a in args], K)
+    assert torch.equal(weight.cpu(), cw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 1000, 475_358])
+def test_hll_update_kernel_matches_plain(cuda_device, n):
+    """Registers equal the plain version's on the card and on the host:
+    the single sketch (p = 10), a 91-lane plane with items on the dead
+    lane (p = 8, shared-memory registers) and a 300-lane plane (p = 8,
+    307 KB: registers updated in device memory)."""
+    from anomod_torch.ops import sketch_kernels as sk
+    rng = np.random.default_rng(n)
+    items = rng.integers(-2**31, 2**31, n, dtype=np.int64).astype(np.int32)
+    it = torch.from_numpy(items).to(cuda_device)
+    cases = [(None, (1 << 10,), 10)]
+    for L in (90, 300):
+        lane = rng.integers(0, L + 1, n).astype(np.int32)   # L: dead lane
+        cases.append((torch.from_numpy(lane).to(cuda_device), (L, 256), 8))
+    for lane, shape, p in cases:
+        before = sk.launches["hll_update"]
+        regs = torch.zeros(shape, dtype=torch.int32, device=cuda_device)
+        got = sk.hll_update(regs, it, lane, p)
+        torch.cuda.synchronize()
+        assert got is regs and sk.launches["hll_update"] == before + 1
+        want = sk.hll_update_plain(torch.zeros_like(regs), it, lane, p)
+        assert torch.equal(got, want)
+        host = sk.hll_update_plain(
+            torch.zeros(shape, dtype=torch.int32), it.cpu(),
+            None if lane is None else lane.cpu(), p)
+        assert torch.equal(got.cpu(), host)
+        again = sk.hll_update(got.clone(), it, lane, p)      # max: idempotent
+        assert torch.equal(again, got)
+
+
+@pytest.mark.cuda
+def test_sketch_kernels_empty_inputs(cuda_device):
+    from anomod_torch.ops import sketch_kernels as sk
+    z = torch.zeros(0, dtype=torch.int32, device=cuda_device)
+    regs = torch.full((4, 256), 2, dtype=torch.int32, device=cuda_device)
+    assert torch.equal(sk.hll_update(regs.clone(), z, z, 8), regs)
+    b = torch.zeros((3, 0), dtype=torch.int32, device=cuda_device)
+    f = torch.zeros((3, 0), dtype=torch.float32, device=cuda_device)
+    mean, weight = sk.tdigest_reduce(b, f, f, 64)
+    torch.cuda.synchronize()
+    assert mean.shape == (3, 64) and bool((mean == 0).all())
+    assert bool((weight == 0).all())
+    mean, weight = sk.tdigest_reduce(b[:0], f[:0], f[:0], 64)
+    assert mean.shape == (0, 64)
+
+
+@pytest.mark.cuda
+def test_sketch_path_on_card_matches_cpu(cuda_device):
+    """replay_edge_features on a small corpus: the card's run and the
+    host's (plain versions) give the same edge table and distinct counts,
+    and percentiles within rtol=1e-4."""
+    from anomod_torch import labels, synth
+    from anomod_torch.ops import sketch_kernels as sk
+    from anomod_torch.replay import ReplayConfig, replay_edge_features
+    batch = synth.generate_spans(labels.label_for("Lv_D_TRANSACTION_timeout"),
+                                 n_traces=200, seed=5)
+    cfg = ReplayConfig(n_services=batch.n_services, n_windows=8,
+                       window_us=300_000_000)
+    sk.reset_launches()
+    pct, counts, table = replay_edge_features(batch, cfg, device=cuda_device)
+    assert sk.launches["tdigest_reduce"] > 0 and sk.launches["hll_update"] > 0
+    cpct, ccounts, ctable = replay_edge_features(batch, cfg, device="cpu")
+    assert table == ctable
+    np.testing.assert_array_equal(counts, ccounts)
+    np.testing.assert_allclose(pct, cpct, rtol=1e-4, atol=1e-2)

@@ -8,9 +8,14 @@
 - ``stream``: online detection over one experiment (or ``--all`` of a
   testbed's taxonomy, in distribution): alert timelines, ranked culprits
   and top-1 per label, one JSON line each.
+  ``--all`` ends with the summary line (top-1, top-3, median detection
+  latency) and writes a ``stream_quality`` capture (``provenance``).
 - ``serve``: the multi-tenant serve plane over a seeded power-law fleet
   on a virtual clock; prints the ``ServeReport`` as JSON (the
   counterpart of ``anomod serve``).
+- ``roofline``: the sorted replay kernel's roofline probe (the
+  counterpart of ``scripts/bench_kernel_roofline.py``): rates of the
+  kernel and its two ablations, one JSON line, one capture.
 """
 
 from __future__ import annotations
@@ -52,6 +57,13 @@ def _parser() -> argparse.ArgumentParser:
     s.add_argument("--traces", type=int, default=400)
     s.add_argument("--seed", type=int, default=0)
     s.add_argument("--device", default=None,
+                   help="cuda (default) or cpu (plain PyTorch versions)")
+
+    r = sub.add_parser("roofline", help="the sorted replay kernel against "
+                       "its count-only and no-histogram ablations")
+    r.add_argument("--traces", type=int, default=2000)
+    r.add_argument("--replicate", type=int, default=4096)
+    r.add_argument("--device", default=None,
                    help="cuda (default) or cpu (plain PyTorch versions)")
 
     v = sub.add_parser("serve", help="multi-tenant serving plane: "
@@ -206,10 +218,45 @@ def _stream(args, parser) -> int:
     for r in rows:
         r["alerts"] = [dataclasses.asdict(a) for a in r["alerts"]]
         print(json.dumps(r))
-    hits = [r["top1_hit"] for r in rows if "top1_hit" in r]
-    print(json.dumps({"summary": {
-        "testbed": testbed, "n_experiments": len(rows),
-        "top1": sum(hits) / len(hits) if hits else None}}))
+    summary = stream_summary(testbed, rows)
+    print(json.dumps({"summary": summary}))
+    if args.all:
+        from anomod_torch.device import device_name, resolve_device
+        from anomod_torch.provenance import capture_record, write_capture
+        rec = capture_record(
+            "stream_quality", float(len(rows)), "experiments",
+            device=device_name(resolve_device(args.device)), testbed=testbed,
+            params=dict(n_traces=args.traces, seed=args.seed),
+            summary=summary, rows=rows)
+        path = write_capture(rec)
+        if path:
+            print(f"capture: {path}", file=sys.stderr)
+    return 0
+
+
+def stream_summary(testbed: str, rows: list) -> dict:
+    """The ``stream --all`` summary: top-1 and top-3 hit rates over the
+    labelled faults and their median detection latency in windows."""
+    import statistics
+    rca = [r for r in rows if "top1_hit" in r]
+    lats = [r["detection_latency_windows"] for r in rca
+            if r.get("detection_latency_windows") is not None]
+    return {"testbed": testbed, "n_experiments": len(rows),
+            "top1": sum(r["top1_hit"] for r in rca) / len(rca)
+            if rca else None,
+            "top3": sum(r["top3_hit"] for r in rca) / len(rca)
+            if rca else None,
+            "median_detection_latency_windows":
+                statistics.median(lats) if lats else None}
+
+
+def _roofline(args, parser) -> int:
+    from anomod_torch.roofline import kernel_roofline
+    if args.traces < 1 or args.replicate < 1:
+        parser.error("--traces and --replicate must be >= 1")
+    print(json.dumps(kernel_roofline(n_traces=args.traces,
+                                     replicate=args.replicate,
+                                     device=args.device)))
     return 0
 
 
@@ -220,6 +267,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         return _replay(args)
     if args.cmd == "serve":
         return _serve(args, parser)
+    if args.cmd == "roofline":
+        return _roofline(args, parser)
     return _stream(args, parser)
 
 

@@ -28,3 +28,8 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev} (cuda|cpu)")
     return dev
+
+
+def device_name(dev: torch.device) -> str:
+    """The card's name (``torch.cuda.get_device_name``), or ``cpu``."""
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"

@@ -6,9 +6,14 @@ and ``replay_sorted`` replaces ``make_pallas_replay_sorted_fn``
 ``[SW, 6+H]`` sum of each span's payload row — the three exact planes
 (valid, err, 5xx), the three latency moments rounded through the bf16
 hi/lo split, and a log-latency histogram one-hot — dropping the dead
-padding lane ``sid == SW``.  The CUDA sources are in
-``anomod_torch/csrc/replay.cu``; they are bound by the bytes they read
-(28 B per span) and by shared-memory atomics on hot segments.
+padding lane ``sid == SW``.  ``replay_sorted_ablation`` replaces the
+roofline probe's ``make_ablation`` (scripts/bench_kernel_roofline.py:73):
+the sorted kernel with its payload cut to the count row (``counts``) or
+to the exact planes and the separate hi and lo moment rows (``no_hist``),
+returned raw as the TPU kernel's feature-major ``[ROWS, NWK]``.  The CUDA
+sources are in ``anomod_torch/csrc/replay.cu``; they are bound by the
+bytes they read (28 B per span) and by shared-memory atomics on hot
+segments.
 
 Beside each kernel is its plain PyTorch version (``*_plain``, an
 ``index_add_`` over the same rounded payload).  A wrapper takes the plain
@@ -40,7 +45,14 @@ DENSE_SPANS_PER_PART = 2048
 
 #: kernel launches per wrapper, counted where the wrapper launches its
 #: kernel and nowhere else (a CPU tensor takes the plain version: no count)
-launches: Dict[str, int] = {"replay_dense": 0, "replay_sorted": 0}
+launches: Dict[str, int] = {"replay_dense": 0, "replay_sorted": 0,
+                            "replay_sorted_counts": 0,
+                            "replay_sorted_no_hist": 0}
+
+#: payload rows of the sorted kernel's ablations, and the mode number of
+#: each in ``anomod_replay_sorted_ablation``
+ABLATION_ROWS = {"counts": 1, "no_hist": 9}
+_ABLATION_MODE = {"counts": 1, "no_hist": 2}
 
 
 def reset_launches() -> None:
@@ -92,14 +104,49 @@ def replay_sorted_plain(sid_local: torch.Tensor, planes: torch.Tensor,
                         k: int = 128, block: int = 4096,
                         inner_repeats: int = 1) -> torch.Tensor:
     """Plain PyTorch version of :func:`replay_sorted`."""
-    nw = (n_segments + 1 + k - 1) // k
-    payload = replay_payload(planes, n_hist)
-    acc = torch.zeros((nw * k, N_PLANES + n_hist), dtype=torch.float32,
-                      device=planes.device)
+    return _sorted_fold_plain(replay_payload(planes, n_hist), sid_local,
+                              wids, n_segments, k, block,
+                              inner_repeats)[:n_segments]
+
+
+def _sorted_fold_plain(payload, sid_local, wids, n_segments, k, block,
+                       inner_repeats) -> torch.Tensor:
+    """``[NWK, F]`` sums of sorted-staged ``payload`` rows at their global
+    segment ids, ``inner_repeats`` times."""
+    acc = torch.zeros((n_window_cols(n_segments, k), payload.shape[1]),
+                      dtype=torch.float32, device=payload.device)
     idx = sorted_global_ids(sid_local, wids, k, block)
     for _ in range(inner_repeats):
         acc.index_add_(0, idx, payload)
-    return acc[:n_segments]
+    return acc
+
+
+def ablation_payload(planes: torch.Tensor, rows_mode: str) -> torch.Tensor:
+    """The ``[T, ROWS]`` per-span rows an ablation folds, rounded as the
+    TPU ablation's bf16 right-hand side: ``bf16(valid)`` for ``counts``;
+    for ``no_hist`` the three exact planes as bf16, then ``bf16(m)`` and
+    ``bf16(m - bf16(m))`` of the three moments as separate rows."""
+    if rows_mode == "counts":
+        return _bf16(planes[0:1]).T
+    mom = planes[3:6]
+    hi = _bf16(mom)
+    return torch.cat([_bf16(planes[0:3]), hi, _bf16(mom - hi)]).T
+
+
+def n_window_cols(n_segments: int, k: int) -> int:
+    """``NWK``: the columns of ``ceil((SW + 1) / k)`` aligned windows."""
+    return (n_segments + 1 + k - 1) // k * k
+
+
+def replay_sorted_ablation_plain(sid_local: torch.Tensor,
+                                 planes: torch.Tensor, wids: torch.Tensor,
+                                 n_segments: int, rows_mode: str,
+                                 k: int = 128, block: int = 4096,
+                                 inner_repeats: int = 1) -> torch.Tensor:
+    """Plain PyTorch version of :func:`replay_sorted_ablation`."""
+    return _sorted_fold_plain(ablation_payload(planes, rows_mode), sid_local,
+                              wids, n_segments, k, block,
+                              inner_repeats).T.contiguous()
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape) -> None:
@@ -146,6 +193,9 @@ def _lib() -> ctypes.CDLL:
         lib.anomod_replay_sorted.argtypes = [
             vp, vp, i64, vp, i32, i32, i32, i32, i32, i32, vp, vp, vp]
         lib.anomod_replay_sorted.restype = i32
+        lib.anomod_replay_sorted_ablation.argtypes = [
+            vp, vp, i64, vp, i32, i32, i32, i32, i32, i32, vp, vp, vp]
+        lib.anomod_replay_sorted_ablation.restype = i32
         lib.anomod_cuda_error_string.argtypes = [i32]
         lib.anomod_cuda_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -204,6 +254,18 @@ def replay_dense(sid: torch.Tensor, planes: torch.Tensor, n_segments: int,
     return out
 
 
+def _check_sorted(sid_local, planes, wids, n_segments, k, block,
+                  inner_repeats) -> None:
+    t = sid_local.shape[0]
+    if n_segments < 1 or inner_repeats < 1 or k < 1:
+        raise ValueError("n_segments, k and inner_repeats must be >= 1")
+    if block < 1 or t % block:
+        raise ValueError(f"span count {t} must be a multiple of {block}")
+    _check("sid_local", sid_local, torch.int32, (t,))
+    _check("planes", planes, torch.float32, (N_PLANES, t))
+    _check("wids", wids, torch.int32, (t // block,))
+
+
 def replay_sorted(sid_local: torch.Tensor, planes: torch.Tensor,
                   wids: torch.Tensor, n_segments: int, n_hist: int,
                   k: int = 128, block: int = 4096,
@@ -214,14 +276,10 @@ def replay_sorted(sid_local: torch.Tensor, planes: torch.Tensor,
     Every ``block`` of spans lies in one aligned window of ``k`` segments
     (window ``wids[b]``).  CPU tensors take :func:`replay_sorted_plain`."""
     t = sid_local.shape[0]
-    if n_segments < 1 or n_hist < 1 or inner_repeats < 1 or k < 1:
-        raise ValueError("n_segments, n_hist, k and inner_repeats must be "
-                         ">= 1")
-    if block < 1 or t % block:
-        raise ValueError(f"span count {t} must be a multiple of {block}")
-    _check("sid_local", sid_local, torch.int32, (t,))
-    _check("planes", planes, torch.float32, (N_PLANES, t))
-    _check("wids", wids, torch.int32, (t // block,))
+    if n_hist < 1:
+        raise ValueError("n_hist must be >= 1")
+    _check_sorted(sid_local, planes, wids, n_segments, k, block,
+                  inner_repeats)
     if not _on_cuda(sid_local, planes, wids):
         return replay_sorted_plain(sid_local, planes, wids, n_segments,
                                    n_hist, k, block, inner_repeats)
@@ -237,6 +295,44 @@ def replay_sorted(sid_local: torch.Tensor, planes: torch.Tensor,
         _stream(dev))
     _raise_on(err, "anomod_replay_sorted")
     launches["replay_sorted"] += 1
+    return out
+
+
+def replay_sorted_ablation(sid_local: torch.Tensor, planes: torch.Tensor,
+                           wids: torch.Tensor, n_segments: int,
+                           rows_mode: str, k: int = 128, block: int = 4096,
+                           inner_repeats: int = 1) -> torch.Tensor:
+    """The roofline probe's ablations of :func:`replay_sorted`, over the
+    same staging -> raw ``f32[ROWS, NWK]``, ``NWK = ceil((SW+1)/k) * k``.
+
+    ``rows_mode`` is ``"counts"`` (ROWS = 1: ``bf16(valid)``) or
+    ``"no_hist"`` (ROWS = 9: exact planes, moment hi rows, moment lo
+    rows).  Every column is kept, the dead lane's column SW and the
+    padding after it included.  CPU tensors take
+    :func:`replay_sorted_ablation_plain`."""
+    if rows_mode not in ABLATION_ROWS:
+        raise ValueError(f"unknown ablation {rows_mode!r} (expected one of "
+                         f"{tuple(ABLATION_ROWS)})")
+    _check_sorted(sid_local, planes, wids, n_segments, k, block,
+                  inner_repeats)
+    if not _on_cuda(sid_local, planes, wids):
+        return replay_sorted_ablation_plain(sid_local, planes, wids,
+                                            n_segments, rows_mode, k, block,
+                                            inner_repeats)
+    lib = _lib()
+    dev = sid_local.device
+    t = sid_local.shape[0]
+    rows, n_blocks = ABLATION_ROWS[rows_mode], t // block
+    nwk = n_window_cols(n_segments, k)
+    partials = torch.empty(n_blocks * k * rows, dtype=torch.float32,
+                           device=dev)
+    out = torch.empty((rows, nwk), dtype=torch.float32, device=dev)
+    err = lib.anomod_replay_sorted_ablation(
+        _ptr(sid_local), _ptr(planes), t, _ptr(wids), n_blocks, block, k,
+        nwk, _ABLATION_MODE[rows_mode], inner_repeats, _ptr(partials),
+        _ptr(out), _stream(dev))
+    _raise_on(err, "anomod_replay_sorted_ablation")
+    launches[f"replay_sorted_{rows_mode}"] += 1
     return out
 
 

@@ -26,7 +26,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from anomod_torch.device import DeviceLike, resolve_device
+from anomod_torch.device import DeviceLike, device_name, resolve_device
 from anomod_torch.ops.hll import hll_add, hll_estimate, hll_init
 from anomod_torch.ops.replay_kernels import (PLANES, replay_dense,
                                              replay_payload, replay_sorted,
@@ -672,8 +672,7 @@ def measure_throughput(batch: SpanBatch, cfg: Optional[ReplayConfig] = None,
     else:
         from anomod_torch.io.prefetch import device_put_columns
         dev = resolve_device(device)
-        dev_name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
-                    else "cpu")
+        dev_name = device_name(dev)
         if kernel == "cuda":
             chunks = device_put_columns(chunks_np, dev)
             rfn = make_replay_fn(cfg, inner_repeats=replicate, device=dev)

@@ -32,9 +32,8 @@ import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
-import torch
 
-from anomod_torch.device import DeviceLike, resolve_device
+from anomod_torch.device import DeviceLike, device_name, resolve_device
 from anomod_torch.ops.tdigest import (TDigest, tdigest_build,
                                       tdigest_merge_many, tdigest_quantile)
 from anomod_torch.replay import N_FEATS, ReplayConfig
@@ -603,8 +602,7 @@ class ServeEngine:
                 **_merged_quantiles(pri_slos.get(pri, ())),
             }
         r = self.runner
-        dev = (torch.cuda.get_device_name(self.device)
-               if self.device.type == "cuda" else "cpu")
+        dev = device_name(self.device)
         return ServeReport(
             n_tenants=len(self.specs),
             duration_s=round(self.clock.now_s, 6),

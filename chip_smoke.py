@@ -31,7 +31,13 @@ drives three paths:
   service- and edge-plane shapes, then ``replay_percentiles`` and
   ``replay_edge_features`` with the launches counted, held against the
   same path run with the plain versions on the card, and the CLI's
-  ``replay --percentiles --edge-percentiles``.
+  ``replay --percentiles --edge-percentiles``;
+- the sorted replay kernel's roofline probe (phase 12), on the replay's
+  bench corpus staged the sorted way (k = 128, block = 4096): the
+  ``counts`` and ``no_hist`` ablation kernels against their plain
+  versions and the full sorted kernel, then ``kernel_roofline()`` at its
+  full size (replicate = 4096) with the launches counted, its capture
+  written to a temporary directory and read back.
 
 Prints progress, the card's name and power limit, one ``{"kernels": ...}``
 JSON line and, last, ``{"ok": true, "device": ...}``.  Any failed phase
@@ -812,6 +818,145 @@ def sketch_phases(dev, card, batch, cfg) -> dict:
             "tdigest_times": digest_times, "hll_times": hll_times}
 
 
+def roofline_phases(dev, card, kind, sid_np, planes_np, n_real, SW) -> dict:
+    """Phase 12: the sorted kernel's ablations against their plain
+    versions and the full kernel, then the roofline probe at full size
+    with its launches counted and its capture read back.  Returns the
+    summary fields and the two kernels' report entries."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    from anomod_torch.ops import replay_kernels as rk
+    from anomod_torch.roofline import kernel_roofline
+
+    block, k = 4096, 128
+    args = [torch.from_numpy(a).to(dev) for a in rk.stage_sorted_planes(
+        sid_np, planes_np, SW, k=k, block=block)]
+    nwk = rk.n_window_cols(SW, k)
+    n_dead = int((sid_np == SW).sum())
+    errs = {mode: 0.0 for mode in rk.ABLATION_ROWS}
+    for reps in (1, 2):
+        full = rk.replay_sorted(*args, SW, H, k=k, block=block,
+                                inner_repeats=reps).cpu().numpy()
+        for mode, rows in rk.ABLATION_ROWS.items():
+            got = rk.replay_sorted_ablation(*args, SW, mode, k=k, block=block,
+                                            inner_repeats=reps)
+            torch.cuda.synchronize()
+            want = rk.replay_sorted_ablation_plain(
+                *args, SW, mode, k=k, block=block,
+                inner_repeats=reps).cpu().numpy()
+            got = got.cpu().numpy()
+            what = f"{mode} inner_repeats={reps}"
+            check(got.shape == (rows, nwk), f"{what}: shape {got.shape}")
+            check(np.isfinite(got).all(), f"{what}: non-finite output")
+            check((got[:3] == want[:3]).all(),
+                  f"{what}: count/exact rows differ from the plain version")
+            bad = ~np.isclose(got[3:], want[3:], rtol=RTOL_CARD, atol=ATOL)
+            check(not bad.any(), f"{what}: {int(bad.sum())} hi/lo entries "
+                  f"outside rtol={RTOL_CARD}, atol={ATOL}")
+            errs[mode] = max(errs[mode], float(np.abs(
+                got.astype(np.float64) - want).max()))
+            check((got[0, :SW] == full[:, 0]).all(),
+                  f"{what}: row 0 differs from the sorted kernel's counts")
+            check((got[:, SW:] == 0).all(),
+                  f"{what}: dead lane or padding columns not zero")
+            if mode == "counts":
+                check(float(got[0].astype(np.float64).sum())
+                      == n_real * reps, f"{what}: count row sums to "
+                      f"{float(got[0].astype(np.float64).sum())}, not "
+                      f"{n_real * reps}")
+            else:
+                check((got[:3, :SW].T == full[:, :3]).all(),
+                      f"{what}: exact rows differ from the sorted kernel")
+                bad = ~np.isclose(got[3:6, :SW].T + got[6:9, :SW].T,
+                                  full[:, 3:6], rtol=RTOL_CARD, atol=ATOL)
+                check(not bad.any(), f"{what}: hi + lo rows differ from the "
+                      f"sorted kernel's moments in {int(bad.sum())} entries")
+    log(f"[12] ablations counts, no_hist at inner_repeats 1, 2: count and "
+        f"exact rows equal to the plain versions and the sorted kernel, "
+        f"count row = {n_real} x repeats, dead lane and padding columns "
+        f"zero; max_abs_err {errs}")
+
+    times = {}
+    g_idx = rk.sorted_global_ids(args[0], args[2], k, block)
+    for mode, rows in rk.ABLATION_ROWS.items():
+        ms = cuda_ms(lambda: rk.replay_sorted_ablation(
+            *args, SW, mode, k=k, block=block))
+        plain_ms = cuda_ms(lambda: rk.replay_sorted_ablation_plain(
+            *args, SW, mode, k=k, block=block), iters=5)
+        pay = rk.ablation_payload(args[1], mode)
+        acc = torch.zeros((nwk, rows), device=dev)
+        lib_ms = cuda_ms(lambda: acc.index_add_(0, g_idx, pay))
+        # bytes: sid + the planes it reads (valid only for counts) a real
+        # span, the sid of each dead row, the [ROWS, NWK] output; ops: a
+        # bf16 rounding and an add a row, two more roundings and a
+        # subtraction a moment
+        in_bytes, ops = (8, 2) if mode == "counts" else (28, 9 + 9 + 3 * 3)
+        bnd, by = sketch_bound(n_real * in_bytes + n_dead * 4
+                               + rows * nwk * 4, n_real * ops,
+                               PEAK_F32_OPS_PER_S)
+        times[mode] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                           bound_ms=bnd, bound_by=by)
+        log(f"[12] {mode}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"index_add_ {lib_ms:.4f} ms, bound {bnd:.6f} ms ({by}; "
+            f"{n_real} real + {n_dead} dead rows) on {card}")
+
+    # -- the probe path, launches counted ---------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        rk.reset_launches()
+        t0 = time.perf_counter()
+        verdict = kernel_roofline(device=dev, outdir=tmp)
+        probe_s = time.perf_counter() - t0
+        launches = dict(rk.launches)
+        for name in ("replay_sorted", "replay_sorted_counts",
+                     "replay_sorted_no_hist"):
+            check(launches[name] > 0,
+                  f"kernel {name} was not launched on the probe path")
+        path = verdict["capture_file"]
+        check(path is not None and os.path.dirname(path) == tmp
+              and path.endswith("_replay_kernel_roofline_gpu.json"),
+              f"roofline capture at {path}")
+        with open(path) as f:
+            rec = json.load(f)
+    check(rec["device"] == kind and rec["params"]["device"] == kind,
+          f"capture device {rec['device']!r} != {kind!r}")
+    check(rec["torch_version"] == torch.__version__
+          and rec["cuda_version"] == torch.version.cuda,
+          "capture torch/cuda versions")
+    sha = rec["git_sha"]
+    check(isinstance(sha, str) and (
+        len(sha.split("-")[0]) == 40
+        or not (Path(__file__).resolve().parent / ".git").exists()),
+        f"capture git_sha {sha!r}")
+    rates = rec["rates"]
+    check(set(rates) == {"full", "onehot_only", "no_hist"}
+          and all(v > 0 for v in rates.values()) and rates == verdict["rates"],
+          f"capture rates {rates}")
+    check(rec["params"]["replicate"] == 4096
+          and rec["params"]["n_spans"] == n_real, f"capture params "
+          f"{rec['params']}")
+    log(f"[12] roofline probe ({probe_s:.3f} s, replicate 4096, L2-resident "
+        f"after the first pass): full {rates['full']:.6g}, onehot_only "
+        f"{rates['onehot_only']:.6g}, no_hist {rates['no_hist']:.6g} "
+        f"spans/s; onehot_ceiling_ratio {verdict['onehot_ceiling_ratio']}; "
+        f"walls {rec['params']['walls_s']} s; launches {launches}; capture "
+        f"read back (git_sha {sha!r}) on {card}")
+
+    kernels = [
+        {"name": f"replay_sorted_{mode}", "route": "cuda",
+         "source": "anomod_torch/csrc/replay.cu",
+         "replaces": "scripts/bench_kernel_roofline.py:73",
+         "launches": launches[f"replay_sorted_{mode}"],
+         "max_abs_err": errs[mode], **times[mode]}
+        for mode in rk.ABLATION_ROWS]
+    return {"kernels": kernels, "roofline_rates": rates,
+            "roofline_onehot_ceiling_ratio": verdict["onehot_ceiling_ratio"],
+            "roofline_walls_s": rec["params"]["walls_s"],
+            "roofline_probe_wall_s": probe_s, "roofline_times": times}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1006,8 +1151,8 @@ def main() -> int:
         f"dense-kernel share of the stream wall: {stream_launches} x "
         f"{chunk_ms:.4f} ms / {stream_s:.3f} s = "
         f"{stream_launches * chunk_ms / 1e3 / stream_s:.3g}")
-    for k, v in launches.items():
-        check(v > 0, f"kernel {k} was not launched on the main path")
+    for k in ("replay_dense", "replay_sorted"):
+        check(launches[k] > 0, f"kernel {k} was not launched on the main path")
 
     # the stream once more under the profiler: the device's busy time,
     # read from the trace, against the un-profiled wall above
@@ -1033,6 +1178,7 @@ def main() -> int:
 
     serve = serve_phases(dev, card)
     sketch = sketch_phases(dev, card, batch, cfg)
+    roof = roofline_phases(dev, card, kind, sid_np, planes_np, n_real, SW)
 
     # -- report -----------------------------------------------------------
     kernels = [
@@ -1050,14 +1196,14 @@ def main() -> int:
          "ms": sorted_ms, "plain_ms": sorted_plain_ms,
          "bound_ms": fold_bound, "bound_by": fold_by,
          "library_ms": sorted_lib_ms},
-    ] + serve.pop("kernels") + sketch.pop("kernels")
+    ] + serve.pop("kernels") + sketch.pop("kernels") + roof.pop("kernels")
     log(json.dumps({"replay_spans_per_sec": rates, "replicate": replicate,
                     "stream_top1": sum(hits) / len(hits),
                     "stream_chunk_ms": chunk_ms, "stream_wall_s": stream_s,
                     "stream_device_busy_ms": busy,
                     "stream_profiled_wall_s": prof_s,
                     "stream_device_busy_share": busy_share, **serve,
-                    **sketch,
+                    **sketch, **roof,
                     "wall_s": time.perf_counter() - t_all}))
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -6,8 +6,9 @@ suite's JAX-pinning conftest:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q -m cuda
 
-Tolerance: count / err / 5xx / histogram planes are small-integer f32 sums
-and must be EQUAL; the moment planes are f32 sums taken in another order
+Tolerance: count / err / 5xx / histogram planes (and the roofline
+ablations' count and exact rows) are small-integer f32 sums and must be
+EQUAL; the moment planes are f32 sums taken in another order
 (shared-memory atomics in the replay kernels, ``index_add_`` in the plain
 version on the card) and agree to ``rtol=1e-4, atol=1e-3`` at these
 sizes.  The lane-delta kernel sums in row order and must equal the plain
@@ -86,6 +87,41 @@ def test_sorted_kernel_matches_plain(cuda_device, sw):
     assert rk.launches["replay_sorted"] == before + 1
     _assert_planes(got, rk.replay_sorted_plain(*args, sw, H,
                                                inner_repeats=2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["counts", "no_hist"])
+def test_sorted_ablation_kernel_matches_plain(cuda_device, mode):
+    """The roofline probe's ablations: count and exact rows equal to the
+    plain version's, hi and lo rows within tolerance, every one of the NWK
+    columns kept; the count row sums to the live spans times the repeats
+    and its first SW columns equal the sorted kernel's count column."""
+    sw = 1440
+    sid, planes = _inputs(200_000, sw, seed=12)
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in rk.stage_sorted_planes(sid, planes, sw)]
+    full = rk.replay_sorted(*args, sw, H)
+    for reps in (1, 2):
+        before = rk.launches[f"replay_sorted_{mode}"]
+        got = rk.replay_sorted_ablation(*args, sw, mode, inner_repeats=reps)
+        torch.cuda.synchronize()
+        assert rk.launches[f"replay_sorted_{mode}"] == before + 1
+        want = rk.replay_sorted_ablation_plain(*args, sw, mode,
+                                               inner_repeats=reps)
+        got, want = got.cpu().numpy(), want.cpu().numpy()
+        assert got.shape == (rk.ABLATION_ROWS[mode], 1536)
+        np.testing.assert_array_equal(got[:3], want[:3])
+        np.testing.assert_allclose(got[3:], want[3:], rtol=1e-4, atol=1e-3)
+        assert float(got[0].astype(np.float64).sum()) == \
+            float(planes[0].sum()) * reps
+        if reps == 1:
+            np.testing.assert_array_equal(got[0, :sw],
+                                          full[:, 0].cpu().numpy())
+    z32 = torch.zeros(0, dtype=torch.int32, device=cuda_device)
+    zp = torch.zeros((6, 0), dtype=torch.float32, device=cuda_device)
+    out = rk.replay_sorted_ablation(z32, zp, z32, sw, mode)
+    assert out.shape == (rk.ABLATION_ROWS[mode], 1536)
+    assert bool((out == 0).all())
 
 
 def _lane_inputs(L, W, sw, seed):

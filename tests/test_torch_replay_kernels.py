@@ -117,7 +117,14 @@ def test_cpu_tensors_do_not_count_launches():
                                                    block=256)
     rk.replay_sorted(torch.from_numpy(sid_l), torch.from_numpy(planes_s),
                      torch.from_numpy(wids), 100, H, block=256)
-    assert rk.launches == {"replay_dense": 0, "replay_sorted": 0}
+    for mode in rk.ABLATION_ROWS:
+        rk.replay_sorted_ablation(torch.from_numpy(sid_l),
+                                  torch.from_numpy(planes_s),
+                                  torch.from_numpy(wids), 100, mode,
+                                  block=256)
+    assert rk.launches == {"replay_dense": 0, "replay_sorted": 0,
+                           "replay_sorted_counts": 0,
+                           "replay_sorted_no_hist": 0}
 
 
 def test_wrappers_validate_inputs():

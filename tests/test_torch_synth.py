@@ -67,11 +67,22 @@ def test_bench_corpus_matches_reference_concat():
 
 
 def test_port_imports_neither_jax_nor_anomod():
+    """Every module of ``anomod_torch`` (walked with ``pkgutil``; its
+    ``__main__`` only calls ``cli.main``) imports in a fresh process
+    without loading jax or any ``anomod`` module, and
+    no import statement of ``chip_smoke.py`` names either."""
+    import ast
     code = (
-        "import sys\n"
-        "import anomod_torch, anomod_torch.stream, anomod_torch.cli\n"
-        "import anomod_torch.ops.replay_kernels, anomod_torch.state\n"
-        "import anomod_torch.io.dataset\n"
+        "import pkgutil, sys\n"
+        "import anomod_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    anomod_torch.__path__, 'anomod_torch.')]\n"
+        "for name in names:\n"
+        "    if not name.endswith('.__main__'):   # runs the CLI\n"
+        "        __import__(name)\n"
+        "assert {'anomod_torch.provenance', 'anomod_torch.roofline',\n"
+        "        'anomod_torch.serve.engine',\n"
+        "        'anomod_torch.ops.sketch_kernels'} <= set(names), names\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m.startswith('jaxlib') or m == 'anomod' "
         "or m.startswith('anomod.'))\n"
@@ -80,3 +91,14 @@ def test_port_imports_neither_jax_nor_anomod():
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
+
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            roots.add(node.module.split(".")[0])
+    assert "anomod_torch" in roots
+    assert not roots & {"jax", "jaxlib", "anomod"}, sorted(roots)

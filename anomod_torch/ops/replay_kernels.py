@@ -11,9 +11,10 @@ roofline probe's ``make_ablation`` (scripts/bench_kernel_roofline.py:73):
 the sorted kernel with its payload cut to the count row (``counts``) or
 to the exact planes and the separate hi and lo moment rows (``no_hist``),
 returned raw as the TPU kernel's feature-major ``[ROWS, NWK]``.  The CUDA
-sources are in ``anomod_torch/csrc/replay.cu``; they are bound by the
-bytes they read (28 B per span) and by shared-memory atomics on hot
-segments.
+sources are in ``anomod_torch/csrc/replay.cu``.  Their bound is the bytes
+they read (28 B per span); the dense kernel adds a span at a time with
+shared-memory atomics, the sorted kernel (and its ablations) a warp's run
+of equal segment ids at a time.
 
 Beside each kernel is its plain PyTorch version (``*_plain``, an
 ``index_add_`` over the same rounded payload).  A wrapper takes the plain
@@ -264,6 +265,11 @@ def _check_sorted(sid_local, planes, wids, n_segments, k, block,
     _check("sid_local", sid_local, torch.int32, (t,))
     _check("planes", planes, torch.float32, (N_PLANES, t))
     _check("wids", wids, torch.int32, (t // block,))
+    # the kernels find a window's blocks by binary search in wids; on the
+    # card they assert the order themselves, so no call waits on a copy
+    if wids.device.type == "cpu" and bool((wids[1:] < wids[:-1]).any()):
+        raise ValueError("wids must be non-decreasing (stage_sorted_planes "
+                         "writes it so)")
 
 
 def replay_sorted(sid_local: torch.Tensor, planes: torch.Tensor,
@@ -274,7 +280,9 @@ def replay_sorted(sid_local: torch.Tensor, planes: torch.Tensor,
     (from :func:`stage_sorted_planes`) -> ``agg f32[SW, 6+H]``.
 
     Every ``block`` of spans lies in one aligned window of ``k`` segments
-    (window ``wids[b]``).  CPU tensors take :func:`replay_sorted_plain`."""
+    (window ``wids[b]``, non-decreasing in ``b``, as the staging writes
+    it: out of order, a ``ValueError`` on the host and a device-side
+    assert on the card).  CPU tensors take :func:`replay_sorted_plain`."""
     t = sid_local.shape[0]
     if n_hist < 1:
         raise ValueError("n_hist must be >= 1")
@@ -308,7 +316,8 @@ def replay_sorted_ablation(sid_local: torch.Tensor, planes: torch.Tensor,
     ``rows_mode`` is ``"counts"`` (ROWS = 1: ``bf16(valid)``) or
     ``"no_hist"`` (ROWS = 9: exact planes, moment hi rows, moment lo
     rows).  Every column is kept, the dead lane's column SW and the
-    padding after it included.  CPU tensors take
+    padding after it included.  ``wids`` is non-decreasing, as for
+    :func:`replay_sorted`.  CPU tensors take
     :func:`replay_sorted_ablation_plain`."""
     if rows_mode not in ABLATION_ROWS:
         raise ValueError(f"unknown ablation {rows_mode!r} (expected one of "

@@ -11,10 +11,13 @@ and ``window_gather`` replaces ``make_pallas_window_gather_fn``
 summed per (lane, segment, column) in row order, with ``hi + lo`` taken
 only at the end.  Its plain version is an ``index_add_`` over the same
 payload, which on the CPU adds in row order too, so on the CPU the port's
-lane deltas equal the JAX engine's bit for bit.  On the card the plain
-version's ``index_add_`` adds in no fixed order: the kernel is held
-against it with the exact planes equal and the moments within a stated
-tolerance, and against itself bit for bit.
+lane deltas equal the JAX engine's bit for bit.  The kernel sorts each
+lane's rows by segment with a stable counting sort and sums each
+(segment, column) in row order, so it equals the plain version run on
+the host bit for bit (``tests/test_torch_serve_kernels.py`` restates its
+order of operations in numpy).  On the card the plain version's
+``index_add_`` adds in no fixed order: the kernel is held against it with
+the exact planes equal and the moments within a stated tolerance.
 
 ``window_gather`` copies one window column per requested tenant out of
 the device state pool, ``[P, S*W, F]`` -> ``[T, S, F]``; its plain
@@ -45,6 +48,9 @@ launches: Dict[str, int] = {"lane_delta": 0, "window_gather": 0}
 
 #: shared-memory ceiling a lane-delta block may ask for (H100: 227 KB)
 SMEM_LIMIT = 200 * 1024
+#: fewest segments a lane-delta block owns: below this, blocks would redo
+#: the lane's counting sort for little fold work each
+MIN_SEGMENTS_PER_BLOCK = 32
 
 
 def reset_launches() -> None:
@@ -107,9 +113,10 @@ def _lib() -> ctypes.CDLL:
         from anomod_torch.ops._build import library
         lib = library("serve")
         vp, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.anomod_lane_delta.argtypes = [vp, vp, i32, i32, i32, i32, vp, vp]
+        lib.anomod_lane_delta.argtypes = [vp, vp, i32, i32, i32, i32, i32,
+                                          vp, vp]
         lib.anomod_lane_delta.restype = i32
-        lib.anomod_lane_delta_smem.argtypes = [i32]
+        lib.anomod_lane_delta_smem.argtypes = [i32, i32]
         lib.anomod_lane_delta_smem.restype = i32
         lib.anomod_window_gather.argtypes = [vp, i32, i32, i32, i32, vp, vp,
                                              i32, vp, vp]
@@ -126,6 +133,22 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
 
 
+def lane_segments_per_block(n_lanes: int, n_segments: int, n_sm: int,
+                            max_per_block: int) -> int:
+    """Segments each lane-delta block owns: a lane's ``SW`` segments are
+    split over ``G = ceil(SW / Sg)`` blocks so that ``L x G`` gives the
+    card's ``n_sm`` SMs two blocks each, with at least
+    :data:`MIN_SEGMENTS_PER_BLOCK` a block (or all SW) and at most
+    ``max_per_block`` (what shared memory holds).  The kernel's output
+    does not depend on the choice."""
+    if max_per_block < 1:
+        raise ValueError("not one segment's accumulator fits a lane-delta "
+                         "block's shared memory (n_hist too large)")
+    groups = max(1, -(-2 * n_sm // max(n_lanes, 1)))
+    per = max(-(-n_segments // groups), MIN_SEGMENTS_PER_BLOCK)
+    return max(1, min(per, n_segments, max_per_block))
+
+
 def lane_delta(sid: torch.Tensor, planes: torch.Tensor, n_segments: int,
                n_hist: int) -> torch.Tensor:
     """``sid int32[L, W]``, ``planes f32[L, 6, W]`` -> per-lane deltas
@@ -137,20 +160,23 @@ def lane_delta(sid: torch.Tensor, planes: torch.Tensor, n_segments: int,
     if sid.dim() != 2:
         raise ValueError(f"sid must be [L, W], got {tuple(sid.shape)}")
     L, W = sid.shape
-    if n_segments < 1 or n_hist < 1:
-        raise ValueError("n_segments and n_hist must be >= 1")
+    if n_segments < 1 or not 1 <= n_hist <= 65536:
+        raise ValueError("n_segments must be >= 1 and n_hist in [1, 65536]")
     _check("sid", sid, torch.int32, (L, W))
     _check("planes", planes, torch.float32, (L, N_PLANES, W))
     if not _on_cuda(sid, planes):
         return lane_delta_plain(sid, planes, n_segments, n_hist)
     lib = _lib()
-    if lib.anomod_lane_delta_smem(n_hist) > SMEM_LIMIT:
-        raise ValueError(f"n_hist={n_hist} needs more shared memory than a "
-                         "block has")
+    # the block's shared memory is linear in the segments it owns
+    one = lib.anomod_lane_delta_smem(1, n_hist)
+    per_seg = lib.anomod_lane_delta_smem(2, n_hist) - one
+    n_sm = torch.cuda.get_device_properties(sid.device).multi_processor_count
+    sg = lane_segments_per_block(L, n_segments, n_sm,
+                                 1 + (SMEM_LIMIT - one) // per_seg)
     out = torch.empty((L, n_segments, N_PLANES + n_hist),
                       dtype=torch.float32, device=sid.device)
     err = lib.anomod_lane_delta(_ptr(sid), _ptr(planes), L, W, n_segments,
-                                n_hist, _ptr(out), _stream(sid.device))
+                                n_hist, sg, _ptr(out), _stream(sid.device))
     _raise_on(err, "anomod_lane_delta")
     launches["lane_delta"] += 1
     return out

@@ -9,21 +9,26 @@ drives three paths:
 
 - replay (phases 2-5), at the TT deployment's full width (45 services x
   32 windows x 16 buckets): the bench corpus replay (13 labels x 2000
-  traces) through both replay kernels, and the online detector over all
+  traces) through both replay kernels (phase 3 also holds the sorted
+  kernel and its ablations at both ends of run length: every staged
+  block one segment, and run length 1), and the online detector over all
   13 TT labels (400 traces each, 3S = 135-row edge id space) through the
   dense kernel, checked against the same detector run with the plain
   version on the card;
 - serve (phases 6-8), at the serve bench's deployment (200 tenants, 12
   services x 32 windows of 5 s, 25,000 spans/s capacity at 2x overload,
-  60 virtual seconds in 0.5 s ticks, seed 7): the lane-delta and
-  window-gather kernels against their plain versions, then the serve
+  60 virtual seconds in 0.5 s ticks, seed 7): the lane-delta kernel
+  bit for bit against the host's plain version at every bucket width,
+  L = 1, 7, 32 and on adversarial lanes (one hot segment, two
+  alternating, all dead), the window-gather kernel against its plain
+  version, then the serve
   tick (admission, fused lane dispatch, device state pool, batched
   scoring), checked against the decision pins of the JAX package's
   captures (p99 22.998135 s, shed 0.437567, 158 alerts), against the
   same coalesced batches pushed through one-lane dispatches and against
   its depth-1, host-state and CPU twins, byte for byte; the unfused run
   is held to its CPU twin byte for byte and to the fused run's admission
-  and SLO fields;
+  and SLO fields; a profiled run gives each serve kernel's device time;
 - sketches (phases 9-11), on the replay's bench corpus at its full width
   (45 services x 32 windows, K = 64 centroids, HLL p = 8 per edge and
   p = 10 for the single sketch): the t-digest reduction and HLL update
@@ -40,7 +45,10 @@ drives three paths:
   written to a temporary directory and read back.
 
 Prints progress, the card's name and power limit, one ``{"kernels": ...}``
-JSON line and, last, ``{"ok": true, "device": ...}``.  Any failed phase
+JSON line and, last, ``{"ok": true, "device": ...}``.  Each entry of the
+kernels line also carries a second reading of the kernel's and its
+library call's times, taken with the card spinning before each call
+(``ms_spun``, ``library_ms_spun``; see ``cuda_ms``).  Any failed phase
 exits non-zero without the last line; so does a host without CUDA.
 """
 
@@ -122,13 +130,21 @@ def compare(name, got, want, rtol):
 
 
 _FLUSH = []
+#: clock cycles the card spins before each timed call (about 1 ms at the
+#: H100's 1.98 GHz boost clock)
+SPIN_CYCLES = 2_000_000
 
 
-def cuda_ms(fn, iters=20):
+def cuda_ms(fn, iters=20, spin=False):
     """Mean device time of ``fn`` in ms, by CUDA events around each of
     ``iters`` calls after two warm-up calls.  Before each timed call a
     write of four times the L2 size evicts the inputs, so every call
-    reads them from HBM, as a replay of fresh trace data would."""
+    reads them from HBM, as a replay of fresh trace data would.  With
+    ``spin`` the card then also spins about 1 ms (``torch.cuda._sleep``)
+    while the host queues the start event and ``fn``'s launches, so the
+    host's launch work (tens of microseconds in a wrapper) opens no idle
+    gap inside the timed window: a second reading, printed beside the
+    kernels line's times, which are taken without it."""
     import torch
     if not _FLUSH:
         l2 = getattr(torch.cuda.get_device_properties(0), "L2_cache_size",
@@ -139,6 +155,8 @@ def cuda_ms(fn, iters=20):
     pairs = []
     for _ in range(iters):
         _FLUSH[0].zero_()
+        if spin:
+            torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -147,6 +165,13 @@ def cuda_ms(fn, iters=20):
         pairs.append((start, end))
     torch.cuda.synchronize()
     return sum(s.elapsed_time(e) for s, e in pairs) / iters
+
+
+def spun(kernel, library) -> dict:
+    """The kernels line's second reading: ``kernel``'s and its library
+    call's ``cuda_ms`` with the spin."""
+    return {"ms_spun": cuda_ms(kernel, spin=True),
+            "library_ms_spun": cuda_ms(library, spin=True)}
 
 
 def bound(n_spans, n_out, n_dead=0):
@@ -160,6 +185,21 @@ def bound(n_spans, n_out, n_dead=0):
     t_ops = n_spans * (6 + H + OPS_PER_SPAN_EXTRA) / PEAK_F32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def kernel_device_ms(prof, names):
+    """Per name: the summed device time (ms) and the count of the
+    ``torch.profiler`` trace's kernels whose name holds it."""
+    from torch.autograd import DeviceType
+    out = {n: [0.0, 0] for n in names}
+    for e in prof.events():
+        if getattr(e, "device_type", None) != DeviceType.CUDA:
+            continue
+        for n in names:
+            if n in e.name:
+                out[n][0] += (e.time_range.end - e.time_range.start) / 1e3
+                out[n][1] += 1
+    return out
 
 
 def device_busy_ms(prof):
@@ -263,34 +303,86 @@ def serve_phases(dev, card) -> dict:
 
     log(f"[6] serve traffic: {n} spans over {cfg.n_windows} windows, "
         f"SW={SW}, H={H}")
+
+    def held(what, s, p):
+        """lane_delta on (s, p): two runs equal, equal to the host's
+        row-ordered plain version bit for bit, each lane equal to its
+        one-lane dispatch, and within tolerance of the card's plain
+        version.  Returns the max absolute error against the latter."""
+        L = s.shape[0]
+        got = sk.lane_delta(s, p, SW, H)
+        again = sk.lane_delta(s, p, SW, H)
+        torch.cuda.synchronize()
+        check(torch.equal(got, again), f"lane_delta {what}: two runs differ")
+        check(torch.equal(got.cpu(), sk.lane_delta_plain(
+            s.cpu(), p.cpu(), SW, H)),
+            f"lane_delta {what}: not bit-identical to the row-ordered "
+            "plain version on the host")
+        if L > 1:
+            for i in range(L):
+                one = sk.lane_delta(s[i:i + 1].contiguous(),
+                                    p[i:i + 1].contiguous(), SW, H)
+                check(torch.equal(one[0], got[i]),
+                      f"lane_delta {what}: lane {i} of {L} differs from its "
+                      "one-lane dispatch")
+        return got, compare(
+            f"lane_delta {what}", got.reshape(-1, 6 + H).cpu(),
+            sk.lane_delta_plain(s, p, SW, H).reshape(-1, 6 + H).cpu(),
+            RTOL_CARD)
+
     lane_err = 0.0
-    for W in (64, 256, 1024, 4096):
-        for L in (1, 32):
+    for W in (64, 256, 1024, 4096, 16384):
+        for L in (1, 7, 32):
             s, p = lanes(L, W)
-            got = sk.lane_delta(s, p, SW, H)
-            again = sk.lane_delta(s, p, SW, H)
-            torch.cuda.synchronize()
-            check(torch.equal(got, again),
-                  f"lane_delta W={W} L={L}: two runs differ")
-            check(torch.equal(got.cpu(), sk.lane_delta_plain(
-                s.cpu(), p.cpu(), SW, H)),
-                f"lane_delta W={W} L={L}: not bit-identical to the "
-                "row-ordered plain version on the host")
-            lane_err = max(lane_err, compare(
-                f"lane_delta W={W} L={L}", got.reshape(-1, 6 + H).cpu(),
-                sk.lane_delta_plain(s, p, SW, H).reshape(-1, 6 + H).cpu(),
-                RTOL_CARD))
+            got, err = held(f"W={W} L={L}", s, p)
+            lane_err = max(lane_err, err)
             if L > 1:
                 check(bool((got[L - 1] == 0).all()),
                       f"lane_delta W={W}: dead lane not zero")
-                for i in range(L):
-                    one = sk.lane_delta(s[i:i + 1].contiguous(),
-                                        p[i:i + 1].contiguous(), SW, H)
-                    check(torch.equal(one[0], got[i]),
-                          f"lane_delta W={W}: lane {i} of {L} differs "
-                          "from its one-lane dispatch")
     log("[6] lane_delta: deterministic, L-invariant, equal to the host's "
-        "row-ordered plain version at every width")
+        "row-ordered plain version at every width and L = 1, 7, 32")
+
+    def adversarial(kind, L, W):
+        """Serve lanes with their live rows all in one segment (``hot``),
+        alternating between two (``alternating``) or none (``dead``)."""
+        s, p = lanes(L, W)
+        live = s < SW
+        if kind == "hot":
+            s[live] = SW // 3
+        elif kind == "alternating":
+            alt = torch.where(torch.arange(W, device=dev) % 2 == 0, 5,
+                              SW - 2).to(torch.int32)
+            s = torch.where(live, alt[None], s)
+        else:
+            s[:] = SW
+            p[:] = 0.0
+        return s.contiguous(), p
+
+    for kind in ("hot", "alternating", "dead"):
+        for W in (4096, 16384):
+            for L in (1, 7, 32):
+                s, p = adversarial(kind, L, W)
+                got, err = held(f"{kind} W={W} L={L}", s, p)
+                lane_err = max(lane_err, err)
+                if kind == "dead":
+                    check(not bool(got.any()), f"lane_delta {kind} W={W} "
+                          f"L={L}: not all zero")
+    # [kernel, index_add_] ms on hot lanes and a spread one
+    adv_ms = {}
+    for kind, L, W in (("hot", 1, 16384), ("spread", 1, 16384),
+                       ("hot", 32, 4096)):
+        s, p = adversarial(kind, L, W) if kind != "spread" else lanes(L, W)
+        pay = sk.lane_payload(p, H).reshape(L * W, -1)
+        idx = (torch.arange(L, device=dev)[:, None] * (SW + 1)
+               + s.long()).reshape(-1)
+        acc = torch.zeros((L * (SW + 1), pay.shape[1]), device=dev)
+        adv_ms[f"{kind} W={W} L={L}"] = [
+            cuda_ms(lambda: sk.lane_delta(s, p, SW, H)),
+            cuda_ms(lambda: acc.index_add_(0, idx, pay))]
+    log(f"[6] lane_delta adversarial lanes (hot, alternating, dead at "
+        f"W = 4096, 16384 and L = 1, 7, 32): bit-identical to the host's "
+        f"plain version, across runs and per lane; [kernel, index_add_] ms "
+        f"{adv_ms} on {card}")
     s, p = lanes(32, 4096)
     lane_ms = cuda_ms(lambda: sk.lane_delta(s, p, SW, H))
     lane_plain_ms = cuda_ms(lambda: sk.lane_delta_plain(s, p, SW, H),
@@ -300,13 +392,15 @@ def serve_phases(dev, card) -> dict:
            + s.long()).reshape(-1)
     acc = torch.zeros((32 * (SW + 1), pay.shape[1]), device=dev)
     lane_lib_ms = cuda_ms(lambda: acc.index_add_(0, idx, pay))
+    lane_spun = spun(lambda: sk.lane_delta(s, p, SW, H),
+                     lambda: acc.index_add_(0, idx, pay))
     live = int((s < SW).sum())
     lane_bound, lane_by = bound(live, 32 * SW * (6 + H),
                                 n_dead=s.numel() - live)
     log(f"[6] lane_delta W=4096 L=32: kernel {lane_ms:.4f} ms, plain "
         f"{lane_plain_ms:.4f} ms, index_add_ {lane_lib_ms:.4f} ms, bound "
         f"{lane_bound:.6f} ms ({lane_by}; {live} live rows of "
-        f"{s.numel()}) on {card}")
+        f"{s.numel()}) on {card}; with the spin: {lane_spun}")
 
     # -- phase 7: window_gather vs advanced indexing ----------------------
     P, S, Wn = SERVE_KW["n_tenants"], cfg.n_services, cfg.n_windows
@@ -331,11 +425,14 @@ def serve_phases(dev, card) -> dict:
     si, sv, ci = (slots.long()[:, None], torch.arange(S, device=dev)[None],
                   wcols.long()[:, None])
     gather_lib_ms = cuda_ms(lambda: rows[si, sv, ci])
+    gather_spun = spun(lambda: sk.window_gather(pool, slots, wcols, S, Wn),
+                       lambda: rows[si, sv, ci])
     # a pure copy: T*S*F f32 read and written, plus the two index arrays
     gather_bound = (2 * 256 * S * 6 * 4 + 256 * 8) / PEAK_BYTES_PER_S * 1e3
     log(f"[7] window_gather T=256: kernel {gather_ms:.4f} ms, plain "
         f"{gather_plain_ms:.4f} ms, indexing {gather_lib_ms:.4f} ms, bound "
-        f"{gather_bound:.6f} ms (bytes) on {card}")
+        f"{gather_bound:.6f} ms (bytes) on {card}; with the spin: "
+        f"{gather_spun}")
 
     # -- phase 8: the serve path at the bench deployment ------------------
     sk.reset_launches()
@@ -443,10 +540,17 @@ def serve_phases(dev, card) -> dict:
             f"(call {time.perf_counter() - t0:.3f} s)")
 
     from torch.profiler import ProfilerActivity, profile
+    sk.reset_launches()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _, rep_prof = run_power_law(device=dev, **SERVE_KW)
         torch.cuda.synchronize()
     busy = device_busy_ms(prof)
+    per_kernel = kernel_device_ms(prof, ("lane_delta_kernel",
+                                         "window_gather_kernel"))
+    log(f"[8] serve trace by kernel (device ms, kernels in the trace): "
+        f"{per_kernel}; wrapper launches in the profiled run "
+        f"{dict(sk.launches)}; fused dispatches by lane bucket "
+        f"{rep_prof.lanes_by_bucket}")
     # the share is of the profiled run's own serve wall: walls of separate
     # runs differ by tens of percent on a shared host
     busy_share = (None if busy is None
@@ -460,17 +564,17 @@ def serve_phases(dev, card) -> dict:
     kernels = [
         {"name": "lane_delta", "route": "cuda",
          "source": "anomod_torch/csrc/serve.cu",
-         "replaces": "anomod/ops/pallas_replay.py:150",
+         "replaces": "anomod/ops/pallas_replay.py:150", "redesigned": "PR 5",
          "launches": launches["lane_delta"], "max_abs_err": lane_err,
          "ms": lane_ms, "plain_ms": lane_plain_ms, "bound_ms": lane_bound,
-         "bound_by": lane_by, "library_ms": lane_lib_ms},
+         "bound_by": lane_by, "library_ms": lane_lib_ms, **lane_spun},
         {"name": "window_gather", "route": "cuda",
          "source": "anomod_torch/csrc/serve.cu",
          "replaces": "anomod/ops/pallas_replay.py:354",
          "launches": launches["window_gather"], "max_abs_err": 0.0,
          "ms": gather_ms, "plain_ms": gather_plain_ms,
          "bound_ms": gather_bound, "bound_by": "bytes",
-         "library_ms": gather_lib_ms},
+         "library_ms": gather_lib_ms, **gather_spun},
     ]
     return {"kernels": kernels, "serve_spans_per_sec": spans_per_s,
             "serve_wall_s": rep.serve_wall_s,
@@ -482,8 +586,78 @@ def serve_phases(dev, card) -> dict:
                               "fold": rep.fold_wall_s,
                               "score": rep.score_wall_s},
             "serve_pins": got, "serve_device_busy_ms": busy,
+            "serve_kernel_device_ms": per_kernel,
+            "serve_lanes_by_bucket": rep_prof.lanes_by_bucket,
+            "lane_delta_adversarial_ms": adv_ms,
             "serve_profiled_wall_s": rep_prof.serve_wall_s,
             "serve_device_busy_share": busy_share}
+
+
+def sorted_ends(dev, card, SW, block) -> dict:
+    """Phase 3's two ends of the run-length distribution in sorted
+    staging: every staged block one segment, and every span of a warp
+    step a different segment of its window (run length 1).  The full
+    kernel and both ablations against their plain versions; returns their
+    times."""
+    import numpy as np
+    import torch
+    from anomod_torch.ops import replay_kernels as rk
+
+    end_ms = {}
+    rng = np.random.default_rng(3)
+    e_wids = np.repeat(np.array([0, 2, 5, 10], np.int32), 3)
+    T = e_wids.size * block
+    live = rng.random(T) < 0.95                   # padding rows: all zero
+    dur_us = rng.lognormal(8.0, 1.0, T).astype(np.float32)
+    e_planes = np.stack([np.ones(T), rng.random(T) < 0.2,
+                         rng.random(T) < 0.1, dur_us, np.log1p(dur_us),
+                         np.log1p(dur_us) ** 2]).astype(np.float32) * live
+    n_live = int(live.sum())
+    for what, e_sid in (
+            ("one segment a block",
+             np.repeat(rng.integers(0, 128, e_wids.size), block)),
+            ("run length 1", np.arange(T) % 128)):
+        e_args = [torch.from_numpy(a).to(dev) for a in (
+            e_sid.astype(np.int32), e_planes, e_wids)]
+        for reps in (1, 2):
+            full = rk.replay_sorted(*e_args, SW, H, block=block,
+                                    inner_repeats=reps)
+            compare(f"sorted {what} x{reps}", full.cpu(),
+                    rk.replay_sorted_plain(*e_args, SW, H, block=block,
+                                           inner_repeats=reps).cpu(),
+                    RTOL_CARD)
+            full = full.cpu().numpy()
+            check(float(full[:, 0].astype(np.float64).sum()) == n_live * reps,
+                  f"sorted {what}: count column != live spans x {reps}")
+            for mode, rows in rk.ABLATION_ROWS.items():
+                got = rk.replay_sorted_ablation(
+                    *e_args, SW, mode, block=block,
+                    inner_repeats=reps).cpu().numpy()
+                want = rk.replay_sorted_ablation_plain(
+                    *e_args, SW, mode, block=block,
+                    inner_repeats=reps).cpu().numpy()
+                check((got[:3] == want[:3]).all() and np.isclose(
+                    got[3:], want[3:], rtol=RTOL_CARD, atol=ATOL).all(),
+                    f"{mode} {what} x{reps}: differs from the plain version")
+                check(float(got[0].astype(np.float64).sum()) == n_live * reps,
+                      f"{mode} {what}: count row != live spans x {reps}")
+                if mode == "no_hist":
+                    check(np.isclose(got[3:6, :SW].T + got[6:9, :SW].T,
+                                     full[:, 3:6], rtol=RTOL_CARD,
+                                     atol=ATOL).all(),
+                          f"no_hist {what}: hi + lo != the sorted moments")
+        end_ms[what] = {
+            "full": cuda_ms(lambda: rk.replay_sorted(*e_args, SW, H,
+                                                     block=block)),
+            **{mode: cuda_ms(lambda: rk.replay_sorted_ablation(
+                *e_args, SW, mode, block=block))
+               for mode in rk.ABLATION_ROWS}}
+    log(f"[3] sorted staging's two ends ({T} staged rows, {n_live} live, "
+        f"windows {sorted(set(e_wids.tolist()))}): full, counts and no_hist "
+        f"equal to the plain versions (exact rows equal, moments within "
+        f"rtol={RTOL_CARD}), count rows = live x repeats; times {end_ms} "
+        f"ms on {card}")
+    return end_ms
 
 
 def hll_numpy(items, p, lane=None, n_lanes=1):
@@ -606,15 +780,18 @@ def sketch_phases(dev, card, batch, cfg) -> dict:
         lib_ms = cuda_ms(lambda: acc.index_add_(0, idx, pay))
         bnd, by = sketch_bound(R * L * 12 + R * K * 8,
                                2 * R * L + R * K * 17, PEAK_F32_OPS_PER_S)
-        digest_times[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                                  bound_ms=bnd, bound_by=by)
+        digest_times[name] = dict(
+            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd,
+            bound_by=by, **spun(lambda: sk.tdigest_reduce(bucket, ws, wv, K),
+                                lambda: acc.index_add_(0, idx, pay)))
         log(f"[9] tdigest_reduce {name} plane R={R} L={L} K={K} ({n_real} "
             f"real spans): launches bit-identical, weights equal, means "
             f"max_abs_err={err:.3g} max_rel_err={rel:.3g}; scale_pass bucket "
             f"rows card vs host differ in {int(flips.any(1).sum())} rows, "
             f"{int(flips.sum())} slots; kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, index_add_ {lib_ms:.4f} ms, bound "
-            f"{bnd:.6f} ms ({by}) on {card}")
+            f"{bnd:.6f} ms ({by}) on {card}; with the spin: "
+            f"{ {k: v for k, v in digest_times[name].items() if 'spun' in k} }")
     # a weighted merge: the service plane's even windows' digests with the
     # odd windows', one weighted rebuild per pair
     c, _, padded, weights, n_real = planes["service"]
@@ -699,11 +876,15 @@ def sketch_phases(dev, card, batch, cfg) -> dict:
         bnd, by = sketch_bound(n_live * (4 if ln is None else 8)
                                + n_dead * 4 + 2 * regs.numel() * 4,
                                n_live * HLL_OPS_PER_ITEM, PEAK_INT32_OPS_PER_S)
-        hll_times[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                               bound_ms=bnd, bound_by=by)
+        hll_times[name] = dict(
+            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd,
+            bound_by=by, **spun(lambda: sk.hll_update(regs, it, ln, p),
+                                lambda: flat.scatter_reduce_(
+                                    0, bucket, rank, reduce="amax")))
         log(f"[10] hll_update {name}: kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, scatter_reduce_ {lib_ms:.4f} ms, bound "
-            f"{bnd:.6f} ms ({by}) on {card}")
+            f"{bnd:.6f} ms ({by}) on {card}; with the spin: "
+            f"{ {k: v for k, v in hll_times[name].items() if 'spun' in k} }")
 
     # -- phase 11: the sketch path, launches counted -----------------------
     sk.reset_launches()
@@ -897,11 +1078,15 @@ def roofline_phases(dev, card, kind, sid_np, planes_np, n_real, SW) -> dict:
         bnd, by = sketch_bound(n_real * in_bytes + n_dead * 4
                                + rows * nwk * 4, n_real * ops,
                                PEAK_F32_OPS_PER_S)
-        times[mode] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                           bound_ms=bnd, bound_by=by)
+        times[mode] = dict(
+            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd,
+            bound_by=by, **spun(lambda: rk.replay_sorted_ablation(
+                *args, SW, mode, k=k, block=block),
+                lambda: acc.index_add_(0, g_idx, pay)))
         log(f"[12] {mode}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"index_add_ {lib_ms:.4f} ms, bound {bnd:.6f} ms ({by}; "
-            f"{n_real} real + {n_dead} dead rows) on {card}")
+            f"{n_real} real + {n_dead} dead rows) on {card}; with the spin: "
+            f"{ {k: v for k, v in times[mode].items() if 'spun' in k} }")
 
     # -- the probe path, launches counted ---------------------------------
     with tempfile.TemporaryDirectory() as tmp:
@@ -948,6 +1133,7 @@ def roofline_phases(dev, card, kind, sid_np, planes_np, n_real, SW) -> dict:
         {"name": f"replay_sorted_{mode}", "route": "cuda",
          "source": "anomod_torch/csrc/replay.cu",
          "replaces": "scripts/bench_kernel_roofline.py:73",
+         "redesigned": "PR 5",
          "launches": launches[f"replay_sorted_{mode}"],
          "max_abs_err": errs[mode], **times[mode]}
         for mode in rk.ABLATION_ROWS]
@@ -1046,12 +1232,14 @@ def main() -> int:
     acc = torch.zeros((SW + 1, 6 + H), device=dev)
     idx = sid.long()
     dense_lib_ms = cuda_ms(lambda: acc.index_add_(0, idx, payload))
+    dense_spun = spun(lambda: rk.replay_dense(sid, planes, SW, H),
+                      lambda: acc.index_add_(0, idx, payload))
     # both kernels compute the same fold of the same real spans: one bound
     fold_bound, fold_by = bound(n_real, SW * (6 + H))
     log(f"[2] dense SW=1440: max_abs_err={dense_err:.3g} "
         f"kernel {dense_ms:.4f} ms, plain {dense_plain_ms:.4f} ms, "
         f"index_add_ {dense_lib_ms:.4f} ms, bound {fold_bound:.6f} ms "
-        f"({fold_by}; {n_real} real spans)")
+        f"({fold_by}; {n_real} real spans); with the spin: {dense_spun}")
 
     # the stream's 3S id space: every span twice (node id + edge slot)
     scfg = ReplayConfig(n_services=batch.n_services, chunk_size=4096)
@@ -1102,10 +1290,18 @@ def main() -> int:
     s_payload = rk.replay_payload(s_args[1], H)
     s_acc = torch.zeros(((SW + 128) // 128 * 128, 6 + H), device=dev)
     sorted_lib_ms = cuda_ms(lambda: s_acc.index_add_(0, g_idx, s_payload))
+    sorted_spun = spun(lambda: rk.replay_sorted(*s_args, SW, H, block=block),
+                       lambda: s_acc.index_add_(0, g_idx, s_payload))
     log(f"[3] sorted: T={sid_l.shape[0]} staged, max_abs_err="
         f"{sorted_err:.3g} kernel {sorted_ms:.4f} ms, plain "
         f"{sorted_plain_ms:.4f} ms, index_add_ {sorted_lib_ms:.4f} ms, "
-        f"bound {fold_bound:.6f} ms")
+        f"bound {fold_bound:.6f} ms; with the spin: {sorted_spun}")
+    again = rk.replay_sorted(*s_args, SW, H, block=block, inner_repeats=2)
+    log(f"[3] sorted: two launches bit-identical: "
+        f"{bool(torch.equal(got, again))} (not required: run sums meet in "
+        f"shared-memory atomics)")
+
+    end_ms = sorted_ends(dev, card, SW, block)
 
     # -- the main path: phases 4 and 5, launches counted -------------------
     rk.reset_launches()
@@ -1188,21 +1384,22 @@ def main() -> int:
          "launches": launches["replay_dense"],
          "max_abs_err": max(dense_err, err_4320),
          "ms": dense_ms, "plain_ms": dense_plain_ms, "bound_ms": fold_bound,
-         "bound_by": fold_by, "library_ms": dense_lib_ms},
+         "bound_by": fold_by, "library_ms": dense_lib_ms, **dense_spun},
         {"name": "replay_sorted", "route": "cuda",
          "source": "anomod_torch/csrc/replay.cu",
-         "replaces": "anomod/ops/pallas_replay.py:257",
+         "replaces": "anomod/ops/pallas_replay.py:257", "redesigned": "PR 5",
          "launches": launches["replay_sorted"], "max_abs_err": sorted_err,
          "ms": sorted_ms, "plain_ms": sorted_plain_ms,
          "bound_ms": fold_bound, "bound_by": fold_by,
-         "library_ms": sorted_lib_ms},
+         "library_ms": sorted_lib_ms, **sorted_spun},
     ] + serve.pop("kernels") + sketch.pop("kernels") + roof.pop("kernels")
     log(json.dumps({"replay_spans_per_sec": rates, "replicate": replicate,
                     "stream_top1": sum(hits) / len(hits),
                     "stream_chunk_ms": chunk_ms, "stream_wall_s": stream_s,
                     "stream_device_busy_ms": busy,
                     "stream_profiled_wall_s": prof_s,
-                    "stream_device_busy_share": busy_share, **serve,
+                    "stream_device_busy_share": busy_share,
+                    "sorted_ends_ms": end_ms, **serve,
                     **sketch, **roof,
                     "wall_s": time.perf_counter() - t_all}))
     log(json.dumps({"kernels": kernels}))

@@ -11,8 +11,9 @@ ablations' count and exact rows) are small-integer f32 sums and must be
 EQUAL; the moment planes are f32 sums taken in another order
 (shared-memory atomics in the replay kernels, ``index_add_`` in the plain
 version on the card) and agree to ``rtol=1e-4, atol=1e-3`` at these
-sizes.  The lane-delta kernel sums in row order and must equal the plain
-version run on the host bit for bit; the window gather is a copy and
+sizes.  The lane-delta kernel sorts each lane's rows by segment (stably)
+and sums in row order, so it must equal the plain version run on the host
+bit for bit; the window gather is a copy and
 must equal its plain version bit for bit.  The t-digest reduction's
 weights (integer sums) must equal its plain version's and its means agree
 to ``rtol=1e-5``; HLL registers (integer maxima) must be equal.
@@ -136,7 +137,7 @@ def _lane_inputs(L, W, sw, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("width", [64, 4096])
+@pytest.mark.parametrize("width", [64, 4096, 16384])
 def test_lane_delta_kernel_matches_plain(cuda_device, width):
     """The lane kernel sums in row order: bit-identical to the CPU plain
     version (row-ordered index_add_), to itself across runs and lane
@@ -162,6 +163,138 @@ def test_lane_delta_kernel_matches_plain(cuda_device, width):
         assert torch.equal(one[0], got[lane])
     plain = sk.lane_delta_plain(s, p, sw, H)
     _assert_planes(got.reshape(-1, 6 + H), plain.reshape(-1, 6 + H))
+
+
+def _adversarial_lanes(kind, L, W, sw, seed):
+    """[L, W] lanes whose live rows all fall in one segment (``hot``),
+    alternate between two (``alternating``) or are none (``dead``), with
+    ragged dead tails on every other lane."""
+    sid, planes = _inputs(L * W, sw, seed)
+    sid = sid.reshape(L, W)
+    planes = planes.reshape(6, L, W).transpose(1, 0, 2).copy()
+    live = planes[:, 0] > 0
+    if kind == "hot":
+        sid[live] = sw // 3
+    elif kind == "alternating":
+        sid[:] = np.where(live, np.where(np.arange(W) % 2 == 0, 5, sw - 2),
+                          sw)
+    else:
+        sid[:] = sw
+    for lane in range(0, L, 2):
+        sid[lane, W - W // (lane + 2):] = sw
+    planes *= (sid < sw)[:, None, :]
+    return sid, planes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [1, 7, 32])
+@pytest.mark.parametrize("kind", ["hot", "alternating", "dead"])
+def test_lane_delta_kernel_adversarial_lanes(cuda_device, kind, L):
+    """Skewed lanes through the per-lane counting sort: bit-identical to
+    the host's plain version, across runs, and per lane against its
+    one-lane dispatch, at W = 4096 and the widest bucket, 16384."""
+    from anomod_torch.ops import serve_kernels as sk
+    sw = 384
+    for W in (4096, 16384):
+        sid, planes = _adversarial_lanes(kind, L, W, sw, seed=L + W)
+        s = torch.from_numpy(sid).to(cuda_device)
+        p = torch.from_numpy(planes).to(cuda_device)
+        got = sk.lane_delta(s, p, sw, H)
+        again = sk.lane_delta(s, p, sw, H)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        cpu = sk.lane_delta_plain(torch.from_numpy(sid),
+                                  torch.from_numpy(planes), sw, H)
+        assert torch.equal(got.cpu(), cpu)
+        for lane in range(L):
+            one = sk.lane_delta(s[lane:lane + 1].contiguous(),
+                                p[lane:lane + 1].contiguous(), sw, H)
+            assert torch.equal(one[0], got[lane])
+        if kind == "dead":
+            assert not bool(got.any())
+
+
+def _sorted_end(kind, sw, block=4096, k=128, seed=4):
+    """Sorted-staged inputs at one end of the run-length distribution:
+    every block one segment (``one segment``) or consecutive spans on
+    consecutive segments of the window (``run length 1``); about 5 % of
+    the rows are all-zero padding."""
+    rng = np.random.default_rng(seed)
+    wids = np.repeat(np.array([0, 2, 5, 10], np.int32), 3)
+    t = wids.size * block
+    if kind == "one segment":
+        sid_l = np.repeat(rng.integers(0, k, wids.size), block)
+    else:
+        sid_l = np.arange(t) % k
+    live = rng.random(t) < 0.95
+    dur_us = rng.lognormal(8.0, 1.0, t).astype(np.float32)
+    planes = np.stack([np.ones(t), rng.random(t) < 0.2, rng.random(t) < 0.1,
+                       dur_us, np.log1p(dur_us),
+                       np.log1p(dur_us) ** 2]).astype(np.float32) * live
+    assert int(wids.max()) * k + k <= sw
+    return sid_l.astype(np.int32), planes, wids, int(live.sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["full", "counts", "no_hist"])
+@pytest.mark.parametrize("kind", ["one segment", "run length 1"])
+def test_sorted_fold_run_length_ends(cuda_device, kind, mode):
+    """The run-aggregated sorted fold at both ends of run length: exact
+    rows equal to the plain version's, moments (hi and lo rows) within
+    rtol=1e-4, the count row summing to the live spans times the
+    repeats."""
+    sw = 1440
+    sid_l, planes, wids, n_live = _sorted_end(kind, sw)
+    args = [torch.from_numpy(a).to(cuda_device) for a in (sid_l, planes,
+                                                          wids)]
+    for reps in (1, 2):
+        if mode == "full":
+            got = rk.replay_sorted(*args, sw, H, inner_repeats=reps)
+            torch.cuda.synchronize()
+            _assert_planes(got, rk.replay_sorted_plain(*args, sw, H,
+                                                       inner_repeats=reps))
+            count = got[:, 0].cpu().numpy()
+        else:
+            got = rk.replay_sorted_ablation(*args, sw, mode,
+                                            inner_repeats=reps)
+            want = rk.replay_sorted_ablation_plain(*args, sw, mode,
+                                                   inner_repeats=reps)
+            got, want = got.cpu().numpy(), want.cpu().numpy()
+            np.testing.assert_array_equal(got[:3], want[:3])
+            np.testing.assert_allclose(got[3:], want[3:], rtol=1e-4,
+                                       atol=1e-3)
+            count = got[0]
+        assert float(count.astype(np.float64).sum()) == n_live * reps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["full", "counts"])
+def test_sorted_reductions_assert_wids_order(cuda_device, mode):
+    """On the card the sorted reductions check that ``wids`` is
+    non-decreasing themselves (a device-side assert, which ends the
+    process's CUDA context, hence a child process): ordered ``wids`` run,
+    reversed ones fail at the next sync."""
+    import subprocess
+    import sys
+    from pathlib import Path
+    call = ("rk.replay_sorted(s, p, w, 300, 16, block=256)" if mode == "full"
+            else "rk.replay_sorted_ablation(s, p, w, 300, 'counts', "
+                 "block=256)")
+    code = "\n".join([
+        "import torch",
+        "from anomod_torch.ops import replay_kernels as rk",
+        "s = torch.zeros(512, dtype=torch.int32, device='cuda')",
+        "p = torch.zeros((6, 512), device='cuda')",
+        "w = torch.tensor([0, 1], dtype=torch.int32, device='cuda')",
+        call, "torch.cuda.synchronize()", "print('ordered ok', flush=True)",
+        "w = w.flip(0).contiguous()", call, "torch.cuda.synchronize()",
+        "print('reversed ok', flush=True)"])
+    run = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=600,
+                         cwd=Path(__file__).resolve().parents[1])
+    assert "ordered ok" in run.stdout, run.stderr[-2000:]
+    assert run.returncode != 0 and "reversed ok" not in run.stdout
+    assert "assert" in run.stderr.lower(), run.stderr[-2000:]
 
 
 @pytest.mark.cuda

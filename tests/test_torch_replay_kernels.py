@@ -152,3 +152,29 @@ def test_cuda_without_gpu_raises():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         dead_chunk(ReplayConfig(n_services=3))
 
+
+
+@pytest.mark.parametrize("n,sw,seed", [(0, 1440, 0), (1, 1440, 1),
+                                       (5000, 600, 2), (60_000, 1440, 3),
+                                       (3000, 4320, 4)])
+def test_sorted_staging_writes_wids_non_decreasing(n, sw, seed):
+    """The sorted reductions find each window's staged blocks by binary
+    search, which needs the staging's ``wids`` non-decreasing."""
+    sid, planes = _inputs(n, sw, seed)
+    _, _, wids = rk.stage_sorted_planes(sid, planes, sw, k=128, block=256)
+    assert (np.diff(wids) >= 0).all()
+    if n == 0:
+        assert wids.size == 0
+
+
+def test_sorted_wrappers_reject_wids_out_of_order():
+    sid, planes = _inputs(3000, 600, 5)
+    staged = [torch.from_numpy(a) for a in rk.stage_sorted_planes(
+        sid, planes, 600, k=128, block=256)]
+    assert staged[2].numel() > 1 and staged[2][0] < staged[2][-1]
+    flipped = [*staged[:2], staged[2].flip(0).contiguous()]
+    with pytest.raises(ValueError, match="non-decreasing"):
+        rk.replay_sorted(*flipped, 600, H, block=256)
+    for mode in rk.ABLATION_ROWS:
+        with pytest.raises(ValueError, match="non-decreasing"):
+            rk.replay_sorted_ablation(*flipped, 600, mode, block=256)

@@ -19,13 +19,37 @@
 //
 // The TPU formulation (a [B, SW+1] one-hot contracted on the MXU) is the
 // wrong shape here: it does SW+1 multiply-adds per span where a scatter
-// does one.  On the card both kernels are scatter reductions into a
-// shared-memory accumulator; the bytes they must read are 28 B per span
-// (sid + 6 planes).  Only nonzero terms are added (x + 0.0f == x, so every
-// sum is unchanged).
+// does one.  On the card both kernels are scatter reductions; the bytes
+// they must read are 28 B per span (sid + 6 planes).  Only nonzero terms
+// are added (x + 0.0f == x, so every sum is unchanged).
 //
-// dense_fold takes spans in staging order, so its shared atomics land on
-// scattered rows.  sorted_fold takes the sorted staging, where a warp's
+// The dense kernel takes spans in staging order (in a warp's 32 spans of
+// the TT corpus, 13 segments on average).  The shared f32 atomicAdd is a
+// compare-and-swap loop on sm_90a (ATOMS.CAST.SPIN), so the count of its
+// atomics and their contention on hot rows, not the bytes, bound the
+// first design.  Two plans, picked by the wrapper by span count:
+// - owned slices (a stream chunk: 4096 spans, SW 4320): one launch, a
+//   block per slice of about SW / n_SM segments owning those rows of
+//   `out`.  Every block reads the whole chunk (115 KB, from L2 after the
+//   first block), zeroes its rows and adds the spans it owns into them
+//   with L2's native f32 reductions: a chunk touches a few hundred
+//   segments, so a block's spans crowd onto a row or two, where shared
+//   compare-and-swap loops contend.  The card is filled at any SW, the
+//   output is written once and nothing else is.
+// - clusters (a corpus pass: 491,520 spans, SW 1440): thread-block
+//   clusters of kCluster blocks, one block an SM, each folding its own
+//   contiguous range of spans into a whole [tile][F] accumulator in
+//   shared memory, a warp step's spans by segment group (the group's
+//   counts, and its moment sums gathered by shuffles; the histogram per
+//   (segment, bucket)): one atomic a group and column, and each row's
+//   count set from its histogram row.  The cluster then sums its members'
+//   accumulators over distributed shared memory, member by member, each
+//   block summing one kCluster-th of the rows, so one partial plane a
+//   cluster (2 MB for 16 clusters, not one plane a block) reaches global
+//   memory; dense_reduce sums those in cluster order (skipped when there
+//   is one cluster).
+// Both load kFoldUnroll spans a thread before adding any.
+// sorted_fold takes the sorted staging, where a warp's
 // 32 spans mostly share one segment: one shared atomic a span and column
 // would then serialize 32-way on one address, and that was most of the
 // kernel's time (PERF.md section 5).  So a warp first reduces each run of
@@ -53,20 +77,26 @@
 // range of the column's window (binary search in the non-decreasing wids),
 // in block order.
 //
-// Determinism: the cross-block reduction runs in fixed block order.  Inside
-// a block, f32 atomics add in arrival order (run sums and, in the dense
-// kernel, single spans), so the moment planes vary in the last bits from
-// run to run; the count / err / 5xx / histogram planes add small integers
-// and are exact in any order below 2^24.
+// Determinism: the cross-block reductions run in fixed order (cluster
+// members, then clusters; blocks in the sorted kernel).  Inside a block
+// (and in L2, for the owned slices), f32 atomics add in arrival order, so
+// the moment planes vary in the last bits from run to run; the count /
+// err / 5xx / histogram planes add small integers and are exact in any
+// order below 2^24.
 //
 // Interface: plain C, pointers and the stream as void*, loaded with ctypes
 // (anomod_torch/ops/replay_kernels.py).  Each entry returns cudaGetLastError().
 // The caller allocates `partials` and `out`; the kernels allocate nothing.
+// Global f32 atomics flush subnormal values to zero; no sum of trace
+// moments or counts comes near one.
 
 #include <cassert>
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -74,7 +104,10 @@ constexpr int kPlanes = 6;           // valid, err, 5xx, dur_raw, dur, dur^2
 // what the sorted kernel adds a span: the replay's payload, or one of the
 // roofline probe's two ablations of it
 enum Payload : int { kFull = 0, kCounts = 1, kNoHist = 2 };
-constexpr int kFoldThreads = 512;
+constexpr int kSliceThreads = 1024;    // dense, owned slices
+constexpr int kClusterThreads = 1024;  // dense, clusters: one block an SM
+constexpr int kCluster = 8;            // blocks a cluster (portable size)
+constexpr int kFoldUnroll = 4;         // spans a thread loads before adding
 constexpr int kSortedThreads = 1024;
 constexpr int kSortedWarps = kSortedThreads / 32;
 constexpr unsigned kAll = 0xffffffffu;
@@ -84,29 +117,131 @@ __device__ __forceinline__ float bf16_rn(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// Add span i's payload row into `row` (a [6+H] accumulator row in shared
-// memory).  `stride` is the plane stride of `planes` (its span count).
-__device__ __forceinline__ void fold_span(float* row, const float* planes,
-                                          long long stride, long long i,
-                                          int n_hist) {
-  const float valid = bf16_rn(planes[i]);
-  const float err = bf16_rn(planes[stride + i]);
-  const float s5 = bf16_rn(planes[2 * stride + i]);
-  if (valid != 0.f) atomicAdd(row + 0, valid);
-  if (err != 0.f) atomicAdd(row + 1, err);
-  if (s5 != 0.f) atomicAdd(row + 2, s5);
+// Row stride of the dense kernels' shared accumulator: F = 6 + H floats
+// padded to an odd count, so the scattered rows of a warp's spans fall on
+// all 32 banks (an even stride reaches only 16).
+__host__ __device__ constexpr int dense_stride(int n_hist) {
+  return (kPlanes + n_hist) | 1;
+}
+
+// One span a lane, folded by the warp into `acc` (rows of `stride`
+// floats, row s - lo for segment s).  `own`: the lane's span lies in this
+// block's segments [lo, ...); x: its six plane values.  The lanes of one
+// segment add as a group (__match_any_sync): its lowest lane adds the
+// group's count of unit (exactly 1) err / 5xx values and its moment sums,
+// gathered from the peers in lane order by shuffles; the histogram adds
+// per (segment, bucket), a unit group's count at once.  Values other
+// than 0 and 1 in the exact planes add lane by lane.  So a warp step
+// issues a shared f32 atomic (a compare-and-swap loop on this card) per
+// group and column, not per span and column.  The count column is not
+// added: finish_counts sets it from the histogram row.  Every lane calls
+// it.
+__device__ __forceinline__ void fold_groups(float* acc, int stride, int lo,
+                                            int s, bool own,
+                                            const float (&x)[kPlanes],
+                                            int n_hist, int lane) {
+  const float valid = own ? bf16_rn(x[0]) : 0.f;
+  const float err = own ? bf16_rn(x[1]) : 0.f;
+  const float s5 = own ? bf16_rn(x[2]) : 0.f;
+  float m[3], sum[3];
 #pragma unroll
-  for (int m = 0; m < 3; ++m) {
-    const float x = planes[(3 + m) * stride + i];
-    const float hi = bf16_rn(x);
-    const float v = hi + bf16_rn(x - hi);
-    if (v != 0.f) atomicAdd(row + 3 + m, v);
+  for (int i = 0; i < 3; ++i) {
+    const float hi = bf16_rn(x[3 + i]);
+    m[i] = own ? hi + bf16_rn(x[3 + i] - hi) : 0.f;
+    sum[i] = m[i];
   }
-  if (valid != 0.f) {
-    // truncation toward zero, as astype(int32); saturates, NaN -> 0
-    int b = __float2int_rz(planes[4 * stride + i]);
-    b = min(max(b, 0), n_hist - 1);
+  const unsigned peers = __match_any_sync(kAll, own ? s : -1 - lane);
+  const bool lead = own && (peers & ((1u << lane) - 1u)) == 0;
+  const int rounds = __reduce_max_sync(kAll, own ? __popc(peers) - 1 : 0);
+  unsigned rest = peers & (peers - 1u);      // a leader's peers above it
+  for (int r = 0; r < rounds; ++r) {
+    const int src = rest ? __ffs(rest) - 1 : lane;
+    rest &= rest - 1u;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const float y = __shfl_sync(kAll, m[i], src);
+      if (src != lane) sum[i] += y;
+    }
+  }
+  const unsigned eu = __ballot_sync(kAll, err == 1.f);
+  const unsigned su = __ballot_sync(kAll, s5 == 1.f);
+  float* row = acc + (own ? s - lo : 0) * stride;
+  if (lead) {
+    const unsigned c1 = __popc(peers & eu), c2 = __popc(peers & su);
+    if (c1) atomicAdd(row + 1, (float)c1);
+    if (c2) atomicAdd(row + 2, (float)c2);
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+      if (sum[i] != 0.f) atomicAdd(row + 3 + i, sum[i]);
+  }
+  if (err != 0.f && err != 1.f) atomicAdd(row + 1, err);
+  if (s5 != 0.f && s5 != 1.f) atomicAdd(row + 2, s5);
+  // truncation toward zero, as astype(int32); saturates, NaN -> 0
+  const int b = min(max(__float2int_rz(x[4]), 0), n_hist - 1);
+  const bool adds = valid != 0.f;
+  const bool unit = valid == 1.f;
+  const int key = adds ? (unit ? s * n_hist + b : -2 - lane) : -1;
+  const unsigned hp = __match_any_sync(kAll, key);
+  if (adds && !unit)
     atomicAdd(row + kPlanes + b, valid);
+  else if (adds && (hp & ((1u << lane) - 1u)) == 0)
+    atomicAdd(row + kPlanes + b, (float)__popc(hp));
+}
+
+// The cluster fold's span loop: fold the spans [i0, i1) whose segment
+// lies in [lo, hi) into `acc` (rows of `stride` floats in shared memory),
+// `inner_repeats` times.  Warp w takes spans i0 + 32w + lane + k*T (T
+// threads a block), kFoldUnroll of them a lane at a time: it loads their
+// ids, then the planes of the spans it owns (a second round trip: an L2
+// prefetch of those lines cost more than it saved), then folds them by
+// segment group (fold_groups).
+// `n` is the planes' span count (their stride).
+__device__ __forceinline__ void fold_range(float* acc, int stride,
+                                           const int* __restrict__ sid,
+                                           const float* __restrict__ planes,
+                                           long long n, long long i0,
+                                           long long i1, int lo, int hi,
+                                           int n_hist, int inner_repeats) {
+  const int lane = threadIdx.x & 31;
+  for (int r = 0; r < inner_repeats; ++r) {
+    for (long long wb = i0 + (threadIdx.x & ~31); wb < i1;
+         wb += (long long)kFoldUnroll * kClusterThreads) {
+      int s[kFoldUnroll];
+      float x[kFoldUnroll][kPlanes];
+#pragma unroll
+      for (int u = 0; u < kFoldUnroll; ++u) {
+        const long long i = wb + lane + (long long)u * kClusterThreads;
+        s[u] = i < i1 ? sid[i] : -1;
+      }
+#pragma unroll
+      for (int u = 0; u < kFoldUnroll; ++u) {
+        const long long i = wb + lane + (long long)u * kClusterThreads;
+        const bool own = s[u] >= lo && s[u] < hi;
+#pragma unroll
+        for (int c = 0; c < kPlanes; ++c)
+          x[u][c] = own ? planes[c * n + i] : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < kFoldUnroll; ++u) {
+        const bool own = s[u] >= lo && s[u] < hi;
+        if (__any_sync(kAll, own))
+          fold_groups(acc, stride, lo, s[u], own, x[u], n_hist, lane);
+      }
+    }
+  }
+}
+
+// After the fold (and a block barrier): each row's count column is the
+// sum of its histogram row, in bucket order.  Every span with a nonzero
+// bf16(valid) adds it to exactly one bucket, so this is the count: exact
+// for integer counts (below 2^24), as summing them span by span would be.
+__device__ __forceinline__ void finish_counts(float* acc, int stride,
+                                              int rows, int n_hist) {
+  for (int r = threadIdx.x; r < rows; r += blockDim.x) {
+    float* row = acc + r * stride;
+    float c = row[kPlanes];
+    for (int b = 1; b < n_hist; ++b) c += row[kPlanes + b];
+    row[0] = c;
   }
 }
 
@@ -187,46 +322,157 @@ __device__ __forceinline__ void fold_step(float* row, const float* planes,
   }
 }
 
-// Dense pass 1.  Grid (n_parts, n_tiles): block (x, y) folds the spans
-// x, x + n_parts*blockDim, ... whose segment lies in tile y, columns
-// [y*tile_w, min(SW, (y+1)*tile_w)), into shared memory, then writes its
-// tile of partials[x][SW][F].  Tiling the segment axis keeps the
-// accumulator inside one block's shared memory at any SW.
-__global__ void dense_fold(const int* __restrict__ sid,
-                           const float* __restrict__ planes, long long n,
-                           int n_segments, int n_hist, int tile_w,
-                           int inner_repeats, float* __restrict__ partials) {
-  extern __shared__ float acc[];
+// One span's payload into `row` (its segment's row of `out`) with native
+// f32 reductions in L2 (RED.ADD.F32, fire and forget), a nonzero column
+// at a time.
+__device__ __forceinline__ void red_span(float* row, const float (&x)[kPlanes],
+                                         int n_hist) {
+  const float valid = bf16_rn(x[0]);
+  const float err = bf16_rn(x[1]);
+  const float s5 = bf16_rn(x[2]);
+  if (valid != 0.f) atomicAdd(row + 0, valid);
+  if (err != 0.f) atomicAdd(row + 1, err);
+  if (s5 != 0.f) atomicAdd(row + 2, s5);
+#pragma unroll
+  for (int m = 0; m < 3; ++m) {
+    const float hi = bf16_rn(x[3 + m]);
+    const float v = hi + bf16_rn(x[3 + m] - hi);
+    if (v != 0.f) atomicAdd(row + 3 + m, v);
+  }
+  if (valid != 0.f) {
+    // truncation toward zero, as astype(int32); saturates, NaN -> 0
+    const int b = min(max(__float2int_rz(x[4]), 0), n_hist - 1);
+    atomicAdd(row + kPlanes + b, valid);
+  }
+}
+
+// Dense, owned slices: block b owns segments [b*tile_w, min(SW,
+// (b+1)*tile_w)) and, alone, their rows of out[SW][F].  It zeroes them,
+// then adds every span it owns into them with native f32 reductions in
+// L2 (red_span): a stream chunk's 4096 spans touch a few hundred
+// segments, so a block's spans crowd onto one or two rows, where shared
+// compare-and-swap loops contend and L2's reductions do not stall the
+// warp (grouping a warp's spans by segment first cost more than it
+// saved).  One launch, nothing but `out` written.  Every block reads
+// every span (ids and planes in one round trip, from L2 after the first
+// block), the first batch before it zeroes its rows.  The block barrier
+// orders its zero stores before its reductions to the same addresses (no
+// other block touches them), so no gpu-scope fence is needed.
+__global__ void __launch_bounds__(kSliceThreads)
+dense_slice_fold(const int* __restrict__ sid, const float* __restrict__ planes,
+                 long long n, int n_segments, int n_hist, int tile_w,
+                 int inner_repeats, float* __restrict__ out) {
   const int F = kPlanes + n_hist;
+  const int lo = blockIdx.x * tile_w;
+  const int hi = min(n_segments, lo + tile_w);
+  float* dst = out + (long long)lo * F;
+  bool zeroed = false;
+  for (int r = 0; r < inner_repeats; ++r) {
+    for (long long base = threadIdx.x; base < n || !zeroed;
+         base += (long long)kFoldUnroll * kSliceThreads) {
+      int s[kFoldUnroll];
+      float x[kFoldUnroll][kPlanes];
+#pragma unroll
+      for (int u = 0; u < kFoldUnroll; ++u) {
+        const long long i = base + (long long)u * kSliceThreads;
+        s[u] = i < n ? sid[i] : -1;
+#pragma unroll
+        for (int c = 0; c < kPlanes; ++c)
+          x[u][c] = i < n ? planes[c * n + i] : 0.f;
+      }
+      if (!zeroed) {                     // every thread, once
+        for (int j = threadIdx.x; j < (hi - lo) * F; j += blockDim.x)
+          dst[j] = 0.f;
+        __syncthreads();
+        zeroed = true;
+      }
+#pragma unroll
+      for (int u = 0; u < kFoldUnroll; ++u)
+        if (s[u] >= lo && s[u] < hi)
+          red_span(dst + (long long)(s[u] - lo) * F, x[u], n_hist);
+    }
+  }
+}
+
+// Dense, clusters.  Grid (n_parts, n_tiles), clusters of kCluster blocks
+// along x.  Block (x, y) folds the spans [x*per_part, (x+1)*per_part)
+// whose segment lies in tile y, segments [y*tile_w, min(SW,
+// (y+1)*tile_w)), into shared memory.  Then block `rank` of each cluster
+// sums its kCluster-th of the tile's [rows][F] outputs over the C
+// members' accumulators in member order (distributed shared memory) and
+// stores them in dst[x / C][SW][F]: `out` itself when there is one
+// cluster along x, else the partials dense_reduce sums.
+__global__ void __launch_bounds__(kClusterThreads, 1)
+dense_cluster_fold(const int* __restrict__ sid,
+                   const float* __restrict__ planes, long long n,
+                   int n_segments, int n_hist, int tile_w, long long per_part,
+                   int inner_repeats, float* __restrict__ dst) {
+  extern __shared__ float acc[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int F = kPlanes + n_hist;
+  const int stride = dense_stride(n_hist);
   const int lo = blockIdx.y * tile_w;
   const int hi = min(n_segments, lo + tile_w);
   const int len = (hi - lo) * F;
-  for (int j = threadIdx.x; j < len; j += blockDim.x) acc[j] = 0.f;
+  const int rank = (int)cluster.block_rank();
+  const int j0 = (int)((long long)len * rank / kCluster);
+  const int j1 = (int)((long long)len * (rank + 1) / kCluster);
+  const long long i0 = min(n, (long long)blockIdx.x * per_part);
+  const long long i1 = min(n, i0 + per_part);
+  float* o = dst + ((long long)(blockIdx.x / kCluster) * n_segments + lo) * F;
+  for (int j = threadIdx.x; j < (hi - lo) * stride; j += blockDim.x)
+    acc[j] = 0.f;
   __syncthreads();
-  const long long step = (long long)gridDim.x * blockDim.x;
-  const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  // inner_repeats replays the same spans again: the port of the TPU
-  // kernel's outer grid axis
-  for (int r = 0; r < inner_repeats; ++r) {
-    for (long long i = first; i < n; i += step) {
-      const int s = sid[i];
-      if (s >= lo && s < hi) fold_span(acc + (s - lo) * F, planes, n, i, n_hist);
-    }
+  fold_range(acc, stride, sid, planes, n, i0, i1, lo, hi, n_hist,
+             inner_repeats);
+  __syncthreads();
+  finish_counts(acc, stride, hi - lo, n_hist);
+  cluster.sync();
+  const float* part[kCluster];
+#pragma unroll
+  for (int q = 0; q < kCluster; ++q) part[q] = cluster.map_shared_rank(acc, q);
+  for (int j = j0 + threadIdx.x; j < j1; j += blockDim.x) {
+    const int at = j / F * stride + j % F;
+    float x[kCluster];
+#pragma unroll
+    for (int q = 0; q < kCluster; ++q) x[q] = part[q][at];
+    float v = x[0];
+#pragma unroll
+    for (int q = 1; q < kCluster; ++q) v += x[q];
+    o[j] = v;
   }
-  __syncthreads();
-  float* dst = partials + ((long long)blockIdx.x * n_segments + lo) * F;
-  for (int j = threadIdx.x; j < len; j += blockDim.x) dst[j] = acc[j];
+  cluster.sync();  // no member leaves while its accumulator is read
 }
 
-// Dense pass 2: out[j] = sum over parts b = 0, 1, ... of partials[b][j],
-// always in that order.
-__global__ void reduce_parts(const float* __restrict__ partials, int n_parts,
+// Dense, clusters, pass 2: out[j] = sum over clusters g = 0, 1, ... of
+// partials[g][j], always in that order; four floats a thread where the
+// plane's length allows (it does for every H the port runs: 22 columns).
+__global__ void dense_reduce(const float* __restrict__ partials, int n_groups,
                              long long len, float* __restrict__ out) {
   const long long step = (long long)gridDim.x * blockDim.x;
-  for (long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       j < len; j += step) {
-    float s = 0.f;
-    for (int b = 0; b < n_parts; ++b) s += partials[b * len + j];
+  const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (len % 4 == 0) {
+    const float4* p4 = reinterpret_cast<const float4*>(partials);
+    float4* o4 = reinterpret_cast<float4*>(out);
+    const long long len4 = len / 4;
+    for (long long j = first; j < len4; j += step) {
+      float4 s = p4[j];
+#pragma unroll 8
+      for (int g = 1; g < n_groups; ++g) {
+        const float4 y = p4[g * len4 + j];
+        s.x += y.x;
+        s.y += y.y;
+        s.z += y.z;
+        s.w += y.w;
+      }
+      o4[j] = s;
+    }
+    return;
+  }
+  for (long long j = first; j < len; j += step) {
+    float s = partials[j];
+#pragma unroll 8
+    for (int g = 1; g < n_groups; ++g) s += partials[g * len + j];
     out[j] = s;
   }
 }
@@ -350,6 +596,41 @@ __global__ void sorted_reduce_raw(const float* __restrict__ partials,
   }
 }
 
+// Raise `fn`'s dynamic shared-memory limit to at least `smem` bytes on the
+// current device, once: later calls that need no more set nothing.
+cudaError_t ensure_smem(const void* fn, int slot, int smem) {
+  constexpr int kDevices = 64, kSlots = 8;
+  static int limit[kDevices][kSlots];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < kDevices && limit[dev][slot] >= smem) return cudaSuccess;
+  e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem);
+  if (e == cudaSuccess && dev < kDevices) limit[dev][slot] = smem;
+  return e;
+}
+
+// Slots of ensure_smem, one a kernel.
+enum SmemSlot : int { kSlotCluster = 0, kSlotSorted = 1 };
+
+// The cluster fold's launch configuration; `attr` must outlive it.
+cudaLaunchConfig_t cluster_config(dim3 grid, int smem, cudaStream_t st,
+                                  cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kClusterThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = kCluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
 int reduce_blocks(long long len) {
   long long b = (len + kReduceThreads - 1) / kReduceThreads;
   if (b < 1) b = 1;
@@ -365,8 +646,8 @@ cudaError_t launch_sorted_fold(const void* sid_local, const void* planes,
                                cudaStream_t st) {
   if (n_blocks <= 0) return cudaSuccess;
   const int smem = k * payload_rows(P, n_hist) * (int)sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      sorted_fold<P>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t e = ensure_smem((const void*)sorted_fold<P>, kSlotSorted + P,
+                              smem);
   if (e != cudaSuccess) return e;
   sorted_fold<P><<<n_blocks, kSortedThreads, smem, st>>>(
       static_cast<const int*>(sid_local), static_cast<const float*>(planes),
@@ -380,26 +661,56 @@ extern "C" const char* anomod_cuda_error_string(int e) {
   return cudaGetErrorString(static_cast<cudaError_t>(e));
 }
 
+// The most clusters of the dense cluster fold that fit on the card at
+// once with `smem` bytes of shared memory a block, into *n.
+extern "C" int anomod_dense_cluster_capacity(int smem, int* n) {
+  const void* fn = (const void*)dense_cluster_fold;
+  cudaError_t e = ensure_smem(fn, kSlotCluster, smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = cluster_config(dim3(kCluster), smem, 0, &attr);
+  return (int)cudaOccupancyMaxActiveClusters(n, fn, &cfg);
+}
+
+// The dense fold.  clustered = 0: owned slices, n_tiles blocks of tile_w
+// segments (n_parts unused).  clustered = 1: grid (n_parts, n_tiles),
+// n_parts a multiple of kCluster; with n_parts > kCluster, partials holds
+// (n_parts / kCluster) * n_segments * (6 + n_hist) floats.
 extern "C" int anomod_replay_dense(const void* sid, const void* planes,
                                    long long n, int n_segments, int n_hist,
-                                   int inner_repeats, int n_parts, int n_tiles,
-                                   int tile_w, void* partials, void* out,
-                                   void* stream) {
+                                   int inner_repeats, int clustered,
+                                   int n_parts, int n_tiles, int tile_w,
+                                   void* partials, void* out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int F = kPlanes + n_hist;
-  const int smem = tile_w * F * (int)sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      dense_fold, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int smem = tile_w * dense_stride(n_hist) * (int)sizeof(float);
+  const int* s = static_cast<const int*>(sid);
+  const float* p = static_cast<const float*>(planes);
+  float* o = static_cast<float*>(out);
+  if (!clustered) {
+    dense_slice_fold<<<n_tiles, kSliceThreads, 0, st>>>(
+        s, p, n, n_segments, n_hist, tile_w, inner_repeats, o);
+    return (int)cudaGetLastError();
+  }
+  if (n_parts < kCluster || n_parts % kCluster) return (int)cudaErrorInvalidValue;
+  const int n_groups = n_parts / kCluster;
+  float* dst = n_groups > 1 ? static_cast<float*>(partials) : o;
+  const long long per_part = (n + n_parts - 1) / n_parts;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = cluster_config(dim3(n_parts, n_tiles), smem, st,
+                                          &attr);
+  cudaError_t e = ensure_smem((const void*)dense_cluster_fold, kSlotCluster,
+                              smem);
+  if (e == cudaSuccess)
+    e = cudaLaunchKernelEx(&cfg, dense_cluster_fold, s, p, n, n_segments,
+                           n_hist, tile_w, per_part, inner_repeats, dst);
   if (e != cudaSuccess) return (int)e;
-  dense_fold<<<dim3(n_parts, n_tiles), kFoldThreads, smem, st>>>(
-      static_cast<const int*>(sid), static_cast<const float*>(planes), n,
-      n_segments, n_hist, tile_w, inner_repeats, static_cast<float*>(partials));
   e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
+  if (e != cudaSuccess || n_groups == 1) return (int)e;
   const long long len = (long long)n_segments * F;
-  reduce_parts<<<reduce_blocks(len), kReduceThreads, 0, st>>>(
-      static_cast<const float*>(partials), n_parts, len,
-      static_cast<float*>(out));
+  dense_reduce<<<reduce_blocks(len % 4 ? len : len / 4), kReduceThreads, 0,
+                 st>>>(
+      static_cast<const float*>(partials), n_groups, len, o);
   return (int)cudaGetLastError();
 }
 

@@ -13,18 +13,27 @@
 // [L, 2] (w, wv) plane on the MXU at Precision.HIGHEST; here it is a
 // scatter reduction in f32 on the CUDA cores (no TF32, no tensor cores).
 //
-// Design: one block per lane, 8 warps.  Warp q walks its own contiguous
-// slice of the lane in 32-slot chunks (coalesced loads).  In a chunk the
-// lanes that share a bucket find each other with __match_any_sync; the
-// lowest of them adds the group's (w, wv) into the warp's own [K][2]
-// partial in shared memory, one slot at a time in lane order.  No float
-// atomics: each partial is written by one thread at a time in a fixed
-// order, and the block sums the 8 partials in warp order, so two launches
-// on the same input give the same bits.  What bounds it is bytes (12 B a
-// slot read, 8 B a centroid written); after the scale pass a bucket row
-// is non-decreasing, so a chunk holds few groups and the leader's serial
-// walk is the latency to beat in a later, run-length design.  Nothing here
-// depends on the rows being sorted.
+// Design: one block of kTdWarps warps per digest lane.  What bounds it is
+// bytes (12 B a slot read, 8 B a centroid written), so the lane's
+// 128-slot steps are cut into kTdWarps contiguous ranges, one a warp, and
+// a warp loads 4 consecutive slots of each plane a thread (one 16-byte
+// load each where L % 4 == 0), the next step's while it folds this one.
+// A step folds as four sub-steps: sub-step u takes slot 4t + u of lane t,
+// a 32-slot sequence that is non-decreasing wherever the row is.  In a
+// sub-step each run of equal in-range buckets over consecutive lanes sums
+// (w, wv) by a segmented shuffle scan (Hillis-Steele: the run's sum lands
+// on its tail lane in a fixed tree order; the four sub-steps' scans run
+// interleaved), and the tails add into the warp's [K][2] partial in
+// shared memory in sub-step order, then lane order (tails of one bucket,
+// which only rows not sorted give, in rounds of their rank among that
+// bucket's tails).  The block then sums its warps' partials in warp
+// order.  No float atomics and a fixed order everywhere, so two launches
+// on the same input give the same bits, and tests/torch_tdigest_order.py
+// restates the order in numpy, bit for bit.  A step whose slots add
+// nothing (weights and products all zero, or buckets outside [0, K): the
+// padding of a lane) is skipped, which changes no bit (x + 0 == x for
+// every partial sum, none of which is -0).  Nothing here depends on the
+// rows being sorted.
 //
 // hll_update.  items[N] int32 (read as uint32) and an optional lane[N]
 // int32 update regs[L][2^p] int32 in place: h = fmix32(item), bucket = the
@@ -49,72 +58,144 @@
 
 namespace {
 
-constexpr int kTdThreads = 256;
-constexpr int kTdWarps = kTdThreads / 32;
+constexpr unsigned kAll = 0xffffffffu;
+constexpr int kTdWarps = 4;               // warps a digest lane
+constexpr int kTdThreads = kTdWarps * 32;
+constexpr int kTdSlots = 4;               // slots a thread a step
+constexpr int kTdStep = 32 * kTdSlots;
 constexpr int kHllThreads = 512;
 // items a shared-register block should see at least, so that zeroing and
 // folding its register copy stays small beside the updates
 constexpr int kHllItemsPerBlock = 4096;
 
-// Dynamic shared memory: part[kTdWarps][K][2], then stage[kTdWarps][32][2].
-__global__ void tdigest_reduce_kernel(const int* __restrict__ bucket,
-                                      const float* __restrict__ w,
-                                      const float* __restrict__ wv, int L,
-                                      int K, float* __restrict__ mean,
-                                      float* __restrict__ weight) {
-  extern __shared__ float smem[];
-  float* part = smem;
-  float* stage = part + kTdWarps * K * 2;
+// Slots [base + 4t, base + 4t + 4) of a row, for lane t: buckets (-1 past
+// the row's end) and the two planes (0 past it).
+__device__ __forceinline__ void td_load(const int* __restrict__ bucket,
+                                        const float* __restrict__ w,
+                                        const float* __restrict__ wv,
+                                        long long row, int L, int base,
+                                        bool vec, int lane, int (&k)[kTdSlots],
+                                        float (&a)[kTdSlots],
+                                        float (&b)[kTdSlots]) {
+  const int i = base + kTdSlots * lane;
+  if (vec && i < L) {                    // L % 4 == 0: the 4 slots exist
+    const int4 kv = *reinterpret_cast<const int4*>(bucket + row + i);
+    const float4 av = *reinterpret_cast<const float4*>(w + row + i);
+    const float4 bv = *reinterpret_cast<const float4*>(wv + row + i);
+    k[0] = kv.x; k[1] = kv.y; k[2] = kv.z; k[3] = kv.w;
+    a[0] = av.x; a[1] = av.y; a[2] = av.z; a[3] = av.w;
+    b[0] = bv.x; b[1] = bv.y; b[2] = bv.z; b[3] = bv.w;
+    return;
+  }
+#pragma unroll
+  for (int u = 0; u < kTdSlots; ++u) {
+    const bool in = i + u < L;
+    k[u] = in ? bucket[row + i + u] : -1;
+    a[u] = in ? w[row + i + u] : 0.f;
+    b[u] = in ? wv[row + i + u] : 0.f;
+  }
+}
+
+// One step: lane t holds, in sub-step u, bucket k[u] (in [0, K), or
+// -1 - t: adds nothing) with (a[u], b[u]) = (w, wv).  In each sub-step,
+// runs of equal keys over consecutive lanes sum by a segmented inclusive
+// scan (the four scans interleaved); then, sub-step by sub-step, each
+// run's tail lane adds its sums into acc[key] ([K][2]), tails of one key
+// in lane order.
+__device__ __forceinline__ void td_step(float* acc, const int (&k)[kTdSlots],
+                                        float (&a)[kTdSlots],
+                                        float (&b)[kTdSlots], int lane) {
+  int start[kTdSlots];
+  bool emit[kTdSlots];
+#pragma unroll
+  for (int u = 0; u < kTdSlots; ++u) {
+    const int prev = __shfl_up_sync(kAll, k[u], 1);
+    const unsigned heads = __ballot_sync(kAll, lane == 0 || k[u] != prev);
+    start[u] = 31 - __clz(heads & (kAll >> (31 - lane)));
+    emit[u] = (lane == 31 || ((heads >> (lane + 1)) & 1u)) && k[u] >= 0;
+  }
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+#pragma unroll
+    for (int u = 0; u < kTdSlots; ++u) {
+      const float ya = __shfl_up_sync(kAll, a[u], d);
+      const float yb = __shfl_up_sync(kAll, b[u], d);
+      if (lane - d >= start[u]) {
+        a[u] += ya;
+        b[u] += yb;
+      }
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < kTdSlots; ++u) {
+    const unsigned peers = __match_any_sync(kAll, emit[u] ? k[u] : -1 - lane);
+    const int rank = __popc(peers & ((1u << lane) - 1u));
+    const int last = __reduce_max_sync(kAll, emit[u] ? rank : 0);
+    for (int q = 0; q <= last; ++q) {
+      if (emit[u] && rank == q) {
+        acc[2 * k[u]] += a[u];
+        acc[2 * k[u] + 1] += b[u];
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// Dynamic shared memory: part[kTdWarps][K][2].  vec: L % 4 == 0 and the
+// three planes 16-byte aligned.  Block r reduces digest lane r; 12 blocks
+// an SM (at most 42 registers a thread) hold the service plane's 1440
+// lanes in one wave.
+__global__ void __launch_bounds__(kTdThreads, 12)
+tdigest_reduce_kernel(const int* __restrict__ bucket,
+                      const float* __restrict__ w,
+                      const float* __restrict__ wv, int L, int K, int vec,
+                      float* __restrict__ mean, float* __restrict__ weight) {
+  extern __shared__ float part[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const long long row = (long long)blockIdx.x * L;
-
-  for (int j = threadIdx.x; j < kTdWarps * K * 2; j += blockDim.x) part[j] = 0.f;
+  for (int j = threadIdx.x; j < kTdWarps * K * 2; j += blockDim.x)
+    part[j] = 0.f;
   __syncthreads();
-
-  const int per = (L + kTdWarps - 1) / kTdWarps;
-  const int lo = min(L, warp * per);
-  const int hi = min(L, lo + per);
-  float* wp = part + warp * K * 2;
-  float* ws = stage + warp * 64;
-  for (int base = lo; base < hi; base += 32) {
-    const int i = base + lane;
-    int key = -1 - lane;             // unique and negative: adds to nothing
-    float a = 0.f, b = 0.f;
-    if (i < hi) {
-      const int bk = bucket[row + i];
-      if (bk >= 0 && bk < K) {
-        key = bk;
-        a = w[row + i];
-        b = wv[row + i];
+  float* acc = part + warp * K * 2;
+  const long long row = (long long)blockIdx.x * L;
+  const int steps = (L + kTdStep - 1) / kTdStep;
+  const int end = steps * (warp + 1) / kTdWarps * kTdStep;
+  int k[kTdSlots];
+  float a[kTdSlots], b[kTdSlots];
+  int base = steps * warp / kTdWarps * kTdStep;
+  if (base < end) td_load(bucket, w, wv, row, L, base, vec, lane, k, a, b);
+  for (; base < end; base += kTdStep) {
+    const bool more = base + kTdStep < end;
+    int nk[kTdSlots] = {};
+    float na[kTdSlots] = {}, nb[kTdSlots] = {};
+    if (more)
+      td_load(bucket, w, wv, row, L, base + kTdStep, vec, lane, nk, na, nb);
+    bool adds = false;
+#pragma unroll
+    for (int u = 0; u < kTdSlots; ++u) {
+      if (k[u] < 0 || k[u] >= K) {
+        k[u] = -1 - lane;
+        a[u] = b[u] = 0.f;
       }
+      adds = adds || (k[u] >= 0 && (a[u] != 0.f || b[u] != 0.f));
     }
-    ws[2 * lane] = a;
-    ws[2 * lane + 1] = b;
-    const unsigned peers = __match_any_sync(0xffffffffu, key);
-    __syncwarp();
-    if (key >= 0 && lane == __ffs(peers) - 1) {
-      float sw = wp[2 * key];
-      float swv = wp[2 * key + 1];
-      for (unsigned m = peers; m; m &= m - 1) {
-        const int j = __ffs(m) - 1;
-        sw += ws[2 * j];
-        swv += ws[2 * j + 1];
-      }
-      wp[2 * key] = sw;
-      wp[2 * key + 1] = swv;
+    if (__any_sync(kAll, adds)) td_step(acc, k, a, b, lane);
+#pragma unroll
+    for (int u = 0; u < kTdSlots; ++u) {
+      k[u] = nk[u];
+      a[u] = na[u];
+      b[u] = nb[u];
     }
-    __syncwarp();                    // stage is rewritten by the next chunk
   }
   __syncthreads();
-
-  for (int k = threadIdx.x; k < K; k += blockDim.x) {
-    float sw = 0.f, swv = 0.f;
-    for (int q = 0; q < kTdWarps; ++q) {
-      sw += part[(q * K + k) * 2];
-      swv += part[(q * K + k) * 2 + 1];
+  for (int c = threadIdx.x; c < K; c += blockDim.x) {
+    float sw = part[2 * c], swv = part[2 * c + 1];
+#pragma unroll
+    for (int q = 1; q < kTdWarps; ++q) {
+      sw += part[(q * K + c) * 2];
+      swv += part[(q * K + c) * 2 + 1];
     }
-    const long long o = (long long)blockIdx.x * K + k;
+    const long long o = (long long)blockIdx.x * K + c;
     weight[o] = sw;
     mean[o] = sw > 0.f ? swv / sw : 0.f;
   }
@@ -168,7 +249,7 @@ extern "C" const char* anomod_sketch_error_string(int e) {
 }
 
 extern "C" int anomod_tdigest_smem(int K) {
-  return (kTdWarps * K * 2 + kTdWarps * 64) * (int)sizeof(float);
+  return kTdWarps * K * 2 * (int)sizeof(float);
 }
 
 extern "C" int anomod_tdigest_reduce(const void* bucket, const void* w,
@@ -177,12 +258,20 @@ extern "C" int anomod_tdigest_reduce(const void* bucket, const void* w,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (R < 1 || K < 1) return (int)cudaSuccess;
   const int smem = anomod_tdigest_smem(K);
-  cudaError_t e = cudaFuncSetAttribute(
-      tdigest_reduce_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        tdigest_reduce_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const auto aligned = [](const void* q) {
+    return (reinterpret_cast<unsigned long long>(q) & 15ull) == 0;
+  };
+  const int vec = L % kTdSlots == 0 && aligned(bucket) && aligned(w) &&
+                  aligned(wv);
   tdigest_reduce_kernel<<<R, kTdThreads, smem, st>>>(
       static_cast<const int*>(bucket), static_cast<const float*>(w),
-      static_cast<const float*>(wv), L, K, static_cast<float*>(mean),
+      static_cast<const float*>(wv), L, K, vec, static_cast<float*>(mean),
       static_cast<float*>(weight));
   return (int)cudaGetLastError();
 }

@@ -12,9 +12,13 @@ the sorted kernel with its payload cut to the count row (``counts``) or
 to the exact planes and the separate hi and lo moment rows (``no_hist``),
 returned raw as the TPU kernel's feature-major ``[ROWS, NWK]``.  The CUDA
 sources are in ``anomod_torch/csrc/replay.cu``.  Their bound is the bytes
-they read (28 B per span); the dense kernel adds a span at a time with
-shared-memory atomics, the sorted kernel (and its ablations) a warp's run
-of equal segment ids at a time.
+they read (28 B per span).  :func:`dense_plan` picks the dense kernel's
+grid: for a stream chunk, owned slices of the segments, each block adding
+its spans into its own rows of the output with L2 reductions; for a
+corpus pass, thread-block clusters that fold a warp's spans by segment
+group into shared memory and sum over distributed shared memory.  The
+sorted kernel (and its ablations) adds a warp's run of equal segment ids
+at a time.
 
 Beside each kernel is its plain PyTorch version (``*_plain``, an
 ``index_add_`` over the same rounded payload).  A wrapper takes the plain
@@ -22,16 +26,18 @@ version only for tensors on the CPU; for CUDA tensors it launches the
 kernel or raises.  ``launches`` counts kernel launches per wrapper.
 
 Tolerance: the count / err / 5xx / histogram planes are small-integer f32
-sums, exact in any add order below 2^24 per segment.  The moment planes
-are f32 sums whose order differs between the kernel (shared-memory
-atomics), the plain version (``index_add_``) and the JAX kernels, so they
-agree to ``rtol=1e-5, atol=1e-3``.
+sums, exact in any add order below 2^24 per segment (the dense kernel's
+corpus plan sets a row's count as its histogram row's sum: the same
+integer).  The moment planes are f32 sums whose order differs between the
+kernel (atomics), the plain version (``index_add_``) and the JAX kernels,
+so they agree to ``rtol=1e-5, atol=1e-3``.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+import functools
+from typing import Callable, Dict, NamedTuple
 
 import numpy as np
 import torch
@@ -39,10 +45,15 @@ import torch
 PLANES = ("valid", "err", "s5", "dur_raw", "dur", "dur2")
 N_PLANES = len(PLANES)
 
-#: shared-memory budget of one dense-kernel block (H100: 227 KB a block)
+#: shared-memory budget of one dense cluster-plan block (H100: 227 KB)
 DENSE_SMEM_BYTES = 200 * 1024
-#: spans per dense-kernel block below which fewer blocks are launched
+#: spans per dense-kernel block below which fewer clusters are launched
 DENSE_SPANS_PER_PART = 2048
+#: span count up to which the dense kernel takes its owned-slice plan
+#: (every block reads every span: 8192 spans are 224 KB a block, from L2)
+DENSE_SLICE_SPANS = 8192
+#: blocks a cluster of the dense kernel's cluster plan (``kCluster``)
+DENSE_CLUSTER = 8
 
 #: kernel launches per wrapper, counted where the wrapper launches its
 #: kernel and nowhere else (a CPU tensor takes the plain version: no count)
@@ -189,8 +200,11 @@ def _lib() -> ctypes.CDLL:
         lib = library("replay")
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.anomod_replay_dense.argtypes = [
-            vp, vp, i64, i32, i32, i32, i32, i32, i32, vp, vp, vp]
+            vp, vp, i64, i32, i32, i32, i32, i32, i32, i32, vp, vp, vp]
         lib.anomod_replay_dense.restype = i32
+        lib.anomod_dense_cluster_capacity.argtypes = [
+            i32, ctypes.POINTER(ctypes.c_int)]
+        lib.anomod_dense_cluster_capacity.restype = i32
         lib.anomod_replay_sorted.argtypes = [
             vp, vp, i64, vp, i32, i32, i32, i32, i32, i32, vp, vp, vp]
         lib.anomod_replay_sorted.restype = i32
@@ -209,19 +223,78 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
 
 
-def dense_grid(n: int, n_segments: int, n_hist: int, n_sm: int):
-    """``(n_parts, n_tiles, tile_w)`` of the dense kernel: the segment axis
-    is cut into the fewest equal tiles whose ``[tile_w, 6+H]`` f32
-    accumulator fits :data:`DENSE_SMEM_BYTES`; ``n_parts`` blocks stride
-    over the spans of each tile, at most one per SM."""
-    row = (N_PLANES + n_hist) * 4
+class DensePlan(NamedTuple):
+    """The dense kernel's grid.  Owned slices (``clustered`` false):
+    ``n_tiles`` blocks, block b owning segments ``[b*tile_w, min(SW,
+    (b+1)*tile_w))`` and their rows of the output, reading every span and
+    adding its own into those rows in L2; one launch, no shared memory.
+    Clusters: ``n_parts`` x ``n_tiles`` blocks, ``n_parts`` a multiple of
+    :data:`DENSE_CLUSTER`, block (x, y) folding span part x into tile y;
+    each cluster's sum reaches global memory once, and a second launch
+    sums the ``n_groups`` clusters' planes when there is more than one."""
+    clustered: bool
+    n_parts: int
+    n_tiles: int
+    tile_w: int
+
+    @property
+    def n_groups(self) -> int:
+        """Clusters along the span axis (partial planes summed after)."""
+        return self.n_parts // DENSE_CLUSTER if self.clustered else 1
+
+    def smem_bytes(self, n_hist: int) -> int:
+        """Shared memory a block of this plan takes."""
+        return self.tile_w * dense_stride(n_hist) * 4 if self.clustered \
+            else 0
+
+
+def dense_stride(n_hist: int) -> int:
+    """Floats a row of the dense kernel's shared accumulator: ``6 + H``
+    padded to an odd count (``dense_stride`` in ``csrc/replay.cu``)."""
+    return (N_PLANES + n_hist) | 1
+
+
+def dense_plan(n: int, n_segments: int, n_hist: int, n_sm: int,
+               cluster_capacity: Callable[[int], int]) -> DensePlan:
+    """The dense kernel's grid for ``n`` spans into ``n_segments`` rows.
+
+    Up to :data:`DENSE_SLICE_SPANS` spans: about ``n_sm`` owned slices.
+    Above: the segment axis in the fewest equal tiles whose ``[tile_w,
+    dense_stride(H)]`` f32 accumulator fits :data:`DENSE_SMEM_BYTES`, and
+    as many clusters along the spans as fit on the card at once with
+    every tile (``cluster_capacity(smem_bytes)``: the card's count), but
+    no more than keeps :data:`DENSE_SPANS_PER_PART` spans a block."""
+    if n <= DENSE_SLICE_SPANS:
+        tile_w = -(-n_segments // max(n_sm, 1))
+        return DensePlan(False, 1, -(-n_segments // tile_w), tile_w)
+    row = dense_stride(n_hist) * 4
     tile_max = DENSE_SMEM_BYTES // row
     if tile_max < 1:
         raise ValueError(f"n_hist={n_hist} leaves no room for one segment")
     n_tiles = -(-n_segments // tile_max)
     tile_w = -(-n_segments // n_tiles)
-    n_parts = max(1, min(n_sm, -(-n // DENSE_SPANS_PER_PART)))
-    return n_parts, n_tiles, tile_w
+    groups = min(cluster_capacity(tile_w * row) // n_tiles,
+                 -(-n // (DENSE_CLUSTER * DENSE_SPANS_PER_PART)))
+    return DensePlan(True, DENSE_CLUSTER * max(1, groups), n_tiles, tile_w)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _cluster_capacity(index: int, smem: int) -> int:
+    """Clusters of the dense cluster fold the card holds at once with
+    ``smem`` bytes of shared memory a block."""
+    n = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = _lib().anomod_dense_cluster_capacity(smem, ctypes.byref(n))
+    _raise_on(err, "anomod_dense_cluster_capacity")
+    if n.value < 1:
+        raise RuntimeError(f"no cluster of {DENSE_CLUSTER} blocks with "
+                           f"{smem} B of shared memory fits this card")
+    return n.value
 
 
 def replay_dense(sid: torch.Tensor, planes: torch.Tensor, n_segments: int,
@@ -241,15 +314,20 @@ def replay_dense(sid: torch.Tensor, planes: torch.Tensor, n_segments: int,
                                   inner_repeats)
     lib = _lib()
     dev = sid.device
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    n_parts, n_tiles, tile_w = dense_grid(n, n_segments, n_hist, n_sm)
+    index = dev.index if dev.index is not None else \
+        torch.cuda.current_device()
     F = N_PLANES + n_hist
-    partials = torch.empty(n_parts * n_segments * F, dtype=torch.float32,
-                           device=dev)
+    plan = dense_plan(n, n_segments, n_hist, _sm_count(index),
+                      functools.partial(_cluster_capacity, index))
     out = torch.empty((n_segments, F), dtype=torch.float32, device=dev)
+    partials = out                     # not read unless n_groups > 1
+    if plan.n_groups > 1:
+        partials = torch.empty(plan.n_groups * n_segments * F,
+                               dtype=torch.float32, device=dev)
     err = lib.anomod_replay_dense(
         _ptr(sid), _ptr(planes), n, n_segments, n_hist, inner_repeats,
-        n_parts, n_tiles, tile_w, _ptr(partials), _ptr(out), _stream(dev))
+        int(plan.clustered), plan.n_parts, plan.n_tiles, plan.tile_w,
+        _ptr(partials), _ptr(out), _stream(dev))
     _raise_on(err, "anomod_replay_dense")
     launches["replay_dense"] += 1
     return out

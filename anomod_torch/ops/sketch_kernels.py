@@ -16,9 +16,10 @@ wrapper.
 
 Tolerance: digest weights are sums of integer weights, exact in any add
 order below 2^24, so the kernel's equal the plain version's; the weighted
-means are f32 sums taken in another order (per-warp slices summed in warp
-order on the card, index order in ``index_add_`` on the CPU) and agree to
-``rtol=1e-5``.  HLL registers are integer maxima: equal, register for
+means are f32 sums taken in another order (on the card each run of equal
+buckets sums by a segmented shuffle scan and the run sums add in lane
+order, a fixed order that ``tests/torch_tdigest_order.py`` restates;
+index order in ``index_add_`` on the CPU) and agree to ``rtol=1e-5``.  HLL registers are integer maxima: equal, register for
 register.
 """
 

@@ -9,12 +9,16 @@ drives three paths:
 
 - replay (phases 2-5), at the TT deployment's full width (45 services x
   32 windows x 16 buckets): the bench corpus replay (13 labels x 2000
-  traces) through both replay kernels (phase 3 also holds the sorted
-  kernel and its ablations at both ends of run length: every staged
-  block one segment, and run length 1), and the online detector over all
-  13 TT labels (400 traces each, 3S = 135-row edge id space) through the
-  dense kernel, checked against the same detector run with the plain
-  version on the card;
+  traces) through both replay kernels, the dense kernel at both of its
+  path shapes (the corpus pass and one 4096-span stream chunk at SW =
+  4320) and at its ends (every span in one segment, every span dead, two
+  shared-memory tiles), with the fold / reduce split of each call read
+  from a profiler trace (phase 3 also holds the sorted kernel and its
+  ablations at both ends of run length: every staged block one segment,
+  and run length 1), and the online detector over all 13 TT labels (400
+  traces each, 3S = 135-row edge id space) through the dense kernel,
+  checked against the same detector run with the plain version on the
+  card, its trace giving the dense kernel's device time a chunk;
 - serve (phases 6-8), at the serve bench's deployment (200 tenants, 12
   services x 32 windows of 5 s, 25,000 spans/s capacity at 2x overload,
   60 virtual seconds in 0.5 s ticks, seed 7): the lane-delta kernel
@@ -33,7 +37,8 @@ drives three paths:
   (45 services x 32 windows, K = 64 centroids, HLL p = 8 per edge and
   p = 10 for the single sketch): the t-digest reduction and HLL update
   kernels against their plain versions and a numpy HLL oracle at the
-  service- and edge-plane shapes, then ``replay_percentiles`` and
+  service- and edge-plane shapes (the t-digest also on edge-plane rows
+  shuffled out of bucket order), then ``replay_percentiles`` and
   ``replay_edge_features`` with the launches counted, held against the
   same path run with the plain versions on the card, and the CLI's
   ``replay --percentiles --edge-percentiles``;
@@ -44,12 +49,16 @@ drives three paths:
   full size (replicate = 4096) with the launches counted, its capture
   written to a temporary directory and read back.
 
-Prints progress, the card's name and power limit, one ``{"kernels": ...}``
-JSON line and, last, ``{"ok": true, "device": ...}``.  Each entry of the
-kernels line also carries a second reading of the kernel's and its
-library call's times, taken with the card spinning before each call
-(``ms_spun``, ``library_ms_spun``; see ``cuda_ms``).  Any failed phase
-exits non-zero without the last line; so does a host without CUDA.
+Phase 1 also prints how each kernel's shared atomics compiled (from
+``cuobjdump -sass``), and phase 2 what the L2 eviction before each timed
+call costs inside the timed window.  Prints progress, the card's name
+and power limit, one ``{"kernels": ...}`` JSON line and, last, ``{"ok":
+true, "device": ...}``.  Every time in the kernels line (``ms``,
+``library_ms``) is taken with the card spinning before each call, so the
+host's launch work opens no gap in the timed window; the reading without
+the spin stands beside it (``ms_unspun``, ``library_ms_unspun``; see
+``cuda_ms``).  Any failed phase exits non-zero without the last line; so
+does a host without CUDA.
 """
 
 from __future__ import annotations
@@ -80,9 +89,9 @@ RTOL_ORACLE = 2e-3
 # int32 ALU rate: Hopper has half as many INT32 as FP32 lanes per SM
 # (NVIDIA's Hopper white paper), so half the f32 CUDA-core rate
 PEAK_INT32_OPS_PER_S = PEAK_F32_OPS_PER_S / 2
-# t-digest means: each centroid sums ~L/K = 46 f32 terms, in warp-slice
-# order in the kernel and in no fixed order in the card's index_add_, so
-# relative differences stay near 46 * 2^-24 ~ 3e-6
+# t-digest means: each centroid sums ~L/K = 46 f32 terms, in the kernel's
+# fixed scan-and-tail order and in no fixed order in the card's
+# index_add_, so relative differences stay near 46 * 2^-24 ~ 3e-6
 RTOL_DIGEST = 1e-5
 # percentiles (µs) of the path with the kernels against the path with the
 # plain versions: the means' 1e-5 passes through the CDF interpolation
@@ -133,28 +142,44 @@ _FLUSH = []
 #: clock cycles the card spins before each timed call (about 1 ms at the
 #: H100's 1.98 GHz boost clock)
 SPIN_CYCLES = 2_000_000
+#: the dense replay kernels of every design the kernels line has read,
+#: as the profiler names them (a name absent from a trace reads 0)
+DENSE_KERNELS = ("dense_fold", "reduce_parts", "dense_slice_fold",
+                 "dense_cluster_fold", "dense_reduce")
 
 
-def cuda_ms(fn, iters=20, spin=False):
-    """Mean device time of ``fn`` in ms, by CUDA events around each of
-    ``iters`` calls after two warm-up calls.  Before each timed call a
-    write of four times the L2 size evicts the inputs, so every call
-    reads them from HBM, as a replay of fresh trace data would.  With
-    ``spin`` the card then also spins about 1 ms (``torch.cuda._sleep``)
-    while the host queues the start event and ``fn``'s launches, so the
-    host's launch work (tens of microseconds in a wrapper) opens no idle
-    gap inside the timed window: a second reading, printed beside the
-    kernels line's times, which are taken without it."""
+def _evict(flush):
+    """Evict L2 before a timed call: ``write`` zeroes four times the L2
+    size (its dirty lines are written back while the next call runs),
+    ``read`` sums it (the lines it leaves are clean)."""
     import torch
     if not _FLUSH:
         l2 = getattr(torch.cuda.get_device_properties(0), "L2_cache_size",
                      0) or 50 << 20
         _FLUSH.append(torch.empty(4 * l2, dtype=torch.uint8, device="cuda"))
+    if flush == "write":
+        _FLUSH[0].zero_()
+    else:
+        _FLUSH[0].sum()
+
+
+def cuda_ms(fn, iters=20, spin=True, flush="write"):
+    """Mean device time of ``fn`` in ms, by CUDA events around each of
+    ``iters`` calls after two warm-up calls.  Before each timed call L2 is
+    evicted (``_evict``: by default a write of four times its size), so
+    every call reads its inputs from HBM, as a replay of fresh trace data
+    would.  With ``spin`` (the kernels line's reading) the card then
+    spins about 1 ms (``torch.cuda._sleep``) while the host queues the
+    start event and ``fn``'s launches, so the host's launch work (tens of
+    microseconds in a wrapper) opens no idle gap inside the timed window;
+    without it (``*_unspun``) such gaps count."""
+    import torch
+    _evict(flush)
     for _ in range(2):
         fn()
     pairs = []
     for _ in range(iters):
-        _FLUSH[0].zero_()
+        _evict(flush)
         if spin:
             torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
@@ -167,11 +192,66 @@ def cuda_ms(fn, iters=20, spin=False):
     return sum(s.elapsed_time(e) for s, e in pairs) / iters
 
 
-def spun(kernel, library) -> dict:
-    """The kernels line's second reading: ``kernel``'s and its library
-    call's ``cuda_ms`` with the spin."""
-    return {"ms_spun": cuda_ms(kernel, spin=True),
-            "library_ms_spun": cuda_ms(library, spin=True)}
+def timed(kernel, library) -> dict:
+    """The kernels line's times of ``kernel`` and its library call: spun
+    (``ms``, ``library_ms``) and unspun beside them."""
+    return {"ms": cuda_ms(kernel), "library_ms": cuda_ms(library),
+            "ms_unspun": cuda_ms(kernel, spin=False),
+            "library_ms_unspun": cuda_ms(library, spin=False)}
+
+
+_PROFILER_READY = []
+
+
+def traced_ms(fn, names, iters=20):
+    """Per kernel name: the mean device time (ms) and launches a call of
+    ``fn`` gives in a ``torch.profiler`` trace of ``iters`` spun calls,
+    each after the L2 write: the split of a wrapper's launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    if not _PROFILER_READY:
+        # the profiler's first start in a process sets its tracing up for
+        # seconds: pay that on a throw-away trace
+        with profile(activities=[ProfilerActivity.CUDA]):
+            torch.ones(1, device="cuda").add_(1)
+            torch.cuda.synchronize()
+        _PROFILER_READY.append(True)
+    for _ in range(2):
+        fn()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            _evict("write")
+            torch.cuda._sleep(SPIN_CYCLES)
+            fn()
+        torch.cuda.synchronize()
+    return {n: [t / iters, c / iters]
+            for n, (t, c) in kernel_device_ms(prof, names).items() if c}
+
+
+def sass_atomics(lib_path):
+    """Per kernel of a built library: its shared and global atomic
+    opcodes (``cuobjdump -sass``), counted; None without cuobjdump."""
+    import re
+    import shutil
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        text = subprocess.run([exe, "-sass", str(lib_path)],
+                              capture_output=True, text=True,
+                              timeout=120).stdout
+    except OSError:
+        return None
+    out, fn = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            out[fn] = {}
+            continue
+        m = re.search(r"\b((?:ATOMS|ATOMG|ATOM|RED|REDG)\.[A-Z0-9_.]+)",
+                      line)
+        if fn and m:
+            out[fn][m.group(1)] = out[fn].get(m.group(1), 0) + 1
+    return out
 
 
 def bound(n_spans, n_out, n_dead=0):
@@ -384,23 +464,22 @@ def serve_phases(dev, card) -> dict:
         f"plain version, across runs and per lane; [kernel, index_add_] ms "
         f"{adv_ms} on {card}")
     s, p = lanes(32, 4096)
-    lane_ms = cuda_ms(lambda: sk.lane_delta(s, p, SW, H))
     lane_plain_ms = cuda_ms(lambda: sk.lane_delta_plain(s, p, SW, H),
                             iters=5)
     pay = sk.lane_payload(p, H).reshape(32 * 4096, -1)
     idx = (torch.arange(32, device=dev)[:, None] * (SW + 1)
            + s.long()).reshape(-1)
     acc = torch.zeros((32 * (SW + 1), pay.shape[1]), device=dev)
-    lane_lib_ms = cuda_ms(lambda: acc.index_add_(0, idx, pay))
-    lane_spun = spun(lambda: sk.lane_delta(s, p, SW, H),
-                     lambda: acc.index_add_(0, idx, pay))
+    lane_t = timed(lambda: sk.lane_delta(s, p, SW, H),
+                   lambda: acc.index_add_(0, idx, pay))
     live = int((s < SW).sum())
     lane_bound, lane_by = bound(live, 32 * SW * (6 + H),
                                 n_dead=s.numel() - live)
-    log(f"[6] lane_delta W=4096 L=32: kernel {lane_ms:.4f} ms, plain "
-        f"{lane_plain_ms:.4f} ms, index_add_ {lane_lib_ms:.4f} ms, bound "
-        f"{lane_bound:.6f} ms ({lane_by}; {live} live rows of "
-        f"{s.numel()}) on {card}; with the spin: {lane_spun}")
+    log(f"[6] lane_delta W=4096 L=32: kernel {lane_t['ms']:.4f} ms, plain "
+        f"{lane_plain_ms:.4f} ms, index_add_ {lane_t['library_ms']:.4f} ms, "
+        f"bound {lane_bound:.6f} ms ({lane_by}; {live} live rows of "
+        f"{s.numel()}) on {card}; unspun: {lane_t['ms_unspun']:.4f}, "
+        f"{lane_t['library_ms_unspun']:.4f}")
 
     # -- phase 7: window_gather vs advanced indexing ----------------------
     P, S, Wn = SERVE_KW["n_tenants"], cfg.n_services, cfg.n_windows
@@ -418,21 +497,19 @@ def serve_phases(dev, card) -> dict:
                                                       S, Wn)),
               f"window_gather T={T}: differs from advanced indexing")
     log("[7] window_gather: bit-identical at T = 1, 64, 256")
-    gather_ms = cuda_ms(lambda: sk.window_gather(pool, slots, wcols, S, Wn))
     gather_plain_ms = cuda_ms(lambda: sk.window_gather_plain(
         pool, slots, wcols, S, Wn))
     rows = pool.view(P + 1, S, Wn, 6)
     si, sv, ci = (slots.long()[:, None], torch.arange(S, device=dev)[None],
                   wcols.long()[:, None])
-    gather_lib_ms = cuda_ms(lambda: rows[si, sv, ci])
-    gather_spun = spun(lambda: sk.window_gather(pool, slots, wcols, S, Wn),
-                       lambda: rows[si, sv, ci])
+    gather_t = timed(lambda: sk.window_gather(pool, slots, wcols, S, Wn),
+                     lambda: rows[si, sv, ci])
     # a pure copy: T*S*F f32 read and written, plus the two index arrays
     gather_bound = (2 * 256 * S * 6 * 4 + 256 * 8) / PEAK_BYTES_PER_S * 1e3
-    log(f"[7] window_gather T=256: kernel {gather_ms:.4f} ms, plain "
-        f"{gather_plain_ms:.4f} ms, indexing {gather_lib_ms:.4f} ms, bound "
-        f"{gather_bound:.6f} ms (bytes) on {card}; with the spin: "
-        f"{gather_spun}")
+    log(f"[7] window_gather T=256: kernel {gather_t['ms']:.4f} ms, plain "
+        f"{gather_plain_ms:.4f} ms, indexing {gather_t['library_ms']:.4f} "
+        f"ms, bound {gather_bound:.6f} ms (bytes) on {card}; unspun: "
+        f"{gather_t['ms_unspun']:.4f}, {gather_t['library_ms_unspun']:.4f}")
 
     # -- phase 8: the serve path at the bench deployment ------------------
     sk.reset_launches()
@@ -566,15 +643,14 @@ def serve_phases(dev, card) -> dict:
          "source": "anomod_torch/csrc/serve.cu",
          "replaces": "anomod/ops/pallas_replay.py:150", "redesigned": "PR 5",
          "launches": launches["lane_delta"], "max_abs_err": lane_err,
-         "ms": lane_ms, "plain_ms": lane_plain_ms, "bound_ms": lane_bound,
-         "bound_by": lane_by, "library_ms": lane_lib_ms, **lane_spun},
+         "plain_ms": lane_plain_ms, "bound_ms": lane_bound,
+         "bound_by": lane_by, **lane_t},
         {"name": "window_gather", "route": "cuda",
          "source": "anomod_torch/csrc/serve.cu",
          "replaces": "anomod/ops/pallas_replay.py:354",
          "launches": launches["window_gather"], "max_abs_err": 0.0,
-         "ms": gather_ms, "plain_ms": gather_plain_ms,
-         "bound_ms": gather_bound, "bound_by": "bytes",
-         "library_ms": gather_lib_ms, **gather_spun},
+         "plain_ms": gather_plain_ms, "bound_ms": gather_bound,
+         "bound_by": "bytes", **gather_t},
     ]
     return {"kernels": kernels, "serve_spans_per_sec": spans_per_s,
             "serve_wall_s": rep.serve_wall_s,
@@ -658,6 +734,51 @@ def sorted_ends(dev, card, SW, block) -> dict:
         f"rtol={RTOL_CARD}), count rows = live x repeats; times {end_ms} "
         f"ms on {card}")
     return end_ms
+
+
+def dense_ends(dev, card) -> dict:
+    """Phase 2's ends of the dense kernel: every span in one segment
+    (every atomic on one row), every span on the dead lane (with nonzero
+    planes: dropped all the same), at the stream chunk's 4096 spans and
+    the corpus pass's 491,520, SW 1440 and 4320 (more than one
+    shared-memory tile).  Each against the plain version at
+    inner_repeats 1 and 2, the count column = live spans x repeats;
+    returns [kernel, index_add_] ms of each."""
+    import numpy as np
+    import torch
+    from anomod_torch.ops import replay_kernels as rk
+
+    rng = np.random.default_rng(11)
+    out = {}
+    for n, sw in ((4096, 4320), (491_520, 1440), (491_520, 4320)):
+        dur_us = rng.lognormal(8.0, 1.0, n).astype(np.float32)
+        planes = torch.from_numpy(np.stack([
+            np.ones(n), rng.random(n) < 0.2, rng.random(n) < 0.1, dur_us,
+            np.log1p(dur_us), np.log1p(dur_us) ** 2]).astype(
+                np.float32)).to(dev)
+        for kind, seg, live in (("one segment", sw // 3, n),
+                                ("all dead", sw, 0)):
+            sid = torch.full((n,), seg, dtype=torch.int32, device=dev)
+            what = f"dense {kind} N={n} SW={sw}"
+            for reps in (1, 2):
+                got = rk.replay_dense(sid, planes, sw, H, inner_repeats=reps)
+                compare(f"{what} x{reps}", got.cpu(), rk.replay_dense_plain(
+                    sid, planes, sw, H, inner_repeats=reps).cpu(), RTOL_CARD)
+                check(float(got[:, 0].double().sum()) == live * reps,
+                      f"{what}: count column != {live} x {reps}")
+                if not live:
+                    check(not bool(got.any()), f"{what}: not all zero")
+            payload = rk.replay_payload(planes, H)
+            acc = torch.zeros((sw + 1, 6 + H), device=dev)
+            idx = sid.long()
+            out[f"{kind} N={n} SW={sw}"] = [
+                cuda_ms(lambda: rk.replay_dense(sid, planes, sw, H)),
+                cuda_ms(lambda: acc.index_add_(0, idx, payload))]
+    log(f"[2] dense ends (one segment, all dead; N 4096 and 491,520; SW "
+        f"1440 and 4320): equal to the plain version at inner_repeats 1, "
+        f"2, count column = live x repeats, dead lane dropped; [kernel, "
+        f"index_add_] ms {out} on {card}")
+    return out
 
 
 def hll_numpy(items, p, lane=None, n_lanes=1):
@@ -744,12 +865,12 @@ def sketch_phases(dev, card, batch, cfg) -> dict:
     # -- phase 9: tdigest_reduce vs plain ----------------------------------
     digest_err = 0.0
     digest_times = {}
-    for name, (c, _, padded, weights, n_real) in planes.items():
-        v = torch.from_numpy(padded).to(dev)
-        w = torch.from_numpy(weights).to(dev)
-        bucket, ws, wv = scale_pass(v, w, K)
-        host_b = scale_pass(v.cpu(), w.cpu(), K)[0]
-        flips = (bucket.cpu() != host_b)
+
+    def digest_case(name, bucket, ws, wv, n_weight, note):
+        """tdigest_reduce on one plane: two launches bit-identical,
+        weights equal to the plain version's and summing to
+        ``n_weight``, means within tolerance; then its times."""
+        nonlocal digest_err
         got = sk.tdigest_reduce(bucket, ws, wv, K)
         again = sk.tdigest_reduce(bucket, ws, wv, K)
         plain = sk.tdigest_reduce_plain(bucket, ws, wv, K)
@@ -758,8 +879,8 @@ def sketch_phases(dev, card, batch, cfg) -> dict:
               f"tdigest_reduce {name}: two launches differ")
         check(torch.equal(got[1], plain[1]),
               f"tdigest_reduce {name}: weights differ from the plain version")
-        check(float(got[1].double().sum()) == n_real,
-              f"tdigest_reduce {name}: weight total != {n_real} spans")
+        check(float(got[1].double().sum()) == n_weight,
+              f"tdigest_reduce {name}: weight total != {n_weight}")
         gm, pm = got[0].cpu().numpy(), plain[0].cpu().numpy()
         check(np.isfinite(gm).all(), f"tdigest_reduce {name}: non-finite")
         bad = ~np.isclose(gm, pm, rtol=RTOL_DIGEST, atol=0.0)
@@ -770,28 +891,47 @@ def sketch_phases(dev, card, batch, cfg) -> dict:
                      / np.maximum(np.abs(pm), 1e-30)).max())
         digest_err = max(digest_err, err)
         R, L = bucket.shape
-        ms = cuda_ms(lambda: sk.tdigest_reduce(bucket, ws, wv, K))
         plain_ms = cuda_ms(lambda: sk.tdigest_reduce_plain(bucket, ws, wv, K),
                            iters=5)
+        keep = (bucket >= 0) & (bucket < K)
         idx = (torch.arange(R, device=dev)[:, None] * K
-               + bucket.long()).reshape(-1)
-        pay = torch.stack([ws.reshape(-1), wv.reshape(-1)], dim=1)
+               + bucket.long())[keep]
+        pay = torch.stack([ws[keep], wv[keep]], dim=1)
         acc = torch.zeros((R * K, 2), device=dev)
-        lib_ms = cuda_ms(lambda: acc.index_add_(0, idx, pay))
         bnd, by = sketch_bound(R * L * 12 + R * K * 8,
                                2 * R * L + R * K * 17, PEAK_F32_OPS_PER_S)
         digest_times[name] = dict(
-            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd,
-            bound_by=by, **spun(lambda: sk.tdigest_reduce(bucket, ws, wv, K),
-                                lambda: acc.index_add_(0, idx, pay)))
-        log(f"[9] tdigest_reduce {name} plane R={R} L={L} K={K} ({n_real} "
-            f"real spans): launches bit-identical, weights equal, means "
-            f"max_abs_err={err:.3g} max_rel_err={rel:.3g}; scale_pass bucket "
-            f"rows card vs host differ in {int(flips.any(1).sum())} rows, "
-            f"{int(flips.sum())} slots; kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, index_add_ {lib_ms:.4f} ms, bound "
-            f"{bnd:.6f} ms ({by}) on {card}; with the spin: "
-            f"{ {k: v for k, v in digest_times[name].items() if 'spun' in k} }")
+            plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+            **timed(lambda: sk.tdigest_reduce(bucket, ws, wv, K),
+                    lambda: acc.index_add_(0, idx, pay)))
+        t = digest_times[name]
+        log(f"[9] tdigest_reduce {name} R={R} L={L} K={K} ({note}): "
+            f"launches bit-identical, weights equal, means "
+            f"max_abs_err={err:.3g} max_rel_err={rel:.3g}; kernel "
+            f"{t['ms']:.4f} ms, plain {plain_ms:.4f} ms, index_add_ "
+            f"{t['library_ms']:.4f} ms, bound {bnd:.6f} ms ({by}) on {card}; "
+            f"unspun: {t['ms_unspun']:.4f}, {t['library_ms_unspun']:.4f}")
+
+    for name, (c, _, padded, weights, n_real) in planes.items():
+        v = torch.from_numpy(padded).to(dev)
+        w = torch.from_numpy(weights).to(dev)
+        bucket, ws, wv = edge = scale_pass(v, w, K)
+        flips = (bucket.cpu() != scale_pass(v.cpu(), w.cpu(), K)[0])
+        digest_case(name, bucket, ws, wv, n_real,
+                    f"{n_real} real spans; scale_pass bucket rows card vs "
+                    f"host differ in {int(flips.any(1).sum())} rows, "
+                    f"{int(flips.sum())} slots")
+    # the edge plane (the loop's last) with each row's slots shuffled
+    # (rows no longer sorted by bucket) and some buckets moved outside
+    # [0, K)
+    g = torch.Generator(device=dev).manual_seed(9)
+    perm = torch.rand(edge[0].shape, generator=g, device=dev).argsort(dim=1)
+    ub, uw, uwv = (torch.gather(x, 1, perm) for x in edge)
+    ub[:, ::97] = -1
+    ub[:, 1::89] = K
+    n_in = float(uw[(ub >= 0) & (ub < K)].double().sum())
+    digest_case("edge unsorted", ub, uw, uwv, n_in,
+                "rows shuffled, every 97th slot at -1 and every 89th at K")
     # a weighted merge: the service plane's even windows' digests with the
     # odd windows', one weighted rebuild per pair
     c, _, padded, weights, n_real = planes["service"]
@@ -855,7 +995,6 @@ def sketch_phases(dev, card, batch, cfg) -> dict:
                                         device=dev), items, None, 10),
             ("edge p=8", torch.zeros((E, 1 << 8), dtype=torch.int32,
                                      device=dev), e_items, e_lane, 8)):
-        ms = cuda_ms(lambda: sk.hll_update(regs, it, ln, p))
         plain_ms = cuda_ms(lambda: sk.hll_update_plain(regs, it, ln, p),
                            iters=5)
         bucket, rank = sk.hll_hash(it, p)
@@ -871,20 +1010,18 @@ def sketch_phases(dev, card, batch, cfg) -> dict:
             rank = rank[keep]
         rank = rank.to(torch.int32)
         flat = regs.view(-1)
-        lib_ms = cuda_ms(lambda: flat.scatter_reduce_(0, bucket, rank,
-                                                      reduce="amax"))
         bnd, by = sketch_bound(n_live * (4 if ln is None else 8)
                                + n_dead * 4 + 2 * regs.numel() * 4,
                                n_live * HLL_OPS_PER_ITEM, PEAK_INT32_OPS_PER_S)
-        hll_times[name] = dict(
-            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd,
-            bound_by=by, **spun(lambda: sk.hll_update(regs, it, ln, p),
-                                lambda: flat.scatter_reduce_(
-                                    0, bucket, rank, reduce="amax")))
-        log(f"[10] hll_update {name}: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, scatter_reduce_ {lib_ms:.4f} ms, bound "
-            f"{bnd:.6f} ms ({by}) on {card}; with the spin: "
-            f"{ {k: v for k, v in hll_times[name].items() if 'spun' in k} }")
+        t = hll_times[name] = dict(
+            plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+            **timed(lambda: sk.hll_update(regs, it, ln, p),
+                    lambda: flat.scatter_reduce_(0, bucket, rank,
+                                                 reduce="amax")))
+        log(f"[10] hll_update {name}: kernel {t['ms']:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, scatter_reduce_ {t['library_ms']:.4f} ms, "
+            f"bound {bnd:.6f} ms ({by}) on {card}; unspun: "
+            f"{t['ms_unspun']:.4f}, {t['library_ms_unspun']:.4f}")
 
     # -- phase 11: the sketch path, launches counted -----------------------
     sk.reset_launches()
@@ -946,7 +1083,7 @@ def sketch_phases(dev, card, batch, cfg) -> dict:
         f"median {float(np.median(d_rel)):.3g}, max {float(d_rel.max()):.3g}")
     # the path once more under the profiler: the device's busy time
     # against that profiled run's own wall (the profiler was started once
-    # already, in phase 5)
+    # already, in phase 2)
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -985,7 +1122,8 @@ def sketch_phases(dev, card, batch, cfg) -> dict:
                 "max_abs_err": err, **times}
     kernels = [
         entry("tdigest_reduce", "anomod/ops/pallas_tdigest.py:34",
-              digest_times["edge"], digest_err),
+              dict(digest_times["edge"], planes=digest_times,
+                   redesigned="PR 6"), digest_err),
         entry("hll_update", "anomod/ops/pallas_hll.py:19",
               hll_times["edge p=8"], 0.0)]
     return {"kernels": kernels, "sketch_path_wall_s": path_s,
@@ -1063,13 +1201,10 @@ def roofline_phases(dev, card, kind, sid_np, planes_np, n_real, SW) -> dict:
     times = {}
     g_idx = rk.sorted_global_ids(args[0], args[2], k, block)
     for mode, rows in rk.ABLATION_ROWS.items():
-        ms = cuda_ms(lambda: rk.replay_sorted_ablation(
-            *args, SW, mode, k=k, block=block))
         plain_ms = cuda_ms(lambda: rk.replay_sorted_ablation_plain(
             *args, SW, mode, k=k, block=block), iters=5)
         pay = rk.ablation_payload(args[1], mode)
         acc = torch.zeros((nwk, rows), device=dev)
-        lib_ms = cuda_ms(lambda: acc.index_add_(0, g_idx, pay))
         # bytes: sid + the planes it reads (valid only for counts) a real
         # span, the sid of each dead row, the [ROWS, NWK] output; ops: a
         # bf16 rounding and an add a row, two more roundings and a
@@ -1078,15 +1213,15 @@ def roofline_phases(dev, card, kind, sid_np, planes_np, n_real, SW) -> dict:
         bnd, by = sketch_bound(n_real * in_bytes + n_dead * 4
                                + rows * nwk * 4, n_real * ops,
                                PEAK_F32_OPS_PER_S)
-        times[mode] = dict(
-            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd,
-            bound_by=by, **spun(lambda: rk.replay_sorted_ablation(
+        t = times[mode] = dict(
+            plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+            **timed(lambda: rk.replay_sorted_ablation(
                 *args, SW, mode, k=k, block=block),
                 lambda: acc.index_add_(0, g_idx, pay)))
-        log(f"[12] {mode}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"index_add_ {lib_ms:.4f} ms, bound {bnd:.6f} ms ({by}; "
-            f"{n_real} real + {n_dead} dead rows) on {card}; with the spin: "
-            f"{ {k: v for k, v in times[mode].items() if 'spun' in k} }")
+        log(f"[12] {mode}: kernel {t['ms']:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"index_add_ {t['library_ms']:.4f} ms, bound {bnd:.6f} ms ({by}; "
+            f"{n_real} real + {n_dead} dead rows) on {card}; unspun: "
+            f"{t['ms_unspun']:.4f}, {t['library_ms_unspun']:.4f}")
 
     # -- the probe path, launches counted ---------------------------------
     with tempfile.TemporaryDirectory() as tmp:
@@ -1207,6 +1342,12 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"[1] ptxas {name}: {line.strip()}")
+    # how the shared f32 atomicAdd lowers on this target: a native shared
+    # add or a compare-and-swap loop (ATOMS.CAST.SPIN)
+    for name in ("replay", "sketch"):
+        atomics = sass_atomics(_build._target(name))
+        log(f"[1] sass {name} atomics by kernel: "
+            f"{'not measured (no cuobjdump)' if atomics is None else atomics}")
 
     # -- phase 2: dense kernel vs plain on the card ------------------------
     batch = load_bench_corpus("TT", 2000)
@@ -1225,21 +1366,27 @@ def main() -> int:
     compare("dense SW=1440 vs oracle", got.cpu(),
             rk.replay_planes_numpy(sid_np, planes_np, SW, H), RTOL_ORACLE)
     check(float(got[:, 0].double().sum()) == n_real, "dense: span count")
-    dense_ms = cuda_ms(lambda: rk.replay_dense(sid, planes, SW, H))
+    again = rk.replay_dense(sid, planes, SW, H)
+    dense_bits = bool(torch.equal(got, again))
+    log(f"[2] dense: two launches bit-identical: {dense_bits} (not "
+        f"required: shared-memory atomics add in arrival order)")
     dense_plain_ms = cuda_ms(
         lambda: rk.replay_dense_plain(sid, planes, SW, H), iters=5)
     payload = rk.replay_payload(planes, H)
     acc = torch.zeros((SW + 1, 6 + H), device=dev)
     idx = sid.long()
-    dense_lib_ms = cuda_ms(lambda: acc.index_add_(0, idx, payload))
-    dense_spun = spun(lambda: rk.replay_dense(sid, planes, SW, H),
-                      lambda: acc.index_add_(0, idx, payload))
+    dense_t = timed(lambda: rk.replay_dense(sid, planes, SW, H),
+                    lambda: acc.index_add_(0, idx, payload))
+    dense_split = traced_ms(lambda: rk.replay_dense(sid, planes, SW, H),
+                            DENSE_KERNELS)
     # both kernels compute the same fold of the same real spans: one bound
     fold_bound, fold_by = bound(n_real, SW * (6 + H))
     log(f"[2] dense SW=1440: max_abs_err={dense_err:.3g} "
-        f"kernel {dense_ms:.4f} ms, plain {dense_plain_ms:.4f} ms, "
-        f"index_add_ {dense_lib_ms:.4f} ms, bound {fold_bound:.6f} ms "
-        f"({fold_by}; {n_real} real spans); with the spin: {dense_spun}")
+        f"kernel {dense_t['ms']:.4f} ms, plain {dense_plain_ms:.4f} ms, "
+        f"index_add_ {dense_t['library_ms']:.4f} ms, bound "
+        f"{fold_bound:.6f} ms ({fold_by}; {n_real} real spans); unspun: "
+        f"{dense_t['ms_unspun']:.4f}, {dense_t['library_ms_unspun']:.4f}; "
+        f"traced device ms and launches a call by kernel {dense_split}")
 
     # the stream's 3S id space: every span twice (node id + edge slot)
     scfg = ReplayConfig(n_services=batch.n_services, chunk_size=4096)
@@ -1251,23 +1398,61 @@ def main() -> int:
     e_sid_np, e_planes_np = stage_planes(e_chunks)
     e_sid = torch.from_numpy(e_sid_np).to(dev)
     e_planes = torch.from_numpy(e_planes_np).to(dev)
-    got = rk.replay_dense(e_sid, e_planes, ecfg.sw, H)
+    ESW = ecfg.sw
+    got = rk.replay_dense(e_sid, e_planes, ESW, H)
     err_4320 = compare(
-        "dense SW=4320", got.cpu(),
-        rk.replay_dense_plain(e_sid, e_planes, ecfg.sw, H).cpu(), RTOL_CARD)
-    one = slice(0, ecfg.chunk_size)               # the stream's chunk shape
-    chunk_ms = cuda_ms(lambda: rk.replay_dense(
-        e_sid[one], e_planes[:, one].contiguous(), ecfg.sw, H))
-    log(f"[2] dense SW={ecfg.sw}: max_abs_err={err_4320:.3g}; one "
-        f"{ecfg.chunk_size}-span stream chunk {chunk_ms:.4f} ms")
+        f"dense SW={ESW}", got.cpu(),
+        rk.replay_dense_plain(e_sid, e_planes, ESW, H).cpu(), RTOL_CARD)
+    # the stream's chunk shape: one 4096-span chunk of that id space
+    one = slice(0, ecfg.chunk_size)
+    c_sid, c_planes = e_sid[one], e_planes[:, one].contiguous()
+    got = rk.replay_dense(c_sid, c_planes, ESW, H)
+    err_4320 = max(err_4320, compare(
+        f"dense chunk SW={ESW}", got.cpu(),
+        rk.replay_dense_plain(c_sid, c_planes, ESW, H).cpu(), RTOL_CARD))
+    chunk_bits = bool(torch.equal(got, rk.replay_dense(c_sid, c_planes, ESW,
+                                                       H)))
+    chunk_plain_ms = cuda_ms(
+        lambda: rk.replay_dense_plain(c_sid, c_planes, ESW, H), iters=5)
+    c_payload = rk.replay_payload(c_planes, H)
+    c_acc = torch.zeros((ESW + 1, 6 + H), device=dev)
+    c_idx = c_sid.long()
+    chunk_t = timed(lambda: rk.replay_dense(c_sid, c_planes, ESW, H),
+                    lambda: c_acc.index_add_(0, c_idx, c_payload))
+    chunk_split = traced_ms(lambda: rk.replay_dense(c_sid, c_planes, ESW, H),
+                            DENSE_KERNELS)
+    c_live = int((c_sid < ESW).sum())
+    chunk_bound, chunk_by = bound(c_live, ESW * (6 + H),
+                                  n_dead=ecfg.chunk_size - c_live)
+    log(f"[2] dense SW={ESW}: max_abs_err={err_4320:.3g}; one "
+        f"{ecfg.chunk_size}-span stream chunk ({c_live} live): kernel "
+        f"{chunk_t['ms']:.4f} ms, plain {chunk_plain_ms:.4f} ms, index_add_ "
+        f"{chunk_t['library_ms']:.4f} ms, bound {chunk_bound:.6f} ms "
+        f"({chunk_by}); unspun: {chunk_t['ms_unspun']:.4f}, "
+        f"{chunk_t['library_ms_unspun']:.4f}; traced device ms and launches "
+        f"a call by kernel {chunk_split}; two launches bit-identical: "
+        f"{chunk_bits}")
 
     z32 = torch.zeros(0, dtype=torch.int32, device=dev)
     zp = torch.zeros((6, 0), dtype=torch.float32, device=dev)
     for name, out in (("dense", rk.replay_dense(z32, zp, SW, H)),
+                      ("dense SW=4320", rk.replay_dense(z32, zp, ESW, H)),
                       ("sorted", rk.replay_sorted(z32, zp, z32, SW, H))):
-        check(out.shape == (SW, 6 + H) and bool((out == 0).all()),
+        check(out.shape[1] == 6 + H and bool((out == 0).all()),
               f"{name}: empty corpus is not all zeros")
     log("[2] empty corpus: zeros from both kernels")
+    dense_end_ms = dense_ends(dev, card)
+
+    # the L2 write's price inside a timed window: an empty window after
+    # it, and each replay kernel after the write (dirty lines written back
+    # while the kernel runs) and after a read of the same size (clean)
+    flush = {"empty_ms": cuda_ms(lambda: None)}
+    for name, fn in (("dense", lambda: rk.replay_dense(sid, planes, SW, H)),
+                     ("chunk", lambda: rk.replay_dense(c_sid, c_planes, ESW,
+                                                       H))):
+        flush[name] = [cuda_ms(fn), cuda_ms(fn, flush="read")]
+    log(f"[2] L2 eviction: empty window after the write {flush['empty_ms']:.4f}"
+        f" ms; [after the write, after a read] ms {flush} on {card}")
 
     # -- phase 3: sorted kernel vs plain, inner_repeats = 2 ----------------
     block = 4096
@@ -1282,20 +1467,22 @@ def main() -> int:
     compare("sorted vs oracle", got.cpu(),
             rk.replay_planes_numpy(sid_np, planes_np, SW, H) * 2,
             RTOL_ORACLE)
-    sorted_ms = cuda_ms(lambda: rk.replay_sorted(*s_args, SW, H,
-                                                 block=block))
     sorted_plain_ms = cuda_ms(lambda: rk.replay_sorted_plain(
         *s_args, SW, H, block=block), iters=5)
     g_idx = rk.sorted_global_ids(s_args[0], s_args[2], 128, block)
     s_payload = rk.replay_payload(s_args[1], H)
     s_acc = torch.zeros(((SW + 128) // 128 * 128, 6 + H), device=dev)
-    sorted_lib_ms = cuda_ms(lambda: s_acc.index_add_(0, g_idx, s_payload))
-    sorted_spun = spun(lambda: rk.replay_sorted(*s_args, SW, H, block=block),
-                       lambda: s_acc.index_add_(0, g_idx, s_payload))
+    def sorted_fn():
+        return rk.replay_sorted(*s_args, SW, H, block=block)
+    sorted_t = timed(sorted_fn,
+                     lambda: s_acc.index_add_(0, g_idx, s_payload))
+    flush["sorted"] = [sorted_t["ms"], cuda_ms(sorted_fn, flush="read")]
     log(f"[3] sorted: T={sid_l.shape[0]} staged, max_abs_err="
-        f"{sorted_err:.3g} kernel {sorted_ms:.4f} ms, plain "
-        f"{sorted_plain_ms:.4f} ms, index_add_ {sorted_lib_ms:.4f} ms, "
-        f"bound {fold_bound:.6f} ms; with the spin: {sorted_spun}")
+        f"{sorted_err:.3g} kernel {sorted_t['ms']:.4f} ms (after a clean "
+        f"read {flush['sorted'][1]:.4f}), plain {sorted_plain_ms:.4f} ms, "
+        f"index_add_ {sorted_t['library_ms']:.4f} ms, bound "
+        f"{fold_bound:.6f} ms; unspun: {sorted_t['ms_unspun']:.4f}, "
+        f"{sorted_t['library_ms_unspun']:.4f}")
     again = rk.replay_sorted(*s_args, SW, H, block=block, inner_repeats=2)
     log(f"[3] sorted: two launches bit-identical: "
         f"{bool(torch.equal(got, again))} (not required: run sums meet in "
@@ -1343,21 +1530,15 @@ def main() -> int:
     stream_launches = launches["replay_dense"] - replay_launches["replay_dense"]
     log(f"[5] stream top-1 {sum(hits)}/{len(hits)} in {stream_s:.3f} s "
         f"(kernel run, corpus generation included); launches: replay "
-        f"{replay_launches}, main path total {launches}; estimated "
-        f"dense-kernel share of the stream wall: {stream_launches} x "
-        f"{chunk_ms:.4f} ms / {stream_s:.3f} s = "
-        f"{stream_launches * chunk_ms / 1e3 / stream_s:.3g}")
+        f"{replay_launches}, main path total {launches}; the stream's "
+        f"{stream_launches} at the chunk shape")
     for k in ("replay_dense", "replay_sorted"):
         check(launches[k] > 0, f"kernel {k} was not launched on the main path")
 
-    # the stream once more under the profiler: the device's busy time,
-    # read from the trace, against the un-profiled wall above
+    # the stream once more under the profiler: the device's busy time and
+    # the dense kernels' device time, read from the trace, against the
+    # un-profiled wall above (the profiler was started in phase 2)
     from torch.profiler import ProfilerActivity, profile
-    # the profiler's first start in a process sets its tracing up for
-    # seconds: pay that on a throw-away trace, outside the timed wall
-    with profile(activities=[ProfilerActivity.CUDA]):
-        torch.ones(1, device=dev).add_(1)
-        torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         stream_quality("TT", n_traces=400, seed=0, device=dev)
@@ -1371,35 +1552,56 @@ def main() -> int:
         f" in a {prof_s:.3f} s profiled wall (the un-profiled run's "
         f"{stream_s:.3f} s); busy share "
         f"{busy_share if busy_share is None else f'{busy_share:.4g}'}")
+    stream_kernels = {n: v for n, v in kernel_device_ms(
+        prof, DENSE_KERNELS).items() if v[1]}
+    chunk_trace_ms = sum(v[0] for v in stream_kernels.values()) \
+        / stream_launches
+    log(f"[5] stream trace by kernel (device ms, kernels in the trace): "
+        f"{stream_kernels}; {chunk_trace_ms:.6f} ms of dense-kernel device "
+        f"time a chunk over {stream_launches} chunks")
 
     serve = serve_phases(dev, card)
     sketch = sketch_phases(dev, card, batch, cfg)
     roof = roofline_phases(dev, card, kind, sid_np, planes_np, n_real, SW)
 
     # -- report -----------------------------------------------------------
+    # the dense kernel's top-level times are the corpus pass's; each path
+    # shape has its own entry, launches counted on the main path
+    corpus = dict(launches=launches["replay_dense"] - stream_launches,
+                  plain_ms=dense_plain_ms, bound_ms=fold_bound,
+                  bound_by=fold_by, traced=dense_split, **dense_t)
+    chunk = dict(launches=stream_launches, plain_ms=chunk_plain_ms,
+                 bound_ms=chunk_bound, bound_by=chunk_by,
+                 traced=chunk_split, stream_trace_ms=chunk_trace_ms,
+                 **chunk_t)
     kernels = [
         {"name": "replay_dense", "route": "cuda",
          "source": "anomod_torch/csrc/replay.cu",
-         "replaces": "anomod/ops/pallas_replay.py:85",
+         "replaces": "anomod/ops/pallas_replay.py:85", "redesigned": "PR 6",
          "launches": launches["replay_dense"],
          "max_abs_err": max(dense_err, err_4320),
-         "ms": dense_ms, "plain_ms": dense_plain_ms, "bound_ms": fold_bound,
-         "bound_by": fold_by, "library_ms": dense_lib_ms, **dense_spun},
+         **{k: corpus[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms", "ms_unspun",
+                                   "library_ms_unspun")},
+         "bit_identical_launches": {"corpus": dense_bits,
+                                    "stream_chunk": chunk_bits},
+         "shapes": {"corpus": corpus, "stream_chunk": chunk}},
         {"name": "replay_sorted", "route": "cuda",
          "source": "anomod_torch/csrc/replay.cu",
          "replaces": "anomod/ops/pallas_replay.py:257", "redesigned": "PR 5",
          "launches": launches["replay_sorted"], "max_abs_err": sorted_err,
-         "ms": sorted_ms, "plain_ms": sorted_plain_ms,
-         "bound_ms": fold_bound, "bound_by": fold_by,
-         "library_ms": sorted_lib_ms, **sorted_spun},
+         "plain_ms": sorted_plain_ms, "bound_ms": fold_bound,
+         "bound_by": fold_by, **sorted_t},
     ] + serve.pop("kernels") + sketch.pop("kernels") + roof.pop("kernels")
     log(json.dumps({"replay_spans_per_sec": rates, "replicate": replicate,
                     "stream_top1": sum(hits) / len(hits),
-                    "stream_chunk_ms": chunk_ms, "stream_wall_s": stream_s,
+                    "stream_wall_s": stream_s,
+                    "stream_dense_trace_ms": stream_kernels,
                     "stream_device_busy_ms": busy,
                     "stream_profiled_wall_s": prof_s,
                     "stream_device_busy_share": busy_share,
-                    "sorted_ends_ms": end_ms, **serve,
+                    "sorted_ends_ms": end_ms, "dense_ends_ms": dense_end_ms,
+                    "l2_eviction_ms": flush, **serve,
                     **sketch, **roof,
                     "wall_s": time.perf_counter() - t_all}))
     log(json.dumps({"kernels": kernels}))

@@ -16,7 +16,9 @@ and sums in row order, so it must equal the plain version run on the host
 bit for bit; the window gather is a copy and
 must equal its plain version bit for bit.  The t-digest reduction's
 weights (integer sums) must equal its plain version's and its means agree
-to ``rtol=1e-5``; HLL registers (integer maxima) must be equal.
+to ``rtol=1e-5``, and they must equal the numpy restatement of the
+kernel's add order (``tests/torch_tdigest_order.py``) bit for bit; HLL
+registers (integer maxima) must be equal.
 """
 
 import numpy as np
@@ -74,6 +76,35 @@ def test_dense_kernel_matches_plain(cuda_device, sw):
         assert rk.launches["replay_dense"] == before + 1
         _assert_planes(got, rk.replay_dense_plain(s, p, sw, H,
                                                   inner_repeats=reps))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["spread", "one segment", "all dead"])
+@pytest.mark.parametrize("n,sw", [(4096, 4320), (491_520, 1440),
+                                  (491_520, 4320)])
+def test_dense_kernel_path_shapes_and_ends(cuda_device, n, sw, kind):
+    """The stream chunk (owned slices), the corpus pass (clusters) and a
+    corpus over two shared-memory tiles; spans spread, all in one segment
+    (every atomic on one row) or all on the dead lane with nonzero planes
+    (dropped).  The count column sums to the live spans x repeats."""
+    sid, planes = _inputs(n, sw, seed=n + sw)
+    if kind == "one segment":
+        sid[:] = sw // 3
+        planes[0] = 1.0
+    elif kind == "all dead":
+        sid[:] = sw
+        planes[0] = 1.0
+    live = float(planes[0][sid < sw].sum())
+    s = torch.from_numpy(sid).to(cuda_device)
+    p = torch.from_numpy(planes).to(cuda_device)
+    for reps in (1, 2):
+        got = rk.replay_dense(s, p, sw, H, inner_repeats=reps)
+        torch.cuda.synchronize()
+        _assert_planes(got, rk.replay_dense_plain(s, p, sw, H,
+                                                  inner_repeats=reps))
+        assert float(got[:, 0].double().sum()) == live * reps
+        if kind == "all dead":
+            assert not bool(got.any())
 
 
 @pytest.mark.cuda
@@ -428,6 +459,42 @@ def test_tdigest_reduce_kernel_matches_plain(cuda_device, R, L):
                                rtol=1e-5, atol=0.0)
     cm, cw = sk.tdigest_reduce_plain(*[a.cpu() for a in args], K)
     assert torch.equal(weight.cpu(), cw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,L,sorted_rows,aligned", [
+    (1, 1, True, True), (7, 33, True, True), (11, 384, False, True),
+    (64, 1000, False, True), (300, 2944, True, True),
+    (300, 2944, False, False), (2880, 2944, True, True)])
+def test_tdigest_reduce_kernel_bit_equal_to_its_order(cuda_device, R, L,
+                                                      sorted_rows, aligned):
+    """The kernel's means and weights equal the numpy restatement of its
+    add order bit for bit: rows sorted by bucket (as the scale pass
+    writes them) or shuffled, buckets outside [0, K), lengths past the
+    128-slot steps, and planes whose rows are not 16-byte aligned (the
+    scalar loads)."""
+    from anomod_torch.ops import sketch_kernels as sk
+    from torch_tdigest_order import tdigest_reduce_in_kernel_order
+    K = 64
+    rng = np.random.default_rng(R * L)
+    arrs = list(_digest_inputs(R, L, K, seed=R + L))
+    if not sorted_rows:
+        perm = np.argsort(rng.random((R, L)), axis=1)
+        arrs = [np.take_along_axis(a, perm, axis=1) for a in arrs]
+    args = []
+    for a in arrs:
+        t = torch.from_numpy(a).to(cuda_device)
+        if not aligned:                  # the same values, 4 bytes on
+            flat = torch.empty(R * L + 1, dtype=t.dtype, device=cuda_device)
+            t = flat[1:].view(R, L).copy_(t)
+        args.append(t)
+    mean, weight = sk.tdigest_reduce(*args, K)
+    torch.cuda.synchronize()
+    want_m, want_w = tdigest_reduce_in_kernel_order(*arrs, K)
+    np.testing.assert_array_equal(weight.cpu().numpy(), want_w)
+    np.testing.assert_array_equal(mean.cpu().numpy(), want_m)
+    pm, pw = sk.tdigest_reduce_plain(*args, K)
+    assert torch.equal(weight, pw)
 
 
 @pytest.mark.cuda

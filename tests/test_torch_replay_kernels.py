@@ -12,6 +12,8 @@ f32 sums taken in another order than the JAX kernels' and agree to
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from anomod.ops.pallas_replay import (make_pallas_replay_fn,
                                       make_pallas_replay_sorted_fn,
@@ -105,8 +107,14 @@ def test_stream_id_space_matches_oracle():
     got = rk.replay_dense(torch.from_numpy(sid), torch.from_numpy(planes),
                           SW, H).numpy()
     _assert_planes(got, pallas_replay_numpy(sid, planes, SW, H))
-    assert rk.dense_grid(6000, SW, H, n_sm=132)[1:] == (2, 2160)
-    assert rk.dense_grid(475_000, 1440, H, n_sm=132) == (132, 1, 1440)
+    # the stream's chunk: owned slices, one launch; the corpus pass:
+    # clusters of 8, 16 of them on a card that holds 16
+    def cap(smem):
+        return 16
+    assert rk.dense_plan(4096, SW, H, 132, cap) == (False, 1, 131, 33)
+    assert rk.dense_plan(491_520, 1440, H, 132, cap) == (True, 128, 1, 1440)
+    assert rk.dense_plan(950_000, SW, H, 132, cap) == (True, 64, 2, 2160)
+    assert rk.dense_stride(H) == 23
 
 
 def test_cpu_tensors_do_not_count_launches():
@@ -178,3 +186,62 @@ def test_sorted_wrappers_reject_wids_out_of_order():
     for mode in rk.ABLATION_ROWS:
         with pytest.raises(ValueError, match="non-decreasing"):
             rk.replay_sorted_ablation(*flipped, 600, mode, block=256)
+
+
+_PLAN_ARGS = dict(n=st.integers(0, 3_000_000), sw=st.integers(1, 60_000),
+                  h=st.integers(1, 64), n_sm=st.integers(1, 200),
+                  capacity=st.integers(1, 40))
+
+
+@settings(max_examples=300, deadline=None, database=None)
+@given(**_PLAN_ARGS)
+def test_dense_plan_owns_every_segment_once_within_budget(n, sw, h, n_sm,
+                                                          capacity):
+    """Every segment lies in exactly one tile (or owned slice), and a
+    block's accumulator fits the shared-memory budget."""
+    plan = rk.dense_plan(n, sw, h, n_sm, lambda smem: capacity)
+    assert plan.tile_w >= 1 and plan.n_tiles >= 1
+    owner = np.minimum(np.arange(sw) // plan.tile_w, plan.n_tiles)
+    assert owner.max() == plan.n_tiles - 1          # no tile past the last
+    assert (plan.n_tiles - 1) * plan.tile_w < sw    # every tile non-empty
+    assert plan.smem_bytes(h) <= rk.DENSE_SMEM_BYTES
+    assert plan.smem_bytes(h) == (plan.tile_w * ((6 + h) | 1) * 4
+                                  if plan.clustered else 0)
+
+
+@settings(max_examples=300, deadline=None, database=None)
+@given(**_PLAN_ARGS)
+def test_dense_plan_clusters_and_small_inputs(n, sw, h, n_sm, capacity):
+    """A clustered grid is a whole number of clusters that fit on the card
+    at once with every tile (one cluster at least); a stream-sized input,
+    the empty one included, takes one launch of owned slices."""
+    plan = rk.dense_plan(n, sw, h, n_sm, lambda smem: capacity)
+    if n <= rk.DENSE_SLICE_SPANS:
+        assert not plan.clustered and plan.n_groups == 1
+        assert plan.n_tiles <= n_sm
+    else:
+        assert plan.clustered and plan.n_parts % rk.DENSE_CLUSTER == 0
+        assert plan.n_groups == plan.n_parts // rk.DENSE_CLUSTER >= 1
+        assert plan.n_groups == 1 or plan.n_groups * plan.n_tiles <= capacity
+        assert plan.n_groups <= -(-n // (rk.DENSE_CLUSTER
+                                         * rk.DENSE_SPANS_PER_PART))
+
+
+def test_dense_plan_raises_when_no_segment_fits():
+    """A clustered block holds a tile of rows in shared memory; owned
+    slices keep none (their rows are added in global memory)."""
+    with pytest.raises(ValueError, match="no room"):
+        rk.dense_plan(10**6, 100, rk.DENSE_SMEM_BYTES, 132, lambda smem: 16)
+    plan = rk.dense_plan(10, 100, rk.DENSE_SMEM_BYTES, 132, lambda smem: 16)
+    assert not plan.clustered and plan.smem_bytes(rk.DENSE_SMEM_BYTES) == 0
+
+
+@pytest.mark.parametrize("n,sw", [(0, 1440), (0, 4320), (5, 4320)])
+def test_dense_small_inputs_give_plain_planes(n, sw):
+    """An empty or tiny corpus: the owned-slice plan's shapes give zeros
+    where no span lands (the CPU takes the plain version)."""
+    sid, planes = _inputs(n, sw, seed=n + sw)
+    got = rk.replay_dense(torch.from_numpy(sid), torch.from_numpy(planes),
+                          sw, H).numpy()
+    _assert_planes(got, rk.replay_planes_numpy(sid, planes, sw, H))
+    assert not rk.dense_plan(n, sw, H, 132, lambda smem: 16).clustered

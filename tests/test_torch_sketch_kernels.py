@@ -16,6 +16,7 @@ import torch
 
 from anomod.ops.hll import _avalanche32, _clz32, hll_add, hll_init
 from anomod_torch.ops import sketch_kernels as sk
+from torch_tdigest_order import tdigest_reduce_in_kernel_order
 
 M32 = 0xFFFFFFFF
 
@@ -166,6 +167,75 @@ def test_tdigest_reduce_plain_matches_pallas_kernel():
     np.testing.assert_allclose(got_m.numpy(), mean, rtol=1e-5, atol=1e-5)
     assert (weight == 0).any()                 # empty centroids: mean 0
     np.testing.assert_array_equal(got_m.numpy()[weight == 0], 0.0)
+
+
+def _digest_rows(R, L, K, seed, sorted_rows):
+    """t-digest lanes from numpy: buckets with some outside [0, K), sorted
+    along each row (as the scale pass writes them) or not, 0/1 weights
+    with a zero padding tail, log-latency values."""
+    rng = np.random.default_rng(seed)
+    bucket = rng.integers(-1, K + 1, (R, L)).astype(np.int32)
+    if sorted_rows:
+        bucket = np.sort(bucket, axis=1)
+    w = (rng.random((R, L)) < 0.85).astype(np.float32)
+    w[:, L - L // 3:] = 0.0
+    v = np.log1p(rng.lognormal(8.0, 1.0, (R, L))).astype(np.float32)
+    return bucket, w, w * v
+
+
+@pytest.mark.parametrize("R,L,K,sorted_rows", [
+    (3, 1, 8, True), (5, 127, 16, True), (5, 127, 16, False),
+    (11, 384, 32, True), (11, 384, 32, False), (4, 1000, 64, False),
+    (2, 2944, 64, True)])
+def test_tdigest_kernel_order_matches_plain(R, L, K, sorted_rows):
+    """The card kernel's add order (restated in numpy): weights equal to
+    the plain version's (integer sums), means within rtol=1e-5, on rows
+    sorted by bucket and not, of any length (past the 128-slot steps)."""
+    b, w, wv = _digest_rows(R, L, K, seed=R * L + K, sorted_rows=sorted_rows)
+    mean, weight = tdigest_reduce_in_kernel_order(b, w, wv, K)
+    pm, pw = sk.tdigest_reduce_plain(torch.from_numpy(b), torch.from_numpy(w),
+                                     torch.from_numpy(wv), K)
+    np.testing.assert_array_equal(weight, pw.numpy())
+    np.testing.assert_allclose(mean, pm.numpy(), rtol=1e-5, atol=0.0)
+    np.testing.assert_array_equal(mean[weight == 0], 0.0)
+
+
+@pytest.mark.parametrize("sorted_rows", [True, False])
+def test_tdigest_kernel_order_matches_pallas_kernel(sorted_rows):
+    from anomod.ops.pallas_tdigest import make_pallas_tdigest_fn
+    R, L, K = 6, 256, 32
+    b, w, wv = _digest_rows(R, L, K, seed=17, sorted_rows=sorted_rows)
+    want_m, want_w = (np.asarray(a) for a in make_pallas_tdigest_fn(
+        K, L, interpret=True)(b, w, wv))
+    mean, weight = tdigest_reduce_in_kernel_order(b, w, wv, K)
+    np.testing.assert_array_equal(weight, want_w)
+    np.testing.assert_allclose(mean, want_m, rtol=1e-5, atol=1e-5)
+
+
+def test_tdigest_kernel_order_adds_runs_then_tails_in_lane_order():
+    """A hand-checked sub-step: one lane of 128 slots, slot 4t + u of lane
+    t.  Sub-step 0 holds buckets [0]*10 + [1]*12 + [0]*10: each run sums
+    in the segmented scan's tree order, and bucket 0's two run sums add
+    in lane order.  Every other slot has bucket 5 and weight 0."""
+    K = 8
+    b = np.full((1, 128), 5, np.int32)
+    w = np.zeros((1, 128), np.float32)
+    v = (np.float32(1.0) + np.arange(32, dtype=np.float32)
+         * np.float32(3e-7)).astype(np.float32)
+    b[0, 0::4] = [0] * 10 + [1] * 12 + [0] * 10
+    w[0, 0::4] = v
+    mean, weight = tdigest_reduce_in_kernel_order(b, w, w, K)
+
+    def pair(i):
+        return v[i + 1] + v[i]
+    run0 = ((pair(8) + pair(6)) + (pair(4) + pair(2))) + pair(0)
+    run1 = ((pair(20) + pair(18)) + (pair(16) + pair(14))) \
+        + (pair(12) + pair(10))
+    run2 = ((pair(30) + pair(28)) + (pair(26) + pair(24))) + pair(22)
+    assert weight[0, 0] == (np.float32(0.0) + run0) + run2
+    assert weight[0, 1] == run1
+    np.testing.assert_array_equal(mean[0, :2], [1.0, 1.0])
+    assert weight[0, 5] == 0.0 and mean[0, 5] == 0.0
 
 
 def test_scale_pass_matches_jax():

@@ -55,18 +55,48 @@
 // row on this card, 0.11 ms at W 16384, L 1, where index_add_'s atomics
 // take about 0.06 ms.
 //
-// window_gather.  pool[P][S*Wn][F], slots[T], cols[T] give out[T][S][F] =
-// pool[slots[t]][s*Wn + cols[t]][f]: tenant t's scored window column.  One
-// block per requested tenant, a pure copy, bit-identical to indexing.  An
-// index outside the pool writes NaN (the caller validates on the host).
-// Bound by bytes: T*S*F*4 read and written.
+// window_gather.  pool[P][S*Wn][F] and the tenants' (slot, col) pairs give
+// out[T][S][F] = pool[slot_t][s*Wn + col_t][f]: tenant t's scored window
+// column.  A pure copy, bit-identical to indexing.  A pair outside the pool
+// writes a NaN row (the caller validates on the host).  Bound by bytes:
+// T*S*F*4 read and written, about 0.00004 ms at T = 256, S = 12, F = 6, so
+// what the serve path pays is the launch and the memory round trips: on
+// the H100 (chip_smoke.py phase 7, spun) T = 256 reads 0.0061-0.0062 ms
+// and T = 1 0.0057-0.0058, the timed window's floor for a launch that
+// reads one cold line after its L2 write.
+//
+// Design: no index is read from global memory.  The pairs travel by value
+// in the kernel's parameter space, a __grid_constant__ struct of int2 (the
+// constant bank), so a thread's first global access is its pool row.
+// Parameters are held to the portable 4 KB limit: kGatherPairs = 507
+// pairs a launch beside the header, and a larger request is split into
+// several launches on the host (ops/serve_kernels.py gather_plan).  CUDA
+// 12.1 raises the limit to 32,764 bytes on Volta and newer (the card's
+// toolkit is 12.9, chip_smoke.py phase 1 prints it), which is not used:
+// a launch copies its whole parameter block, and one block of 4,090
+// pairs read 0.0080-0.0090 ms at T = 1 to 256 against this block's
+// 0.0057-0.0062 (phase 7 over both builds in one run, H100 80GB HBM3 at
+// 700 W).  It wins only where this block needs three launches or more
+// (T = 1200: 0.0089 against 0.0127), and a serve scoring pass asks for at
+// most one pair a tenant (200 at the bench deployment).
+//
+// One warp a tenant, 8 a block: ceil(T / 8) blocks.  The constant cache serves one address a warp at a
+// time, so every warp reads one pair (a thread a (tenant, service) row
+// put three tenants in a warp and serialized their reads).  With F even
+// and the pool's base 8-byte aligned a row moves as F/2 8-byte elements
+// (36 a tenant at S = 12, F = 6: two a lane, both loads in flight), else
+// as F scalar ones, chosen in the C entry as tdigest_reduce chooses its
+// vector path.
 //
 // Interface: plain C, pointers and the stream as void*, loaded with ctypes
 // (anomod_torch/ops/serve_kernels.py).  Each entry returns
-// cudaGetLastError().  The caller allocates the outputs.
+// cudaGetLastError().  The caller allocates the outputs; the window
+// gather's pairs stay in host memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -82,7 +112,21 @@ constexpr int kPerLane = kChunk / 32;        // a thread's rows of a tile
 constexpr int kPayStride = kRows + 2;
 constexpr int kFoldBatch = 8;      // rows a fold lane loads ahead
 constexpr unsigned kAll = 0xffffffffu;
-constexpr int kGatherThreads = 128;
+constexpr int kGatherThreads = 256;  // 8 tenants a block
+constexpr int kGatherRounds = 2;     // elements a lane loads ahead
+// (slot, col) pairs one window-gather launch carries at most: the 4 KB
+// portable kernel-parameter limit less GatherArgs' 40-byte header
+constexpr int kGatherPairs = 507;
+
+// The window gather's whole parameter block, passed by value.
+struct GatherArgs {
+  const float* pool;
+  float* out;
+  int P, S, Wn, F, T;
+  int2 pairs[kGatherPairs];
+};
+static_assert(sizeof(GatherArgs) <= 4096,
+              "window-gather parameters exceed the portable 4 KB limit");
 
 __device__ __forceinline__ float bf16_rn(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -259,21 +303,51 @@ lane_delta_kernel(const int* __restrict__ sid, const float* __restrict__ planes,
   }
 }
 
-__global__ void window_gather_kernel(const float* __restrict__ pool, int P,
-                                     int S, int Wn, int F,
-                                     const int* __restrict__ slots,
-                                     const int* __restrict__ cols,
-                                     float* __restrict__ out) {
-  const int t = blockIdx.x;
-  const int slot = slots[t];
-  const int col = cols[t];
-  const bool ok = slot >= 0 && slot < P && col >= 0 && col < Wn;
-  const long long row = (long long)slot * S * Wn;
-  float* o = out + (long long)t * S * F;
-  for (int j = threadIdx.x; j < S * F; j += blockDim.x) {
-    const int s = j / F;
-    const int f = j - s * F;
-    o[j] = ok ? pool[(row + (long long)s * Wn + col) * F + f] : __int_as_float(0x7fc00000);
+template <typename V>
+__device__ __forceinline__ V splat(float x);
+template <>
+__device__ __forceinline__ float splat<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ float2 splat<float2>(float x) {
+  return make_float2(x, x);
+}
+
+// Warp t copies tenant t's S*F floats: its pair is one uniform read of
+// the parameter block (a broadcast from the constant cache), then lane j
+// moves elements j, j + 32, ... (float2 elements when kVec: F even and
+// pool and out 8-byte aligned), each round's loads issued before its
+// stores.
+template <bool kVec>
+__global__ void __launch_bounds__(kGatherThreads)
+window_gather_kernel(const __grid_constant__ GatherArgs a) {
+  const int t = (blockIdx.x * kGatherThreads + threadIdx.x) >> 5;
+  if (t >= a.T) return;                          // warp-uniform
+  const int lane = threadIdx.x & 31;
+  const int2 pc = a.pairs[t];
+  const bool ok = pc.x >= 0 && pc.x < a.P && pc.y >= 0 && pc.y < a.Wn;
+  using V = typename std::conditional<kVec, float2, float>::type;
+  constexpr int kW = sizeof(V) / sizeof(float);  // floats an element
+  const int per = a.F / kW;                      // elements a service row
+  const int n = a.S * per;
+  V* __restrict__ o = reinterpret_cast<V*>(a.out + (long long)t * a.S * a.F);
+  const V* __restrict__ src = reinterpret_cast<const V*>(
+      a.pool + ((long long)pc.x * a.S * a.Wn + pc.y) * a.F);
+  const long long svc = (long long)a.Wn * per;   // elements between services
+  const V nan = splat<V>(__int_as_float(0x7fc00000));
+  for (int j0 = 0; j0 < n; j0 += 32 * kGatherRounds) {
+    V v[kGatherRounds];
+#pragma unroll
+    for (int r = 0; r < kGatherRounds; ++r) {
+      const int j = j0 + 32 * r + lane;
+      const int s = j / per;
+      v[r] = nan;
+      if (ok && j < n) v[r] = src[s * svc + (j - s * per)];
+    }
+#pragma unroll
+    for (int r = 0; r < kGatherRounds; ++r) {
+      const int j = j0 + 32 * r + lane;
+      if (j < n) o[j] = v[r];
+    }
   }
 }
 
@@ -305,14 +379,33 @@ extern "C" int anomod_lane_delta(const void* sid, const void* planes, int L,
   return (int)cudaGetLastError();
 }
 
+extern "C" int anomod_window_gather_capacity() { return kGatherPairs; }
+
+// pairs: host memory, int32[T][2] (slot, col); T <= kGatherPairs.  out:
+// the T rows' [T][S][F] block on the card.
 extern "C" int anomod_window_gather(const void* pool, int P, int S, int Wn,
-                                    int F, const void* slots, const void* cols,
-                                    int T, void* out, void* stream) {
+                                    int F, const void* pairs, int T,
+                                    void* out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (T < 1) return (int)cudaSuccess;
-  window_gather_kernel<<<T, kGatherThreads, 0, st>>>(
-      static_cast<const float*>(pool), P, S, Wn, F,
-      static_cast<const int*>(slots), static_cast<const int*>(cols),
-      static_cast<float*>(out));
+  if (T < 1 || S < 1 || F < 1) return (int)cudaSuccess;
+  if (T > kGatherPairs) return (int)cudaErrorInvalidValue;
+  const int* pv = static_cast<const int*>(pairs);
+  GatherArgs a;
+  a.pool = static_cast<const float*>(pool);
+  a.out = static_cast<float*>(out);
+  a.P = P;
+  a.S = S;
+  a.Wn = Wn;
+  a.F = F;
+  a.T = T;
+  for (int t = 0; t < T; ++t) a.pairs[t] = make_int2(pv[2 * t], pv[2 * t + 1]);
+  const auto aligned8 = [](const void* q) {
+    return (reinterpret_cast<unsigned long long>(q) & 7ull) == 0;
+  };
+  const int blocks = (T * 32 + kGatherThreads - 1) / kGatherThreads;
+  if (F % 2 == 0 && aligned8(pool) && aligned8(out))
+    window_gather_kernel<true><<<blocks, kGatherThreads, 0, st>>>(a);
+  else
+    window_gather_kernel<false><<<blocks, kGatherThreads, 0, st>>>(a);
   return (int)cudaGetLastError();
 }

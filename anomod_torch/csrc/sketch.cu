@@ -43,18 +43,54 @@
 // whose lane is outside [0, L) is dropped.  clz is the hardware __clz, exact
 // for every input (the TPU kernel needed a bit-shift ladder).
 //
-// Design: a grid-stride pass over the items.  When the L x 2^p registers fit
-// in shared memory each block keeps its own zeroed copy, updates it with
-// shared atomicMax and, at the end, folds every nonzero register into regs
-// with a global atomicMax; otherwise the updates go to regs directly.
+// Design: one register copy a thread-block cluster, not one a block.  A
+// cluster of kHllCluster (8, the portable size) blocks splits the L x 2^p
+// registers into 8 slices, block r owning slice r in its shared memory
+// (own = ceil(L*2^p / 8) registers: 2880, 11.5 KB, at the edge plane's
+// 90 x 256), so a block zeroes and sweeps an eighth of the plane and a
+// cluster, not every block, holds one copy.  A warp takes 128 consecutive
+// rows a step, as four 32-row groups (thread t holds rows 32u + t, so each
+// load is one coalesced 128-byte line and a group is 32 consecutive rows:
+// the spans of one trace, which share a register, sit together), with the
+// next step's loads issued before this step's hashing; the first step's
+// loads are issued between the arrival at the barrier that follows the
+// zeroing of the slices and the wait on it (issued before the arrival,
+// whose release orders them, they would hold it up).  In each group the
+// rows with one register find each other (__match_any_sync on the register
+// index), their largest rank is found by six ballots, one a bit from the
+// top, and the group's lowest lane sends one atomicMax to the register's
+// owner: its own shared memory, or another block's over distributed shared
+// memory (cluster.map_shared_rank); shared integer max is a native atomic.
+// After a cluster barrier each block folds its slice into regs with
+// atomicMax of its nonzero registers, consecutive threads on consecutive
+// registers, so a warp's reductions fall on one 128-byte line of L2.  The
+// grid (ops/sketch_kernels.py hll_plan) is about one block an SM, fewer
+// clusters when there are few rows a block or when the clusters' sweeps
+// would outnumber the rows.  A plane whose slice does not fit a block's
+// shared memory (SMEM_LIMIT; p = 16 with many lanes) takes the direct
+// path: the same warp merge, each group's register sent to regs in global
+// memory with an atomicMax whose result is unused (a reduction in L2,
+// RED.E.MAX; phase 1 of chip_smoke.py prints the opcodes), at most 8
+// blocks of 256 threads an SM.  A dropped row (lane outside [0, L)) joins
+// no register and sends nothing.  The byte bound is 4 B (8 B with lanes)
+// a row, 0.0012 ms at the edge plane.  What bounds it on the H100
+// (chip_smoke.py phase 10, spun): at the edge plane 0.0135 ms, of which
+// 0.0099 is what a launch with every row dead takes (the launch, zeroing,
+// two cluster barriers and the rows' reads after the timed window's L2
+// write), the rest the updates over distributed shared memory; the direct
+// path takes 0.0197 there, its 352,075 scattered reductions serialized in
+// L2, which is why regs is written only by the slices' coalesced sweeps.
 // Integer max does not depend on order, so the result is register-exact
-// whatever the schedule.  Bound by bytes: 4 B (8 B with lanes) an item.
+// and two launches are identical.
 //
 // Interface: plain C, pointers and the stream as void*, loaded with ctypes
 // (anomod_torch/ops/sketch_kernels.py).  Each entry returns
 // cudaGetLastError().  The caller allocates the outputs.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -63,10 +99,12 @@ constexpr int kTdWarps = 4;               // warps a digest lane
 constexpr int kTdThreads = kTdWarps * 32;
 constexpr int kTdSlots = 4;               // slots a thread a step
 constexpr int kTdStep = 32 * kTdSlots;
-constexpr int kHllThreads = 512;
-// items a shared-register block should see at least, so that zeroing and
-// folding its register copy stays small beside the updates
-constexpr int kHllItemsPerBlock = 4096;
+constexpr int kHllThreads = 256;          // direct path
+constexpr int kHllClusterThreads = 1024;  // cluster path: one block an SM
+constexpr int kHllCluster = 8;            // blocks a cluster (portable size)
+constexpr int kHllGroups = 4;             // 32-row groups a warp a step
+constexpr int kHllStep = 32 * kHllGroups; // rows a warp a step
+constexpr int kHllBlocksPerSm = 8;        // direct path
 
 // Slots [base + 4t, base + 4t + 4) of a row, for lane t: buckets (-1 past
 // the row's end) and the two planes (0 past it).
@@ -210,36 +248,132 @@ __device__ __forceinline__ unsigned fmix32(unsigned x) {
   return x;
 }
 
-// Dynamic shared memory (use_smem only): sreg[L << p].
-__global__ void hll_update_kernel(const int* __restrict__ items,
-                                  const int* __restrict__ lane, long long n,
-                                  int p, int L, int* __restrict__ regs,
-                                  int use_smem) {
-  extern __shared__ int sreg[];
-  const long long total = (long long)L << p;
-  if (use_smem) {
-    for (long long j = threadIdx.x; j < total; j += blockDim.x) sreg[j] = 0;
-    __syncthreads();
+// Rows base + 32u + t of a warp step, for lane t: the items, and their
+// lanes (-1 past the end; 0 without a lane column).
+__device__ __forceinline__ void hll_load(const int* __restrict__ items,
+                                         const int* __restrict__ lane,
+                                         long long n, long long base, int t,
+                                         int (&it)[kHllGroups],
+                                         int (&ln)[kHllGroups]) {
+#pragma unroll
+  for (int u = 0; u < kHllGroups; ++u) {
+    const long long i = base + 32 * u + t;
+    const bool in = i < n;
+    it[u] = in ? items[i] : 0;
+    ln[u] = in ? (lane ? lane[i] : 0) : -1;
   }
-  int* dst = use_smem ? sreg : regs;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const int l = lane ? lane[i] : 0;
-    if (l < 0 || l >= L) continue;
-    const unsigned h = fmix32(static_cast<unsigned>(items[i]));
-    const int b = static_cast<int>(h >> (32 - p));
-    const unsigned h2 = fmix32(h ^ 0x9E3779B9u);
-    const int rank = min(__clz(static_cast<int>(h2)) + 1, 32);
-    atomicMax(dst + (((long long)l << p) + b), rank);
+}
+
+// Grid-stride over warp steps of kHllStep rows; L << p < 2^31.  kCluster:
+// grid of clusters of kHllCluster blocks, block r of a cluster owning
+// registers [r*own, (r+1)*own) in its dynamic shared memory; else every
+// update goes to regs.
+template <bool kCluster>
+__global__ void __launch_bounds__(kCluster ? kHllClusterThreads : kHllThreads)
+hll_update_kernel(const int* __restrict__ items,
+                  const int* __restrict__ lane, long long n, int p, int L,
+                  int own, int* __restrict__ regs) {
+  extern __shared__ int slice[];
+  const int t = threadIdx.x & 31;
+  const unsigned lower = (1u << t) - 1u;
+  const int me = kCluster ? (int)cg::this_cluster().block_rank() : 0;
+  if (kCluster) {
+    for (int j = threadIdx.x; j < own; j += blockDim.x) slice[j] = 0;
+    // every slice zeroed before use: arrive now, wait once the first
+    // step's loads are in flight
+    asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
   }
-  if (use_smem) {
-    __syncthreads();
-    for (long long j = threadIdx.x; j < total; j += blockDim.x) {
-      const int v = sreg[j];
-      if (v > 0) atomicMax(regs + j, v);
+  const long long warps = (long long)gridDim.x * (blockDim.x / 32);
+  long long w = (long long)blockIdx.x * (blockDim.x / 32) + (threadIdx.x >> 5);
+  int it[kHllGroups], ln[kHllGroups];
+  if (w * kHllStep < n) hll_load(items, lane, n, w * kHllStep, t, it, ln);
+  if (kCluster)
+    asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+  for (; w * kHllStep < n; w += warps) {          // warp-uniform
+    int nit[kHllGroups] = {}, nln[kHllGroups] = {};
+    const long long next = (w + warps) * kHllStep;
+    if (next < n) hll_load(items, lane, n, next, t, nit, nln);
+#pragma unroll
+    for (int u = 0; u < kHllGroups; ++u) {
+      const bool keep = ln[u] >= 0 && ln[u] < L;
+      int key = -1, rank = 0;
+      if (keep) {
+        const unsigned h = fmix32(static_cast<unsigned>(it[u]));
+        const unsigned h2 = fmix32(h ^ 0x9E3779B9u);
+        key = (ln[u] << p) + static_cast<int>(h >> (32 - p));
+        rank = min(__clz(static_cast<int>(h2)) + 1, 32);
+      }
+      const unsigned peers = __match_any_sync(kAll, key);
+      // the group's largest rank (<= 32 < 64), bit by bit from the top:
+      // every lane of a group takes the same steps
+      int m = 0;
+#pragma unroll
+      for (int bit = 5; bit >= 0; --bit) {
+        const int c = m | (1 << bit);
+        if (__ballot_sync(kAll, rank >= c) & peers) m = c;
+      }
+      if (keep && (peers & lower) == 0) {
+        if (kCluster) {
+          const int q = key / own;
+          int* dst = slice + (key - q * own);
+          if (q != me) dst = cg::this_cluster().map_shared_rank(dst, q);
+          atomicMax(dst, m);
+        } else {
+          atomicMax(regs + key, m);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kHllGroups; ++u) {
+      it[u] = nit[u];
+      ln[u] = nln[u];
     }
   }
+  if (kCluster) {
+    // every update of the cluster has landed, and no block reads another's
+    // slice from here on
+    cg::this_cluster().sync();
+    const long long base = (long long)me * own;
+    const int n_own = (int)min((long long)own, ((long long)L << p) - base);
+    for (int j = threadIdx.x; j < n_own; j += blockDim.x) {
+      const int v = slice[j];
+      if (v > 0) atomicMax(regs + base + j, v);
+    }
+  }
+}
+
+// Raise the cluster kernel's dynamic shared-memory limit to at least `smem`
+// bytes on the current device, once: later calls that need no more set
+// nothing.
+cudaError_t hll_ensure_smem(int smem) {
+  constexpr int kDevices = 64;
+  static int limit[kDevices];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < kDevices && limit[dev] >= smem) return cudaSuccess;
+  e = cudaFuncSetAttribute(hll_update_kernel<true>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess && dev < kDevices) limit[dev] = smem;
+  return e;
+}
+
+// The cluster path's launch configuration; `attr` must outlive it.
+cudaLaunchConfig_t hll_cluster_config(int n_clusters, int smem,
+                                      cudaStream_t st,
+                                      cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_clusters * kHllCluster);
+  cfg.blockDim = dim3(kHllClusterThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = kHllCluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
 }
 
 }  // namespace
@@ -276,29 +410,50 @@ extern "C" int anomod_tdigest_reduce(const void* bucket, const void* w,
   return (int)cudaGetLastError();
 }
 
-// smem_limit: the most dynamic shared memory a block may take for its
-// register copy (0: update regs directly).  n_sm: the card's SM count.
+// The most clusters of the cluster path that fit on the card at once with
+// `smem` bytes of shared memory a block, into *n.
+extern "C" int anomod_hll_cluster_capacity(int smem, int* n) {
+  cudaError_t e = hll_ensure_smem(smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = hll_cluster_config(1, smem, 0, &attr);
+  return (int)cudaOccupancyMaxActiveClusters(
+      n, (const void*)hll_update_kernel<true>, &cfg);
+}
+
+// n_clusters > 0: the cluster path, each block owning `own` registers
+// (8 * own >= L << p); n_clusters == 0: the direct path, its grid from
+// n_sm, the card's SM count.
 extern "C" int anomod_hll_update(const void* items, const void* lane,
                                  long long n, int p, int L, void* regs,
-                                 int smem_limit, int n_sm, void* stream) {
+                                 int n_clusters, int own, int n_sm,
+                                 void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n < 1 || L < 1) return (int)cudaSuccess;
-  const long long bytes = ((long long)L << p) * (long long)sizeof(int);
-  const int use_smem = bytes <= smem_limit;
-  long long blocks = (n + kHllThreads - 1) / kHllThreads;
-  int smem = 0;
-  if (use_smem) {
-    smem = (int)bytes;
-    blocks = (n + kHllItemsPerBlock - 1) / kHllItemsPerBlock;
-    if (blocks > n_sm) blocks = n_sm;
-    cudaError_t e = cudaFuncSetAttribute(
-        hll_update_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (p < 1 || p > 30 || ((long long)L << p) > 0x7fffffffLL || n_sm < 1 ||
+      n_clusters < 0)
+    return (int)cudaErrorInvalidValue;
+  const int* it = static_cast<const int*>(items);
+  const int* ln = static_cast<const int*>(lane);
+  int* r = static_cast<int*>(regs);
+  if (n_clusters > 0) {
+    if ((long long)own * kHllCluster < ((long long)L << p))
+      return (int)cudaErrorInvalidValue;
+    const int smem = own * (int)sizeof(int);
+    cudaError_t e = hll_ensure_smem(smem);
     if (e != cudaSuccess) return (int)e;
-  } else if (blocks > 4LL * n_sm) {
-    blocks = 4LL * n_sm;
+    cudaLaunchAttribute attr;
+    cudaLaunchConfig_t cfg = hll_cluster_config(n_clusters, smem, st, &attr);
+    e = cudaLaunchKernelEx(&cfg, hll_update_kernel<true>, it, ln, n, p, L,
+                           own, r);
+    if (e != cudaSuccess) return (int)e;
+    return (int)cudaGetLastError();
   }
-  hll_update_kernel<<<(int)blocks, kHllThreads, smem, st>>>(
-      static_cast<const int*>(items), static_cast<const int*>(lane), n, p, L,
-      static_cast<int*>(regs), use_smem);
+  constexpr int kRowsPerBlock = kHllThreads / 32 * kHllStep;
+  long long blocks = (n + kRowsPerBlock - 1) / kRowsPerBlock;
+  if (blocks > (long long)kHllBlocksPerSm * n_sm)
+    blocks = (long long)kHllBlocksPerSm * n_sm;
+  hll_update_kernel<false><<<(int)blocks, kHllThreads, 0, st>>>(
+      it, ln, n, p, L, 0, r);
   return (int)cudaGetLastError();
 }

@@ -22,6 +22,10 @@ the exact planes equal and the moments within a stated tolerance.
 ``window_gather`` copies one window column per requested tenant out of
 the device state pool, ``[P, S*W, F]`` -> ``[T, S, F]``; its plain
 version is advanced indexing.  Both are pure copies and bit-identical.
+It takes the tenants' slots and columns as host arrays: the kernel
+receives them by value in its parameter space (:data:`GATHER_PAIRS`
+pairs a launch; :func:`gather_plan` splits a larger request), so no
+index is copied to the card and the kernel reads none from its memory.
 
 A wrapper takes the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises.  ``launches`` counts kernel
@@ -31,8 +35,9 @@ launches per wrapper.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, List, Tuple
 
+import numpy as np
 import torch
 
 from anomod_torch.ops.replay_kernels import (N_PLANES, _bf16, _check,
@@ -51,6 +56,13 @@ SMEM_LIMIT = 200 * 1024
 #: fewest segments a lane-delta block owns: below this, blocks would redo
 #: the lane's counting sort for little fold work each
 MIN_SEGMENTS_PER_BLOCK = 32
+#: bytes of kernel parameters a launch may pass on every CUDA version
+PARAM_LIMIT = 4096
+#: bytes of the window gather's parameter block ahead of its pairs
+GATHER_HEADER = 40
+#: (slot, col) pairs one window-gather launch carries (``kGatherPairs``
+#: in ``csrc/serve.cu``), 8 bytes each
+GATHER_PAIRS = (PARAM_LIMIT - GATHER_HEADER) // 8
 
 
 def reset_launches() -> None:
@@ -103,6 +115,18 @@ def window_gather_plain(pool: torch.Tensor, slots: torch.Tensor,
     return rows[slots.long()[:, None], svc, cols.long()[:, None]]
 
 
+def gather_plan(n_tenants: int,
+                capacity: int = GATHER_PAIRS) -> List[Tuple[int, int]]:
+    """The window gather's launches for ``n_tenants`` requested tenants:
+    ``[lo, hi)`` ranges in order, covering every tenant once, as few as
+    ``capacity`` pairs a launch allows and of sizes within one of each
+    other."""
+    if n_tenants < 0 or capacity < 1:
+        raise ValueError("n_tenants must be >= 0 and capacity >= 1")
+    n = -(-n_tenants // capacity)
+    return [(n_tenants * k // n, n_tenants * (k + 1) // n) for k in range(n)]
+
+
 _LIB = None
 
 
@@ -118,9 +142,13 @@ def _lib() -> ctypes.CDLL:
         lib.anomod_lane_delta.restype = i32
         lib.anomod_lane_delta_smem.argtypes = [i32, i32]
         lib.anomod_lane_delta_smem.restype = i32
-        lib.anomod_window_gather.argtypes = [vp, i32, i32, i32, i32, vp, vp,
+        lib.anomod_window_gather.argtypes = [vp, i32, i32, i32, i32, vp,
                                              i32, vp, vp]
         lib.anomod_window_gather.restype = i32
+        lib.anomod_window_gather_capacity.restype = i32
+        if lib.anomod_window_gather_capacity() != GATHER_PAIRS:
+            raise RuntimeError("csrc/serve.cu's kGatherPairs != "
+                               f"GATHER_PAIRS ({GATHER_PAIRS})")
         lib.anomod_serve_error_string.argtypes = [i32]
         lib.anomod_serve_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -182,29 +210,57 @@ def lane_delta(sid: torch.Tensor, planes: torch.Tensor, n_segments: int,
     return out
 
 
-def window_gather(pool: torch.Tensor, slots: torch.Tensor,
-                  cols: torch.Tensor, n_services: int,
+def _host_index(name: str, x) -> np.ndarray:
+    """A host index array (numpy or a CPU tensor) as int32 numpy; a
+    tensor on any other device raises: the kernel takes its indices by
+    value from the host."""
+    if torch.is_tensor(x):
+        if x.device.type != "cpu":
+            raise ValueError(f"{name} must be a host array (numpy or a CPU "
+                             f"tensor), got a tensor on {x.device}")
+        if x.dtype != torch.int32:
+            raise TypeError(f"{name} must be torch.int32, got {x.dtype}")
+        x = x.numpy()
+    x = np.asarray(x)
+    if x.dtype != np.int32:
+        raise TypeError(f"{name} must be int32, got {x.dtype}")
+    if x.ndim != 1:
+        raise ValueError(f"{name} must be 1-D, got shape {x.shape}")
+    return x
+
+
+def window_gather(pool: torch.Tensor, slots, cols, n_services: int,
                   n_windows: int) -> torch.Tensor:
-    """``pool f32[P, S*W, F]``, ``slots int32[T]``, ``cols int32[T]`` ->
-    ``f32[T, S, F]``: tenant t's window column ``cols[t]`` of pool row
-    ``slots[t]``.  CPU tensors take :func:`window_gather_plain`."""
+    """``pool f32[P, S*W, F]`` and host ``slots int32[T]``, ``cols
+    int32[T]`` (numpy or CPU tensors) -> ``f32[T, S, F]`` on the pool's
+    device: tenant t's window column ``cols[t]`` of pool row
+    ``slots[t]``.  A pool on the CPU takes :func:`window_gather_plain`;
+    on the card, one launch a :func:`gather_plan` range."""
     if pool.dim() != 3:
         raise ValueError(f"pool must be [P, S*W, F], got {tuple(pool.shape)}")
     P, SW, F = pool.shape
     if SW != n_services * n_windows:
         raise ValueError(f"pool rows {SW} != {n_services} x {n_windows}")
+    slots = _host_index("slots", slots)
+    cols = _host_index("cols", cols)
     T = slots.shape[0]
+    if cols.shape != (T,):
+        raise ValueError(f"cols must have shape ({T},), got {cols.shape}")
     _check("pool", pool, torch.float32, (P, SW, F))
-    _check("slots", slots, torch.int32, (T,))
-    _check("cols", cols, torch.int32, (T,))
-    if not _on_cuda(pool, slots, cols):
-        return window_gather_plain(pool, slots, cols, n_services, n_windows)
+    if not _on_cuda(pool):
+        return window_gather_plain(pool, torch.from_numpy(slots),
+                                   torch.from_numpy(cols), n_services,
+                                   n_windows)
     lib = _lib()
     out = torch.empty((T, n_services, F), dtype=torch.float32,
                       device=pool.device)
-    err = lib.anomod_window_gather(_ptr(pool), P, n_services, n_windows, F,
-                                   _ptr(slots), _ptr(cols), T, _ptr(out),
-                                   _stream(pool.device))
-    _raise_on(err, "anomod_window_gather")
-    launches["window_gather"] += 1
+    pairs = np.stack([slots, cols], axis=1)
+    stream = _stream(pool.device)
+    row = n_services * F * 4
+    for lo, hi in gather_plan(T):
+        err = lib.anomod_window_gather(
+            _ptr(pool), P, n_services, n_windows, F, pairs[lo:].ctypes.data,
+            hi - lo, out.data_ptr() + lo * row, stream)
+        _raise_on(err, "anomod_window_gather")
+        launches["window_gather"] += 1
     return out

@@ -6,7 +6,10 @@ the fixed-K t-digest reduction pass, per digest lane the per-centroid
 weight and weighted mean of pre-bucketed slots.  ``hll_update`` replaces
 ``make_pallas_hll_fn`` (pallas_hll.py:19), the HyperLogLog register max;
 with a lane column it also carries the per-lane plane the JAX package
-builds with an XLA scatter-max (``replay.hll_scatter_update``).  The CUDA
+builds with an XLA scatter-max (``replay.hll_scatter_update``).  The HLL
+kernel keeps one register copy a thread-block cluster, split over its
+blocks' shared memories (:func:`hll_plan`); each warp merges its 32-row
+groups' rows by register before it sends them to their owners.  The CUDA
 sources are in ``anomod_torch/csrc/sketch.cu``.
 
 Beside each kernel is its plain PyTorch version (``*_plain``).  A wrapper
@@ -26,11 +29,13 @@ register.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+import functools
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from anomod_torch.ops.replay_kernels import _check, _on_cuda, _ptr, _stream
+from anomod_torch.ops.replay_kernels import (_check, _on_cuda, _ptr,
+                                             _sm_count, _stream)
 
 #: kernel launches per wrapper, counted where the wrapper launches its
 #: kernel and nowhere else (a CPU tensor takes the plain version: no count)
@@ -38,6 +43,11 @@ launches: Dict[str, int] = {"tdigest_reduce": 0, "hll_update": 0}
 
 #: shared-memory ceiling a sketch block may ask for (H100: 227 KB a block)
 SMEM_LIMIT = 200 * 1024
+#: blocks a cluster of the HLL kernel's cluster path (``kHllCluster``)
+HLL_CLUSTER = 8
+#: rows an HLL cluster-path block should have at least (one 128-row step
+#: for each of its 32 warps)
+HLL_ROWS_PER_BLOCK = 4096
 #: HLL precisions the hash supports (the bucket is the top p bits)
 HLL_P_RANGE = (4, 16)
 
@@ -124,6 +134,45 @@ def hll_update_plain(regs: torch.Tensor, items: torch.Tensor,
     return regs
 
 
+class HllPlan(NamedTuple):
+    """The HLL kernel's grid.  Clustered: ``n_clusters`` clusters of
+    :data:`HLL_CLUSTER` blocks, block r of a cluster owning registers
+    ``[r*own, (r+1)*own)`` of the flattened plane in its shared memory.
+    Direct (``n_clusters == 0``): no copy, every update to the registers
+    in device memory."""
+    n_clusters: int
+    own: int
+
+    @property
+    def clustered(self) -> bool:
+        return self.n_clusters > 0
+
+    def smem_bytes(self) -> int:
+        """Shared memory a block of this plan takes."""
+        return self.own * 4
+
+
+def hll_plan(n_rows: int, n_regs: int, n_sm: int,
+             cluster_capacity: Callable[[int], int]) -> HllPlan:
+    """The HLL kernel's grid for ``n_rows`` rows into ``n_regs`` registers.
+
+    Each cluster holds one copy of the plane, an eighth a block; the
+    direct path exactly when that eighth does not fit :data:`SMEM_LIMIT`.
+    Otherwise about one block an SM (``n_sm // 8`` clusters), but no more
+    clusters than keep :data:`HLL_ROWS_PER_BLOCK` rows a block, than make
+    the clusters' sweeps of the plane (``n_clusters x n_regs``) outnumber
+    the rows, or than the card holds at once
+    (``cluster_capacity(smem_bytes)``)."""
+    own = -(-n_regs // HLL_CLUSTER)
+    if own * 4 > SMEM_LIMIT:
+        return HllPlan(0, 0)
+    n = min(max(1, n_sm // HLL_CLUSTER),
+            -(-n_rows // (HLL_CLUSTER * HLL_ROWS_PER_BLOCK)),
+            max(1, n_rows // max(n_regs, 1)),
+            cluster_capacity(own * 4))
+    return HllPlan(max(1, n), own)
+
+
 _LIB = None
 
 
@@ -139,9 +188,12 @@ def _lib() -> ctypes.CDLL:
         lib.anomod_tdigest_reduce.restype = i32
         lib.anomod_tdigest_smem.argtypes = [i32]
         lib.anomod_tdigest_smem.restype = i32
-        lib.anomod_hll_update.argtypes = [vp, vp, i64, i32, i32, vp, i32, i32,
-                                          vp]
+        lib.anomod_hll_update.argtypes = [vp, vp, i64, i32, i32, vp, i32,
+                                          i32, i32, vp]
         lib.anomod_hll_update.restype = i32
+        lib.anomod_hll_cluster_capacity.argtypes = [
+            i32, ctypes.POINTER(ctypes.c_int)]
+        lib.anomod_hll_cluster_capacity.restype = i32
         lib.anomod_sketch_error_string.argtypes = [i32]
         lib.anomod_sketch_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -152,6 +204,20 @@ def _raise_on(err: int, what: str) -> None:
     if err != 0:
         msg = _lib().anomod_sketch_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+@functools.lru_cache(maxsize=None)
+def _hll_cluster_capacity(index: int, smem: int) -> int:
+    """Clusters of the HLL kernel's cluster path the card holds at once
+    with ``smem`` bytes of shared memory a block."""
+    n = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = _lib().anomod_hll_cluster_capacity(smem, ctypes.byref(n))
+    _raise_on(err, "anomod_hll_cluster_capacity")
+    if n.value < 1:
+        raise RuntimeError(f"no cluster of {HLL_CLUSTER} blocks with {smem} B "
+                           "of shared memory fits this card")
+    return n.value
 
 
 def tdigest_reduce(bucket: torch.Tensor, w: torch.Tensor, wv: torch.Tensor,
@@ -214,10 +280,14 @@ def hll_update(regs: torch.Tensor, items: torch.Tensor,
         return regs
     lib = _lib()
     dev = regs.device
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    index = dev.index if dev.index is not None else \
+        torch.cuda.current_device()
+    n_sm = _sm_count(index)
+    plan = hll_plan(n, L << p, n_sm,
+                    functools.partial(_hll_cluster_capacity, index))
     err = lib.anomod_hll_update(
         _ptr(items), None if lane is None else _ptr(lane), n, p, L,
-        _ptr(regs), SMEM_LIMIT, n_sm, _stream(dev))
+        _ptr(regs), plan.n_clusters, plan.own, n_sm, _stream(dev))
     _raise_on(err, "anomod_hll_update")
     launches["hll_update"] += 1
     return regs

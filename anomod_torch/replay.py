@@ -376,7 +376,8 @@ class TenantStatePool:
     def gather_window(self, slots, cols) -> np.ndarray:
         """``[T, S, F]`` host copy of one window column per tenant (the
         batched scorer's gather): only the scored columns leave the
-        device, through the window-gather kernel."""
+        device, through the window-gather kernel, which takes the host
+        indices by value (nothing is copied to the card for them)."""
         slots = np.asarray(slots, np.int32)
         cols = np.asarray(cols, np.int32)
         cfg = self.cfg
@@ -384,9 +385,8 @@ class TenantStatePool:
                            or cols.min() < 0
                            or cols.max() >= cfg.n_windows):
             raise IndexError("gather_window: slot or column out of range")
-        out = window_gather(self.agg, torch.from_numpy(slots).to(self.device),
-                            torch.from_numpy(cols).to(self.device),
-                            cfg.n_services, cfg.n_windows)
+        out = window_gather(self.agg, slots, cols, cfg.n_services,
+                            cfg.n_windows)
         return out.cpu().numpy()
 
     def gather_rows(self, slots) -> np.ndarray:

@@ -25,7 +25,8 @@ drives three paths:
   bit for bit against the host's plain version at every bucket width,
   L = 1, 7, 32 and on adversarial lanes (one hot segment, two
   alternating, all dead), the window-gather kernel against its plain
-  version, then the serve
+  version at T = 1, 64, 256 and 1200 (above one launch's parameter
+  capacity) with host indices, then the serve
   tick (admission, fused lane dispatch, device state pool, batched
   scoring), checked against the decision pins of the JAX package's
   captures (p99 22.998135 s, shed 0.437567, 158 alerts), against the
@@ -38,7 +39,9 @@ drives three paths:
   p = 10 for the single sketch): the t-digest reduction and HLL update
   kernels against their plain versions and a numpy HLL oracle at the
   service- and edge-plane shapes (the t-digest also on edge-plane rows
-  shuffled out of bucket order), then ``replay_percentiles`` and
+  shuffled out of bucket order; the HLL update also at its ends: every
+  row dead, every row on one register, p = 16 on the direct path, 100
+  rows, and its C entry alone by both paths), then ``replay_percentiles`` and
   ``replay_edge_features`` with the launches counted, held against the
   same path run with the plain versions on the card, and the CLI's
   ``replay --percentiles --edge-percentiles``;
@@ -316,6 +319,26 @@ ADMISSION_FIELDS = ("offered_spans", "admitted_spans", "served_spans",
                     "peak_backlog_spans", "latency", "per_priority")
 
 
+@contextlib.contextmanager
+def host_walls(cls, name):
+    """Record the host wall (s) of every call of method ``cls.name`` made
+    inside the block, in a list the block receives."""
+    orig = getattr(cls, name)
+    walls = []
+
+    def wrapper(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return orig(self, *args, **kwargs)
+        finally:
+            walls.append(time.perf_counter() - t0)
+    setattr(cls, name, wrapper)
+    try:
+        yield walls
+    finally:
+        setattr(cls, name, orig)
+
+
 def serve_fingerprint(eng):
     """Per tenant: its alert stream and its replay state's bytes."""
     import dataclasses
@@ -340,7 +363,7 @@ def serve_phases(dev, card) -> dict:
     import torch
     from anomod_torch.ops import replay_kernels as rk
     from anomod_torch.ops import serve_kernels as sk
-    from anomod_torch.replay import stage_columns_fused
+    from anomod_torch.replay import TenantStatePool, stage_columns_fused
     from anomod_torch.schemas import concat_span_batches
     from anomod_torch.serve.engine import (VARIANT_REPORT_FIELDS,
                                            ServeEngine, power_law_traffic,
@@ -486,36 +509,52 @@ def serve_phases(dev, card) -> dict:
     rng = np.random.default_rng(7)
     pool = torch.from_numpy(rng.normal(size=(P + 1, SW, 6)).astype(
         np.float32) * 1e3).to(dev)
-    for T in (1, 64, 256):
-        slots = torch.from_numpy(rng.integers(1, P + 1, T).astype(
-            np.int32)).to(dev)
-        wcols = torch.from_numpy(rng.integers(0, Wn, T).astype(
-            np.int32)).to(dev)
-        got = sk.window_gather(pool, slots, wcols, S, Wn)
+    # the wrapper takes host indices by value; T = 1200 is above one launch's parameter capacity (GATHER_PAIRS)
+    gather_in, gather_launches = {}, {}
+    for T in (1, 64, 256, 1200):
+        s_np = rng.integers(0, P + 1, T).astype(np.int32)
+        c_np = rng.integers(0, Wn, T).astype(np.int32)
+        s_np[0], c_np[-1] = 0, Wn - 1       # the dead slot, the last column
+        s_np[T // 2] = s_np[min(1, T - 1)]  # a duplicated slot
+        gather_in[T] = torch.from_numpy(s_np), torch.from_numpy(c_np)
+        before = sk.launches["window_gather"]
+        got = sk.window_gather(pool, *gather_in[T], S, Wn)
         torch.cuda.synchronize()
-        check(torch.equal(got, sk.window_gather_plain(pool, slots, wcols,
-                                                      S, Wn)),
-              f"window_gather T={T}: differs from advanced indexing")
-    log("[7] window_gather: bit-identical at T = 1, 64, 256")
+        gather_launches[T] = sk.launches["window_gather"] - before
+        check(torch.equal(got, sk.window_gather_plain(
+            pool, torch.from_numpy(s_np).to(dev),
+            torch.from_numpy(c_np).to(dev), S, Wn)),
+            f"window_gather T={T}: differs from advanced indexing")
+    log(f"[7] window_gather: bit-identical at T = 1, 64, 256, 1200 (slot 0, "
+        f"a duplicated slot, column {Wn - 1}; host indices); launches a "
+        f"call "
+        f"{gather_launches}")
+    slots, wcols = gather_in[256]
+    dslots, dcols = slots.to(dev), wcols.to(dev)
     gather_plain_ms = cuda_ms(lambda: sk.window_gather_plain(
-        pool, slots, wcols, S, Wn))
+        pool, dslots, dcols, S, Wn))
     rows = pool.view(P + 1, S, Wn, 6)
-    si, sv, ci = (slots.long()[:, None], torch.arange(S, device=dev)[None],
-                  wcols.long()[:, None])
+    si, sv, ci = (dslots.long()[:, None], torch.arange(S, device=dev)[None],
+                  dcols.long()[:, None])
     gather_t = timed(lambda: sk.window_gather(pool, slots, wcols, S, Wn),
                      lambda: rows[si, sv, ci])
+    gather_ms = {T: cuda_ms(lambda: sk.window_gather(pool, *a, S, Wn))
+                 for T, a in gather_in.items()}
     # a pure copy: T*S*F f32 read and written, plus the two index arrays
     gather_bound = (2 * 256 * S * 6 * 4 + 256 * 8) / PEAK_BYTES_PER_S * 1e3
     log(f"[7] window_gather T=256: kernel {gather_t['ms']:.4f} ms, plain "
         f"{gather_plain_ms:.4f} ms, indexing {gather_t['library_ms']:.4f} "
-        f"ms, bound {gather_bound:.6f} ms (bytes) on {card}; unspun: "
-        f"{gather_t['ms_unspun']:.4f}, {gather_t['library_ms_unspun']:.4f}")
+        f"ms, bound {gather_bound:.6f} ms (bytes), "
+        f"{gather_launches[256]} launch a call, on {card}; unspun: "
+        f"{gather_t['ms_unspun']:.4f}, {gather_t['library_ms_unspun']:.4f}; "
+        f"kernel ms by T {gather_ms}, launches by T {gather_launches}")
 
     # -- phase 8: the serve path at the bench deployment ------------------
     sk.reset_launches()
     rk.reset_launches()
     t0 = time.perf_counter()
-    eng, rep = run_power_law(device=dev, **SERVE_KW)
+    with host_walls(TenantStatePool, "gather_window") as gather_walls:
+        eng, rep = run_power_law(device=dev, **SERVE_KW)
     run_s = time.perf_counter() - t0
     launches = dict(sk.launches)
     for k, v in launches.items():
@@ -535,6 +574,12 @@ def serve_phases(dev, card) -> dict:
         f"{rep.dispatch_wall_s} s, fold {rep.fold_wall_s} s, score "
         f"{rep.score_wall_s} s; launches {launches}; whole call "
         f"{run_s:.3f} s")
+    gather_host = {"calls": len(gather_walls),
+                   "sum_s": sum(gather_walls),
+                   "first_s": gather_walls[0] if gather_walls else None}
+    log(f"[8] TenantStatePool.gather_window host wall: {gather_host['calls']}"
+        f" calls, {gather_host['sum_s']:.6f} s summed (the first, the "
+        f"pool's warm-up outside the serve wall, {gather_host['first_s']})")
 
     def decisions(r):
         return {k: v for k, v in dataclasses.asdict(r).items()
@@ -624,10 +669,12 @@ def serve_phases(dev, card) -> dict:
     busy = device_busy_ms(prof)
     per_kernel = kernel_device_ms(prof, ("lane_delta_kernel",
                                          "window_gather_kernel"))
+    g_ms, g_n = per_kernel["window_gather_kernel"]
+    gather_trace_ms = g_ms / g_n if g_n else None
     log(f"[8] serve trace by kernel (device ms, kernels in the trace): "
-        f"{per_kernel}; wrapper launches in the profiled run "
-        f"{dict(sk.launches)}; fused dispatches by lane bucket "
-        f"{rep_prof.lanes_by_bucket}")
+        f"{per_kernel}; window_gather {gather_trace_ms} ms a launch; "
+        f"wrapper launches in the profiled run {dict(sk.launches)}; fused "
+        f"dispatches by lane bucket {rep_prof.lanes_by_bucket}")
     # the share is of the profiled run's own serve wall: walls of separate
     # runs differ by tens of percent on a shared host
     busy_share = (None if busy is None
@@ -650,7 +697,9 @@ def serve_phases(dev, card) -> dict:
          "replaces": "anomod/ops/pallas_replay.py:354",
          "launches": launches["window_gather"], "max_abs_err": 0.0,
          "plain_ms": gather_plain_ms, "bound_ms": gather_bound,
-         "bound_by": "bytes", **gather_t},
+         "bound_by": "bytes", "launches_per_call": gather_launches,
+         "ms_by_t": gather_ms, "serve_trace_ms_per_launch": gather_trace_ms,
+         "serve_gather_window_host": gather_host, **gather_t},
     ]
     return {"kernels": kernels, "serve_spans_per_sec": spans_per_s,
             "serve_wall_s": rep.serve_wall_s,
@@ -837,6 +886,7 @@ def sketch_phases(dev, card, batch, cfg) -> dict:
     its launches counted.  Returns the summary fields and the two
     kernels' report entries."""
     import dataclasses
+    import functools
     import io
 
     import numpy as np
@@ -956,17 +1006,26 @@ def sketch_phases(dev, card, batch, cfg) -> dict:
         f"differ in {merge_flips}")
 
     # -- phase 10: hll_update vs plain and the numpy oracle ----------------
+    def hll_held(what, n_regs, it, ln, p, n_lanes, it_np, ln_np):
+        """hll_update from zeroed registers: two launches identical, equal
+        to the plain version and to the numpy oracle."""
+        shape = (n_regs,) if ln is None else (n_lanes, n_regs)
+        zero = torch.zeros(shape, dtype=torch.int32, device=dev)
+        got = sk.hll_update(zero.clone(), it, ln, p)
+        again = sk.hll_update(zero.clone(), it, ln, p)
+        plain = sk.hll_update_plain(zero.clone(), it, ln, p)
+        torch.cuda.synchronize()
+        check(torch.equal(got, again), f"hll_update {what}: two launches "
+              "differ")
+        check(torch.equal(got, plain), f"hll_update {what}: differs from "
+              "plain")
+        check(np.array_equal(got.cpu().numpy().reshape(-1, n_regs),
+                             hll_numpy(it_np, p, ln_np, n_lanes)),
+              f"hll_update {what}: differs from the numpy oracle")
+
     items = torch.from_numpy(batch.trace.astype(np.int32)).to(dev)
     n_items = items.shape[0]
-    single = hll_numpy(batch.trace, 10)[0]
-    got = sk.hll_update(torch.zeros(1 << 10, dtype=torch.int32, device=dev),
-                        items, p=10)
-    plain = sk.hll_update_plain(torch.zeros(1 << 10, dtype=torch.int32,
-                                            device=dev), items, p=10)
-    torch.cuda.synchronize()
-    check(torch.equal(got, plain), "hll_update p=10: differs from plain")
-    check(np.array_equal(got.cpu().numpy(), single),
-          "hll_update p=10: differs from the numpy oracle")
+    hll_held("single p=10", 1 << 10, items, None, 10, 1, batch.trace, None)
     _, ech, _, _, _ = planes["edge"]
     esid = ech["sid"].reshape(-1)
     etid = ech["tid"].reshape(-1)
@@ -975,20 +1034,50 @@ def sketch_phases(dev, card, batch, cfg) -> dict:
                                              E - 1), E).astype(np.int32)
     e_items = torch.from_numpy(etid).to(dev)
     e_lane = torch.from_numpy(elane).to(dev)
-    got_e = sk.hll_update(torch.zeros((E, 1 << 8), dtype=torch.int32,
-                                      device=dev), e_items, e_lane, p=8)
-    plain_e = sk.hll_update_plain(torch.zeros((E, 1 << 8), dtype=torch.int32,
-                                              device=dev), e_items, e_lane,
-                                  p=8)
-    torch.cuda.synchronize()
-    check(torch.equal(got_e, plain_e), "hll_update edge plane: differs from "
-          "plain")
-    check(np.array_equal(got_e.cpu().numpy(), hll_numpy(etid, 8, elane, E)),
-          "hll_update edge plane: differs from the numpy oracle")
+    hll_held("edge plane p=8", 1 << 8, e_items, e_lane, 8, E, etid, elane)
     log(f"[10] hll_update: single sketch p=10 over {n_items} trace ids and "
         f"the edge plane p=8 over {E}+1 lanes ({etid.size} staged rows, "
         f"{int((elane == E).sum())} on the dead lane): registers equal to "
-        "the plain version and the numpy oracle")
+        "the plain version and the numpy oracle, two launches identical")
+    # the ends: every row on the dead lane, every row on one register,
+    # p = 16 (5.9 M registers), fewer rows than one block takes
+    one_np = np.full_like(etid, etid[0])
+    zero_lane = np.zeros_like(elane)
+    dead_np = np.full_like(elane, E)
+    hll_ends = {}
+    for name, it_np, ln_np, p in (
+            ("all dead p=8", etid, dead_np, 8),
+            ("one register p=8", one_np, zero_lane, 8),
+            ("edge plane p=16", etid, elane, 16),
+            ("100 rows p=8", etid[:100], elane[:100], 8)):
+        it = torch.from_numpy(np.ascontiguousarray(it_np)).to(dev)
+        ln = torch.from_numpy(np.ascontiguousarray(ln_np)).to(dev)
+        hll_held(name, 1 << p, it, ln, p, E, it_np, ln_np)
+        regs = torch.zeros((E, 1 << p), dtype=torch.int32, device=dev)
+        hll_ends[name] = cuda_ms(lambda: sk.hll_update(regs, it, ln, p))
+    # the C entry alone, on the edge plane: by its direct path, by its
+    # cluster copy as the wrapper plans it, and with every row dead
+    entry = sk._lib().anomod_hll_update
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    regs_c = torch.zeros((E, 1 << 8), dtype=torch.int32, device=dev)
+    dead = torch.from_numpy(dead_np).to(dev)
+
+    def c_entry(ln, mid):
+        args = (rk._ptr(e_items), rk._ptr(ln), e_items.shape[0], 8, E,
+                rk._ptr(regs_c), *mid, n_sm, rk._stream(dev))
+        check(entry(*args) == 0, "anomod_hll_update returned an error")
+        return lambda: entry(*args)
+    plan = sk.hll_plan(e_items.shape[0], E << 8, n_sm, functools.partial(
+        sk._hll_cluster_capacity, torch.cuda.current_device()))
+    hll_grid = plan._asdict()
+    readings = {"direct": c_entry(e_lane, (0, 0)),
+                "cluster copy": c_entry(e_lane, tuple(plan)),
+                "all dead, cluster copy": c_entry(dead, tuple(plan))}
+    hll_c_entry = {k: cuda_ms(f) for k, f in readings.items()}
+    log(f"[10] hll_update ends (two launches identical, equal to plain and "
+        f"the oracle), kernel ms: {hll_ends}; the C entry on the "
+        f"edge plane, ms: {hll_c_entry} on {card}; edge-plane grid "
+        f"{hll_grid}")
     hll_times = {}
     for name, regs, it, ln, p in (
             ("single p=10", torch.zeros(1 << 10, dtype=torch.int32,
@@ -1093,10 +1182,13 @@ def sketch_phases(dev, card, batch, cfg) -> dict:
         prof_s = time.perf_counter() - t0
     busy = device_busy_ms(prof)
     busy_share = None if busy is None else busy / 1e3 / prof_s
+    sketch_trace = kernel_device_ms(prof, ("tdigest_reduce_kernel",
+                                           "hll_update_kernel"))
     log(f"[11] sketch path trace: device busy "
         f"{'not measured (no device events)' if busy is None else f'{busy:.3f} ms'}"
         f" in a {prof_s:.3f} s profiled wall; busy share "
-        f"{busy_share if busy_share is None else f'{busy_share:.4g}'}")
+        f"{busy_share if busy_share is None else f'{busy_share:.4g}'}; by "
+        f"kernel (device ms, kernels in the trace) {sketch_trace}")
     buf = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
@@ -1125,11 +1217,15 @@ def sketch_phases(dev, card, batch, cfg) -> dict:
               dict(digest_times["edge"], planes=digest_times,
                    redesigned="PR 6"), digest_err),
         entry("hll_update", "anomod/ops/pallas_hll.py:19",
-              hll_times["edge p=8"], 0.0)]
+              dict(hll_times["edge p=8"], ends=hll_ends,
+                   sketch_trace_ms=sketch_trace["hll_update_kernel"][0],
+                   c_entry_ms=hll_c_entry,
+                   grid=hll_grid), 0.0)]
     return {"kernels": kernels, "sketch_path_wall_s": path_s,
             "sketch_device_busy_ms": busy,
             "sketch_profiled_wall_s": prof_s,
             "sketch_device_busy_share": busy_share,
+            "sketch_kernel_device_ms": sketch_trace,
             "sketch_phases_wall_s": time.perf_counter() - t_phases,
             "sketch_plain_path_wall_s": plain_path_s,
             "sketch_cli_wall_s": cli_s, "sketch_launches_with_cli": total,
@@ -1337,7 +1433,10 @@ def main() -> int:
     log(f"[1] card: {card}")
     t0 = time.perf_counter()
     _build.build(["replay", "serve", "sketch"])
-    log(f"[1] kernels built in {time.perf_counter() - t0:.1f} s")
+    log(f"[1] kernels built in {time.perf_counter() - t0:.1f} s; "
+        + subprocess.run([_build.nvcc(), "--version"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+        .splitlines()[-1])
     for name, text in _build.build_logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:

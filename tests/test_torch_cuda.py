@@ -335,13 +335,69 @@ def test_window_gather_kernel_matches_plain(cuda_device, T):
     rng = np.random.default_rng(T)
     pool = torch.from_numpy(
         rng.random((201, 384, 6)).astype(np.float32)).to(cuda_device)
-    slots = torch.from_numpy(
-        rng.integers(0, 201, T).astype(np.int32)).to(cuda_device)
-    cols = torch.from_numpy(
-        rng.integers(0, 32, T).astype(np.int32)).to(cuda_device)
+    slots = rng.integers(0, 201, T).astype(np.int32)
+    cols = rng.integers(0, 32, T).astype(np.int32)
     got = sk.window_gather(pool, slots, cols, 12, 32)
     torch.cuda.synchronize()
-    assert torch.equal(got, sk.window_gather_plain(pool, slots, cols, 12, 32))
+    assert torch.equal(got, sk.window_gather_plain(
+        pool, torch.from_numpy(slots).to(cuda_device),
+        torch.from_numpy(cols).to(cuda_device), 12, 32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F", [6, 5])
+def test_window_gather_kernel_above_one_launch(cuda_device, F):
+    """More tenants than one launch's parameter block holds: one launch a
+    planned range, bit-equal to indexing, with slot 0, duplicated slots
+    and the last column; odd F takes the scalar path."""
+    from anomod_torch.ops import serve_kernels as sk
+    T = 2 * sk.GATHER_PAIRS + 37
+    rng = np.random.default_rng(F)
+    pool = torch.from_numpy(
+        rng.normal(size=(201, 384, F)).astype(np.float32)).to(cuda_device)
+    slots = rng.integers(0, 201, T).astype(np.int32)
+    cols = rng.integers(0, 32, T).astype(np.int32)
+    slots[0], slots[T // 2], cols[-1] = 0, slots[1], 31
+    before = sk.launches["window_gather"]
+    got = sk.window_gather(pool, torch.from_numpy(slots), cols, 12, 32)
+    torch.cuda.synchronize()
+    assert sk.launches["window_gather"] - before == len(sk.gather_plan(T)) == 3
+    assert torch.equal(got, sk.window_gather_plain(
+        pool, torch.from_numpy(slots).to(cuda_device),
+        torch.from_numpy(cols).to(cuda_device), 12, 32))
+
+
+@pytest.mark.cuda
+def test_window_gather_rejects_indices_on_the_card(cuda_device):
+    from anomod_torch.ops import serve_kernels as sk
+    pool = torch.zeros((3, 12, 6), device=cuda_device)
+    on_card = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    host = np.zeros(2, np.int32)
+    with pytest.raises(ValueError):
+        sk.window_gather(pool, on_card, host, 3, 4)
+    with pytest.raises(ValueError):
+        sk.window_gather(pool.cpu(), host, on_card, 3, 4)
+
+
+@pytest.mark.cuda
+def test_pool_gather_window_numpy_indices_equal_host(cuda_device):
+    """gather_window with numpy indices, more tenants than one launch
+    holds: the card's pool gives the host pool's bytes."""
+    from anomod_torch.ops import serve_kernels as sk
+    from anomod_torch.replay import ReplayConfig, TenantStatePool
+    cfg = ReplayConfig(n_services=12, n_windows=32)
+    rng = np.random.default_rng(11)
+    pools = [TenantStatePool(cfg, capacity=40, device=d)
+             for d in (cuda_device, "cpu")]
+    agg = rng.normal(size=pools[1].agg.shape).astype(np.float32)
+    for pool in pools:
+        pool.agg.copy_(torch.from_numpy(agg))
+    T = sk.GATHER_PAIRS + 100
+    slots = rng.integers(0, 41, T)
+    cols = rng.integers(0, 32, T)
+    slots[0], cols[-1] = 0, 31
+    assert (pools[0].gather_window(slots, cols).tobytes()
+            == pools[1].gather_window(slots, cols).tobytes())
 
 
 @pytest.mark.cuda
@@ -502,8 +558,7 @@ def test_tdigest_reduce_kernel_bit_equal_to_its_order(cuda_device, R, L,
 def test_hll_update_kernel_matches_plain(cuda_device, n):
     """Registers equal the plain version's on the card and on the host:
     the single sketch (p = 10), a 91-lane plane with items on the dead
-    lane (p = 8, shared-memory registers) and a 300-lane plane (p = 8,
-    307 KB: registers updated in device memory)."""
+    lane (p = 8) and a 300-lane plane (p = 8, 307 KB)."""
     from anomod_torch.ops import sketch_kernels as sk
     rng = np.random.default_rng(n)
     items = rng.integers(-2**31, 2**31, n, dtype=np.int64).astype(np.int32)
@@ -526,6 +581,42 @@ def test_hll_update_kernel_matches_plain(cuda_device, n):
         assert torch.equal(got.cpu(), host)
         again = sk.hll_update(got.clone(), it, lane, p)      # max: idempotent
         assert torch.equal(again, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [4, 8, 10, 16])
+@pytest.mark.parametrize("kind", ["spread", "all dead", "one register",
+                                  "fewer rows than a block", "six lanes"])
+def test_hll_update_kernel_ends(cuda_device, p, kind):
+    """The register update at its ends, on a 91-lane plane (p = 16: the
+    direct path) and a 6-lane one (p = 16: a 196 KB slice a block): equal
+    to the plain version (on the card and the host), and two launches
+    identical."""
+    from anomod_torch.ops import sketch_kernels as sk
+    L, n = (6 if kind == "six lanes" else 91), 200_003
+    rng = np.random.default_rng(p)
+    items = rng.integers(-2**31, 2**31, n, dtype=np.int64).astype(np.int32)
+    lane = rng.integers(0, L + 1, n).astype(np.int32)     # L: dead lane
+    if kind == "all dead":
+        lane[:] = L
+    elif kind == "one register":
+        items[:], lane[:] = items[0], 3
+    elif kind == "fewer rows than a block":
+        items, lane = items[:100], lane[:100]
+    it = torch.from_numpy(items).to(cuda_device)
+    ln = torch.from_numpy(lane).to(cuda_device)
+    zero = torch.zeros((L, 1 << p), dtype=torch.int32, device=cuda_device)
+    got = sk.hll_update(zero.clone(), it, ln, p)
+    again = sk.hll_update(zero.clone(), it, ln, p)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.equal(got, sk.hll_update_plain(zero.clone(), it, ln, p))
+    assert torch.equal(got.cpu(), sk.hll_update_plain(
+        zero.cpu(), it.cpu(), ln.cpu(), p))
+    if kind == "all dead":
+        assert not bool(got.any())
+    if kind == "one register":
+        assert int((got != 0).sum()) == 1
 
 
 @pytest.mark.cuda

@@ -14,10 +14,14 @@ planes and histogram equal, moments within ``rtol=2e-3, atol=1e-2``, the
 envelope ``tests/test_replay.py`` holds that kernel to.
 """
 
+import functools
+
 import jax
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from anomod.ops.pallas_replay import make_pallas_window_gather_fn
 from anomod.replay import ReplayConfig as JReplayConfig
@@ -112,6 +116,74 @@ def test_window_gather_plain_bit_equal_to_pallas(T):
     got = sk.window_gather(torch.from_numpy(pool), torch.from_numpy(slots),
                            torch.from_numpy(cols), S, Wn).numpy()
     assert got.tobytes() == want.tobytes()
+
+
+@given(n=st.integers(0, 5000), capacity=st.integers(1, 700))
+@settings(max_examples=200, deadline=None)
+def test_gather_plan_covers_every_tenant_once_in_order(n, capacity):
+    plan = sk.gather_plan(n, capacity)
+    assert [t for lo, hi in plan for t in range(lo, hi)] == list(range(n))
+    assert len(plan) == -(-n // capacity)
+    sizes = [hi - lo for lo, hi in plan]
+    assert all(0 < k <= capacity for k in sizes)
+    assert not sizes or max(sizes) - min(sizes) <= 1
+
+
+@given(n=st.integers(0, 20_000))
+@settings(max_examples=100, deadline=None)
+def test_gather_plan_launches_fit_the_parameter_limit(n):
+    """Each launch's parameter block (header and 8-byte pairs) stays
+    within the portable 4 KB kernel-parameter limit."""
+    for lo, hi in sk.gather_plan(n):
+        assert sk.GATHER_HEADER + 8 * (hi - lo) <= sk.PARAM_LIMIT
+    assert sk.GATHER_HEADER + 8 * sk.GATHER_PAIRS <= sk.PARAM_LIMIT
+    assert sk.GATHER_HEADER + 8 * (sk.GATHER_PAIRS + 1) > sk.PARAM_LIMIT
+
+
+@functools.lru_cache(maxsize=None)
+def _gather_case(T):
+    """A pool and host indices with slot 0, duplicated slots and the last
+    column, and the Pallas kernel's gather of them (interpret mode)."""
+    S, Wn, P = 12, 32, 21
+    rng = np.random.default_rng(T)
+    pool = rng.normal(size=(P, S * Wn, 6)).astype(np.float32)
+    slots = rng.integers(0, P, T).astype(np.int32)
+    cols = rng.integers(0, Wn, T).astype(np.int32)
+    slots[0], slots[T // 2], cols[-1] = 0, slots[1], Wn - 1
+    want = np.asarray(make_pallas_window_gather_fn(S, Wn, 6, interpret=True)(
+        pool, slots, cols))
+    return pool, slots, cols, want
+
+
+@pytest.mark.parametrize("kind", ["numpy", "cpu tensor"])
+def test_window_gather_host_indices_equal_pallas_across_launches(kind):
+    """More tenants than one launch carries (three planned launches): the
+    host-index wrapper equals the Pallas gather byte for byte."""
+    T = 2 * sk.GATHER_PAIRS + 37
+    assert len(sk.gather_plan(T)) == 3
+    pool, slots, cols, want = _gather_case(T)
+    if kind == "cpu tensor":
+        slots, cols = torch.from_numpy(slots), torch.from_numpy(cols)
+    got = sk.window_gather(torch.from_numpy(pool), slots, cols, 12, 32)
+    assert got.numpy().tobytes() == want.tobytes()
+
+
+def test_window_gather_takes_only_host_int32_indices():
+    pool = torch.zeros((2, 12, 6))
+    host = np.zeros(3, np.int32)
+    with pytest.raises(ValueError):                  # not on the host
+        sk.window_gather(pool, torch.zeros(3, dtype=torch.int32,
+                                           device="meta"), host, 3, 4)
+    with pytest.raises(ValueError):
+        sk.window_gather(pool, host, torch.zeros(3, dtype=torch.int32,
+                                                 device="meta"), 3, 4)
+    with pytest.raises(TypeError):
+        sk.window_gather(pool, host.astype(np.int64), host, 3, 4)
+    with pytest.raises(ValueError):
+        sk.window_gather(pool, host[None], host, 3, 4)
+    with pytest.raises(ValueError):
+        sk.window_gather(pool, host, host[:2], 3, 4)
+    assert sk.window_gather(pool, host[:0], host[:0], 3, 4).shape == (0, 3, 6)
 
 
 def test_cpu_tensors_do_not_count_launches():

@@ -13,6 +13,8 @@ Inputs are made from numpy seeds.
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from anomod.ops.hll import _avalanche32, _clz32, hll_add, hll_init
 from anomod_torch.ops import sketch_kernels as sk
@@ -102,6 +104,30 @@ def test_hll_lanes_match_numpy_oracle_and_drop_outside_lanes():
     got = sk.hll_update(torch.zeros((3, 1 << p), dtype=torch.int32),
                         torch.from_numpy(items), torch.from_numpy(wild), p=p)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@given(n_rows=st.integers(1, 2_000_000), lanes=st.integers(1, 400),
+       p=st.integers(4, 16), n_sm=st.integers(1, 200),
+       capacity=st.integers(1, 64))
+@settings(max_examples=300, deadline=None)
+def test_hll_plan_slices_cover_every_register_once(n_rows, lanes, p, n_sm,
+                                                  capacity):
+    """A cluster's blocks own disjoint slices that cover the plane, a
+    block's slice fits SMEM_LIMIT, and the direct path is taken exactly
+    when no slice fits."""
+    R = lanes << p
+    plan = sk.hll_plan(n_rows, R, n_sm, lambda smem: capacity)
+    fits = -(-R // sk.HLL_CLUSTER) * 4 <= sk.SMEM_LIMIT
+    assert plan.clustered == fits
+    if not fits:
+        assert plan == (0, 0)
+        return
+    owned = np.zeros(R, np.int64)
+    for r in range(sk.HLL_CLUSTER):
+        owned[r * plan.own:min(R, (r + 1) * plan.own)] += 1
+    assert (owned == 1).all()
+    assert plan.smem_bytes() <= sk.SMEM_LIMIT
+    assert 1 <= plan.n_clusters <= max(1, min(capacity, n_sm))
 
 
 def test_hll_rank_is_exact_just_below_powers_of_two():

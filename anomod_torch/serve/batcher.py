@@ -22,10 +22,13 @@ Parity is exact by construction:
   per-tenant host seam (``replay.fold_delta``): device == host.
 
 Staging fills pinned host scratch in the kernel's layout (``sid[L, W]``,
-``planes[L, 6, W]``); the copy to the card and the launch are queued on
-the current stream.  At pipeline depth d up to d - 1 dispatches stay in
-flight while the next one stages; a scratch slot is refilled only after
-the event recorded behind the launch that read it has completed.
+``planes[L, 6, W]``), by default through the C++ fill of
+``anomod_torch.io.native`` (GIL released, one call a dispatch), else by
+the interpreter fill, its byte-identical oracle; the copy to the card and
+the launch are queued on the current stream.  At pipeline depth d up to
+d - 1 dispatches stay in flight while the next one stages; a scratch slot
+is refilled only after the event recorded behind the launch that read it
+has completed.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ import numpy as np
 import torch
 
 from anomod_torch.device import DeviceLike, resolve_device
+from anomod_torch.io import native
 from anomod_torch.ops.replay_kernels import PLANES
 from anomod_torch.ops.serve_kernels import lane_delta
 from anomod_torch.replay import (N_FEATS, ReplayConfig, ReplayState,
@@ -83,13 +87,18 @@ class BucketRunner:
     folds the read-back deltas there.  Book counters (dispatches per
     width, fused dispatches per lane bucket, staged and live lanes, the
     stage/dispatch/fold/score walls, the first-launch wall per shape) feed
-    the :class:`~anomod_torch.serve.engine.ServeReport`."""
+    the :class:`~anomod_torch.serve.engine.ServeReport`.
+
+    ``native_stage`` (the default) fills scratch through the C++ entry of
+    :mod:`anomod_torch.io.native`, built at first use (a failed build
+    raises); ``native_stage=False`` keeps the interpreter fill."""
 
     def __init__(self, cfg: ReplayConfig,
                  buckets: Optional[Tuple[int, ...]] = None,
                  lane_buckets: Optional[Tuple[int, ...]] = None,
                  pipeline: int = 1, state: str = "device",
-                 pool_slots: int = 32, device: DeviceLike = None):
+                 pool_slots: int = 32, device: DeviceLike = None,
+                 native_stage: bool = True):
         if pipeline < 1:
             raise ValueError("pipeline depth must be >= 1")
         if state not in ("host", "device"):
@@ -103,6 +112,9 @@ class BucketRunner:
                                      device=self.device)
                      if state == "device" else None)
         self.pipeline = int(pipeline)
+        self.native_stage = bool(native_stage)
+        if self.native_stage:
+            native.library()
         self.buckets = validate_serve_buckets(
             DEFAULT_SERVE_BUCKETS if buckets is None else buckets)
         self.lane_buckets = validate_lane_buckets(
@@ -118,6 +130,8 @@ class BucketRunner:
         self.lanes_by_bucket: Dict[int, int] = {}
         self.staged_lanes = 0
         self.live_lanes = 0
+        #: fused dispatches whose scratch the native fill packed
+        self.native_staged = 0
         #: the tick's wall decomposition: host packing, copy + launch
         #: enqueue, fold (the retire barrier plus the state adds), and
         #: window scoring (the engine's commit phase adds there)
@@ -129,6 +143,9 @@ class BucketRunner:
         # (width, lanes) shape, each (sid [L, W] int32, planes [L, 6, W])
         self._scratch: Dict[Tuple[int, int, int],
                             Tuple[torch.Tensor, torch.Tensor]] = {}
+        #: the native fill's marshalling plan per scratch slot
+        self._stage_plans: Dict[Tuple[int, int, int],
+                                native.StagePlan] = {}
         self._slot_next: Dict[Tuple[int, int], int] = {}
         #: FIFO of in-flight dispatches: (replays, out, slot key, event)
         self._inflight: "collections.deque" = collections.deque()
@@ -187,30 +204,35 @@ class BucketRunner:
 
     # -- staging ----------------------------------------------------------
 
-    def stage_plan(self, batch: SpanBatch,
-                   t0_us: int) -> List[Tuple[int, dict]]:
+    def stage_plan(self, batch: SpanBatch, t0_us: int
+                   ) -> List[Tuple[int, native.StagedChunk]]:
         """Host staging of one micro-batch into its bucket plan: the
-        ordered ``(width, columns)`` chunks a push dispatches, with
-        UNPADDED columns (the pad to ``width`` happens at scratch fill).
-        The one staging definition of the sequential and fused paths."""
+        ordered ``(width, chunk)`` pairs a push dispatches, each chunk an
+        UNPADDED slice of the batch's one staging matrix
+        (:class:`~anomod_torch.io.native.StagedChunk`; the pad to
+        ``width`` happens at scratch fill).  The one staging definition
+        of the sequential and fused paths."""
         cfg = self.cfg
         t0 = time.perf_counter()
-        _, raw = stage_columns_fused(batch, cfg, t0_us)
-        out: List[Tuple[int, dict]] = []
-        for lo, hi, width in split_plan(batch.n_spans, cfg.chunk_size,
-                                        self.buckets):
-            out.append((width, {k: v[lo:hi] for k, v in raw.items()}))
+        mat, _ = stage_columns_fused(batch, cfg, t0_us)
+        plan = split_plan(batch.n_spans, cfg.chunk_size, self.buckets)
+        chunks = native.staged_chunks(mat, [(lo, hi) for lo, hi, _ in plan])
+        out = []
+        for (_, _, width), chunk in zip(plan, chunks):
+            out.append((width, chunk))
             self.n_dispatches += 1
             self.dispatches_by_width[width] = \
                 self.dispatches_by_width.get(width, 0) + 1
         self.stage_wall_s += time.perf_counter() - t0
         return out
 
-    def _fill_slot(self, width: int, lanes: int, group_cols: List[dict]):
-        """Stage ``group_cols`` (one unpadded chunk per live lane) into
-        the next scratch slot of the (width, lanes) shape, dead-padding
-        the row tails and the dead lanes.  Any in-flight dispatch still
-        reading the slot is retired first."""
+    def _fill_slot(self, width: int, lanes: int,
+                   group: List[native.StagedChunk]):
+        """Stage ``group`` (one unpadded chunk per live lane) into the
+        next scratch slot of the (width, lanes) shape, dead-padding the
+        row tails and the dead lanes, natively unless ``native_stage`` is
+        off.  Any in-flight dispatch still reading the slot is retired
+        first."""
         shape = (width, lanes)
         slot = self._slot_next.get(shape, 0)
         self._slot_next[shape] = (slot + 1) % self.pipeline
@@ -226,9 +248,22 @@ class BucketRunner:
                        torch.empty((lanes, len(PLANES), width),
                                    dtype=torch.float32, pin_memory=pin))
             self._scratch[key] = scratch
+            if self.native_stage:
+                self._stage_plans[key] = native.StagePlan(
+                    scratch[0].numpy(), scratch[1].numpy(), self.cfg.sw)
+        if self.native_stage:
+            self._stage_plans[key].stage(group)
+        else:
+            self._fill_slot_py(scratch, group)
+        self.stage_wall_s += time.perf_counter() - t0
+        return scratch, key
+
+    def _fill_slot_py(self, scratch, group) -> None:
+        """The interpreter fill: the oracle the native fill is pinned
+        byte-identical to."""
         sid, planes = scratch[0].numpy(), scratch[1].numpy()
         sw = self.cfg.sw
-        for i, cols in enumerate(group_cols):
+        for i, cols in enumerate(group):
             m = cols["sid"].shape[0]
             sid[i, :m] = cols["sid"]
             sid[i, m:] = sw
@@ -236,11 +271,9 @@ class BucketRunner:
                 planes[i, p, :m] = cols[k]
             np.multiply(cols["dur"], cols["dur"], out=planes[i, 5, :m])
             planes[i, :, m:] = 0.0
-        n_live = len(group_cols)
+        n_live = len(group)
         sid[n_live:] = sw
         planes[n_live:] = 0.0
-        self.stage_wall_s += time.perf_counter() - t0
-        return scratch, key
 
     def _launch(self, scratch) -> torch.Tensor:
         """Queue the copy of a filled slot to the device and the lane
@@ -277,7 +310,7 @@ class BucketRunner:
 
     # -- the single-chunk path --------------------------------------------
 
-    def dispatch(self, replay, cols: dict, width: int) -> None:
+    def dispatch(self, replay, cols: native.StagedChunk, width: int) -> None:
         """Fold ONE staged chunk into ``replay``'s state: a one-lane
         dispatch of the lane kernel, folded before return (after every
         in-flight dispatch, so folds never leave dispatch order)."""
@@ -315,7 +348,8 @@ class BucketRunner:
         self.staged_lanes += lanes
         self.live_lanes += n_live
 
-    def submit_lanes(self, width: int, work: List[Tuple[object, dict]]
+    def submit_lanes(self, width: int,
+                     work: List[Tuple[object, native.StagedChunk]]
                      ) -> None:
         """Stage and launch ``work`` (replay plane, unpadded chunk) pairs
         as lane-bucketed fused dispatches.  Folds are deferred until a
@@ -334,6 +368,8 @@ class BucketRunner:
                                    key, self._event()))
             self.dispatch_wall_s += time.perf_counter() - t0
             self._account_group(n_live, lanes)
+            if self.native_stage:
+                self.native_staged += 1
             while len(self._inflight) > self.pipeline - 1:
                 self._retire_one()
 

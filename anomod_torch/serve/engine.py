@@ -13,9 +13,14 @@ the shared :class:`~anomod_torch.serve.batcher.BucketRunner`.  With
 ``fuse`` (the default) one tick's drained batches coalesce per tenant,
 stage once, and run as lane-stacked dispatches of the lane kernel,
 pipelined ``pipeline`` deep; window scoring then runs for every tenant
-at once, fed by one pool gather per closed window.  Tenant states live
-in the runner's device pool (``state="device"``, the default) or as host
-tensors (``state="host"``); both give byte-identical states and alerts.
+at once, fed by one pool gather per closed window.  The host legs run
+in C++ by default: the runner fills its scratch through
+``anomod_torch.io.native`` (``native_stage``) and admission drains through
+the native columnar SFQ book (``drain_engine``); ``native_stage=False`` and
+``drain_engine="heap"`` or ``"numpy"`` are their byte-identical oracles.
+Tenant states live in the runner's device pool (``state="device"``, the
+default) or as host tensors (``state="host"``); both give byte-identical
+states and alerts.
 Admission-to-scored latency per micro-batch folds into per-tenant
 t-digests, so the report's p50/p99 are sketch-backed and mergeable.
 
@@ -181,6 +186,8 @@ class ServeReport:
     lane_pad_waste: float                        # dead-lane fraction
     compile_s: float                             # first-launch walls
     lane_compile_s: float
+    native_staging: bool                         # C++ scratch fill?
+    native_staged_dispatches: int                # fused dispatches so packed
     serve_state: str                             # tenant states: host|device
     stage_wall_s: float                          # host packing wall
     dispatch_wall_s: float                       # copy + launch enqueue wall
@@ -214,7 +221,8 @@ class ServeReport:
 #: across pipeline depths on one seed; every other field is a decision
 VARIANT_REPORT_FIELDS = (
     "fused", "fused_dispatches", "lanes_by_bucket", "lane_pad_waste",
-    "compile_s", "lane_compile_s", "serve_state", "stage_wall_s",
+    "compile_s", "lane_compile_s", "native_staging",
+    "native_staged_dispatches", "serve_state", "stage_wall_s",
     "dispatch_wall_s", "fold_wall_s", "score_wall_s", "pipeline",
     "serve_wall_s", "sustained_spans_per_sec")
 
@@ -240,7 +248,8 @@ def replay_served_sequentially(engine: "ServeEngine",
     runner = BucketRunner(engine.cfg, r.buckets, lane_buckets=r.lane_buckets,
                           pipeline=1, state=engine.serve_state,
                           pool_slots=max(len(engine.specs), 1),
-                          device=engine.device)
+                          device=engine.device,
+                          native_stage=r.native_stage)
     cls = PooledStreamReplay if runner.pool is not None \
         else BucketedStreamReplay
     dets: Dict[int, OnlineDetector] = {}
@@ -295,7 +304,8 @@ def run_power_law(n_tenants: int = 200, n_services: int = 8,
                   n_windows: int = 32, fuse: bool = True,
                   lane_buckets: Optional[Tuple[int, ...]] = None,
                   pipeline: Optional[int] = None, state: str = "device",
-                  device: DeviceLike = None
+                  device: DeviceLike = None, native_stage: bool = True,
+                  drain_engine: str = "native"
                   ) -> Tuple["ServeEngine", "ServeReport"]:
     """The canonical seeded serve run: :func:`power_law_traffic` against
     an engine of ``capacity_spans_per_s``, so one run measures sustained
@@ -311,7 +321,9 @@ def run_power_law(n_tenants: int = 200, n_services: int = 8,
                          baseline_windows=baseline_windows,
                          z_threshold=z_threshold, fuse=fuse,
                          lane_buckets=lane_buckets, pipeline=pipeline,
-                         state=state, device=device)
+                         state=state, device=device,
+                         native_stage=native_stage,
+                         drain_engine=drain_engine)
     report = engine.run(traffic, duration_s=duration_s)
     return engine, report
 
@@ -330,7 +342,8 @@ class ServeEngine:
                  min_count: float = 5.0, fuse: bool = True,
                  lane_buckets: Optional[Tuple[int, ...]] = None,
                  pipeline: Optional[int] = None, state: str = "device",
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, native_stage: bool = True,
+                 drain_engine: str = "native"):
         if capacity_spans_per_s <= 0:
             raise ValueError("capacity must be positive")
         self.device = resolve_device(device)
@@ -347,7 +360,8 @@ class ServeEngine:
         self.max_backlog = int(DEFAULT_SERVE_MAX_BACKLOG
                                if max_backlog is None else max_backlog)
         self.admission = AdmissionController(self.specs,
-                                             max_backlog=self.max_backlog)
+                                             max_backlog=self.max_backlog,
+                                             drain_engine=drain_engine)
         self.score = bool(score)
         #: tenant-fused scoring: per tick, drained same-tenant batches
         #: coalesce into one staging and same-width chunks across tenants
@@ -360,7 +374,7 @@ class ServeEngine:
             pipeline=(DEFAULT_SERVE_PIPELINE if pipeline is None
                       else pipeline),
             state=state, pool_slots=max(len(self.specs), 1),
-            device=self.device)
+            device=self.device, native_stage=native_stage)
         self.pipeline = self.runner.pipeline
         self.serve_state = self.runner.state_mode
         self._det_kw = dict(baseline_windows=baseline_windows,
@@ -625,6 +639,8 @@ class ServeEngine:
             lane_pad_waste=round(r.lane_pad_waste, 6),
             compile_s=round(r.compile_s, 4),
             lane_compile_s=round(r.lane_compile_s, 4),
+            native_staging=r.native_stage,
+            native_staged_dispatches=r.native_staged,
             serve_state=self.serve_state,
             stage_wall_s=round(r.stage_wall_s, 4),
             dispatch_wall_s=round(r.dispatch_wall_s, 4),

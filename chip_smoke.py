@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``anomod_torch/csrc/`` with nvcc,
+Builds the port's CUDA kernels from ``anomod_torch/csrc/`` with nvcc and
+its host entries (``csrc/native.cpp``) with the host's C++ compiler,
 holds each kernel against its plain PyTorch version on the card, then
-drives three paths:
+drives the data layer and three paths:
 
 - replay (phases 2-5), at the TT deployment's full width (45 services x
   32 windows x 16 buckets): the bench corpus replay (13 labels x 2000
@@ -19,6 +20,10 @@ drives three paths:
   traces each, 3S = 135-row edge id space) through the dense kernel,
   checked against the same detector run with the plain version on the
   card, its trace giving the dense kernel's device time a chunk;
+- the data layer (phase 5b): ``load_corpus`` of both testbeds at 50
+  traces, all five modalities, through a temporary ingest cache, cold
+  then warm, warm held to cold byte for byte and the traces to
+  ``synth.generate_spans``;
 - serve (phases 6-8), at the serve bench's deployment (200 tenants, 12
   services x 32 windows of 5 s, 25,000 spans/s capacity at 2x overload,
   60 virtual seconds in 0.5 s ticks, seed 7): the lane-delta kernel
@@ -31,9 +36,12 @@ drives three paths:
   scoring), checked against the decision pins of the JAX package's
   captures (p99 22.998135 s, shed 0.437567, 158 alerts), against the
   same coalesced batches pushed through one-lane dispatches and against
-  its depth-1, host-state and CPU twins, byte for byte; the unfused run
-  is held to its CPU twin byte for byte and to the fused run's admission
-  and SLO fields; a profiled run gives each serve kernel's device time;
+  its depth-1, host-state, CPU, interpreter-fill and heap / numpy drain
+  twins, byte for byte; the unfused run is held to its CPU twin byte for
+  byte and to the fused run's admission and SLO fields; the host legs
+  are split (bucket plan, scratch fill, admission offer and drain) for
+  the native default and the interpreter / heap twin; a profiled run
+  gives each serve kernel's device time;
 - sketches (phases 9-11), on the replay's bench corpus at its full width
   (45 services x 32 windows, K = 64 centroids, HLL p = 8 per edge and
   p = 10 for the single sketch): the t-digest reduction and HLL update
@@ -339,6 +347,36 @@ def host_walls(cls, name):
         setattr(cls, name, orig)
 
 
+def serve_split():
+    """Record the serve tick's host legs inside the block: the bucket
+    plan (``BucketRunner.stage_plan``), the slot fill with its waits for
+    the slot's last dispatch (``_fill_slot``), the fill proper (native
+    ``StagePlan.stage`` or the interpreter's ``_fill_slot_py``) and the
+    admission offer and drain.  The block receives name -> walls."""
+    from anomod_torch.io.native import StagePlan
+    from anomod_torch.serve.batcher import BucketRunner
+    from anomod_torch.serve.queues import AdmissionController
+    legs = (("plan", BucketRunner, "stage_plan"),
+            ("slot", BucketRunner, "_fill_slot"),
+            ("fill_native", StagePlan, "stage"),
+            ("fill_py", BucketRunner, "_fill_slot_py"),
+            ("offer", AdmissionController, "offer"),
+            ("drain", AdmissionController, "drain"))
+    stack = contextlib.ExitStack()
+    walls = {name: stack.enter_context(host_walls(cls, meth))
+             for name, cls, meth in legs}
+    return stack, walls
+
+
+def split_sums(walls, rep) -> dict:
+    """Calls and summed host wall (s) of each leg, beside the run's serve
+    wall and stage leg."""
+    out = {k: {"calls": len(v), "sum_s": sum(v)} for k, v in walls.items()}
+    out["serve_wall_s"] = rep.serve_wall_s
+    out["stage_wall_s"] = rep.stage_wall_s
+    return out
+
+
 def serve_fingerprint(eng):
     """Per tenant: its alert stream and its replay state's bytes."""
     import dataclasses
@@ -351,6 +389,86 @@ def serve_fingerprint(eng):
                     np.asarray(st.agg).tobytes(),
                     np.asarray(st.hist).tobytes())
     return out
+
+
+def same_value(a, b) -> bool:
+    """Equal modal batches (arrays by dtype, shape and bytes), tuples,
+    lists and plain values."""
+    import dataclasses
+
+    import numpy as np
+    if dataclasses.is_dataclass(a) and not isinstance(a, type):
+        return dataclasses.asdict(a) == dataclasses.asdict(b)
+    if hasattr(a, "_fields"):
+        return type(a) is type(b) and all(
+            same_value(getattr(a, f), getattr(b, f)) for f in a._fields)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(map(same_value, a, b))
+    if isinstance(a, np.ndarray):
+        return (a.dtype == b.dtype and a.shape == b.shape
+                and a.tobytes() == b.tobytes())
+    return a == b
+
+
+def data_phase(card) -> dict:
+    """Phase 5b: the data layer.  ``load_corpus`` of both testbeds, all
+    five modalities at 50 traces, through a temporary ingest cache (the
+    ``ANOMOD_CACHE_DIR`` the settings read), cold then warm; warm must
+    equal cold byte for byte and the traces ``synth.generate_spans``."""
+    import os
+    import tempfile
+
+    from anomod_torch import labels as labels_mod
+    from anomod_torch import synth
+    from anomod_torch.config import DataConfig
+    from anomod_torch.io import cache, dataset
+
+    fields = ("spans", "metrics", "logs", "log_summaries", "api", "coverage")
+    out = {}
+    prev = os.environ.get("ANOMOD_CACHE_DIR")
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["ANOMOD_CACHE_DIR"] = tmp
+        try:
+            cfg = DataConfig()
+            check(cfg.cache_dir == Path(tmp) and cfg.ingest_workers == 0,
+                  f"data: settings {cfg}")
+            for testbed in ("TT", "SN"):
+                walls, runs = [], []
+                for leg in ("cold", "warm"):
+                    cache.reset_stats()
+                    t0 = time.perf_counter()
+                    runs.append(dataset.load_corpus(testbed, cfg=cfg,
+                                                    n_synth_traces=50))
+                    walls.append(time.perf_counter() - t0)
+                    st = cache.stats()
+                    want = (0, 65, 65) if leg == "cold" else (65, 0, 0)
+                    check((st.hits, st.misses, st.stores) == want,
+                          f"data {testbed} {leg}: cache {st}")
+                cold, warm = runs
+                check(len(cold) == 13 and all(e.synthetic for e in cold),
+                      f"data {testbed}: {len(cold)} experiments")
+                for a, b, label in zip(cold, warm,
+                                       labels_mod.labels_for_testbed(testbed)):
+                    for f in fields:
+                        check(same_value(getattr(a, f), getattr(b, f)),
+                              f"data {testbed} {a.name}: warm {f} != cold")
+                    check(same_value(a.spans, synth.generate_spans(
+                        label, n_traces=50)),
+                          f"data {testbed} {a.name}: traces != generate_spans")
+                n_spans = sum(e.spans.n_spans for e in cold)
+                log(f"[5b] data load_corpus({testbed!r}), 13 experiments x 5 "
+                    f"modalities at 50 traces ({n_spans} spans): cold "
+                    f"{walls[0]:.4f} s, warm {walls[1]:.4f} s (host walls, "
+                    f"the card idle; on {card}); warm == cold byte for byte, "
+                    f"traces == synth.generate_spans")
+                out[testbed] = {"cold_s": walls[0], "warm_s": walls[1],
+                                "n_spans": n_spans}
+        finally:
+            if prev is None:
+                os.environ.pop("ANOMOD_CACHE_DIR", None)
+            else:
+                os.environ["ANOMOD_CACHE_DIR"] = prev
+    return {"data_load_corpus_s": out}
 
 
 def serve_phases(dev, card) -> dict:
@@ -553,9 +671,14 @@ def serve_phases(dev, card) -> dict:
     sk.reset_launches()
     rk.reset_launches()
     t0 = time.perf_counter()
-    with host_walls(TenantStatePool, "gather_window") as gather_walls:
+    stack, walls = serve_split()
+    with stack, host_walls(TenantStatePool, "gather_window") as gather_walls:
         eng, rep = run_power_law(device=dev, **SERVE_KW)
     run_s = time.perf_counter() - t0
+    check(rep.native_staging and eng.admission.drain_engine == "native"
+          and rep.native_staged_dispatches == rep.fused_dispatches,
+          "serve: the default run did not stage and drain natively")
+    split = {"native": split_sums(walls, rep)}
     launches = dict(sk.launches)
     for k, v in launches.items():
         check(v > 0, f"kernel {k} was not launched on the serve path")
@@ -628,12 +751,22 @@ def serve_phases(dev, card) -> dict:
     for name, variant in (("pipeline=1", dict(pipeline=1)),
                           ("host state", dict(state="host")),
                           ("cpu plain", dict(device="cpu")),
+                          ("interpreter fill", dict(native_stage=False)),
+                          ("heap drain", dict(drain_engine="heap")),
+                          ("numpy drain", dict(drain_engine="numpy")),
+                          ("interpreter/heap", dict(native_stage=False,
+                                                    drain_engine="heap")),
+                          ("native again", {}),
                           ("unfused", dict(fuse=False)),
                           ("unfused cpu plain", dict(fuse=False,
                                                      device="cpu"))):
         t0 = time.perf_counter()
-        e2, r2 = run_power_law(**dict(dict(SERVE_KW, device=dev),
-                                      **variant))
+        stack, walls = serve_split()
+        with stack:
+            e2, r2 = run_power_law(**dict(dict(SERVE_KW, device=dev),
+                                          **variant))
+        if name in ("interpreter/heap", "native again"):
+            split[name] = split_sums(walls, r2)
         # unfused runs push each batch alone, where the fused tick
         # coalesces a tenant's batches of one tick: staging plans and f32
         # sums regroup, as in the JAX package, so unfused is held to the
@@ -656,10 +789,23 @@ def serve_phases(dev, card) -> dict:
                     + ("unfused" if ref is unfused else "fused")
                     + " card run")
         twins[name] = r2.serve_wall_s
+        check(e2.admission.drain_engine == variant.get("drain_engine",
+                                                       "native")
+              and r2.native_staging == variant.get("native_stage", True),
+              f"serve {name}: engines {e2.admission.drain_engine}, "
+              f"native staging {r2.native_staging}")
         log(f"[8] serve {name}: {what}, equal "
             f"{'admission and SLO fields' if fields is ADMISSION_FIELDS else 'decisions'}"
             f"; serve wall {r2.serve_wall_s:.4f} s "
             f"(call {time.perf_counter() - t0:.3f} s)")
+
+    for name, legs in split.items():
+        log(f"[8] serve host split, {name} (s summed over calls, warm-up "
+            f"fills included; slot = fill + waits for the slot's last "
+            f"dispatch): " + ", ".join(
+                f"{k} {v['sum_s']:.6f} ({v['calls']})" if isinstance(v, dict)
+                else f"{k} {v}" for k, v in legs.items())
+            + f" on {card}")
 
     from torch.profiler import ProfilerActivity, profile
     sk.reset_launches()
@@ -704,6 +850,7 @@ def serve_phases(dev, card) -> dict:
     return {"kernels": kernels, "serve_spans_per_sec": spans_per_s,
             "serve_wall_s": rep.serve_wall_s,
             "serve_twin_walls_s": twins,
+            "serve_host_split": split,
             "serve_fused_dispatches": rep.fused_dispatches,
             "serve_chunks_by_width": rep.dispatches_by_width,
             "serve_split_s": {"stage": rep.stage_wall_s,
@@ -1431,6 +1578,15 @@ def main() -> int:
 
     # -- phase 1: build -------------------------------------------------
     log(f"[1] card: {card}")
+    from anomod_torch.io import native as host_native
+    t0 = time.perf_counter()
+    host_lib = host_native.build()
+    cxx = host_native.cxx()
+    log(f"[1] host entries (anomod_torch/csrc/native.cpp) built in "
+        f"{time.perf_counter() - t0:.1f} s by {cxx} "
+        + subprocess.run([cxx, "--version"], capture_output=True, text=True,
+                         timeout=60).stdout.strip().splitlines()[0]
+        + f" ({' '.join(host_native.CXX_FLAGS)}): {host_lib}")
     t0 = time.perf_counter()
     _build.build(["replay", "serve", "sketch"])
     log(f"[1] kernels built in {time.perf_counter() - t0:.1f} s; "
@@ -1659,6 +1815,7 @@ def main() -> int:
         f"{stream_kernels}; {chunk_trace_ms:.6f} ms of dense-kernel device "
         f"time a chunk over {stream_launches} chunks")
 
+    data = data_phase(card)
     serve = serve_phases(dev, card)
     sketch = sketch_phases(dev, card, batch, cfg)
     roof = roofline_phases(dev, card, kind, sid_np, planes_np, n_real, SW)
@@ -1700,7 +1857,7 @@ def main() -> int:
                     "stream_profiled_wall_s": prof_s,
                     "stream_device_busy_share": busy_share,
                     "sorted_ends_ms": end_ms, "dense_ends_ms": dense_end_ms,
-                    "l2_eviction_ms": flush, **serve,
+                    "l2_eviction_ms": flush, **data, **serve,
                     **sketch, **roof,
                     "wall_s": time.perf_counter() - t_all}))
     log(json.dumps({"kernels": kernels}))

@@ -149,6 +149,47 @@ def test_admission_drain_order_byte_identical():
         {p: dataclasses.astuple(c) for p, c in ref.per_priority().items()}
 
 
+@pytest.mark.parametrize("engine", ["heap", "numpy", "native"])
+@pytest.mark.parametrize("jax_engine", ["off", "on"])
+def test_drain_engines_match_jax_admission(engine, jax_engine):
+    """Each of the port's drain engines equals the JAX controller's heap
+    engine (``off``) and its native columnar engine (``on``) over the
+    overload sequence above: admissions, served order, SFQ floats and
+    every counter (evictions: tests/test_torch_native.py)."""
+    tt, jt = _traffics(seed=4)
+    mine = AdmissionController(tt.specs, max_backlog=2500,
+                               drain_engine=engine)
+    ref = JAdmission(jt.specs, max_backlog=2500, drain_engine=jax_engine)
+    assert mine.drain_engine == engine
+    assert ref.drain_engine == ("heap" if jax_engine == "off" else "native")
+    for k in range(25):
+        now = float(k + 1)
+        for (tid, a), (_, b) in zip(tt.arrivals(k, k + 1.0),
+                                    jt.arrivals(k, k + 1.0)):
+            assert mine.offer(tid, a, now) == ref.offer(tid, b, now)
+        got = [(q.tenant_id, q.seq, q.n_spans, q.enqueued_s, q.finish_tag)
+               for q in mine.drain(1500.0)]
+        want = [(q.tenant_id, q.seq, q.n_spans, q.enqueued_s, q.finish_tag)
+                for q in ref.drain(1500.0)]
+        assert got == want
+        assert mine._vtime == ref._vtime
+    assert dataclasses.astuple(mine.totals()) == \
+        dataclasses.astuple(ref.totals())
+    assert mine.totals().shed_spans > 0
+    assert {t: dataclasses.astuple(c) for t, c in mine.counters.items()} == \
+        {t: dataclasses.astuple(c) for t, c in ref.counters.items()}
+
+
+@pytest.mark.parametrize("bad", ["auto", "off", "columnar", None])
+def test_bad_drain_engine_raises(bad):
+    tt, _ = _traffics()
+    with pytest.raises(ValueError, match="drain_engine"):
+        AdmissionController(tt.specs, drain_engine=bad)
+    with pytest.raises(ValueError, match="drain_engine"):
+        run_power_law(device="cpu", drain_engine=bad,
+                      **dict(_small_serve_kw(), duration_s=1))
+
+
 def test_tdigest_quantiles_equal():
     rng = np.random.default_rng(0)
     parts = [rng.lognormal(0, 1, n).astype(np.float32)
@@ -325,6 +366,12 @@ def test_serve_run_matches_jax_engine(jax_runs, port_run, fuse):
     assert tr.shed_spans > 0 and tr.n_alerts > 0
     assert (tr.fused_dispatches > 0 and max(tr.lanes_by_bucket) > 1) \
         if fuse else tr.fused_dispatches == 0
+    # the port's defaults: native staging of every fused dispatch and the
+    # native drain
+    assert tr.native_staging and te.admission.drain_engine == "native"
+    assert tr.native_staged_dispatches == tr.fused_dispatches
+    if jr.native_staging:
+        assert tr.native_staged_dispatches == jr.native_staged_dispatches
     assert _fingerprint(te) == _fingerprint(je)
 
 
@@ -371,13 +418,18 @@ def test_fused_equals_sequential_over_coalesced_batches():
 
 
 @pytest.mark.parametrize("variant", [
-    dict(pipeline=1), dict(pipeline=3), dict(state="host")])
+    dict(pipeline=1), dict(pipeline=3), dict(state="host"),
+    dict(native_stage=False), dict(drain_engine="heap"),
+    dict(drain_engine="numpy"),
+    dict(native_stage=False, drain_engine="heap")])
 def test_serve_variants_byte_identical_within_port(port_run, variant):
     te, tr = port_run
     ve, vr = run_power_law(device="cpu", **variant, **_small_serve_kw())
     assert _fingerprint(ve) == _fingerprint(te)
     assert _decisions(vr) == _decisions(tr)
     assert vr.serve_state == variant.get("state", "device")
+    assert vr.native_staging == variant.get("native_stage", True)
+    assert ve.admission.drain_engine == variant.get("drain_engine", "native")
 
 
 def test_unfused_host_equals_unfused_device():

@@ -82,7 +82,13 @@ def test_port_imports_neither_jax_nor_anomod():
         "        __import__(name)\n"
         "assert {'anomod_torch.provenance', 'anomod_torch.roofline',\n"
         "        'anomod_torch.serve.engine',\n"
-        "        'anomod_torch.ops.sketch_kernels'} <= set(names), names\n"
+        "        'anomod_torch.ops.sketch_kernels', 'anomod_torch.config',\n"
+        "        'anomod_torch.metrics_catalog', 'anomod_torch.io.native',\n"
+        "        'anomod_torch.io.cache', 'anomod_torch.io.dataset',\n"
+        "        'anomod_torch.io.lfs', 'anomod_torch.io.tt_traces',\n"
+        "        'anomod_torch.io.sn_traces', 'anomod_torch.io.metrics',\n"
+        "        'anomod_torch.io.logs', 'anomod_torch.io.api',\n"
+        "        'anomod_torch.io.coverage'} <= set(names), names\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m.startswith('jaxlib') or m == 'anomod' "
         "or m.startswith('anomod.'))\n"
@@ -102,3 +108,24 @@ def test_port_imports_neither_jax_nor_anomod():
             roots.add(node.module.split(".")[0])
     assert "anomod_torch" in roots
     assert not roots & {"jax", "jaxlib", "anomod"}, sorted(roots)
+
+    # no module of the port names either in an import statement (deferred
+    # imports inside functions included), or loads the JAX package's
+    # native library
+    pkg = os.path.join(REPO, "anomod_torch")
+    for dirpath, _, files in os.walk(pkg):
+        for fname in files:
+            if not fname.endswith((".py", ".cpp", ".cu")):
+                continue
+            with open(os.path.join(dirpath, fname)) as f:
+                text = f.read()
+            assert "libanomod_native" not in text, fname
+            if not fname.endswith(".py"):
+                continue
+            roots = set()
+            for node in ast.walk(ast.parse(text)):
+                if isinstance(node, ast.Import):
+                    roots |= {a.name.split(".")[0] for a in node.names}
+                elif isinstance(node, ast.ImportFrom) and node.module:
+                    roots.add(node.module.split(".")[0])
+            assert not roots & {"jax", "jaxlib", "anomod"}, (fname, roots)

@@ -5,11 +5,21 @@
   corpus p50/p95/p99 from the per-segment t-digest plane,
   ``--edge-percentiles`` the five slowest cross edges by p99 with their
   HLL distinct-trace counts.
+- ``detect``: the offline five-modality z-score detector over a
+  testbed's 13 experiments (synthetic, or ``--from-data`` through the
+  loaders), evaluated against the chaos labels: one JSON document (the
+  counterpart of ``anomod detect``).
+- ``rca``: train a GNN (``gcn``, ``gat``, ``sage``) on chaos labels and
+  report held-out top-1, top-3 and detection AUC, one JSON line; with
+  ``--checkpoint-dir`` (and ``--resume``) it saves and continues (the
+  counterpart of ``anomod rca``).
 - ``stream``: online detection over one experiment (or ``--all`` of a
-  testbed's taxonomy, in distribution): alert timelines, ranked culprits
-  and top-1 per label, one JSON line each.
-  ``--all`` ends with the summary line (top-1, top-3, median detection
-  latency) and writes a ``stream_quality`` capture (``provenance``).
+  testbed's taxonomy): alert timelines, ranked culprits and top-1 per
+  label, one JSON line each; ``--multimodal`` fuses the log, metric and
+  API planes, ``--severity`` / ``--noise`` / ``--confounders`` harden the
+  generated corpus.  ``--all`` ends with the summary line (top-1, top-3,
+  median detection latency) and writes a ``stream_quality`` capture
+  (``provenance``).
 - ``serve``: the multi-tenant serve plane over a seeded power-law fleet
   on a virtual clock; prints the ``ServeReport`` as JSON (the
   counterpart of ``anomod serve``).
@@ -28,6 +38,7 @@ from typing import List, Optional
 
 
 def _parser() -> argparse.ArgumentParser:
+    from anomod_torch.rca import MODELS
     from anomod_torch.replay import KERNELS
     parser = argparse.ArgumentParser(prog="python -m anomod_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
@@ -48,6 +59,29 @@ def _parser() -> argparse.ArgumentParser:
                         "from the per-edge t-digest plane, with their HLL "
                         "distinct-trace counts")
 
+    d = sub.add_parser("detect", help="run the z-score detector + RCA "
+                       "ranking over a corpus")
+    d.add_argument("--testbed", choices=["SN", "TT"], default="TT")
+    d.add_argument("--traces", type=int, default=100)
+    d.add_argument("--from-data", action="store_true",
+                   help="load from the data root (LFS stubs -> synth)")
+    d.add_argument("--device", default=None,
+                   help="cuda (default: the scores on the card) or cpu "
+                        "(the numpy oracle)")
+
+    g = sub.add_parser("rca", help="train a GNN RCA model on chaos labels")
+    g.add_argument("--testbed", choices=["SN", "TT"], default="TT")
+    g.add_argument("--model", choices=sorted(MODELS), default="gcn")
+    g.add_argument("--epochs", type=int, default=300)
+    g.add_argument("--train-seeds", type=int, default=6)
+    g.add_argument("--eval-seeds", type=int, default=2)
+    g.add_argument("--checkpoint-dir", default=None,
+                   help="persist params / optimizer state every 50 epochs")
+    g.add_argument("--resume", action="store_true",
+                   help="continue from the epoch saved in --checkpoint-dir")
+    g.add_argument("--device", default=None,
+                   help="cuda (default) or cpu")
+
     s = sub.add_parser("stream", help="online detection: replay an "
                        "experiment's spans in arrival order")
     s.add_argument("experiment", nargs="?", default=None)
@@ -56,6 +90,15 @@ def _parser() -> argparse.ArgumentParser:
     s.add_argument("--testbed", choices=["SN", "TT"], default="TT")
     s.add_argument("--traces", type=int, default=400)
     s.add_argument("--seed", type=int, default=0)
+    s.add_argument("--multimodal", action="store_true",
+                   help="fuse the log/metric/api planes with the span "
+                        "stream")
+    s.add_argument("--severity", type=float, default=1.0,
+                   help="de-saturate the fault effects (synth.HardMode)")
+    s.add_argument("--noise", type=float, default=0.0,
+                   help="widen baseline distributions (HardMode)")
+    s.add_argument("--confounders", type=int, default=0,
+                   help="decoy services per fault experiment")
     s.add_argument("--device", default=None,
                    help="cuda (default) or cpu (plain PyTorch versions)")
 
@@ -213,8 +256,13 @@ def _stream(args, parser) -> int:
         if label is None:
             parser.error(f"unknown experiment {args.experiment!r}")
         experiments, testbed = [label.experiment], label.testbed
+    if args.confounders < 0:
+        parser.error("--confounders must be >= 0")
     rows = stream_quality(testbed, n_traces=args.traces, seed=args.seed,
-                          experiments=experiments, device=args.device)
+                          experiments=experiments,
+                          multimodal=args.multimodal,
+                          severity=args.severity, noise=args.noise,
+                          n_confounders=args.confounders, device=args.device)
     for r in rows:
         r["alerts"] = [dataclasses.asdict(a) for a in r["alerts"]]
         print(json.dumps(r))
@@ -226,7 +274,9 @@ def _stream(args, parser) -> int:
         rec = capture_record(
             "stream_quality", float(len(rows)), "experiments",
             device=device_name(resolve_device(args.device)), testbed=testbed,
-            params=dict(n_traces=args.traces, seed=args.seed),
+            params=dict(n_traces=args.traces, seed=args.seed,
+                        multimodal=args.multimodal, severity=args.severity,
+                        noise=args.noise, confounders=args.confounders),
             summary=summary, rows=rows)
         path = write_capture(rec)
         if path:
@@ -250,6 +300,47 @@ def stream_summary(testbed: str, rows: list) -> dict:
                 statistics.median(lats) if lats else None}
 
 
+def _detect(args) -> int:
+    from anomod_torch import detect, labels, synth
+    from anomod_torch.io import dataset
+    if args.from_data:
+        corpus = dataset.load_corpus(args.testbed,
+                                     n_synth_traces=args.traces)
+    else:
+        corpus = [synth.generate_experiment(l, n_traces=args.traces)
+                  for l in labels.labels_for_testbed(args.testbed)]
+    s = detect.evaluate_corpus(corpus, device=args.device)
+    print(json.dumps({
+        "testbed": args.testbed, "backend": args.device or "cuda",
+        "top1": s.top1, "top3": s.top3, "top5": s.top5,
+        "detection_accuracy": s.detection_accuracy,
+        "n_rca_cases": s.n_rca_cases,
+        "per_level": detect.per_level_breakdown(s),
+        "per_experiment": {r.experiment: {
+            "score": round(r.score, 4),
+            "top3": r.ranked_services[:3],
+            "target": r.target_service} for r in s.results},
+    }, indent=2))
+    return 0
+
+
+def _rca(args, parser) -> int:
+    from anomod_torch.rca import train_rca
+    if args.resume and not args.checkpoint_dir:
+        parser.error("--resume requires --checkpoint-dir")
+    r = train_rca(args.testbed, args.model,
+                  train_seeds=range(args.train_seeds),
+                  eval_seeds=range(100, 100 + args.eval_seeds),
+                  epochs=args.epochs,
+                  checkpoint_dir=args.checkpoint_dir, resume=args.resume,
+                  device=args.device)
+    print(json.dumps({
+        "testbed": args.testbed, "model": r.model_name,
+        "top1": r.top1, "top3": r.top3,
+        "detection_auc": r.detection_auc, "n_eval": r.n_eval}))
+    return 0
+
+
 def _roofline(args, parser) -> int:
     from anomod_torch.roofline import kernel_roofline
     if args.traces < 1 or args.replicate < 1:
@@ -269,6 +360,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         return _serve(args, parser)
     if args.cmd == "roofline":
         return _roofline(args, parser)
+    if args.cmd == "detect":
+        return _detect(args)
+    if args.cmd == "rca":
+        return _rca(args, parser)
     return _stream(args, parser)
 
 

@@ -7,12 +7,15 @@ and continue in the other.  The serve plane's tenant pool moves across
 whole with :func:`load_pool`, or tenant by tenant with
 :func:`load_tenant_states`.  A t-digest (``TDigest`` mean and weight
 ``[..., K]``) moves with :func:`from_numpy_digest` /
-:func:`to_numpy_digest`.
+:func:`to_numpy_digest`.  A GNN's flax parameter tree (nested dicts of
+numpy arrays, as ``flax.linen.Module.init`` returns them read back to the
+host) moves into the port's ``state_dict`` with :func:`params_from_flax`,
+and back with :func:`params_to_flax`.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -98,3 +101,71 @@ def to_numpy_digest(d: TDigest) -> TDigest:
     def host(t):
         return np.array(t.cpu()) if torch.is_tensor(t) else np.array(t)
     return TDigest(mean=host(d.mean), weight=host(d.weight))
+
+
+def _gnn_param_names(model_name: str, n_layers: int
+                     ) -> List[Tuple[str, Tuple[str, ...], bool]]:
+    """``(state_dict key, flax path, is a dense kernel)`` of every
+    parameter of the port's ``gcn`` / ``sage`` / ``gat`` model."""
+    def dense(key, *path, bias=True):
+        out = [(f"{key}.weight", path + ("kernel",), True)]
+        if bias:
+            out.append((f"{key}.bias", path + ("bias",), False))
+        return out
+    names = []
+    if model_name == "gcn":
+        for i in range(n_layers):
+            names += dense(f"layers.{i}.dense", f"GCNLayer_{i}", "Dense_0")
+        names += dense("out", "Dense_0")
+    elif model_name == "sage":
+        for i in range(n_layers):
+            names += dense(f"layers.{i}.self_dense", f"Dense_{2 * i}")
+            names += dense(f"layers.{i}.neigh_dense", f"Dense_{2 * i + 1}")
+        names += dense("out", f"Dense_{2 * n_layers}")
+    elif model_name == "gat":
+        for i in range(n_layers):
+            names += dense(f"layers.{i}.proj", f"GATLayer_{i}", "Dense_0",
+                           bias=False)
+            names += [(f"layers.{i}.{a}", (f"GATLayer_{i}", a), False)
+                      for a in ("a_src", "a_dst")]
+        names += dense("out", "Dense_0")
+    else:
+        raise ValueError(f"no flax mapping for model {model_name!r} "
+                         "(gcn | sage | gat)")
+    return names
+
+
+def params_from_flax(model_name: str, params) -> Dict[str, torch.Tensor]:
+    """A flax parameter tree of the JAX package's ``gcn`` / ``sage`` /
+    ``gat`` (with or without its top ``"params"`` key; leaves numpy) -> a
+    ``state_dict`` for the port's model of the same name.  A flax kernel is
+    ``[in, out]``; the port's dense weight is ``[out, in]``."""
+    tree = params.get("params", params)
+    if model_name == "sage":
+        n_layers = (sum(k.startswith("Dense_") for k in tree) - 1) // 2
+    else:
+        n_layers = sum(k.startswith(("GCNLayer_", "GATLayer_")) for k in tree)
+    out = {}
+    for key, path, kernel in _gnn_param_names(model_name, n_layers):
+        leaf = tree
+        for p in path:
+            leaf = leaf[p]
+        arr = np.asarray(leaf, np.float32)
+        out[key] = torch.from_numpy(np.array(arr.T if kernel else arr,
+                                             order="C"))
+    return out
+
+
+def params_to_flax(model_name: str, state_dict) -> dict:
+    """The inverse of :func:`params_from_flax`: ``{"params": ...}`` with
+    numpy leaves."""
+    tree: dict = {}
+    n_layers = len({k.split(".")[1] for k in state_dict
+                    if k.startswith("layers.")})
+    for key, path, kernel in _gnn_param_names(model_name, n_layers):
+        arr = state_dict[key].detach().cpu().numpy()
+        node = tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = np.ascontiguousarray(arr.T if kernel else arr)
+    return {"params": tree}

@@ -13,11 +13,14 @@
   out-edge plane (node ids ⊕ self-edge slots ⊕ out-edge slots, 3S rows)
   naming link-fault culprits.
 
-This is the span-only detector.  The branches of the JAX ranking that
-only log/metric/API evidence can reach (the multimodal detector's
-per-pair concentration verdicts and plane-corroboration tier) are not
-ported yet; on span evidence alone they never fire, so the ranking is
-the same.
+- :class:`MultimodalDetector` fuses log, metric and API planes (host
+  per-window accumulators, three more per-service z signals) with the
+  span statistics; :func:`stream_experiment_multimodal` slices all four
+  modalities on one clock.  Its ranking adds the branches only modality
+  evidence reaches: per-(caller, callee) concentration verdicts and the
+  plane-corroboration tier.  The pair accumulators behind the verdicts
+  fill only in the multimodal detector: on span evidence alone the
+  verdicts are never read.
 """
 
 from __future__ import annotations
@@ -36,7 +39,8 @@ from anomod_torch.replay import (F_COUNT, F_ERR, F_LOGLAT, F_LOGLAT2,
                                  N_FEATS, ReplayConfig, ReplayState,
                                  dead_chunk, make_chunk_step, stage_columns,
                                  zero_state)
-from anomod_torch.schemas import SpanBatch, take_spans
+from anomod_torch.schemas import LOG_ERROR, SpanBatch, take_spans
+from anomod_torch.synth import endpoint_owner
 
 
 @dataclasses.dataclass(frozen=True)
@@ -303,6 +307,11 @@ class OnlineDetector:
             cfg = edge_combined_cfg(cfg, S)
             self._edge_hot: dict = {}       # caller id -> summed hot score
             self._self_hot = np.zeros(S, bool)
+            # per-(caller, callee) pair accumulators [n, sum log1p dur,
+            # n_err] keyed caller*S+callee, split at the calibration
+            # boundary (MultimodalDetector._accumulate_pairs fills them)
+            self._pair_base: dict = {}
+            self._pair_anom: dict = {}
         else:
             K = S
         self._K = K
@@ -362,6 +371,33 @@ class OnlineDetector:
 
     _DUP_FIELDS = ("trace", "parent", "endpoint", "start_us",
                    "duration_us", "is_error", "status", "kind")
+
+    def _pair_verdict(self, p: int) -> Optional[tuple]:
+        """Concentration verdict for caller ``p``'s per-pair heat:
+        ``("concentrated", callee)`` when one callee carries >= 60% of
+        the degradation mass, ``("spread", -1)`` when it is spread, and
+        ``None`` when there is not enough pair data to tell.  Spread heat
+        is the link-fault signature; concentrated heat points at a node
+        culprit."""
+        S = self._n_svc
+        deltas: List[tuple] = []
+        n_obs = 0
+        for k, (n_a, d_a, e_a) in self._pair_anom.items():
+            if k // S != p or n_a < 3:
+                continue
+            base = self._pair_base.get(k)
+            if not base or base[0] < 3:
+                continue
+            n_obs += 1
+            d = max(d_a / n_a - base[1] / base[0], 0.0) \
+                + 5.0 * max(e_a / n_a - base[2] / base[0], 0.0)
+            if d > 0:
+                deltas.append((d, int(k % S)))
+        if n_obs < 2 or not deltas:
+            return None          # one observed pair: spread undefined
+        tot = sum(d for d, _ in deltas)
+        d0, c0 = max(deltas)
+        return ("concentrated", c0) if d0 >= 0.6 * tot else ("spread", -1)
 
     def push(self, batch: SpanBatch,
              parent_service: Optional[np.ndarray] = None) -> List[Alert]:
@@ -431,9 +467,9 @@ class OnlineDetector:
     @property
     def batch_scorable(self) -> bool:
         """True when scoring is exactly the node span-plane math (no edge
-        rows), so :func:`score_closed_windows_batched` can score this
-        detector with byte-identical results."""
-        return not self.edge_attribution
+        rows, no modality planes), so :func:`score_closed_windows_batched`
+        can score this detector with byte-identical results."""
+        return type(self) is OnlineDetector and not self.edge_attribution
 
     def finish(self) -> List[Alert]:
         """End of stream: the newest window with data counts as closed."""
@@ -584,11 +620,20 @@ class OnlineDetector:
             zl, ze, zd, zdc = z["zl"], z["ze"], z["zd"], z["zdc"]
             # alerts fire on the raw z (sensitivity); the ranking score
             # weights the drop signals by their deficit FRACTION
-            # (specificity); channel order = SPAN_EV_NAMES
-            detect_z = np.stack([zl, ze, zd, zdc]).max(axis=0)
-            rank_stack = np.stack([zl, ze, zd * z["frac_w"],
-                                   zdc * z["frac_t"]])
+            # (specificity); modality planes (a subclass's log / metric /
+            # api z) join both at full weight, zero on edge rows
+            extras = self._modality_z(w)
+            if K > S:
+                extras = {k: np.concatenate([v, np.zeros(K - S)])
+                          for k, v in extras.items()}
+            det_parts = dict(latency=zl, error=ze, drop=zd, cusum=zdc,
+                             **extras)
+            rank_parts = dict(latency=zl, error=ze, drop=zd * z["frac_w"],
+                              cusum=zdc * z["frac_t"], **extras)
+            detect_z = np.stack(list(det_parts.values())).max(axis=0)
+            rank_stack = np.stack(list(rank_parts.values()))
             score = rank_stack.max(axis=0)
+            ev_names = list(rank_parts)
             ev_idx = rank_stack.argmax(axis=0)
             hot = detect_z >= self.z_threshold
             if K > S:
@@ -669,7 +714,7 @@ class OnlineDetector:
                                  z_error=float(ze[s]),
                                  z_drop=float(zd[s]),
                                  z_drop_cum=float(zdc[s]),
-                                 evidence=SPAN_EV_NAMES[int(ev_idx[s])]))
+                                 evidence=ev_names[int(ev_idx[s])]))
             if K > S:
                 # a NODE fault heats the culprit's self-edge; a LINK fault
                 # leaves every self-edge cool and only the culprit's
@@ -696,8 +741,18 @@ class OnlineDetector:
                                      z_drop=0.0, z_drop_cum=0.0,
                                      evidence="edge"))
         self._scored_through = through
+        self._after_score(through)
         self.alerts.extend(out)
         return out
+
+    def _after_score(self, through: int) -> None:
+        """Hook after scoring advances (the multimodal detector prunes its
+        per-window host state here)."""
+
+    def _modality_z(self, w: int) -> dict:
+        """Hook for extra per-window, per-service z planes (the
+        multimodal detector's log / api / metric)."""
+        return {}
 
     # -- stream-mode quality metrics --------------------------------------
 
@@ -707,9 +762,13 @@ class OnlineDetector:
         SUMMED alert scores per service, but a service with an anomalous
         service transitively downstream of it ranks after services with
         none (:func:`_explained_by_downstream`).  Edge-explained callees —
-        hot incoming cross edges, self-edge never hot — are blast victims
-        of the edge's CALLER; an edge-dominant caller yields only to
-        node-borne anomalies (hot self-edge) downstream."""
+        hot incoming cross edges, self-edge never hot, no sustained
+        modality evidence — are blast victims of the edge's CALLER; an
+        edge-dominant caller yields only to node-borne anomalies
+        downstream.  On a multimodal run, the per-pair concentration
+        verdicts refine "node-borne", and each edge-dominant caller lifts
+        above adjacent single-plane services that no span evidence
+        corroborates."""
         peak: dict = {}
         total: dict = {}
         windows: dict = {}
@@ -719,11 +778,27 @@ class OnlineDetector:
             windows.setdefault(a.service, set()).add(a.window)
         edge_explained: set = set()
         edge_dom: set = set()
+        direct_node_ev: set = set()
         if self.edge_attribution and self._edge_hot:
+            # node-borne modality evidence must SUSTAIN (>= 2 distinct
+            # windows): one 4-sigma log/metric window is multiple-testing
+            # noise
+            mod_windows: dict = {}
+            plane_groups: dict = {}   # log / metric / api / span, shared
+            # with the corroboration tier below
+            for a in self.alerts:
+                g = a.evidence if a.evidence in ("log", "metric", "api") \
+                    else "span"
+                plane_groups.setdefault(a.service, set()).add(g)
+                if g != "span":
+                    mod_windows.setdefault(a.service, set()).add(a.window)
+            direct_node_ev = {s for s, ws in mod_windows.items()
+                              if len(ws) >= 2}
             hot_children = {c for p in self._edge_hot
                             for c in self._callees_of(p)}
             for c in hot_children:
-                if c in peak and not self._self_hot[c]:
+                if c in peak and not self._self_hot[c] \
+                        and c not in direct_node_ev:
                     edge_explained.add(c)
             #: callers whose evidence is mostly edge-borne
             edge_dom = {p for p, eh in self._edge_hot.items()
@@ -749,22 +824,77 @@ class OnlineDetector:
                     return False
 
                 for q in set(peak) - edge_dom - edge_explained:
-                    if not self._self_hot[q] and _reaches_edge_dom(q):
+                    if not self._self_hot[q] and q not in direct_node_ev \
+                            and _reaches_edge_dom(q):
                         edge_explained.add(q)
         anomalous = set(peak) - edge_explained
         explained = _explained_by_downstream(self.call_edges, anomalous,
                                              peaks=peak, windows=windows)
         if edge_dom:
-            node_borne = {s for s in anomalous if self._self_hot[s]}
+            # an edge-dominant caller yields only to NODE-borne anomalies
+            # downstream: a hot self-edge, or sustained modality evidence
+            # that its callers' pair heat does not refute as spread
+            verdicts = {p: self._pair_verdict(p) for p in edge_dom}
+
+            def _node_borne(s):
+                if self._self_hot[s]:
+                    return True
+                if s not in direct_node_ev:
+                    return False
+                calling = [verdicts[p] for p in edge_dom
+                           if verdicts[p] is not None
+                           and s in self._callees_of(p)]
+                # concentration on s wins over a spread refutation from
+                # another caller
+                if any(v == ("concentrated", s) for v in calling):
+                    return True
+                return not any(v == ("spread", -1) for v in calling)
+            node_borne = {s for s in anomalous if _node_borne(s)}
             strict = _explained_by_downstream(
                 self.call_edges, node_borne | edge_dom,
                 peaks=peak, windows=windows)
             explained = (explained - edge_dom) | (strict & edge_dom)
 
+        # Plane-corroboration tier: with an edge-dominant candidate on a
+        # genuinely multimodal run (>= 2 evidence plane groups fired), a
+        # service whose only evidence is one log / metric / api plane —
+        # no span evidence, no hot self-edge, not the callee its caller's
+        # pair heat concentrates on, and sustained only under a spread
+        # refutation — is "uncorroborated"; each edge-dominant candidate
+        # is bubbled above adjacent uncorroborated services below.
+        uncorroborated: set = set()
+        if edge_dom and len(set().union(*plane_groups.values())) >= 2:
+            conc_exempt = {v[1] for v in verdicts.values()
+                           if v is not None and v[0] == "concentrated"}
+            spread_callees: set = set()
+            for p, v in verdicts.items():
+                if v == ("spread", -1):
+                    spread_callees |= self._callees_of(p)
+            uncorroborated = {
+                s for s in total
+                if s not in edge_dom and not self._self_hot[s]
+                and s not in conc_exempt
+                and (s not in direct_node_ev or s in spread_callees)
+                and len(plane_groups.get(s, ())) < 2
+                and "span" not in plane_groups.get(s, ())}
+
         def key(s):
             return (s in explained or s in edge_explained, -total[s])
 
-        return [self.services[s] for s in sorted(total, key=key)]
+        order = sorted(total, key=key)
+        if uncorroborated:
+            # pairwise, within one explained tier: exactly the pairs the
+            # corroboration argument covers move
+            changed = True
+            while changed:
+                changed = False
+                for i in range(len(order) - 1):
+                    a, b = order[i], order[i + 1]
+                    if a in uncorroborated and b in edge_dom \
+                            and key(a)[0] == key(b)[0]:
+                        order[i], order[i + 1] = b, a
+                        changed = True
+        return [self.services[s] for s in order]
 
     def first_alert_window(self, service_name: Optional[str] = None):
         ws = [a.window for a in self.alerts
@@ -859,9 +989,350 @@ def score_closed_windows_batched(work, gather_cols) -> int:
         det._cusum = cusum[t].copy()
         det._cusum_k = cusum_k[t].copy()
         det._scored_through = through
+        det._after_score(through)
         det.alerts.extend(new_alerts[t])
         n_alerts += len(new_alerts[t])
     return n_alerts
+
+
+class MultimodalDetector(OnlineDetector):
+    """Online detector fusing all the time-resolved modalities.
+
+    Logs, metrics and API responses accumulate into per-(service,
+    absolute-window) host planes and contribute three per-service z
+    signals to every closed window, fused with the span statistics:
+
+    - ``log``: Laplace-smoothed binomial z on the window's log-error rate;
+    - ``metric``: per-SERIES |z| of the window mean vs its own frozen
+      baseline (counters detected by monotone baseline means and
+      rate-ified by window diffs), the sustained two-window minimum, max
+      over the service's series;
+    - ``api``: binomial z on per-owner-service probe error rates
+      (endpoint -> owner via the gateway route tables).
+
+    Coverage is not time-resolved and stays offline-only.  Modalities must
+    be pushed before the span push that closes their windows
+    (:func:`stream_experiment_multimodal` slices all four on one clock).
+    """
+
+    #: minimum lines/records in a window for its rate to be scored
+    MIN_EVENTS = 3.0
+
+    def __init__(self, batch_services: Sequence[str], cfg: ReplayConfig,
+                 t0_us: int, testbed: Optional[str] = None, **kw):
+        super().__init__(batch_services, cfg, t0_us, **kw)
+        self.testbed = testbed
+        self._t0_s = t0_us / 1e6
+        self._win_s = cfg.window_us / 1e6
+        self._svc_index = {s: i for i, s in enumerate(batch_services)}
+        S = len(batch_services)
+        self._S = S
+        self._log_tot: dict = {}     # abs window -> [S] float
+        self._log_err: dict = {}
+        self._api_tot: dict = {}
+        self._api_err: dict = {}
+        # metric series: canonical key -> {"svc": id, "win": {w: [sum, n]}}
+        self._met: dict = {}
+        self._mm_base: Optional[dict] = None
+        self._owner_cache: dict = {}
+        # frozen grid anchor for the pair accumulators' phase split (the
+        # replay's own t0 ROLLS with the ring)
+        self._t0_us = int(t0_us)
+        self._window_us = int(cfg.window_us)
+
+    def replay_batch(self, batch: SpanBatch,
+                     parent_service: Optional[np.ndarray] = None
+                     ) -> SpanBatch:
+        """The base class's replay batch, after folding the batch's cross
+        edges into the per-pair accumulators the ranking's concentration
+        verdicts read."""
+        if self.edge_attribution and batch.n_spans \
+                and parent_service is not None:
+            self._accumulate_pairs(batch, batch.service.astype(np.int32),
+                                   np.asarray(parent_service, np.int32))
+        return super().replay_batch(batch, parent_service)
+
+    def _accumulate_pairs(self, batch: SpanBatch, svc: np.ndarray,
+                          psvc: np.ndarray) -> None:
+        """Fold a micro-batch's cross edges into the per-pair phase
+        accumulators (vectorized per unique pair; O(pairs) dict work)."""
+        cross = (psvc >= 0) & (psvc != svc)
+        if not cross.any():
+            return
+        wi = (batch.start_us[cross] - self._t0_us) // self._window_us
+        keys = psvc[cross].astype(np.int64) * self._n_svc + svc[cross]
+        dur = np.log1p(batch.duration_us[cross].astype(np.float64))
+        err = batch.is_error[cross].astype(np.float64)
+        in_base = wi < self.baseline_windows
+        for phase, m in ((self._pair_base, in_base),
+                         (self._pair_anom, ~in_base)):
+            if not m.any():
+                continue
+            uk, inv = np.unique(keys[m], return_inverse=True)
+            ns = np.bincount(inv).astype(np.float64)
+            ds = np.bincount(inv, weights=dur[m])
+            es = np.bincount(inv, weights=err[m])
+            for k_, n_, d_, e_ in zip(uk.tolist(), ns, ds, es):
+                acc = phase.setdefault(k_, [0.0, 0.0, 0.0])
+                acc[0] += n_
+                acc[1] += d_
+                acc[2] += e_
+
+    def _windows_of(self, t_s: np.ndarray) -> np.ndarray:
+        return ((t_s - self._t0_s) // self._win_s).astype(np.int64)
+
+    def push_logs(self, lb) -> None:
+        if lb is None or lb.n_lines == 0:
+            return
+        t0 = time.perf_counter()
+        smap = np.array([self._svc_index.get(n, -1) for n in lb.services],
+                        np.int32)
+        svc = smap[lb.service]
+        w = self._windows_of(lb.t_s)
+        keep = (svc >= 0) & (w >= 0)
+        err = keep & (lb.level == LOG_ERROR)
+        for wv in np.unique(w[keep]):
+            m = keep & (w == wv)
+            tot = self._log_tot.setdefault(int(wv), np.zeros(self._S))
+            np.add.at(tot, svc[m], 1.0)
+            ev = self._log_err.setdefault(int(wv), np.zeros(self._S))
+            me = err & (w == wv)
+            np.add.at(ev, svc[me], 1.0)
+        self.push_wall_s += time.perf_counter() - t0
+
+    def push_metrics(self, mb) -> None:
+        if mb is None or mb.n_samples == 0:
+            return
+        t0 = time.perf_counter()
+        smap = np.array([self._svc_index.get(n, -1) for n in mb.services],
+                        np.int32)
+        w = self._windows_of(mb.t_s)
+        finite = np.isfinite(mb.value)
+        # one accumulator per (metric, label-set) PAIR: a producer may
+        # reuse one series id across metrics
+        nm = len(mb.metric_names)
+        combo = mb.series.astype(np.int64) * nm + mb.metric
+        ok = finite & (w >= 0)
+        for cv in np.unique(combo[ok]):
+            si, mi = int(cv) // nm, int(cv) % nm
+            sv = mb.series_service[si]
+            svc = int(smap[sv]) if sv >= 0 else -1
+            if svc < 0:
+                continue
+            sel = ok & (combo == cv)
+            key = f"{mb.metric_names[mi]}|{mb.series_keys[si]}"
+            rec = self._met.setdefault(key, {"svc": svc, "win": {}})
+            for wv, val in zip(w[sel], mb.value[sel]):
+                acc = rec["win"].setdefault(int(wv), [0.0, 0])
+                acc[0] += float(val)
+                acc[1] += 1
+        self.push_wall_s += time.perf_counter() - t0
+
+    def push_api(self, ab) -> None:
+        if ab is None or ab.n_records == 0:
+            return
+        t0 = time.perf_counter()
+        owner = np.empty(len(ab.endpoints), np.int32)
+        for i, e in enumerate(ab.endpoints):
+            if e not in self._owner_cache:
+                self._owner_cache[e] = self._svc_index.get(
+                    endpoint_owner(e, self.testbed or "TT"), -1)
+            owner[i] = self._owner_cache[e]
+        svc = owner[ab.endpoint]
+        w = self._windows_of(ab.t_s)
+        keep = (svc >= 0) & (w >= 0)
+        err = keep & (ab.status >= 500)
+        for wv in np.unique(w[keep]):
+            m = keep & (w == wv)
+            tot = self._api_tot.setdefault(int(wv), np.zeros(self._S))
+            np.add.at(tot, svc[m], 1.0)
+            ev = self._api_err.setdefault(int(wv), np.zeros(self._S))
+            me = err & (w == wv)
+            np.add.at(ev, svc[me], 1.0)
+        self.push_wall_s += time.perf_counter() - t0
+
+    # -- modality baselines + per-window z --------------------------------
+
+    def _rate_baseline(self, tot: dict, err: dict) -> dict:
+        B = self.baseline_windows
+        T0 = np.zeros(self._S)
+        E0 = np.zeros(self._S)
+        rates = []
+        for wv in range(B):
+            t = tot.get(wv)
+            if t is None:
+                continue
+            e = err.get(wv, np.zeros(self._S))
+            T0 += t
+            E0 += e
+            with np.errstate(invalid="ignore", divide="ignore"):
+                rates.append(np.where(t >= self.MIN_EVENTS, e / np.maximum(
+                    t, 1.0), np.nan))
+        p = (E0 + 1.0) / (T0 + 2.0)
+        var = np.maximum(p * (1.0 - p), 1e-6)
+        if rates:
+            stack = np.stack(rates)           # [B_present, S], NaN = too few
+            mask = np.isfinite(stack)
+            n = np.maximum(mask.sum(axis=0), 1)
+            mean = np.where(mask, stack, 0.0).sum(axis=0) / n
+            var_b = np.where(mask, (stack - mean) ** 2, 0.0).sum(axis=0) / n
+        else:
+            var_b = np.zeros(self._S)
+        return dict(p=p, var=var, var_b=var_b)
+
+    def _metric_baseline(self) -> dict:
+        B = self.baseline_windows
+        out = {}
+        for key, rec in self._met.items():
+            means = {wv: s / n for wv, (s, n) in rec["win"].items() if n}
+            base = [means[wv] for wv in range(B) if wv in means]
+            if len(base) < 3:
+                continue
+            arr = np.asarray(base)
+            counter = bool(np.all(np.diff(arr) >= -1e-12) and arr[-1] > arr[0])
+            if counter:
+                arr = np.diff(arr)
+            mu = float(arr.mean())
+            # relative sd floor: B windows underestimate a series' spread
+            sd = float(max(arr.std(), 0.1 * (abs(mu) + 1.0)))
+            out[key] = dict(svc=rec["svc"], mu=mu, sd=sd, counter=counter)
+        return out
+
+    def _series_z(self, key: str, b: dict, w: int) -> float:
+        rec = self._met.get(key)
+        if rec is None:
+            return 0.0
+        acc = rec["win"].get(w)
+        if not acc or not acc[1]:
+            return 0.0
+        v = acc[0] / acc[1]
+        if b["counter"]:
+            prev = rec["win"].get(w - 1)
+            if not prev or not prev[1]:
+                return 0.0
+            v = v - prev[0] / prev[1]
+        return abs(v - b["mu"]) / b["sd"]
+
+    def _mm_calibrate(self) -> None:
+        self._mm_base = dict(
+            log=self._rate_baseline(self._log_tot, self._log_err),
+            api=self._rate_baseline(self._api_tot, self._api_err),
+            met=self._metric_baseline())
+
+    def _rate_z(self, w: int, tot: dict, err: dict, base: dict) -> np.ndarray:
+        t = tot.get(w)
+        if t is None:
+            return np.zeros(self._S)
+        e = err.get(w, np.zeros(self._S))
+        ok = t >= self.MIN_EVENTS
+        safe = np.maximum(t, 1.0)
+        return np.where(ok, (e / safe - base["p"])
+                        / np.sqrt(base["var"] / safe + base["var_b"]), 0.0)
+
+    def _metric_z(self, w: int) -> np.ndarray:
+        """Per-service metric z: max over the service's series of the
+        SUSTAINED two-window z (min of this and the previous window's)."""
+        z = np.zeros(self._S)
+        for key, b in self._mm_base["met"].items():
+            zi = min(self._series_z(key, b, w),
+                     self._series_z(key, b, w - 1))
+            s = b["svc"]
+            if zi > z[s]:
+                z[s] = zi
+        return z
+
+    def _modality_z(self, w: int) -> dict:
+        if self._mm_base is None:
+            self._mm_calibrate()
+        out = {}
+        if self._log_tot:
+            out["log"] = self._rate_z(w, self._log_tot, self._log_err,
+                                      self._mm_base["log"])
+        if self._api_tot:
+            out["api"] = self._rate_z(w, self._api_tot, self._api_err,
+                                      self._mm_base["api"])
+        if self._mm_base["met"]:
+            out["metric"] = self._metric_z(w)
+        return out
+
+    def _after_score(self, through: int) -> None:
+        """Bound the per-window host planes: once calibrated, windows
+        older than ``through - 1`` are never read again (counter diffs
+        need one lookback), so evict them."""
+        if self._mm_base is None:
+            return
+        cut = through - 1
+        for d in (self._log_tot, self._log_err, self._api_tot,
+                  self._api_err):
+            for wv in [k for k in d if k < cut]:
+                del d[wv]
+        for rec in self._met.values():
+            win = rec["win"]
+            for wv in [k for k in win if k < cut]:
+                del win[wv]
+
+
+#: per-batch-type row fields (explicit: a side table whose length equals
+#: the sample count must not be sliced)
+_ROW_FIELDS = {
+    "LogBatch": ("service", "t_s", "level"),
+    "MetricBatch": ("metric", "series", "t_s", "value"),
+    "ApiBatch": ("endpoint", "t_s", "status", "latency_ms",
+                 "content_length"),
+}
+
+
+def _take_nt(nt, mask):
+    """Row-subset of a NamedTuple batch: sample-axis fields masked, side
+    tables kept whole."""
+    fields = _ROW_FIELDS[type(nt).__name__]
+    return nt._replace(**{f: getattr(nt, f)[mask] for f in fields})
+
+
+def stream_experiment_multimodal(exp, cfg: Optional[ReplayConfig] = None,
+                                 slice_s: float = 60.0, **detector_kw):
+    """Replay a full experiment bundle — spans, logs, metrics, API — in
+    arrival order through the multimodal online detector.  One clock
+    slices all four modalities; within each slice the low-volume
+    modalities are pushed first so their windows are populated before the
+    span push closes them.  Returns the finished detector."""
+    batch = exp.spans
+    cfg = cfg or ReplayConfig(n_services=batch.n_services, chunk_size=4096)
+    edges = set()
+    if batch.n_spans:
+        has_parent = batch.parent >= 0
+        edges = set(zip(batch.service[batch.parent[has_parent]].tolist(),
+                        batch.service[has_parent].tolist()))
+    psvc = resolve_parent_services(batch)
+    order = np.argsort(batch.start_us, kind="stable")
+    batch = take_spans(batch, order)
+    psvc = psvc[order]
+    t0 = int(batch.start_us.min()) if batch.n_spans else 0
+    det = MultimodalDetector(batch.services, cfg, t0, testbed=exp.testbed,
+                             call_edges=edges, **detector_kw)
+    if not batch.n_spans:
+        det.finish()
+        return det
+    t0_s = t0 / 1e6
+    end_s = float(batch.start_us.max()) / 1e6
+    lo_s = t0_s
+    while lo_s <= end_s:
+        hi_s = lo_s + slice_s
+        if exp.logs is not None and exp.logs.n_lines:
+            det.push_logs(_take_nt(exp.logs, (exp.logs.t_s >= lo_s)
+                                   & (exp.logs.t_s < hi_s)))
+        if exp.metrics is not None and exp.metrics.n_samples:
+            det.push_metrics(_take_nt(exp.metrics, (exp.metrics.t_s >= lo_s)
+                                      & (exp.metrics.t_s < hi_s)))
+        if exp.api is not None and exp.api.n_records:
+            det.push_api(_take_nt(exp.api, (exp.api.t_s >= lo_s)
+                                  & (exp.api.t_s < hi_s)))
+        m = (batch.start_us >= lo_s * 1e6) & (batch.start_us < hi_s * 1e6)
+        if m.any():
+            det.push(take_spans(batch, m), parent_service=psvc[m])
+        lo_s = hi_s
+    det.finish()
+    return det
 
 
 def _explained_by_downstream(call_edges: set, anomalous: set,
@@ -997,32 +1468,40 @@ def stream_experiment(batch: SpanBatch, cfg: Optional[ReplayConfig] = None,
     return det
 
 
-def experiment_seed(seed: int, experiment: str) -> int:
-    """The per-(seed, experiment) generator seed of the quality corpus
-    (the JAX package's ``rca.experiment_stream``)."""
-    from anomod_torch.synth import _seed_for
-    return seed * 1000 + _seed_for(experiment) % 997
-
-
 def stream_quality(testbed: str = "TT", n_traces: int = 400, seed: int = 0,
                    experiments: Optional[Sequence[str]] = None,
+                   multimodal: bool = False, severity: float = 1.0,
+                   noise: float = 0.0, n_confounders: int = 0,
                    **detector_kw) -> List[dict]:
-    """Streaming-mode quality over the fault taxonomy, in distribution:
-    one row per experiment with its alert timeline (``alerts``), ranked
-    culprits, top-1/top-3 hits and signed detection latency in windows
-    (fault onset = 600 s)."""
-    from anomod_torch import labels, synth
+    """Streaming-mode quality over the fault taxonomy: one row per
+    experiment with its alert timeline (``alerts``), ranked culprits,
+    top-1/top-3 hits and signed detection latency in windows (fault onset
+    = 600 s).  The corpus is ``rca.experiment_plan``'s, the offline
+    quality sweep's: ``severity`` / ``noise`` de-saturate the generator
+    (``synth.HardMode``) and ``n_confounders`` plants decoy services.
+    ``multimodal`` generates each experiment's logs, metrics and API
+    records and runs :func:`stream_experiment_multimodal`; otherwise only
+    the spans are generated and :func:`stream_experiment` runs."""
+    from anomod_torch import synth
+    from anomod_torch.rca import experiment_plan
     cfg = detector_kw.get("cfg")
     win_us = cfg.window_us if cfg is not None else 60_000_000
     onset_w = int(600_000_000 // win_us)
+    hard = synth.HardMode(severity=severity, noise=noise)
     rows = []
-    for label in labels.labels_for_testbed(testbed):
-        if experiments is not None and label.experiment not in experiments:
-            continue
-        spans = synth.generate_spans(
-            label, n_traces=n_traces,
-            seed=experiment_seed(seed, label.experiment))
-        det = stream_experiment(spans, **detector_kw)
+    for label, mode, gen_seed in experiment_plan(
+            testbed, seed, hard=hard, n_confounders=n_confounders,
+            experiments=experiments):
+        if multimodal:
+            det = stream_experiment_multimodal(
+                synth.generate_experiment(label, n_traces=n_traces,
+                                          seed=gen_seed, hard=mode),
+                **detector_kw)
+        else:
+            det = stream_experiment(
+                synth.generate_spans(label, n_traces=n_traces,
+                                     seed=gen_seed, hard=mode),
+                **detector_kw)
         ranked = det.ranked_services()
         row = dict(experiment=label.experiment, testbed=testbed,
                    target_service=label.target_service,

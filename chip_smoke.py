@@ -6,7 +6,7 @@
 Builds the port's CUDA kernels from ``anomod_torch/csrc/`` with nvcc and
 its host entries (``csrc/native.cpp``) with the host's C++ compiler,
 holds each kernel against its plain PyTorch version on the card, then
-drives the data layer and three paths:
+drives the data layer and six paths:
 
 - replay (phases 2-5), at the TT deployment's full width (45 services x
   32 windows x 16 buckets): the bench corpus replay (13 labels x 2000
@@ -58,7 +58,18 @@ drives the data layer and three paths:
   ``counts`` and ``no_hist`` ablation kernels against their plain
   versions and the full sorted kernel, then ``kernel_roofline()`` at its
   full size (replicate = 4096) with the launches counted, its capture
-  written to a temporary directory and read back.
+  written to a temporary directory and read back;
+- detect (phase 13): ``detect.evaluate_corpus`` of both testbeds at the
+  CLI's 100 traces, the scores on the card against the numpy oracle;
+- RCA training (phase 14) at full width on TT (45 services; GCN 2 x 64,
+  GraphSAGE 2 x 64, GAT 2 x 32 x 4 heads; the CLI's 300 epochs, 6 train
+  and 2 eval seeds, 80 traces; the dataset built once on the host): each
+  model trained on the card and on the CPU from one generator draw, a
+  slice of epochs traced, and a GCN run resumed from a checkpoint held to
+  the straight run;
+- the multimodal stream (phase 15): ``stream_quality("TT", 400,
+  multimodal=True)`` through the dense kernel, its launches counted,
+  held to the same run with the plain fold on the card.
 
 Phase 1 also prints how each kernel's shared atomics compiled (from
 ``cuobjdump -sass``), and phase 2 what the L2 eviction before each timed
@@ -1521,6 +1532,270 @@ def roofline_phases(dev, card, kind, sid_np, planes_np, n_real, SW) -> dict:
             "roofline_probe_wall_s": probe_s, "roofline_times": times}
 
 
+#: detect scores: the same f32 expression on the card and in numpy; an
+#: expm1 or a division may round in another last bit
+RTOL_DETECT = 1e-5
+#: the first epoch's loss, card against CPU from one generator draw
+RTOL_LOSS = 1e-5
+RCA_EPOCHS = 300
+
+
+def detect_phase(dev, card) -> dict:
+    """Phase 13: ``evaluate_corpus`` of both testbeds at the CLI's 100
+    traces, the scores on the card and by the numpy oracle: summary rows
+    equal, scores within ``RTOL_DETECT``, each ranking equal to the
+    oracle's but for services whose oracle scores differ by less than
+    that."""
+    import numpy as np
+    import torch
+    from anomod_torch import detect, labels, synth
+
+    out = {}
+    for testbed in ("TT", "SN"):
+        t0 = time.perf_counter()
+        corpus = [synth.generate_experiment(l, n_traces=100)
+                  for l in labels.labels_for_testbed(testbed)]
+        gen_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got = detect.evaluate_corpus(corpus, device=dev)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = detect.evaluate_corpus(corpus, device="cpu")
+        oracle_s = time.perf_counter() - t0
+        rows = ("top1", "top3", "top5", "detection_accuracy", "n_rca_cases")
+        check([getattr(got, k) for k in rows]
+              == [getattr(want, k) for k in rows],
+              f"detect {testbed}: summary rows differ")
+        check(detect.per_level_breakdown(got)
+              == detect.per_level_breakdown(want),
+              f"detect {testbed}: per-level rows differ")
+        # the pinned service table and the baseline of evaluate_corpus
+        services = tuple(dict.fromkeys(
+            s for e in corpus if e.spans is not None
+            for s in e.spans.services))
+        normal = next(e for e in corpus if not
+                      labels.label_for(e.name).is_anomaly)
+        base = detect.extract_features(normal, services).x
+        swapped, err = 0, 0.0
+        for exp, g, w in zip(corpus, got.results, want.results):
+            check((g.experiment, g.target_service, g.is_anomaly_true)
+                  == (w.experiment, w.target_service, w.is_anomaly_true),
+                  f"detect {testbed}: result rows out of step")
+            feat = detect.extract_features(exp, services).x
+            oracle = detect.service_scores_numpy(feat, base)
+            on_card = detect.service_scores(feat, base, dev).cpu().numpy()
+            check(np.allclose(on_card, oracle, rtol=RTOL_DETECT, atol=1e-6),
+                  f"detect {testbed} {exp.name}: scores outside rtol "
+                  f"{RTOL_DETECT}")
+            err = max(err, float(np.abs(on_card - oracle).max()))
+            check(abs(g.score - w.score) <= RTOL_DETECT * abs(w.score),
+                  f"detect {testbed} {exp.name}: experiment score")
+            if g.ranked_services != w.ranked_services:
+                # only near-ties may trade places: the card's order must
+                # be a descending order of the oracle's scores within rtol
+                by = dict(zip(services, oracle))
+                seq = [by[s] for s in g.ranked_services]
+                check(all(b <= a + RTOL_DETECT * max(abs(a), abs(b))
+                          for a, b in zip(seq, seq[1:])),
+                      f"detect {testbed} {exp.name}: ranking differs "
+                      f"beyond near-ties")
+                swapped += 1
+        out[testbed] = dict(top1=got.top1, top3=got.top3, top5=got.top5,
+                            detection_accuracy=got.detection_accuracy,
+                            n_rca_cases=got.n_rca_cases,
+                            card_wall_s=card_s, oracle_wall_s=oracle_s,
+                            corpus_gen_s=gen_s, max_abs_err=err,
+                            rankings_with_near_tie_swaps=swapped)
+        log(f"[13] detect {testbed} (100 traces): top1 {got.top1:.4f} top3 "
+            f"{got.top3:.4f} top5 {got.top5:.4f} detection accuracy "
+            f"{got.detection_accuracy:.4f} over {got.n_rca_cases} cases; "
+            f"rows equal to the numpy oracle (scores max_abs_err "
+            f"{err:.3g}, {swapped} rankings with near-tie swaps); "
+            f"evaluate_corpus wall {card_s:.3f} s on the "
+            f"card, {oracle_s:.3f} s numpy (corpus generation "
+            f"{gen_s:.3f} s) on {card}")
+    return {"detect": out}
+
+
+def rca_phase(dev, card) -> dict:
+    """Phase 14: RCA training at full width on TT (the CLI's 300 epochs, 6
+    train seeds, 2 eval seeds, 80 traces), ``gcn``, ``sage`` and ``gat``,
+    each from one ``torch.Generator`` draw on the card and on the CPU: the
+    first epoch's loss within ``RTOL_LOSS``, the card's held-out top-1
+    within one eval case of the CPU's; a slice of epochs traced for the
+    device-busy share; and a GCN run resumed from a checkpoint written
+    here equal to the straight run, bit for bit."""
+    import tempfile
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from anomod_torch import rca
+
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "rca: TF32 matmuls are on")
+    t0 = time.perf_counter()
+    train, evalb = rca.prepare_data("TT", range(6), range(100, 102), 80)
+    build_s = time.perf_counter() - t0
+    F = train["x"].shape[-1]
+    log(f"[14] TT dataset: train {tuple(train['x'].shape)}, eval "
+        f"{tuple(evalb['x'].shape)}, edges {train['edge_src'].shape[1]}, "
+        f"built in {build_s:.3f} s on the host")
+    out = {"dataset_build_s": build_s}
+    meta = {"model": None, "testbed": "TT"}
+    straight_gcn = None
+    for name in ("gcn", "sage", "gat"):
+        meta["model"] = name
+        runs = {}
+        for key, where in (("card", dev), ("cpu", torch.device("cpu"))):
+            model = rca.init_model(name, F, seed=0, device=where)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs[key] = r = rca.fit(name, train, evalb, model,
+                                    epochs=RCA_EPOCHS, meta=meta)
+            torch.cuda.synchronize()
+            r.wall_s = time.perf_counter() - t0
+        got, want = runs["card"], runs["cpu"]
+        check(abs(got.losses[0] - want.losses[0])
+              <= RTOL_LOSS * abs(want.losses[0]),
+              f"rca {name}: first-epoch loss {got.losses[0]} on the card "
+              f"vs {want.losses[0]} on the CPU")
+        check(abs(got.top1 - want.top1) * want.n_eval <= 1 + 1e-9,
+              f"rca {name}: top-1 {got.top1} on the card vs {want.top1}")
+        # a slice of epochs under the profiler: device busy / wall
+        model = rca.init_model(name, F, seed=0, device=dev)
+        opt = rca.make_optimizer(model)
+        batch = rca.to_device(train, dev)
+        rca.train_loop(name, model, opt, batch, 0, 5)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            rca.train_loop(name, model, opt, batch, 0, 50)
+            torch.cuda.synchronize()
+            prof_s = time.perf_counter() - t0
+        busy = device_busy_ms(prof)
+        n_kernels = sum(1 for e in prof.events()
+                        if getattr(e, "device_type", None)
+                        == DeviceType.CUDA)
+        share = None if busy is None else busy / 1e3 / prof_s
+        every = {ep: (got.losses[ep], want.losses[ep])
+                 for ep in range(0, RCA_EPOCHS, 50)}
+        out[name] = dict(
+            first_loss=[got.losses[0], want.losses[0]],
+            loss_every_50=every,
+            final_loss=[got.losses[-1], want.losses[-1]],
+            top1=[got.top1, want.top1], top3=[got.top3, want.top3],
+            auc=[got.detection_auc, want.detection_auc],
+            n_eval=got.n_eval, train_wall_s=[got.wall_s, want.wall_s],
+            ms_per_epoch=[got.wall_s / RCA_EPOCHS * 1e3,
+                          want.wall_s / RCA_EPOCHS * 1e3],
+            profiled_ms_per_epoch=prof_s / 50 * 1e3,
+            device_busy_ms_50_epochs=busy, device_events_50_epochs=n_kernels,
+            device_busy_share=share)
+        log(f"[14] rca {name}: loss [card, cpu] every 50 epochs {every}; "
+            f"top1 {got.top1:.4f} / {want.top1:.4f}, top3 {got.top3:.4f} / "
+            f"{want.top3:.4f}, AUC {got.detection_auc:.4f} / "
+            f"{want.detection_auc:.4f} over {got.n_eval} cases; train wall "
+            f"(fit: copy, {RCA_EPOCHS} epochs, eval) {got.wall_s:.3f} s on "
+            f"the card ({got.wall_s / RCA_EPOCHS * 1e3:.3f} ms an epoch), "
+            f"{want.wall_s:.3f} s on the CPU; 50 traced epochs "
+            f"{prof_s / 50 * 1e3:.3f} ms each, device busy "
+            f"{'not measured' if busy is None else f'{busy:.3f} ms'} over "
+            f"{n_kernels} device events, busy share "
+            f"{share if share is None else f'{share:.4g}'} on {card}")
+        if name == "gcn":
+            straight_gcn = got
+    # --resume: half the epochs with a checkpoint, then resumed to the end
+    meta["model"] = "gcn"
+    with tempfile.TemporaryDirectory() as tmp:
+        half = rca.fit("gcn", train, evalb,
+                       rca.init_model("gcn", F, seed=0, device=dev),
+                       epochs=RCA_EPOCHS // 2, checkpoint_dir=tmp,
+                       meta=meta)
+        resumed = rca.fit("gcn", train, evalb,
+                          rca.init_model("gcn", F, seed=1, device=dev),
+                          epochs=RCA_EPOCHS, checkpoint_dir=tmp,
+                          resume=True, meta=meta)
+    same_params = all(torch.equal(v, resumed.params[k])
+                      for k, v in straight_gcn.params.items())
+    check(half.losses + resumed.losses == straight_gcn.losses
+          and same_params
+          and (resumed.top1, resumed.top3, resumed.detection_auc)
+          == (straight_gcn.top1, straight_gcn.top3,
+              straight_gcn.detection_auc),
+          "rca gcn: the resumed run differs from the straight run")
+    log(f"[14] rca gcn --resume at epoch {RCA_EPOCHS // 2}: losses, "
+        f"parameters and held-out metrics equal to the straight run, bit "
+        f"for bit")
+    out["resume_equals_straight"] = True
+    return {"rca": out}
+
+
+def multimodal_phase(dev, card, plain_factory) -> dict:
+    """Phase 15: ``stream_quality("TT", 400, multimodal=True)`` on the
+    card, its ``dense_slice_fold`` launches counted, held to the same run
+    with the plain fold on the card (ranked lists, first-alert windows,
+    alert lists); then traced for the device-busy share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from anomod_torch.ops import replay_kernels as rk
+    from anomod_torch.stream import stream_quality
+
+    rk.reset_launches()
+    t0 = time.perf_counter()
+    rows = stream_quality("TT", n_traces=400, seed=0, multimodal=True,
+                          device=dev)
+    wall_s = time.perf_counter() - t0
+    launches = dict(rk.launches)
+    plain_rows = stream_quality("TT", n_traces=400, seed=0, multimodal=True,
+                                device=dev, replay_factory=plain_factory)
+    check(len(rows) == 13, f"multimodal: {len(rows)} labels, expected 13")
+    hits = []
+    for r, p in zip(rows, plain_rows):
+        check(r["ranked"] == p["ranked"],
+              f"multimodal {r['experiment']}: ranked lists differ")
+        check(r["first_alert_window"] == p["first_alert_window"],
+              f"multimodal {r['experiment']}: first alert windows differ")
+        check([(a.window, a.service, a.evidence) for a in r["alerts"]]
+              == [(a.window, a.service, a.evidence) for a in p["alerts"]],
+              f"multimodal {r['experiment']}: alert lists differ")
+        if "top1_hit" in r:
+            hits.append(r["top1_hit"])
+        log(f"[15] {r['experiment']}: top1={r['ranked'][:1]} target="
+            f"{r['target_service'] or '-'} hit={r.get('top1_hit')} "
+            f"alerts={r['n_alerts']} (evidence "
+            f"{sorted({a.evidence for a in r['alerts']})})")
+    check(launches["replay_dense"] > 0,
+          "multimodal: dense_slice_fold was not launched")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        stream_quality("TT", n_traces=400, seed=0, multimodal=True,
+                       device=dev)
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
+    busy = device_busy_ms(prof)
+    share = None if busy is None else busy / 1e3 / prof_s
+    dense = {n: v for n, v in kernel_device_ms(prof, DENSE_KERNELS).items()
+             if v[1]}
+    log(f"[15] multimodal stream trace by kernel (device ms, kernels in "
+        f"the trace): {dense}")
+    log(f"[15] multimodal stream top-1 {sum(hits)}/{len(hits)} in "
+        f"{wall_s:.3f} s (corpus generation included); dense_slice_fold "
+        f"launches {launches['replay_dense']} (all launches {launches}); "
+        f"equal to the plain fold on the card; traced: device busy "
+        f"{'not measured' if busy is None else f'{busy:.3f} ms'} in "
+        f"{prof_s:.3f} s, share {share if share is None else f'{share:.4g}'}"
+        f" on {card}")
+    return {"multimodal_stream": dict(
+        top1=sum(hits) / len(hits), wall_s=wall_s,
+        dense_launches=launches["replay_dense"], dense_trace_ms=dense,
+        device_busy_ms=busy,
+        profiled_wall_s=prof_s, device_busy_share=share)}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1819,6 +2094,10 @@ def main() -> int:
     serve = serve_phases(dev, card)
     sketch = sketch_phases(dev, card, batch, cfg)
     roof = roofline_phases(dev, card, kind, sid_np, planes_np, n_real, SW)
+    det13 = detect_phase(dev, card)
+    rca14 = rca_phase(dev, card)
+    mm15 = multimodal_phase(dev, card, PlainFoldReplay)
+    mm_launches = mm15["multimodal_stream"]["dense_launches"]
 
     # -- report -----------------------------------------------------------
     # the dense kernel's top-level times are the corpus pass's; each path
@@ -1826,7 +2105,10 @@ def main() -> int:
     corpus = dict(launches=launches["replay_dense"] - stream_launches,
                   plain_ms=dense_plain_ms, bound_ms=fold_bound,
                   bound_by=fold_by, traced=dense_split, **dense_t)
-    chunk = dict(launches=stream_launches, plain_ms=chunk_plain_ms,
+    chunk = dict(launches=stream_launches + mm_launches,
+                 span_stream_launches=stream_launches,
+                 multimodal_stream_launches=mm_launches,
+                 plain_ms=chunk_plain_ms,
                  bound_ms=chunk_bound, bound_by=chunk_by,
                  traced=chunk_split, stream_trace_ms=chunk_trace_ms,
                  **chunk_t)
@@ -1834,7 +2116,7 @@ def main() -> int:
         {"name": "replay_dense", "route": "cuda",
          "source": "anomod_torch/csrc/replay.cu",
          "replaces": "anomod/ops/pallas_replay.py:85", "redesigned": "PR 6",
-         "launches": launches["replay_dense"],
+         "launches": launches["replay_dense"] + mm_launches,
          "max_abs_err": max(dense_err, err_4320),
          **{k: corpus[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms", "ms_unspun",
@@ -1858,7 +2140,7 @@ def main() -> int:
                     "stream_device_busy_share": busy_share,
                     "sorted_ends_ms": end_ms, "dense_ends_ms": dense_end_ms,
                     "l2_eviction_ms": flush, **data, **serve,
-                    **sketch, **roof,
+                    **sketch, **roof, **det13, **rca14, **mm15,
                     "wall_s": time.perf_counter() - t_all}))
     log(json.dumps({"kernels": kernels}))
     log(card)

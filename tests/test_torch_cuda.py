@@ -654,3 +654,92 @@ def test_sketch_path_on_card_matches_cpu(cuda_device):
     assert table == ctable
     np.testing.assert_array_equal(counts, ccounts)
     np.testing.assert_allclose(pct, cpct, rtol=1e-4, atol=1e-2)
+
+
+@pytest.mark.cuda
+def test_detect_on_card_equals_numpy_oracle(cuda_device):
+    """The torch score on the card against the numpy oracle: scores to
+    rtol 1e-5, and every summary row equal."""
+    from anomod_torch import detect, labels, synth
+    corpus = [synth.generate_experiment(l, n_traces=40)
+              for l in labels.labels_for_testbed("TT")]
+    card = detect.evaluate_corpus(corpus, device=cuda_device)
+    oracle = detect.evaluate_corpus(corpus, device="cpu")
+    assert (card.top1, card.top3, card.top5, card.detection_accuracy,
+            card.n_rca_cases) == (oracle.top1, oracle.top3, oracle.top5,
+                                  oracle.detection_accuracy,
+                                  oracle.n_rca_cases)
+    assert detect.per_level_breakdown(card) == \
+        detect.per_level_breakdown(oracle)
+    np.testing.assert_allclose([r.score for r in card.results],
+                               [r.score for r in oracle.results], rtol=1e-5)
+    services = tuple(synth.TT_SERVICES)
+    base = detect.extract_features(corpus[0], services).x
+    for exp in corpus:
+        feat = detect.extract_features(exp, services).x
+        got = detect.service_scores(feat, base, cuda_device)
+        assert got.device.type == "cuda"
+        np.testing.assert_allclose(got.cpu().numpy(),
+                                   detect.service_scores_numpy(feat, base),
+                                   rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_gat_first_epoch_on_card_agrees_with_cpu(cuda_device):
+    """One generator draw on both devices; the first epoch's loss agrees
+    to rtol 1e-5 and the forward to rtol 1e-5 (f32, TF32 off)."""
+    from anomod_torch import rca
+    assert not torch.backends.cuda.matmul.allow_tf32
+    train, evalb = rca.prepare_data("SN", range(2), [100], 20)
+    F = train["x"].shape[-1]
+    on_card = rca.init_model("gat", F, seed=0, device=cuda_device)
+    on_cpu = rca.init_model("gat", F, seed=0, device="cpu")
+    for k, v in on_cpu.state_dict().items():
+        assert torch.equal(on_card.state_dict()[k].cpu(), v)
+    b_card = rca.to_device(train, cuda_device)
+    b_cpu = rca.to_device(train, torch.device("cpu"))
+    with torch.no_grad():
+        np.testing.assert_allclose(
+            rca.apply_model("gat", on_card, b_card).cpu().numpy(),
+            rca.apply_model("gat", on_cpu, b_cpu).numpy(),
+            rtol=1e-5, atol=1e-6)
+    got = rca.train_loop("gat", on_card, rca.make_optimizer(on_card),
+                         b_card, 0, 3)
+    want = rca.train_loop("gat", on_cpu, rca.make_optimizer(on_cpu),
+                          b_cpu, 0, 3)
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-5)
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_multimodal_stream_on_card_equals_plain_fold(cuda_device):
+    """The multimodal stream through the dense kernel against the same
+    stream through its plain version on the card: alert lists, ranked
+    services and first-alert windows equal."""
+    from anomod_torch.replay import stage_planes
+    from anomod_torch.stream import StreamReplay, stream_quality
+
+    class PlainFold(StreamReplay):
+        def __init__(self, cfg, t0_us, device=None, with_hll=False):
+            super().__init__(cfg, t0_us, device=device, with_hll=with_hll)
+            SW, nh = cfg.sw, cfg.n_hist_buckets
+
+            def step(state, chunk):
+                sid, planes = stage_planes(chunk, xp=torch)
+                out = rk.replay_dense_plain(sid, planes, SW, nh)
+                return state._replace(agg=state.agg + out[:, :6],
+                                      hist=state.hist + out[:, 6:])
+            self._step = step
+
+    names = ["Lv_D_cachelimit", "Lv_S_KILLPOD_preserve"]
+    rk.reset_launches()
+    rows = stream_quality("TT", 160, multimodal=True, experiments=names,
+                          device=cuda_device)
+    assert rk.launches["replay_dense"] > 0
+    plain = stream_quality("TT", 160, multimodal=True, experiments=names,
+                           device=cuda_device, replay_factory=PlainFold)
+    for r, p in zip(rows, plain):
+        assert r["ranked"] == p["ranked"]
+        assert r["first_alert_window"] == p["first_alert_window"]
+        assert [(a.window, a.service, a.evidence) for a in r["alerts"]] == \
+            [(a.window, a.service, a.evidence) for a in p["alerts"]]

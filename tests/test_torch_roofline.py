@@ -299,5 +299,7 @@ def test_stream_all_summary_equals_jax(tmp_path, monkeypatch, capsys):
     assert len(caps) == 1 and caps[0].endswith("_stream_quality_cpu.json")
     rec = json.loads((tmp_path / "port" / caps[0]).read_text())
     assert rec["summary"] == port and len(rec["rows"]) == 13
-    assert rec["params"] == {"n_traces": 20, "seed": 0}
+    assert rec["params"] == {"n_traces": 20, "seed": 0, "multimodal": False,
+                             "severity": 1.0, "noise": 0.0,
+                             "confounders": 0}
     assert len(os.listdir(tmp_path / "jax")) == 1

@@ -22,7 +22,15 @@
   (``provenance``).
 - ``serve``: the multi-tenant serve plane over a seeded power-law fleet
   on a virtual clock; prints the ``ServeReport`` as JSON (the
-  counterpart of ``anomod serve``).
+  counterpart of ``anomod serve``).  ``--rca`` runs online root-cause
+  inference in the tick, ``--trace-out`` dumps the engine's Jaeger-shaped
+  trace; with ``ANOMOD_OBS_HTTP`` on, ``/metrics`` is served meanwhile.
+- ``obs snapshot | export | score``: the telemetry plane (the
+  counterpart of ``anomod obs``): a seeded self-exercise serve run fills
+  a fresh registry, then its point-in-time state prints (JSON or
+  Prometheus text), its journal or the engine's span trace exports, or
+  its telemetry (or a TT-CSV capture, ``--from``) scores through the
+  detector.
 - ``roofline``: the sorted replay kernel's roofline probe (the
   counterpart of ``scripts/bench_kernel_roofline.py``): rates of the
   kernel and its two ablations, one JSON line, one capture.
@@ -143,7 +151,43 @@ def _parser() -> argparse.ArgumentParser:
                    help="tenant states in the device pool or on the host")
     v.add_argument("--no-score", action="store_true",
                    help="fold only; no detectors")
+    v.add_argument("--rca", action="store_true",
+                   help="online root-cause inference in the serve tick "
+                        "(default: ANOMOD_SERVE_RCA)")
+    v.add_argument("--trace-out", default=None,
+                   help="dump the engine's own Jaeger-shaped trace")
     v.add_argument("--device", default=None,
+                   help="cuda (default) or cpu (plain PyTorch versions)")
+
+    o = sub.add_parser(
+        "obs", help="self-scraping telemetry plane: snapshot the metrics "
+        "registry, export it (Prometheus text / TT metric CSV / the "
+        "engine's span trace), or score a self-scrape capture through "
+        "the detector")
+    o.add_argument("action", choices=["snapshot", "export", "score"])
+    o.add_argument("--from", dest="from_path", default=None,
+                   help="score: TT-CSV self-scrape capture to load "
+                        "(default: run the self-exercise and score its "
+                        "own telemetry)")
+    o.add_argument("--out", default=None,
+                   help="export: output file path (required)")
+    o.add_argument("--format", choices=["json", "prom", "tt-csv", "chrome",
+                                        "jaeger"], default=None,
+                   help="snapshot: json (default) or prom; export: tt-csv "
+                        "(default), prom, or the self-exercise engine's "
+                        "span trace as chrome or jaeger")
+    o.add_argument("--serve-seconds", type=float, default=20.0,
+                   help="virtual seconds of the seeded self-exercise "
+                        "serve run that fills the registry")
+    o.add_argument("--tenants", type=int, default=24)
+    o.add_argument("--capacity", type=float, default=4000.0,
+                   help="self-exercise serving capacity (spans/sec)")
+    o.add_argument("--seed", type=int, default=0)
+    o.add_argument("--window-seconds", type=float, default=5.0,
+                   help="score: detector window width")
+    o.add_argument("--baseline-windows", type=int, default=4)
+    o.add_argument("--threshold", type=float, default=4.0)
+    o.add_argument("--device", default=None,
                    help="cuda (default) or cpu (plain PyTorch versions)")
     return parser
 
@@ -165,6 +209,9 @@ def _serve(args, parser) -> int:
         parser.error("--fault-tenants must be >= 0")
     if args.pipeline is not None and args.pipeline < 1:
         parser.error("--pipeline must be >= 1")
+    if args.rca and args.no_score:
+        parser.error("--rca consumes the detectors' alert stream; "
+                     "it cannot combine with --no-score")
     try:
         buckets = (None if args.buckets is None else validate_serve_buckets(
             p for p in args.buckets.split(",") if p.strip()))
@@ -172,17 +219,99 @@ def _serve(args, parser) -> int:
             p for p in args.lane_buckets.split(",") if p.strip()))
     except ValueError as e:
         parser.error(str(e))
-    _, report = run_power_law(
-        n_tenants=args.tenants, n_services=args.services,
-        capacity_spans_per_s=args.capacity, overload=args.overload,
-        duration_s=args.duration, tick_s=args.tick, seed=args.seed,
-        alpha=args.alpha, window_s=args.window_seconds,
-        baseline_windows=args.baseline_windows, z_threshold=args.threshold,
-        buckets=buckets, max_backlog=args.max_backlog,
-        fault_tenants=args.fault_tenants, score=not args.no_score,
-        fuse=not args.no_fuse, lane_buckets=lanes, pipeline=args.pipeline,
-        state=args.state, device=args.device)
+    from anomod_torch.obs.http import maybe_serve
+    from anomod_torch.utils.tracing import Tracer
+    tracer = Tracer("anomod-serve") if args.trace_out else None
+    # the endpoint rides the run when ANOMOD_OBS_HTTP is on: pure
+    # registry reads, decisions byte-identical either way
+    endpoint = maybe_serve()
+    try:
+        _, report = run_power_law(
+            n_tenants=args.tenants, n_services=args.services,
+            capacity_spans_per_s=args.capacity, overload=args.overload,
+            duration_s=args.duration, tick_s=args.tick, seed=args.seed,
+            alpha=args.alpha, window_s=args.window_seconds,
+            baseline_windows=args.baseline_windows,
+            z_threshold=args.threshold, buckets=buckets,
+            max_backlog=args.max_backlog,
+            fault_tenants=args.fault_tenants, score=not args.no_score,
+            fuse=not args.no_fuse, lane_buckets=lanes,
+            pipeline=args.pipeline, state=args.state, device=args.device,
+            # --no-score forces RCA off even under ANOMOD_SERVE_RCA=1
+            rca=True if args.rca else (False if args.no_score else None),
+            tracer=tracer)
+    finally:
+        if endpoint is not None:
+            endpoint.stop()
+    if tracer is not None:
+        tracer.dump(args.trace_out)
     print(json.dumps(report.to_dict()))
+    return 0
+
+
+def _obs(args, parser) -> int:
+    if args.action == "export" and not args.out:
+        parser.error("obs export needs --out")
+    if args.action != "score" and args.from_path:
+        parser.error("--from applies to obs score")
+    if args.action == "snapshot" and args.format in ("tt-csv", "chrome",
+                                                     "jaeger"):
+        parser.error("snapshot prints point-in-time state; the time "
+                     "series export is `obs export` (tt-csv), the "
+                     "span trace is `obs export --format "
+                     "chrome|jaeger`")
+    if args.action == "export" and args.format == "json":
+        parser.error("obs export writes prom, tt-csv, chrome or "
+                     "jaeger; `obs snapshot` is the JSON view")
+    if args.action == "score" and args.format in ("chrome", "jaeger"):
+        parser.error("--format chrome/jaeger applies to obs export")
+    from anomod_torch.obs import export
+    from anomod_torch.obs.selfscrape import score_self_scrape, self_exercise
+    score_kw = dict(window_s=args.window_seconds,
+                    baseline_windows=args.baseline_windows,
+                    z_threshold=args.threshold, device=args.device)
+    if args.action == "score" and args.from_path:
+        print(json.dumps(score_self_scrape(args.from_path, **score_kw),
+                         indent=2))
+        return 0
+    tracer = None
+    if args.action == "export" and args.format in ("chrome", "jaeger"):
+        # the span exporters dump the self-exercise engine's own trace
+        from anomod_torch.utils.tracing import Tracer
+        tracer = Tracer("anomod-serve")
+    reg = self_exercise(duration_s=args.serve_seconds,
+                        n_tenants=args.tenants,
+                        capacity_spans_per_s=args.capacity, seed=args.seed,
+                        tracer=tracer, device=args.device)
+    if tracer is not None:
+        if args.format == "chrome":
+            tracer.dump_chrome(args.out)
+        else:
+            tracer.dump(args.out)
+        print(json.dumps({"out": args.out, "format": args.format,
+                          "spans": tracer.n_spans}))
+        return 0
+    if args.action == "snapshot":
+        if args.format == "prom":
+            print(export.to_prometheus_text(reg), end="")
+        else:
+            print(json.dumps({"n_journal_samples": reg.n_samples,
+                              "metrics": reg.snapshot()}, indent=2))
+        return 0
+    if args.action == "export":
+        if args.format == "prom":
+            # a point-in-time view: count metrics, not journal samples
+            n = export.export_prometheus_text(reg, args.out)
+            print(json.dumps({"out": args.out, "format": "prom",
+                              "metrics": n}))
+        else:
+            n = export.export_tt_csv(reg, args.out)
+            print(json.dumps({"out": args.out, "format": "tt-csv",
+                              "samples": n}))
+        return 0
+    # score the self-exercise's own telemetry, no file round trip
+    print(json.dumps(score_self_scrape(export.to_metric_batch(reg),
+                                       **score_kw), indent=2))
     return 0
 
 
@@ -364,6 +493,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         return _detect(args)
     if args.cmd == "rca":
         return _rca(args, parser)
+    if args.cmd == "obs":
+        return _obs(args, parser)
     return _stream(args, parser)
 
 

@@ -1,8 +1,9 @@
-"""The data layer's settings, read from the environment (the ingest half
-of ``anomod/config.py``).
+"""The port's settings, read from the environment (the ingest, telemetry
+and online-RCA halves of ``anomod/config.py``).
 
-The same variables as the JAX package's ``Config``, with its validation;
-reference-style ``{PLACEHOLDER}`` values count as unset:
+The same variables as the JAX package's ``Config``, with its defaults,
+validation and error messages; reference-style ``{PLACEHOLDER}`` values
+count as unset.  The data layer:
 
 - ``ANOMOD_DATA_ROOT``: the archive root holding ``SN_data/`` and
   ``TT_data/``.  Unset: no archive, every modality comes from the
@@ -15,6 +16,21 @@ reference-style ``{PLACEHOLDER}`` values count as unset:
   outside it.
 - ``ANOMOD_INGEST_WORKERS``: the corpus loader's process-pool size (0 or
   1: serial); anything but a non-negative integer raises ``ValueError``.
+
+Telemetry (``anomod_torch.obs``):
+
+- ``ANOMOD_OBS_ENABLED``: the process registry's switch (default on;
+  ``0`` / ``false`` / ``off`` / ``no`` make every handle a no-op).
+- ``ANOMOD_OBS_MAX_SAMPLES``: the scrape journal's bound (default
+  500,000).
+- ``ANOMOD_OBS_HTTP`` / ``ANOMOD_OBS_HTTP_PORT``: the localhost
+  ``/metrics`` endpoint (default off, port 9464; 0 asks the OS).
+
+Online RCA in the serve tick (``anomod_torch.serve.rca``):
+``ANOMOD_SERVE_RCA`` (default off), ``ANOMOD_SERVE_RCA_BUCKETS``
+(``NODESxNEIGHBORS`` pairs, default ``16x8,64x16``),
+``ANOMOD_SERVE_RCA_TOPK`` (5), ``ANOMOD_SERVE_RCA_BUDGET`` (4 runs a
+tick) and ``ANOMOD_SERVE_RCA_WINDOWS`` (8).
 """
 
 from __future__ import annotations
@@ -66,9 +82,111 @@ def _ingest_workers_env() -> int:
     return n
 
 
+def _obs_enabled_env() -> bool:
+    return _env("ANOMOD_OBS_ENABLED", "1").strip().lower() \
+        not in ("0", "false", "off", "no")
+
+
+def _obs_max_samples_env() -> int:
+    raw = _env("ANOMOD_OBS_MAX_SAMPLES", "500000")
+    try:
+        n = int(raw)
+    except ValueError:
+        raise ValueError(
+            f"ANOMOD_OBS_MAX_SAMPLES must be a positive integer, "
+            f"got {raw!r}")
+    if n < 1:
+        raise ValueError(
+            f"ANOMOD_OBS_MAX_SAMPLES must be >= 1, got {n}")
+    return n
+
+
+def _obs_http_env() -> bool:
+    raw = _env("ANOMOD_OBS_HTTP", "0").strip().lower()
+    if raw in ("1", "on", "true", "yes"):
+        return True
+    if raw in ("0", "off", "false", "no", ""):
+        return False
+    raise ValueError(
+        f"ANOMOD_OBS_HTTP must be 0/off/false/no or "
+        f"1/on/true/yes, got {raw!r}")
+
+
+def _obs_http_port_env() -> int:
+    raw = _env("ANOMOD_OBS_HTTP_PORT", "9464")
+    try:
+        n = int(raw)
+    except ValueError:
+        raise ValueError(
+            f"ANOMOD_OBS_HTTP_PORT must be an integer port, got {raw!r}")
+    if not 0 <= n <= 65535:
+        raise ValueError(
+            f"ANOMOD_OBS_HTTP_PORT must be in [0, 65535], got {n}")
+    return n
+
+
+def _serve_rca_env() -> bool:
+    return _env("ANOMOD_SERVE_RCA", "0").strip().lower() \
+        not in ("0", "false", "off", "no", "")
+
+
+#: the online-RCA scorer's (nodes, sampled neighbors) bucket grid: a
+#: tenant's graph pads into the smallest bucket holding its service table
+DEFAULT_SERVE_RCA_BUCKETS = ((16, 8), (64, 16))
+
+
+def validate_rca_buckets(buckets) -> tuple:
+    """The RCA bucket-grid contract: (nodes, neighbors) int pairs with
+    strictly ascending node counts, every dimension >= 1."""
+    try:
+        out = tuple((int(n), int(k)) for n, k in buckets)
+    except (TypeError, ValueError):
+        raise ValueError(
+            f"RCA bucket grid must be (nodes, neighbors) integer pairs, "
+            f"got {buckets!r}")
+    if not out:
+        raise ValueError("RCA bucket grid must not be empty")
+    if any(n < 1 or k < 1 for n, k in out):
+        raise ValueError(f"RCA bucket dims must be >= 1, got {out}")
+    if any(a[0] >= b[0] for a, b in zip(out, out[1:])):
+        raise ValueError(
+            f"RCA bucket node counts must be strictly ascending: {out}")
+    return out
+
+
+def _serve_rca_buckets_env() -> tuple:
+    raw = _env("ANOMOD_SERVE_RCA_BUCKETS", "")
+    if not raw:
+        return DEFAULT_SERVE_RCA_BUCKETS
+    pairs = []
+    for part in (p.strip() for p in raw.split(",") if p.strip()):
+        dims = part.lower().split("x")
+        if len(dims) != 2:
+            raise ValueError(
+                f"ANOMOD_SERVE_RCA_BUCKETS entries must be NODESxNEIGHBORS "
+                f"pairs, got {part!r}")
+        pairs.append(dims)
+    try:
+        return validate_rca_buckets(pairs)
+    except ValueError as e:
+        raise ValueError(f"ANOMOD_SERVE_RCA_BUCKETS: {e}") from e
+
+
+def _serve_rca_int_env(name: str, default: str, lo: int, hi: int) -> int:
+    raw = _env(name, default)
+    try:
+        n = int(raw)
+    except ValueError:
+        raise ValueError(f"{name} must be an integer, got {raw!r}")
+    if not lo <= n <= hi:
+        raise ValueError(f"{name} must be in [{lo}, {hi}], got {n}")
+    return n
+
+
 @dataclasses.dataclass
-class DataConfig:
-    """Where experiments come from and how they are loaded."""
+class Config:
+    """Where experiments come from and how they are loaded; the telemetry
+    and online-RCA knobs."""
 
     data_root: Optional[Path] = dataclasses.field(
         default_factory=_data_root_env)
@@ -79,6 +197,24 @@ class DataConfig:
         default_factory=_cache_dir_env)
     ingest_workers: int = dataclasses.field(
         default_factory=_ingest_workers_env)
+    obs_enabled: bool = dataclasses.field(default_factory=_obs_enabled_env)
+    obs_max_samples: int = dataclasses.field(
+        default_factory=_obs_max_samples_env)
+    obs_http: bool = dataclasses.field(default_factory=_obs_http_env)
+    obs_http_port: int = dataclasses.field(
+        default_factory=_obs_http_port_env)
+    serve_rca: bool = dataclasses.field(default_factory=_serve_rca_env)
+    serve_rca_buckets: tuple = dataclasses.field(
+        default_factory=_serve_rca_buckets_env)
+    serve_rca_topk: int = dataclasses.field(
+        default_factory=lambda: _serve_rca_int_env(
+            "ANOMOD_SERVE_RCA_TOPK", "5", 1, 64))
+    serve_rca_budget: int = dataclasses.field(
+        default_factory=lambda: _serve_rca_int_env(
+            "ANOMOD_SERVE_RCA_BUDGET", "4", 1, 4096))
+    serve_rca_windows: int = dataclasses.field(
+        default_factory=lambda: _serve_rca_int_env(
+            "ANOMOD_SERVE_RCA_WINDOWS", "8", 2, 128))
 
     @property
     def sn_data(self) -> Optional[Path]:
@@ -91,12 +227,12 @@ class DataConfig:
             Path(self.data_root) / "TT_data"
 
 
-_DEFAULT: Optional[DataConfig] = None
+_DEFAULT: Optional[Config] = None
 
 
-def get_config() -> DataConfig:
+def get_config() -> Config:
     """The process's settings, read from the environment once."""
     global _DEFAULT
     if _DEFAULT is None:
-        _DEFAULT = DataConfig()
+        _DEFAULT = Config()
     return _DEFAULT

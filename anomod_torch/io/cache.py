@@ -30,7 +30,9 @@ the sidecar sees a complete entry, and a torn/corrupt entry is treated as a
 miss (re-parse), never an error.
 
 The hit/miss/store/error counts live in this module's :class:`CacheStats`
-(:func:`stats`, :func:`reset_stats`, :func:`merge_stats`).
+(:func:`stats`, :func:`reset_stats`, :func:`merge_stats`), each event
+mirrored into the process registry as ``anomod_ingest_cache_{event}_total``
+beside ``anomod_ingest_cache_read_bytes_total`` / ``_written_bytes_total``.
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from anomod_torch import obs
 from anomod_torch.schemas import (ApiBatch, CoverageBatch, LogBatch,
                                   LogSummary, MetricBatch, SpanBatch)
 
@@ -71,8 +74,10 @@ _STATS = CacheStats()
 
 
 def _count(event: str, n: int = 1) -> None:
-    """Bump the process CacheStats counter (one call site per event)."""
+    """Bump the process CacheStats counter AND its registry mirror (one
+    call site per event, so the two views never drift)."""
     setattr(_STATS, event, getattr(_STATS, event) + n)
+    obs.counter(f"anomod_ingest_cache_{event}_total").inc(n)
 
 
 def stats() -> CacheStats:
@@ -339,6 +344,8 @@ def store(root: Path, key: str, kind: str, value,
                         lambda f: json.dump(meta, f, sort_keys=True),
                         mode="w")
         _count("stores")
+        obs.counter("anomod_ingest_cache_written_bytes_total").inc(
+            sum(int(a.nbytes) for a in arrays.values()))
         return True
     except OSError:
         return False
@@ -357,6 +364,7 @@ def load(root: Path, key: str, kind: str):
             data = bytearray(f.read())
     except OSError:
         return None
+    obs.counter("anomod_ingest_cache_read_bytes_total").inc(len(data))
     try:
         arrays, meta = _read_payload(data)
         if (meta.get("key") != key or meta.get("kind") != kind

@@ -16,7 +16,7 @@ is read through the content-addressed cache — keyed by loader version +
 source-file stat fingerprint (parsed) or generator version + label + seed +
 n_traces (synth) — so warm loads skip CSV/JSON/gcov parsing and synth
 regeneration entirely.  ``load_corpus`` additionally fans experiments across
-a spawn-context process pool (``DataConfig.ingest_workers`` / the
+a spawn-context process pool (``Config.ingest_workers`` / the
 ``workers`` argument); the serial path is kept and parity-tested.  The
 settings come from :mod:`anomod_torch.config`.
 """
@@ -29,7 +29,7 @@ from typing import Dict, List, Optional, Tuple
 
 from anomod_torch import labels as labels_mod
 from anomod_torch import synth
-from anomod_torch.config import DataConfig as Config
+from anomod_torch.config import Config
 from anomod_torch.config import get_config
 from anomod_torch.io import api as api_io
 from anomod_torch.io import cache
@@ -277,7 +277,7 @@ def load_corpus(testbed: str, cfg: Optional[Config] = None,
                 workers: Optional[int] = None) -> List[Experiment]:
     """All 13 experiments of a testbed (12 faults + normal).
 
-    ``workers`` (default ``DataConfig.ingest_workers``; 0/1 = serial) fans
+    ``workers`` (default ``Config.ingest_workers``; 0/1 = serial) fans
     the per-experiment loads across a spawn-context process pool — spawn,
     not fork, because the parent may hold an initialized CUDA context and
     the loaders only need numpy.  Cache writes from workers are safe: entries
@@ -289,13 +289,31 @@ def load_corpus(testbed: str, cfg: Optional[Config] = None,
         workers = cfg.ingest_workers
     if workers and workers > 1 and len(names) > 1:
         import multiprocessing
+        import time
         from concurrent.futures import ProcessPoolExecutor
 
+        from anomod_torch import obs
+        depth = obs.gauge("anomod_ingest_pool_pending")
+        wall = obs.histogram("anomod_ingest_pool_experiment_seconds")
         ctx = multiprocessing.get_context("spawn")
         with ProcessPoolExecutor(max_workers=min(workers, len(names)),
                                  mp_context=ctx) as pool:
-            futs = [pool.submit(_load_experiment_task, n, testbed, cfg,
-                                modalities, n_synth_traces) for n in names]
+            t0 = time.perf_counter()
+
+            def done(_f):
+                # submit-to-result wall and pending depth, recorded at
+                # completion (the executor's callback thread), so a fast
+                # experiment behind a slow one keeps its own wall
+                wall.observe(time.perf_counter() - t0)
+                depth.dec()
+
+            futs = []
+            for n in names:
+                depth.inc()        # before submit: a dec never races it
+                f = pool.submit(_load_experiment_task, n, testbed, cfg,
+                                modalities, n_synth_traces)
+                f.add_done_callback(done)
+                futs.append(f)
             out = []
             for f in futs:
                 exp, worker_stats = f.result()

@@ -13,10 +13,13 @@ from __future__ import annotations
 
 import queue
 import threading
+import time
 from typing import Any, Callable, Dict, Iterable, Iterator, Optional
 
 import numpy as np
 import torch
+
+from anomod_torch import obs
 
 _SENTINEL = object()
 
@@ -42,13 +45,23 @@ class Pipeline:
         self._done = False
         self._err: Optional[BaseException] = None
         self._finish = finish or (lambda x: x)
+        # staging telemetry: each item's staging wall, and the queue
+        # occupancy both sides see (full: the consumer is the bottleneck,
+        # empty: the staging is); one cached gauge handle for both sides
+        stage_s = obs.histogram("anomod_prefetch_stage_seconds")
+        self._occupancy = obs.gauge("anomod_prefetch_queue_depth")
+        occupancy = self._occupancy
 
         def work():
             try:
                 for item in iterable:
                     if self._stop.is_set():
                         return
-                    self._q.put(fn(item))
+                    t0 = time.perf_counter()
+                    staged = fn(item)
+                    stage_s.observe(time.perf_counter() - t0)
+                    self._q.put(staged)
+                    occupancy.set(self._q.qsize())
             except BaseException as e:       # re-raised on the consumer side
                 self._err = e
             finally:
@@ -65,6 +78,7 @@ class Pipeline:
         if self._done:
             raise StopIteration
         item = self._q.get()
+        self._occupancy.set(self._q.qsize())
         if item is _SENTINEL:
             self._done = True
             self._thread.join()

@@ -26,6 +26,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from anomod_torch import obs
 from anomod_torch.device import DeviceLike, device_name, resolve_device
 from anomod_torch.ops.hll import hll_add, hll_estimate, hll_init
 from anomod_torch.ops.replay_kernels import (PLANES, replay_dense,
@@ -701,12 +702,19 @@ def measure_throughput(batch: SpanBatch, cfg: Optional[ReplayConfig] = None,
 
     t0 = time.perf_counter()
     run_once()                                  # kernel build / warm-up
-    compile_s = time.perf_counter() - t0
+    compile_s = 0.0 if kernel == "numpy" else time.perf_counter() - t0
+    if compile_s:
+        obs.counter("anomod_replay_compile_total", kernel=kernel).inc()
+        obs.counter("anomod_replay_compile_seconds_total",
+                    kernel=kernel).inc(compile_s)
+    dispatch_s = obs.histogram("anomod_replay_dispatch_seconds",
+                               kernel=kernel)
     times = []
     for _ in range(repeats):
         t0 = time.perf_counter()
         state = run_once()
         times.append(time.perf_counter() - t0)
+        dispatch_s.observe(times[-1])
     total = float(state.agg[:, F_COUNT].astype(np.float64).sum())
     # f32 per-segment counts are exact only up to 2^24 spans per segment,
     # hence the small relative slack

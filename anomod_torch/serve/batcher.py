@@ -29,6 +29,14 @@ the launch are queued on the current stream.  At pipeline depth d up to
 d - 1 dispatches stay in flight while the next one stages; a scratch slot
 is refilled only after the event recorded behind the launch that read it
 has completed.
+
+Every book counter has a registry mirror under the JAX package's name
+(``anomod_serve_dispatches_total``, ``_staged_rows_total``,
+``_live_rows_total``, ``_pad_waste_fraction``, the fused-dispatch and
+lane twins, the ``_fused_lanes`` histogram, the stage / dispatch / fold /
+score seconds and ``_native_staged_total``); each shape's first-launch
+wall counts as its ``anomod_serve_compile_total`` /
+``anomod_serve_fused_compile_total`` (with ``_seconds_total``).
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from anomod_torch import obs
 from anomod_torch.device import DeviceLike, resolve_device
 from anomod_torch.io import native
 from anomod_torch.ops.replay_kernels import PLANES
@@ -91,14 +100,15 @@ class BucketRunner:
 
     ``native_stage`` (the default) fills scratch through the C++ entry of
     :mod:`anomod_torch.io.native`, built at first use (a failed build
-    raises); ``native_stage=False`` keeps the interpreter fill."""
+    raises); ``native_stage=False`` keeps the interpreter fill.
+    ``registry`` is the metric sink (default: the process registry)."""
 
     def __init__(self, cfg: ReplayConfig,
                  buckets: Optional[Tuple[int, ...]] = None,
                  lane_buckets: Optional[Tuple[int, ...]] = None,
                  pipeline: int = 1, state: str = "device",
                  pool_slots: int = 32, device: DeviceLike = None,
-                 native_stage: bool = True):
+                 native_stage: bool = True, registry=None):
         if pipeline < 1:
             raise ValueError("pipeline depth must be >= 1")
         if state not in ("host", "device"):
@@ -149,6 +159,37 @@ class BucketRunner:
         self._slot_next: Dict[Tuple[int, int], int] = {}
         #: FIFO of in-flight dispatches: (replays, out, slot key, event)
         self._inflight: "collections.deque" = collections.deque()
+        # registry mirrors, handles cached: staging and the fused
+        # dispatch are the serve hot path; waste = 1 - live / staged
+        reg = self._reg = (registry if registry is not None
+                           else obs.get_registry())
+        self._obs_dispatches = reg.counter("anomod_serve_dispatches_total")
+        self._obs_staged = reg.counter("anomod_serve_staged_rows_total")
+        self._obs_live = reg.counter("anomod_serve_live_rows_total")
+        self._obs_waste = reg.gauge("anomod_serve_pad_waste_fraction")
+        self._obs_fused = reg.counter(
+            "anomod_serve_fused_dispatches_total")
+        self._obs_lanes = reg.histogram("anomod_serve_fused_lanes")
+        self._obs_staged_lanes = reg.counter(
+            "anomod_serve_staged_lanes_total")
+        self._obs_live_lanes = reg.counter(
+            "anomod_serve_live_lanes_total")
+        self._obs_lane_waste = reg.gauge(
+            "anomod_serve_lane_pad_waste_fraction")
+        self._obs_stage_s = reg.counter("anomod_serve_stage_seconds_total")
+        self._obs_dispatch_s = reg.counter(
+            "anomod_serve_dispatch_seconds_total")
+        self._obs_fold_s = reg.counter("anomod_serve_fold_seconds_total")
+        self._obs_score_s = reg.counter("anomod_serve_score_seconds_total")
+        self._obs_native = reg.counter("anomod_serve_native_staged_total")
+        reg.gauge("anomod_serve_native_staging").set(
+            1.0 if self.native_stage else 0.0)
+
+    def add_score_wall(self, dt: float) -> None:
+        """Book ``dt`` seconds of window scoring (the engine's commit
+        phase) in the ``score`` leg and its registry mirror."""
+        self.score_wall_s += dt
+        self._obs_score_s.inc(dt)
 
     @property
     def widths(self) -> Tuple[int, ...]:
@@ -184,8 +225,12 @@ class BucketRunner:
         total = 0.0
         for width in self.widths:
             if width not in self.compile_s_by_width:
-                self.compile_s_by_width[width] = self._dead_launch(width, 1)
-                total += self.compile_s_by_width[width]
+                wall = self._dead_launch(width, 1)
+                self.compile_s_by_width[width] = wall
+                self._reg.counter("anomod_serve_compile_total").inc()
+                self._reg.counter(
+                    "anomod_serve_compile_seconds_total").inc(wall)
+                total += wall
         return total
 
     def warm_lanes(self) -> float:
@@ -197,6 +242,10 @@ class BucketRunner:
                 if (width, lanes) not in self._lane_compile_s:
                     wall = self._dead_launch(width, lanes)
                     self._lane_compile_s[(width, lanes)] = wall
+                    self._reg.counter(
+                        "anomod_serve_fused_compile_total").inc()
+                    self._reg.counter(
+                        "anomod_serve_fused_compile_seconds_total").inc(wall)
                     total += wall
         if self.pool is not None:
             total += self.pool.warm()
@@ -218,12 +267,23 @@ class BucketRunner:
         plan = split_plan(batch.n_spans, cfg.chunk_size, self.buckets)
         chunks = native.staged_chunks(mat, [(lo, hi) for lo, hi, _ in plan])
         out = []
+        staged_rows = 0
         for (_, _, width), chunk in zip(plan, chunks):
             out.append((width, chunk))
             self.n_dispatches += 1
             self.dispatches_by_width[width] = \
                 self.dispatches_by_width.get(width, 0) + 1
-        self.stage_wall_s += time.perf_counter() - t0
+            staged_rows += width
+        dt = time.perf_counter() - t0
+        self.stage_wall_s += dt
+        self._obs_stage_s.inc(dt)
+        if out:
+            self._obs_dispatches.inc(len(out))
+            self._obs_staged.inc(staged_rows)
+            self._obs_live.inc(batch.n_spans)
+            staged = self._obs_staged.value
+            if staged:
+                self._obs_waste.set(1.0 - self._obs_live.value / staged)
         return out
 
     def _fill_slot(self, width: int, lanes: int,
@@ -255,7 +315,9 @@ class BucketRunner:
             self._stage_plans[key].stage(group)
         else:
             self._fill_slot_py(scratch, group)
-        self.stage_wall_s += time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        self.stage_wall_s += dt
+        self._obs_stage_s.inc(dt)
         return scratch, key
 
     def _fill_slot_py(self, scratch, group) -> None:
@@ -325,7 +387,9 @@ class BucketRunner:
             ev.synchronize()            # the scratch-reuse barrier
         t2 = time.perf_counter()
         self.dispatch_wall_s += t1 - t0
+        self._obs_dispatch_s.inc(t1 - t0)
         self.fold_wall_s += t2 - t1
+        self._obs_fold_s.inc(t2 - t1)
 
     # -- the fused (lane-stacked) path ------------------------------------
 
@@ -347,6 +411,11 @@ class BucketRunner:
         self.lanes_by_bucket[lanes] = self.lanes_by_bucket.get(lanes, 0) + 1
         self.staged_lanes += lanes
         self.live_lanes += n_live
+        self._obs_fused.inc()
+        self._obs_lanes.observe(n_live)
+        self._obs_staged_lanes.inc(lanes)
+        self._obs_live_lanes.inc(n_live)
+        self._obs_lane_waste.set(1.0 - self.live_lanes / self.staged_lanes)
 
     def submit_lanes(self, width: int,
                      work: List[Tuple[object, native.StagedChunk]]
@@ -366,10 +435,13 @@ class BucketRunner:
             out = self._launch(scratch)
             self._inflight.append(([replay for replay, _ in group], out,
                                    key, self._event()))
-            self.dispatch_wall_s += time.perf_counter() - t0
+            dt = time.perf_counter() - t0
+            self.dispatch_wall_s += dt
+            self._obs_dispatch_s.inc(dt)
             self._account_group(n_live, lanes)
             if self.native_stage:
                 self.native_staged += 1
+                self._obs_native.inc()
             while len(self._inflight) > self.pipeline - 1:
                 self._retire_one()
 
@@ -381,7 +453,9 @@ class BucketRunner:
         self._fold(replays, out)
         if ev is not None:
             ev.synchronize()
-        self.fold_wall_s += time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        self.fold_wall_s += dt
+        self._obs_fold_s.inc(dt)
 
     def drain_lanes(self) -> None:
         """Retire every in-flight dispatch (the tick-end barrier)."""

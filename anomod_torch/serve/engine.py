@@ -24,20 +24,42 @@ states and alerts.
 Admission-to-scored latency per micro-batch folds into per-tenant
 t-digests, so the report's p50/p99 are sketch-backed and mergeable.
 
+Telemetry (``anomod_torch.obs``, on unless ``ANOMOD_OBS_ENABLED=0``):
+every tenant digest chunk also merges into the process registry's
+``anomod_serve_admit_to_scored_seconds``; the tick records its wall
+(``anomod_serve_tick_seconds``), the tick count and the active tenants,
+and the registry is scraped once per virtual second on the virtual
+clock, inside the measured wall; admission and the runner mirror their
+books into the registry.  With the registry on, a
+``Tracer("anomod-serve")`` times the tick's legs (``serve.run``,
+``serve.admit``, ``serve.drain``, ``serve.score_fused``,
+``serve.score_shard``, ``serve.score``, ``serve.rca``).
+
+Online RCA (``rca=True`` or ``ANOMOD_SERVE_RCA``): when a tenant's
+detector fires, the alert queues for culprit inference over that
+tenant's served spans (``anomod_torch.serve.rca``), at most
+``rca_budget`` runs a tick, the rest drained at the run's end; a pure
+read-side consumer, so every decision is byte-identical with it on or
+off.
+
 This is the 1-shard thread engine of the JAX package's default
-configuration; its other planes (shards, RCA, chaos and supervision,
-elastic policy, async commit, tiering, flight, perf and census, the
-multimodal sidecar) are not part of this engine.
+configuration; its other planes (shards, chaos and supervision, elastic
+policy, async commit, tiering, flight, perf and census, the multimodal
+sidecar) are not part of this engine, nor are their metric series.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from anomod_torch import obs
+from anomod_torch.config import get_config
 from anomod_torch.device import DeviceLike, device_name, resolve_device
 from anomod_torch.ops.tdigest import (TDigest, tdigest_build,
                                       tdigest_merge_many, tdigest_quantile)
@@ -75,14 +97,22 @@ class VirtualClock:
 
 
 class _TenantSLO:
-    """Per-tenant admission-to-scored latency sketch."""
+    """Per-tenant latency sketch.  Every fold also merges the new digest
+    chunk into the process registry's ``hist_name`` histogram, so the
+    registry's fleet-wide sketch is the fold of these private digests."""
 
-    def __init__(self):
+    def __init__(self,
+                 hist_name: str = "anomod_serve_admit_to_scored_seconds"):
         self.digest: Optional[TDigest] = None
         self._buf: List[float] = []
+        self.n_samples = 0
+        self.max_latency_s = 0.0
+        self._obs_hist = obs.histogram(hist_name)
 
     def record(self, latency_s: float) -> None:
         self._buf.append(float(latency_s))
+        self.n_samples += 1
+        self.max_latency_s = max(self.max_latency_s, float(latency_s))
         if len(self._buf) >= _FOLD_EVERY:
             self.fold()
 
@@ -90,6 +120,7 @@ class _TenantSLO:
         if not self._buf:
             return
         d = tdigest_build(np.asarray(self._buf, np.float32), k=_DIGEST_K)
+        self._obs_hist.merge_digest(d)
         self.digest = d if self.digest is None else \
             tdigest_merge_many([self.digest, d])
         self._buf = []
@@ -199,6 +230,13 @@ class ServeReport:
     n_alerts: int
     n_tenants_alerted: int
     fault_detection: Optional[dict]
+    rca_enabled: bool                            # online RCA plane on?
+    n_rca_runs: int                              # alert->culprit inferences
+    rca_topk_hits: Dict[int, int]                # k -> fault tenants hit@k
+    rca_eligible: int                            # fault tenants w/ verdict
+    rca_latency: Dict[str, Optional[float]]      # wall p50/p99 per RCA run
+    rca_alert_to_culprit_s: Dict[str, Optional[float]]  # virtual queue delay
+    rca_wall_s: float                            # total RCA wall
     device: str                                  # where the kernels ran
     serve_wall_s: float
     sustained_spans_per_sec: float
@@ -213,6 +251,8 @@ class ServeReport:
                                 in self.lanes_by_bucket.items()}
         d["per_priority"] = {str(k): v for k, v
                              in self.per_priority.items()}
+        d["rca_topk_hits"] = {str(k): v for k, v
+                              in self.rca_topk_hits.items()}
         return d
 
 
@@ -224,7 +264,13 @@ VARIANT_REPORT_FIELDS = (
     "compile_s", "lane_compile_s", "native_staging",
     "native_staged_dispatches", "serve_state", "stage_wall_s",
     "dispatch_wall_s", "fold_wall_s", "score_wall_s", "pipeline",
-    "serve_wall_s", "sustained_spans_per_sec")
+    "serve_wall_s", "sustained_spans_per_sec", "rca_latency", "rca_wall_s")
+
+#: the report fields the RCA plane adds: they differ between an RCA-on
+#: and an RCA-off run of one seed, every other decision field is equal
+RCA_REPORT_FIELDS = ("rca_enabled", "n_rca_runs", "rca_topk_hits",
+                     "rca_eligible", "rca_latency",
+                     "rca_alert_to_culprit_s", "rca_wall_s")
 
 
 def serve_plane_cfg(n_services: int = 12, window_s: float = 5.0,
@@ -305,8 +351,8 @@ def run_power_law(n_tenants: int = 200, n_services: int = 8,
                   lane_buckets: Optional[Tuple[int, ...]] = None,
                   pipeline: Optional[int] = None, state: str = "device",
                   device: DeviceLike = None, native_stage: bool = True,
-                  drain_engine: str = "native"
-                  ) -> Tuple["ServeEngine", "ServeReport"]:
+                  drain_engine: str = "native", rca: Optional[bool] = None,
+                  tracer=None) -> Tuple["ServeEngine", "ServeReport"]:
     """The canonical seeded serve run: :func:`power_law_traffic` against
     an engine of ``capacity_spans_per_s``, so one run measures sustained
     throughput, shedding and alert latency under load."""
@@ -323,14 +369,17 @@ def run_power_law(n_tenants: int = 200, n_services: int = 8,
                          lane_buckets=lane_buckets, pipeline=pipeline,
                          state=state, device=device,
                          native_stage=native_stage,
-                         drain_engine=drain_engine)
+                         drain_engine=drain_engine, rca=rca, tracer=tracer)
     report = engine.run(traffic, duration_s=duration_s)
     return engine, report
 
 
 class ServeEngine:
     """Multi-tenant serving plane over the streaming detectors, on one
-    device (``cuda`` unless the caller asks for ``cpu``)."""
+    device (``cuda`` unless the caller asks for ``cpu``).  ``rca`` and the
+    ``rca_*`` knobs default from ``anomod_torch.config``; ``tracer``
+    defaults to a ``Tracer("anomod-serve")`` when the process registry is
+    enabled."""
 
     def __init__(self, specs: Sequence[TenantSpec], services: Sequence[str],
                  cfg: Optional[ReplayConfig] = None, t0_us: int = 0,
@@ -343,7 +392,12 @@ class ServeEngine:
                  lane_buckets: Optional[Tuple[int, ...]] = None,
                  pipeline: Optional[int] = None, state: str = "device",
                  device: DeviceLike = None, native_stage: bool = True,
-                 drain_engine: str = "native"):
+                 drain_engine: str = "native", tracer=None,
+                 rca: Optional[bool] = None,
+                 rca_buckets: Optional[tuple] = None,
+                 rca_topk: Optional[int] = None,
+                 rca_budget: Optional[int] = None,
+                 rca_windows: Optional[int] = None):
         if capacity_spans_per_s <= 0:
             raise ValueError("capacity must be positive")
         self.device = resolve_device(device)
@@ -390,6 +444,53 @@ class ServeEngine:
         self._max_served_batch = 0
         self.serve_wall_s = 0.0
         self.n_spans_served = 0
+        app_cfg = get_config()
+        #: online RCA: a pure read-side consumer of the alert stream
+        self.rca = bool(app_cfg.serve_rca if rca is None else rca)
+        if self.rca and not self.score:
+            raise ValueError("online RCA consumes the detectors' alert "
+                             "stream; it needs score=True")
+        self.rca_budget = int(app_cfg.serve_rca_budget
+                              if rca_budget is None else rca_budget)
+        if self.rca_budget < 1:
+            raise ValueError("rca_budget must be >= 1 run per tick")
+        self._rca_plane = None
+        self._rca_seen: Dict[int, int] = {}
+        self._rca_queue: "collections.deque" = collections.deque()
+        self._rca_seq = 0
+        self.rca_verdicts: list = []
+        self.rca_wall_s = 0.0
+        # metric handles only when the plane is live: an RCA-off run
+        # registers no RCA series
+        self._rca_slo = None
+        if self.rca:
+            from anomod_torch.serve.rca import OnlineRCA, RcaRunner
+            self._rca_slo = _TenantSLO("anomod_serve_rca_seconds")
+            self._obs_rca_queued = obs.counter(
+                "anomod_serve_rca_queued_total")
+            self._rca_plane = OnlineRCA(
+                self.services, self.cfg.window_us, self.t0_us,
+                RcaRunner(app_cfg.serve_rca_buckets if rca_buckets is None
+                          else rca_buckets, device=self.device),
+                topk=int(app_cfg.serve_rca_topk if rca_topk is None
+                         else rca_topk),
+                windows=int(app_cfg.serve_rca_windows if rca_windows is None
+                            else rca_windows))
+        # tracing is on by default, gated on the one telemetry switch, so
+        # "telemetry off" means off end to end; an explicit Tracer forces
+        # it on
+        if tracer is None and obs.get_registry().enabled:
+            from anomod_torch.utils.tracing import Tracer
+            tracer = Tracer("anomod-serve")
+        self.tracer = tracer
+        # self-scrape plumbing: cached handles for the tick loop, and one
+        # registry scrape per virtual second on the VIRTUAL clock, so a
+        # seeded run's telemetry timeline is deterministic
+        self._registry = obs.get_registry()
+        self._obs_tick = obs.histogram("anomod_serve_tick_seconds")
+        self._obs_ticks = obs.counter("anomod_serve_ticks_total")
+        self._obs_tenants = obs.gauge("anomod_serve_active_tenants")
+        self._scrape_every = max(1, int(round(1.0 / self.clock.tick_s)))
 
     # -- per-tenant plane construction ------------------------------------
 
@@ -412,23 +513,29 @@ class ServeEngine:
 
     # -- the tick loop ----------------------------------------------------
 
+    def _span(self, name: str, **tags):
+        return (self.tracer.span(name, **tags) if self.tracer is not None
+                else contextlib.nullcontext())
+
     def tick(self, arrivals) -> List[QueuedBatch]:
         """One virtual tick: admit this tick's arrivals, drain up to the
         tick's capacity budget in weighted-fair order, score every drained
         batch, advance the clock.  Returns the served batches."""
         t_wall = time.perf_counter()
         now = self.clock.now_s + self.clock.tick_s   # decisions at tick end
-        for tenant_id, spans in arrivals:
-            # one shared service table per engine
-            if spans.n_spans and spans.services != self.services:
-                raise ValueError(
-                    f"tenant {tenant_id} batch carries a different "
-                    "service table than the engine's")
-            self.admission.offer(tenant_id, spans, now)
+        with self._span("serve.admit"):
+            for tenant_id, spans in arrivals:
+                # one shared service table per engine
+                if spans.n_spans and spans.services != self.services:
+                    raise ValueError(
+                        f"tenant {tenant_id} batch carries a different "
+                        "service table than the engine's")
+                self.admission.offer(tenant_id, spans, now)
         # capacity credit: unused budget banks at most one tick's worth
         budget = self.capacity_spans_per_s * self.clock.tick_s
         self._credit = min(self._credit, 0.0) + budget
-        served = self.admission.drain(self._credit)
+        with self._span("serve.drain"):
+            served = self.admission.drain(self._credit)
         for qb in served:
             self._credit -= qb.n_spans
         # the residual is physically bounded by one tick's budget above
@@ -444,19 +551,31 @@ class ServeEngine:
             self._credit = 0.0
         if served:
             if self.fuse:
-                self._score_fused(served)
+                with self._span("serve.score_fused"):
+                    self._score_fused(served)
             else:
                 for qb in served:
-                    if self.score:
-                        self._detector_for(qb.tenant_id).push(qb.spans)
-                    else:
-                        self._replay_for(qb.tenant_id).push(qb.spans)
+                    with self._span("serve.score"):
+                        if self.score:
+                            self._detector_for(qb.tenant_id).push(qb.spans)
+                        else:
+                            self._replay_for(qb.tenant_id).push(qb.spans)
         # SLO accounting after scoring in both paths: the samples depend
         # only on admission times and the tick clock
         for qb in served:
             self._slo[qb.tenant_id].record(now - qb.enqueued_s)
             self.n_spans_served += qb.n_spans
+        if self.rca:
+            self._rca_step(now, served)
         self.clock.advance()
+        # telemetry stays INSIDE the measured wall: the on/off overhead
+        # prices the scrape
+        self._obs_tick.observe(time.perf_counter() - t_wall)
+        self._obs_ticks.inc()
+        self._obs_tenants.set(len(self._tenant_det)
+                              or len(self._tenant_replay))
+        if self.clock.ticks % self._scrape_every == 0:
+            self._registry.scrape(now_s=now)
         self.serve_wall_s += time.perf_counter() - t_wall
         return served
 
@@ -464,9 +583,11 @@ class ServeEngine:
         """Tenant-fused scoring of one tick's drained batches: coalesce
         and plan (host), lane-stacked dispatches per chunk round, then
         batched window scoring (the commit)."""
-        pending = self._stage_pending(served)
-        self._dispatch_rounds(pending)
-        self._commit_pending(pending)
+        with self._span("serve.score_shard", shard=0,
+                        pipeline=self.pipeline):
+            pending = self._stage_pending(served)
+            self._dispatch_rounds(pending)
+            self._commit_pending(pending)
 
     def _stage_pending(self, served: List[QueuedBatch]) -> list:
         """Same-tenant batches concatenate in arrival order into one
@@ -538,7 +659,68 @@ class ServeEngine:
                 det.note_pushed(n_in, w_ret)
         if work:
             score_closed_windows_batched(work, _plane_col_gather(work))
-        self.runner.score_wall_s += time.perf_counter() - t0
+        self.runner.add_score_wall(time.perf_counter() - t0)
+
+    # -- the online alert->culprit pass (anomod_torch.serve.rca) -----------
+
+    def _rca_step(self, now: float, served: List[QueuedBatch]) -> None:
+        """One tick's RCA pass, inside the measured tick wall: this tick's
+        new alerts enqueue first, then the served spans buffer, pruned no
+        further back than each tenant's OLDEST queued alert window (so a
+        budget-delayed run still finds its whole evidence window), then
+        up to ``rca_budget`` queued runs."""
+        self._rca_enqueue(now)
+        floor: Dict[int, int] = {}
+        for _, tid, w, _ in self._rca_queue:
+            floor[tid] = min(floor.get(tid, w), w)
+        for qb in served:
+            self._rca_plane.buffer(qb.tenant_id, qb.spans,
+                                   keep_window=floor.get(qb.tenant_id))
+        self._rca_tick(now)
+
+    def _rca_enqueue(self, now: float) -> None:
+        """Queue one RCA item per (tenant, batch of new alerts), keyed by
+        the NEWEST new alert window; the ``_rca_seen`` high-water mark
+        makes repeated calls within a tick no-ops."""
+        for tid in sorted(self._tenant_det):
+            det = self._tenant_det[tid]
+            n = len(det.alerts)
+            seen = self._rca_seen.get(tid, 0)
+            if n > seen:
+                w = max(a.window for a in det.alerts[seen:])
+                self._rca_queue.append((self._rca_seq, tid, w, now))
+                self._rca_seq += 1
+                self._obs_rca_queued.inc()
+                self._rca_seen[tid] = n
+
+    def _rca_tick(self, now: float, budget: Optional[int] = None) -> None:
+        """Enqueue, then run up to ``budget`` queued items (default: the
+        per-tick ``rca_budget``) in enqueue order.  A tenant that keeps
+        alerting while earlier items queue gets a NEW item per tick-batch
+        of alerts, so the item set, and the verdict stream, is the same
+        at any budget; the budget moves only ``scored_s``."""
+        self._rca_enqueue(now)
+        if not self._rca_queue:
+            return
+        burst = min(budget if budget is not None else self.rca_budget,
+                    len(self._rca_queue))
+        items = [self._rca_queue.popleft() for _ in range(burst)]
+        with self._span("serve.rca"):
+            runs = self._rca_run_items(items, now)
+        for verdict, wall in runs:
+            self.rca_verdicts.append(verdict)
+            self._rca_slo.record(wall)
+            self.rca_wall_s += wall
+
+    def _rca_run_items(self, items: list, now: float) -> list:
+        """``(verdict, wall_s)`` of each queued item, in order."""
+        out = []
+        for _, tid, w, enq in items:
+            det = self._tenant_det.get(tid)
+            alerts = det.alerts if det is not None else []
+            out.append(self._rca_plane.run(tid, w, alerts, enqueued_s=enq,
+                                           scored_s=now))
+        return out
 
     def run(self, traffic, duration_s: float,
             warm: bool = True) -> "ServeReport":
@@ -548,14 +730,25 @@ class ServeEngine:
             self.runner.warm()          # first launches outside the wall
             if self.fuse:
                 self.runner.warm_lanes()
+            if self.rca:
+                self._rca_plane.runner.warm()
         n_ticks = max(int(round(duration_s / self.clock.tick_s)), 1)
-        for _ in range(n_ticks):
-            lo = self.clock.now_s
-            self.tick(traffic.arrivals(lo, lo + self.clock.tick_s))
+        with self._span("serve.run"):
+            for _ in range(n_ticks):
+                lo = self.clock.now_s
+                self.tick(traffic.arrivals(lo, lo + self.clock.tick_s))
         t_wall = time.perf_counter()
         if self.score:
             for det in self._tenant_det.values():
                 det.finish()
+        if self.rca:
+            # end-of-run settlement: alerts raised by finish() still get
+            # culprits, and whatever the per-tick budget deferred drains
+            self._rca_tick(self.clock.now_s, budget=len(self._tenant_det)
+                           + len(self._rca_queue) + 1)
+            while self._rca_queue:
+                self._rca_tick(self.clock.now_s,
+                               budget=len(self._rca_queue))
         self.serve_wall_s += time.perf_counter() - t_wall
         return self.report(traffic=traffic)
 
@@ -597,6 +790,35 @@ class ServeEngine:
                 (float(np.median(lat)) if lat else None),
         }
 
+    def _rca_hits(self, traffic) -> Tuple[Dict[int, int], int]:
+        """Top-k hit counts against the traffic's injected faults: per
+        fault tenant, its FIRST onset-eligible verdict (triggering alert
+        at or after the onset window, :func:`onset_eligible`) is checked
+        for the culprit in its top-1/3/5."""
+        faults = getattr(traffic, "faults", None) \
+            if traffic is not None else None
+        hits = {1: 0, 3: 0, 5: 0}
+        eligible = 0
+        if not (self.rca and faults):
+            return hits, eligible
+        win_s = self.cfg.window_us / 1e6
+        by_tenant: Dict[int, list] = {}
+        for v in self.rca_verdicts:
+            by_tenant.setdefault(v.tenant_id, []).append(v)
+        for tid, fault in sorted(faults.items()):
+            onset_w = int(fault.onset_s // win_s)
+            vs = [v for v in by_tenant.get(tid, ())
+                  if onset_eligible(v.alert_window, onset_w)]
+            if not vs:
+                continue
+            eligible += 1
+            first = min(vs, key=lambda v: (v.alert_window, v.scored_s))
+            culprit = self.services[fault.service]
+            for k in hits:
+                if culprit in first.services[:k]:
+                    hits[k] += 1
+        return hits, eligible
+
     def report(self, traffic=None) -> ServeReport:
         tot = self.admission.totals()
         shed_fraction = (tot.shed_spans / tot.offered_spans
@@ -617,6 +839,17 @@ class ServeEngine:
             }
         r = self.runner
         dev = device_name(self.device)
+        rca_hits, rca_eligible = self._rca_hits(traffic)
+        delays = [v.scored_s - v.enqueued_s for v in self.rca_verdicts]
+        rca_delay = {
+            q: (round(float(np.quantile(delays, p)), 6) if delays
+                else None)
+            for q, p in (("p50_s", 0.5), ("p99_s", 0.99))}
+        rca_lat = {}
+        for q, p in (("p50_s", 0.5), ("p99_s", 0.99)):
+            got = self._rca_slo.quantile(p) \
+                if self._rca_slo is not None else None
+            rca_lat[q] = round(got, 6) if got is not None else None
         return ServeReport(
             n_tenants=len(self.specs),
             duration_s=round(self.clock.now_s, 6),
@@ -653,6 +886,13 @@ class ServeEngine:
             n_tenants_alerted=sum(1 for d in self._tenant_det.values()
                                   if d.alerts),
             fault_detection=self._fault_detection(traffic),
+            rca_enabled=self.rca,
+            n_rca_runs=len(self.rca_verdicts),
+            rca_topk_hits=rca_hits,
+            rca_eligible=rca_eligible,
+            rca_latency=rca_lat,
+            rca_alert_to_culprit_s=rca_delay,
+            rca_wall_s=round(self.rca_wall_s, 4),
             device=dev,
             serve_wall_s=round(self.serve_wall_s, 4),
             sustained_spans_per_sec=round(

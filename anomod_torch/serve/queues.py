@@ -36,7 +36,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from anomod_torch import obs
 from anomod_torch.io import native
+from anomod_torch.obs.registry import NULL
 from anomod_torch.schemas import SpanBatch
 
 #: the drain engines ``AdmissionController`` takes
@@ -285,12 +287,32 @@ class AdmissionController:
         self._drain_heap: List[Tuple[float, int]] = []
         self._evict_heap: List[Tuple[int, float, int]] = []
         self._evict_stale = 0
+        # registry mirrors (the JAX package's names), handles cached:
+        # offer and drain run per micro-batch
+        self._obs_offered = obs.counter("anomod_serve_offered_spans_total")
+        self._obs_admitted = obs.counter("anomod_serve_admitted_spans_total")
+        self._obs_served = obs.counter("anomod_serve_served_spans_total")
+        self._obs_shed = obs.counter("anomod_serve_shed_spans_total")
+        self._obs_evicted = obs.counter("anomod_serve_evicted_batches_total")
+        self._obs_backlog = obs.gauge("anomod_serve_backlog_spans")
+        self._obs_tenant_backlog = obs.gauge(
+            "anomod_serve_max_tenant_backlog_spans")
+
+    def _obs_depths(self) -> None:
+        # the tenant gauge scans every tenant's backlog, once an admitted
+        # batch: skipped when the registry is off
+        if self._obs_tenant_backlog is NULL:
+            return
+        self._obs_backlog.set(self.backlog_spans)
+        self._obs_tenant_backlog.set(
+            max(self._tenant_backlog.values(), default=0))
 
     def _shed(self, c: TenantCounters, n: int) -> bool:
         c.shed_spans += n
         c.shed_batches += 1
         self._tot.shed_spans += n
         self._tot.shed_batches += 1
+        self._obs_shed.inc(n)
         return False
 
     # -- admission --------------------------------------------------------
@@ -308,6 +330,7 @@ class AdmissionController:
         c.offered_batches += 1
         self._tot.offered_spans += n
         self._tot.offered_batches += 1
+        self._obs_offered.inc(n)
         if n == 0:
             return False
         # both bounds refuse a batch only when queued work already exists:
@@ -338,6 +361,8 @@ class AdmissionController:
             self._tot.shed_batches += 1
             self._tot.evicted_batches += 1
             self._tot.admitted_spans -= victim.n_spans
+            self._obs_shed.inc(victim.n_spans)
+            self._obs_evicted.inc()
             self._remove(victim)
         start = max(self._vtime, self._last_finish.get(tenant_id, 0.0))
         finish = start + n / self.specs.weight_of(tenant_id)
@@ -361,6 +386,8 @@ class AdmissionController:
                                       self.backlog_spans)
         c.admitted_spans += n
         self._tot.admitted_spans += n
+        self._obs_admitted.inc(n)
+        self._obs_depths()
         return True
 
     def _pop_eviction_candidate(self, incoming_priority: int):
@@ -419,6 +446,8 @@ class AdmissionController:
                                   / self.specs.weight_of(qb.tenant_id))
                 self._serve(qb)
                 out.append(qb)
+            if out:
+                self._obs_depths()
             return out
         out: List[QueuedBatch] = []
         remaining = float(budget_spans)
@@ -434,6 +463,8 @@ class AdmissionController:
             remaining -= qb.n_spans
             self._serve(qb)
             out.append(qb)
+        if out:
+            self._obs_depths()
         return out
 
     def _serve(self, qb: QueuedBatch) -> None:
@@ -442,6 +473,7 @@ class AdmissionController:
         c.served_batches += 1
         self._tot.served_spans += qb.n_spans
         self._tot.served_batches += 1
+        self._obs_served.inc(qb.n_spans)
 
     # -- report helpers ---------------------------------------------------
 

@@ -33,6 +33,7 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
+from anomod_torch import obs
 from anomod_torch.device import DeviceLike, resolve_device
 from anomod_torch.io.prefetch import iter_chunk_dicts, prefetch_to_device
 from anomod_torch.replay import (F_COUNT, F_ERR, F_LOGLAT, F_LOGLAT2,
@@ -204,6 +205,9 @@ class StreamReplay:
         self.state = self._step(self.state, dead_chunk(self.cfg, self.device))
         self._sync()
         self.compile_s = time.perf_counter() - t0
+        obs.counter("anomod_stream_compile_total").inc()
+        obs.counter("anomod_stream_compile_seconds_total").inc(
+            self.compile_s)
         self._warmed = True
 
     def _roll(self, k: int) -> None:
@@ -221,6 +225,7 @@ class StreamReplay:
             return -1
         if not self._warmed:
             self._warm()
+        t_push = time.perf_counter()
         w_need = int((int(batch.start_us.max()) - self.t0_us)
                      // self.cfg.window_us)
         if w_need > self.cfg.n_windows - 1:
@@ -234,6 +239,8 @@ class StreamReplay:
         finally:
             pipe.close()
         self.n_spans += n
+        obs.histogram("anomod_stream_push_seconds").observe(
+            time.perf_counter() - t_push)
         return self.window_offset + max(w_need, 0)
 
     def agg_plane(self) -> np.ndarray:

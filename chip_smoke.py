@@ -6,7 +6,7 @@
 Builds the port's CUDA kernels from ``anomod_torch/csrc/`` with nvcc and
 its host entries (``csrc/native.cpp``) with the host's C++ compiler,
 holds each kernel against its plain PyTorch version on the card, then
-drives the data layer and six paths:
+drives the data layer and eight paths:
 
 - replay (phases 2-5), at the TT deployment's full width (45 services x
   32 windows x 16 buckets): the bench corpus replay (13 labels x 2000
@@ -69,7 +69,24 @@ drives the data layer and six paths:
   the straight run;
 - the multimodal stream (phase 15): ``stream_quality("TT", 400,
   multimodal=True)`` through the dense kernel, its launches counted,
-  held to the same run with the plain fold on the card.
+  held to the same run with the plain fold on the card;
+- online RCA in the serve tick (phase 16) at the serve bench deployment,
+  nothing cut: RCA off, then on, on the card; the on-run holds the
+  decision pins, equals the off-run's states and alerts byte for byte,
+  holds the JAX captures' RCA pins (58 runs, one eligible fault tenant,
+  top-1/3/5 hits 1/1/1) and one first launch per RCA bucket, and its
+  verdict stream equals the CPU twin's; one RCA run is traced for its
+  device events;
+- telemetry (phase 17) at the same deployment: the registry off, then on
+  (twice each, alternating), decisions identical, the overhead and the
+  journal's size printed; the on-run's journal exported to TT-CSV, loaded
+  back through ``load_tt_metric_csv`` and scored by ``score_self_scrape``
+  on the card (the dense kernel, launches counted) against the same
+  scoring through the plain fold on the card (the scorings' own chunks,
+  1024 spans at SW = subsystems x 64, also through the kernel and its
+  plain version alone; the alert scores of 20 kernel scorings within
+  ``RTOL_SELFSCRAPE_CARD``), and the injected-stall registry through
+  the same round trip, alerting on ``serve`` alone.
 
 Phase 1 also prints how each kernel's shared atomics compiled (from
 ``cuobjdump -sass``), and phase 2 what the L2 eviction before each timed
@@ -336,6 +353,24 @@ SERVE_PINS = {"p99_latency_s": 22.998135, "shed_fraction": 0.437567,
 ADMISSION_FIELDS = ("offered_spans", "admitted_spans", "served_spans",
                     "shed_spans", "shed_fraction", "served_batches",
                     "peak_backlog_spans", "latency", "per_priority")
+#: the online-RCA pins of every committed JAX serve capture at the bench
+#: seed (RCA on)
+RCA_PINS = {"n_rca_runs": 58, "rca_eligible": 1,
+            "rca_topk_hits": {1: 1, 3: 1, 5: 1}}
+#: RCA verdict scores on the card against the CPU twin's: the scorer adds
+#: in one written-out order on both, so only the 6-decimal rounding of a
+#: last-bit difference could show
+ATOL_RCA_SCORE = 2e-6
+#: self-scrape alert scores, the kernel's scoring against the plain
+#: fold's on the card (``report_gap``): both add each row's ``hi + lo``
+#: moments, in another order, and a near-constant series' variance lifts
+#: the last-bit differences of those sums into z.  Read on an H100 (20
+#: kernel scorings of the stall registry): 0.0030-0.0231; none on the
+#: serve journal, which raises no alert
+RTOL_SELFSCRAPE_CARD = 0.04
+#: kernel scorings of each self-scrape capture held to the plain fold's
+#: (the kernel's atomics add in another order each launch)
+SELFSCRAPE_REPEATS = 20
 
 
 @contextlib.contextmanager
@@ -431,7 +466,7 @@ def data_phase(card) -> dict:
 
     from anomod_torch import labels as labels_mod
     from anomod_torch import synth
-    from anomod_torch.config import DataConfig
+    from anomod_torch.config import Config
     from anomod_torch.io import cache, dataset
 
     fields = ("spans", "metrics", "logs", "log_summaries", "api", "coverage")
@@ -440,7 +475,7 @@ def data_phase(card) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         os.environ["ANOMOD_CACHE_DIR"] = tmp
         try:
-            cfg = DataConfig()
+            cfg = Config()
             check(cfg.cache_dir == Path(tmp) and cfg.ingest_workers == 0,
                   f"data: settings {cfg}")
             for testbed in ("TT", "SN"):
@@ -1796,6 +1831,269 @@ def multimodal_phase(dev, card, plain_factory) -> dict:
         profiled_wall_s=prof_s, device_busy_share=share)}
 
 
+def rca_serve_phase(dev, card) -> dict:
+    """Phase 16: online RCA at the serve bench deployment (phase 8's,
+    nothing cut).  RCA off, then on, on the card: the on-run holds the
+    decision pins, equals the off-run's states and alerts byte for byte
+    and holds the JAX captures' RCA pins; its verdict stream equals the
+    CPU twin's; one RCA run is traced for its device events."""
+    import dataclasses
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from anomod_torch.obs.registry import (Registry, get_registry,
+                                           set_registry)
+    from anomod_torch.ops import serve_kernels as sk
+    from anomod_torch.serve.engine import (RCA_REPORT_FIELDS,
+                                           VARIANT_REPORT_FIELDS,
+                                           run_power_law)
+
+    def decisions(r):
+        return {k: v for k, v in dataclasses.asdict(r).items()
+                if k not in VARIANT_REPORT_FIELDS + RCA_REPORT_FIELDS
+                and k != "device"}
+    e_off, r_off = run_power_law(device=dev, rca=False, **SERVE_KW)
+    reg = Registry(enabled=True)
+    prev = get_registry()
+    set_registry(reg)
+    try:
+        sk.reset_launches()
+        e_on, r_on = run_power_law(device=dev, rca=True, **SERVE_KW)
+        launches = dict(sk.launches)
+    finally:
+        set_registry(prev)
+    for k, v in launches.items():
+        check(v > 0, f"rca serve: kernel {k} was not launched")
+    got = {"p99_latency_s": r_on.latency["p99_latency_s"],
+           "shed_fraction": r_on.shed_fraction, "n_alerts": r_on.n_alerts}
+    check(got == SERVE_PINS, f"rca serve pins: {got} != {SERVE_PINS}")
+    check(serve_fingerprint(e_on) == serve_fingerprint(e_off),
+          "rca serve: states or alert streams differ from the RCA-off run")
+    check(decisions(r_on) == decisions(r_off),
+          "rca serve: decision fields differ from the RCA-off run")
+    rca_got = {"n_rca_runs": r_on.n_rca_runs,
+               "rca_eligible": r_on.rca_eligible,
+               "rca_topk_hits": r_on.rca_topk_hits}
+    check(rca_got == RCA_PINS, f"rca pins: {rca_got} != {RCA_PINS}")
+    runner = e_on._rca_plane.runner
+    compiles = reg.counter("anomod_serve_rca_compile_total").value
+    runs = reg.counter("anomod_serve_rca_runs_total").value
+    check(compiles == len(runner.buckets),
+          f"rca: {compiles} first launches for {len(runner.buckets)} "
+          "buckets")
+    check(runs == r_on.n_rca_runs, f"rca: {runs} runs counted, report "
+          f"{r_on.n_rca_runs}")
+    log(f"[16] serve with RCA on {card}: pins held (p99 "
+        f"{got['p99_latency_s']} s, shed {got['shed_fraction']}, "
+        f"{got['n_alerts']} alerts), states and alerts byte-identical to "
+        f"RCA off; {r_on.n_rca_runs} RCA runs, eligible "
+        f"{r_on.rca_eligible}, top-k hits {r_on.rca_topk_hits} (the JAX "
+        f"captures' pins); first launches {compiles:.0f} for buckets "
+        f"{runner.buckets}, runs by bucket {runner.runs_by_bucket}; "
+        f"launches {launches}")
+    log(f"[16] rca_wall_s {r_on.rca_wall_s} s, rca_latency "
+        f"{r_on.rca_latency}, alert-to-culprit (virtual) "
+        f"{r_on.rca_alert_to_culprit_s}; serve wall RCA on "
+        f"{r_on.serve_wall_s:.4f} s against off {r_off.serve_wall_s:.4f} s")
+
+    # the CPU twin: the same run through the plain versions on the host
+    t0 = time.perf_counter()
+    e_cpu, r_cpu = run_power_law(device="cpu", rca=True, **SERVE_KW)
+    cpu_s = time.perf_counter() - t0
+    want, have = ([v.to_dict() for v in e.rca_verdicts]
+                  for e in (e_cpu, e_on))
+    check(len(want) == len(have), f"rca: {len(have)} verdicts on the card, "
+          f"{len(want)} on the CPU")
+    err = 0.0
+    for a, b in zip(have, want):
+        check({k: v for k, v in a.items() if k != "scores"}
+              == {k: v for k, v in b.items() if k != "scores"},
+              f"rca: verdict of tenant {a['tenant_id']} window "
+              f"{a['alert_window']} differs from the CPU twin's")
+        err = max([err] + [abs(x - y) for x, y in zip(a["scores"],
+                                                     b["scores"])])
+    check(err <= ATOL_RCA_SCORE, f"rca: scores {err} from the CPU twin's "
+          f"(limit {ATOL_RCA_SCORE})")
+    log(f"[16] verdict stream equal to the CPU twin's ({len(have)} "
+        f"verdicts; services, windows, n_spans, n_edges, buckets exact; "
+        f"scores within {err:.3g} <= {ATOL_RCA_SCORE}); CPU twin "
+        f"{cpu_s:.3f} s, its serve wall {r_cpu.serve_wall_s:.4f} s")
+
+    # one RCA run traced: the newest verdict, whose evidence the buffer
+    # still holds, run again on the card under the profiler
+    v = max(e_on.rca_verdicts, key=lambda v: (v.alert_window, v.tenant_id))
+    plane = e_on._rca_plane
+    alerts = e_on._tenant_det[v.tenant_id].alerts
+    plane.run(v.tenant_id, v.alert_window, alerts, v.enqueued_s, v.scored_s)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        again, wall = plane.run(v.tenant_id, v.alert_window, alerts,
+                                v.enqueued_s, v.scored_s)
+        torch.cuda.synchronize()
+    check(again == v, "rca: a traced re-run of the newest verdict differs")
+    from torch.autograd import DeviceType
+    events = [e for e in prof.events()
+              if getattr(e, "device_type", None) == DeviceType.CUDA]
+    kinds = {}
+    for e in events:
+        kinds[e.name] = kinds.get(e.name, 0) + 1
+    busy = device_busy_ms(prof)
+    log(f"[16] one RCA run traced (tenant {v.tenant_id}, window "
+        f"{v.alert_window}, bucket {v.bucket}): {len(events)} device "
+        f"events, device busy "
+        f"{'not measured' if busy is None else f'{busy:.4f} ms'} in a "
+        f"{wall * 1e3:.3f} ms run wall; events by name {kinds}")
+    return {"rca_serve": dict(
+        pins=got, rca=rca_got, rca_wall_s=r_on.rca_wall_s,
+        rca_latency=r_on.rca_latency,
+        rca_alert_to_culprit_s=r_on.rca_alert_to_culprit_s,
+        serve_wall_on_s=r_on.serve_wall_s, serve_wall_off_s=r_off.serve_wall_s,
+        cpu_twin_max_score_err=err, launches=launches,
+        one_run_device_events=len(events), one_run_busy_ms=busy,
+        one_run_wall_ms=wall * 1e3, one_run_events_by_name=kinds)}
+
+
+def telemetry_phase(dev, card, plain_factory) -> dict:
+    """Phase 17: the serve bench deployment with the registry off, then
+    on (twice each, alternating): identical decisions, the overhead; the
+    on-run's journal through TT-CSV, ``load_tt_metric_csv`` and
+    ``score_self_scrape`` on the card, against the same scoring through
+    the plain fold on the card; the injected-stall registry through the
+    same round trip, alerting on ``serve`` alone at or after window 14;
+    the ``dense_slice_fold`` launches of every scoring counted.  Each
+    scoring's chunks also go through the kernel and its plain version
+    alone, and the alert scores of several kernel scorings are held to
+    the plain fold's within :data:`RTOL_SELFSCRAPE_CARD`."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from anomod_torch.io.metrics import load_tt_metric_csv
+    from anomod_torch.obs import export
+    from anomod_torch.obs.registry import (Registry, get_registry,
+                                           set_registry)
+    from anomod_torch.obs.selfscrape import (report_gap, score_self_scrape,
+                                             stalled_registry)
+    from anomod_torch.ops import replay_kernels as rk
+    from anomod_torch.replay import stage_planes
+    from anomod_torch.serve.engine import VARIANT_REPORT_FIELDS, run_power_law
+    from anomod_torch.stream import StreamReplay
+
+    def decisions(r):
+        return {k: v for k, v in dataclasses.asdict(r).items()
+                if k not in VARIANT_REPORT_FIELDS and k != "device"}
+    prev = get_registry()
+    walls = {"off": [], "on": []}
+    runs = {}
+    try:
+        for leg in ("off", "on", "off", "on"):
+            reg = Registry(enabled=leg == "on")
+            set_registry(reg)
+            eng, rep = run_power_law(device=dev, **SERVE_KW)
+            walls[leg].append(rep.serve_wall_s)
+            if leg not in runs:
+                runs[leg] = (eng, rep, reg)
+    finally:
+        set_registry(prev)
+    (e_off, r_off, reg_off), (e_on, r_on, reg_on) = runs["off"], runs["on"]
+    check(reg_off.n_samples == 0 and e_off.tracer is None,
+          "telemetry off: the registry or the tracer recorded")
+    check(serve_fingerprint(e_on) == serve_fingerprint(e_off)
+          and decisions(r_on) == decisions(r_off),
+          "telemetry: decisions differ between registry off and on")
+    served = reg_on.counter("anomod_serve_served_spans_total").value
+    check(served == r_on.served_spans, f"telemetry: served counter {served}"
+          f" != report {r_on.served_spans}")
+    overhead = [on / off - 1.0 for on, off in zip(walls["on"], walls["off"])]
+    log(f"[17] telemetry on {card}: decisions identical off / on; serve "
+        f"wall off {walls['off']} s, on {walls['on']} s (alternating), "
+        f"overhead fraction {overhead}; journal {reg_on.n_samples} samples "
+        f"over {len(reg_on.metrics())} series, tracer "
+        f"{e_on.tracer.n_spans} spans")
+
+    chunks = []
+
+    class RecordingReplay(StreamReplay):
+        """The kernel's stream plane, keeping each chunk it folds."""
+
+        def __init__(self, cfg, t0_us, device=None, with_hll=False):
+            super().__init__(cfg, t0_us, device=device, with_hll=with_hll)
+            fold = self._step
+
+            def step(state, chunk):
+                sid, planes = stage_planes(chunk, xp=torch)
+                chunks.append((sid.clone(), planes.clone(), cfg.sw))
+                return fold(state, chunk)
+            self._step = step
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, reg, kw in (
+                ("serve", reg_on, {}),
+                ("stall", stalled_registry(),
+                 dict(window_s=10.0, baseline_windows=4, z_threshold=4.0))):
+            path = Path(tmp) / f"{name}.csv"
+            n = export.export_tt_csv(reg, path)
+            check(load_tt_metric_csv(path).n_samples == n == reg.n_samples,
+                  f"self-scrape {name}: the CSV does not load back whole")
+            rk.reset_launches()
+            t0 = time.perf_counter()
+            report = score_self_scrape(path, device=dev, **kw)
+            wall = time.perf_counter() - t0
+            n_dense = rk.launches["replay_dense"]
+            check(n_dense > 0, f"self-scrape {name}: dense_slice_fold was "
+                  "not launched")
+            # the kernel at the self-scrape's own shapes, chunk by chunk
+            chunks.clear()
+            again = score_self_scrape(path, device=dev,
+                                      replay_factory=RecordingReplay, **kw)
+            sw = chunks[0][2]
+            widths = sorted({int(c[0].numel()) for c in chunks})
+            err = compare(
+                f"self-scrape {name}: its {len(chunks)} chunks (N "
+                f"{widths[0]}-{widths[-1]}, SW {sw})",
+                torch.cat([rk.replay_dense(*c, H) for c in chunks]).cpu(),
+                torch.cat([rk.replay_dense_plain(*c, H)
+                           for c in chunks]).cpu(), RTOL_CARD)
+            plain = score_self_scrape(path, device=dev,
+                                      replay_factory=plain_factory, **kw)
+            reports = [report, again] + [
+                score_self_scrape(path, device=dev, **kw)
+                for _ in range(SELFSCRAPE_REPEATS - 2)]
+            gaps = [report_gap(r, plain) for r in reports]
+            log(f"[17] self-scrape {name}: alert score / z gaps of "
+                f"{len(reports)} kernel scorings to the plain fold's "
+                f"{gaps} (limit {RTOL_SELFSCRAPE_CARD}; "
+                f"{report['n_alerts']} alerts a scoring)")
+            check(None not in gaps and max(gaps) <= RTOL_SELFSCRAPE_CARD,
+                  f"self-scrape {name}: a report differs from the plain "
+                  f"fold's: {reports} != {plain}")
+            if name == "stall":
+                check(report["alerted_subsystems"] == ["serve"]
+                      and report["n_alerts"] > 0
+                      and all(a["window"] >= 14 for a in report["alerts"]),
+                      f"self-scrape stall: {report}")
+            out[name] = dict(samples=n, n_alerts=report["n_alerts"],
+                             alerted=report["alerted_subsystems"],
+                             dense_launches=n_dense, wall_s=wall,
+                             chunks=len(chunks), chunk_max_abs_err=err,
+                             score_gaps=gaps)
+            log(f"[17] self-scrape {name}: {n} samples through TT-CSV, "
+                f"{report['n_alerts']} alerts on "
+                f"{report['alerted_subsystems']} (windows "
+                f"{sorted({a['window'] for a in report['alerts']})}), "
+                f"equal to the plain fold's on the card; dense_slice_fold "
+                f"launches {n_dense}; scored in {wall:.3f} s")
+    return {"telemetry": dict(
+        serve_wall_off_s=walls["off"], serve_wall_on_s=walls["on"],
+        overhead_fraction=overhead, journal_samples=reg_on.n_samples,
+        selfscrape=out,
+        selfscrape_dense_launches=sum(v["dense_launches"]
+                                      for v in out.values()))}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2098,6 +2396,9 @@ def main() -> int:
     rca14 = rca_phase(dev, card)
     mm15 = multimodal_phase(dev, card, PlainFoldReplay)
     mm_launches = mm15["multimodal_stream"]["dense_launches"]
+    rca16 = rca_serve_phase(dev, card)
+    tele17 = telemetry_phase(dev, card, PlainFoldReplay)
+    ss_launches = tele17["telemetry"]["selfscrape_dense_launches"]
 
     # -- report -----------------------------------------------------------
     # the dense kernel's top-level times are the corpus pass's; each path
@@ -2105,9 +2406,10 @@ def main() -> int:
     corpus = dict(launches=launches["replay_dense"] - stream_launches,
                   plain_ms=dense_plain_ms, bound_ms=fold_bound,
                   bound_by=fold_by, traced=dense_split, **dense_t)
-    chunk = dict(launches=stream_launches + mm_launches,
+    chunk = dict(launches=stream_launches + mm_launches + ss_launches,
                  span_stream_launches=stream_launches,
                  multimodal_stream_launches=mm_launches,
+                 selfscrape_launches=ss_launches,
                  plain_ms=chunk_plain_ms,
                  bound_ms=chunk_bound, bound_by=chunk_by,
                  traced=chunk_split, stream_trace_ms=chunk_trace_ms,
@@ -2116,7 +2418,7 @@ def main() -> int:
         {"name": "replay_dense", "route": "cuda",
          "source": "anomod_torch/csrc/replay.cu",
          "replaces": "anomod/ops/pallas_replay.py:85", "redesigned": "PR 6",
-         "launches": launches["replay_dense"] + mm_launches,
+         "launches": launches["replay_dense"] + mm_launches + ss_launches,
          "max_abs_err": max(dense_err, err_4320),
          **{k: corpus[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms", "ms_unspun",
@@ -2140,7 +2442,8 @@ def main() -> int:
                     "stream_device_busy_share": busy_share,
                     "sorted_ends_ms": end_ms, "dense_ends_ms": dense_end_ms,
                     "l2_eviction_ms": flush, **data, **serve,
-                    **sketch, **roof, **det13, **rca14, **mm15,
+                    **sketch, **roof, **det13, **rca14, **mm15, **rca16,
+                    **tele17,
                     "wall_s": time.perf_counter() - t_all}))
     log(json.dumps({"kernels": kernels}))
     log(card)

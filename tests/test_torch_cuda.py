@@ -743,3 +743,58 @@ def test_multimodal_stream_on_card_equals_plain_fold(cuda_device):
         assert r["first_alert_window"] == p["first_alert_window"]
         assert [(a.window, a.service, a.evidence) for a in r["alerts"]] == \
             [(a.window, a.service, a.evidence) for a in p["alerts"]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bucket", [(16, 8), (64, 16)])
+def test_rca_scorer_on_card_equals_cpu(cuda_device, bucket):
+    """The culprit scorer on the card adds in the order it adds on the
+    CPU (every sum written out as elementwise adds): the same f32 bits,
+    dead rows at ``-inf``."""
+    from anomod_torch.serve.rca import N_RCA_FEATS, make_culprit_scorer
+    n, k = bucket
+    rng = np.random.default_rng(n)
+    score = make_culprit_scorer()
+    for _ in range(20):
+        x = (rng.standard_normal((n, N_RCA_FEATS))
+             * rng.uniform(0.01, 200, (n, N_RCA_FEATS))).astype(np.float32)
+        args = [torch.from_numpy(x),
+                torch.from_numpy(rng.integers(0, n, (n, k))),
+                torch.from_numpy((rng.random((n, k)) < 0.5)
+                                 .astype(np.float32)),
+                torch.from_numpy((rng.random(n) < 0.8).astype(np.float32))]
+        want = score(*args).numpy()
+        got = score(*(a.to(cuda_device) for a in args)).cpu().numpy()
+        assert np.array_equal(got, want)
+        assert np.array_equal(np.isinf(got), args[3].numpy() == 0)
+
+
+@pytest.mark.cuda
+def test_serve_with_rca_on_card_equals_cpu(cuda_device):
+    """A small serve run with online RCA on the card: the verdict stream
+    and every decision equal the same run on the CPU, and RCA leaves the
+    card run's states and alerts as they are with RCA off."""
+    import dataclasses
+
+    from anomod_torch.serve.engine import (RCA_REPORT_FIELDS,
+                                           VARIANT_REPORT_FIELDS,
+                                           run_power_law)
+    kw = dict(n_tenants=8, n_services=6, capacity_spans_per_s=2000,
+              overload=2.0, duration_s=60, tick_s=1.0, seed=3, window_s=5.0,
+              baseline_windows=4, fault_tenants=2, buckets=(64, 256),
+              lane_buckets=(1, 2, 4), max_backlog=3000, n_windows=16)
+
+    def decisions(rep, skip=()):
+        return {k: v for k, v in dataclasses.asdict(rep).items()
+                if k not in VARIANT_REPORT_FIELDS + tuple(skip)
+                and k != "device"}
+    eng, rep = run_power_law(device=cuda_device, rca=True, **kw)
+    cpu, rep_cpu = run_power_law(device="cpu", rca=True, **kw)
+    off, rep_off = run_power_law(device=cuda_device, rca=False, **kw)
+    assert rep.n_rca_runs > 0 and rep.rca_topk_hits[1] == 2
+    assert [v.to_dict() for v in eng.rca_verdicts] == \
+        [v.to_dict() for v in cpu.rca_verdicts]
+    assert decisions(rep) == decisions(rep_cpu)
+    assert _serve_fingerprint(eng) == _serve_fingerprint(off)
+    assert decisions(rep, RCA_REPORT_FIELDS) == \
+        decisions(rep_off, RCA_REPORT_FIELDS)

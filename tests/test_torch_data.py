@@ -33,7 +33,7 @@ from anomod.io import metrics as jmet
 from anomod.io import sn_traces as jsn
 from anomod.io import tt_traces as jtt
 from anomod_torch import labels, metrics_catalog, synth
-from anomod_torch.config import DataConfig
+from anomod_torch.config import Config
 from anomod_torch.io import api, cache, dataset, lfs
 from anomod_torch.io import coverage as cov
 from anomod_torch.io import logs as logs_io
@@ -336,7 +336,7 @@ def test_lfs_and_small_parsers_equal(tmp_path):
 
 def _cfgs(tmp_path, data_root=None, cache_on=True):
     jroot = data_root if data_root is not None else tmp_path / "none"
-    return (DataConfig(data_root=data_root,
+    return (Config(data_root=data_root,
                        cache_dir=tmp_path / "tc" if cache_on else None),
             JConfig(data_root=jroot,
                     cache_dir=tmp_path / "jc" if cache_on else None))
@@ -389,7 +389,7 @@ def test_load_bench_corpus_through_the_cache(tmp_path):
     assert_same(cold, want)
     assert_same(warm, want)
     assert dataset.bench_cache_status("TT", 7,
-                                      DataConfig(cache_dir=None)) == (0, 1)
+                                      Config(cache_dir=None)) == (0, 1)
 
 
 # -- the cache ------------------------------------------------------------------
@@ -500,7 +500,7 @@ def test_cache_keys_equal_jax(tree, tmp_path):
 def test_settings_read_the_env_as_jax_does(monkeypatch, env, field, want):
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    got, ref = getattr(DataConfig(), field), getattr(JConfig(), field)
+    got, ref = getattr(Config(), field), getattr(JConfig(), field)
     got = str(got) if isinstance(got, os.PathLike) else got
     ref = str(ref) if isinstance(ref, os.PathLike) else ref
     assert got == ref == want
@@ -510,7 +510,7 @@ def test_settings_read_the_env_as_jax_does(monkeypatch, env, field, want):
 def test_bad_ingest_workers_raise_as_jax(monkeypatch, raw):
     monkeypatch.setenv("ANOMOD_INGEST_WORKERS", raw)
     with pytest.raises(ValueError, match="ANOMOD_INGEST_WORKERS") as got:
-        DataConfig()
+        Config()
     with pytest.raises(ValueError) as want:
         JConfig()
     assert str(got.value) == str(want.value)
@@ -519,7 +519,7 @@ def test_bad_ingest_workers_raise_as_jax(monkeypatch, raw):
 def test_unset_settings_stay_inside_the_checkout(monkeypatch):
     for k in ("ANOMOD_CACHE_DIR", "ANOMOD_DATA_ROOT"):
         monkeypatch.delenv(k, raising=False)
-    cfg = DataConfig()
+    cfg = Config()
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     assert str(cfg.cache_dir).startswith(os.path.join(repo, "build"))
     assert cfg.data_root is None and cfg.tt_data is None

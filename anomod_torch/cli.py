@@ -9,17 +9,24 @@
   testbed's 13 experiments (synthetic, or ``--from-data`` through the
   loaders), evaluated against the chaos labels: one JSON document (the
   counterpart of ``anomod detect``).
-- ``rca``: train a GNN (``gcn``, ``gat``, ``sage``) on chaos labels and
+- ``rca``: train an RCA model (``gcn``, ``gat``, ``sage``, ``temporal``,
+  ``lru``, ``transformer``, ``moe``, ``linegraph``) on chaos labels and
   report held-out top-1, top-3 and detection AUC, one JSON line; with
   ``--checkpoint-dir`` (and ``--resume``) it saves and continues (the
   counterpart of ``anomod rca``).
+- ``quality``: the de-saturated quality sweep (the counterpart of
+  ``anomod quality``): degradation curves over fault severity
+  (``--sweep severity``) or the train-shift / eval-shift table (``--sweep
+  shift``, ``--edge-aware``), as a markdown table or ``--json`` lines,
+  with a ``quality_*_sweep`` capture.
 - ``stream``: online detection over one experiment (or ``--all`` of a
   testbed's taxonomy): alert timelines, ranked culprits and top-1 per
   label, one JSON line each; ``--multimodal`` fuses the log, metric and
   API planes, ``--severity`` / ``--noise`` / ``--confounders`` harden the
-  generated corpus.  ``--all`` ends with the summary line (top-1, top-3,
-  median detection latency) and writes a ``stream_quality`` capture
-  (``provenance``).
+  generated corpus and ``--shift`` (``--all`` only) draws it from one of
+  the quality sweep's shifted generators.  ``--all`` ends with the
+  summary line (top-1, top-3, median detection latency) and writes a
+  ``stream_quality`` capture (``provenance``).
 - ``serve``: the multi-tenant serve plane over a seeded power-law fleet
   on a virtual clock; prints the ``ServeReport`` as JSON (the
   counterpart of ``anomod serve``).  ``--rca`` runs online root-cause
@@ -46,6 +53,7 @@ from typing import List, Optional
 
 
 def _parser() -> argparse.ArgumentParser:
+    from anomod_torch.quality import DEFAULT_MODELS, SEVERITIES, SHIFTS
     from anomod_torch.rca import MODELS
     from anomod_torch.replay import KERNELS
     parser = argparse.ArgumentParser(prog="python -m anomod_torch")
@@ -107,8 +115,39 @@ def _parser() -> argparse.ArgumentParser:
                    help="widen baseline distributions (HardMode)")
     s.add_argument("--confounders", type=int, default=0,
                    help="decoy services per fault experiment")
+    s.add_argument("--shift", default="in-dist", choices=list(SHIFTS),
+                   help="--all only: evaluate under a shifted generator "
+                        "(quality.SHIFTS axes)")
     s.add_argument("--device", default=None,
                    help="cuda (default) or cpu (plain PyTorch versions)")
+
+    q = sub.add_parser("quality", help="de-saturated quality sweep: "
+                       "degradation curves over fault severity with noise "
+                       "+ confounders (HardMode)")
+    q.add_argument("--testbed", choices=["SN", "TT"], default="TT")
+    q.add_argument("--models", nargs="*", default=list(DEFAULT_MODELS))
+    q.add_argument("--severities", nargs="*", type=float,
+                   default=list(SEVERITIES))
+    q.add_argument("--train-seeds", type=int, default=6)
+    q.add_argument("--eval-seeds", type=int, default=3)
+    q.add_argument("--traces", type=int, default=60)
+    q.add_argument("--epochs", type=int, default=120)
+    q.add_argument("--noise", type=float, default=0.5)
+    q.add_argument("--confounders", type=int, default=2)
+    q.add_argument("--sweep", choices=["severity", "shift"],
+                   default="severity",
+                   help="severity: degradation curves; shift: train on the "
+                        "default effect model, eval under shifted "
+                        "generators (effect shape / fault timing / locus)")
+    q.add_argument("--shift-severity", type=float, default=0.3,
+                   help="fixed fault severity for the shift sweep")
+    q.add_argument("--edge-aware", action="store_true",
+                   help="--sweep shift only: out-edge feature blocks + "
+                        "node+edge mixed-locus training")
+    q.add_argument("--json", action="store_true",
+                   help="emit one JSON object per sweep point")
+    q.add_argument("--device", default=None,
+                   help="cuda (default) or cpu")
 
     r = sub.add_parser("roofline", help="the sorted replay kernel against "
                        "its count-only and no-histogram ablations")
@@ -387,11 +426,15 @@ def _stream(args, parser) -> int:
         experiments, testbed = [label.experiment], label.testbed
     if args.confounders < 0:
         parser.error("--confounders must be >= 0")
+    if args.shift != "in-dist" and not args.all:
+        parser.error("--shift applies to --all; it would be silently "
+                     "ignored in single-experiment mode")
     rows = stream_quality(testbed, n_traces=args.traces, seed=args.seed,
                           experiments=experiments,
                           multimodal=args.multimodal,
                           severity=args.severity, noise=args.noise,
-                          n_confounders=args.confounders, device=args.device)
+                          n_confounders=args.confounders, shift=args.shift,
+                          device=args.device)
     for r in rows:
         r["alerts"] = [dataclasses.asdict(a) for a in r["alerts"]]
         print(json.dumps(r))
@@ -405,7 +448,8 @@ def _stream(args, parser) -> int:
             device=device_name(resolve_device(args.device)), testbed=testbed,
             params=dict(n_traces=args.traces, seed=args.seed,
                         multimodal=args.multimodal, severity=args.severity,
-                        noise=args.noise, confounders=args.confounders),
+                        noise=args.noise, confounders=args.confounders,
+                        shift=args.shift),
             summary=summary, rows=rows)
         path = write_capture(rec)
         if path:
@@ -470,6 +514,69 @@ def _rca(args, parser) -> int:
     return 0
 
 
+def _quality(args, parser) -> int:
+    from anomod_torch.device import device_name, resolve_device
+    from anomod_torch.provenance import capture_record, write_capture
+    from anomod_torch.quality import (SEVERITIES, TRAINING_FREE,
+                                      render_markdown,
+                                      render_shift_markdown, severity_sweep,
+                                      shift_sweep)
+    from anomod_torch.rca import MODELS
+    unknown = [m for m in args.models
+               if m not in TRAINING_FREE and m not in MODELS]
+    if unknown:
+        parser.error(f"unknown --models {unknown} (have: "
+                     f"{', '.join(TRAINING_FREE + tuple(MODELS))})")
+    # a flag of the other sweep kind must not be silently dropped (a
+    # value other than the parser's default means the user passed it)
+    if args.sweep == "shift" and args.severities != list(SEVERITIES):
+        parser.error("--severities applies to --sweep severity; "
+                     "use --shift-severity for the shift sweep")
+    if args.sweep == "severity" and args.shift_severity != 0.3:
+        parser.error("--shift-severity applies to --sweep shift")
+    if args.sweep == "severity" and args.edge_aware:
+        parser.error("--edge-aware applies to --sweep shift")
+    dev = resolve_device(args.device)
+    common = dict(
+        testbed=args.testbed, model_names=args.models,
+        train_seeds=range(args.train_seeds),
+        eval_seeds=range(100, 100 + args.eval_seeds),
+        n_traces=args.traces, epochs=args.epochs, noise=args.noise,
+        n_confounders=args.confounders, verbose=not args.json)
+    if args.sweep == "shift":
+        pts = shift_sweep(severity=args.shift_severity,
+                          edge_aware=args.edge_aware, device=dev, **common)
+        render = render_shift_markdown
+    else:
+        pts = severity_sweep(severities=args.severities, device=dev,
+                             **common)
+        render = render_markdown
+    rec = capture_record(
+        f"quality_{args.sweep}_sweep", float(len(pts)), "points",
+        device=device_name(dev), testbed=args.testbed,
+        models=list(args.models),
+        params={**{k: (list(v) if isinstance(v, range) else v)
+                   for k, v in common.items()
+                   if k not in ("verbose", "testbed", "model_names")},
+                **({"shift_severity": args.shift_severity,
+                    "edge_aware": bool(args.edge_aware)}
+                   if args.sweep == "shift"
+                   else {"severities": args.severities})},
+        points=[dataclasses.asdict(p) for p in pts])
+    path = write_capture(rec)
+    if args.json:
+        # one QualityPoint a stdout line; the capture path to stderr
+        for p in pts:
+            print(json.dumps(dataclasses.asdict(p)))
+        if path:
+            print(f"capture: {path}", file=sys.stderr)
+    else:
+        print(render(pts))
+        if path:
+            print(f"\ncapture: {path}")
+    return 0
+
+
 def _roofline(args, parser) -> int:
     from anomod_torch.roofline import kernel_roofline
     if args.traces < 1 or args.replicate < 1:
@@ -495,6 +602,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         return _rca(args, parser)
     if args.cmd == "obs":
         return _obs(args, parser)
+    if args.cmd == "quality":
+        return _quality(args, parser)
     return _stream(args, parser)
 
 

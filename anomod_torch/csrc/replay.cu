@@ -12,10 +12,15 @@
 // planes[6][N] (valid, err, 5xx, dur_raw, dur, dur^2), out[SW][6+H] sums,
 // per segment, each span's payload row, rounded exactly as the TPU kernel's
 // bf16 right-hand side (_build_rhs_t): the three exact planes as bf16, each
-// moment m as bf16_rn(m) + bf16_rn(m - bf16_rn(m)) (the two-way hi/lo
-// split, recombined in f32 per span), and a histogram one-hot at bucket
-// clamp((int)dur, 0, H-1) carrying bf16(valid).  Rows with sid == SW are
-// the dead padding lane and are dropped.
+// moment m as its two-way split hi = bf16_rn(m), lo = bf16_rn(m - hi), and
+// a histogram one-hot at bucket clamp((int)dur, 0, H-1) carrying
+// bf16(valid).  Rows with sid == SW are the dead padding lane and are
+// dropped.  The dense kernel sums hi and lo as separate columns (a 9 + H
+// row: 3 exact, 3 hi, 3 lo, H buckets) and adds each moment's two sums
+// only when it writes out[SW][6+H], as the TPU kernel's _recombine_moments
+// and the JAX chunk step do: a near-constant series' variance is a small
+// difference of moment sums, and the order of those adds moves it.  The
+// sorted kernel feeds only the throughput probes and adds hi + lo a span.
 //
 // The TPU formulation (a [B, SW+1] one-hot contracted on the MXU) is the
 // wrong shape here: it does SW+1 multiply-adds per span where a scatter
@@ -30,12 +35,12 @@
 // first design.  Two plans, picked by the wrapper by span count:
 // - owned slices (a stream chunk: 4096 spans, SW 4320): one launch, a
 //   block per slice of about SW / n_SM segments owning those rows of
-//   `out`.  Every block reads the whole chunk (115 KB, from L2 after the
-//   first block), zeroes its rows and adds the spans it owns into them
-//   with L2's native f32 reductions: a chunk touches a few hundred
-//   segments, so a block's spans crowd onto a row or two, where shared
-//   compare-and-swap loops contend.  The card is filled at any SW, the
-//   output is written once and nothing else is.
+//   the raw sums and of `out`.  Every block reads the whole chunk (115
+//   KB, from L2 after the first block), zeroes its raw rows and adds the
+//   spans it owns into them with L2's native f32 reductions: a chunk
+//   touches a few hundred segments, so a block's spans crowd onto a row
+//   or two, where shared compare-and-swap loops contend.  It then writes
+//   its rows of `out` from them.  The card is filled at any SW.
 // - clusters (a corpus pass: 491,520 spans, SW 1440): thread-block
 //   clusters of kCluster blocks, one block an SM, each folding its own
 //   contiguous range of spans into a whole [tile][F] accumulator in
@@ -45,9 +50,10 @@
 //   count set from its histogram row.  The cluster then sums its members'
 //   accumulators over distributed shared memory, member by member, each
 //   block summing one kCluster-th of the rows, so one partial plane a
-//   cluster (2 MB for 16 clusters, not one plane a block) reaches global
-//   memory; dense_reduce sums those in cluster order (skipped when there
-//   is one cluster).
+//   cluster (2.3 MB for 16 clusters, not one plane a block) reaches
+//   global memory; dense_reduce sums those in cluster order and adds the
+//   moments' hi and lo sums (skipped when there is one cluster, which
+//   adds them as it sums its members).
 // Both load kFoldUnroll spans a thread before adding any.
 // sorted_fold takes the sorted staging, where a warp's
 // 32 spans mostly share one segment: one shared atomic a span and column
@@ -101,6 +107,7 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kPlanes = 6;           // valid, err, 5xx, dur_raw, dur, dur^2
+constexpr int kPayload = 9;          // dense: exact x3, moment hi x3, lo x3
 // what the sorted kernel adds a span: the replay's payload, or one of the
 // roofline probe's two ablations of it
 enum Payload : int { kFull = 0, kCounts = 1, kNoHist = 2 };
@@ -117,25 +124,35 @@ __device__ __forceinline__ float bf16_rn(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// Row stride of the dense kernels' shared accumulator: F = 6 + H floats
+// Row stride of the dense kernels' shared accumulator: 9 + H floats
 // padded to an odd count, so the scattered rows of a warp's spans fall on
 // all 32 banks (an even stride reaches only 16).
 __host__ __device__ constexpr int dense_stride(int n_hist) {
-  return (kPlanes + n_hist) | 1;
+  return (kPayload + n_hist) | 1;
+}
+
+// Column c of a dense output row [6 + H] from a raw row [9 + H] (the hi /
+// lo sums apart) read by `at(column)`: each moment's hi sum plus its lo
+// sum, every other column as it is.
+template <typename At>
+__device__ __forceinline__ float combined(int c, At at) {
+  if (c < 3) return at(c);
+  if (c < kPlanes) return at(c) + at(c + 3);
+  return at(c + 3);
 }
 
 // One span a lane, folded by the warp into `acc` (rows of `stride`
 // floats, row s - lo for segment s).  `own`: the lane's span lies in this
 // block's segments [lo, ...); x: its six plane values.  The lanes of one
 // segment add as a group (__match_any_sync): its lowest lane adds the
-// group's count of unit (exactly 1) err / 5xx values and its moment sums,
-// gathered from the peers in lane order by shuffles; the histogram adds
-// per (segment, bucket), a unit group's count at once.  Values other
-// than 0 and 1 in the exact planes add lane by lane.  So a warp step
-// issues a shared f32 atomic (a compare-and-swap loop on this card) per
-// group and column, not per span and column.  The count column is not
-// added: finish_counts sets it from the histogram row.  Every lane calls
-// it.
+// group's count of unit (exactly 1) err / 5xx values and its moment hi
+// and lo sums, gathered from the peers in lane order by shuffles; the
+// histogram adds per (segment, bucket), a unit group's count at once.
+// Values other than 0 and 1 in the exact planes add lane by lane.  So a
+// warp step issues a shared f32 atomic (a compare-and-swap loop on this
+// card) per group and column, not per span and column.  The count column
+// is not added: finish_counts sets it from the histogram row.  Every lane
+// calls it.
 __device__ __forceinline__ void fold_groups(float* acc, int stride, int lo,
                                             int s, bool own,
                                             const float (&x)[kPlanes],
@@ -143,13 +160,15 @@ __device__ __forceinline__ void fold_groups(float* acc, int stride, int lo,
   const float valid = own ? bf16_rn(x[0]) : 0.f;
   const float err = own ? bf16_rn(x[1]) : 0.f;
   const float s5 = own ? bf16_rn(x[2]) : 0.f;
-  float m[3], sum[3];
+  float m[6], sum[6];                        // hi x3, then lo x3
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
     const float hi = bf16_rn(x[3 + i]);
-    m[i] = own ? hi + bf16_rn(x[3 + i] - hi) : 0.f;
-    sum[i] = m[i];
+    m[i] = own ? hi : 0.f;
+    m[3 + i] = own ? bf16_rn(x[3 + i] - hi) : 0.f;
   }
+#pragma unroll
+  for (int i = 0; i < 6; ++i) sum[i] = m[i];
   const unsigned peers = __match_any_sync(kAll, own ? s : -1 - lane);
   const bool lead = own && (peers & ((1u << lane) - 1u)) == 0;
   const int rounds = __reduce_max_sync(kAll, own ? __popc(peers) - 1 : 0);
@@ -158,7 +177,7 @@ __device__ __forceinline__ void fold_groups(float* acc, int stride, int lo,
     const int src = rest ? __ffs(rest) - 1 : lane;
     rest &= rest - 1u;
 #pragma unroll
-    for (int i = 0; i < 3; ++i) {
+    for (int i = 0; i < 6; ++i) {
       const float y = __shfl_sync(kAll, m[i], src);
       if (src != lane) sum[i] += y;
     }
@@ -171,7 +190,7 @@ __device__ __forceinline__ void fold_groups(float* acc, int stride, int lo,
     if (c1) atomicAdd(row + 1, (float)c1);
     if (c2) atomicAdd(row + 2, (float)c2);
 #pragma unroll
-    for (int i = 0; i < 3; ++i)
+    for (int i = 0; i < 6; ++i)
       if (sum[i] != 0.f) atomicAdd(row + 3 + i, sum[i]);
   }
   if (err != 0.f && err != 1.f) atomicAdd(row + 1, err);
@@ -183,9 +202,9 @@ __device__ __forceinline__ void fold_groups(float* acc, int stride, int lo,
   const int key = adds ? (unit ? s * n_hist + b : -2 - lane) : -1;
   const unsigned hp = __match_any_sync(kAll, key);
   if (adds && !unit)
-    atomicAdd(row + kPlanes + b, valid);
+    atomicAdd(row + kPayload + b, valid);
   else if (adds && (hp & ((1u << lane) - 1u)) == 0)
-    atomicAdd(row + kPlanes + b, (float)__popc(hp));
+    atomicAdd(row + kPayload + b, (float)__popc(hp));
 }
 
 // The cluster fold's span loop: fold the spans [i0, i1) whose segment
@@ -239,8 +258,8 @@ __device__ __forceinline__ void finish_counts(float* acc, int stride,
                                               int rows, int n_hist) {
   for (int r = threadIdx.x; r < rows; r += blockDim.x) {
     float* row = acc + r * stride;
-    float c = row[kPlanes];
-    for (int b = 1; b < n_hist; ++b) c += row[kPlanes + b];
+    float c = row[kPayload];
+    for (int b = 1; b < n_hist; ++b) c += row[kPayload + b];
     row[0] = c;
   }
 }
@@ -336,36 +355,41 @@ __device__ __forceinline__ void red_span(float* row, const float (&x)[kPlanes],
 #pragma unroll
   for (int m = 0; m < 3; ++m) {
     const float hi = bf16_rn(x[3 + m]);
-    const float v = hi + bf16_rn(x[3 + m] - hi);
-    if (v != 0.f) atomicAdd(row + 3 + m, v);
+    const float lo = bf16_rn(x[3 + m] - hi);
+    if (hi != 0.f) atomicAdd(row + 3 + m, hi);
+    if (lo != 0.f) atomicAdd(row + 6 + m, lo);
   }
   if (valid != 0.f) {
     // truncation toward zero, as astype(int32); saturates, NaN -> 0
     const int b = min(max(__float2int_rz(x[4]), 0), n_hist - 1);
-    atomicAdd(row + kPlanes + b, valid);
+    atomicAdd(row + kPayload + b, valid);
   }
 }
 
 // Dense, owned slices: block b owns segments [b*tile_w, min(SW,
-// (b+1)*tile_w)) and, alone, their rows of out[SW][F].  It zeroes them,
-// then adds every span it owns into them with native f32 reductions in
-// L2 (red_span): a stream chunk's 4096 spans touch a few hundred
-// segments, so a block's spans crowd onto one or two rows, where shared
-// compare-and-swap loops contend and L2's reductions do not stall the
-// warp (grouping a warp's spans by segment first cost more than it
-// saved).  One launch, nothing but `out` written.  Every block reads
+// (b+1)*tile_w)) and, alone, their rows of raw[SW][9+H] and out[SW][6+H].
+// It zeroes its raw rows, then adds every span it owns into them with
+// native f32 reductions in L2 (red_span): a stream chunk's 4096 spans
+// touch a few hundred segments, so a block's spans crowd onto one or two
+// rows, where shared compare-and-swap loops contend and L2's reductions
+// do not stall the warp (grouping a warp's spans by segment first cost
+// more than it saved).  Then it writes its out rows from its raw rows,
+// each moment's hi sum plus its lo sum.  One launch.  Every block reads
 // every span (ids and planes in one round trip, from L2 after the first
 // block), the first batch before it zeroes its rows.  The block barrier
 // orders its zero stores before its reductions to the same addresses (no
-// other block touches them), so no gpu-scope fence is needed.
+// other block touches them); a fence and a barrier order the reductions
+// before the reads, which go to L2 (ld.global.cg), where the reductions
+// were performed.
 __global__ void __launch_bounds__(kSliceThreads)
 dense_slice_fold(const int* __restrict__ sid, const float* __restrict__ planes,
                  long long n, int n_segments, int n_hist, int tile_w,
-                 int inner_repeats, float* __restrict__ out) {
-  const int F = kPlanes + n_hist;
+                 int inner_repeats, float* __restrict__ raw,
+                 float* __restrict__ out) {
+  const int F = kPayload + n_hist;
   const int lo = blockIdx.x * tile_w;
   const int hi = min(n_segments, lo + tile_w);
-  float* dst = out + (long long)lo * F;
+  float* dst = raw + (long long)lo * F;
   bool zeroed = false;
   for (int r = 0; r < inner_repeats; ++r) {
     for (long long base = threadIdx.x; base < n || !zeroed;
@@ -392,24 +416,33 @@ dense_slice_fold(const int* __restrict__ sid, const float* __restrict__ planes,
           red_span(dst + (long long)(s[u] - lo) * F, x[u], n_hist);
     }
   }
+  __threadfence();
+  __syncthreads();
+  const int F6 = kPlanes + n_hist;
+  float* o = out + (long long)lo * F6;
+  for (int j = threadIdx.x; j < (hi - lo) * F6; j += blockDim.x) {
+    const float* row = dst + (long long)(j / F6) * F;
+    o[j] = combined(j % F6, [&](int c) { return __ldcg(row + c); });
+  }
 }
 
 // Dense, clusters.  Grid (n_parts, n_tiles), clusters of kCluster blocks
 // along x.  Block (x, y) folds the spans [x*per_part, (x+1)*per_part)
 // whose segment lies in tile y, segments [y*tile_w, min(SW,
 // (y+1)*tile_w)), into shared memory.  Then block `rank` of each cluster
-// sums its kCluster-th of the tile's [rows][F] outputs over the C
-// members' accumulators in member order (distributed shared memory) and
-// stores them in dst[x / C][SW][F]: `out` itself when there is one
-// cluster along x, else the partials dense_reduce sums.
+// sums its kCluster-th of the tile's outputs over the C members'
+// accumulators in member order (distributed shared memory) and stores
+// them in dst: with one cluster along x (`combine`), `out[SW][6+H]`
+// itself, each moment's hi sum plus its lo sum; else the raw
+// [x / C][SW][9+H] partials that dense_reduce sums and combines.
 __global__ void __launch_bounds__(kClusterThreads, 1)
 dense_cluster_fold(const int* __restrict__ sid,
                    const float* __restrict__ planes, long long n,
                    int n_segments, int n_hist, int tile_w, long long per_part,
-                   int inner_repeats, float* __restrict__ dst) {
+                   int inner_repeats, int combine, float* __restrict__ dst) {
   extern __shared__ float acc[];
   cg::cluster_group cluster = cg::this_cluster();
-  const int F = kPlanes + n_hist;
+  const int F = combine ? kPlanes + n_hist : kPayload + n_hist;
   const int stride = dense_stride(n_hist);
   const int lo = blockIdx.y * tile_w;
   const int hi = min(n_segments, lo + tile_w);
@@ -431,49 +464,44 @@ dense_cluster_fold(const int* __restrict__ sid,
   const float* part[kCluster];
 #pragma unroll
   for (int q = 0; q < kCluster; ++q) part[q] = cluster.map_shared_rank(acc, q);
-  for (int j = j0 + threadIdx.x; j < j1; j += blockDim.x) {
-    const int at = j / F * stride + j % F;
+  // column c of the raw rows summed over the members, in member order
+  auto member_sum = [&](int at) {
     float x[kCluster];
 #pragma unroll
     for (int q = 0; q < kCluster; ++q) x[q] = part[q][at];
     float v = x[0];
 #pragma unroll
     for (int q = 1; q < kCluster; ++q) v += x[q];
-    o[j] = v;
+    return v;
+  };
+  for (int j = j0 + threadIdx.x; j < j1; j += blockDim.x) {
+    const int row = j / F * stride;
+    o[j] = combine ? combined(j % F, [&](int c) { return member_sum(row + c); })
+                   : member_sum(row + j % F);
   }
   cluster.sync();  // no member leaves while its accumulator is read
 }
 
-// Dense, clusters, pass 2: out[j] = sum over clusters g = 0, 1, ... of
-// partials[g][j], always in that order; four floats a thread where the
-// plane's length allows (it does for every H the port runs: 22 columns).
+// Dense, clusters, pass 2: out[r][c] (6 + H columns) from the clusters'
+// raw [SW][9+H] planes: each raw column summed over clusters g = 0, 1,
+// ... in that order, then each moment's hi sum plus its lo sum.
 __global__ void dense_reduce(const float* __restrict__ partials, int n_groups,
-                             long long len, float* __restrict__ out) {
+                             int n_segments, int n_hist,
+                             float* __restrict__ out) {
+  const int F = kPayload + n_hist;
+  const int F6 = kPlanes + n_hist;
+  const long long len = (long long)n_segments * F6;
+  const long long plane = (long long)n_segments * F;
   const long long step = (long long)gridDim.x * blockDim.x;
-  const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (len % 4 == 0) {
-    const float4* p4 = reinterpret_cast<const float4*>(partials);
-    float4* o4 = reinterpret_cast<float4*>(out);
-    const long long len4 = len / 4;
-    for (long long j = first; j < len4; j += step) {
-      float4 s = p4[j];
+  for (long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       j < len; j += step) {
+    const float* p = partials + j / F6 * F;
+    out[j] = combined((int)(j % F6), [&](int c) {
+      float s = p[c];
 #pragma unroll 8
-      for (int g = 1; g < n_groups; ++g) {
-        const float4 y = p4[g * len4 + j];
-        s.x += y.x;
-        s.y += y.y;
-        s.z += y.z;
-        s.w += y.w;
-      }
-      o4[j] = s;
-    }
-    return;
-  }
-  for (long long j = first; j < len; j += step) {
-    float s = partials[j];
-#pragma unroll 8
-    for (int g = 1; g < n_groups; ++g) s += partials[g * len + j];
-    out[j] = s;
+      for (int g = 1; g < n_groups; ++g) s += p[g * plane + c];
+      return s;
+    });
   }
 }
 
@@ -672,24 +700,26 @@ extern "C" int anomod_dense_cluster_capacity(int smem, int* n) {
   return (int)cudaOccupancyMaxActiveClusters(n, fn, &cfg);
 }
 
-// The dense fold.  clustered = 0: owned slices, n_tiles blocks of tile_w
-// segments (n_parts unused).  clustered = 1: grid (n_parts, n_tiles),
-// n_parts a multiple of kCluster; with n_parts > kCluster, partials holds
-// (n_parts / kCluster) * n_segments * (6 + n_hist) floats.
+// The dense fold into out[n_segments][6 + n_hist].  clustered = 0: owned
+// slices, n_tiles blocks of tile_w segments (n_parts unused), partials
+// holding n_segments * (9 + n_hist) floats (the raw sums).  clustered = 1:
+// grid (n_parts, n_tiles), n_parts a multiple of kCluster; with n_parts >
+// kCluster, partials holds (n_parts / kCluster) * n_segments * (9 +
+// n_hist) floats.
 extern "C" int anomod_replay_dense(const void* sid, const void* planes,
                                    long long n, int n_segments, int n_hist,
                                    int inner_repeats, int clustered,
                                    int n_parts, int n_tiles, int tile_w,
                                    void* partials, void* out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int F = kPlanes + n_hist;
   const int smem = tile_w * dense_stride(n_hist) * (int)sizeof(float);
   const int* s = static_cast<const int*>(sid);
   const float* p = static_cast<const float*>(planes);
   float* o = static_cast<float*>(out);
   if (!clustered) {
     dense_slice_fold<<<n_tiles, kSliceThreads, 0, st>>>(
-        s, p, n, n_segments, n_hist, tile_w, inner_repeats, o);
+        s, p, n, n_segments, n_hist, tile_w, inner_repeats,
+        static_cast<float*>(partials), o);
     return (int)cudaGetLastError();
   }
   if (n_parts < kCluster || n_parts % kCluster) return (int)cudaErrorInvalidValue;
@@ -703,14 +733,14 @@ extern "C" int anomod_replay_dense(const void* sid, const void* planes,
                               smem);
   if (e == cudaSuccess)
     e = cudaLaunchKernelEx(&cfg, dense_cluster_fold, s, p, n, n_segments,
-                           n_hist, tile_w, per_part, inner_repeats, dst);
+                           n_hist, tile_w, per_part, inner_repeats,
+                           (int)(n_groups == 1), dst);
   if (e != cudaSuccess) return (int)e;
   e = cudaGetLastError();
   if (e != cudaSuccess || n_groups == 1) return (int)e;
-  const long long len = (long long)n_segments * F;
-  dense_reduce<<<reduce_blocks(len % 4 ? len : len / 4), kReduceThreads, 0,
-                 st>>>(
-      static_cast<const float*>(partials), n_groups, len, o);
+  dense_reduce<<<reduce_blocks((long long)n_segments * (kPlanes + n_hist)),
+                 kReduceThreads, 0, st>>>(
+      static_cast<const float*>(partials), n_groups, n_segments, n_hist, o);
   return (int)cudaGetLastError();
 }
 

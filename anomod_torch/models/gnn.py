@@ -11,10 +11,11 @@ with ``index_add_`` (segment sum) and ``scatter_reduce_(reduce="amax")``
 messages flow both ways through the symmetrized edge list.
 
 Parameters start as flax initializes them, drawn from an explicit
-``torch.Generator`` (:func:`init_params`): dense kernels ``lecun_normal``
-(a normal truncated at two standard deviations, std
-``sqrt(1 / fan_in) / 0.87962566``), biases zero, GAT's attention vectors
-``glorot_uniform``.  ``state.params_from_flax`` carries a flax tree across.
+``torch.Generator`` (:func:`init_params`, which every family's model
+shares): dense kernels ``lecun_normal`` (a normal truncated at two
+standard deviations, std ``sqrt(1 / fan_in) / 0.87962566``), biases zero,
+GAT's attention vectors ``glorot_uniform``.  ``state.params_from_flax``
+carries a flax tree across.
 """
 
 from __future__ import annotations
@@ -229,15 +230,26 @@ def _trunc_normal_(t: torch.Tensor, std: float, gen: torch.Generator):
         t.copy_(v.clamp(-2.0 * std, 2.0 * std))
 
 
+def lecun_normal_(t: torch.Tensor, fan_in: int, gen: torch.Generator):
+    """flax's ``lecun_normal``: a normal truncated at two of its scales,
+    scaled so that its variance is ``1 / fan_in``."""
+    _trunc_normal_(t, math.sqrt(1.0 / fan_in) / _TRUNC_STD, gen)
+
+
 @torch.no_grad()
 def init_params(model: nn.Module, gen: torch.Generator) -> nn.Module:
     """Draw every parameter of ``model`` (on the host, from ``gen``) as
     flax initializes it, then copy it to the parameter's device; returns
-    ``model``.  The draw order is the modules' registration order."""
+    ``model``.  The draw order is the modules' registration order.  A
+    module draws its own parameters (not its children's) where it has a
+    ``draw_params(gen)`` method; dense layers and GAT's attention vectors
+    are drawn here."""
     for mod in model.modules():
-        if isinstance(mod, Dense):
+        if hasattr(mod, "draw_params"):
+            mod.draw_params(gen)
+        elif isinstance(mod, Dense):
             w = torch.empty(mod.weight.shape)
-            _trunc_normal_(w, math.sqrt(1.0 / w.shape[1]) / _TRUNC_STD, gen)
+            lecun_normal_(w, w.shape[1], gen)
             mod.weight.copy_(w)
             if mod.bias is not None:
                 mod.bias.zero_()

@@ -6,7 +6,13 @@ and ``replay_sorted`` replaces ``make_pallas_replay_sorted_fn``
 ``[SW, 6+H]`` sum of each span's payload row — the three exact planes
 (valid, err, 5xx), the three latency moments rounded through the bf16
 hi/lo split, and a log-latency histogram one-hot — dropping the dead
-padding lane ``sid == SW``.  ``replay_sorted_ablation`` replaces the
+padding lane ``sid == SW``.  The dense fold carries each moment's bf16
+hi and lo halves as separate columns (``9 + H`` a row, the TPU kernel's
+``_build_rhs_t`` rows) and adds the two sums only after the fold
+(:func:`recombine_moments`, the TPU kernel's ``_recombine_moments``), so
+its plain version on the CPU equals the JAX chunk step bit for bit.  The
+sorted kernel adds ``hi + lo`` a span (:func:`sorted_payload`): no
+detector reads it.  ``replay_sorted_ablation`` replaces the
 roofline probe's ``make_ablation`` (scripts/bench_kernel_roofline.py:73):
 the sorted kernel with its payload cut to the count row (``counts``) or
 to the exact planes and the separate hi and lo moment rows (``no_hist``),
@@ -29,8 +35,10 @@ Tolerance: the count / err / 5xx / histogram planes are small-integer f32
 sums, exact in any add order below 2^24 per segment (the dense kernel's
 corpus plan sets a row's count as its histogram row's sum: the same
 integer).  The moment planes are f32 sums whose order differs between the
-kernel (atomics), the plain version (``index_add_``) and the JAX kernels,
-so they agree to ``rtol=1e-5, atol=1e-3``.
+kernel (atomics), the plain version (``index_add_``) and the TPU kernels,
+so they agree to ``rtol=1e-5, atol=1e-3``.  On the CPU, ``index_add_``
+adds in row order, as the JAX CPU chunk step does, so the plain dense fold
+equals it bit for bit (``tests/test_torch_replay_kernels.py``).
 """
 
 from __future__ import annotations
@@ -44,6 +52,9 @@ import torch
 
 PLANES = ("valid", "err", "s5", "dur_raw", "dur", "dur2")
 N_PLANES = len(PLANES)
+#: payload columns a span carries into the dense fold: exact (valid, err,
+#: 5xx), moment hi x3, moment lo x3; the histogram one-hot follows
+N_PAYLOAD = 9
 
 #: shared-memory budget of one dense cluster-plan block (H100: 227 KB)
 DENSE_SMEM_BYTES = 200 * 1024
@@ -77,32 +88,52 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
 
 
 def replay_payload(planes: torch.Tensor, n_hist: int) -> torch.Tensor:
-    """The ``[N, 6+H]`` per-span payload rows the kernels fold, rounded as
-    the TPU kernel's bf16 right-hand side (``_build_rhs_t``): bf16 exact
-    planes, each moment as ``bf16(m) + bf16(m - bf16(m))`` in f32, and
-    ``bf16(valid)`` at histogram bucket ``clamp(int(dur), 0, H-1)``."""
-    exact = _bf16(planes[0:3])
-    mom = planes[3:6]
+    """``planes f32[..., 6, N]`` -> the ``[..., N, 9+H]`` per-span payload
+    rows the dense fold sums, rounded as the TPU kernel's bf16 right-hand
+    side (``_build_rhs_t``) and the JAX scatter engine's ``_scatter_rhs``:
+    bf16 exact planes, each moment's ``bf16(m)`` and ``bf16(m - bf16(m))``
+    as separate columns, and ``bf16(valid)`` at histogram bucket
+    ``clamp(int(dur), 0, H-1)``."""
+    p = planes.transpose(-1, -2)
+    exact = _bf16(p[..., 0:3])
+    mom = p[..., 3:6]
     hi = _bf16(mom)
-    moments = hi + _bf16(mom - hi)
-    bucket = planes[4].to(torch.int32).clamp(0, n_hist - 1).long()
-    hist = torch.zeros((n_hist, planes.shape[1]), dtype=torch.float32,
+    lo = _bf16(mom - hi)
+    bucket = p[..., 4].to(torch.int32).clamp(0, n_hist - 1).long()
+    hist = torch.zeros(p.shape[:-1] + (n_hist,), dtype=torch.float32,
                        device=planes.device)
-    hist.scatter_(0, bucket[None], exact[0:1])
-    return torch.cat([exact, moments, hist]).T
+    hist.scatter_(-1, bucket[..., None], exact[..., 0:1])
+    return torch.cat([exact, hi, lo, hist], dim=-1)
+
+
+def recombine_moments(acc: torch.Tensor) -> torch.Tensor:
+    """Sums of :func:`replay_payload` rows, ``[..., 9+H]`` -> ``[...,
+    6+H]``: each moment's hi sum plus its lo sum, one f32 add a cell, after
+    the fold (``_recombine_moments`` / ``_split_acc``)."""
+    return torch.cat([acc[..., 0:3], acc[..., 3:6] + acc[..., 6:9],
+                      acc[..., 9:]], dim=-1)
+
+
+def sorted_payload(planes: torch.Tensor, n_hist: int) -> torch.Tensor:
+    """The ``[N, 6+H]`` rows the sorted kernel sums: each moment as ``hi +
+    lo`` in f32 a span.  The sorted kernel feeds the throughput probes
+    alone, no detector, so it keeps the narrower row that its shared
+    accumulator and run sums were sized for."""
+    return recombine_moments(replay_payload(planes, n_hist))
 
 
 def replay_dense_plain(sid: torch.Tensor, planes: torch.Tensor,
                        n_segments: int, n_hist: int,
                        inner_repeats: int = 1) -> torch.Tensor:
-    """Plain PyTorch version of :func:`replay_dense`."""
+    """Plain PyTorch version of :func:`replay_dense`: an ``index_add_`` of
+    the ``9+H`` payload, then :func:`recombine_moments`."""
     payload = replay_payload(planes, n_hist)
-    acc = torch.zeros((n_segments + 1, N_PLANES + n_hist),
+    acc = torch.zeros((n_segments + 1, N_PAYLOAD + n_hist),
                       dtype=torch.float32, device=planes.device)
     idx = sid.long()
     for _ in range(inner_repeats):
         acc.index_add_(0, idx, payload)
-    return acc[:n_segments]
+    return recombine_moments(acc[:n_segments])
 
 
 def sorted_global_ids(sid_local: torch.Tensor, wids: torch.Tensor, k: int,
@@ -116,7 +147,7 @@ def replay_sorted_plain(sid_local: torch.Tensor, planes: torch.Tensor,
                         k: int = 128, block: int = 4096,
                         inner_repeats: int = 1) -> torch.Tensor:
     """Plain PyTorch version of :func:`replay_sorted`."""
-    return _sorted_fold_plain(replay_payload(planes, n_hist), sid_local,
+    return _sorted_fold_plain(sorted_payload(planes, n_hist), sid_local,
                               wids, n_segments, k, block,
                               inner_repeats)[:n_segments]
 
@@ -249,9 +280,9 @@ class DensePlan(NamedTuple):
 
 
 def dense_stride(n_hist: int) -> int:
-    """Floats a row of the dense kernel's shared accumulator: ``6 + H``
+    """Floats a row of the dense kernel's shared accumulator: ``9 + H``
     padded to an odd count (``dense_stride`` in ``csrc/replay.cu``)."""
-    return (N_PLANES + n_hist) | 1
+    return (N_PAYLOAD + n_hist) | 1
 
 
 def dense_plan(n: int, n_segments: int, n_hist: int, n_sm: int,
@@ -301,7 +332,9 @@ def replay_dense(sid: torch.Tensor, planes: torch.Tensor, n_segments: int,
                  n_hist: int, inner_repeats: int = 1) -> torch.Tensor:
     """``sid int32[N]``, ``planes f32[6, N]`` -> ``agg f32[SW, 6+H]``.
 
-    ``sid`` may hold ``n_segments`` (the dead padding lane, dropped).
+    ``sid`` may hold ``n_segments`` (the dead padding lane, dropped).  The
+    kernel sums the ``9+H`` payload (hi and lo apart) and adds each
+    moment's two sums as it writes ``agg``.
     ``inner_repeats`` folds the same spans that many times in one launch.
     CPU tensors take :func:`replay_dense_plain`."""
     n = sid.shape[0]
@@ -316,14 +349,18 @@ def replay_dense(sid: torch.Tensor, planes: torch.Tensor, n_segments: int,
     dev = sid.device
     index = dev.index if dev.index is not None else \
         torch.cuda.current_device()
-    F = N_PLANES + n_hist
     plan = dense_plan(n, n_segments, n_hist, _sm_count(index),
                       functools.partial(_cluster_capacity, index))
-    out = torch.empty((n_segments, F), dtype=torch.float32, device=dev)
-    partials = out                     # not read unless n_groups > 1
-    if plan.n_groups > 1:
-        partials = torch.empty(plan.n_groups * n_segments * F,
-                               dtype=torch.float32, device=dev)
+    out = torch.empty((n_segments, N_PLANES + n_hist), dtype=torch.float32,
+                      device=dev)
+    # the raw [SW, 9+H] sums (hi and lo apart): the owned slices' L2
+    # accumulator, or one plane a cluster when several are summed (a
+    # lone cluster writes ``out`` as it sums its members)
+    partials = out
+    if not plan.clustered or plan.n_groups > 1:
+        partials = torch.empty(
+            plan.n_groups * n_segments * (N_PAYLOAD + n_hist),
+            dtype=torch.float32, device=dev)
     err = lib.anomod_replay_dense(
         _ptr(sid), _ptr(planes), n, n_segments, n_hist, inner_repeats,
         int(plan.clustered), plan.n_parts, plan.n_tiles, plan.tile_w,

@@ -40,12 +40,10 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from anomod_torch.ops.replay_kernels import (N_PLANES, _bf16, _check,
-                                             _on_cuda, _ptr, _stream)
-
-#: payload columns a span carries into the lane sums: exact (valid, err,
-#: 5xx), moment hi x3, moment lo x3; the histogram one-hot follows
-N_PAYLOAD = 9
+from anomod_torch.ops.replay_kernels import (N_PAYLOAD, N_PLANES, _check,
+                                             _on_cuda, _ptr, _stream,
+                                             recombine_moments,
+                                             replay_payload)
 
 #: kernel launches per wrapper, counted where the wrapper launches its
 #: kernel and nowhere else (a CPU tensor takes the plain version: no count)
@@ -70,23 +68,6 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
-def lane_payload(planes: torch.Tensor, n_hist: int) -> torch.Tensor:
-    """``planes f32[L, 6, W]`` -> the ``[L, W, 9+H]`` payload rows of the
-    scatter engine (``_scatter_rhs``): bf16 exact planes, bf16 hi and lo
-    of each moment, and ``bf16(valid)`` at histogram bucket
-    ``clamp(int(dur), 0, H-1)``."""
-    p = planes.transpose(1, 2)                         # [L, W, 6]
-    exact = _bf16(p[..., 0:3])
-    mom = p[..., 3:6]
-    hi = _bf16(mom)
-    lo = _bf16(mom - hi)
-    bucket = p[..., 4].to(torch.int32).clamp(0, n_hist - 1).long()
-    hist = torch.zeros(p.shape[:2] + (n_hist,), dtype=torch.float32,
-                       device=planes.device)
-    hist.scatter_(2, bucket[..., None], exact[..., 0:1])
-    return torch.cat([exact, hi, lo, hist], dim=-1)
-
-
 def lane_delta_plain(sid: torch.Tensor, planes: torch.Tensor,
                      n_segments: int, n_hist: int) -> torch.Tensor:
     """Plain PyTorch version of :func:`lane_delta`: one ``index_add_``
@@ -94,15 +75,13 @@ def lane_delta_plain(sid: torch.Tensor, planes: torch.Tensor,
     padding rows and is dropped)."""
     L, W = sid.shape
     SW1 = n_segments + 1
-    pay = lane_payload(planes, n_hist).reshape(L * W, N_PAYLOAD + n_hist)
+    pay = replay_payload(planes, n_hist).reshape(L * W, N_PAYLOAD + n_hist)
     lane = torch.arange(L, device=sid.device, dtype=torch.long)[:, None]
     idx = (lane * SW1 + sid.long()).reshape(-1)
     acc = torch.zeros((L * SW1, N_PAYLOAD + n_hist), dtype=torch.float32,
                       device=sid.device)
     acc.index_add_(0, idx, pay)
-    acc = acc.reshape(L, SW1, -1)[:, :n_segments]
-    return torch.cat([acc[..., 0:3], acc[..., 3:6] + acc[..., 6:9],
-                      acc[..., 9:]], dim=-1)
+    return recombine_moments(acc.reshape(L, SW1, -1)[:, :n_segments])
 
 
 def window_gather_plain(pool: torch.Tensor, slots: torch.Tensor,

@@ -1,4 +1,4 @@
-"""RCA training/eval harness: GNNs trained on chaos fault labels
+"""RCA training/eval harness: scorers trained on chaos fault labels
 (counterpart of ``anomod/rca.py``; flax/optax -> ``nn.Module`` /
 ``torch.optim``).
 
@@ -16,7 +16,8 @@ card raises: there is no fallback to the host.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import (Callable, Dict, Iterator, List, Mapping, Optional,
+                    Sequence, Tuple, Union)
 
 import numpy as np
 import torch
@@ -25,7 +26,10 @@ import torch.nn.functional as F
 from anomod_torch import detect, labels as labels_mod, synth
 from anomod_torch.device import DeviceLike, resolve_device
 from anomod_torch.graph import build_service_graph
-from anomod_torch.models.gnn import GAT, GCN, GraphSAGE, init_params
+from anomod_torch.models import (GAT, GCN, GraphSAGE, LineGraphRCA,
+                                 MoERCA, TemporalGCN, TemporalLRU,
+                                 TraceTransformer)
+from anomod_torch.models.gnn import init_params
 from anomod_torch.rca_features import (edge_feature_block, pad_edge_arrays,
                                        windowed_features)
 from anomod_torch.replay import ReplayConfig
@@ -33,10 +37,16 @@ from anomod_torch.utils.checkpoint import (has_checkpoint,
                                            restore_train_state,
                                            save_train_state)
 
-#: the model families the port has, at the CLI's widths (GCN 2 x 64,
-#: GraphSAGE 2 x 64, GAT 2 x 32 x 4 heads); the JAX package's other five
-#: come with its temporal and sequence models
-MODELS = {"gcn": GCN, "gat": GAT, "sage": GraphSAGE}
+#: the model families, at the JAX package's widths (GCN 2 x 64, GraphSAGE
+#: 2 x 64, GAT 2 x 32 x 4 heads; GRU and LRU 64 with a 2 x 64 GCN head;
+#: transformer, MoE and line graph d 48, 2 layers, 4 heads / 8 experts
+#: top-2, MLP 96, head 64)
+MODELS = {"gcn": GCN, "gat": GAT, "sage": GraphSAGE,
+          "temporal": TemporalGCN, "lru": TemporalLRU,
+          "transformer": TraceTransformer, "moe": MoERCA,
+          "linegraph": LineGraphRCA}
+#: the families that score the fused windowed input ``[B, S, W, Ft + F]``
+TEMPORAL = ("temporal", "lru", "transformer", "moe")
 
 
 @dataclasses.dataclass
@@ -266,30 +276,84 @@ def rca_loss(scores: torch.Tensor, batch: Dict[str, torch.Tensor]
     return rca + 0.3 * det
 
 
-def make_model(model_name: str, in_features: int) -> torch.nn.Module:
-    """The named scorer of :data:`MODELS`, parameters not yet drawn
-    (:func:`init_model`); raises ``ValueError`` for another name."""
+def _check_model(model_name: str) -> None:
     if model_name not in MODELS:
         raise ValueError(f"model {model_name!r} is not ported (have: "
                          f"{', '.join(MODELS)})")
-    return MODELS[model_name](in_features)
 
 
-def init_model(model_name: str, in_features: int, seed: int = 0,
+def _widths(model_name: str,
+            shapes: Union[int, Mapping[str, np.ndarray]]) -> dict:
+    """The constructor's widths of ``model_name`` from ``shapes``: the
+    feature count of ``x`` (enough for the GNNs), or a batch (stacked or
+    one sample) whose arrays give every family its widths."""
+    if isinstance(shapes, int):
+        if model_name in ("gcn", "gat", "sage"):
+            return {"in_features": shapes}
+        raise ValueError(f"model {model_name!r} takes its widths from a "
+                         "batch's arrays, not a feature count")
+    n_services, n_static = shapes["x"].shape[-2:]
+    n_temporal = shapes["x_t"].shape[-1]
+    if model_name in ("gcn", "gat", "sage"):
+        return {"in_features": n_static}
+    if model_name in ("temporal", "lru"):
+        return {"in_features": n_temporal + n_static}
+    if model_name in ("transformer", "moe"):
+        return {"in_features": n_temporal + n_static,
+                "n_services": n_services}
+    if "edge_x" not in shapes:
+        raise ValueError(_NEEDS_EDGE_X)
+    return {"static_features": n_static, "temporal_features": n_temporal,
+            "n_services": n_services,
+            "edge_features": shapes["edge_x"].shape[-1]}
+
+
+def make_model(model_name: str,
+               shapes: Union[int, Mapping[str, np.ndarray]]
+               ) -> torch.nn.Module:
+    """The named scorer of :data:`MODELS`, parameters not yet drawn
+    (:func:`init_model`), at the widths of ``shapes``: the feature count
+    of ``x`` for the GNNs, else a batch's (or one sample's) arrays.
+    Raises ``ValueError`` for another name."""
+    _check_model(model_name)
+    return MODELS[model_name](**_widths(model_name, shapes))
+
+
+def init_model(model_name: str,
+               shapes: Union[int, Mapping[str, np.ndarray]], seed: int = 0,
                device: DeviceLike = None) -> torch.nn.Module:
     """:func:`make_model` with its parameters drawn flax-style from
     ``torch.Generator().manual_seed(seed)`` on the host, then moved to
     ``device``: the same draw on every device."""
-    model = init_params(make_model(model_name, in_features),
+    model = init_params(make_model(model_name, shapes),
                         torch.Generator().manual_seed(seed))
     return model.to(resolve_device(device))
 
 
+_NEEDS_EDGE_X = ("the linegraph model needs per-edge features "
+                 "(build_dataset(edge_features=True) / quality sweeps with "
+                 "edge_aware)")
+
+
 def apply_model(model_name: str, model: torch.nn.Module,
                 batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """[B, S] culprit logits of a batch."""
+    """[B, S] culprit logits of a batch.  The temporal and sequence
+    families score the windowed features with the static ones repeated
+    into every window (``[B, S, W, Ft + F]``); the line graph reads the
+    per-edge features too and raises without them."""
     if model_name == "gcn":
         return model(batch["x"], batch["adj"])
+    if model_name == "linegraph":
+        if "edge_x" not in batch:
+            raise ValueError(_NEEDS_EDGE_X)
+        return model(batch["x"], batch["x_t"], batch["edge_x"],
+                     batch["edge_src"], batch["edge_dst"], batch["edge_mask"])
+    if model_name in TEMPORAL:
+        x_t = batch["x_t"]
+        fused = torch.cat(
+            [x_t, batch["x"][:, :, None, :].expand(-1, -1, x_t.shape[2], -1)],
+            dim=-1)
+        return model(fused, batch["adj"])
     return model(batch["x"], batch["edge_src"], batch["edge_dst"],
                  batch["edge_mask"])
 
@@ -341,12 +405,16 @@ class TrainResult:
 
 
 def prepare_data(testbed: str, train_seeds: Sequence[int],
-                 eval_seeds: Sequence[int], n_traces: int = 80
+                 eval_seeds: Sequence[int], n_traces: int = 80,
+                 edge_features: bool = False
                  ) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]]:
     """The stacked, standardized ``(train, eval)`` batches of
-    :func:`train_rca` (host numpy; built once, reusable across models)."""
-    train_samples, _ = build_dataset(testbed, train_seeds, n_traces)
-    eval_samples, _ = build_dataset(testbed, eval_seeds, n_traces)
+    :func:`train_rca` (host numpy; built once, reusable across models;
+    ``edge_features`` for the line graph)."""
+    train_samples, _ = build_dataset(testbed, train_seeds, n_traces,
+                                     edge_features=edge_features)
+    eval_samples, _ = build_dataset(testbed, eval_seeds, n_traces,
+                                    edge_features=edge_features)
     e_max = max(train_samples[0].edge_src.shape[0],
                 eval_samples[0].edge_src.shape[0])
     repad_edges(train_samples, e_max)
@@ -415,17 +483,21 @@ def train_rca(testbed: str = "TT", model_name: str = "gcn",
               checkpoint_dir=None, resume: bool = False,
               save_every: int = 50,
               device: DeviceLike = None) -> TrainResult:
-    """Train a GNN RCA scorer on chaos labels; report held-out top-k.
+    """Train an RCA scorer of :data:`MODELS` on chaos labels; report
+    held-out top-k.
 
     The entry point of the ``rca`` command: builds the dataset on the
-    host, draws the model's parameters from ``torch.Generator`` seed 0
-    (the JAX package's ``PRNGKey(0)``), trains on ``device`` (``cuda`` unless ``cpu`` is asked for) and
-    evaluates on ``eval_seeds``.  ``checkpoint_dir`` / ``resume`` /
-    ``save_every`` as in :func:`fit`."""
+    host (with the per-edge features for ``linegraph``, as the JAX
+    package does), draws the model's parameters from ``torch.Generator``
+    seed 0 (the JAX package's ``PRNGKey(0)``), trains on ``device``
+    (``cuda`` unless ``cpu`` is asked for) and evaluates on
+    ``eval_seeds``.  ``checkpoint_dir`` / ``resume`` / ``save_every`` as
+    in :func:`fit`."""
     dev = resolve_device(device)
-    make_model(model_name, 1)            # an unported name raises here
-    train, evalb = prepare_data(testbed, train_seeds, eval_seeds, n_traces)
-    model = init_model(model_name, train["x"].shape[-1], 0, dev)
+    _check_model(model_name)
+    train, evalb = prepare_data(testbed, train_seeds, eval_seeds, n_traces,
+                                edge_features=model_name == "linegraph")
+    model = init_model(model_name, train, 0, dev)
     return fit(model_name, train, evalb, model, epochs=epochs, lr=lr,
                verbose=verbose, checkpoint_dir=checkpoint_dir, resume=resume,
                save_every=save_every,

@@ -29,8 +29,9 @@ import torch
 from anomod_torch import obs
 from anomod_torch.device import DeviceLike, device_name, resolve_device
 from anomod_torch.ops.hll import hll_add, hll_estimate, hll_init
-from anomod_torch.ops.replay_kernels import (PLANES, replay_dense,
-                                             replay_payload, replay_sorted,
+from anomod_torch.ops.replay_kernels import (PLANES, recombine_moments,
+                                             replay_dense, replay_payload,
+                                             replay_sorted,
                                              stage_sorted_planes)
 from anomod_torch.ops.serve_kernels import lane_delta, window_gather
 from anomod_torch.ops.tdigest import (TDigest, tdigest_by_segment,
@@ -438,8 +439,10 @@ def make_replay_fn(cfg: ReplayConfig, inner_repeats: int = 1,
 def make_matmul_replay_fn(cfg: ReplayConfig, inner_repeats: int = 1,
                           device: DeviceLike = None):
     """The one-hot formulation (counterpart of the JAX ``matmul`` chunk
-    step): per chunk, a ``[C, SW+1]`` one-hot contracted with the kernels'
-    ``[C, 6+H]`` rounded payload (``replay_payload``).  With TF32 off
+    step): per chunk, a ``[C, SW+1]`` one-hot contracted with the dense
+    fold's ``[C, 9+H]`` rounded payload (``replay_payload``), each
+    moment's hi and lo sums added after the product and the chunk's sums
+    then added to the state, as the JAX step does.  With TF32 off
     (PyTorch's default) every product is exact and the sums accumulate in
     f32, as the MXU's do."""
     device = resolve_device(device)
@@ -449,7 +452,7 @@ def make_matmul_replay_fn(cfg: ReplayConfig, inner_repeats: int = 1,
         chunks = _as_tensors(chunks, device)
         n_chunks, C = chunks["sid"].shape
         rows = torch.arange(C, device=device)
-        acc = torch.zeros((SW + 1, N_FEATS + H), dtype=torch.float32,
+        acc = torch.zeros((SW, N_FEATS + H), dtype=torch.float32,
                           device=device)
         for _ in range(inner_repeats):
             for i in range(n_chunks):
@@ -458,8 +461,9 @@ def make_matmul_replay_fn(cfg: ReplayConfig, inner_repeats: int = 1,
                 onehot = torch.zeros((C, SW + 1), dtype=torch.float32,
                                      device=device)
                 onehot[rows, sid.long()] = 1.0
-                acc += torch.matmul(onehot.T, replay_payload(planes, H))
-        return ReplayState(*_split(acc[:SW]))
+                acc += recombine_moments(torch.matmul(
+                    onehot.T, replay_payload(planes, H))[:SW])
+        return ReplayState(*_split(acc))
 
     return replay
 

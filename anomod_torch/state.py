@@ -7,10 +7,11 @@ and continue in the other.  The serve plane's tenant pool moves across
 whole with :func:`load_pool`, or tenant by tenant with
 :func:`load_tenant_states`.  A t-digest (``TDigest`` mean and weight
 ``[..., K]``) moves with :func:`from_numpy_digest` /
-:func:`to_numpy_digest`.  A GNN's flax parameter tree (nested dicts of
-numpy arrays, as ``flax.linen.Module.init`` returns them read back to the
-host) moves into the port's ``state_dict`` with :func:`params_from_flax`,
-and back with :func:`params_to_flax`.
+:func:`to_numpy_digest`.  An RCA model's flax parameter tree (nested dicts
+of numpy arrays, as ``flax.linen.Module.init`` returns them read back to
+the host), for any of the eight families, moves into the port's
+``state_dict`` with :func:`params_from_flax`, and back with
+:func:`params_to_flax`.
 """
 
 from __future__ import annotations
@@ -103,50 +104,118 @@ def to_numpy_digest(d: TDigest) -> TDigest:
     return TDigest(mean=host(d.mean), weight=host(d.weight))
 
 
-def _gnn_param_names(model_name: str, n_layers: int
-                     ) -> List[Tuple[str, Tuple[str, ...], bool]]:
-    """``(state_dict key, flax path, is a dense kernel)`` of every
-    parameter of the port's ``gcn`` / ``sage`` / ``gat`` model."""
-    def dense(key, *path, bias=True):
-        out = [(f"{key}.weight", path + ("kernel",), True)]
-        if bias:
-            out.append((f"{key}.bias", path + ("bias",), False))
-        return out
-    names = []
-    if model_name == "gcn":
-        for i in range(n_layers):
-            names += dense(f"layers.{i}.dense", f"GCNLayer_{i}", "Dense_0")
-        names += dense("out", "Dense_0")
-    elif model_name == "sage":
-        for i in range(n_layers):
-            names += dense(f"layers.{i}.self_dense", f"Dense_{2 * i}")
-            names += dense(f"layers.{i}.neigh_dense", f"Dense_{2 * i + 1}")
-        names += dense("out", f"Dense_{2 * n_layers}")
-    elif model_name == "gat":
-        for i in range(n_layers):
-            names += dense(f"layers.{i}.proj", f"GATLayer_{i}", "Dense_0",
-                           bias=False)
-            names += [(f"layers.{i}.{a}", (f"GATLayer_{i}", a), False)
-                      for a in ("a_src", "a_dst")]
-        names += dense("out", "Dense_0")
-    else:
-        raise ValueError(f"no flax mapping for model {model_name!r} "
-                         "(gcn | sage | gat)")
+#: a leaf's layout: a flax dense kernel ``[in, out]`` is the port's
+#: ``[out, in]`` weight (transposed); every other leaf keeps its layout
+KERNEL, AS_IS = True, False
+
+#: the flax module whose count gives each family's layer count
+_LAYER_PREFIX = {"gcn": "GCNLayer_", "gat": "GATLayer_",
+                 "transformer": "AttentionBlock_", "moe": "MoEBlock_",
+                 "linegraph": "AttentionBlock_"}
+
+
+def _dense(key: str, *path: str, bias: bool = True):
+    out = [(f"{key}.weight", path + ("kernel",), KERNEL)]
+    if bias:
+        out.append((f"{key}.bias", path + ("bias",), AS_IS))
+    return out
+
+
+def _layer_norm(key: str, *path: str):
+    return [(f"{key}.{leaf}", path + (leaf,), AS_IS)
+            for leaf in ("scale", "bias")]
+
+
+def _sequence_names(n_layers: int, block: str):
+    """The token embedding, ``n_layers`` blocks (``attention`` or
+    ``moe``) and the score head shared by the sequence families."""
+    names = _dense("embed.dense", "TokenEmbed_0", "Dense_0")
+    names.append(("embed.svc_emb", ("TokenEmbed_0", "svc_emb"), AS_IS))
+    for i in range(n_layers):
+        key = f"blocks.{i}"
+        if block == "attention":
+            p = f"AttentionBlock_{i}"
+            names += _layer_norm(f"{key}.ln0", p, "LayerNorm_0")
+            names += _dense(f"{key}.qkv", p, "Dense_0", bias=False)
+            names += _dense(f"{key}.proj", p, "Dense_1")
+            names += _layer_norm(f"{key}.ln1", p, "LayerNorm_1")
+            names += _dense(f"{key}.mlp_in", p, "Dense_2")
+            names += _dense(f"{key}.mlp_out", p, "Dense_3")
+        else:
+            p = f"MoEBlock_{i}"
+            names += _layer_norm(f"{key}.ln", p, "LayerNorm_0")
+            names += _dense(f"{key}.router", p, "router", bias=False)
+            names += [(f"{key}.{w}", (p, w), AS_IS)
+                      for w in ("w1", "b1", "w2", "b2")]
+    names += _layer_norm("head.ln", "ScoreHead_0", "LayerNorm_0")
+    names += _dense("head.dense", "ScoreHead_0", "Dense_0")
+    names += _dense("head.out", "ScoreHead_0", "Dense_1")
     return names
 
 
+def _param_names(model_name: str, n_layers: int
+                 ) -> List[Tuple[str, Tuple[str, ...], bool]]:
+    """``(state_dict key, flax path, is a dense kernel)`` of every
+    parameter of the port's model ``model_name``."""
+    names = []
+    if model_name == "gcn":
+        for i in range(n_layers):
+            names += _dense(f"layers.{i}.dense", f"GCNLayer_{i}", "Dense_0")
+        names += _dense("out", "Dense_0")
+    elif model_name == "sage":
+        for i in range(n_layers):
+            names += _dense(f"layers.{i}.self_dense", f"Dense_{2 * i}")
+            names += _dense(f"layers.{i}.neigh_dense", f"Dense_{2 * i + 1}")
+        names += _dense("out", f"Dense_{2 * n_layers}")
+    elif model_name == "gat":
+        for i in range(n_layers):
+            names += _dense(f"layers.{i}.proj", f"GATLayer_{i}", "Dense_0",
+                            bias=False)
+            names += [(f"layers.{i}.{a}", (f"GATLayer_{i}", a), AS_IS)
+                      for a in ("a_src", "a_dst")]
+        names += _dense("out", "Dense_0")
+    elif model_name in ("temporal", "lru"):
+        names += _dense("dense_in", "Dense_0")
+        if model_name == "temporal":
+            for key, gate in (("ir", "ir"), ("iz", "iz"), ("in_", "in")):
+                names += _dense(f"gru.{key}", "ScanGRUCell_0", gate)
+            for gate in ("hr", "hz", "hn"):
+                names += _dense(f"gru.{gate}", "ScanGRUCell_0", gate,
+                                bias=gate == "hn")
+        else:
+            names.append(("decay_logit", ("decay_logit",), AS_IS))
+        for i in range(2):
+            names += _dense(f"gcn.{i}.dense", f"GCNLayer_{i}", "Dense_0")
+        names += _dense("out", "Dense_1")
+    elif model_name in ("transformer", "linegraph"):
+        names += _sequence_names(n_layers, "attention")
+        if model_name == "linegraph":
+            for i, key in enumerate(("edge_in", "edge_hidden", "edge_out",
+                                     "mix_hidden", "mix_out")):
+                names += _dense(key, f"Dense_{i}")
+    elif model_name == "moe":
+        names += _sequence_names(n_layers, "moe")
+    else:
+        raise ValueError(f"no flax mapping for model {model_name!r}")
+    return names
+
+
+def _flax_layers(model_name: str, tree: dict) -> int:
+    if model_name == "sage":
+        return (sum(k.startswith("Dense_") for k in tree) - 1) // 2
+    prefix = _LAYER_PREFIX.get(model_name)
+    return sum(k.startswith(prefix) for k in tree) if prefix else 0
+
+
 def params_from_flax(model_name: str, params) -> Dict[str, torch.Tensor]:
-    """A flax parameter tree of the JAX package's ``gcn`` / ``sage`` /
-    ``gat`` (with or without its top ``"params"`` key; leaves numpy) -> a
+    """A flax parameter tree of the JAX package's model ``model_name``
+    (with or without its top ``"params"`` key; leaves numpy) -> a
     ``state_dict`` for the port's model of the same name.  A flax kernel is
     ``[in, out]``; the port's dense weight is ``[out, in]``."""
     tree = params.get("params", params)
-    if model_name == "sage":
-        n_layers = (sum(k.startswith("Dense_") for k in tree) - 1) // 2
-    else:
-        n_layers = sum(k.startswith(("GCNLayer_", "GATLayer_")) for k in tree)
     out = {}
-    for key, path, kernel in _gnn_param_names(model_name, n_layers):
+    for key, path, kernel in _param_names(model_name,
+                                          _flax_layers(model_name, tree)):
         leaf = tree
         for p in path:
             leaf = leaf[p]
@@ -160,9 +229,9 @@ def params_to_flax(model_name: str, state_dict) -> dict:
     """The inverse of :func:`params_from_flax`: ``{"params": ...}`` with
     numpy leaves."""
     tree: dict = {}
-    n_layers = len({k.split(".")[1] for k in state_dict
-                    if k.startswith("layers.")})
-    for key, path, kernel in _gnn_param_names(model_name, n_layers):
+    layers = {k.split(".")[1] for k in state_dict
+              if k.startswith(("layers.", "blocks."))}
+    for key, path, kernel in _param_names(model_name, len(layers)):
         arr = state_dict[key].detach().cpu().numpy()
         node = tree
         for p in path[:-1]:

@@ -1479,22 +1479,25 @@ def stream_quality(testbed: str = "TT", n_traces: int = 400, seed: int = 0,
                    experiments: Optional[Sequence[str]] = None,
                    multimodal: bool = False, severity: float = 1.0,
                    noise: float = 0.0, n_confounders: int = 0,
-                   **detector_kw) -> List[dict]:
+                   shift: str = "in-dist", **detector_kw) -> List[dict]:
     """Streaming-mode quality over the fault taxonomy: one row per
     experiment with its alert timeline (``alerts``), ranked culprits,
     top-1/top-3 hits and signed detection latency in windows (fault onset
     = 600 s).  The corpus is ``rca.experiment_plan``'s, the offline
     quality sweep's: ``severity`` / ``noise`` de-saturate the generator
-    (``synth.HardMode``) and ``n_confounders`` plants decoy services.
+    (``synth.HardMode``), ``n_confounders`` plants decoy services and
+    ``shift`` names one of the sweep's shifted generators
+    (``quality.SHIFTS``: effect shape, fault timing, fault locus).
     ``multimodal`` generates each experiment's logs, metrics and API
     records and runs :func:`stream_experiment_multimodal`; otherwise only
     the spans are generated and :func:`stream_experiment` runs."""
     from anomod_torch import synth
+    from anomod_torch.quality import SHIFTS
     from anomod_torch.rca import experiment_plan
     cfg = detector_kw.get("cfg")
     win_us = cfg.window_us if cfg is not None else 60_000_000
     onset_w = int(600_000_000 // win_us)
-    hard = synth.HardMode(severity=severity, noise=noise)
+    hard = synth.HardMode(severity=severity, noise=noise, **SHIFTS[shift])
     rows = []
     for label, mode, gen_seed in experiment_plan(
             testbed, seed, hard=hard, n_confounders=n_confounders,

@@ -6,7 +6,7 @@
 Builds the port's CUDA kernels from ``anomod_torch/csrc/`` with nvcc and
 its host entries (``csrc/native.cpp``) with the host's C++ compiler,
 holds each kernel against its plain PyTorch version on the card, then
-drives the data layer and eight paths:
+drives the data layer and every ported path:
 
 - replay (phases 2-5), at the TT deployment's full width (45 services x
   32 windows x 16 buckets): the bench corpus replay (13 labels x 2000
@@ -86,7 +86,21 @@ drives the data layer and eight paths:
   1024 spans at SW = subsystems x 64, also through the kernel and its
   plain version alone; the alert scores of 20 kernel scorings within
   ``RTOL_SELFSCRAPE_CARD``), and the injected-stall registry through
-  the same round trip, alerting on ``serve`` alone.
+  the same round trip, alerting on ``serve`` alone;
+- the quality sweep (phase 18): ``severity_sweep("TT")`` at full width
+  and the CLI's defaults (60 traces, 120 epochs, noise 0.5, two
+  confounders) but 3 train and 2 eval seeds, over nine rows (the z-score
+  and stream baselines, GCN, GAT, GraphSAGE, the temporal GRU, the LRU, the
+  TraceTransformer, the MoE) at severities 1.0 and 0.12, its stream
+  row's ``dense_slice_fold`` launches counted, the training-free rows
+  held to the CPU twin's (run in a spawned process meanwhile), each
+  learned family's first 20 losses on the card held to the CPU's from
+  one draw, and each family's ms an epoch, device events and busy share
+  from one profiled epoch;
+- the edge-aware shift sweep (phase 19): ``shift_sweep("TT",
+  edge_aware=True)`` for the line graph and the transformer, in
+  distribution and under the edge-locus shift, with each family's
+  figures an epoch.
 
 Phase 1 also prints how each kernel's shared atomics compiled (from
 ``cuobjdump -sass``), and phase 2 what the L2 eviction before each timed
@@ -113,9 +127,9 @@ from pathlib import Path
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, f32 CUDA-core rate
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
-# f32 operations per span per fold in the kernels' payload: 6+H
-# accumulating adds, 9 bf16 roundings and subtractions for the hi/lo
-# split, 3 for the bucket
+# f32 operations per span per fold beside its accumulating adds (9+H in
+# the dense fold, hi and lo apart; 6+H in the sorted one): 9 bf16
+# roundings and subtractions for the hi/lo split, 3 for the bucket
 OPS_PER_SPAN_EXTRA = 12
 H = 16
 # on the card at bench scale a hot segment sums ~2e4 moment terms in f32,
@@ -293,15 +307,16 @@ def sass_atomics(lib_path):
     return out
 
 
-def bound(n_spans, n_out, n_dead=0):
+def bound(n_spans, n_out, n_dead=0, n_cols=6 + H):
     """(bound_ms, bound_by) of one fold of ``n_spans`` real spans: each
     input byte read once (sid + 6 planes, 28 B a span), each output byte
-    written once, against the f32 operations.  Padding that a kernel's
-    staging adds is not part of the function, so it is not counted.
-    ``n_dead`` dead rows that are part of the function's input (a lane's
-    dead tail) cost their 4 B sid alone: it is what tells them dead."""
+    written once, against the f32 operations (``n_cols`` accumulating
+    adds a span).  Padding that a kernel's staging adds is not part of the
+    function, so it is not counted.  ``n_dead`` dead rows that are part
+    of the function's input (a lane's dead tail) cost their 4 B sid
+    alone: it is what tells them dead."""
     t_bytes = (n_spans * 28 + n_dead * 4 + n_out * 4) / PEAK_BYTES_PER_S
-    t_ops = n_spans * (6 + H + OPS_PER_SPAN_EXTRA) / PEAK_F32_OPS_PER_S
+    t_ops = n_spans * (n_cols + OPS_PER_SPAN_EXTRA) / PEAK_F32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -362,15 +377,40 @@ RCA_PINS = {"n_rca_runs": 58, "rca_eligible": 1,
 #: last-bit difference could show
 ATOL_RCA_SCORE = 2e-6
 #: self-scrape alert scores, the kernel's scoring against the plain
-#: fold's on the card (``report_gap``): both add each row's ``hi + lo``
-#: moments, in another order, and a near-constant series' variance lifts
-#: the last-bit differences of those sums into z.  Read on an H100 (20
-#: kernel scorings of the stall registry): 0.0030-0.0231; none on the
-#: serve journal, which raises no alert
+#: fold's on the card (``report_gap``): both sum each moment's hi and lo
+#: halves apart, the kernel in its atomics' order, and a near-constant
+#: series' variance lifts the last-bit differences of those sums into z.
+#: Read on an H100 (20 kernel scorings of the stall registry): 0 in all
+#: twenty with the halves apart (0.0030-0.0231 when each row added
+#: ``hi + lo``); none on the serve journal, which raises no alert
 RTOL_SELFSCRAPE_CARD = 0.04
 #: kernel scorings of each self-scrape capture held to the plain fold's
 #: (the kernel's atomics add in another order each launch)
 SELFSCRAPE_REPEATS = 20
+#: the quality sweep on the card (phase 18): every row the CLI trains by
+#: default, the stream row and the z-score baseline, at full strength and
+#: at the hard point (severity 0.12 with the CLI's noise 0.5 and two
+#: confounders); every other argument at the CLI's defaults but the seeds:
+#: at its 6 train and 3 eval seeds the script ran 464-471 s, past its
+#: 420 s aim, so 3 train seeds (one a severity third) and 2 eval seeds
+SWEEP_MODELS = ("zscore", "stream", "gcn", "gat", "sage", "temporal", "lru",
+                "transformer", "moe")
+SWEEP_SEVERITIES = (1.0, 0.12)
+SWEEP_SEEDS = dict(train_seeds=range(3), eval_seeds=range(100, 102))
+#: the edge-aware shift sweep (phase 19)
+SHIFT_MODELS = ("linegraph", "transformer")
+SHIFT_SHIFTS = ("in-dist", "edge-locus")
+#: epochs of each learned family trained from one draw on the card and on
+#: the CPU, every loss within RTOL_SWEEP_LOSS of the first loss's
+#: magnitude: f32 on both (TF32 off), sums in each device's reduction
+#: order, and the rounding of those sums scales with their terms, which
+#: stay at the first epoch's scale while the loss itself falls toward 0
+#: as a model fits the batch (at 3 train seeds the transformer's reached
+#: 6e-4 by epoch 20, where the two devices' 1.5e-7 apart read 2.5e-4 of
+#: that epoch's own loss).  Read on an H100: the transformer's twenty at
+#: most 1.5e-6 of its first loss
+SWEEP_LOSS_EPOCHS = 20
+RTOL_SWEEP_LOSS = 1e-5
 
 
 @contextlib.contextmanager
@@ -639,7 +679,7 @@ def serve_phases(dev, card) -> dict:
     for kind, L, W in (("hot", 1, 16384), ("spread", 1, 16384),
                        ("hot", 32, 4096)):
         s, p = adversarial(kind, L, W) if kind != "spread" else lanes(L, W)
-        pay = sk.lane_payload(p, H).reshape(L * W, -1)
+        pay = rk.replay_payload(p, H).reshape(L * W, -1)
         idx = (torch.arange(L, device=dev)[:, None] * (SW + 1)
                + s.long()).reshape(-1)
         acc = torch.zeros((L * (SW + 1), pay.shape[1]), device=dev)
@@ -653,14 +693,14 @@ def serve_phases(dev, card) -> dict:
     s, p = lanes(32, 4096)
     lane_plain_ms = cuda_ms(lambda: sk.lane_delta_plain(s, p, SW, H),
                             iters=5)
-    pay = sk.lane_payload(p, H).reshape(32 * 4096, -1)
+    pay = rk.replay_payload(p, H).reshape(32 * 4096, -1)
     idx = (torch.arange(32, device=dev)[:, None] * (SW + 1)
            + s.long()).reshape(-1)
     acc = torch.zeros((32 * (SW + 1), pay.shape[1]), device=dev)
     lane_t = timed(lambda: sk.lane_delta(s, p, SW, H),
                    lambda: acc.index_add_(0, idx, pay))
     live = int((s < SW).sum())
-    lane_bound, lane_by = bound(live, 32 * SW * (6 + H),
+    lane_bound, lane_by = bound(live, 32 * SW * (6 + H), n_cols=9 + H,
                                 n_dead=s.numel() - live)
     log(f"[6] lane_delta W=4096 L=32: kernel {lane_t['ms']:.4f} ms, plain "
         f"{lane_plain_ms:.4f} ms, index_add_ {lane_t['library_ms']:.4f} ms, "
@@ -1011,7 +1051,7 @@ def dense_ends(dev, card) -> dict:
                 if not live:
                     check(not bool(got.any()), f"{what}: not all zero")
             payload = rk.replay_payload(planes, H)
-            acc = torch.zeros((sw + 1, 6 + H), device=dev)
+            acc = torch.zeros((sw + 1, rk.N_PAYLOAD + H), device=dev)
             idx = sid.long()
             out[f"{kind} N={n} SW={sw}"] = [
                 cuda_ms(lambda: rk.replay_dense(sid, planes, sw, H)),
@@ -2094,6 +2134,211 @@ def telemetry_phase(dev, card, plain_factory) -> dict:
                                       for v in out.values()))}
 
 
+def epoch_profile(name, train, dev, epochs=10) -> dict:
+    """One family's training on ``train`` at the sweep's setup (its draw
+    of seed 0, full-batch AdamW): ms an epoch over ``epochs`` un-profiled
+    epochs after a warm one, then one epoch under the profiler for its
+    device events and busy share."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from anomod_torch import rca
+    model = rca.init_model(name, train, seed=0, device=dev)
+    opt = rca.make_optimizer(model)
+    batch = rca.to_device(train, dev)
+    rca.train_loop(name, model, opt, batch, 0, 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rca.train_loop(name, model, opt, batch, 0, epochs)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / epochs * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        rca.train_loop(name, model, opt, batch, 0, 1)
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
+    busy = device_busy_ms(prof)
+    events = sum(1 for e in prof.events()
+                 if getattr(e, "device_type", None) == DeviceType.CUDA)
+    return dict(ms_per_epoch=ms, profiled_epoch_ms=prof_s * 1e3,
+                device_busy_ms=busy, device_events=events,
+                device_busy_share=None if busy is None
+                else busy / 1e3 / prof_s)
+
+
+def sweep_cpu_twin() -> tuple:
+    """The training-free rows of phase 18's sweep on the CPU, as dicts,
+    and their wall: run in a spawned process beside the card's sweep (it
+    needs no card, and on the host it takes about as long as the card's
+    whole sweep)."""
+    import dataclasses
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from anomod_torch import quality
+    t0 = time.perf_counter()
+    twin = quality.severity_sweep("TT", model_names=quality.TRAINING_FREE,
+                                  severities=SWEEP_SEVERITIES, device="cpu",
+                                  **SWEEP_SEEDS)
+    return [dataclasses.asdict(p) for p in twin], time.perf_counter() - t0
+
+
+def quality_phase(dev, card) -> dict:
+    """Phase 18: ``severity_sweep("TT")`` on the card at full width, every
+    learned family the CLI trains plus the stream row and the z-score
+    baseline, at severities 1.0 and 0.12 (the hard point), every other
+    argument at the CLI's defaults but the seeds (:data:`SWEEP_SEEDS`):
+    the table; the stream row's
+    ``dense_slice_fold`` launches counted; the training-free rows equal
+    to the same sweep's CPU twin (run in a spawned process meanwhile);
+    each learned family trained from one draw on the card and on the CPU
+    for :data:`SWEEP_LOSS_EPOCHS` epochs, the losses within
+    :data:`RTOL_SWEEP_LOSS` of the first; and each family's ms an
+    epoch, device events and busy share from one profiled epoch."""
+    import dataclasses
+    import multiprocessing
+
+    import numpy as np
+    import torch
+
+    from anomod_torch import quality, rca, synth
+    from anomod_torch.ops import replay_kernels as rk
+
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "quality: TF32 matmuls are on")
+    check(quality.HARD_POINT == {"severity": SWEEP_SEVERITIES[1],
+                                 "noise": 0.5, "n_confounders": 2},
+          f"quality: HARD_POINT {quality.HARD_POINT}")
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        twin_job = pool.apply_async(sweep_cpu_twin)
+        rk.reset_launches()
+        t0 = time.perf_counter()
+        pts = quality.severity_sweep("TT", model_names=SWEEP_MODELS,
+                                     severities=SWEEP_SEVERITIES, device=dev,
+                                     **SWEEP_SEEDS)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = rk.launches["replay_dense"]
+        t0 = time.perf_counter()
+        twin, twin_s = twin_job.get(timeout=900)
+        twin_wait_s = time.perf_counter() - t0
+    check(launches > 0, "quality: the stream row launched no "
+          "dense_slice_fold")
+    check(len(pts) == len(SWEEP_MODELS) * len(SWEEP_SEVERITIES),
+          f"quality: {len(pts)} points")
+    for p in pts:
+        check(0.0 <= p.top1 <= 1.0 and p.n_eval > 0,
+              f"quality: point {p}")
+    table = quality.render_markdown(pts)
+    for line in table.splitlines():
+        log(f"[18] {line}")
+    free = [dataclasses.asdict(p) for p in pts
+            if p.model in quality.TRAINING_FREE]
+    check(free == twin, f"quality: the training-free rows on the card "
+          f"{free} differ from the CPU twin's {twin}")
+    log(f"[18] severity sweep TT, {len(SWEEP_MODELS)} rows x "
+        f"{len(SWEEP_SEVERITIES)} severities in {wall_s:.3f} s on the card "
+        f"(corpora, training and scoring; the CPU twin running beside it); "
+        f"dense_slice_fold launches {launches} (the stream row); zscore "
+        f"and stream rows equal to the CPU twin's ({twin_s:.3f} s in its "
+        f"own process, {twin_wait_s:.3f} s waited for) on {card}")
+
+    eval_modes = {sev: synth.HardMode(severity=sev, noise=0.5)
+                  for sev in SWEEP_SEVERITIES}
+    t0 = time.perf_counter()
+    train, _ = quality._grid_batches(
+        "TT", eval_modes, SWEEP_SEEDS["train_seeds"],
+        SWEEP_SEEDS["eval_seeds"], 60, 0.5, 2)
+    build_s = time.perf_counter() - t0
+    log(f"[18] training batch {tuple(train['x'].shape)} x_t "
+        f"{tuple(train['x_t'].shape)}, edges {train['edge_src'].shape[1]}, "
+        f"rebuilt in {build_s:.3f} s on the host")
+    families = {}
+    for name in SWEEP_MODELS:
+        if name in quality.TRAINING_FREE:
+            continue
+        runs = {}
+        for where in (dev, torch.device("cpu")):
+            model = rca.init_model(name, train, seed=0, device=where)
+            t0 = time.perf_counter()
+            runs[where.type] = rca.train_loop(
+                name, model, rca.make_optimizer(model),
+                rca.to_device(train, where), 0, SWEEP_LOSS_EPOCHS)
+            runs[where.type + "_s"] = time.perf_counter() - t0
+        got, want = np.asarray(runs["cuda"]), np.asarray(runs["cpu"])
+        err = float(np.max(np.abs(got - want)) / abs(want[0]))
+        check(err <= RTOL_SWEEP_LOSS,
+              f"quality {name}: {SWEEP_LOSS_EPOCHS} losses on the card "
+              f"{got.tolist()} vs the CPU {want.tolist()} (max difference "
+              f"{err:.3g} of the first loss)")
+        prof = epoch_profile(name, train, dev)
+        families[name] = dict(
+            losses_max_rel_err=err,
+            first_loss=[float(got[0]), float(want[0])],
+            last_loss=[float(got[-1]), float(want[-1])],
+            cpu_s_for_loss_epochs=runs["cpu_s"], **prof)
+        log(f"[18] {name}: {SWEEP_LOSS_EPOCHS} losses card vs CPU, max "
+            f"difference {err:.3g} of the first loss (first "
+            f"{got[0]:.6f} / {want[0]:.6f}, last "
+            f"{got[-1]:.6f} / {want[-1]:.6f}; CPU {runs['cpu_s']:.3f} s); "
+            f"{prof['ms_per_epoch']:.3f} ms an epoch on the card; one "
+            f"profiled epoch {prof['profiled_epoch_ms']:.3f} ms, "
+            f"{prof['device_events']} device events, busy "
+            f"{prof['device_busy_ms']} ms, share "
+            f"{prof['device_busy_share']} on {card}")
+    return {"quality": dict(
+        points=[dataclasses.asdict(p) for p in pts], table=table,
+        wall_s=wall_s, cpu_twin_wall_s=twin_s, cpu_twin_wait_s=twin_wait_s,
+        dense_launches=launches,
+        batch_build_s=build_s, families=families)}
+
+
+def shift_phase(dev, card) -> dict:
+    """Phase 19: the edge-aware ``shift_sweep("TT")`` on the card
+    (out-edge blocks, per-edge features, node + edge training loci) for
+    the line graph and the transformer, in distribution and under the
+    edge-locus shift, every other argument at the CLI's defaults but the
+    seeds (:data:`SWEEP_SEEDS`): the table, and each family's ms an
+    epoch, device events and busy share from one profiled epoch on the
+    sweep's training batch."""
+    import dataclasses
+
+    import torch
+
+    from anomod_torch import quality, synth
+
+    t0 = time.perf_counter()
+    pts = quality.shift_sweep("TT", model_names=SHIFT_MODELS,
+                              shifts=SHIFT_SHIFTS, edge_aware=True,
+                              device=dev, **SWEEP_SEEDS)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    check(len(pts) == len(SHIFT_MODELS) * len(SHIFT_SHIFTS),
+          f"shift: {len(pts)} points")
+    for p in pts:
+        check(0.0 <= p.top1 <= 1.0 and p.n_eval > 0, f"shift: point {p}")
+    table = quality.render_shift_markdown(pts)
+    for line in table.splitlines():
+        log(f"[19] {line}")
+    modes = {name: synth.HardMode(severity=0.3, noise=0.5,
+                                  **quality.SHIFTS[name])
+             for name in SHIFT_SHIFTS}
+    train, _ = quality._grid_batches(
+        "TT", modes, SWEEP_SEEDS["train_seeds"], SWEEP_SEEDS["eval_seeds"],
+        60, 0.5, 2, edge_features=True, train_loci=("node", "edge"))
+    families = {}
+    for name in SHIFT_MODELS:
+        families[name] = prof = epoch_profile(name, train, dev)
+        log(f"[19] {name} (edge-aware batch {tuple(train['x_t'].shape)}, "
+            f"edges {train['edge_src'].shape[1]}): "
+            f"{prof['ms_per_epoch']:.3f} ms an epoch; one profiled epoch "
+            f"{prof['device_events']} device events, busy "
+            f"{prof['device_busy_ms']} ms, share "
+            f"{prof['device_busy_share']} on {card}")
+    log(f"[19] edge-aware shift sweep in {wall_s:.3f} s on the card")
+    return {"shift": dict(points=[dataclasses.asdict(p) for p in pts],
+                          table=table, wall_s=wall_s, families=families)}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2201,14 +2446,17 @@ def main() -> int:
     dense_plain_ms = cuda_ms(
         lambda: rk.replay_dense_plain(sid, planes, SW, H), iters=5)
     payload = rk.replay_payload(planes, H)
-    acc = torch.zeros((SW + 1, 6 + H), device=dev)
+    acc = torch.zeros((SW + 1, rk.N_PAYLOAD + H), device=dev)
     idx = sid.long()
     dense_t = timed(lambda: rk.replay_dense(sid, planes, SW, H),
                     lambda: acc.index_add_(0, idx, payload))
     dense_split = traced_ms(lambda: rk.replay_dense(sid, planes, SW, H),
                             DENSE_KERNELS)
-    # both kernels compute the same fold of the same real spans: one bound
-    fold_bound, fold_by = bound(n_real, SW * (6 + H))
+    # both kernels fold the same real spans into the same [SW, 6+H]
+    # plane; the dense fold adds hi and lo apart, 9+H columns a span
+    fold_bound, fold_by = bound(n_real, SW * (6 + H),
+                                n_cols=rk.N_PAYLOAD + H)
+    sorted_bound, sorted_by = bound(n_real, SW * (6 + H))
     log(f"[2] dense SW=1440: max_abs_err={dense_err:.3g} "
         f"kernel {dense_t['ms']:.4f} ms, plain {dense_plain_ms:.4f} ms, "
         f"index_add_ {dense_t['library_ms']:.4f} ms, bound "
@@ -2243,7 +2491,7 @@ def main() -> int:
     chunk_plain_ms = cuda_ms(
         lambda: rk.replay_dense_plain(c_sid, c_planes, ESW, H), iters=5)
     c_payload = rk.replay_payload(c_planes, H)
-    c_acc = torch.zeros((ESW + 1, 6 + H), device=dev)
+    c_acc = torch.zeros((ESW + 1, rk.N_PAYLOAD + H), device=dev)
     c_idx = c_sid.long()
     chunk_t = timed(lambda: rk.replay_dense(c_sid, c_planes, ESW, H),
                     lambda: c_acc.index_add_(0, c_idx, c_payload))
@@ -2251,7 +2499,8 @@ def main() -> int:
                             DENSE_KERNELS)
     c_live = int((c_sid < ESW).sum())
     chunk_bound, chunk_by = bound(c_live, ESW * (6 + H),
-                                  n_dead=ecfg.chunk_size - c_live)
+                                  n_dead=ecfg.chunk_size - c_live,
+                                  n_cols=rk.N_PAYLOAD + H)
     log(f"[2] dense SW={ESW}: max_abs_err={err_4320:.3g}; one "
         f"{ecfg.chunk_size}-span stream chunk ({c_live} live): kernel "
         f"{chunk_t['ms']:.4f} ms, plain {chunk_plain_ms:.4f} ms, index_add_ "
@@ -2298,7 +2547,7 @@ def main() -> int:
     sorted_plain_ms = cuda_ms(lambda: rk.replay_sorted_plain(
         *s_args, SW, H, block=block), iters=5)
     g_idx = rk.sorted_global_ids(s_args[0], s_args[2], 128, block)
-    s_payload = rk.replay_payload(s_args[1], H)
+    s_payload = rk.sorted_payload(s_args[1], H)
     s_acc = torch.zeros(((SW + 128) // 128 * 128, 6 + H), device=dev)
     def sorted_fn():
         return rk.replay_sorted(*s_args, SW, H, block=block)
@@ -2309,7 +2558,7 @@ def main() -> int:
         f"{sorted_err:.3g} kernel {sorted_t['ms']:.4f} ms (after a clean "
         f"read {flush['sorted'][1]:.4f}), plain {sorted_plain_ms:.4f} ms, "
         f"index_add_ {sorted_t['library_ms']:.4f} ms, bound "
-        f"{fold_bound:.6f} ms; unspun: {sorted_t['ms_unspun']:.4f}, "
+        f"{sorted_bound:.6f} ms; unspun: {sorted_t['ms_unspun']:.4f}, "
         f"{sorted_t['library_ms_unspun']:.4f}")
     again = rk.replay_sorted(*s_args, SW, H, block=block, inner_repeats=2)
     log(f"[3] sorted: two launches bit-identical: "
@@ -2399,6 +2648,9 @@ def main() -> int:
     rca16 = rca_serve_phase(dev, card)
     tele17 = telemetry_phase(dev, card, PlainFoldReplay)
     ss_launches = tele17["telemetry"]["selfscrape_dense_launches"]
+    q18 = quality_phase(dev, card)
+    q_launches = q18["quality"]["dense_launches"]
+    s19 = shift_phase(dev, card)
 
     # -- report -----------------------------------------------------------
     # the dense kernel's top-level times are the corpus pass's; each path
@@ -2406,10 +2658,12 @@ def main() -> int:
     corpus = dict(launches=launches["replay_dense"] - stream_launches,
                   plain_ms=dense_plain_ms, bound_ms=fold_bound,
                   bound_by=fold_by, traced=dense_split, **dense_t)
-    chunk = dict(launches=stream_launches + mm_launches + ss_launches,
+    chunk = dict(launches=stream_launches + mm_launches + ss_launches
+                 + q_launches,
                  span_stream_launches=stream_launches,
                  multimodal_stream_launches=mm_launches,
                  selfscrape_launches=ss_launches,
+                 quality_sweep_launches=q_launches,
                  plain_ms=chunk_plain_ms,
                  bound_ms=chunk_bound, bound_by=chunk_by,
                  traced=chunk_split, stream_trace_ms=chunk_trace_ms,
@@ -2418,7 +2672,8 @@ def main() -> int:
         {"name": "replay_dense", "route": "cuda",
          "source": "anomod_torch/csrc/replay.cu",
          "replaces": "anomod/ops/pallas_replay.py:85", "redesigned": "PR 6",
-         "launches": launches["replay_dense"] + mm_launches + ss_launches,
+         "launches": launches["replay_dense"] + mm_launches + ss_launches
+         + q_launches,
          "max_abs_err": max(dense_err, err_4320),
          **{k: corpus[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms", "ms_unspun",
@@ -2430,8 +2685,8 @@ def main() -> int:
          "source": "anomod_torch/csrc/replay.cu",
          "replaces": "anomod/ops/pallas_replay.py:257", "redesigned": "PR 5",
          "launches": launches["replay_sorted"], "max_abs_err": sorted_err,
-         "plain_ms": sorted_plain_ms, "bound_ms": fold_bound,
-         "bound_by": fold_by, **sorted_t},
+         "plain_ms": sorted_plain_ms, "bound_ms": sorted_bound,
+         "bound_by": sorted_by, **sorted_t},
     ] + serve.pop("kernels") + sketch.pop("kernels") + roof.pop("kernels")
     log(json.dumps({"replay_spans_per_sec": rates, "replicate": replicate,
                     "stream_top1": sum(hits) / len(hits),
@@ -2443,7 +2698,7 @@ def main() -> int:
                     "sorted_ends_ms": end_ms, "dense_ends_ms": dense_end_ms,
                     "l2_eviction_ms": flush, **data, **serve,
                     **sketch, **roof, **det13, **rca14, **mm15, **rca16,
-                    **tele17,
+                    **tele17, **q18, **s19,
                     "wall_s": time.perf_counter() - t_all}))
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -712,6 +712,62 @@ def test_gat_first_epoch_on_card_agrees_with_cpu(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("family", ["temporal", "lru", "transformer",
+                                    "moe", "linegraph"])
+def test_family_forward_backward_on_card_agrees_with_cpu(cuda_device,
+                                                         family):
+    """One generator draw on both devices for each family the quality
+    sweep adds: the forward within rtol 1e-5, the loss within rtol 1e-5
+    and every gradient within rtol 1e-4 (f32 with TF32 off; sums taken in
+    the card's reduction order)."""
+    from anomod_torch import rca
+    assert not torch.backends.cuda.matmul.allow_tf32
+    train, _ = rca.prepare_data("SN", range(2), [100], 20,
+                                edge_features=family == "linegraph")
+    models = {d: rca.init_model(family, train, seed=0, device=d)
+              for d in (cuda_device, torch.device("cpu"))}
+    out = {}
+    for dev, model in models.items():
+        batch = rca.to_device(train, dev)
+        scores = rca.apply_model(family, model, batch)
+        loss = rca.rca_loss(scores, batch)
+        loss.backward()
+        out[dev.type] = (scores.detach().cpu().numpy(), loss.item(),
+                         {k: p.grad.cpu().numpy()
+                          for k, p in model.named_parameters()})
+    (s_card, l_card, g_card), (s_cpu, l_cpu, g_cpu) = out["cuda"], out["cpu"]
+    np.testing.assert_allclose(s_card, s_cpu, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(l_card, l_cpu, rtol=1e-5)
+    for k, g in g_cpu.items():
+        np.testing.assert_allclose(g_card[k], g, rtol=1e-4,
+                                   atol=1e-6 * np.abs(g).max(), err_msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,sw", [(1024, 64), (4096, 4320)],
+                         ids=["selfscrape", "stream_chunk"])
+def test_dense_kernel_hi_lo_fold_on_crowded_chunks(cuda_device, n, sw):
+    """The widened dense fold (each moment's hi and lo sums apart, added
+    as the output is written) at the self-scrape's and the stream's chunk
+    shapes, the spans crowded onto 40 segments as a stream chunk's are:
+    against the plain version on the card and on the host (the JAX chunk
+    step's bits on the CPU), exact planes equal, moments within
+    tolerance."""
+    sid, planes = _inputs(n, sw, seed=n + 1)
+    hot = np.random.default_rng(n).integers(0, sw, 40)
+    sid = np.where(sid < sw, hot[sid % 40], sw).astype(np.int32)
+    s = torch.from_numpy(sid).to(cuda_device)
+    p = torch.from_numpy(planes).to(cuda_device)
+    got = rk.replay_dense(s, p, sw, H)
+    torch.cuda.synchronize()
+    assert not rk.dense_plan(n, sw, H, 132, lambda smem: 16).clustered
+    _assert_planes(got, rk.replay_dense_plain(s, p, sw, H))
+    _assert_planes(got, rk.replay_dense_plain(torch.from_numpy(sid),
+                                              torch.from_numpy(planes),
+                                              sw, H))
+
+
+@pytest.mark.cuda
 def test_multimodal_stream_on_card_equals_plain_fold(cuda_device):
     """The multimodal stream through the dense kernel against the same
     stream through its plain version on the card: alert lists, ranked

@@ -287,13 +287,12 @@ def test_spans_from_metrics_matches_jax():
 #: the port's self-scrape z-scores against the JAX package's: a series
 #: held near one value has a log-latency variance that is a small
 #: difference of two f32 moment sums (E[x^2] - E[x]^2), so the order of
-#: the adds moves z.  The JAX CPU scatter step sums a moment's bf16 hi and
-#: lo halves apart and adds the two sums; the port's plain fold adds
-#: ``hi + lo`` a row, as its kernel does.  Measured gap: 0.0508 on the
-#: stall registry (all six alerts), none on the healthy one (no alerts);
-#: :func:`test_jax_order_fold_reproduces_jax_reports` shows that the
-#: order is the whole cause
-RTOL_SELFSCRAPE_JAX = 0.06
+#: the adds moves z.  The port's dense fold, like the JAX CPU chunk step,
+#: sums a moment's bf16 hi and lo halves apart and adds the two sums after
+#: the fold, so the reports are equal: measured gap 0 on the stall
+#: registry (all six alerts) and on the healthy one.  (When the fold added
+#: ``hi + lo`` a row, the stall registry's gap was 0.0508.)
+RTOL_SELFSCRAPE_JAX = 0.0
 
 _SCORE_KW = dict(window_s=10.0, baseline_windows=4, z_threshold=4.0)
 
@@ -362,13 +361,15 @@ class _JaxOrderReplay(StreamReplay):
 @pytest.mark.parametrize("stall_after_s", [140.0, 1e9],
                          ids=["stall", "healthy"])
 def test_jax_order_fold_reproduces_jax_reports(tmp_path, stall_after_s):
-    """The cause of :data:`RTOL_SELFSCRAPE_JAX`: the port's detector with
-    a chunk fold that adds in the JAX order gives the JAX reports to the
-    last printed digit."""
-    got, want = _score_both(
-        tmp_path, stalled_registry(stall_after_s=stall_after_s),
-        stall_after_s, replay_factory=_JaxOrderReplay)
+    """Why :data:`RTOL_SELFSCRAPE_JAX` is 0: the port's detector with a
+    chunk fold written out in the JAX order gives the JAX reports to the
+    last printed digit, and so does the port's own fold."""
+    reg = stalled_registry(stall_after_s=stall_after_s)
+    got, want = _score_both(tmp_path, reg, stall_after_s,
+                            replay_factory=_JaxOrderReplay)
     assert got == want
+    assert score_self_scrape(tmp_path / "port.csv", device="cpu",
+                             **_SCORE_KW) == want
 
 
 # -- instrumented layers --------------------------------------------------------

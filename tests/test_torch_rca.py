@@ -37,6 +37,17 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = torch.device("cpu")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The suite runs its files in parallel workers; one intra-op thread
+    a worker keeps torch's CPU thread pools from oversubscribing the
+    cores (the models here are small enough to gain nothing from more)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def sn_data():
     """SN, 2 seeds x 20 traces, from both packages, stacked and
@@ -120,29 +131,34 @@ def _flax(name, train):
     return model, params
 
 
-def _carried(name, params, n_features):
-    tm = trca.make_model(name, n_features)
+def _carried(name, params, train):
+    tm = trca.make_model(name, train)
     tm.load_state_dict(params_from_flax(
         name, jax.tree_util.tree_map(np.asarray, params)))
     return tm
 
 
-@pytest.mark.parametrize("name", ["gcn", "sage", "gat"])
+@pytest.mark.parametrize("name", ["gcn", "sage", "gat", "temporal",
+                                  "transformer"])
 def test_forward_and_gradients_match_flax(sn_data, name):
+    """The GNNs, and a recurrent and an attention family on the same
+    node-feature dataset (every new family, the line graph with its
+    per-edge features, is held in ``tests/test_torch_models.py``)."""
     train = sn_data[4]
     model, params = _flax(name, train)
     jb = {k: jnp.asarray(v) for k, v in train.items()}
-    tm = _carried(name, params, train["x"].shape[-1])
+    tm = _carried(name, params, train)
     tb = trca.to_device(train, CPU)
-    want = np.asarray(jrca._apply_model(name, model, params, jb))
+    want = np.asarray(jax.jit(
+        lambda p: jrca._apply_model(name, model, p, jb))(params))
     got = trca.apply_model(name, tm, tb)
     assert got.shape == want.shape == (26, train["x"].shape[1])
     np.testing.assert_allclose(got.detach().numpy(), want, rtol=1e-5,
                                atol=1e-6)
 
-    jloss, jgrad = jax.value_and_grad(
+    jloss, jgrad = jax.jit(jax.value_and_grad(
         lambda p: jrca.rca_loss(jrca._apply_model(name, model, p, jb),
-                                jb))(params)
+                                jb)))(params)
     loss = trca.rca_loss(got, tb)
     loss.backward()
     np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-5)
@@ -185,7 +201,7 @@ def test_twenty_adamw_steps_match_optax(sn_data, name):
         jlosses.append(float(loss))
     want = np.asarray(jrca._apply_model(name, model, p, jb))
 
-    tm = _carried(name, params, train["x"].shape[-1])
+    tm = _carried(name, params, train)
     tb = trca.to_device(train, CPU)
     losses = trca.train_loop(name, tm, trca.make_optimizer(tm, 3e-3), tb,
                              0, 20)
@@ -271,7 +287,7 @@ def test_train_rca_sn_gcn_meets_the_jax_bar():
 
 def test_unported_model_and_missing_card_raise():
     with pytest.raises(ValueError, match="not ported"):
-        trca.train_rca("SN", "transformer", epochs=1, device="cpu")
+        trca.train_rca("SN", "mlp", epochs=1, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             trca.train_rca("SN", "gcn", epochs=1)
@@ -368,6 +384,6 @@ def test_cli_rca_prints_the_jax_keys(tmp_path):
         {"model": "sage", "testbed": "SN", "step": 5, "version": "v5"}
     bad = subprocess.run(
         [sys.executable, "-m", "anomod_torch", "rca", "--device", "cpu",
-         "--model", "lru"], cwd=REPO, capture_output=True, text=True,
+         "--model", "mlp"], cwd=REPO, capture_output=True, text=True,
         timeout=120)
     assert bad.returncode == 2 and "invalid choice" in bad.stderr

@@ -64,6 +64,41 @@ def test_dense_plain_matches_jax_kernel_and_oracle(inner_repeats):
                    * inner_repeats)
 
 
+@pytest.mark.parametrize("n,n_services,n_windows", [
+    (1024, 4, 16),          # the self-scrape's chunk: SW 64
+    (4096, 135, 32),        # the stream's chunk: 3S = 135, SW 4320
+], ids=["selfscrape", "stream_chunk"])
+def test_dense_plain_bit_equal_to_jax_chunk_step(n, n_services, n_windows):
+    """The port's plain dense fold sums each moment's bf16 hi and lo
+    halves apart and adds them after the sum, as the JAX chunk step does:
+    state + fold equals that step (both engines) bit for bit in every
+    plane, on a chunk crowded onto a few segments, as a stream chunk is."""
+    import jax
+    import jax.numpy as jnp
+    from anomod import replay as jreplay
+    cfg = jreplay.ReplayConfig(n_services=n_services, n_windows=n_windows,
+                               chunk_size=n)
+    SW = cfg.sw
+    sid, planes = _inputs(n, SW, seed=6)
+    hot = np.random.default_rng(7).integers(0, SW, 40)
+    sid = np.where(sid < SW, hot[sid % 40], SW).astype(np.int32)
+    chunk = dict(sid=sid, valid=planes[0], err=planes[1], s5=planes[2],
+                 dur_raw=planes[3], dur=planes[4])
+    agg0 = np.random.default_rng(8).normal(
+        size=(SW, 6)).astype(np.float32) * 100
+    out = rk.replay_dense_plain(torch.from_numpy(sid),
+                                torch.from_numpy(planes), SW, H).numpy()
+    for engine in ("matmul", "scatter"):
+        state, _ = jax.jit(jreplay.make_chunk_step(cfg, engine=engine))(
+            jreplay.ReplayState(agg=jnp.asarray(agg0),
+                                hist=jnp.zeros((SW, H), jnp.float32),
+                                hll=None),
+            {k: jnp.asarray(v) for k, v in chunk.items()})
+        assert (agg0 + out[:, :6]).tobytes() == \
+            np.asarray(state.agg).tobytes(), engine
+        assert out[:, 6:].tobytes() == np.asarray(state.hist).tobytes()
+
+
 def test_stage_sorted_planes_matches_jax():
     sid, planes = _inputs(3000, 600, seed=2)
     for a, b in zip(rk.stage_sorted_planes(sid, planes, 600, k=128,
@@ -100,8 +135,8 @@ def test_empty_corpus_gives_zeros():
 
 
 def test_stream_id_space_matches_oracle():
-    """SW = 4320: the streaming detector's 3S = 135-service id space, two
-    shared-memory tiles on the card."""
+    """SW = 4320: the streaming detector's 3S = 135-service id space, three
+    shared-memory tiles on the card (a 9 + H accumulator row: 25 floats)."""
     SW = 4320
     sid, planes = _inputs(6000, SW, seed=4)
     got = rk.replay_dense(torch.from_numpy(sid), torch.from_numpy(planes),
@@ -113,8 +148,8 @@ def test_stream_id_space_matches_oracle():
         return 16
     assert rk.dense_plan(4096, SW, H, 132, cap) == (False, 1, 131, 33)
     assert rk.dense_plan(491_520, 1440, H, 132, cap) == (True, 128, 1, 1440)
-    assert rk.dense_plan(950_000, SW, H, 132, cap) == (True, 64, 2, 2160)
-    assert rk.dense_stride(H) == 23
+    assert rk.dense_plan(950_000, SW, H, 132, cap) == (True, 40, 3, 1440)
+    assert rk.dense_stride(H) == 25
 
 
 def test_cpu_tensors_do_not_count_launches():
@@ -205,7 +240,7 @@ def test_dense_plan_owns_every_segment_once_within_budget(n, sw, h, n_sm,
     assert owner.max() == plan.n_tiles - 1          # no tile past the last
     assert (plan.n_tiles - 1) * plan.tile_w < sw    # every tile non-empty
     assert plan.smem_bytes(h) <= rk.DENSE_SMEM_BYTES
-    assert plan.smem_bytes(h) == (plan.tile_w * ((6 + h) | 1) * 4
+    assert plan.smem_bytes(h) == (plan.tile_w * ((9 + h) | 1) * 4
                                   if plan.clustered else 0)
 
 

@@ -301,5 +301,5 @@ def test_stream_all_summary_equals_jax(tmp_path, monkeypatch, capsys):
     assert rec["summary"] == port and len(rec["rows"]) == 13
     assert rec["params"] == {"n_traces": 20, "seed": 0, "multimodal": False,
                              "severity": 1.0, "noise": 0.0,
-                             "confounders": 0}
+                             "confounders": 0, "shift": "in-dist"}
     assert len(os.listdir(tmp_path / "jax")) == 1

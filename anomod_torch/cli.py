@@ -31,7 +31,16 @@
   on a virtual clock; prints the ``ServeReport`` as JSON (the
   counterpart of ``anomod serve``).  ``--rca`` runs online root-cause
   inference in the tick, ``--trace-out`` dumps the engine's Jaeger-shaped
-  trace; with ``ANOMOD_OBS_HTTP`` on, ``/metrics`` is served meanwhile.
+  trace; with ``ANOMOD_OBS_HTTP`` on, ``/metrics`` (and ``/flight``) is
+  served meanwhile.  ``--shards N`` fans the score plane out to N worker
+  threads (``--fold`` picks the barrier's registry merge); the flight
+  recorder is on unless ``ANOMOD_FLIGHT=0``.
+- ``audit record | replay | diff``: the flight recorder's forensics (the
+  counterpart of ``anomod audit``): ``record`` serves seeded traffic and
+  dumps the journal, ``replay`` re-executes a journal from its header's
+  ``run`` (``--shards``, ``--pipeline``, ``--state`` and
+  ``--digest-every`` override it), ``diff`` compares two journals tick by
+  tick and exits 1 naming the first divergent tick and plane.
 - ``obs snapshot | export | score``: the telemetry plane (the
   counterpart of ``anomod obs``): a seeded self-exercise serve run fills
   a fresh registry, then its point-in-time state prints (JSON or
@@ -195,8 +204,57 @@ def _parser() -> argparse.ArgumentParser:
                         "(default: ANOMOD_SERVE_RCA)")
     v.add_argument("--trace-out", default=None,
                    help="dump the engine's own Jaeger-shaped trace")
+    v.add_argument("--shards", type=int, default=None,
+                   help="engine worker threads, tenants partitioned "
+                        "(default: ANOMOD_SERVE_SHARDS, 1)")
+    v.add_argument("--fold", choices=["sparse", "dense"], default=None,
+                   help="the shard barrier's registry merge (default: "
+                        "ANOMOD_SERVE_FOLD, sparse)")
     v.add_argument("--device", default=None,
                    help="cuda (default) or cpu (plain PyTorch versions)")
+
+    a = sub.add_parser(
+        "audit", help="flight-recorder forensics: `record` serves seeded "
+        "traffic with the tick journal on and dumps it, `replay` "
+        "re-executes a journal from its header (optionally at another "
+        "shard count / pipeline depth / state residency), `diff` "
+        "compares two journals tick by tick and names the first "
+        "divergent tick and plane, exiting 1")
+    a.add_argument("action", choices=["record", "replay", "diff"])
+    a.add_argument("journals", nargs="*",
+                   help="replay: the journal to re-execute; diff: the two "
+                        "journals to compare")
+    a.add_argument("--out", default=None,
+                   help="record / replay: journal output path (required)")
+    # record-only flags default to None so replay and diff can refuse
+    # them; the record branch resolves the real defaults
+    for flag, kind, default in (("--tenants", int, 24),
+                                ("--services", int, 8),
+                                ("--duration", float, 30.0),
+                                ("--tick", float, 0.5),
+                                ("--capacity", float, 4000.0),
+                                ("--overload", float, 1.5),
+                                ("--seed", int, 0),
+                                ("--window-seconds", float, 5.0),
+                                ("--baseline-windows", int, 2),
+                                ("--threshold", float, 4.0),
+                                ("--fault-tenants", int, 1)):
+        a.add_argument(flag, type=kind, default=None,
+                       help=f"record only (default {default})")
+    a.add_argument("--rca", action="store_true",
+                   help="record: journal the online-RCA verdict plane too")
+    a.add_argument("--digest-every", type=int, default=None,
+                   help="record / replay: tenant-state digest cadence in "
+                        "ticks (default: ANOMOD_FLIGHT_DIGEST_EVERY)")
+    a.add_argument("--shards", type=int, default=None,
+                   help="record: engine shard count; replay: override the "
+                        "recorded one")
+    a.add_argument("--pipeline", type=int, default=None,
+                   help="record: dispatch pipeline depth; replay: override")
+    a.add_argument("--state", choices=["host", "device"], default=None,
+                   help="record: tenant-state residency; replay: override")
+    a.add_argument("--device", default=None,
+                   help="record / replay: cuda (default) or cpu")
 
     o = sub.add_parser(
         "obs", help="self-scraping telemetry plane: snapshot the metrics "
@@ -248,6 +306,8 @@ def _serve(args, parser) -> int:
         parser.error("--fault-tenants must be >= 0")
     if args.pipeline is not None and args.pipeline < 1:
         parser.error("--pipeline must be >= 1")
+    if args.shards is not None and not 1 <= args.shards <= 256:
+        parser.error("--shards must be in [1, 256]")
     if args.rca and args.no_score:
         parser.error("--rca consumes the detectors' alert stream; "
                      "it cannot combine with --no-score")
@@ -278,13 +338,113 @@ def _serve(args, parser) -> int:
             pipeline=args.pipeline, state=args.state, device=args.device,
             # --no-score forces RCA off even under ANOMOD_SERVE_RCA=1
             rca=True if args.rca else (False if args.no_score else None),
-            tracer=tracer)
+            tracer=tracer, shards=args.shards, fold=args.fold)
     finally:
         if endpoint is not None:
             endpoint.stop()
     if tracer is not None:
         tracer.dump(args.trace_out)
     print(json.dumps(report.to_dict()))
+    return 0
+
+
+#: ``audit record``'s run shape: flag, run_power_law argument, default
+_AUDIT_RECORD = (("--tenants", "n_tenants", 24),
+                 ("--services", "n_services", 8),
+                 ("--duration", "duration_s", 30.0),
+                 ("--tick", "tick_s", 0.5),
+                 ("--capacity", "capacity_spans_per_s", 4000.0),
+                 ("--overload", "overload", 1.5),
+                 ("--seed", "seed", 0),
+                 ("--window-seconds", "window_s", 5.0),
+                 ("--baseline-windows", "baseline_windows", 2),
+                 ("--threshold", "z_threshold", 4.0),
+                 ("--fault-tenants", "fault_tenants", 1))
+
+
+def _audit(args, parser) -> int:
+    from anomod_torch.obs.flight import diff_journals, load_journal
+    given = {flag: getattr(args, flag[2:].replace("-", "_"))
+             for flag, _, _ in _AUDIT_RECORD}
+    if args.action != "record":
+        # replay takes its run from the journal header: a record flag
+        # there would draw conclusions from a run nobody asked for
+        for flag, got in list(given.items()) + [("--rca",
+                                                 args.rca or None)]:
+            if got is not None:
+                parser.error(
+                    f"{flag} applies to audit record; {args.action} takes "
+                    "its run from the journal header"
+                    + (" (--shards/--pipeline/--state/--digest-every "
+                       "override)" if args.action == "replay" else ""))
+    if args.action == "diff":
+        for flag, val in (("--shards", args.shards),
+                          ("--pipeline", args.pipeline),
+                          ("--state", args.state),
+                          ("--digest-every", args.digest_every),
+                          ("--device", args.device),
+                          ("--out", args.out)):
+            if val is not None:
+                parser.error(f"{flag} applies to audit record/replay")
+        if len(args.journals) != 2:
+            parser.error("audit diff takes exactly two journal paths")
+        a = load_journal(args.journals[0])
+        b = load_journal(args.journals[1])
+        d = diff_journals(a, b)
+        out = {"action": "diff", "a": args.journals[0],
+               "b": args.journals[1], "ticks_a": len(a["ticks"]),
+               "ticks_b": len(b["ticks"]), "identical": d is None}
+        if d is not None:
+            out["divergence"] = d
+        print(json.dumps(out, indent=2))
+        if d is not None:
+            print(f"audit diff: first divergence at tick {d['tick']} in "
+                  f"the {d['plane']} plane", file=sys.stderr)
+            return 1
+        return 0
+    if not args.out:
+        parser.error(f"audit {args.action} needs --out")
+    if args.action == "record":
+        if args.journals:
+            parser.error("audit record takes no journal arguments")
+        kw = {name: default if given[flag] is None else given[flag]
+              for flag, name, default in _AUDIT_RECORD}
+        kw.update(shards=args.shards, pipeline=args.pipeline,
+                  state=args.state or "device",
+                  rca=True if args.rca else None)
+    else:
+        if len(args.journals) != 1:
+            parser.error("audit replay takes exactly one journal path")
+        run = load_journal(args.journals[0]).get("header", {}).get("run")
+        if not run:
+            parser.error("journal header carries no run parameters (not "
+                         "recorded through `audit record` / run_power_law)"
+                         ": cannot replay")
+        kw = dict(run)
+        for key in ("buckets", "lane_buckets"):
+            kw[key] = tuple(kw[key]) if kw.get(key) else None
+        # the forensic overrides: the same decisions at another shard
+        # count / depth / residency, which diff then holds equal
+        for name, val in (("shards", args.shards),
+                          ("pipeline", args.pipeline),
+                          ("state", args.state)):
+            if val is not None:
+                kw[name] = val
+    if args.digest_every is not None:
+        kw["flight_digest_every"] = args.digest_every
+    kw["flight"] = True
+    from anomod_torch.serve.engine import run_power_law
+    eng, rep = run_power_law(device=args.device, **kw)
+    doc = eng.flight_recorder.dump(args.out)
+    print(json.dumps({
+        "action": args.action, "out": args.out,
+        "ticks": doc["n_recorded"], "dropped": doc["n_dropped"],
+        "seed": doc["header"]["run"].get("seed"),
+        "shards": doc["header"]["engine"]["shards"],
+        "serve_state": doc["header"]["engine"]["serve_state"],
+        "digest_every": doc["header"]["digest_every"],
+        "device": doc["header"]["engine"]["device"],
+        "served_spans": rep.served_spans, "n_alerts": rep.n_alerts}))
     return 0
 
 
@@ -602,6 +762,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         return _rca(args, parser)
     if args.cmd == "obs":
         return _obs(args, parser)
+    if args.cmd == "audit":
+        return _audit(args, parser)
     if args.cmd == "quality":
         return _quality(args, parser)
     return _stream(args, parser)

@@ -31,6 +31,18 @@ Online RCA in the serve tick (``anomod_torch.serve.rca``):
 (``NODESxNEIGHBORS`` pairs, default ``16x8,64x16``),
 ``ANOMOD_SERVE_RCA_TOPK`` (5), ``ANOMOD_SERVE_RCA_BUDGET`` (4 runs a
 tick) and ``ANOMOD_SERVE_RCA_WINDOWS`` (8).
+
+Shards (``anomod_torch.serve.shard``): ``ANOMOD_SERVE_SHARDS`` (engine
+worker threads, 1-256, default 1), ``ANOMOD_SERVE_FOLD`` (the tick
+barrier's registry merge, ``sparse`` or ``dense``) and
+``ANOMOD_SERVE_WORKER`` (``thread`` only: process workers are not
+ported yet, and asking for them raises).
+
+The flight recorder (``anomod_torch.obs.flight``): ``ANOMOD_FLIGHT``
+(default on), ``ANOMOD_FLIGHT_DIGEST_EVERY`` (tenant-state digest
+cadence in ticks, default 16), ``ANOMOD_FLIGHT_MAX_TICKS`` (the ring,
+default 65536) and ``ANOMOD_FLIGHT_DUMP_DIR`` (the alert-triggered
+forensic bundle's directory, default none).
 """
 
 from __future__ import annotations
@@ -183,10 +195,73 @@ def _serve_rca_int_env(name: str, default: str, lo: int, hi: int) -> int:
     return n
 
 
+def _serve_shards_env() -> int:
+    raw = _env("ANOMOD_SERVE_SHARDS", "1")
+    try:
+        n = int(raw)
+    except ValueError:
+        raise ValueError(
+            f"ANOMOD_SERVE_SHARDS must be a positive integer, got {raw!r}")
+    if not 1 <= n <= 256:
+        raise ValueError(
+            f"ANOMOD_SERVE_SHARDS must be in [1, 256], got {n}")
+    return n
+
+
+def _serve_fold_env() -> str:
+    raw = _env("ANOMOD_SERVE_FOLD", "sparse").strip().lower()
+    if raw in ("sparse", ""):
+        return "sparse"
+    if raw == "dense":
+        return "dense"
+    raise ValueError(
+        f"ANOMOD_SERVE_FOLD must be dense or sparse, got {raw!r}")
+
+
+def validate_serve_worker(raw: str) -> str:
+    """The shard-worker kind: ``thread`` (the only one the port has);
+    ``process`` raises, never quietly running threads instead."""
+    mode = str(raw).strip().lower() or "thread"
+    if mode == "thread":
+        return mode
+    if mode == "process":
+        raise ValueError(
+            "ANOMOD_SERVE_WORKER=process: process shard workers "
+            "(serve/procshard.py, one CUDA context a child) are not "
+            "ported yet; they are the next step of the shard plane "
+            "(ANOMOD_SERVE_WORKER=thread)")
+    raise ValueError(
+        f"ANOMOD_SERVE_WORKER must be thread or process, got {raw!r}")
+
+
+def _flight_env() -> bool:
+    return _env("ANOMOD_FLIGHT", "1").strip().lower() \
+        not in ("0", "false", "off", "no")
+
+
+def _flight_int_env(name: str, default: str, hi: int) -> int:
+    raw = _env(name, default)
+    try:
+        n = int(raw)
+    except ValueError:
+        raise ValueError(
+            f"{name} must be a positive integer, got {raw!r}")
+    if not 1 <= n <= hi:
+        raise ValueError(f"{name} must be in [1, {hi}], got {n}")
+    return n
+
+
+def _flight_dump_dir_env() -> Optional[Path]:
+    raw = _env("ANOMOD_FLIGHT_DUMP_DIR", "")
+    if not raw or raw.lower() in _CACHE_OFF:
+        return None
+    return Path(raw).expanduser()
+
+
 @dataclasses.dataclass
 class Config:
-    """Where experiments come from and how they are loaded; the telemetry
-    and online-RCA knobs."""
+    """Where experiments come from and how they are loaded; the telemetry,
+    online-RCA, shard and flight-recorder knobs."""
 
     data_root: Optional[Path] = dataclasses.field(
         default_factory=_data_root_env)
@@ -215,6 +290,20 @@ class Config:
     serve_rca_windows: int = dataclasses.field(
         default_factory=lambda: _serve_rca_int_env(
             "ANOMOD_SERVE_RCA_WINDOWS", "8", 2, 128))
+    serve_shards: int = dataclasses.field(default_factory=_serve_shards_env)
+    serve_fold: str = dataclasses.field(default_factory=_serve_fold_env)
+    serve_worker: str = dataclasses.field(
+        default_factory=lambda: validate_serve_worker(
+            _env("ANOMOD_SERVE_WORKER", "thread")))
+    flight: bool = dataclasses.field(default_factory=_flight_env)
+    flight_digest_every: int = dataclasses.field(
+        default_factory=lambda: _flight_int_env(
+            "ANOMOD_FLIGHT_DIGEST_EVERY", "16", 1_000_000))
+    flight_max_ticks: int = dataclasses.field(
+        default_factory=lambda: _flight_int_env(
+            "ANOMOD_FLIGHT_MAX_TICKS", "65536", 10_000_000))
+    flight_dump_dir: Optional[Path] = dataclasses.field(
+        default_factory=_flight_dump_dir_env)
 
     @property
     def sn_data(self) -> Optional[Path]:
@@ -236,3 +325,11 @@ def get_config() -> Config:
     if _DEFAULT is None:
         _DEFAULT = Config()
     return _DEFAULT
+
+
+def set_config(cfg: Optional[Config]) -> Optional[Config]:
+    """Install ``cfg`` as the process's settings (None: re-read the
+    environment at the next :func:`get_config`); returns the previous."""
+    global _DEFAULT
+    prev, _DEFAULT = _DEFAULT, cfg
+    return prev

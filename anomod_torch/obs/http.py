@@ -16,9 +16,10 @@ Endpoints (GET and HEAD):
   ``text/plain; version=0.0.4`` Content-Type;
 - ``/healthz``: JSON liveness, registry stats and, with an engine
   attached, its tick / virtual clock / backlog;
-- ``/flight``: a flight recorder's ring; the port has no recorder yet,
-  so it answers 404 "no flight recorder attached", as the JAX server does
-  without one.
+- ``/flight``: the attached flight recorder's ring
+  (:mod:`anomod_torch.obs.flight`) as JSON; attaching an engine attaches
+  its recorder.  Without one it answers 404 "no flight recorder
+  attached", as the JAX server does.
 """
 
 from __future__ import annotations

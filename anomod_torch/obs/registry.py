@@ -410,8 +410,8 @@ class Registry:
             self._metrics.clear()
             self._journal.clear()
 
-    # -- worker-registry fold (the sharded serving plane's seam; the port
-    # has no shard engine yet, so only the tests call it) ----------------
+    # -- worker-registry fold (the sharded serving plane's seam: the
+    # engine's tick barrier folds each shard registry through it) --------
     #
     # The barrier merge is split into a picklable DELTA snapshot
     # (delta_snapshot, taken where the metrics live — a worker thread's

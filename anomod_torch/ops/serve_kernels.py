@@ -28,13 +28,15 @@ pairs a launch; :func:`gather_plan` splits a larger request), so no
 index is copied to the card and the kernel reads none from its memory.
 
 A wrapper takes the plain version only for tensors on the CPU; for CUDA
-tensors it launches the kernel or raises.  ``launches`` counts kernel
-launches per wrapper.
+tensors it launches the kernel or raises, on the calling thread's
+current stream (a serve shard's own).  ``launches`` counts kernel
+launches per wrapper, under a lock: shard workers launch concurrently.
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Dict, List, Tuple
 
 import numpy as np
@@ -48,6 +50,8 @@ from anomod_torch.ops.replay_kernels import (N_PAYLOAD, N_PLANES, _check,
 #: kernel launches per wrapper, counted where the wrapper launches its
 #: kernel and nowhere else (a CPU tensor takes the plain version: no count)
 launches: Dict[str, int] = {"lane_delta": 0, "window_gather": 0}
+#: the serve engine's shard workers launch from several threads at once
+_LAUNCH_LOCK = threading.Lock()
 
 #: shared-memory ceiling a lane-delta block may ask for (H100: 227 KB)
 SMEM_LIMIT = 200 * 1024
@@ -64,8 +68,14 @@ GATHER_PAIRS = (PARAM_LIMIT - GATHER_HEADER) // 8
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    with _LAUNCH_LOCK:
+        for k in launches:
+            launches[k] = 0
+
+
+def _count(name: str) -> None:
+    with _LAUNCH_LOCK:
+        launches[name] += 1
 
 
 def lane_delta_plain(sid: torch.Tensor, planes: torch.Tensor,
@@ -185,7 +195,7 @@ def lane_delta(sid: torch.Tensor, planes: torch.Tensor, n_segments: int,
     err = lib.anomod_lane_delta(_ptr(sid), _ptr(planes), L, W, n_segments,
                                 n_hist, sg, _ptr(out), _stream(sid.device))
     _raise_on(err, "anomod_lane_delta")
-    launches["lane_delta"] += 1
+    _count("lane_delta")
     return out
 
 
@@ -241,5 +251,5 @@ def window_gather(pool: torch.Tensor, slots, cols, n_services: int,
             _ptr(pool), P, n_services, n_windows, F, pairs[lo:].ctypes.data,
             hi - lo, out.data_ptr() + lo * row, stream)
         _raise_on(err, "anomod_window_gather")
-        launches["window_gather"] += 1
+        _count("window_gather")
     return out

@@ -25,7 +25,10 @@ Staging fills pinned host scratch in the kernel's layout (``sid[L, W]``,
 ``planes[L, 6, W]``), by default through the C++ fill of
 ``anomod_torch.io.native`` (GIL released, one call a dispatch), else by
 the interpreter fill, its byte-identical oracle; the copy to the card and
-the launch are queued on the current stream.  At pipeline depth d up to
+the launch are queued on the runner's stream: the calling thread's
+current stream, or with ``own_stream`` (a serve shard's runner) a CUDA
+stream of the runner's own, which the engine's shard worker makes
+current around everything it runs on the runner.  At pipeline depth d up to
 d - 1 dispatches stay in flight while the next one stages; a scratch slot
 is refilled only after the event recorded behind the launch that read it
 has completed.
@@ -42,6 +45,7 @@ wall counts as its ``anomod_serve_compile_total`` /
 from __future__ import annotations
 
 import collections
+import contextlib
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -101,14 +105,22 @@ class BucketRunner:
     ``native_stage`` (the default) fills scratch through the C++ entry of
     :mod:`anomod_torch.io.native`, built at first use (a failed build
     raises); ``native_stage=False`` keeps the interpreter fill.
-    ``registry`` is the metric sink (default: the process registry)."""
+    ``registry`` is the metric sink (default: the process registry).
+
+    ``own_stream`` (on the card) gives the runner a CUDA stream of its
+    own: its pool is allocated on it, its scratch-reuse events are
+    recorded on it and :meth:`sync` waits for it alone.  The caller runs
+    every use of the runner under :meth:`on_stream`, so its copies,
+    launches, pool folds and gathers stay ordered on that stream while
+    other runners' work runs on theirs."""
 
     def __init__(self, cfg: ReplayConfig,
                  buckets: Optional[Tuple[int, ...]] = None,
                  lane_buckets: Optional[Tuple[int, ...]] = None,
                  pipeline: int = 1, state: str = "device",
                  pool_slots: int = 32, device: DeviceLike = None,
-                 native_stage: bool = True, registry=None):
+                 native_stage: bool = True, registry=None,
+                 own_stream: bool = False):
         if pipeline < 1:
             raise ValueError("pipeline depth must be >= 1")
         if state not in ("host", "device"):
@@ -118,9 +130,13 @@ class BucketRunner:
         self.device = resolve_device(device)
         self._cuda = self.device.type == "cuda"
         self.state_mode = state
-        self.pool = (TenantStatePool(cfg, capacity=max(int(pool_slots), 1),
-                                     device=self.device)
-                     if state == "device" else None)
+        self.stream = (torch.cuda.Stream(self.device)
+                       if own_stream and self._cuda else None)
+        with self.on_stream():
+            self.pool = (TenantStatePool(cfg,
+                                         capacity=max(int(pool_slots), 1),
+                                         device=self.device)
+                         if state == "device" else None)
         self.pipeline = int(pipeline)
         self.native_stage = bool(native_stage)
         if self.native_stage:
@@ -185,6 +201,36 @@ class BucketRunner:
         reg.gauge("anomod_serve_native_staging").set(
             1.0 if self.native_stage else 0.0)
 
+    def on_stream(self):
+        """Context making the runner's own stream current on the calling
+        thread (a no-op without one)."""
+        return (torch.cuda.stream(self.stream) if self.stream is not None
+                else contextlib.nullcontext())
+
+    def leg_walls(self) -> dict:
+        """Cumulative snapshot of the runner's wall and dispatch book, the
+        flight recorder's per-tick delta source: ``chunks`` and
+        ``by_width`` (staged chunks per width: the canonical dispatch
+        plane, equal under every execution strategy), the walls and the
+        lane-grouping counts (variant).  Read at the tick barrier only."""
+        return {"stage_s": self.stage_wall_s,
+                "dispatch_s": self.dispatch_wall_s,
+                "fold_s": self.fold_wall_s,
+                "score_s": self.score_wall_s,
+                "chunks": self.n_dispatches,
+                "fused": self.fused_dispatches,
+                "native_staged": self.native_staged,
+                "by_width": dict(self.dispatches_by_width)}
+
+    def gather_rows(self, slots) -> Tuple[np.ndarray, np.ndarray]:
+        """Host copies ``([T, SW, 6], [T, SW, H])`` of whole pool rows,
+        one device-to-host copy a plane, on the runner's stream."""
+        with self.on_stream():
+            idx = torch.as_tensor(np.asarray(slots, np.int64),
+                                  device=self.device)
+            return (self.pool.agg[idx].cpu().numpy(),
+                    self.pool.hist[idx].cpu().numpy())
+
     def add_score_wall(self, dt: float) -> None:
         """Book ``dt`` seconds of window scoring (the engine's commit
         phase) in the ``score`` leg and its registry mirror."""
@@ -206,8 +252,11 @@ class BucketRunner:
     def lane_compile_s(self) -> float:
         return float(sum(self._lane_compile_s.values()))
 
-    def _sync(self) -> None:
-        if self._cuda:
+    def sync(self) -> None:
+        """Wait for the runner's work: its own stream, else the device."""
+        if self.stream is not None:
+            self.stream.synchronize()
+        elif self._cuda:
             torch.cuda.synchronize(self.device)
 
     def _dead_launch(self, width: int, lanes: int) -> float:
@@ -216,7 +265,7 @@ class BucketRunner:
         t0 = time.perf_counter()
         scratch, key = self._fill_slot(width, lanes, [])
         self._launch(scratch)
-        self._sync()
+        self.sync()
         return time.perf_counter() - t0
 
     def warm(self) -> float:
@@ -350,7 +399,8 @@ class BucketRunner:
         if not self._cuda:
             return None
         ev = torch.cuda.Event()
-        ev.record(torch.cuda.current_stream(self.device))
+        ev.record(self.stream if self.stream is not None
+                  else torch.cuda.current_stream(self.device))
         return ev
 
     def _fold(self, replays: list, out: torch.Tensor) -> None:

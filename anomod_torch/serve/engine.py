@@ -42,9 +42,27 @@ tenant's served spans (``anomod_torch.serve.rca``), at most
 read-side consumer, so every decision is byte-identical with it on or
 off.
 
-This is the 1-shard thread engine of the JAX package's default
-configuration; its other planes (shards, chaos and supervision, elastic
-policy, async commit, tiering, flight, perf and census, the multimodal
+Shards (``shards`` or ``ANOMOD_SERVE_SHARDS``, thread workers of
+:mod:`anomod_torch.serve.shard`): the score plane fans out by tenant
+ownership (``plan_shards``) to N worker threads, each with its own
+:class:`~anomod_torch.serve.batcher.BucketRunner` (its pool sized to the
+tenants it owns, its own registry and, on the card, its own CUDA
+stream) and its own online-RCA plane; admission, drain, shedding and
+SLO stay on the coordinator, and the tick joins at a barrier that folds
+the shard registries into the process registry (``fold``: ``sparse`` or
+``dense``).  Every decision, state and alert equals the 1-shard run's.
+``shards=1`` is the inline engine.
+
+The flight recorder (``flight`` or ``ANOMOD_FLIGHT``, default on,
+:mod:`anomod_torch.obs.flight`): every tick journals its admission
+deltas, staged-chunk counts, cadenced state digest and alert / verdict
+digests into a bounded ring, inside the measured wall; the canonical
+journal of a seed is byte-identical across reruns, shard counts,
+pipeline depths, state residencies and devices, and equals the JAX
+engine's.
+
+The JAX package's other planes (process workers, chaos and supervision,
+elastic policy, async commit, tiering, perf and census, the multimodal
 sidecar) are not part of this engine, nor are their metric series.
 """
 
@@ -54,6 +72,7 @@ import collections
 import contextlib
 import dataclasses
 import time
+from functools import partial
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -225,6 +244,10 @@ class ServeReport:
     fold_wall_s: float                           # retire barrier + fold wall
     score_wall_s: float                          # window-scoring wall
     pipeline: int                                # in-flight dispatch depth
+    shards: int                                  # engine-worker shard count
+    shard_tenants: Dict[int, int]                # tenants owned per shard
+    shard_spans: Dict[int, int]                  # spans scored per shard
+    shard_imbalance: float                       # max shard load / mean
     latency: Dict[str, Optional[float]]          # aggregate p50/p99
     per_priority: Dict[int, dict]
     n_alerts: int
@@ -237,6 +260,10 @@ class ServeReport:
     rca_latency: Dict[str, Optional[float]]      # wall p50/p99 per RCA run
     rca_alert_to_culprit_s: Dict[str, Optional[float]]  # virtual queue delay
     rca_wall_s: float                            # total RCA wall
+    flight_enabled: bool                         # flight recorder on?
+    flight_recorded_ticks: int                   # journal records written
+    flight_dropped_ticks: int                    # ring evictions
+    fold_payload_bytes: int                      # barrier registry deltas
     device: str                                  # where the kernels ran
     serve_wall_s: float
     sustained_spans_per_sec: float
@@ -251,20 +278,32 @@ class ServeReport:
                                 in self.lanes_by_bucket.items()}
         d["per_priority"] = {str(k): v for k, v
                              in self.per_priority.items()}
+        d["shard_tenants"] = {str(k): v for k, v
+                              in self.shard_tenants.items()}
+        d["shard_spans"] = {str(k): v for k, v
+                            in self.shard_spans.items()}
         d["rca_topk_hits"] = {str(k): v for k, v
                               in self.rca_topk_hits.items()}
         return d
 
 
 #: ServeReport fields that are walls or follow the lane GROUPING (which
-#: tenants share a fused stack): they differ between fused and unfused or
-#: across pipeline depths on one seed; every other field is a decision
+#: tenants share a fused stack) or the shard topology: they differ between
+#: fused and unfused, across pipeline depths or across shard counts on one
+#: seed; every other field is a decision
 VARIANT_REPORT_FIELDS = (
     "fused", "fused_dispatches", "lanes_by_bucket", "lane_pad_waste",
     "compile_s", "lane_compile_s", "native_staging",
     "native_staged_dispatches", "serve_state", "stage_wall_s",
     "dispatch_wall_s", "fold_wall_s", "score_wall_s", "pipeline",
-    "serve_wall_s", "sustained_spans_per_sec", "rca_latency", "rca_wall_s")
+    "serve_wall_s", "sustained_spans_per_sec", "rca_latency", "rca_wall_s",
+    "shards", "shard_tenants", "shard_spans", "shard_imbalance",
+    "fold_payload_bytes")
+
+#: the report fields the flight recorder adds: they differ between a
+#: flight-on and a flight-off run of one seed
+FLIGHT_REPORT_FIELDS = ("flight_enabled", "flight_recorded_ticks",
+                        "flight_dropped_ticks")
 
 #: the report fields the RCA plane adds: they differ between an RCA-on
 #: and an RCA-off run of one seed, every other decision field is equal
@@ -352,10 +391,17 @@ def run_power_law(n_tenants: int = 200, n_services: int = 8,
                   pipeline: Optional[int] = None, state: str = "device",
                   device: DeviceLike = None, native_stage: bool = True,
                   drain_engine: str = "native", rca: Optional[bool] = None,
-                  tracer=None) -> Tuple["ServeEngine", "ServeReport"]:
+                  tracer=None, shards: Optional[int] = None,
+                  fold: Optional[str] = None,
+                  flight: Optional[bool] = None,
+                  flight_digest_every: Optional[int] = None,
+                  flight_max_ticks: Optional[int] = None
+                  ) -> Tuple["ServeEngine", "ServeReport"]:
     """The canonical seeded serve run: :func:`power_law_traffic` against
     an engine of ``capacity_spans_per_s``, so one run measures sustained
-    throughput, shedding and alert latency under load."""
+    throughput, shedding and alert latency under load.  With the flight
+    recorder on, its header's ``run`` holds these arguments, every
+    defaulted knob resolved, for ``audit replay`` to re-execute."""
     traffic = power_law_traffic(n_tenants, n_services, capacity_spans_per_s,
                                 overload, duration_s, seed, alpha, window_s,
                                 baseline_windows, fault_tenants)
@@ -369,15 +415,37 @@ def run_power_law(n_tenants: int = 200, n_services: int = 8,
                          lane_buckets=lane_buckets, pipeline=pipeline,
                          state=state, device=device,
                          native_stage=native_stage,
-                         drain_engine=drain_engine, rca=rca, tracer=tracer)
+                         drain_engine=drain_engine, rca=rca, tracer=tracer,
+                         shards=shards, fold=fold, flight=flight,
+                         flight_digest_every=flight_digest_every,
+                         flight_max_ticks=flight_max_ticks)
+    if engine.flight_recorder is not None:
+        # native_stage and drain_engine stay as passed: their oracles are
+        # byte-identical, so they cannot move a canonical plane
+        engine.flight_recorder.header["run"] = dict(
+            n_tenants=n_tenants, n_services=n_services,
+            capacity_spans_per_s=capacity_spans_per_s, overload=overload,
+            duration_s=duration_s, tick_s=tick_s, seed=seed, alpha=alpha,
+            window_s=window_s, baseline_windows=baseline_windows,
+            z_threshold=z_threshold, buckets=list(engine.runner.buckets),
+            max_backlog=engine.max_backlog, fault_tenants=fault_tenants,
+            score=score, n_windows=n_windows, fuse=engine.fuse,
+            lane_buckets=list(engine.runner.lane_buckets),
+            pipeline=engine.pipeline, state=engine.serve_state,
+            native_stage=native_stage, drain_engine=drain_engine,
+            rca=engine.rca, shards=engine.shards, fold=engine.fold_mode,
+            flight=True,
+            flight_digest_every=engine.flight_recorder.digest_every,
+            flight_max_ticks=engine.flight_recorder.max_ticks)
     report = engine.run(traffic, duration_s=duration_s)
     return engine, report
 
 
 class ServeEngine:
     """Multi-tenant serving plane over the streaming detectors, on one
-    device (``cuda`` unless the caller asks for ``cpu``).  ``rca`` and the
-    ``rca_*`` knobs default from ``anomod_torch.config``; ``tracer``
+    device (``cuda`` unless the caller asks for ``cpu``).  ``rca``,
+    ``shards``, ``fold``, ``flight`` and the ``rca_*`` /
+    ``flight_*`` knobs default from ``anomod_torch.config``; ``tracer``
     defaults to a ``Tracer("anomod-serve")`` when the process registry is
     enabled."""
 
@@ -397,7 +465,11 @@ class ServeEngine:
                  rca_buckets: Optional[tuple] = None,
                  rca_topk: Optional[int] = None,
                  rca_budget: Optional[int] = None,
-                 rca_windows: Optional[int] = None):
+                 rca_windows: Optional[int] = None,
+                 shards: Optional[int] = None, fold: Optional[str] = None,
+                 flight: Optional[bool] = None,
+                 flight_digest_every: Optional[int] = None,
+                 flight_max_ticks: Optional[int] = None):
         if capacity_spans_per_s <= 0:
             raise ValueError("capacity must be positive")
         self.device = resolve_device(device)
@@ -421,14 +493,64 @@ class ServeEngine:
         #: coalesce into one staging and same-width chunks across tenants
         #: run as lane-stacked dispatches
         self.fuse = bool(fuse)
-        # the runner owns (and validates) the pipeline depth and the
+        app_cfg = get_config()
+        #: tenant sharding: the score plane fans out to ``shards`` worker
+        #: threads by tenant ownership; 1 is the inline engine
+        self.shards = int(app_cfg.serve_shards if shards is None else shards)
+        if self.shards < 1:
+            raise ValueError("shards must be >= 1")
+        fold_mode = (app_cfg.serve_fold if fold is None
+                     else str(fold).strip().lower() or "sparse")
+        if fold_mode not in ("dense", "sparse"):
+            raise ValueError(f"unknown serve fold mode {fold_mode!r} "
+                             "(dense|sparse)")
+        self.fold_mode = fold_mode
+        self._use_workers = self.shards > 1
+        self._proc_registry = obs.get_registry()
+        #: structural bytes the barrier's registry folds shipped
+        #: (``obs.registry.delta_nbytes``)
+        self.fold_payload_bytes = 0
+        self._obs_fold_payload = (
+            obs.counter("anomod_serve_fold_payload_bytes_total")
+            if self._use_workers else None)
+        # each runner owns (and validates) the pipeline depth and the
         # state mode
-        self.runner = BucketRunner(
-            self.cfg, buckets, lane_buckets=lane_buckets,
-            pipeline=(DEFAULT_SERVE_PIPELINE if pipeline is None
-                      else pipeline),
-            state=state, pool_slots=max(len(self.specs), 1),
-            device=self.device, native_stage=native_stage)
+        runner_kw = dict(lane_buckets=lane_buckets,
+                         pipeline=(DEFAULT_SERVE_PIPELINE if pipeline is None
+                                   else pipeline),
+                         state=state, device=self.device,
+                         native_stage=native_stage)
+        if self._use_workers:
+            from anomod_torch.serve.shard import plan_shards
+            self.shard_of = plan_shards(self.specs, self.shards,
+                                        self.capacity_spans_per_s)
+            # each shard owns a whole scoring plane: its runner (scratch,
+            # a pool sized to the tenants it owns, on the card a stream of
+            # its own) records into its own registry, folded into the
+            # process registry at the tick barrier
+            self._shard_regs = [
+                obs.Registry(enabled=self._proc_registry.enabled)
+                for _ in range(self.shards)]
+            owned = [0] * self.shards
+            for sh in self.shard_of.values():
+                owned[sh] += 1
+            self._runners = [
+                BucketRunner(self.cfg, buckets, registry=reg,
+                             pool_slots=max(owned[s], 1), own_stream=True,
+                             **runner_kw)
+                for s, reg in enumerate(self._shard_regs)]
+            self._fold_state = [dict() for _ in range(self.shards)]
+        else:
+            # the inline engine owns every tenant on shard 0 (every read
+            # of the placement map is ``.get(tid, 0)``)
+            self.shard_of = {}
+            self._shard_regs = []
+            self._runners = [BucketRunner(
+                self.cfg, buckets, pool_slots=max(len(self.specs), 1),
+                **runner_kw)]
+        self.runner = self._runners[0]
+        self._workers = None
+        self._last_failures = None
         self.pipeline = self.runner.pipeline
         self.serve_state = self.runner.state_mode
         self._det_kw = dict(baseline_windows=baseline_windows,
@@ -444,7 +566,6 @@ class ServeEngine:
         self._max_served_batch = 0
         self.serve_wall_s = 0.0
         self.n_spans_served = 0
-        app_cfg = get_config()
         #: online RCA: a pure read-side consumer of the alert stream
         self.rca = bool(app_cfg.serve_rca if rca is None else rca)
         if self.rca and not self.score:
@@ -454,7 +575,7 @@ class ServeEngine:
                               if rca_budget is None else rca_budget)
         if self.rca_budget < 1:
             raise ValueError("rca_budget must be >= 1 run per tick")
-        self._rca_plane = None
+        self._rca_planes: list = []
         self._rca_seen: Dict[int, int] = {}
         self._rca_queue: "collections.deque" = collections.deque()
         self._rca_seq = 0
@@ -468,14 +589,20 @@ class ServeEngine:
             self._rca_slo = _TenantSLO("anomod_serve_rca_seconds")
             self._obs_rca_queued = obs.counter(
                 "anomod_serve_rca_queued_total")
-            self._rca_plane = OnlineRCA(
-                self.services, self.cfg.window_us, self.t0_us,
-                RcaRunner(app_cfg.serve_rca_buckets if rca_buckets is None
-                          else rca_buckets, device=self.device),
-                topk=int(app_cfg.serve_rca_topk if rca_topk is None
-                         else rca_topk),
-                windows=int(app_cfg.serve_rca_windows if rca_windows is None
-                            else rca_windows))
+            # one plane a shard, recording into the shard's registry; the
+            # inline plane records into the process registry
+            self._rca_planes = [
+                OnlineRCA(
+                    self.services, self.cfg.window_us, self.t0_us,
+                    RcaRunner(app_cfg.serve_rca_buckets if rca_buckets is None
+                              else rca_buckets, registry=reg,
+                              device=self.device),
+                    topk=int(app_cfg.serve_rca_topk if rca_topk is None
+                             else rca_topk),
+                    windows=int(app_cfg.serve_rca_windows
+                                if rca_windows is None else rca_windows))
+                for reg in (self._shard_regs or [None])]
+        self._rca_plane = self._rca_planes[0] if self._rca_planes else None
         # tracing is on by default, gated on the one telemetry switch, so
         # "telemetry off" means off end to end; an explicit Tracer forces
         # it on
@@ -486,21 +613,63 @@ class ServeEngine:
         # self-scrape plumbing: cached handles for the tick loop, and one
         # registry scrape per virtual second on the VIRTUAL clock, so a
         # seeded run's telemetry timeline is deterministic
-        self._registry = obs.get_registry()
+        self._registry = self._proc_registry
         self._obs_tick = obs.histogram("anomod_serve_tick_seconds")
         self._obs_ticks = obs.counter("anomod_serve_ticks_total")
         self._obs_tenants = obs.gauge("anomod_serve_active_tenants")
         self._scrape_every = max(1, int(round(1.0 / self.clock.tick_s)))
+        #: the flight recorder: a pure read-side consumer, every decision
+        #: above is byte-identical with it on or off
+        self.flight = bool(app_cfg.flight if flight is None else flight)
+        self.flight_recorder = None
+        self._flight_dump_dir = app_cfg.flight_dump_dir
+        self._flight_dumped = False
+        if self.flight:
+            from anomod_torch.obs.flight import (FlightRecorder,
+                                                 config_snapshot, versions)
+            self.flight_recorder = FlightRecorder(
+                {"engine": {
+                    "n_tenants": len(self.specs),
+                    "n_services": len(self.services),
+                    "capacity_spans_per_s": self.capacity_spans_per_s,
+                    "tick_s": self.clock.tick_s,
+                    "max_backlog": self.max_backlog,
+                    "buckets": list(self.runner.buckets),
+                    "lane_buckets": list(self.runner.lane_buckets),
+                    "shards": self.shards,
+                    "pipeline": self.pipeline,
+                    "serve_state": self.serve_state,
+                    "fused": self.fuse,
+                    "score": self.score,
+                    "rca": self.rca,
+                    "native_staging": self.runner.native_stage,
+                    "drain_engine": self.admission.drain_engine,
+                    "fold": self.fold_mode,
+                    "device": device_name(self.device)},
+                 "config": config_snapshot(),
+                 "versions": versions(self.device)},
+                max_ticks=flight_max_ticks,
+                digest_every=flight_digest_every)
+            self._flight_prev_tot = None
+            self._flight_prev_legs = None
+            self._flight_alert_seen: Dict[int, int] = {}
+            self._flight_alert_total = 0
+            self._flight_score_crc = 0
+            self._flight_rca_seen = 0
+            self._flight_rca_crc = 0
 
     # -- per-tenant plane construction ------------------------------------
 
     def _replay_for(self, tenant_id: int):
         got = self._tenant_replay.get(tenant_id)
         if got is None:
-            cls = (PooledStreamReplay if self.runner.pool is not None
+            # the tenant's plane rides its shard's runner (its pool slot
+            # in device mode)
+            runner = self._runners[self.shard_of.get(tenant_id, 0)]
+            cls = (PooledStreamReplay if runner.pool is not None
                    else BucketedStreamReplay)
             got = self._tenant_replay[tenant_id] = cls(
-                self.cfg, self.t0_us, self.runner)
+                self.cfg, self.t0_us, runner)
         return got
 
     def _detector_for(self, tenant_id: int) -> OnlineDetector:
@@ -550,16 +719,15 @@ class ServeEngine:
         if -1e-9 < self._credit < 1e-9:
             self._credit = 0.0
         if served:
-            if self.fuse:
+            self._last_failures = None
+            if self._use_workers:
+                with self._span("serve.score_sharded"):
+                    self._score_sharded(served)
+            elif self.fuse:
                 with self._span("serve.score_fused"):
                     self._score_fused(served)
             else:
-                for qb in served:
-                    with self._span("serve.score"):
-                        if self.score:
-                            self._detector_for(qb.tenant_id).push(qb.spans)
-                        else:
-                            self._replay_for(qb.tenant_id).push(qb.spans)
+                self._score_shard(0, served)
         # SLO accounting after scoring in both paths: the samples depend
         # only on admission times and the tick clock
         for qb in served:
@@ -567,6 +735,10 @@ class ServeEngine:
             self.n_spans_served += qb.n_spans
         if self.rca:
             self._rca_step(now, served)
+        if self.flight_recorder is not None:
+            # the journal entry rides inside the measured wall: the
+            # recorder's cost is priced, never hidden
+            self._flight_tick(now, served, time.perf_counter() - t_wall)
         self.clock.advance()
         # telemetry stays INSIDE the measured wall: the on/off overhead
         # prices the scrape
@@ -580,14 +752,32 @@ class ServeEngine:
         return served
 
     def _score_fused(self, served: List[QueuedBatch]) -> None:
-        """Tenant-fused scoring of one tick's drained batches: coalesce
-        and plan (host), lane-stacked dispatches per chunk round, then
-        batched window scoring (the commit)."""
-        with self._span("serve.score_shard", shard=0,
-                        pipeline=self.pipeline):
-            pending = self._stage_pending(served)
-            self._dispatch_rounds(pending)
-            self._commit_pending(pending)
+        """Tenant-fused scoring of one tick's drained batches on the
+        inline engine: :meth:`_score_shard` on shard 0, so the inline and
+        sharded engines share one definition."""
+        self._score_shard(0, served)
+
+    def _score_shard(self, shard_id: int, served: List[QueuedBatch]) -> None:
+        """One shard's slice of one tick's served batches (on its worker
+        thread in the sharded engine, inline on the 1-shard engine).
+        Fused: coalesce and plan (host), lane-stacked dispatches per
+        chunk round through the shard's runner, then batched window
+        scoring (the commit).  Unfused: one push per batch, in served
+        order."""
+        runner = self._runners[shard_id]
+        if self.fuse:
+            with self._span("serve.score_shard", shard=shard_id,
+                            pipeline=self.pipeline):
+                pending = self._stage_pending(served)
+                self._dispatch_rounds(pending, runner)
+                self._commit_pending(pending, runner)
+            return
+        for qb in served:
+            with self._span("serve.score"):
+                if self.score:
+                    self._detector_for(qb.tenant_id).push(qb.spans)
+                else:
+                    self._replay_for(qb.tenant_id).push(qb.spans)
 
     def _stage_pending(self, served: List[QueuedBatch]) -> list:
         """Same-tenant batches concatenate in arrival order into one
@@ -614,12 +804,11 @@ class ServeEngine:
             pending.append((det, replay, batch.n_spans, w_ret, plan))
         return pending
 
-    def _dispatch_rounds(self, pending: list) -> None:
+    def _dispatch_rounds(self, pending: list, runner: BucketRunner) -> None:
         """Per chunk round (a tenant's own chunks apply in order),
         same-width chunks lane-stack into fused dispatches through the
         runner's pipelined submit path, drained before scoring.  A
         failure discards the in-flight dispatches unfolded."""
-        runner = self.runner
         try:
             rnd = 0
             while True:
@@ -639,11 +828,11 @@ class ServeEngine:
             runner.abort_lanes()
             raise
 
-    def _commit_pending(self, pending: list) -> None:
+    def _commit_pending(self, pending: list, runner: BucketRunner) -> None:
         """Per tenant, the detector's post-replay half: window
         bookkeeping, then every newly closed window of every tenant
         scored in one vectorized pass per window, fed by one pool
-        gather.  The wall lands in the ``score`` leg."""
+        gather.  The wall lands in the runner's ``score`` leg."""
         t0 = time.perf_counter()
         work = []
         for det, _, n_in, w_ret, _ in pending:
@@ -659,14 +848,115 @@ class ServeEngine:
                 det.note_pushed(n_in, w_ret)
         if work:
             score_closed_windows_batched(work, _plane_col_gather(work))
-        self.runner.add_score_wall(time.perf_counter() - t0)
+        runner.add_score_wall(time.perf_counter() - t0)
+
+    # -- the sharded score path (anomod_torch.serve.shard) ----------------
+
+    def _on_shard(self, shard_id: int, fn, *args) -> None:
+        """Run ``fn(*args)`` as shard ``shard_id``'s work: under its
+        runner's stream, which it waits for before returning, so the
+        coordinator reads nothing the shard still has in flight."""
+        runner = self._runners[shard_id]
+        with runner.on_stream():
+            fn(*args)
+            runner.sync()
+
+    def _ensure_workers(self) -> None:
+        if self._workers is not None and all(w.alive for w in self._workers):
+            return
+        from anomod_torch.serve.shard import ShardWorker
+        if self._workers is not None:
+            self.close()
+        self._workers = [ShardWorker(s) for s in range(self.shards)]
+
+    def _fan_out(self, tasks: Dict[int, tuple]) -> list:
+        """Submit ``{shard: (fn, *args)}`` to the shard workers and join
+        them all (the barrier completes before any error propagates),
+        then fold the shard registries.  Returns ``[(shard, exc), ...]``
+        in shard order."""
+        self._ensure_workers()
+        submitted = []
+        for s, task in sorted(tasks.items()):
+            self._workers[s].submit(partial(self._on_shard, s, *task))
+            submitted.append(s)
+        failures = []
+        for s in submitted:
+            try:
+                self._workers[s].join()
+            except BaseException as e:    # noqa: BLE001 - re-raised below
+                failures.append((s, e))
+        self._fold_shard_registries()
+        return failures
+
+    def _score_sharded(self, served: List[QueuedBatch]) -> None:
+        """Fan one tick's drained batches out to the shard workers by
+        tenant ownership and join at the barrier.  Each worker scores
+        only the tenants it owns, through its own runner, so per-tenant
+        results equal the 1-shard engine's.  A failed shard fails the
+        tick: the failure list is parked in ``_last_failures`` and the
+        first failure re-raises."""
+        parts: Dict[int, List[QueuedBatch]] = {}
+        for qb in served:
+            parts.setdefault(self.shard_of[qb.tenant_id], []).append(qb)
+        failures = self._fan_out({s: (self._score_shard, s, part)
+                                  for s, part in parts.items()})
+        if failures:
+            self._last_failures = failures
+            raise failures[0][1]
+
+    def _fold_shard_registries(self, final: bool = False) -> None:
+        """The barrier's registry merge: each shard registry's delta
+        since the last fold (``delta_snapshot``, ``fold`` mode), combined
+        through the deterministic fold tree in shard order and applied
+        to the process registry (``apply_delta``, gauges shard-labelled);
+        the payload's structural bytes are counted."""
+        from anomod_torch.obs.registry import delta_nbytes
+        from anomod_torch.serve.shard import fold_tree
+        parts = []
+        for s, reg in enumerate(self._shard_regs):
+            d = reg.delta_snapshot(self._fold_state[s], mode=self.fold_mode,
+                                   final=final)
+            parts.append([(s, d)])
+        merged = fold_tree(parts, lambda a, b: a + b)
+        if not merged:
+            return
+        nbytes = 0
+        for s, d in merged:
+            self._proc_registry.apply_delta(d, shard=str(s))
+            nbytes += delta_nbytes(d)
+        self.fold_payload_bytes += nbytes
+        if self._obs_fold_payload is not None and nbytes:
+            self._obs_fold_payload.inc(nbytes)
+
+    def _warm_shard(self, shard_id: int) -> None:
+        runner = self._runners[shard_id]
+        runner.warm()
+        if self.fuse:
+            runner.warm_lanes()
+        if self.rca:
+            self._rca_planes[shard_id].runner.warm()
+
+    def close(self) -> None:
+        """Stop the shard worker threads (idempotent; the next sharded
+        tick starts them again).  Every worker closes before a deferred
+        task error propagates."""
+        workers, self._workers = self._workers or [], None
+        errs = []
+        for w in workers:
+            try:
+                w.close()
+            except BaseException as e:    # noqa: BLE001 - re-raised below
+                errs.append(e)
+        if errs:
+            raise errs[0]
 
     # -- the online alert->culprit pass (anomod_torch.serve.rca) -----------
 
     def _rca_step(self, now: float, served: List[QueuedBatch]) -> None:
         """One tick's RCA pass, inside the measured tick wall: this tick's
-        new alerts enqueue first, then the served spans buffer, pruned no
-        further back than each tenant's OLDEST queued alert window (so a
+        new alerts enqueue first, then the served spans buffer into the
+        owning shard's plane on the coordinator, pruned no further back
+        than each tenant's OLDEST queued alert window (so a
         budget-delayed run still finds its whole evidence window), then
         up to ``rca_budget`` queued runs."""
         self._rca_enqueue(now)
@@ -674,8 +964,8 @@ class ServeEngine:
         for _, tid, w, _ in self._rca_queue:
             floor[tid] = min(floor.get(tid, w), w)
         for qb in served:
-            self._rca_plane.buffer(qb.tenant_id, qb.spans,
-                                   keep_window=floor.get(qb.tenant_id))
+            self._rca_planes[self.shard_of.get(qb.tenant_id, 0)].buffer(
+                qb.tenant_id, qb.spans, keep_window=floor.get(qb.tenant_id))
         self._rca_tick(now)
 
     def _rca_enqueue(self, now: float) -> None:
@@ -695,43 +985,197 @@ class ServeEngine:
 
     def _rca_tick(self, now: float, budget: Optional[int] = None) -> None:
         """Enqueue, then run up to ``budget`` queued items (default: the
-        per-tick ``rca_budget``) in enqueue order.  A tenant that keeps
-        alerting while earlier items queue gets a NEW item per tick-batch
-        of alerts, so the item set, and the verdict stream, is the same
-        at any budget; the budget moves only ``scored_s``."""
+        per-tick ``rca_budget``) in enqueue order: inline on the 1-shard
+        engine, on the owning shards' workers otherwise, the verdicts
+        folded in enqueue order (``fold_verdicts``) either way.  A tenant
+        that keeps alerting while earlier items queue gets a NEW item per
+        tick-batch of alerts, so the item set, and the verdict stream, is
+        the same at any budget and shard count; the budget moves only
+        ``scored_s``."""
         self._rca_enqueue(now)
         if not self._rca_queue:
             return
         burst = min(budget if budget is not None else self.rca_budget,
                     len(self._rca_queue))
         items = [self._rca_queue.popleft() for _ in range(burst)]
+        folded: list = []
         with self._span("serve.rca"):
-            runs = self._rca_run_items(items, now)
-        for verdict, wall in runs:
+            if self._use_workers:
+                from anomod_torch.serve.shard import fold_verdicts
+                parts: Dict[int, list] = {}
+                for it in items:
+                    parts.setdefault(self.shard_of[it[1]], []).append(it)
+                results: List[list] = [[] for _ in range(self.shards)]
+                failures = self._fan_out({
+                    s: (self._rca_run_items, self._rca_planes[s], part,
+                        results[s], now) for s, part in parts.items()})
+                if failures:
+                    self._last_failures = failures
+                    raise failures[0][1]
+                folded = fold_verdicts(results)
+            else:
+                self._rca_run_items(self._rca_planes[0], items, folded, now)
+        for _, verdict, wall in folded:
             self.rca_verdicts.append(verdict)
             self._rca_slo.record(wall)
             self.rca_wall_s += wall
 
-    def _rca_run_items(self, items: list, now: float) -> list:
-        """``(verdict, wall_s)`` of each queued item, in order."""
-        out = []
-        for _, tid, w, enq in items:
+    def _rca_run_items(self, plane, items: list, out: list,
+                       now: float) -> None:
+        """Append ``(seq, verdict, wall_s)`` of each queued item."""
+        for seq, tid, w, enq in items:
             det = self._tenant_det.get(tid)
             alerts = det.alerts if det is not None else []
-            out.append(self._rca_plane.run(tid, w, alerts, enqueued_s=enq,
-                                           scored_s=now))
-        return out
+            verdict, wall = plane.run(tid, w, alerts, enqueued_s=enq,
+                                      scored_s=now)
+            out.append((seq, verdict, wall))
+
+    # -- the flight recorder (anomod_torch.obs.flight) ----------------------
+
+    def _flight_tick(self, now: float, served: List[QueuedBatch],
+                     tick_wall_s: float, final: bool = False) -> None:
+        """Journal one tick.  The canonical planes: the admission deltas
+        and a crc32 over the served decision set in drain order, the
+        staged-chunk counts per width (the one staging definition, so
+        equal at every shard count, depth and residency), the tenant
+        count and the cadenced state digest, running digests of the
+        alert and RCA-verdict streams; the crc texts are the JAX
+        engine's, in its order.  The variant keys: the tick's wall legs
+        and the per-shard leg records, folded in shard order.
+        ``final=True`` is the run-end settlement record, with a forced
+        state digest."""
+        from anomod_torch.obs.flight import crc_text, state_digest
+        from anomod_torch.serve.shard import fold_leg_records
+        fr = self.flight_recorder
+        t_idx = self.clock.ticks
+        tot = self.admission.totals()
+        prev = self._flight_prev_tot
+
+        def delta(field):
+            return getattr(tot, field) - (getattr(prev, field)
+                                          if prev is not None else 0)
+
+        crc = 0
+        for qb in served:
+            crc = crc_text(f"{qb.tenant_id}:{qb.seq}:{qb.n_spans}:"
+                           f"{qb.priority}:{qb.enqueued_s!r}", crc)
+        admission = {"offered": delta("offered_spans"),
+                     "admitted": delta("admitted_spans"),
+                     "served": delta("served_spans"),
+                     "shed": delta("shed_spans"),
+                     "evicted": delta("evicted_batches"),
+                     "served_batches": delta("served_batches"),
+                     "digest": crc}
+        self._flight_prev_tot = tot
+        legs = [r.leg_walls() for r in self._runners]
+        prev_legs = self._flight_prev_legs or [{} for _ in legs]
+        by_width: Dict[int, int] = {}
+        chunks = 0
+        shard_legs = []
+        walls = dict.fromkeys(("stage_s", "dispatch_s", "fold_s",
+                               "score_s"), 0.0)
+        fused_d = native_staged = 0
+        for s, (leg, pleg) in enumerate(zip(legs, prev_legs)):
+            pw = pleg.get("by_width", {})
+            for w, n in leg["by_width"].items():
+                dn = n - pw.get(w, 0)
+                if dn:
+                    by_width[w] = by_width.get(w, 0) + dn
+            dchunks = leg["chunks"] - pleg.get("chunks", 0)
+            dfused = leg["fused"] - pleg.get("fused", 0)
+            dnative = leg["native_staged"] - pleg.get("native_staged", 0)
+            dwalls = {k: leg[k] - pleg.get(k, 0.0) for k in walls}
+            chunks += dchunks
+            fused_d += dfused
+            native_staged += dnative
+            for k, v in dwalls.items():
+                walls[k] += v
+            shard_legs.append({"shard": s, "chunks": dchunks,
+                               "fused": dfused, "native_staged": dnative,
+                               **{k: round(v, 6) for k, v in dwalls.items()}})
+        self._flight_prev_legs = legs
+        do_digest = final or fr.digest_tick(t_idx)
+        fold = {"tenants": len(self._tenant_replay),
+                "state_digest": (state_digest(self._tenant_replay)
+                                 if do_digest else None)}
+        new_alerts = 0
+        crc = self._flight_score_crc
+        for tid in sorted(self._tenant_det):
+            alerts = self._tenant_det[tid].alerts
+            seen = self._flight_alert_seen.get(tid, 0)
+            for a in alerts[seen:]:
+                crc = crc_text(
+                    f"{tid}:{a.window}:{a.service}:{a.service_name}:"
+                    f"{a.score!r}:{a.z_latency!r}:{a.z_error!r}:"
+                    f"{a.z_drop!r}:{a.z_drop_cum!r}:{a.evidence}", crc)
+                new_alerts += 1
+            self._flight_alert_seen[tid] = len(alerts)
+        self._flight_score_crc = crc
+        self._flight_alert_total += new_alerts
+        score = {"alerts": new_alerts,
+                 "alerts_total": self._flight_alert_total,
+                 "digest": crc}
+        new_verdicts = self.rca_verdicts[self._flight_rca_seen:]
+        crc = self._flight_rca_crc
+        for v in new_verdicts:
+            crc = crc_text(repr(v.to_dict()), crc)
+        self._flight_rca_seen = len(self.rca_verdicts)
+        self._flight_rca_crc = crc
+        rca = {"verdicts": len(new_verdicts),
+               "verdicts_total": self._flight_rca_seen,
+               "digest": crc}
+        leg_sum = sum(walls.values())
+        rec = {
+            "tick": t_idx, "now_s": now,
+            "admission": admission,
+            "dispatch": {"chunks": chunks,
+                         "by_width": {str(w): by_width[w]
+                                      for w in sorted(by_width)}},
+            "fold": fold, "score": score, "rca": rca,
+            "walls": {"tick_s": round(tick_wall_s, 6),
+                      **{k: round(v, 6) for k, v in walls.items()},
+                      "other_s": round(max(0.0, tick_wall_s - leg_sum), 6)},
+            "topology": {"fused_dispatches": fused_d,
+                         "native_staged": native_staged,
+                         "shard_legs": fold_leg_records(shard_legs)},
+            # the JAX record's planes the port has not ported, present
+            # and empty as the JAX engine writes them when they are off
+            "recovery": [], "scaling": [],
+            "perf": {"events": [], "headroom_s": 0.0, "wait_s": 0.0},
+            "census": {"planes": [], "hot": {}}, "tiering": [],
+        }
+        if final:
+            rec["final"] = True
+        fr.record(rec)
+        # the first tick with a new alert publishes ONE forensic bundle
+        # (ANOMOD_FLIGHT_DUMP_DIR), once a run
+        if (self._flight_dump_dir is not None and new_alerts
+                and not self._flight_dumped):
+            self._flight_dumped = True
+            from pathlib import Path
+            fr.forensic(Path(self._flight_dump_dir)
+                        / f"flight_forensic_tick{t_idx:06d}.json",
+                        registry=self._registry, tracer=self.tracer,
+                        reason=f"{new_alerts} new alert(s) at tick {t_idx}")
 
     def run(self, traffic, duration_s: float,
             warm: bool = True) -> "ServeReport":
         """Drive the engine from a traffic source for ``duration_s``
         virtual seconds, then close every tenant's last window."""
         if warm:
-            self.runner.warm()          # first launches outside the wall
-            if self.fuse:
-                self.runner.warm_lanes()
-            if self.rca:
-                self._rca_plane.runner.warm()
+            # first launches outside the wall, shard by shard: shard 0
+            # alone (the kernel libraries load there), then the others
+            # together on their own workers
+            if self._use_workers:
+                from anomod_torch.serve.shard import join_all
+                self._ensure_workers()
+                for group in ([0], range(1, self.shards)):
+                    for s in group:
+                        self._workers[s].submit(partial(
+                            self._on_shard, s, self._warm_shard, s))
+                    join_all([self._workers[s] for s in group])
+            else:
+                self._warm_shard(0)
         n_ticks = max(int(round(duration_s / self.clock.tick_s)), 1)
         with self._span("serve.run"):
             for _ in range(n_ticks):
@@ -739,8 +1183,10 @@ class ServeEngine:
                 self.tick(traffic.arrivals(lo, lo + self.clock.tick_s))
         t_wall = time.perf_counter()
         if self.score:
-            for det in self._tenant_det.values():
-                det.finish()
+            for tid, det in self._tenant_det.items():
+                # the last windows score on the owning runner's stream
+                with self._runners[self.shard_of.get(tid, 0)].on_stream():
+                    det.finish()
         if self.rca:
             # end-of-run settlement: alerts raised by finish() still get
             # culprits, and whatever the per-tick budget deferred drains
@@ -750,6 +1196,15 @@ class ServeEngine:
                 self._rca_tick(self.clock.now_s,
                                budget=len(self._rca_queue))
         self.serve_wall_s += time.perf_counter() - t_wall
+        if self.flight_recorder is not None:
+            # the settlement record: finish() alerts and drained verdicts
+            # land here, and its forced digest anchors the full end state
+            self._flight_tick(self.clock.now_s, [],
+                              time.perf_counter() - t_wall, final=True)
+        if self._use_workers:
+            # the shard histograms drain into the process registry
+            self._fold_shard_registries(final=True)
+            self.close()
         return self.report(traffic=traffic)
 
     # -- reporting --------------------------------------------------------
@@ -837,8 +1292,29 @@ class ServeEngine:
                                   if c.offered_spans else 0.0),
                 **_merged_quantiles(pri_slos.get(pri, ())),
             }
-        r = self.runner
-        dev = device_name(self.device)
+        # runner books sum over the shard runners (the inline engine's
+        # list is [self.runner]); lane grouping depends on shard
+        # membership, the staged chunks per width do not
+        runners = self._runners
+        by_width: Dict[int, int] = {}
+        lanes_by_bucket: Dict[int, int] = {}
+        for r in runners:
+            for w, n in r.dispatches_by_width.items():
+                by_width[w] = by_width.get(w, 0) + n
+            for b, n in r.lanes_by_bucket.items():
+                lanes_by_bucket[b] = lanes_by_bucket.get(b, 0) + n
+        staged_lanes = sum(r.staged_lanes for r in runners)
+        live_lanes = sum(r.live_lanes for r in runners)
+        shard_tenants = {s: 0 for s in range(self.shards)}
+        shard_spans = {s: 0 for s in range(self.shards)}
+        shard_tenants[0] += len(self.specs) - len(self.shard_of)
+        for sh in self.shard_of.values():
+            shard_tenants[sh] += 1
+        for tid, c in self.admission.counters.items():
+            shard_spans[self.shard_of.get(tid, 0)] += c.served_spans
+        total_spans = sum(shard_spans.values())
+        imbalance = (max(shard_spans.values()) / (total_spans / self.shards)
+                     if total_spans else 1.0)
         rca_hits, rca_eligible = self._rca_hits(traffic)
         delays = [v.scored_s - v.enqueued_s for v in self.rca_verdicts]
         rca_delay = {
@@ -850,6 +1326,7 @@ class ServeEngine:
             got = self._rca_slo.quantile(p) \
                 if self._rca_slo is not None else None
             rca_lat[q] = round(got, 6) if got is not None else None
+        fr = self.flight_recorder
         return ServeReport(
             n_tenants=len(self.specs),
             duration_s=round(self.clock.now_s, 6),
@@ -863,23 +1340,29 @@ class ServeEngine:
             served_batches=tot.served_batches,
             peak_backlog_spans=self.admission.peak_backlog_spans,
             max_backlog=self.admission.max_backlog,
-            buckets=r.buckets,
-            dispatches_by_width=dict(r.dispatches_by_width),
+            buckets=self.runner.buckets,
+            dispatches_by_width=by_width,
             fused=self.fuse,
-            fused_dispatches=r.fused_dispatches,
-            lane_buckets=r.lane_buckets,
-            lanes_by_bucket=dict(r.lanes_by_bucket),
-            lane_pad_waste=round(r.lane_pad_waste, 6),
-            compile_s=round(r.compile_s, 4),
-            lane_compile_s=round(r.lane_compile_s, 4),
-            native_staging=r.native_stage,
-            native_staged_dispatches=r.native_staged,
+            fused_dispatches=sum(r.fused_dispatches for r in runners),
+            lane_buckets=self.runner.lane_buckets,
+            lanes_by_bucket=lanes_by_bucket,
+            lane_pad_waste=round(1.0 - live_lanes / staged_lanes
+                                 if staged_lanes else 0.0, 6),
+            compile_s=round(sum(r.compile_s for r in runners), 4),
+            lane_compile_s=round(sum(r.lane_compile_s for r in runners), 4),
+            native_staging=self.runner.native_stage,
+            native_staged_dispatches=sum(r.native_staged for r in runners),
             serve_state=self.serve_state,
-            stage_wall_s=round(r.stage_wall_s, 4),
-            dispatch_wall_s=round(r.dispatch_wall_s, 4),
-            fold_wall_s=round(r.fold_wall_s, 4),
-            score_wall_s=round(r.score_wall_s, 4),
+            stage_wall_s=round(sum(r.stage_wall_s for r in runners), 4),
+            dispatch_wall_s=round(sum(r.dispatch_wall_s for r in runners),
+                                  4),
+            fold_wall_s=round(sum(r.fold_wall_s for r in runners), 4),
+            score_wall_s=round(sum(r.score_wall_s for r in runners), 4),
             pipeline=self.pipeline,
+            shards=self.shards,
+            shard_tenants=shard_tenants,
+            shard_spans=shard_spans,
+            shard_imbalance=round(imbalance, 6),
             latency=_merged_quantiles(list(self._slo.values())),
             per_priority=per_pri,
             n_alerts=sum(len(d.alerts) for d in self._tenant_det.values()),
@@ -893,7 +1376,11 @@ class ServeEngine:
             rca_latency=rca_lat,
             rca_alert_to_culprit_s=rca_delay,
             rca_wall_s=round(self.rca_wall_s, 4),
-            device=dev,
+            flight_enabled=self.flight,
+            flight_recorded_ticks=fr.n_recorded if fr is not None else 0,
+            flight_dropped_ticks=fr.n_dropped if fr is not None else 0,
+            fold_payload_bytes=self.fold_payload_bytes,
+            device=device_name(self.device),
             serve_wall_s=round(self.serve_wall_s, 4),
             sustained_spans_per_sec=round(
                 self.n_spans_served / max(self.serve_wall_s, 1e-9), 1),

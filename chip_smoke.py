@@ -100,7 +100,23 @@ drives the data layer and every ported path:
 - the edge-aware shift sweep (phase 19): ``shift_sweep("TT",
   edge_aware=True)`` for the line graph and the transformer, in
   distribution and under the edge-locus shift, with each family's
-  figures an epoch.
+  figures an epoch;
+- the flight recorder and thread shards (phase 20) at the serve bench
+  deployment, RCA on: flight off and on in three alternating turns, the
+  decision and RCA pins on every run, decisions equal off / on, the
+  card's canonical journal byte-identical to the CPU twin's (phase 16's),
+  no ring drop, the overhead fraction with the state digest's and the
+  tick record's own walls; 2 and 4 shards on the card equal to the
+  1-shard run (states, alerts, verdicts, decisions, canonical journal,
+  staged chunks per width), ``lane_delta`` launched from the shard
+  runners' own streams only, serve wall, launches and a profiled busy
+  share per shard count; ``audit record``, ``audit replay --shards 2``
+  and ``audit diff`` (exit 0) through the CLI on the card, and a journal
+  with one tick's admission digest edited, which ``diff`` names (exit
+  1).
+
+The serve runs of phases 8 and 16-17 run with the flight recorder on,
+the engine's default.
 
 Phase 1 also prints how each kernel's shared atomics compiled (from
 ``cuobjdump -sass``), and phase 2 what the L2 eviction before each timed
@@ -1984,14 +2000,25 @@ def rca_serve_phase(dev, card) -> dict:
         f"events, device busy "
         f"{'not measured' if busy is None else f'{busy:.4f} ms'} in a "
         f"{wall * 1e3:.3f} ms run wall; events by name {kinds}")
-    return {"rca_serve": dict(
-        pins=got, rca=rca_got, rca_wall_s=r_on.rca_wall_s,
-        rca_latency=r_on.rca_latency,
-        rca_alert_to_culprit_s=r_on.rca_alert_to_culprit_s,
-        serve_wall_on_s=r_on.serve_wall_s, serve_wall_off_s=r_off.serve_wall_s,
-        cpu_twin_max_score_err=err, launches=launches,
-        one_run_device_events=len(events), one_run_busy_ms=busy,
-        one_run_wall_ms=wall * 1e3, one_run_events_by_name=kinds)}
+    check(e_on.flight_recorder is not None
+          and e_on.flight_recorder.canonical_bytes()
+          == e_cpu.flight_recorder.canonical_bytes(),
+          "rca serve: the card's canonical flight journal differs from the "
+          "CPU twin's")
+    log(f"[16] flight recorder on (the default): canonical journal of "
+        f"{r_on.flight_recorded_ticks} records byte-identical to the CPU "
+        f"twin's, {r_on.flight_dropped_ticks} dropped")
+    return {"cpu_journal": e_cpu.flight_recorder.canonical_bytes(),
+            "rca_serve": dict(
+                pins=got, rca=rca_got, rca_wall_s=r_on.rca_wall_s,
+                rca_latency=r_on.rca_latency,
+                rca_alert_to_culprit_s=r_on.rca_alert_to_culprit_s,
+                serve_wall_on_s=r_on.serve_wall_s,
+                serve_wall_off_s=r_off.serve_wall_s,
+                cpu_twin_max_score_err=err, launches=launches,
+                one_run_device_events=len(events), one_run_busy_ms=busy,
+                one_run_wall_ms=wall * 1e3,
+                one_run_events_by_name=kinds)}
 
 
 def telemetry_phase(dev, card, plain_factory) -> dict:
@@ -2339,6 +2366,270 @@ def shift_phase(dev, card) -> dict:
                           table=table, wall_s=wall_s, families=families)}
 
 
+#: flight off / on turns of phase 20 (alternating, the median fraction)
+FLIGHT_TURNS = 3
+#: shard counts of phase 20 beside the 1-shard run
+SHARD_COUNTS = (2, 4)
+
+
+def flight_shard_phase(dev, card, cpu_journal) -> dict:
+    """Phase 20: the flight recorder and thread shards at the serve bench
+    deployment, RCA on.  Flight off and on in alternating turns: the
+    decision and RCA pins on every run, decisions equal off / on, the
+    card's canonical journal byte-identical to the CPU twin's (phase
+    16's), no ring drop, the median overhead fraction with the digest's
+    and the tick record's own walls split out.  Shards 2 and 4 on the
+    card: states, alerts, verdicts, decisions and the canonical journal
+    equal to the 1-shard run's, the staged chunks per width equal, each
+    kernel launched from the shard runners' own streams; serve wall,
+    launches and a profiled busy share for each count.  Then ``audit
+    record``, ``audit replay --shards 2`` and ``audit diff`` through the
+    CLI on the card, and a journal with one tick's admission digest
+    edited, which ``diff`` must name."""
+    import dataclasses
+    import io
+    import statistics
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from anomod_torch import cli, replay
+    from anomod_torch.obs import flight
+    from anomod_torch.ops import serve_kernels as sk
+    from anomod_torch.serve import batcher
+    from anomod_torch.serve.engine import (FLIGHT_REPORT_FIELDS,
+                                           VARIANT_REPORT_FIELDS,
+                                           ServeEngine, run_power_law)
+    kw = dict(SERVE_KW, device=dev, rca=True)
+
+    def decisions(r, skip=()):
+        return {k: v for k, v in dataclasses.asdict(r).items()
+                if k not in VARIANT_REPORT_FIELDS + tuple(skip)
+                and k != "device"}
+
+    def pins(r, what):
+        got = {"p99_latency_s": r.latency["p99_latency_s"],
+               "shed_fraction": r.shed_fraction, "n_alerts": r.n_alerts}
+        check(got == SERVE_PINS, f"{what}: pins {got} != {SERVE_PINS}")
+        rca = {"n_rca_runs": r.n_rca_runs, "rca_eligible": r.rca_eligible,
+               "rca_topk_hits": r.rca_topk_hits}
+        check(rca == RCA_PINS, f"{what}: rca pins {rca} != {RCA_PINS}")
+
+    # -- flight off / on ---------------------------------------------------
+    walls = {"off": [], "on": []}
+    digest_walls, tick_rec_walls = [], []
+    real_digest = flight.state_digest
+
+    def timed_digest(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return real_digest(*a, **k)
+        finally:
+            digest_walls[-1].append(time.perf_counter() - t0)
+    runs = {}
+    flight.state_digest = timed_digest
+    try:
+        for leg in ("off", "on") * FLIGHT_TURNS:
+            digest_walls.append([])
+            with host_walls(ServeEngine, "_flight_tick") as rec_walls:
+                eng, rep = run_power_law(flight=leg == "on", **kw)
+            walls[leg].append(rep.serve_wall_s)
+            if leg == "on":
+                tick_rec_walls.append(sum(rec_walls))
+            else:
+                digest_walls.pop()
+            pins(rep, f"flight {leg}")
+            runs.setdefault(leg, (eng, rep))
+    finally:
+        flight.state_digest = real_digest
+    (e_off, r_off), (e_on, r_on) = runs["off"], runs["on"]
+    check(e_off.flight_recorder is None and not r_off.flight_enabled,
+          "flight off: a recorder ran")
+    check(serve_fingerprint(e_on) == serve_fingerprint(e_off)
+          and decisions(r_on, FLIGHT_REPORT_FIELDS)
+          == decisions(r_off, FLIGHT_REPORT_FIELDS),
+          "flight: decisions differ between off and on")
+    fr = e_on.flight_recorder
+    check(r_on.flight_recorded_ticks == r_on.ticks + 1
+          and r_on.flight_dropped_ticks == 0,
+          f"flight: {r_on.flight_recorded_ticks} records for "
+          f"{r_on.ticks} ticks, {r_on.flight_dropped_ticks} dropped")
+    journal = fr.canonical_bytes()
+    check(journal == cpu_journal,
+          "flight: the card's canonical journal differs from the CPU twin's")
+    overhead = [on / off - 1.0 for on, off in zip(walls["on"], walls["off"])]
+    digests = [len(w) for w in digest_walls]
+    digest_s = [sum(w) for w in digest_walls]
+    out = {"flight": dict(
+        serve_wall_off_s=walls["off"], serve_wall_on_s=walls["on"],
+        overhead_fraction=overhead,
+        overhead_median=statistics.median(overhead),
+        recorded_ticks=r_on.flight_recorded_ticks,
+        dropped_ticks=r_on.flight_dropped_ticks,
+        digests_per_run=digests, digest_wall_s=digest_s,
+        digest_wall_each_s=[d / max(n, 1) for d, n in zip(digest_s, digests)],
+        tick_record_wall_s=tick_rec_walls,
+        journal_bytes=len(journal))}
+    log(f"[20] flight on {card}: pins held off and on, decisions identical, "
+        f"canonical journal ({len(journal)} B, {r_on.flight_recorded_ticks} "
+        f"records, {r_on.flight_dropped_ticks} dropped) byte-identical to "
+        f"the CPU twin's; serve wall off {walls['off']} s, on "
+        f"{walls['on']} s (alternating), overhead {overhead}, median "
+        f"{out['flight']['overhead_median']:.4g}; the recorder's own wall "
+        f"(every _flight_tick, settlement record included) {tick_rec_walls} "
+        f"s, of it the state digest {digest_s} s over {digests} digests")
+
+    # -- shards on the card ------------------------------------------------
+    want = serve_fingerprint(e_on)
+    want_verdicts = [repr(v.to_dict()) for v in e_on.rca_verdicts]
+    shard_out = {}
+    real_lane = batcher.lane_delta
+    for n in (1,) + SHARD_COUNTS:
+        streams = set()
+
+        def lane(*a, **k):
+            streams.add(torch.cuda.current_stream(dev).cuda_stream)
+            return real_lane(*a, **k)
+        sk.reset_launches()
+        batcher.lane_delta = lane
+        stack, legs = serve_split()
+        with stack:
+            for name, meth in (("score_shard", "_score_shard"),
+                               ("fan_out", "_fan_out"),
+                               ("rca", "_rca_tick")):
+                legs[name] = stack.enter_context(host_walls(ServeEngine,
+                                                            meth))
+            try:
+                eng, rep = run_power_law(shards=n, **kw)
+            finally:
+                batcher.lane_delta = real_lane
+        launches = dict(sk.launches)
+        split = split_sums(legs, rep)
+        pins(rep, f"{n} shards")
+        if n == 1:
+            check(streams == {torch.cuda.current_stream(dev).cuda_stream},
+                  f"1 shard: lane_delta launched on {streams}")
+        else:
+            own = {r.stream.cuda_stream for r in eng._runners}
+            check(streams == own and len(own) == n
+                  and torch.cuda.default_stream(dev).cuda_stream not in own,
+                  f"{n} shards: lane_delta launched on {streams}, the "
+                  f"runners' streams are {own}")
+        check(serve_fingerprint(eng) == want,
+              f"{n} shards: states or alert streams differ from 1 shard")
+        check(decisions(rep) == decisions(r_on),
+              f"{n} shards: decision fields differ from 1 shard")
+        check([repr(v.to_dict()) for v in eng.rca_verdicts] == want_verdicts,
+              f"{n} shards: RCA verdicts differ from 1 shard")
+        check(eng.flight_recorder.canonical_bytes() == journal,
+              f"{n} shards: canonical journal differs from 1 shard")
+        check(rep.dispatches_by_width == r_on.dispatches_by_width,
+              f"{n} shards: chunks by width {rep.dispatches_by_width}")
+        for k, v in launches.items():
+            check(v > 0, f"{n} shards: kernel {k} was not launched")
+        shard_out[n] = dict(serve_wall_s=rep.serve_wall_s,
+                            launches=launches,
+                            chunks_by_width=rep.dispatches_by_width,
+                            fused_dispatches=rep.fused_dispatches,
+                            lanes_by_bucket=rep.lanes_by_bucket,
+                            shard_tenants=rep.shard_tenants,
+                            shard_spans=rep.shard_spans,
+                            shard_imbalance=rep.shard_imbalance,
+                            fold_payload_bytes=rep.fold_payload_bytes,
+                            rca_wall_s=rep.rca_wall_s, host_split=split)
+        log(f"[20] {n} shard(s) on {card}: states, alerts, "
+            f"{len(want_verdicts)} verdicts, decisions and the canonical "
+            f"journal equal to the 1-shard run's; lane_delta from "
+            f"{len(streams)} stream(s), the runners' own; serve wall "
+            f"{rep.serve_wall_s:.4f} s; launches {launches}; fused "
+            f"dispatches {rep.fused_dispatches}, lanes "
+            f"{rep.lanes_by_bucket}; tenants {rep.shard_tenants}, spans "
+            f"{rep.shard_spans}, imbalance {rep.shard_imbalance}; fold "
+            f"payload {rep.fold_payload_bytes} B; host legs, s summed "
+            f"(calls; threads' walls include their waits for the "
+            f"interpreter lock): " + ", ".join(
+                f"{k} {v['sum_s']:.4f} ({v['calls']})"
+                for k, v in split.items() if isinstance(v, dict)))
+    # a diagnostic of the interpreter lock's hand-off: the 4-shard run
+    # again with a 0.5 ms switch interval (default 5 ms); the engine does
+    # not set it
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(0.0005)
+    try:
+        eng, rep = run_power_law(shards=SHARD_COUNTS[-1], **kw)
+    finally:
+        sys.setswitchinterval(switch)
+    check(serve_fingerprint(eng) == want and decisions(rep)
+          == decisions(r_on), "switch-interval run: decisions differ")
+    shard_out[SHARD_COUNTS[-1]]["serve_wall_switch_0p5ms_s"] = \
+        rep.serve_wall_s
+    log(f"[20] {SHARD_COUNTS[-1]} shards with a 0.5 ms switch interval "
+        f"(default {switch * 1e3:g} ms): serve wall {rep.serve_wall_s:.4f} "
+        f"s, decisions equal")
+    for n in (1,) + SHARD_COUNTS:
+        sk.reset_launches()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _, rep = run_power_law(shards=n, **kw)
+            torch.cuda.synchronize()
+        busy = device_busy_ms(prof)
+        share = None if busy is None else busy / 1e3 / rep.serve_wall_s
+        shard_out[n].update(profiled_wall_s=rep.serve_wall_s,
+                            device_busy_ms=busy, busy_share=share,
+                            profiled_launches=dict(sk.launches))
+        log(f"[20] {n} shard(s) profiled: device busy "
+            f"{'not measured' if busy is None else f'{busy:.3f} ms'} in a "
+            f"{rep.serve_wall_s:.4f} s serve wall, busy share "
+            f"{share if share is None else f'{share:.4g}'}; launches "
+            f"{dict(sk.launches)}")
+    out["shards"] = {str(k): v for k, v in shard_out.items()}
+
+    # -- audit record / replay / diff ---------------------------------------
+    args = ["--tenants", "200", "--services", "12", "--capacity", "25000",
+            "--overload", "2", "--duration", "60", "--tick", "0.5",
+            "--seed", "7", "--window-seconds", "5", "--baseline-windows",
+            "4", "--fault-tenants", "2", "--rca", "--device", "cuda"]
+
+    def main_rc(argv):
+        buf_out, buf_err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(buf_out), \
+                contextlib.redirect_stderr(buf_err):
+            rc = cli.main(argv)
+        return rc, buf_out.getvalue(), buf_err.getvalue()
+    with tempfile.TemporaryDirectory() as tmp:
+        a, b, c = (str(Path(tmp) / f"{x}.json") for x in "abc")
+        t0 = time.perf_counter()
+        rc_rec, rec_out, _ = main_rc(["audit", "record", "--out", a] + args)
+        rc_rep, rep_out, _ = main_rc(["audit", "replay", a, "--out", b,
+                                      "--shards", "2", "--device", "cuda"])
+        rc_diff, _, _ = main_rc(["audit", "diff", a, b])
+        check((rc_rec, rc_rep, rc_diff) == (0, 0, 0),
+              f"audit: record / replay --shards 2 / diff exited "
+              f"{rc_rec} / {rc_rep} / {rc_diff}")
+        check(json.loads(rep_out)["shards"] == 2
+              and json.loads(rec_out)["device"] == json.loads(rep_out)[
+                  "device"] != "cpu", f"audit: {rec_out} / {rep_out}")
+        doc = flight.load_journal(b)
+        tick = len(doc["ticks"]) // 2
+        doc["ticks"][tick]["admission"]["digest"] ^= 1
+        Path(c).write_text(json.dumps(doc))
+        rc_bad, bad_out, bad_err = main_rc(["audit", "diff", a, c])
+        div = json.loads(bad_out).get("divergence", {})
+        check(rc_bad == 1 and (div.get("tick"), div.get("plane"))
+              == (doc["ticks"][tick]["tick"], "admission"),
+              f"audit: the edited journal diffed {rc_bad}, {div}")
+        audit_s = time.perf_counter() - t0
+    out["audit"] = dict(record=json.loads(rec_out),
+                        replay=json.loads(rep_out), edited_tick=tick,
+                        divergence=dict(tick=div["tick"],
+                                        plane=div["plane"]),
+                        wall_s=audit_s)
+    log(f"[20] audit on {card}: record {rec_out.strip()}; replay --shards "
+        f"2 {rep_out.strip()}; diff exit 0; tick {tick} admission digest "
+        f"edited: diff exit {rc_bad}, {bad_err.strip()} ({audit_s:.3f} s)")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2646,11 +2937,13 @@ def main() -> int:
     mm15 = multimodal_phase(dev, card, PlainFoldReplay)
     mm_launches = mm15["multimodal_stream"]["dense_launches"]
     rca16 = rca_serve_phase(dev, card)
+    cpu_journal = rca16.pop("cpu_journal")
     tele17 = telemetry_phase(dev, card, PlainFoldReplay)
     ss_launches = tele17["telemetry"]["selfscrape_dense_launches"]
     q18 = quality_phase(dev, card)
     q_launches = q18["quality"]["dense_launches"]
     s19 = shift_phase(dev, card)
+    fs20 = flight_shard_phase(dev, card, cpu_journal)
 
     # -- report -----------------------------------------------------------
     # the dense kernel's top-level times are the corpus pass's; each path
@@ -2688,6 +2981,13 @@ def main() -> int:
          "plain_ms": sorted_plain_ms, "bound_ms": sorted_bound,
          "bound_by": sorted_by, **sorted_t},
     ] + serve.pop("kernels") + sketch.pop("kernels") + roof.pop("kernels")
+    # the serve kernels' launches on phase 20's sharded runs, beside the
+    # main path's 1-shard count
+    for k in kernels:
+        if k["name"] in ("lane_delta", "window_gather"):
+            k["launches_by_shards"] = {
+                str(n): fs20["shards"][str(n)]["launches"][k["name"]]
+                for n in SHARD_COUNTS}
     log(json.dumps({"replay_spans_per_sec": rates, "replicate": replicate,
                     "stream_top1": sum(hits) / len(hits),
                     "stream_wall_s": stream_s,
@@ -2698,7 +2998,7 @@ def main() -> int:
                     "sorted_ends_ms": end_ms, "dense_ends_ms": dense_end_ms,
                     "l2_eviction_ms": flush, **data, **serve,
                     **sketch, **roof, **det13, **rca14, **mm15, **rca16,
-                    **tele17, **q18, **s19,
+                    **tele17, **q18, **s19, **fs20,
                     "wall_s": time.perf_counter() - t_all}))
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -854,3 +854,54 @@ def test_serve_with_rca_on_card_equals_cpu(cuda_device):
     assert _serve_fingerprint(eng) == _serve_fingerprint(off)
     assert decisions(rep, RCA_REPORT_FIELDS) == \
         decisions(rep_off, RCA_REPORT_FIELDS)
+
+
+@pytest.mark.cuda
+def test_sharded_serve_on_card_equals_cpu_on_shard_streams(cuda_device,
+                                                           monkeypatch):
+    """A 2-shard serve run with RCA on the card equals its CPU twin and
+    the 1-shard card run (states, alerts, verdicts, decisions, canonical
+    flight journal), and every lane_delta / window_gather launch of the
+    run comes from a shard runner's own stream, never the default one."""
+    import dataclasses
+
+    from anomod_torch import replay
+    from anomod_torch.serve import batcher
+    from anomod_torch.serve.engine import VARIANT_REPORT_FIELDS, run_power_law
+    kw = dict(n_tenants=8, n_services=6, capacity_spans_per_s=2000,
+              overload=2.0, duration_s=60, tick_s=1.0, seed=3, window_s=5.0,
+              baseline_windows=4, fault_tenants=2, buckets=(64, 256),
+              lane_buckets=(1, 2, 4), max_backlog=3000, n_windows=16,
+              rca=True, flight=True, flight_digest_every=4)
+    streams = {"lane_delta": [], "window_gather": []}
+
+    def spy(name, fn):
+        def wrapped(*a, **k):
+            streams[name].append(
+                torch.cuda.current_stream(cuda_device).cuda_stream)
+            return fn(*a, **k)
+        return wrapped
+    monkeypatch.setattr(batcher, "lane_delta",
+                        spy("lane_delta", batcher.lane_delta))
+    monkeypatch.setattr(replay, "window_gather",
+                        spy("window_gather", replay.window_gather))
+    eng, rep = run_power_law(device=cuda_device, shards=2, **kw)
+    own = {r.stream.cuda_stream for r in eng._runners}
+    default = torch.cuda.default_stream(cuda_device).cuda_stream
+    assert len(own) == 2 and default not in own
+    for name, seen in streams.items():
+        assert seen and set(seen) == own, name
+    monkeypatch.undo()
+
+    def decisions(r):
+        return {k: v for k, v in dataclasses.asdict(r).items()
+                if k not in VARIANT_REPORT_FIELDS and k != "device"}
+    for e2, r2 in (run_power_law(device="cpu", shards=2, **kw),
+                   run_power_law(device=cuda_device, **kw)):
+        assert _serve_fingerprint(e2) == _serve_fingerprint(eng)
+        assert decisions(r2) == decisions(rep)
+        assert [repr(v.to_dict()) for v in e2.rca_verdicts] \
+            == [repr(v.to_dict()) for v in eng.rca_verdicts]
+        assert e2.flight_recorder.canonical_bytes() \
+            == eng.flight_recorder.canonical_bytes()
+    assert rep.n_alerts > 0 and rep.n_rca_runs > 0

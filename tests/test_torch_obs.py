@@ -399,10 +399,10 @@ def test_serve_registry_wiring_matches_jax(registry):
     prev = jget_registry()
     jset_registry(jreg)
     try:
-        _, jrep = jrun(flight=False, **_SERVE_KW)
+        _, jrep = jrun(flight=True, **_SERVE_KW)
     finally:
         jset_registry(prev)
-    eng, rep = run_power_law(device="cpu", **_SERVE_KW)
+    eng, rep = run_power_law(device="cpu", flight=True, **_SERVE_KW)
     assert registry.counter("anomod_serve_served_spans_total").value \
         == rep.served_spans == jrep.served_spans > 0
     assert registry.counter("anomod_serve_offered_spans_total").value \
@@ -668,7 +668,10 @@ def test_obs_cli_export_chrome_and_score(tmp_path, capsys):
     capsys.readouterr()
     assert main(["obs", "score", "--from", str(csv), "--device", "cpu"]) == 0
     report = json.loads(capsys.readouterr().out)
-    assert report["subsystems"] == ["serve"] and report["n_samples"] > 0
+    # the self-exercise serves with the flight recorder on, as the JAX
+    # package's does: its series form a second subsystem
+    assert report["subsystems"] == ["serve", "flight"] \
+        and report["n_samples"] > 0
     with pytest.raises(SystemExit):
         main(["obs", "export"])                 # needs --out
 

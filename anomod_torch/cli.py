@@ -33,8 +33,10 @@
   inference in the tick, ``--trace-out`` dumps the engine's Jaeger-shaped
   trace; with ``ANOMOD_OBS_HTTP`` on, ``/metrics`` (and ``/flight``) is
   served meanwhile.  ``--shards N`` fans the score plane out to N worker
-  threads (``--fold`` picks the barrier's registry merge); the flight
-  recorder is on unless ``ANOMOD_FLIGHT=0``.
+  threads, or processes with ``--worker process`` (``--fold`` picks the
+  barrier's registry merge); the flight recorder is on unless
+  ``ANOMOD_FLIGHT=0``.  Supervision is on (``--ckpt-every``, default 32
+  ticks; 0 turns it off) and ``--chaos`` injects a fault script.
 - ``audit record | replay | diff``: the flight recorder's forensics (the
   counterpart of ``anomod audit``): ``record`` serves seeded traffic and
   dumps the journal, ``replay`` re-executes a journal from its header's
@@ -210,6 +212,21 @@ def _parser() -> argparse.ArgumentParser:
     v.add_argument("--fold", choices=["sparse", "dense"], default=None,
                    help="the shard barrier's registry merge (default: "
                         "ANOMOD_SERVE_FOLD, sparse)")
+    v.add_argument("--worker", choices=["thread", "process"], default=None,
+                   help="shard workers: thread = in-process threads (the "
+                        "byte-parity oracle); process = one spawned "
+                        "process a shard owning its detectors, states and "
+                        "runner; every decision and the canonical journal "
+                        "equal either way (default: ANOMOD_SERVE_WORKER)")
+    v.add_argument("--chaos", default=None,
+                   help="scripted serve-plane fault injection, e.g. "
+                        "'crash@5:shard=1;stall@8:ms=20' (default: "
+                        "ANOMOD_SERVE_CHAOS, empty = off)")
+    v.add_argument("--ckpt-every", type=int, default=None,
+                   help="shard-checkpoint cadence in ticks for supervised "
+                        "no-score-gap recovery (default: "
+                        "ANOMOD_SERVE_CKPT_EVERY, 32; 0 disables "
+                        "supervision)")
     v.add_argument("--device", default=None,
                    help="cuda (default) or cpu (plain PyTorch versions)")
 
@@ -311,6 +328,23 @@ def _serve(args, parser) -> int:
     if args.rca and args.no_score:
         parser.error("--rca consumes the detectors' alert stream; "
                      "it cannot combine with --no-score")
+    if args.ckpt_every is not None and args.ckpt_every < 0:
+        parser.error("--ckpt-every must be >= 0 (0 = supervision off)")
+    if args.chaos:
+        from anomod_torch.config import get_config, validate_chaos_script
+        try:
+            faults = validate_chaos_script(args.chaos)
+        except ValueError as e:
+            parser.error(f"--chaos: {e}")
+        n_sh = (args.shards if args.shards is not None
+                else get_config().serve_shards)
+        bad = sorted({f["shard"] for f in faults
+                      if f["kind"] != "surge" and f["shard"] >= n_sh})
+        if bad:
+            parser.error(
+                f"--chaos targets shard(s) {bad} but the run has "
+                f"{n_sh} reachable shard(s) (ids 0..{n_sh - 1}) — "
+                "the fault(s) could never fire")
     try:
         buckets = (None if args.buckets is None else validate_serve_buckets(
             p for p in args.buckets.split(",") if p.strip()))
@@ -338,7 +372,9 @@ def _serve(args, parser) -> int:
             pipeline=args.pipeline, state=args.state, device=args.device,
             # --no-score forces RCA off even under ANOMOD_SERVE_RCA=1
             rca=True if args.rca else (False if args.no_score else None),
-            tracer=tracer, shards=args.shards, fold=args.fold)
+            tracer=tracer, shards=args.shards, fold=args.fold,
+            worker=args.worker, chaos=args.chaos,
+            ckpt_every=args.ckpt_every)
     finally:
         if endpoint is not None:
             endpoint.stop()

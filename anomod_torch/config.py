@@ -32,11 +32,23 @@ Online RCA in the serve tick (``anomod_torch.serve.rca``):
 ``ANOMOD_SERVE_RCA_TOPK`` (5), ``ANOMOD_SERVE_RCA_BUDGET`` (4 runs a
 tick) and ``ANOMOD_SERVE_RCA_WINDOWS`` (8).
 
-Shards (``anomod_torch.serve.shard``): ``ANOMOD_SERVE_SHARDS`` (engine
-worker threads, 1-256, default 1), ``ANOMOD_SERVE_FOLD`` (the tick
-barrier's registry merge, ``sparse`` or ``dense``) and
-``ANOMOD_SERVE_WORKER`` (``thread`` only: process workers are not
-ported yet, and asking for them raises).
+Shards (``anomod_torch.serve.shard``, ``anomod_torch.serve.procshard``):
+``ANOMOD_SERVE_SHARDS`` (engine workers, 1-256, default 1),
+``ANOMOD_SERVE_FOLD`` (the tick barrier's registry merge, ``sparse`` or
+``dense``), ``ANOMOD_SERVE_WORKER`` (``thread``, the default, or
+``process``: one spawned worker process a shard) and
+``ANOMOD_SERVE_WORKER_START_TIMEOUT_S`` (a process worker's start-up
+bound, 1-3600 s, default 120).
+
+Chaos and supervision (``anomod_torch.serve.chaos``,
+``anomod_torch.serve.supervise``): ``ANOMOD_SERVE_CHAOS`` (a fault
+script, :func:`validate_chaos_script`; empty, the default, is off),
+``ANOMOD_SERVE_CKPT_EVERY`` (checkpoint cadence in ticks, default 32;
+``0`` turns supervision off), ``ANOMOD_SERVE_RETRIES`` (consecutive
+failures of one slice before it is quarantined, default 3),
+``ANOMOD_SERVE_RETRY_BACKOFF_S`` (default 0) and
+``ANOMOD_SERVE_MAX_RESPAWNS`` (a shard's worker respawns before its
+tenants migrate, default 8).
 
 The flight recorder (``anomod_torch.obs.flight``): ``ANOMOD_FLIGHT``
 (default on), ``ANOMOD_FLIGHT_DIGEST_EVERY`` (tenant-state digest
@@ -219,19 +231,174 @@ def _serve_fold_env() -> str:
 
 
 def validate_serve_worker(raw: str) -> str:
-    """The shard-worker kind: ``thread`` (the only one the port has);
-    ``process`` raises, never quietly running threads instead."""
+    """The shard-worker kind: ``thread`` (in-process worker threads, the
+    byte-parity oracle) or ``process`` (one spawned worker process a
+    shard, :mod:`anomod_torch.serve.procshard`)."""
     mode = str(raw).strip().lower() or "thread"
-    if mode == "thread":
+    if mode in ("thread", "process"):
         return mode
-    if mode == "process":
-        raise ValueError(
-            "ANOMOD_SERVE_WORKER=process: process shard workers "
-            "(serve/procshard.py, one CUDA context a child) are not "
-            "ported yet; they are the next step of the shard plane "
-            "(ANOMOD_SERVE_WORKER=thread)")
     raise ValueError(
         f"ANOMOD_SERVE_WORKER must be thread or process, got {raw!r}")
+
+
+def _serve_worker_start_timeout_s_env() -> float:
+    raw = _env("ANOMOD_SERVE_WORKER_START_TIMEOUT_S", "120")
+    try:
+        v = float(raw)
+    except ValueError:
+        raise ValueError(
+            f"ANOMOD_SERVE_WORKER_START_TIMEOUT_S must be a number, "
+            f"got {raw!r}")
+    if not 1 <= v <= 3600:
+        raise ValueError(
+            f"ANOMOD_SERVE_WORKER_START_TIMEOUT_S must be in [1, 3600], "
+            f"got {v}")
+    return v
+
+
+#: the serve-chaos fault kinds (:mod:`anomod_torch.serve.chaos`):
+#: ``crash`` kills the shard worker mid-tick, ``except`` raises at a
+#: score-path phase, ``stall`` sleeps, ``poolput`` fails the state-pool
+#: fold, ``surge`` multiplies every tenant's offered arrivals for a
+#: window of ticks.  The phases are the score path's five injection
+#: points; a surge has none (it acts on admission input).
+CHAOS_KINDS = ("crash", "except", "stall", "poolput", "surge")
+CHAOS_PHASES = ("stage", "dispatch", "fold", "score", "commit")
+_CHAOS_DEFAULT_PHASE = {"crash": "dispatch", "except": "dispatch",
+                        "stall": "stage", "poolput": "fold",
+                        "surge": "stage"}
+
+
+def validate_chaos_script(script: str) -> list:
+    """Parse and validate an ``ANOMOD_SERVE_CHAOS`` fault script.
+
+    Grammar: semicolon-separated ``KIND@TICK[:key=value]*`` items, e.g.
+    ``crash@5:shard=1;stall@8:ms=20;except@12:phase=score:repeat=2``.
+    Keys: ``shard`` (default 0), ``phase`` (one of :data:`CHAOS_PHASES`,
+    a default per kind), ``ms`` (stall milliseconds, default 10, at most
+    10,000), ``repeat`` (how many attempts of that tick's slice the
+    fault fires on, default 1; ``-1`` fires on every attempt).  A
+    ``surge`` takes ``factor`` (2-64, default 4) and ``ticks`` (default
+    10) instead; a key of the other family is refused.  Returns the
+    parsed fault dicts; raises ``ValueError`` naming the offending
+    item, with the JAX package's messages."""
+    faults = []
+    for item in (p.strip() for p in str(script).split(";") if p.strip()):
+        head, _, tail = item.partition(":")
+        kind, at, tick = head.partition("@")
+        kind = kind.strip().lower()
+        if kind not in CHAOS_KINDS or not at:
+            raise ValueError(
+                f"chaos item {item!r}: expected KIND@TICK with KIND in "
+                f"{'/'.join(CHAOS_KINDS)}")
+        try:
+            tick_i = int(tick)
+        except ValueError:
+            raise ValueError(f"chaos item {item!r}: tick must be an "
+                             f"integer, got {tick!r}")
+        if tick_i < 0:
+            raise ValueError(f"chaos item {item!r}: tick must be >= 0")
+        fault = {"kind": kind, "tick": tick_i, "shard": 0,
+                 "phase": _CHAOS_DEFAULT_PHASE[kind], "ms": 10.0,
+                 "repeat": 1, "factor": 4, "ticks": 10}
+        allowed = (("factor", "ticks") if kind == "surge"
+                   else ("shard", "phase", "ms", "repeat"))
+        for kv in (p.strip() for p in tail.split(":") if p.strip()):
+            key, eq, val = kv.partition("=")
+            key = key.strip().lower()
+            if not eq or key not in allowed:
+                raise ValueError(
+                    f"chaos item {item!r}: unknown key {kv!r} (want "
+                    + "/".join(f"{k}=" for k in allowed) + ")")
+            try:
+                if key == "phase":
+                    val = val.strip().lower()
+                    if val not in CHAOS_PHASES:
+                        raise ValueError
+                    fault["phase"] = val
+                elif key == "ms":
+                    fault["ms"] = float(val)
+                    if not 0 <= fault["ms"] <= 10_000:
+                        raise ValueError
+                else:
+                    fault[key] = int(val)
+            except ValueError:
+                raise ValueError(
+                    f"chaos item {item!r}: bad value for {key!r}: {val!r}")
+        if fault["shard"] < 0:
+            raise ValueError(f"chaos item {item!r}: shard must be >= 0")
+        if fault["repeat"] < -1 or fault["repeat"] == 0:
+            raise ValueError(f"chaos item {item!r}: repeat must be a "
+                             "positive count or -1 (forever)")
+        if not 2 <= fault["factor"] <= 64:
+            raise ValueError(f"chaos item {item!r}: surge factor must "
+                             f"be in [2, 64], got {fault['factor']}")
+        if not 1 <= fault["ticks"] <= 1_000_000:
+            raise ValueError(f"chaos item {item!r}: surge ticks must "
+                             f"be in [1, 1000000], got {fault['ticks']}")
+        faults.append(fault)
+    return faults
+
+
+def _serve_chaos_env() -> str:
+    raw = _env("ANOMOD_SERVE_CHAOS", "").strip()
+    if raw:
+        validate_chaos_script(raw)
+    return raw
+
+
+def _serve_ckpt_every_env() -> int:
+    raw = _env("ANOMOD_SERVE_CKPT_EVERY", "32")
+    try:
+        n = int(raw)
+    except ValueError:
+        raise ValueError(
+            f"ANOMOD_SERVE_CKPT_EVERY must be a non-negative integer "
+            f"(0 = supervision off), got {raw!r}")
+    if not 0 <= n <= 1_000_000:
+        raise ValueError(
+            f"ANOMOD_SERVE_CKPT_EVERY must be in [0, 1000000], got {n}")
+    return n
+
+
+def _serve_retries_env() -> int:
+    raw = _env("ANOMOD_SERVE_RETRIES", "3")
+    try:
+        n = int(raw)
+    except ValueError:
+        raise ValueError(
+            f"ANOMOD_SERVE_RETRIES must be a positive integer, got {raw!r}")
+    if not 1 <= n <= 64:
+        raise ValueError(
+            f"ANOMOD_SERVE_RETRIES must be in [1, 64], got {n}")
+    return n
+
+
+def _serve_retry_backoff_s_env() -> float:
+    raw = _env("ANOMOD_SERVE_RETRY_BACKOFF_S", "0")
+    try:
+        v = float(raw)
+    except ValueError:
+        raise ValueError(
+            f"ANOMOD_SERVE_RETRY_BACKOFF_S must be a number, got {raw!r}")
+    if not 0 <= v <= 60:
+        raise ValueError(
+            f"ANOMOD_SERVE_RETRY_BACKOFF_S must be in [0, 60], got {v}")
+    return v
+
+
+def _serve_max_respawns_env() -> int:
+    raw = _env("ANOMOD_SERVE_MAX_RESPAWNS", "8")
+    try:
+        n = int(raw)
+    except ValueError:
+        raise ValueError(
+            f"ANOMOD_SERVE_MAX_RESPAWNS must be a non-negative integer, "
+            f"got {raw!r}")
+    if not 0 <= n <= 4096:
+        raise ValueError(
+            f"ANOMOD_SERVE_MAX_RESPAWNS must be in [0, 4096], got {n}")
+    return n
 
 
 def _flight_env() -> bool:
@@ -261,7 +428,7 @@ def _flight_dump_dir_env() -> Optional[Path]:
 @dataclasses.dataclass
 class Config:
     """Where experiments come from and how they are loaded; the telemetry,
-    online-RCA, shard and flight-recorder knobs."""
+    online-RCA, shard, supervision and flight-recorder knobs."""
 
     data_root: Optional[Path] = dataclasses.field(
         default_factory=_data_root_env)
@@ -295,6 +462,16 @@ class Config:
     serve_worker: str = dataclasses.field(
         default_factory=lambda: validate_serve_worker(
             _env("ANOMOD_SERVE_WORKER", "thread")))
+    serve_worker_start_timeout_s: float = dataclasses.field(
+        default_factory=_serve_worker_start_timeout_s_env)
+    serve_chaos: str = dataclasses.field(default_factory=_serve_chaos_env)
+    serve_ckpt_every: int = dataclasses.field(
+        default_factory=_serve_ckpt_every_env)
+    serve_retries: int = dataclasses.field(default_factory=_serve_retries_env)
+    serve_retry_backoff_s: float = dataclasses.field(
+        default_factory=_serve_retry_backoff_s_env)
+    serve_max_respawns: int = dataclasses.field(
+        default_factory=_serve_max_respawns_env)
     flight: bool = dataclasses.field(default_factory=_flight_env)
     flight_digest_every: int = dataclasses.field(
         default_factory=lambda: _flight_int_env(

@@ -96,6 +96,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <mutex>
 #include <type_traits>
 
 namespace {
@@ -351,6 +352,14 @@ window_gather_kernel(const __grid_constant__ GatherArgs a) {
   }
 }
 
+// The dynamic shared-memory cap that cudaFuncSetAttribute sets is one
+// per kernel for the whole process.  Serve shard threads launch the lane
+// kernel at once with different segments per block, so different sizes:
+// each sets the cap and launches under this lock, or another thread's
+// smaller cap could land between one thread's set and its launch, which
+// then fails with cudaErrorInvalidValue.
+std::mutex lane_launch_mutex;
+
 }  // namespace
 
 extern "C" const char* anomod_serve_error_string(int e) {
@@ -369,10 +378,11 @@ extern "C" int anomod_lane_delta(const void* sid, const void* planes, int L,
   if (seg_per_block < 1 || n_hist < 1 || n_hist > 65536)
     return (int)cudaErrorInvalidValue;
   const int smem = lane_smem_bytes(seg_per_block, n_hist);
+  const int groups = (n_segments + seg_per_block - 1) / seg_per_block;
+  std::lock_guard<std::mutex> hold(lane_launch_mutex);
   cudaError_t e = cudaFuncSetAttribute(
       lane_delta_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  const int groups = (n_segments + seg_per_block - 1) / seg_per_block;
   lane_delta_kernel<<<dim3(L, groups), kLaneThreads, smem, st>>>(
       static_cast<const int*>(sid), static_cast<const float*>(planes), W,
       n_segments, seg_per_block, n_hist, static_cast<float*>(out));

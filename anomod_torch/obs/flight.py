@@ -19,10 +19,11 @@ Two tiers a record, as in the JAX package:
   engine's on the CPU);
 - the **variant keys** (:data:`FLIGHT_VARIANT_KEYS`) hold walls and
   lane / shard topology; they ride the dump for forensics and stay out
-  of the canonical bytes and of :func:`diff_journals`.  The keys of
-  planes the port has not ported (``recovery``, ``scaling``, ``perf``,
-  ``census``, ``tiering``) are present and empty, as the JAX record
-  makes them when those planes are off.
+  of the canonical bytes and of :func:`diff_journals`.  ``recovery``
+  carries the supervisor's events (a crash recovered, a quarantine, a
+  migration); the keys of planes the port has not ported (``scaling``,
+  ``perf``, ``census``, ``tiering``) are present and empty, as the JAX
+  record makes them when those planes are off.
 
 The ring is bounded (``ANOMOD_FLIGHT_MAX_TICKS``) and every eviction is
 counted (``anomod_flight_dropped_ticks_total`` and ``n_dropped``).
@@ -32,6 +33,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import json
 import os
 import zlib
@@ -50,8 +52,9 @@ FLIGHT_FORMAT = 1
 PLANES: Tuple[str, ...] = ("admission", "dispatch", "fold", "score", "rca")
 
 #: per-tick keys excluded from the canonical bytes and from ``diff``:
-#: walls, lane / shard topology, and the JAX package's recovery,
-#: scaling, perf, census and tiering planes (empty in the port)
+#: walls, lane / shard topology, the supervisor's recovery events, and
+#: the JAX package's scaling, perf, census and tiering planes (empty in
+#: the port)
 FLIGHT_VARIANT_KEYS: Tuple[str, ...] = ("walls", "topology", "recovery",
                                         "scaling", "perf", "census",
                                         "tiering")
@@ -129,6 +132,26 @@ def _gf2_matrix_square(mat: List[int]) -> List[int]:
     return [_gf2_matrix_times(mat, mat[n]) for n in range(32)]
 
 
+@functools.lru_cache(maxsize=1)
+def _zero_byte_ops() -> Tuple[Tuple[int, ...], ...]:
+    """The crc32 operators that append 2^k zero bytes, k = 0..63: the
+    one-bit shift of the reflected polynomial squared three times, then
+    squared once a power.  Built once; each combine then costs one
+    matrix-vector product a set bit of the length."""
+    op = [0xEDB88320]           # CRC-32 polynomial, reflected: one bit
+    row = 1
+    for _ in range(31):
+        op.append(row)
+        row <<= 1
+    for _ in range(3):
+        op = _gf2_matrix_square(op)
+    ops = []
+    for _ in range(64):
+        ops.append(tuple(op))
+        op = _gf2_matrix_square(op)
+    return tuple(ops)
+
+
 def crc32_combine(crc1: int, crc2: int, len2: int) -> int:
     """zlib's crc32_combine: the crc of ``A + B`` from ``crc32(A)``,
     ``crc32(B)`` and ``len(B)`` alone (a GF(2) matrix shift), so shards
@@ -136,26 +159,13 @@ def crc32_combine(crc1: int, crc2: int, len2: int) -> int:
     :func:`state_digest`'s sequential walk."""
     if len2 <= 0:
         return crc1 & 0xFFFFFFFF
-    odd = [0xEDB88320]          # CRC-32 polynomial, reflected
-    row = 1
-    for _ in range(31):
-        odd.append(row)
-        row <<= 1
-    even = _gf2_matrix_square(odd)
-    odd = _gf2_matrix_square(even)
-    while True:
-        even = _gf2_matrix_square(odd)
+    ops = _zero_byte_ops()
+    k = 0
+    while len2:
         if len2 & 1:
-            crc1 = _gf2_matrix_times(even, crc1)
+            crc1 = _gf2_matrix_times(ops[k], crc1)
         len2 >>= 1
-        if len2 == 0:
-            break
-        odd = _gf2_matrix_square(even)
-        if len2 & 1:
-            crc1 = _gf2_matrix_times(odd, crc1)
-        len2 >>= 1
-        if len2 == 0:
-            break
+        k += 1
     return (crc1 ^ crc2) & 0xFFFFFFFF
 
 

@@ -525,6 +525,30 @@ class BucketRunner:
     def inflight_dispatches(self) -> int:
         return len(self._inflight)
 
+    def book_snapshot(self) -> dict:
+        """The runner's cumulative dispatch-count book, which the shard
+        supervisor checkpoints and restores around a recovery
+        re-execution, so re-executed slices do not count twice in the
+        journal's dispatch plane or the report.  Walls and first-launch
+        walls stay out: recovery work is real work."""
+        return {"n_dispatches": self.n_dispatches,
+                "dispatches_by_width": dict(self.dispatches_by_width),
+                "fused_dispatches": self.fused_dispatches,
+                "native_staged": self.native_staged,
+                "staged_lanes": self.staged_lanes,
+                "live_lanes": self.live_lanes,
+                "lanes_by_bucket": dict(self.lanes_by_bucket)}
+
+    def book_restore(self, book: dict) -> None:
+        """Install a :meth:`book_snapshot` (checkpoint restore)."""
+        self.n_dispatches = book["n_dispatches"]
+        self.dispatches_by_width = dict(book["dispatches_by_width"])
+        self.fused_dispatches = book["fused_dispatches"]
+        self.native_staged = book["native_staged"]
+        self.staged_lanes = book["staged_lanes"]
+        self.live_lanes = book["live_lanes"]
+        self.lanes_by_bucket = dict(book["lanes_by_bucket"])
+
     @property
     def lane_pad_waste(self) -> float:
         """Dead-lane fraction of every fused dispatch so far."""
@@ -601,17 +625,33 @@ class PooledStreamReplay(BucketedStreamReplay):
         except BaseException:
             # a failed construction hands its slot back
             runner.pool.release(self._slot)
+            self._slot = None
             raise
+
+    def _live_slot(self) -> int:
+        # a released plane must fail loud, never read or write a slot
+        # another tenant may own by now
+        if self._slot is None:
+            raise ValueError("pool slot was released; this "
+                             "PooledStreamReplay is dead")
+        return self._slot
 
     @property
     def state(self) -> ReplayState:
-        return self._runner.pool.gather(self._slot)
+        return self._runner.pool.gather(self._live_slot())
 
     @state.setter
     def state(self, st: ReplayState) -> None:
-        self._runner.pool.put(self._slot, st)
+        self._runner.pool.put(self._live_slot(), st)
 
     def _roll(self, k: int) -> None:
-        self._runner.pool.roll(self._slot, k)
+        self._runner.pool.roll(self._live_slot(), k)
         self.t0_us += k * self.cfg.window_us
         self.window_offset += k
+
+    def release(self) -> None:
+        """Hand the slot back to the pool, zeroed (a supervised restore's
+        or a migration's teardown half).  Not idempotent: a second
+        release would free a slot another tenant may own."""
+        self._runner.pool.release(self._live_slot())
+        self._slot = None

@@ -61,9 +61,29 @@ journal of a seed is byte-identical across reruns, shard counts,
 pipeline depths, state residencies and devices, and equals the JAX
 engine's.
 
-The JAX package's other planes (process workers, chaos and supervision,
-elastic policy, async commit, tiering, perf and census, the multimodal
-sidecar) are not part of this engine, nor are their metric series.
+Process workers (``worker="process"`` or ``ANOMOD_SERVE_WORKER``,
+:mod:`anomod_torch.serve.procshard`): each shard's whole score plane
+(detectors, replay states, its runner, pool and registry) lives in a
+spawned worker process, driven by a picklable command a tick; the
+coordinator keeps admission, SLO, online RCA (one plane) and the
+flight recorder, and mirrors of each child's runner book and alert
+lists.  Every decision and the canonical journal equal the thread
+engine's.
+
+Chaos and supervision (``chaos`` / ``ANOMOD_SERVE_CHAOS``,
+:mod:`anomod_torch.serve.chaos`; ``ckpt_every`` /
+``ANOMOD_SERVE_CKPT_EVERY``, default 32, :mod:`anomod_torch.serve.
+supervise`): scripted faults fire at the score path's phase boundaries,
+keyed on the slice's origin tick; the supervisor checkpoints every
+tenant and runner book at the cadence, keeps the served batches since,
+and on a shard failure restores the shard and re-executes them, so a
+recovered run's decisions and journal equal a fault-free run's.
+``ckpt_every=0`` turns supervision off: a shard fault then fails the
+tick.
+
+The JAX package's other planes (elastic policy, async commit, tiering,
+perf and census, the multimodal sidecar) are not part of this engine,
+nor are their metric series.
 """
 
 from __future__ import annotations
@@ -260,10 +280,24 @@ class ServeReport:
     rca_latency: Dict[str, Optional[float]]      # wall p50/p99 per RCA run
     rca_alert_to_culprit_s: Dict[str, Optional[float]]  # virtual queue delay
     rca_wall_s: float                            # total RCA wall
+    supervised: bool                             # checkpoint/recovery on?
+    ckpt_every: int                              # snapshot cadence (ticks)
+    n_checkpoints: int                           # snapshots taken
+    ckpt_wall_s: float                           # snapshot wall
+    n_shard_crashes: int                         # tick-barrier failures
+    n_respawns: int                              # workers respawned
+    n_restored_ticks: int                        # slices re-executed
+    n_quarantined: int                           # batches dropped after K
+    #                                              consecutive failures
+    n_migrated_tenants: int                      # moved off dead shards
+    recovery_wall_s: float                       # restore + re-exec wall
     flight_enabled: bool                         # flight recorder on?
     flight_recorded_ticks: int                   # journal records written
     flight_dropped_ticks: int                    # ring evictions
     fold_payload_bytes: int                      # barrier registry deltas
+    worker: str                                  # shard workers: thread|
+    #                                              process
+    fold: str                                    # barrier fold: sparse|dense
     device: str                                  # where the kernels ran
     serve_wall_s: float
     sustained_spans_per_sec: float
@@ -298,7 +332,18 @@ VARIANT_REPORT_FIELDS = (
     "dispatch_wall_s", "fold_wall_s", "score_wall_s", "pipeline",
     "serve_wall_s", "sustained_spans_per_sec", "rca_latency", "rca_wall_s",
     "shards", "shard_tenants", "shard_spans", "shard_imbalance",
-    "fold_payload_bytes")
+    "fold_payload_bytes", "ckpt_wall_s", "recovery_wall_s", "worker",
+    "fold")
+
+#: the supervision configuration's report fields: they differ between a
+#: supervised and an unsupervised run of one seed
+SUPERVISION_REPORT_FIELDS = ("supervised", "ckpt_every", "n_checkpoints")
+
+#: the recovery counters: they differ between a fault-free run and one
+#: that recovered from injected faults, every decision field is equal
+RECOVERY_REPORT_FIELDS = ("n_shard_crashes", "n_respawns",
+                          "n_restored_ticks", "n_quarantined",
+                          "n_migrated_tenants")
 
 #: the report fields the flight recorder adds: they differ between a
 #: flight-on and a flight-off run of one seed
@@ -395,7 +440,13 @@ def run_power_law(n_tenants: int = 200, n_services: int = 8,
                   fold: Optional[str] = None,
                   flight: Optional[bool] = None,
                   flight_digest_every: Optional[int] = None,
-                  flight_max_ticks: Optional[int] = None
+                  flight_max_ticks: Optional[int] = None,
+                  chaos: Optional[str] = None,
+                  ckpt_every: Optional[int] = None,
+                  retries: Optional[int] = None,
+                  retry_backoff_s: Optional[float] = None,
+                  max_respawns: Optional[int] = None,
+                  worker: Optional[str] = None
                   ) -> Tuple["ServeEngine", "ServeReport"]:
     """The canonical seeded serve run: :func:`power_law_traffic` against
     an engine of ``capacity_spans_per_s``, so one run measures sustained
@@ -418,7 +469,10 @@ def run_power_law(n_tenants: int = 200, n_services: int = 8,
                          drain_engine=drain_engine, rca=rca, tracer=tracer,
                          shards=shards, fold=fold, flight=flight,
                          flight_digest_every=flight_digest_every,
-                         flight_max_ticks=flight_max_ticks)
+                         flight_max_ticks=flight_max_ticks, chaos=chaos,
+                         ckpt_every=ckpt_every, retries=retries,
+                         retry_backoff_s=retry_backoff_s,
+                         max_respawns=max_respawns, worker=worker)
     if engine.flight_recorder is not None:
         # native_stage and drain_engine stay as passed: their oracles are
         # byte-identical, so they cannot move a canonical plane
@@ -436,7 +490,15 @@ def run_power_law(n_tenants: int = 200, n_services: int = 8,
             rca=engine.rca, shards=engine.shards, fold=engine.fold_mode,
             flight=True,
             flight_digest_every=engine.flight_recorder.digest_every,
-            flight_max_ticks=engine.flight_recorder.max_ticks)
+            flight_max_ticks=engine.flight_recorder.max_ticks,
+            # a replay of a chaos run re-injects the script and recovers
+            # again: its journal equals the original's (both equal the
+            # fault-free journal)
+            chaos=(engine._chaos.script if engine._chaos is not None
+                   else ""),
+            ckpt_every=engine.ckpt_every, retries=engine.retries,
+            retry_backoff_s=engine.retry_backoff_s,
+            max_respawns=engine.max_respawns, worker=engine.worker_mode)
     report = engine.run(traffic, duration_s=duration_s)
     return engine, report
 
@@ -444,10 +506,10 @@ def run_power_law(n_tenants: int = 200, n_services: int = 8,
 class ServeEngine:
     """Multi-tenant serving plane over the streaming detectors, on one
     device (``cuda`` unless the caller asks for ``cpu``).  ``rca``,
-    ``shards``, ``fold``, ``flight`` and the ``rca_*`` /
-    ``flight_*`` knobs default from ``anomod_torch.config``; ``tracer``
-    defaults to a ``Tracer("anomod-serve")`` when the process registry is
-    enabled."""
+    ``shards``, ``fold``, ``worker``, ``flight``, ``chaos``,
+    ``ckpt_every`` and the ``rca_*`` / ``flight_*`` / supervision knobs
+    default from ``anomod_torch.config``; ``tracer`` defaults to a
+    ``Tracer("anomod-serve")`` when the process registry is enabled."""
 
     def __init__(self, specs: Sequence[TenantSpec], services: Sequence[str],
                  cfg: Optional[ReplayConfig] = None, t0_us: int = 0,
@@ -469,7 +531,12 @@ class ServeEngine:
                  shards: Optional[int] = None, fold: Optional[str] = None,
                  flight: Optional[bool] = None,
                  flight_digest_every: Optional[int] = None,
-                 flight_max_ticks: Optional[int] = None):
+                 flight_max_ticks: Optional[int] = None,
+                 chaos=None, ckpt_every: Optional[int] = None,
+                 retries: Optional[int] = None,
+                 retry_backoff_s: Optional[float] = None,
+                 max_respawns: Optional[int] = None,
+                 worker: Optional[str] = None):
         if capacity_spans_per_s <= 0:
             raise ValueError("capacity must be positive")
         self.device = resolve_device(device)
@@ -494,8 +561,8 @@ class ServeEngine:
         #: run as lane-stacked dispatches
         self.fuse = bool(fuse)
         app_cfg = get_config()
-        #: tenant sharding: the score plane fans out to ``shards`` worker
-        #: threads by tenant ownership; 1 is the inline engine
+        #: tenant sharding: the score plane fans out to ``shards``
+        #: workers by tenant ownership; 1 is the inline engine
         self.shards = int(app_cfg.serve_shards if shards is None else shards)
         if self.shards < 1:
             raise ValueError("shards must be >= 1")
@@ -505,7 +572,41 @@ class ServeEngine:
             raise ValueError(f"unknown serve fold mode {fold_mode!r} "
                              "(dense|sparse)")
         self.fold_mode = fold_mode
-        self._use_workers = self.shards > 1
+        #: the shard workers' kind: ``thread`` (the byte-parity oracle)
+        #: or ``process`` (anomod_torch.serve.procshard: each shard's
+        #: whole score plane in a spawned process, behind the same
+        #: submit / join / close / alive seam).  A plane that shares
+        #: coordinator memory with the score plane cannot cross the
+        #: process boundary: an explicit ``worker="process"`` beside one
+        #: is refused, an env-sourced one falls back to threads
+        #: (:meth:`_process_blockers`).
+        worker_mode = (app_cfg.serve_worker if worker is None
+                       else str(worker).strip().lower() or "thread")
+        if worker_mode not in ("thread", "process"):
+            raise ValueError(f"unknown serve worker mode {worker_mode!r} "
+                             "(thread|process)")
+        if worker_mode == "process":
+            blockers = self._process_blockers()
+            if blockers:
+                if worker is not None:
+                    raise ValueError(
+                        "process shard workers own their score plane in a "
+                        "separate interpreter; " + blockers[0]
+                        + " (ANOMOD_SERVE_WORKER=thread)")
+                worker_mode = "thread"
+        self.worker_mode = worker_mode
+        self._worker_start_timeout_s = float(
+            app_cfg.serve_worker_start_timeout_s)
+        #: a process worker's chaos fired-counts, from its last reply: a
+        #: respawned child resumes its faults' repeat budgets there
+        self._chaos_fired: Dict[int, list] = {}
+        #: lane-kernel launches made in the children, summed from their
+        #: replies (each child counts in its own wrappers)
+        self.worker_launches: Dict[str, int] = {}
+        #: wall of the children's start-up (spawn, imports, the
+        #: sub-engine, the kernel libraries' load), outside the serve wall
+        self.worker_start_s = 0.0
+        self._use_workers = self.shards > 1 or self.worker_mode == "process"
         self._proc_registry = obs.get_registry()
         #: structural bytes the barrier's registry folds shipped
         #: (``obs.registry.delta_nbytes``)
@@ -513,17 +614,31 @@ class ServeEngine:
         self._obs_fold_payload = (
             obs.counter("anomod_serve_fold_payload_bytes_total")
             if self._use_workers else None)
+        pipeline = (DEFAULT_SERVE_PIPELINE if pipeline is None
+                    else int(pipeline))
         # each runner owns (and validates) the pipeline depth and the
         # state mode
-        runner_kw = dict(lane_buckets=lane_buckets,
-                         pipeline=(DEFAULT_SERVE_PIPELINE if pipeline is None
-                                   else pipeline),
+        runner_kw = dict(lane_buckets=lane_buckets, pipeline=pipeline,
                          state=state, device=self.device,
                          native_stage=native_stage)
+        self._shard_regs = []
         if self._use_workers:
             from anomod_torch.serve.shard import plan_shards
             self.shard_of = plan_shards(self.specs, self.shards,
                                         self.capacity_spans_per_s)
+        else:
+            # the inline engine owns every tenant on shard 0 (every read
+            # of the placement map is ``.get(tid, 0)``)
+            self.shard_of = {}
+        if self.worker_mode == "process":
+            # the runners live in the children; the coordinator keeps a
+            # mirror a shard of every runner fact its planes read, from
+            # the children's barrier replies (their registry deltas come
+            # over the pipe, so there are no coordinator shard registries)
+            from anomod_torch.serve.procshard import RunnerMirror
+            self._runners = [RunnerMirror(self.cfg, buckets, **runner_kw)
+                             for _ in range(self.shards)]
+        elif self._use_workers:
             # each shard owns a whole scoring plane: its runner (scratch,
             # a pool sized to the tenants it owns, on the card a stream of
             # its own) records into its own registry, folded into the
@@ -539,15 +654,11 @@ class ServeEngine:
                              pool_slots=max(owned[s], 1), own_stream=True,
                              **runner_kw)
                 for s, reg in enumerate(self._shard_regs)]
-            self._fold_state = [dict() for _ in range(self.shards)]
         else:
-            # the inline engine owns every tenant on shard 0 (every read
-            # of the placement map is ``.get(tid, 0)``)
-            self.shard_of = {}
-            self._shard_regs = []
             self._runners = [BucketRunner(
                 self.cfg, buckets, pool_slots=max(len(self.specs), 1),
                 **runner_kw)]
+        self._fold_state = [dict() for _ in self._shard_regs]
         self.runner = self._runners[0]
         self._workers = None
         self._last_failures = None
@@ -557,6 +668,7 @@ class ServeEngine:
                             z_threshold=z_threshold,
                             consecutive=consecutive, min_count=min_count)
         # per-tenant detector/replay state, built at first served batch
+        # (process mode: residency stubs and alert mirrors)
         self._tenant_replay: Dict[int, object] = {}
         self._tenant_det: Dict[int, OnlineDetector] = {}
         self._slo: Dict[int, _TenantSLO] = _LazySLO()
@@ -589,8 +701,11 @@ class ServeEngine:
             self._rca_slo = _TenantSLO("anomod_serve_rca_seconds")
             self._obs_rca_queued = obs.counter(
                 "anomod_serve_rca_queued_total")
-            # one plane a shard, recording into the shard's registry; the
-            # inline plane records into the process registry
+            # one plane a thread shard, recording into the shard's
+            # registry; the inline engine and process workers keep one
+            # coordinator plane recording into the process registry (the
+            # evidence is buffered on the coordinator, so it survives a
+            # child's crash)
             self._rca_planes = [
                 OnlineRCA(
                     self.services, self.cfg.window_us, self.t0_us,
@@ -645,6 +760,7 @@ class ServeEngine:
                     "native_staging": self.runner.native_stage,
                     "drain_engine": self.admission.drain_engine,
                     "fold": self.fold_mode,
+                    "worker": self.worker_mode,
                     "device": device_name(self.device)},
                  "config": config_snapshot(),
                  "versions": versions(self.device)},
@@ -657,6 +773,68 @@ class ServeEngine:
             self._flight_score_crc = 0
             self._flight_rca_seen = 0
             self._flight_rca_crc = 0
+        #: scripted serve-plane fault injection (anomod_torch.serve.chaos),
+        #: off by default: a script string or a prebuilt ServeChaos
+        chaos = app_cfg.serve_chaos if chaos is None else chaos
+        if isinstance(chaos, str):
+            if chaos.strip():
+                from anomod_torch.serve.chaos import ServeChaos
+                chaos = ServeChaos(chaos)
+            else:
+                chaos = None
+        self._chaos = chaos
+        if self._chaos is not None:
+            # a fault aimed at a shard this engine lacks never fires:
+            # warned, not refused (`audit replay --shards 1` re-executes a
+            # 2-shard chaos journal, whose extra faults are inert); the
+            # serve CLI refuses it
+            bad = sorted({f.shard for f in self._chaos.faults
+                          if f.kind != "surge" and f.shard >= self.shards})
+            if bad:
+                import warnings
+                warnings.warn(
+                    f"chaos script targets shard(s) {bad} but the "
+                    f"engine has {self.shards} shard(s) (ids 0.."
+                    f"{self.shards - 1}); those faults will never "
+                    "fire", RuntimeWarning, stacklevel=2)
+        #: shard supervision (anomod_torch.serve.supervise), on unless
+        #: ckpt_every is 0: cadenced checkpoints and a served-batch log
+        #: make a mid-tick shard failure recoverable with no score gap;
+        #: the snapshots are pure reads
+        self.ckpt_every = int(app_cfg.serve_ckpt_every
+                              if ckpt_every is None else ckpt_every)
+        if self.ckpt_every < 0:
+            raise ValueError("ckpt_every must be >= 0 (0 = supervision "
+                             "off)")
+        self.retries = int(app_cfg.serve_retries if retries is None
+                           else retries)
+        if self.retries < 1:
+            raise ValueError("retries must be >= 1")
+        self.retry_backoff_s = float(app_cfg.serve_retry_backoff_s
+                                     if retry_backoff_s is None
+                                     else retry_backoff_s)
+        if self.retry_backoff_s < 0:
+            raise ValueError("retry_backoff_s must be >= 0")
+        self.max_respawns = int(app_cfg.serve_max_respawns
+                                if max_respawns is None else max_respawns)
+        if self.max_respawns < 0:
+            raise ValueError("max_respawns must be >= 0")
+        self._supervisor = None
+        if self.ckpt_every:
+            from anomod_torch.serve.supervise import ShardSupervisor
+            self._supervisor = ShardSupervisor(
+                self, ckpt_every=self.ckpt_every, retries=self.retries,
+                backoff_s=self.retry_backoff_s,
+                max_respawns=self.max_respawns)
+
+    def _process_blockers(self) -> List[str]:
+        """The planes of this engine that cannot cross a process boundary
+        (each keeps state the score plane shares in-process).  The JAX
+        engine refuses process workers beside its mesh plane, multimodal
+        sidecar, deferred commit, state tiering and the perf and census
+        observatories; none of those planes is ported, so the list is
+        empty until one lands and adds its reason here."""
+        return []
 
     # -- per-tenant plane construction ------------------------------------
 
@@ -692,6 +870,13 @@ class ServeEngine:
         batch, advance the clock.  Returns the served batches."""
         t_wall = time.perf_counter()
         now = self.clock.now_s + self.clock.tick_s   # decisions at tick end
+        if self._chaos is not None:
+            # a scripted surge: a function of the tick index alone, so
+            # the amplified arrivals are the same on every rerun
+            factor = self._chaos.surge_factor(self.clock.ticks)
+            if factor > 1:
+                arrivals = [(tid, concat_span_batches([spans] * factor))
+                            for tid, spans in arrivals]
         with self._span("serve.admit"):
             for tenant_id, spans in arrivals:
                 # one shared service table per engine
@@ -719,15 +904,35 @@ class ServeEngine:
         if -1e-9 < self._credit < 1e-9:
             self._credit = 0.0
         if served:
+            sup = self._supervisor
+            if sup is not None:
+                # the log holds this tick's slices before scoring: a
+                # failed tick re-executes them
+                sup.begin_tick(served)
             self._last_failures = None
-            if self._use_workers:
-                with self._span("serve.score_sharded"):
-                    self._score_sharded(served)
-            elif self.fuse:
-                with self._span("serve.score_fused"):
-                    self._score_fused(served)
-            else:
-                self._score_shard(0, served)
+            try:
+                if self._use_workers:
+                    with self._span("serve.score_sharded"):
+                        self._score_sharded(served)
+                elif self.fuse:
+                    with self._span("serve.score_fused"):
+                        self._score_fused(served)
+                else:
+                    self._score_shard(0, served)
+            except BaseException as e:
+                # an interrupt is the operator stopping the run, never a
+                # shard fault; unsupervised, the failure list stays
+                # parked for the caller
+                if sup is None or not isinstance(e, Exception):
+                    raise
+                failures = self._last_failures or [(0, e)]
+                self._last_failures = None
+                with self._span("serve.recover"):
+                    sup.recover(failures)
+        if self._supervisor is not None:
+            # the checkpoint after the commit barrier: nothing is in
+            # flight on any shard stream
+            self._supervisor.end_tick()
         # SLO accounting after scoring in both paths: the samples depend
         # only on admission times and the tick clock
         for qb in served:
@@ -757,27 +962,51 @@ class ServeEngine:
         sharded engines share one definition."""
         self._score_shard(0, served)
 
-    def _score_shard(self, shard_id: int, served: List[QueuedBatch]) -> None:
+    def _score_shard(self, shard_id: int, served: List[QueuedBatch],
+                     origin_tick: Optional[int] = None) -> None:
         """One shard's slice of one tick's served batches (on its worker
-        thread in the sharded engine, inline on the 1-shard engine).
-        Fused: coalesce and plan (host), lane-stacked dispatches per
-        chunk round through the shard's runner, then batched window
-        scoring (the commit).  Unfused: one push per batch, in served
-        order."""
+        thread in the sharded engine, inline on the 1-shard engine, in
+        the child of a process worker, and as the supervisor's
+        re-execution entry, where ``origin_tick`` names the tick the
+        slice was drained on: the chaos hooks key on it).  Fused:
+        coalesce and plan (host), lane-stacked dispatches per chunk round
+        through the shard's runner, then batched window scoring (the
+        commit).  Unfused: one push per batch, in served order."""
         runner = self._runners[shard_id]
+        chaos = self._chaos
+        hook = None
+        if chaos is not None:
+            tick = self.clock.ticks if origin_tick is None else origin_tick
+
+            def hook(phase):
+                chaos.hit(phase, tick, shard_id)
+            hook("stage")
         if self.fuse:
             with self._span("serve.score_shard", shard=shard_id,
                             pipeline=self.pipeline):
                 pending = self._stage_pending(served)
-                self._dispatch_rounds(pending, runner)
-                self._commit_pending(pending, runner)
+                self._dispatch_rounds(pending, runner, chaos_hook=hook)
+                if hook is not None:
+                    hook("fold")
+                self._commit_pending(pending, runner, chaos_hook=hook)
+            if hook is not None:
+                hook("commit")
             return
+        # the unfused path has two real boundaries: the phases collapse
+        # onto them (dispatch before the pushes, the rest after), so
+        # every scripted fault still fires
+        if hook is not None:
+            hook("dispatch")
         for qb in served:
             with self._span("serve.score"):
                 if self.score:
                     self._detector_for(qb.tenant_id).push(qb.spans)
                 else:
                     self._replay_for(qb.tenant_id).push(qb.spans)
+        if hook is not None:
+            hook("fold")
+            hook("score")
+            hook("commit")
 
     def _stage_pending(self, served: List[QueuedBatch]) -> list:
         """Same-tenant batches concatenate in arrival order into one
@@ -804,11 +1033,14 @@ class ServeEngine:
             pending.append((det, replay, batch.n_spans, w_ret, plan))
         return pending
 
-    def _dispatch_rounds(self, pending: list, runner: BucketRunner) -> None:
+    def _dispatch_rounds(self, pending: list, runner: BucketRunner,
+                         chaos_hook=None) -> None:
         """Per chunk round (a tenant's own chunks apply in order),
         same-width chunks lane-stack into fused dispatches through the
-        runner's pipelined submit path, drained before scoring.  A
-        failure discards the in-flight dispatches unfolded."""
+        runner's pipelined submit path, drained before scoring.  The
+        chaos ``dispatch`` point fires after the submits, with up to
+        ``pipeline - 1`` dispatches in flight.  A failure discards the
+        in-flight dispatches unfolded."""
         try:
             rnd = 0
             while True:
@@ -823,16 +1055,20 @@ class ServeEngine:
                         width, [(pending[i][1], pending[i][4][rnd][1])
                                 for i in groups[width]])
                 rnd += 1
+            if chaos_hook is not None:
+                chaos_hook("dispatch")
             runner.drain_lanes()
         except BaseException:
             runner.abort_lanes()
             raise
 
-    def _commit_pending(self, pending: list, runner: BucketRunner) -> None:
+    def _commit_pending(self, pending: list, runner: BucketRunner,
+                        chaos_hook=None) -> None:
         """Per tenant, the detector's post-replay half: window
         bookkeeping, then every newly closed window of every tenant
         scored in one vectorized pass per window, fed by one pool
-        gather.  The wall lands in the runner's ``score`` leg."""
+        gather.  The chaos ``score`` point fires between the two.  The
+        wall lands in the runner's ``score`` leg."""
         t0 = time.perf_counter()
         work = []
         for det, _, n_in, w_ret, _ in pending:
@@ -846,34 +1082,105 @@ class ServeEngine:
                     work.append((det, rng[0], rng[1]))
             else:
                 det.note_pushed(n_in, w_ret)
+        if chaos_hook is not None:
+            chaos_hook("score")
         if work:
             score_closed_windows_batched(work, _plane_col_gather(work))
         runner.add_score_wall(time.perf_counter() - t0)
 
-    # -- the sharded score path (anomod_torch.serve.shard) ----------------
+    # -- the sharded score path (anomod_torch.serve.shard / procshard) ----
 
     def _on_shard(self, shard_id: int, fn, *args) -> None:
         """Run ``fn(*args)`` as shard ``shard_id``'s work: under its
-        runner's stream, which it waits for before returning, so the
-        coordinator reads nothing the shard still has in flight."""
+        runner's stream, which it waits for before returning (failed or
+        not), so the coordinator reads nothing the shard still has in
+        flight."""
         runner = self._runners[shard_id]
         with runner.on_stream():
-            fn(*args)
-            runner.sync()
+            try:
+                fn(*args)
+            finally:
+                runner.sync()
+
+    def _make_worker(self, s: int):
+        """One shard worker of the engine's kind: the one construction
+        point of the engine and of the supervisor's respawn."""
+        if self.worker_mode == "process":
+            from anomod_torch.serve.procshard import ProcShardWorker
+            return ProcShardWorker(
+                s, self._procshard_init(s),
+                start_timeout_s=self._worker_start_timeout_s)
+        from anomod_torch.serve.shard import ShardWorker
+        return ShardWorker(s)
+
+    def _procshard_init(self, s: int) -> dict:
+        """Shard ``s``'s child's init payload: every knob of its 1-shard
+        sub-engine, resolved here (the child never re-reads its
+        environment, the device included)."""
+        import torch
+        r = self._runners[s]
+        return {"shard_id": s,
+                "specs": [spec for spec in self.specs
+                          if self.shard_of.get(spec.tenant_id, 0) == s],
+                "services": self.services, "cfg": self.cfg,
+                "t0_us": self.t0_us,
+                "capacity_spans_per_s": self.capacity_spans_per_s,
+                "tick_s": self.clock.tick_s, "buckets": tuple(r.buckets),
+                "lane_buckets": tuple(r.lane_buckets),
+                "max_backlog": self.max_backlog, "score": self.score,
+                "fuse": self.fuse, "pipeline": self.pipeline,
+                "native": bool(r.native_stage), "state": self.serve_state,
+                "drain_engine": self.admission.drain_engine,
+                "det_kw": dict(self._det_kw), "device": str(self.device),
+                "torch_threads": torch.get_num_threads(),
+                "registry_enabled": bool(self._proc_registry.enabled),
+                "chaos_script": (self._chaos.script
+                                 if self._chaos is not None else None),
+                "chaos_fired": self._chaos_fired.get(s)}
+
+    def _prepare_children(self) -> None:
+        """Build what the children load before any is spawned: the C++
+        host entries and, on the card, the serve kernels, so the
+        children only open the libraries."""
+        if self.runner.native_stage:
+            from anomod_torch.io import native
+            native.library()
+        if self.device.type == "cuda":
+            from anomod_torch.ops import _build
+            _build.build(["serve"])
 
     def _ensure_workers(self) -> None:
         if self._workers is not None and all(w.alive for w in self._workers):
             return
-        from anomod_torch.serve.shard import ShardWorker
+        if self.worker_mode == "process":
+            if self._workers is None:
+                self._prepare_children()
+                from anomod_torch.serve.procshard import start_workers
+                t0 = time.perf_counter()
+                self._workers = start_workers(
+                    [(s, self._procshard_init(s))
+                     for s in range(self.shards)],
+                    self._worker_start_timeout_s)
+                self.worker_start_s += time.perf_counter() - t0
+                return
+            # replace only the dead children: a live one holds its
+            # shard's states (a respawned child starts empty; the
+            # supervisor restores it, an unsupervised engine has lost
+            # that shard's states)
+            for s, w in enumerate(self._workers):
+                if not w.alive:
+                    w.close()
+                    self._workers[s] = self._make_worker(s)
+            return
         if self._workers is not None:
             self.close()
-        self._workers = [ShardWorker(s) for s in range(self.shards)]
+        self._workers = [self._make_worker(s) for s in range(self.shards)]
 
     def _fan_out(self, tasks: Dict[int, tuple]) -> list:
-        """Submit ``{shard: (fn, *args)}`` to the shard workers and join
-        them all (the barrier completes before any error propagates),
-        then fold the shard registries.  Returns ``[(shard, exc), ...]``
-        in shard order."""
+        """Submit ``{shard: (fn, *args)}`` to the shard worker threads and
+        join them all (the barrier completes before any error
+        propagates), then fold the shard registries.  Returns ``[(shard,
+        exc), ...]`` in shard order."""
         self._ensure_workers()
         submitted = []
         for s, task in sorted(tasks.items()):
@@ -893,31 +1200,100 @@ class ServeEngine:
         tenant ownership and join at the barrier.  Each worker scores
         only the tenants it owns, through its own runner, so per-tenant
         results equal the 1-shard engine's.  A failed shard fails the
-        tick: the failure list is parked in ``_last_failures`` and the
-        first failure re-raises."""
+        tick: the failure list is parked in ``_last_failures`` (the
+        supervisor recovers each) and the first failure re-raises."""
         parts: Dict[int, List[QueuedBatch]] = {}
         for qb in served:
             parts.setdefault(self.shard_of[qb.tenant_id], []).append(qb)
-        failures = self._fan_out({s: (self._score_shard, s, part)
-                                  for s, part in parts.items()})
+        if self.worker_mode == "process":
+            failures = self._submit_parts_proc(parts)
+        else:
+            failures = self._fan_out({s: (self._score_shard, s, part)
+                                      for s, part in parts.items()})
         if failures:
             self._last_failures = failures
             raise failures[0][1]
 
-    def _fold_shard_registries(self, final: bool = False) -> None:
-        """The barrier's registry merge: each shard registry's delta
-        since the last fold (``delta_snapshot``, ``fold`` mode), combined
-        through the deterministic fold tree in shard order and applied
-        to the process registry (``apply_delta``, gauges shard-labelled);
-        the payload's structural bytes are counted."""
+    def _submit_parts_proc(self, parts: Dict[int, List[QueuedBatch]],
+                           origin_tick: Optional[int] = None) -> list:
+        """The process barrier: every ``score`` command is sent before
+        any reply is read (the children overlap), then the replies are
+        read in shard order.  Each reply's mirror, alert and registry
+        payloads fold whether or not its slice succeeded; a shipped
+        error is rebuilt as the exception the thread worker raises.
+        Returns ``[(shard, exc), ...]`` in shard order."""
+        from anomod_torch.serve.procshard import rebuild_exc
+        self._ensure_workers()
+        tick = self.clock.ticks if origin_tick is None else origin_tick
+        sent = []
+        for s in sorted(parts):
+            try:
+                self._workers[s].send({"op": "score", "served": parts[s],
+                                       "origin_tick": tick,
+                                       "fold": self.fold_mode})
+                sent.append((s, None))
+            except BaseException as e:          # noqa: BLE001
+                sent.append((s, e))
+        failures, deltas = [], []
+        for s, send_err in sent:
+            if send_err is not None:
+                failures.append((s, send_err))
+                continue
+            try:
+                rep = self._workers[s].recv()
+            except BaseException as e:          # noqa: BLE001
+                failures.append((s, e))
+                continue
+            self._apply_shard_reply(s, rep)
+            if rep.get("reg_delta") is not None:
+                deltas.append((s, rep["reg_delta"]))
+            if rep.get("error") is not None:
+                failures.append((s, rebuild_exc(rep["error"])))
+        self._fold_shard_registries(deltas=deltas)
+        return failures
+
+    def _apply_shard_reply(self, s: int, rep: dict) -> None:
+        """Fold one child reply into the coordinator's mirrors: the
+        runner book and walls, newly resident tenants, the alert suffixes,
+        the chaos fired counts and the child's kernel launches.  Registry
+        deltas go through :meth:`_fold_shard_registries`."""
+        from anomod_torch.serve.procshard import DetMirror
+        if "book" in rep:
+            self._runners[s].apply(rep)
+        for tid in rep.get("resident_new", ()):
+            # a residency stub: the state lives in the child
+            self._tenant_replay.setdefault(tid, None)
+        for tid in rep.get("det_new", ()):
+            if tid not in self._tenant_det:
+                self._tenant_det[tid] = DetMirror()
+        for tid, base, new in rep.get("alerts", ()):
+            det = self._tenant_det.get(tid)
+            if det is None:
+                det = self._tenant_det[tid] = DetMirror()
+            del det.alerts[base:]
+            det.alerts.extend(new)
+        if rep.get("chaos_fired") is not None:
+            self._chaos_fired[s] = list(rep["chaos_fired"])
+        for k, n in rep.get("launches", {}).items():
+            self.worker_launches[k] = self.worker_launches.get(k, 0) + n
+
+    def _fold_shard_registries(self, final: bool = False,
+                               deltas: Optional[list] = None) -> None:
+        """The barrier's registry merge: each shard's delta since the last
+        fold (``delta_snapshot`` of a thread shard's registry, or handed
+        in from a child's reply), combined through the deterministic fold
+        tree in shard order and applied to the process registry
+        (``apply_delta``, gauges shard-labelled); the payload's
+        structural bytes are counted."""
         from anomod_torch.obs.registry import delta_nbytes
         from anomod_torch.serve.shard import fold_tree
-        parts = []
-        for s, reg in enumerate(self._shard_regs):
-            d = reg.delta_snapshot(self._fold_state[s], mode=self.fold_mode,
-                                   final=final)
-            parts.append([(s, d)])
-        merged = fold_tree(parts, lambda a, b: a + b)
+        if deltas is None:
+            deltas = [(s, reg.delta_snapshot(self._fold_state[s],
+                                             mode=self.fold_mode,
+                                             final=final))
+                      for s, reg in enumerate(self._shard_regs)]
+        merged = fold_tree([[(s, d)] for s, d in deltas if d is not None],
+                           lambda a, b: a + b)
         if not merged:
             return
         nbytes = 0
@@ -928,6 +1304,161 @@ class ServeEngine:
         if self._obs_fold_payload is not None and nbytes:
             self._obs_fold_payload.inc(nbytes)
 
+    # -- the supervisor's process-mode seams (the states live in the
+    # -- children) -----------------------------------------------------------
+
+    def _snapshot_tenants_proc(self) -> dict:
+        """The checkpoint over the pipes: each live child runs the same
+        snapshot seams over its tenants and ships ``tid -> (replay_snap,
+        det_snap)``; a dead child's tenants are absent."""
+        tenants: dict = {}
+        for w in self._workers or ():
+            if not w.alive:
+                continue
+            try:
+                tenants.update(w.call({"op": "snapshot"})["tenants"])
+            except RuntimeError:
+                continue
+        return tenants
+
+    def _drop_shard_proc(self, s: int) -> None:
+        """The restore's teardown, process kind: clear shard ``s``'s stubs
+        and alert mirrors, and tell a listening child to drop its
+        planes (a respawned child is empty already)."""
+        for tid in [t for t in list(self._tenant_replay)
+                    if self.shard_of.get(t, 0) == s]:
+            self._tenant_replay.pop(tid, None)
+            self._tenant_det.pop(tid, None)
+        if self._workers is not None and self._workers[s].alive:
+            try:
+                self._workers[s].call({"op": "drop"})
+            except RuntimeError:
+                pass
+
+    def _restore_book(self, s: int, book: dict) -> None:
+        """Install a checkpoint's runner book on shard ``s``: on its
+        runner, and with process workers on the mirror and the child's
+        live runner too, so re-executed slices count from the checkpoint
+        where the dispatches happen."""
+        self._runners[s].book_restore(book)
+        if (self.worker_mode == "process" and self._workers is not None
+                and self._workers[s].alive):
+            try:
+                self._workers[s].call({"op": "book_restore", "book": book})
+            except RuntimeError:
+                pass
+
+    def _install_tenant_proc(self, tid: int, snap: tuple) -> None:
+        """Reinstall one checkpointed tenant into its owning child and
+        rewind the coordinator's alert mirror to the checkpoint."""
+        from anomod_torch.serve.procshard import DetMirror
+        rep_snap, det_snap = snap
+        s = self.shard_of.get(tid, 0)
+        self._ensure_workers()
+        rep = self._workers[s].call({"op": "install_tenant", "tid": tid,
+                                     "replay": rep_snap, "det": det_snap})
+        self._apply_shard_reply(s, rep)
+        self._tenant_replay.setdefault(tid, None)
+        if det_snap is not None:
+            det = self._tenant_det.get(tid)
+            if det is None:
+                det = self._tenant_det[tid] = DetMirror()
+            det.alerts[:] = list(det_snap.get("alerts", ()))
+
+    def _exec_slice_proc(self, s: int, slice_: list, tick: int) -> None:
+        """Re-execute one logged slice in shard ``s``'s child (the chaos
+        hooks key on ``tick``, its origin); a shipped failure raises here
+        so the recovery loop charges the slice."""
+        from anomod_torch.serve.procshard import rebuild_exc
+        w = self._workers[s]
+        w.send({"op": "score", "served": slice_, "origin_tick": tick,
+                "fold": self.fold_mode})
+        rep = w.recv()
+        self._apply_shard_reply(s, rep)
+        if rep.get("reg_delta") is not None:
+            self._fold_shard_registries(deltas=[(s, rep["reg_delta"])])
+        if rep.get("error") is not None:
+            raise rebuild_exc(rep["error"])
+
+    def _warm_proc(self) -> None:
+        """First launches in the children, outside the wall: shard 0
+        alone, then the others together (every send before any read).
+        The replies carry each child's first-launch walls."""
+        from anomod_torch.serve.procshard import rebuild_exc
+        self._ensure_workers()
+        reps: List[Optional[dict]] = [None] * self.shards
+        for group in ([0], range(1, self.shards)):
+            for s in group:
+                self._workers[s].send({"op": "warm"})
+            for s in group:
+                reps[s] = self._workers[s].recv()
+        for s, rep in enumerate(reps):
+            self._apply_shard_reply(s, rep)
+        for rep in reps:
+            if rep.get("error") is not None:
+                raise rebuild_exc(rep["error"])
+
+    def _finish_proc(self) -> None:
+        """``finish()`` of every child's detectors over the pipes; the
+        replies carry the last windows' alerts and registry deltas.  A
+        dead child (crashed, unsupervised) is skipped: its detectors died
+        with it."""
+        from anomod_torch.serve.procshard import rebuild_exc
+        sent = []
+        for s, w in enumerate(self._workers or ()):
+            if not w.alive:
+                continue
+            try:
+                w.send({"op": "finish", "fold": self.fold_mode})
+                sent.append((s, w))
+            except RuntimeError:
+                continue
+        deltas, first_err = [], None
+        for s, w in sent:
+            try:
+                rep = w.recv()
+            except RuntimeError:
+                continue
+            self._apply_shard_reply(s, rep)
+            if rep.get("reg_delta") is not None:
+                deltas.append((s, rep["reg_delta"]))
+            if rep.get("error") is not None and first_err is None:
+                first_err = rebuild_exc(rep["error"])
+        self._fold_shard_registries(deltas=deltas)
+        if first_err is not None:
+            raise first_err
+
+    def _final_fold_proc(self) -> None:
+        """The run-end registry drain over the pipes (final folds)."""
+        deltas = []
+        for s, w in enumerate(self._workers or ()):
+            if not w.alive:
+                continue
+            try:
+                rep = w.call({"op": "reg_delta", "fold": self.fold_mode,
+                              "final": True})
+            except RuntimeError:
+                continue
+            if rep.get("delta") is not None:
+                deltas.append((s, rep["delta"]))
+        self._fold_shard_registries(deltas=deltas, final=True)
+
+    def _state_digest_proc(self) -> int:
+        """The state digest with the states in the children: each live
+        child ships ``(tid, crc, len)`` fragments of its tenants, folded
+        here in global sorted-tenant order through ``crc32_combine``, so
+        it equals the sequential walk of a thread engine."""
+        from anomod_torch.obs.flight import fold_digest_parts
+        parts = []
+        for w in self._workers or ():
+            if not w.alive:
+                continue
+            try:
+                parts.extend(w.call({"op": "digest"})["parts"])
+            except RuntimeError:
+                continue
+        return fold_digest_parts(parts)
+
     def _warm_shard(self, shard_id: int) -> None:
         runner = self._runners[shard_id]
         runner.warm()
@@ -937,9 +1468,9 @@ class ServeEngine:
             self._rca_planes[shard_id].runner.warm()
 
     def close(self) -> None:
-        """Stop the shard worker threads (idempotent; the next sharded
-        tick starts them again).  Every worker closes before a deferred
-        task error propagates."""
+        """Stop the shard workers (idempotent; the next sharded tick
+        starts them again).  Every worker closes before a deferred task
+        error propagates."""
         workers, self._workers = self._workers or [], None
         errs = []
         for w in workers:
@@ -963,8 +1494,9 @@ class ServeEngine:
         floor: Dict[int, int] = {}
         for _, tid, w, _ in self._rca_queue:
             floor[tid] = min(floor.get(tid, w), w)
+        one = len(self._rca_planes) == 1
         for qb in served:
-            self._rca_planes[self.shard_of.get(qb.tenant_id, 0)].buffer(
+            self._rca_planes[0 if one else self.shard_of[qb.tenant_id]].buffer(
                 qb.tenant_id, qb.spans, keep_window=floor.get(qb.tenant_id))
         self._rca_tick(now)
 
@@ -1000,7 +1532,7 @@ class ServeEngine:
         items = [self._rca_queue.popleft() for _ in range(burst)]
         folded: list = []
         with self._span("serve.rca"):
-            if self._use_workers:
+            if len(self._rca_planes) > 1:
                 from anomod_torch.serve.shard import fold_verdicts
                 parts: Dict[int, list] = {}
                 for it in items:
@@ -1095,9 +1627,12 @@ class ServeEngine:
                                **{k: round(v, 6) for k, v in dwalls.items()}})
         self._flight_prev_legs = legs
         do_digest = final or fr.digest_tick(t_idx)
-        fold = {"tenants": len(self._tenant_replay),
-                "state_digest": (state_digest(self._tenant_replay)
-                                 if do_digest else None)}
+        digest = None
+        if do_digest:
+            digest = (self._state_digest_proc()
+                      if self.worker_mode == "process"
+                      else state_digest(self._tenant_replay))
+        fold = {"tenants": len(self._tenant_replay), "state_digest": digest}
         new_alerts = 0
         crc = self._flight_score_crc
         for tid in sorted(self._tenant_det):
@@ -1138,9 +1673,14 @@ class ServeEngine:
             "topology": {"fused_dispatches": fused_d,
                          "native_staged": native_staged,
                          "shard_legs": fold_leg_records(shard_legs)},
+            # what crashed, respawned, was quarantined or migrated: the
+            # variant tier, so the canonical planes stay equal to a
+            # fault-free run's
+            "recovery": (self._supervisor.drain_events()
+                         if self._supervisor is not None else []),
             # the JAX record's planes the port has not ported, present
             # and empty as the JAX engine writes them when they are off
-            "recovery": [], "scaling": [],
+            "scaling": [],
             "perf": {"events": [], "headroom_s": 0.0, "wait_s": 0.0},
             "census": {"planes": [], "hot": {}}, "tiering": [],
         }
@@ -1161,12 +1701,29 @@ class ServeEngine:
     def run(self, traffic, duration_s: float,
             warm: bool = True) -> "ServeReport":
         """Drive the engine from a traffic source for ``duration_s``
-        virtual seconds, then close every tenant's last window."""
+        virtual seconds, then close every tenant's last window.  A failed
+        run stops its shard workers (process children included) before
+        its error propagates."""
+        try:
+            return self._run(traffic, duration_s, warm)
+        except BaseException:
+            if self._workers is not None:
+                try:
+                    self.close()
+                except Exception:     # noqa: BLE001 - the run's error wins
+                    pass
+            raise
+
+    def _run(self, traffic, duration_s: float, warm: bool) -> "ServeReport":
         if warm:
             # first launches outside the wall, shard by shard: shard 0
             # alone (the kernel libraries load there), then the others
             # together on their own workers
-            if self._use_workers:
+            if self.worker_mode == "process":
+                self._warm_proc()
+                if self.rca:
+                    self._rca_planes[0].runner.warm()
+            elif self._use_workers:
                 from anomod_torch.serve.shard import join_all
                 self._ensure_workers()
                 for group in ([0], range(1, self.shards)):
@@ -1182,7 +1739,11 @@ class ServeEngine:
                 lo = self.clock.now_s
                 self.tick(traffic.arrivals(lo, lo + self.clock.tick_s))
         t_wall = time.perf_counter()
-        if self.score:
+        if self.score and self.worker_mode == "process":
+            # the detectors live in the children; the replies carry the
+            # closing windows' alerts back
+            self._finish_proc()
+        elif self.score:
             for tid, det in self._tenant_det.items():
                 # the last windows score on the owning runner's stream
                 with self._runners[self.shard_of.get(tid, 0)].on_stream():
@@ -1203,7 +1764,10 @@ class ServeEngine:
                               time.perf_counter() - t_wall, final=True)
         if self._use_workers:
             # the shard histograms drain into the process registry
-            self._fold_shard_registries(final=True)
+            if self.worker_mode == "process":
+                self._final_fold_proc()
+            else:
+                self._fold_shard_registries(final=True)
             self.close()
         return self.report(traffic=traffic)
 
@@ -1327,6 +1891,7 @@ class ServeEngine:
                 if self._rca_slo is not None else None
             rca_lat[q] = round(got, 6) if got is not None else None
         fr = self.flight_recorder
+        sup = self._supervisor
         return ServeReport(
             n_tenants=len(self.specs),
             duration_s=round(self.clock.now_s, 6),
@@ -1376,10 +1941,24 @@ class ServeEngine:
             rca_latency=rca_lat,
             rca_alert_to_culprit_s=rca_delay,
             rca_wall_s=round(self.rca_wall_s, 4),
+            supervised=sup is not None,
+            ckpt_every=self.ckpt_every,
+            n_checkpoints=sup.n_checkpoints if sup is not None else 0,
+            ckpt_wall_s=round(sup.ckpt_wall_s if sup is not None else 0.0,
+                              4),
+            n_shard_crashes=sup.n_crashes if sup is not None else 0,
+            n_respawns=sup.n_respawns if sup is not None else 0,
+            n_restored_ticks=sup.n_restored_ticks if sup is not None else 0,
+            n_quarantined=sup.n_quarantined if sup is not None else 0,
+            n_migrated_tenants=sup.n_migrated if sup is not None else 0,
+            recovery_wall_s=round(sup.recovery_wall_s if sup is not None
+                                  else 0.0, 4),
             flight_enabled=self.flight,
             flight_recorded_ticks=fr.n_recorded if fr is not None else 0,
             flight_dropped_ticks=fr.n_dropped if fr is not None else 0,
             fold_payload_bytes=self.fold_payload_bytes,
+            worker=self.worker_mode,
+            fold=self.fold_mode,
             device=device_name(self.device),
             serve_wall_s=round(self.serve_wall_s, 4),
             sustained_spans_per_sec=round(

@@ -113,10 +113,21 @@ drives the data layer and every ported path:
   share per shard count; ``audit record``, ``audit replay --shards 2``
   and ``audit diff`` (exit 0) through the CLI on the card, and a journal
   with one tick's admission digest edited, which ``diff`` names (exit
-  1).
+  1);
+- supervision, chaos and process shard workers (phase 21) at the same
+  deployment, RCA and flight on: the supervised default (4 checkpoints)
+  held to supervision off and the CPU twin's journal, its checkpoint
+  wall; the JAX bench's chaos leg at 1 shard (3 crashes, 55 restored
+  ticks, no score gap), its recovery wall; 2 shard threads, then process
+  workers at 2 shards (sparse fold), 1, 2 (dense) and 4, each equal to
+  the threads on every decision and the canonical journal, the lane
+  kernels launched in the children only, serve wall, the children's
+  start wall and each run's busy share (every child profiles its own
+  device work); and a 2-shard process run whose child is killed at tick
+  40, respawned and restored with no score gap.
 
-The serve runs of phases 8 and 16-17 run with the flight recorder on,
-the engine's default.
+The serve runs of phases 8 and 16-21 run with the flight recorder on and
+supervised (a checkpoint every 32 ticks), the engine's defaults.
 
 Phase 1 also prints how each kernel's shared atomics compiled (from
 ``cuobjdump -sass``), and phase 2 what the L2 eviction before each timed
@@ -477,6 +488,20 @@ def split_sums(walls, rep) -> dict:
     out["serve_wall_s"] = rep.serve_wall_s
     out["stage_wall_s"] = rep.stage_wall_s
     return out
+
+
+def field_diff(a: dict, b: dict) -> dict:
+    """``{key: (a's value, b's value)}`` of every key the two differ on."""
+    return {k: (a.get(k), b.get(k)) for k in sorted(set(a) | set(b))
+            if a.get(k) != b.get(k)}
+
+
+def recovery_events(eng) -> list:
+    """The supervisor's recovery events in an engine's flight journal."""
+    if eng.flight_recorder is None:
+        return []
+    return [ev for t in eng.flight_recorder.records()
+            for ev in t.get("recovery", ())]
 
 
 def serve_fingerprint(eng):
@@ -2519,7 +2544,9 @@ def flight_shard_phase(dev, card, cpu_journal) -> dict:
         check(serve_fingerprint(eng) == want,
               f"{n} shards: states or alert streams differ from 1 shard")
         check(decisions(rep) == decisions(r_on),
-              f"{n} shards: decision fields differ from 1 shard")
+              f"{n} shards: decision fields differ from 1 shard: "
+              f"{field_diff(decisions(rep), decisions(r_on))}; recovery "
+              f"events {recovery_events(eng)}")
         check([repr(v.to_dict()) for v in eng.rca_verdicts] == want_verdicts,
               f"{n} shards: RCA verdicts differ from 1 shard")
         check(eng.flight_recorder.canonical_bytes() == journal,
@@ -2528,6 +2555,8 @@ def flight_shard_phase(dev, card, cpu_journal) -> dict:
               f"{n} shards: chunks by width {rep.dispatches_by_width}")
         for k, v in launches.items():
             check(v > 0, f"{n} shards: kernel {k} was not launched")
+        if n == 2:
+            two_shards = (eng, rep)
         shard_out[n] = dict(serve_wall_s=rep.serve_wall_s,
                             launches=launches,
                             chunks_by_width=rep.dispatches_by_width,
@@ -2538,7 +2567,8 @@ def flight_shard_phase(dev, card, cpu_journal) -> dict:
                             shard_imbalance=rep.shard_imbalance,
                             fold_payload_bytes=rep.fold_payload_bytes,
                             rca_wall_s=rep.rca_wall_s, host_split=split)
-        log(f"[20] {n} shard(s) on {card}: states, alerts, "
+        log(f"[20] {n} shard(s) on {card}: recovery events "
+            f"{recovery_events(eng)}; states, alerts, "
             f"{len(want_verdicts)} verdicts, decisions and the canonical "
             f"journal equal to the 1-shard run's; lane_delta from "
             f"{len(streams)} stream(s), the runners' own; serve wall "
@@ -2551,22 +2581,6 @@ def flight_shard_phase(dev, card, cpu_journal) -> dict:
             f"interpreter lock): " + ", ".join(
                 f"{k} {v['sum_s']:.4f} ({v['calls']})"
                 for k, v in split.items() if isinstance(v, dict)))
-    # a diagnostic of the interpreter lock's hand-off: the 4-shard run
-    # again with a 0.5 ms switch interval (default 5 ms); the engine does
-    # not set it
-    switch = sys.getswitchinterval()
-    sys.setswitchinterval(0.0005)
-    try:
-        eng, rep = run_power_law(shards=SHARD_COUNTS[-1], **kw)
-    finally:
-        sys.setswitchinterval(switch)
-    check(serve_fingerprint(eng) == want and decisions(rep)
-          == decisions(r_on), "switch-interval run: decisions differ")
-    shard_out[SHARD_COUNTS[-1]]["serve_wall_switch_0p5ms_s"] = \
-        rep.serve_wall_s
-    log(f"[20] {SHARD_COUNTS[-1]} shards with a 0.5 ms switch interval "
-        f"(default {switch * 1e3:g} ms): serve wall {rep.serve_wall_s:.4f} "
-        f"s, decisions equal")
     for n in (1,) + SHARD_COUNTS:
         sk.reset_launches()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -2627,6 +2641,314 @@ def flight_shard_phase(dev, card, cpu_journal) -> dict:
     log(f"[20] audit on {card}: record {rec_out.strip()}; replay --shards "
         f"2 {rep_out.strip()}; diff exit 0; tick {tick} admission digest "
         f"edited: diff exit {rc_bad}, {bad_err.strip()} ({audit_s:.3f} s)")
+    # phase 21 holds its runs to these two (popped by main)
+    out["_runs"] = {"flight_on": (e_on, r_on), "two_shards": two_shards}
+    return out
+
+
+#: the JAX serve bench's chaos leg at its 120 ticks (``bench.py:289-295``:
+#: crashes at n/3 and 2n/3, a score-path exception at n/2, shard 0)
+CHAOS_SCRIPT = ("crash@40:shard=0:phase=dispatch;"
+                "except@60:shard=0:phase=score;"
+                "crash@80:shard=0:phase=stage")
+#: what the JAX capture of that leg reads (and the cadence alone gives:
+#: checkpoints at ticks 0, 32, 64, 96 re-execute 9 + 29 + 17 slices)
+CHAOS_WANT = {"n_shard_crashes": 3, "n_restored_ticks": 55,
+              "n_quarantined": 0, "n_migrated_tenants": 0, "n_respawns": 0}
+#: phase 21's process-worker runs after the 2-thread oracle: (shards, fold)
+PROC_RUNS = ((2, "sparse"), (1, "sparse"), (2, "dense"), (4, "sparse"))
+#: a spawned process worker of phase 21 profiles its device work for its
+#: whole life and writes its busy ms into the directory this names
+CHILD_PROFILE_ENV = "ANOMOD_SMOKE_CHILD_PROFILE_DIR"
+
+
+def _child_profiler(out_dir: str) -> None:
+    """Installed in a spawned process worker, where this script is
+    re-imported as ``__mp_main__`` before the child's entry is resolved:
+    ``torch.profiler`` (CUDA activities) starts at the child's first
+    command (its warm-up), after the start-up handshake, and when the
+    child exits its device busy ms (the union of its device event
+    intervals) lands in ``out_dir/busy_<pid>.json``.  A profiler sees one
+    process's CUDA work only, so each child profiles its own."""
+    import os
+
+    from anomod_torch.serve import procshard
+    real_main = procshard._shard_main
+    real_handle = procshard._ShardPlane.handle
+    started = []
+
+    def handle(self, msg):
+        if not started:
+            from torch.profiler import ProfilerActivity, profile
+            prof = profile(activities=[ProfilerActivity.CUDA])
+            prof.__enter__()
+            started.append(prof)
+        return real_handle(self, msg)
+
+    def profiled(conn):
+        try:
+            real_main(conn)
+        finally:
+            if started:
+                import torch
+                torch.cuda.synchronize()
+                started[0].__exit__(None, None, None)
+                Path(out_dir, f"busy_{os.getpid()}.json").write_text(
+                    json.dumps({"busy_ms": device_busy_ms(started[0])}))
+    procshard._ShardPlane.handle = handle
+    procshard._shard_main = profiled
+
+
+@contextlib.contextmanager
+def child_hellos():
+    """Record the start-up handshake of every process worker started
+    inside the block (``ProcShardWorker.wait_ready``'s reply)."""
+    from anomod_torch.serve import procshard
+    real = procshard.ProcShardWorker.wait_ready
+    got = []
+
+    def wait_ready(self):
+        hello = real(self)
+        got.append(hello)
+        return hello
+    procshard.ProcShardWorker.wait_ready = wait_ready
+    try:
+        yield got
+    finally:
+        procshard.ProcShardWorker.wait_ready = real
+
+
+def supervise_proc_phase(dev, card, cpu_journal, fs20) -> dict:
+    """Phase 21: supervision, chaos and process shard workers at the serve
+    bench deployment, RCA on, flight on.  (1) The supervised default
+    (phase 20's first flight-on run, popped from ``fs20``): the pins, 4
+    checkpoints, states, alerts, verdicts, decisions and the canonical
+    journal equal an unsupervised run's and the CPU twin's journal; the
+    checkpoint wall and its fraction of the serve wall.
+    (2) The JAX bench's chaos leg at 1 shard: 3 crashes, 55 restored
+    ticks, nothing quarantined or migrated, no respawn, and no score gap
+    (everything above equal to the fault-free run's); the recovery wall.
+    (3) Process workers at 2 shards (sparse fold), 1, 2 (dense) and 4,
+    each child profiling its own device work, against phase 20's 2-shard
+    thread run (the oracle): every alert stream, verdict,
+    decision and the canonical journal equal the oracle's, the sparse
+    payload at most half the dense one, every lane-kernel launch made in
+    the children; serve wall beside phase 20's thread walls, the
+    children's start wall apart from it, launches summed over the
+    children and the busy share.  (4) A 2-shard process run whose shard
+    1 child is killed at tick 40: respawned, restored, equal to the
+    fault-free run."""
+    import dataclasses
+    import os
+    import tempfile
+
+    from anomod_torch.ops import serve_kernels as sk
+    from anomod_torch.serve.engine import (RECOVERY_REPORT_FIELDS,
+                                           SUPERVISION_REPORT_FIELDS,
+                                           VARIANT_REPORT_FIELDS,
+                                           run_power_law)
+    kw = dict(SERVE_KW, device=dev, rca=True, flight=True)
+    t_phase = time.perf_counter()
+
+    def decisions(r, skip=()):
+        return {k: v for k, v in dataclasses.asdict(r).items()
+                if k not in VARIANT_REPORT_FIELDS + tuple(skip)
+                and k != "device"}
+
+    def pins(r, what):
+        got = {"p99_latency_s": r.latency["p99_latency_s"],
+               "shed_fraction": r.shed_fraction, "n_alerts": r.n_alerts}
+        check(got == SERVE_PINS, f"{what}: pins {got} != {SERVE_PINS}")
+        rca = {"n_rca_runs": r.n_rca_runs, "rca_eligible": r.rca_eligible,
+               "rca_topk_hits": r.rca_topk_hits}
+        check(rca == RCA_PINS, f"{what}: rca pins {rca} != {RCA_PINS}")
+
+    def alerts(eng):
+        return {tid: [dataclasses.asdict(a) for a in eng.alerts_for(tid)]
+                for tid in sorted(eng._tenant_det)}
+
+    def verdicts(eng):
+        return [repr(v.to_dict()) for v in eng.rca_verdicts]
+
+    runs20 = fs20.pop("_runs")
+    thread_walls = {k: v["serve_wall_s"] for k, v in fs20["shards"].items()}
+
+    # -- (1) the supervised default against supervision off ---------------
+    e_sup, r_sup = runs20["flight_on"]
+    e_off, r_off = run_power_law(ckpt_every=0, **kw)
+    pins(r_off, "unsupervised")
+    check(r_sup.supervised and r_sup.ckpt_every == 32
+          and r_sup.n_checkpoints == 4 and not r_off.supervised
+          and r_off.n_checkpoints == 0,
+          f"supervision: {r_sup.n_checkpoints} checkpoints at cadence "
+          f"{r_sup.ckpt_every}; off-run supervised={r_off.supervised}")
+    want_fp = serve_fingerprint(e_sup)
+    journal = e_sup.flight_recorder.canonical_bytes()
+    check(want_fp == serve_fingerprint(e_off)
+          and decisions(r_sup, SUPERVISION_REPORT_FIELDS)
+          == decisions(r_off, SUPERVISION_REPORT_FIELDS)
+          and verdicts(e_sup) == verdicts(e_off),
+          "supervision: decisions differ between on and off: "
+          + str(field_diff(decisions(r_sup, SUPERVISION_REPORT_FIELDS),
+                           decisions(r_off, SUPERVISION_REPORT_FIELDS)))
+          + f"; recovery events {recovery_events(e_sup)}")
+    check(journal == e_off.flight_recorder.canonical_bytes() == cpu_journal,
+          "supervision: canonical journal differs from the unsupervised "
+          "run's or the CPU twin's")
+    ckpt_s = e_sup._supervisor.ckpt_wall_s
+    out = {"supervision": dict(
+        n_checkpoints=r_sup.n_checkpoints, ckpt_wall_s=ckpt_s,
+        serve_wall_s=r_sup.serve_wall_s,
+        ckpt_fraction=ckpt_s / r_sup.serve_wall_s,
+        serve_wall_unsupervised_s=r_off.serve_wall_s)}
+    log(f"[21] supervised (the default) on {card}: pins held, "
+        f"{r_sup.n_checkpoints} checkpoints every {r_sup.ckpt_every} ticks, "
+        f"states, alerts, {len(e_sup.rca_verdicts)} verdicts, decisions "
+        f"and the canonical journal equal supervision off and the CPU "
+        f"twin's journal; checkpoint wall {ckpt_s:.4f} s of a "
+        f"{r_sup.serve_wall_s:.4f} s serve wall (fraction "
+        f"{out['supervision']['ckpt_fraction']:.4g}); supervision off "
+        f"{r_off.serve_wall_s:.4f} s")
+
+    # -- (2) the JAX bench's chaos leg -------------------------------------
+    e_ch, r_ch = run_power_law(chaos=CHAOS_SCRIPT, **kw)
+    pins(r_ch, "chaos")
+    got = {k: getattr(r_ch, k) for k in CHAOS_WANT}
+    check(got == CHAOS_WANT, f"chaos: {got} != {CHAOS_WANT}")
+    check(serve_fingerprint(e_ch) == want_fp
+          and decisions(r_ch, RECOVERY_REPORT_FIELDS)
+          == decisions(r_sup, RECOVERY_REPORT_FIELDS)
+          and verdicts(e_ch) == verdicts(e_sup),
+          "chaos: states, alerts, verdicts or decisions differ from the "
+          "fault-free run's")
+    check(e_ch.flight_recorder.canonical_bytes() == journal,
+          "chaos: the canonical journal differs from the fault-free run's")
+    rec_s = e_ch._supervisor.recovery_wall_s
+    events = [ev for t in e_ch.flight_recorder.records()
+              for ev in t["recovery"]]
+    out["chaos"] = dict(script=CHAOS_SCRIPT, **got, recovery_wall_s=rec_s,
+                        ckpt_wall_s=e_ch._supervisor.ckpt_wall_s,
+                        serve_wall_s=r_ch.serve_wall_s,
+                        events=[{k: ev[k] for k in ("tick", "kind",
+                                                    "restored_ticks")}
+                                for ev in events])
+    log(f"[21] chaos leg on {card} ({CHAOS_SCRIPT}): {got}; no score gap "
+        f"(states, alerts, verdicts, decisions, canonical journal equal the "
+        f"fault-free run's); recovery wall {rec_s:.4f} s, serve wall "
+        f"{r_ch.serve_wall_s:.4f} s; events {out['chaos']['events']}")
+
+    # -- (3) process shard workers against the thread oracle ---------------
+    e_th, r_th = runs20["two_shards"]
+    want_alerts, want_verdicts = alerts(e_th), verdicts(e_th)
+    check(e_th.flight_recorder.canonical_bytes() == journal
+          and want_alerts == alerts(e_sup),
+          "2 threads: journal or alerts differ from 1 shard")
+    two = fs20["shards"]["2"]
+    runs = {"thread-2": dict(
+        serve_wall_s=r_th.serve_wall_s, launches=two["launches"],
+        device_busy_ms=two["device_busy_ms"], busy_share=two["busy_share"],
+        fold_payload_bytes=r_th.fold_payload_bytes)}
+    prev_env = os.environ.get(CHILD_PROFILE_ENV)
+    try:
+        for n, fold in PROC_RUNS:
+            with tempfile.TemporaryDirectory() as tmp, \
+                    child_hellos() as hellos:
+                os.environ[CHILD_PROFILE_ENV] = tmp
+                sk.reset_launches()
+                eng, rep = run_power_law(shards=n, worker="process",
+                                         fold=fold, **kw)
+                files = sorted(Path(tmp).glob("busy_*.json"))
+                busy_each = [json.loads(f.read_text())["busy_ms"]
+                             for f in files]
+            name = f"process-{n}-{fold}"
+            pins(rep, name)
+            check(rep.worker == "process" and rep.fold == fold
+                  and rep.shards == n, f"{name}: ran as {rep.worker}, "
+                  f"{rep.fold}, {rep.shards} shards")
+            check(alerts(eng) == want_alerts
+                  and verdicts(eng) == want_verdicts
+                  and decisions(rep) == decisions(r_th)
+                  and rep.dispatches_by_width == r_th.dispatches_by_width,
+                  f"{name}: alerts, verdicts or decisions differ from the "
+                  f"thread oracle's: "
+                  f"{field_diff(decisions(rep), decisions(r_th))}; "
+                  f"recovery events {recovery_events(eng)}")
+            check(eng.flight_recorder.canonical_bytes() == journal,
+                  f"{name}: canonical journal differs from the oracle's")
+            coord = dict(sk.launches)
+            child = dict(eng.worker_launches)
+            check(coord["lane_delta"] == 0 and coord["window_gather"] == 0
+                  and child.get("lane_delta", 0) > 0
+                  and child.get("window_gather", 0) > 0,
+                  f"{name}: launches in the coordinator {coord}, in the "
+                  f"children {child}")
+            known = [b for b in busy_each if b is not None]
+            busy = sum(known) if len(known) == n else None
+            runs[name] = dict(
+                serve_wall_s=rep.serve_wall_s,
+                thread_wall_phase20_s=thread_walls.get(str(n)),
+                worker_start_s=eng.worker_start_s,
+                child_boot_s=[h["boot_s"] for h in hellos],
+                child_init_s=[h["init_s"] for h in hellos], launches=child,
+                device_busy_ms=busy, child_busy_ms=busy_each,
+                busy_share=(None if busy is None
+                            else busy / 1e3 / rep.serve_wall_s),
+                fold_payload_bytes=rep.fold_payload_bytes,
+                fused_dispatches=rep.fused_dispatches,
+                stage_wall_s=rep.stage_wall_s,
+                dispatch_wall_s=rep.dispatch_wall_s,
+                fold_wall_s=rep.fold_wall_s, score_wall_s=rep.score_wall_s)
+    finally:
+        if prev_env is None:
+            os.environ.pop(CHILD_PROFILE_ENV, None)
+        else:
+            os.environ[CHILD_PROFILE_ENV] = prev_env
+    sparse = runs["process-2-sparse"]["fold_payload_bytes"]
+    dense = runs["process-2-dense"]["fold_payload_bytes"]
+    check(0 < sparse <= 0.5 * dense,
+          f"process fold payload: sparse {sparse} B, dense {dense} B")
+    for name, r in runs.items():
+        busy, share = r["device_busy_ms"], r["busy_share"]
+        busy_txt = "not measured" if busy is None else f"{busy:.3f} ms"
+        share_txt = "not measured" if share is None else f"{share:.4g}"
+        procs = (f" (phase 20 threads at this count: "
+                 f"{r['thread_wall_phase20_s']} s); children's start "
+                 f"{r['worker_start_s']:.3f} s (outside the serve wall; "
+                 f"each child's interpreter and imports "
+                 f"{[round(x, 3) for x in r['child_boot_s']]} s, its shard "
+                 f"plane {[round(x, 3) for x in r['child_init_s']]} s)"
+                 if name.startswith("process") else " (phase 20's)")
+        log(f"[21] {name} on {card}: decisions, alerts, verdicts and the "
+            f"canonical journal equal the 2-thread oracle's; serve wall "
+            f"{r['serve_wall_s']:.4f} s{procs}; launches {r['launches']}; "
+            f"device busy {busy_txt}, busy share {share_txt}; fold "
+            f"payload {r['fold_payload_bytes']} B")
+    out["process"] = runs
+
+    # -- (4) a child killed and respawned ----------------------------------
+    eng, rep = run_power_law(shards=2, worker="process",
+                             chaos="crash@40:shard=1", **kw)
+    pins(rep, "respawn")
+    check(rep.n_respawns >= 1 and rep.n_shard_crashes >= 1,
+          f"respawn: {rep.n_respawns} respawns, {rep.n_shard_crashes} "
+          "crashes")
+    check(alerts(eng) == want_alerts and verdicts(eng) == want_verdicts
+          and decisions(rep, RECOVERY_REPORT_FIELDS)
+          == decisions(r_th, RECOVERY_REPORT_FIELDS)
+          and eng.flight_recorder.canonical_bytes() == journal,
+          "respawn: a score gap (decisions or journal differ from the "
+          "fault-free run's)")
+    out["respawn"] = dict(n_respawns=rep.n_respawns,
+                          n_shard_crashes=rep.n_shard_crashes,
+                          n_restored_ticks=rep.n_restored_ticks,
+                          recovery_wall_s=rep.recovery_wall_s,
+                          serve_wall_s=rep.serve_wall_s)
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    log(f"[21] respawn on {card}: shard 1's child killed at tick 40, "
+        f"{rep.n_respawns} respawn(s), {rep.n_restored_ticks} restored "
+        f"ticks, recovery wall {rep.recovery_wall_s:.4f} s, serve wall "
+        f"{rep.serve_wall_s:.4f} s; no score gap; phase 21 in "
+        f"{out['phase_wall_s']:.1f} s")
     return out
 
 
@@ -2944,6 +3266,7 @@ def main() -> int:
     q_launches = q18["quality"]["dense_launches"]
     s19 = shift_phase(dev, card)
     fs20 = flight_shard_phase(dev, card, cpu_journal)
+    ps21 = supervise_proc_phase(dev, card, cpu_journal, fs20)
 
     # -- report -----------------------------------------------------------
     # the dense kernel's top-level times are the corpus pass's; each path
@@ -2988,6 +3311,12 @@ def main() -> int:
             k["launches_by_shards"] = {
                 str(n): fs20["shards"][str(n)]["launches"][k["name"]]
                 for n in SHARD_COUNTS}
+            # phase 21's process workers: launched in the children, the
+            # counts carried home in their replies
+            k["launches_by_process_run"] = {
+                name: r["launches"].get(k["name"], 0)
+                for name, r in ps21["process"].items()
+                if name.startswith("process")}
     log(json.dumps({"replay_spans_per_sec": rates, "replicate": replicate,
                     "stream_top1": sum(hits) / len(hits),
                     "stream_wall_s": stream_s,
@@ -2998,7 +3327,7 @@ def main() -> int:
                     "sorted_ends_ms": end_ms, "dense_ends_ms": dense_end_ms,
                     "l2_eviction_ms": flush, **data, **serve,
                     **sketch, **roof, **det13, **rca14, **mm15, **rca16,
-                    **tele17, **q18, **s19, **fs20,
+                    **tele17, **q18, **s19, **fs20, **ps21,
                     "wall_s": time.perf_counter() - t_all}))
     log(json.dumps({"kernels": kernels}))
     log(card)
@@ -3007,6 +3336,14 @@ def main() -> int:
         "count": torch.cuda.device_count()}}))
     return 0
 
+
+if __name__ == "__mp_main__":
+    # a spawned process worker of phase 21 (the spawn start method
+    # re-imports this script under that name before the child's entry
+    # runs): profile the child when phase 21 asks for it
+    import os
+    if os.environ.get(CHILD_PROFILE_ENV):
+        _child_profiler(os.environ[CHILD_PROFILE_ENV])
 
 if __name__ == "__main__":
     try:

@@ -905,3 +905,116 @@ def test_sharded_serve_on_card_equals_cpu_on_shard_streams(cuda_device,
         assert e2.flight_recorder.canonical_bytes() \
             == eng.flight_recorder.canonical_bytes()
     assert rep.n_alerts > 0 and rep.n_rca_runs > 0
+
+
+_SMALL_SERVE = dict(n_tenants=8, n_services=6, capacity_spans_per_s=2000,
+                    overload=2.0, duration_s=60, tick_s=1.0, seed=3,
+                    window_s=5.0, baseline_windows=4, fault_tenants=2,
+                    buckets=(64, 256), lane_buckets=(1, 2, 4),
+                    max_backlog=3000, n_windows=16, flight=True,
+                    flight_digest_every=4, ckpt_every=4)
+
+
+def _decisions(rep, skip=()):
+    import dataclasses
+
+    from anomod_torch.serve.engine import VARIANT_REPORT_FIELDS
+    return {k: v for k, v in dataclasses.asdict(rep).items()
+            if k not in VARIANT_REPORT_FIELDS + tuple(skip)
+            and k != "device"}
+
+
+@pytest.mark.cuda
+def test_process_serve_on_card_equals_thread_run(cuda_device):
+    """2 shard processes on the card (each child its own CUDA context,
+    pool and runner) equal 2 shard threads on the card: alert streams,
+    decisions and the canonical flight journal; the children launch the
+    lane kernel, and their replies carry the counts home."""
+    import dataclasses
+
+    from anomod_torch.serve.engine import run_power_law
+    te, tr = run_power_law(device=cuda_device, shards=2, **_SMALL_SERVE)
+    pe, pr = run_power_law(device=cuda_device, shards=2, worker="process",
+                           **_SMALL_SERVE)
+    assert pr.worker == "process" and tr.worker == "thread"
+    assert pr.n_alerts > 0 and _decisions(pr) == _decisions(tr)
+    for tid in te._tenant_det:
+        assert [dataclasses.asdict(a) for a in pe.alerts_for(tid)] \
+            == [dataclasses.asdict(a) for a in te.alerts_for(tid)]
+    assert pe.flight_recorder.canonical_bytes() \
+        == te.flight_recorder.canonical_bytes()
+    assert pe.worker_launches.get("lane_delta", 0) > 0
+    assert pe.worker_launches.get("window_gather", 0) > 0
+    assert pe._workers is None
+
+
+@pytest.mark.cuda
+def test_chaos_recovery_on_card_equals_fault_free(cuda_device):
+    """A small run under a worker kill, a score-phase exception and a
+    pool-put failure, on the card at 1 and 2 shards: restored from the
+    checkpoint (a put on the shard runner's stream, synced) and
+    re-executed, it equals the fault-free card run on states, alerts,
+    decisions and the canonical journal."""
+    from anomod_torch.serve.engine import (RECOVERY_REPORT_FIELDS,
+                                           run_power_law)
+    for shards, script in ((1, "crash@6;except@13:phase=score;poolput@21"),
+                           (2, "crash@6:shard=1;except@13:phase=score;"
+                               "poolput@21:shard=1")):
+        e0, r0 = run_power_law(device=cuda_device, shards=shards,
+                               **_SMALL_SERVE)
+        e1, r1 = run_power_law(device=cuda_device, shards=shards,
+                               chaos=script, **_SMALL_SERVE)
+        assert r1.n_shard_crashes == 3 and r1.n_restored_ticks > 0
+        assert r1.n_respawns == (1 if shards == 2 else 0)
+        assert _serve_fingerprint(e1) == _serve_fingerprint(e0)
+        assert _decisions(r1, RECOVERY_REPORT_FIELDS) \
+            == _decisions(r0, RECOVERY_REPORT_FIELDS)
+        assert e1.flight_recorder.canonical_bytes() \
+            == e0.flight_recorder.canonical_bytes()
+
+
+@pytest.mark.cuda
+def test_lane_delta_from_threads_at_mixed_lane_counts(cuda_device):
+    """Serve shard threads launch the lane kernel at once, each on its
+    own stream and at its own lane count, so at its own shared-memory
+    size (the cap is one per kernel for the process): every launch
+    succeeds and equals the plain version bit for bit.  (Before the C
+    entry held one lock over the cap's set and the launch, 8 x 200
+    launches failed here in one of two runs.)"""
+    import threading
+
+    from anomod_torch.ops import serve_kernels as sk
+    sw, w = 384, 4096
+    cases = []
+    for i, lanes in enumerate((1, 32, 2, 16, 1, 32, 4, 8)):
+        sid, planes = zip(*(_inputs(w, sw, 100 * i + j)
+                            for j in range(lanes)))
+        sid, planes = np.stack(sid), np.stack(planes)
+        want = sk.lane_delta_plain(torch.from_numpy(sid),
+                                   torch.from_numpy(planes), sw, H)
+        cases.append((torch.from_numpy(sid).to(cuda_device),
+                       torch.from_numpy(planes).to(cuda_device), want))
+    torch.cuda.synchronize()
+    errors, outs = [], [None] * len(cases)
+
+    def work(k):
+        sid, planes, _ = cases[k]
+        stream = torch.cuda.Stream(cuda_device)
+        try:
+            with torch.cuda.stream(stream):
+                for _ in range(1000):
+                    out = sk.lane_delta(sid, planes, sw, H)
+                stream.synchronize()
+            outs[k] = out.cpu()
+        except Exception as e:      # noqa: BLE001 - asserted below
+            errors.append(repr(e))
+    threads = [threading.Thread(target=work, args=(k,))
+               for k in range(len(cases))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    assert errors == []
+    for out, (_, _, want) in zip(outs, cases):
+        assert torch.equal(out, want)

@@ -7,7 +7,8 @@ N-shard run equals the 1-shard run on every report field outside
 ``VARIANT_REPORT_FIELDS``, on the detector states and alerts, the RCA
 verdicts and the canonical flight journal (two seeds, shards 2 and 3);
 the sparse and dense barrier folds give equal scrapes; a failing shard
-re-raises at the barrier; process workers are refused.
+re-raises at the barrier; the worker knob resolves as the JAX one does
+(process workers: ``tests/test_torch_procshard.py``).
 """
 
 import dataclasses
@@ -153,9 +154,11 @@ def test_failing_shard_reraises_at_the_barrier():
     from anomod_torch.serve.engine import ServeEngine, serve_plane_cfg
     traffic = PowerLawTraffic(n_tenants=6, total_rate_spans_per_s=2000.0,
                               alpha=1.2, seed=3, n_services=4)
+    # unsupervised: with supervision on (the default) the supervisor
+    # recovers the failure instead (tests/test_torch_supervise.py)
     eng = ServeEngine(traffic.specs, traffic.services, serve_plane_cfg(4),
                       capacity_spans_per_s=1500.0, shards=2, device="cpu",
-                      flight=False)
+                      flight=False, ckpt_every=0)
     done = []
     real = eng._score_shard
 
@@ -205,9 +208,9 @@ def test_shard_knobs_and_process_workers_refused(monkeypatch):
             JConfig()
         assert str(got.value) == str(want.value)
         monkeypatch.delenv(var)
+    # process workers are ported: the knob resolves as the JAX one does
     monkeypatch.setenv("ANOMOD_SERVE_WORKER", "process")
-    with pytest.raises(ValueError, match="not ported yet"):
-        Config()
+    assert Config().serve_worker == JConfig().serve_worker == "process"
     monkeypatch.delenv("ANOMOD_SERVE_WORKER")
     spec = [TenantSpec(tenant_id=0, name="t0", rate_spans_per_s=10.0)]
     with pytest.raises(ValueError, match="dense|sparse"):

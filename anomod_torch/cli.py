@@ -227,6 +227,35 @@ def _parser() -> argparse.ArgumentParser:
                         "no-score-gap recovery (default: "
                         "ANOMOD_SERVE_CKPT_EVERY, 32; 0 disables "
                         "supervision)")
+    v.add_argument("--policy", choices=["off", "auto", "script"],
+                   default=None,
+                   help="elastic scaling policy: auto = the signal-fed "
+                        "autoscaler at every tick end, script = the "
+                        "--policy-script schedule; scaling is a function "
+                        "of the seed and leaves states, alerts, SLO and "
+                        "shed equal to a static run's (default: "
+                        "ANOMOD_SERVE_POLICY)")
+    v.add_argument("--policy-script", default=None,
+                   help="scaling schedule for --policy script, e.g. "
+                        "'up@10;rebalance@25:k=2;down@40' (default: "
+                        "ANOMOD_SERVE_POLICY_SCRIPT)")
+    v.add_argument("--min-shards", type=int, default=None,
+                   help="elastic scale-down floor (default: "
+                        "ANOMOD_SERVE_POLICY_MIN_SHARDS)")
+    v.add_argument("--max-shards", type=int, default=None,
+                   help="elastic scale-up ceiling; past it sustained "
+                        "overload climbs the brownout ladder (default: "
+                        "ANOMOD_SERVE_POLICY_MAX_SHARDS)")
+    v.add_argument("--async-commit", action="store_true",
+                   help="deferred-commit tick: issue the lane dispatches "
+                        "without waiting, run the next tick's admission, "
+                        "drain, shed and SLO while they run, commit at the "
+                        "next barrier; decisions and the canonical "
+                        "journal equal the synchronous tick's (default: "
+                        "ANOMOD_SERVE_ASYNC_COMMIT)")
+    v.add_argument("--no-async-commit", action="store_true",
+                   help="force the synchronous tick even when "
+                        "ANOMOD_SERVE_ASYNC_COMMIT is on")
     v.add_argument("--device", default=None,
                    help="cuda (default) or cpu (plain PyTorch versions)")
 
@@ -330,14 +359,40 @@ def _serve(args, parser) -> int:
                      "it cannot combine with --no-score")
     if args.ckpt_every is not None and args.ckpt_every < 0:
         parser.error("--ckpt-every must be >= 0 (0 = supervision off)")
+    from anomod_torch.config import get_config
+    policy_mode = (args.policy if args.policy is not None
+                   else get_config().serve_policy)
+    if args.policy_script is not None:
+        from anomod_torch.config import validate_policy_script
+        try:
+            validate_policy_script(args.policy_script)
+        except ValueError as e:
+            parser.error(f"--policy-script: {e}")
+        if policy_mode != "script":
+            parser.error("--policy-script applies to --policy script (it "
+                         "would be silently ignored)")
+    for flag, val in (("--min-shards", args.min_shards),
+                      ("--max-shards", args.max_shards)):
+        if val is not None:
+            if policy_mode == "off":
+                parser.error(f"{flag} applies to an elastic policy "
+                             "(--policy auto|script)")
+            if val < 1:
+                parser.error(f"{flag} must be >= 1")
+    if args.async_commit and args.no_async_commit:
+        parser.error("--async-commit contradicts --no-async-commit")
     if args.chaos:
-        from anomod_torch.config import get_config, validate_chaos_script
+        from anomod_torch.config import validate_chaos_script
         try:
             faults = validate_chaos_script(args.chaos)
         except ValueError as e:
             parser.error(f"--chaos: {e}")
         n_sh = (args.shards if args.shards is not None
                 else get_config().serve_shards)
+        if policy_mode != "off":
+            # an elastic run may target any shard id its ceiling reaches
+            n_sh = max(n_sh, args.max_shards if args.max_shards is not None
+                       else get_config().serve_policy_max_shards)
         bad = sorted({f["shard"] for f in faults
                       if f["kind"] != "surge" and f["shard"] >= n_sh})
         if bad:
@@ -374,7 +429,11 @@ def _serve(args, parser) -> int:
             rca=True if args.rca else (False if args.no_score else None),
             tracer=tracer, shards=args.shards, fold=args.fold,
             worker=args.worker, chaos=args.chaos,
-            ckpt_every=args.ckpt_every)
+            ckpt_every=args.ckpt_every, policy=args.policy,
+            policy_script=args.policy_script, min_shards=args.min_shards,
+            max_shards=args.max_shards,
+            async_commit=(True if args.async_commit
+                          else (False if args.no_async_commit else None)))
     finally:
         if endpoint is not None:
             endpoint.stop()
@@ -459,6 +518,9 @@ def _audit(args, parser) -> int:
         kw = dict(run)
         for key in ("buckets", "lane_buckets"):
             kw[key] = tuple(kw[key]) if kw.get(key) else None
+        # a journal recorded before state tiering carries no tier
+        # geometry: replay it untiered, never under this process's env
+        kw.setdefault("tier_hot", 0)
         # the forensic overrides: the same decisions at another shard
         # count / depth / residency, which diff then holds equal
         for name, val in (("shards", args.shards),

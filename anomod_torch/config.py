@@ -50,6 +50,19 @@ failures of one slice before it is quarantined, default 3),
 ``ANOMOD_SERVE_MAX_RESPAWNS`` (a shard's worker respawns before its
 tenants migrate, default 8).
 
+The elastic policy (``anomod_torch.serve.policy``): ``ANOMOD_SERVE_POLICY``
+(``off``, the default, ``auto`` or ``script``),
+``ANOMOD_SERVE_POLICY_SCRIPT`` (a scaling script,
+:func:`validate_policy_script`), ``ANOMOD_SERVE_POLICY_MIN_SHARDS`` (1)
+and ``_MAX_SHARDS`` (8), ``ANOMOD_SERVE_POLICY_TARGET_IMBALANCE`` (1.5)
+and ``ANOMOD_SERVE_POLICY_COOLDOWN_TICKS`` (8).  The deferred-commit
+tick: ``ANOMOD_SERVE_ASYNC_COMMIT`` (default off).  State tiering
+(``anomod_torch.serve.tiering``): ``ANOMOD_SERVE_TIER_HOT`` (pool-resident
+tenants before demotion, 0 = off, the default),
+``ANOMOD_SERVE_TIER_DEMOTE_AFTER`` (idle ticks, 8),
+``ANOMOD_SERVE_TIER_WARM_BYTES`` (64 MiB), ``ANOMOD_SERVE_TIER_COLD_DIR``
+(unset: no cold tier) and ``ANOMOD_SERVE_TIER_PREFETCH`` (1-256, 4).
+
 The flight recorder (``anomod_torch.obs.flight``): ``ANOMOD_FLIGHT``
 (default on), ``ANOMOD_FLIGHT_DIGEST_EVERY`` (tenant-state digest
 cadence in ticks, default 16), ``ANOMOD_FLIGHT_MAX_TICKS`` (the ring,
@@ -401,6 +414,185 @@ def _serve_max_respawns_env() -> int:
     return n
 
 
+#: the elastic policy's decision kinds (:mod:`anomod_torch.serve.policy`):
+#: ``up`` grows the shard set by one worker, ``down`` drains and retires
+#: the highest shard, ``rebalance`` moves the top-K hottest tenants off the
+#: most-loaded shard, ``brownout`` forces a degradation-ladder level
+POLICY_ACTIONS = ("up", "down", "rebalance", "brownout")
+
+
+def validate_policy_script(script: str) -> list:
+    """Parse and validate an ``ANOMOD_SERVE_POLICY_SCRIPT`` scaling script.
+
+    Grammar: semicolon-separated ``ACTION@TICK[:key=value]`` items with
+    ACTION in :data:`POLICY_ACTIONS`, e.g.
+    ``up@10;rebalance@25:k=2;down@40;brownout@50:level=1``.  Keys: ``k``
+    (rebalance move count, default 1) and ``level`` (brownout level 0..2,
+    default 1); a key on the wrong action is refused.  Returns the action
+    dicts; the JAX package's grammar and messages."""
+    actions = []
+    for item in (p.strip() for p in str(script).split(";") if p.strip()):
+        head, _, tail = item.partition(":")
+        act, at, tick = head.partition("@")
+        act = act.strip().lower()
+        if act not in POLICY_ACTIONS or not at:
+            raise ValueError(
+                f"policy item {item!r}: expected ACTION@TICK with "
+                f"ACTION in {'/'.join(POLICY_ACTIONS)}")
+        try:
+            tick_i = int(tick)
+        except ValueError:
+            raise ValueError(f"policy item {item!r}: tick must be an "
+                             f"integer, got {tick!r}")
+        if tick_i < 0:
+            raise ValueError(f"policy item {item!r}: tick must be >= 0")
+        entry = {"action": act, "tick": tick_i, "k": 1, "level": 1}
+        allowed = {"rebalance": ("k",), "brownout": ("level",)} \
+            .get(act, ())
+        for kv in (p.strip() for p in tail.split(":") if p.strip()):
+            key, eq, val = kv.partition("=")
+            key = key.strip().lower()
+            if not eq or key not in allowed:
+                raise ValueError(
+                    f"policy item {item!r}: unknown key {kv!r}"
+                    + (f" (want {'/'.join(f'{k}=' for k in allowed)})"
+                       if allowed else f" ({act} takes no keys)"))
+            try:
+                entry[key] = int(val)
+            except ValueError:
+                raise ValueError(
+                    f"policy item {item!r}: bad value for {key!r}: "
+                    f"{val!r}")
+        if not 1 <= entry["k"] <= 1024:
+            raise ValueError(f"policy item {item!r}: k must be in "
+                             f"[1, 1024], got {entry['k']}")
+        if not 0 <= entry["level"] <= 2:
+            raise ValueError(f"policy item {item!r}: level must be in "
+                             f"[0, 2], got {entry['level']}")
+        actions.append(entry)
+    return actions
+
+
+def _serve_policy_env() -> str:
+    raw = _env("ANOMOD_SERVE_POLICY", "off").strip().lower()
+    if raw in ("off", ""):
+        return "off"
+    if raw in ("auto", "script"):
+        return raw
+    raise ValueError(
+        f"ANOMOD_SERVE_POLICY must be off, auto or script, got {raw!r}")
+
+
+def _serve_policy_script_env() -> str:
+    raw = _env("ANOMOD_SERVE_POLICY_SCRIPT", "").strip()
+    if raw:
+        validate_policy_script(raw)
+    return raw
+
+
+def _serve_policy_int_env(name: str, default: str, lo: int,
+                          hi: int) -> int:
+    raw = _env(name, default)
+    try:
+        n = int(raw)
+    except ValueError:
+        raise ValueError(f"{name} must be an integer, got {raw!r}")
+    if not lo <= n <= hi:
+        raise ValueError(f"{name} must be in [{lo}, {hi}], got {n}")
+    return n
+
+
+def _serve_policy_target_imbalance_env() -> float:
+    raw = _env("ANOMOD_SERVE_POLICY_TARGET_IMBALANCE", "1.5")
+    try:
+        v = float(raw)
+    except ValueError:
+        raise ValueError(
+            f"ANOMOD_SERVE_POLICY_TARGET_IMBALANCE must be a number, "
+            f"got {raw!r}")
+    if not 1.0 <= v <= 100.0:
+        raise ValueError(
+            f"ANOMOD_SERVE_POLICY_TARGET_IMBALANCE must be in "
+            f"[1.0, 100.0], got {v}")
+    return v
+
+
+def _serve_async_commit_env() -> bool:
+    # explicit token sets: the knob flips the whole tick structure, so a
+    # typo fails here instead of serving synchronously
+    raw = _env("ANOMOD_SERVE_ASYNC_COMMIT", "0").strip().lower()
+    if raw in ("1", "on", "true", "yes"):
+        return True
+    if raw in ("0", "off", "false", "no", ""):
+        return False
+    raise ValueError(
+        f"ANOMOD_SERVE_ASYNC_COMMIT must be 0/off/false/no or "
+        f"1/on/true/yes, got {raw!r}")
+
+
+def _serve_tier_hot_env() -> int:
+    raw = _env("ANOMOD_SERVE_TIER_HOT", "0")
+    try:
+        n = int(raw)
+    except ValueError:
+        raise ValueError(
+            f"ANOMOD_SERVE_TIER_HOT must be a non-negative integer "
+            f"(0 = tiering off), got {raw!r}")
+    if n < 0:
+        raise ValueError(
+            f"ANOMOD_SERVE_TIER_HOT must be >= 0, got {n}")
+    return n
+
+
+def _serve_tier_demote_after_env() -> int:
+    raw = _env("ANOMOD_SERVE_TIER_DEMOTE_AFTER", "8")
+    try:
+        n = int(raw)
+    except ValueError:
+        raise ValueError(
+            f"ANOMOD_SERVE_TIER_DEMOTE_AFTER must be a positive "
+            f"integer (idle ticks), got {raw!r}")
+    if n < 1:
+        raise ValueError(
+            f"ANOMOD_SERVE_TIER_DEMOTE_AFTER must be >= 1, got {n}")
+    return n
+
+
+def _serve_tier_warm_bytes_env() -> int:
+    raw = _env("ANOMOD_SERVE_TIER_WARM_BYTES", str(64 * 1024 * 1024))
+    try:
+        n = int(raw)
+    except ValueError:
+        raise ValueError(
+            f"ANOMOD_SERVE_TIER_WARM_BYTES must be a non-negative "
+            f"integer (bytes), got {raw!r}")
+    if n < 0:
+        raise ValueError(
+            f"ANOMOD_SERVE_TIER_WARM_BYTES must be >= 0, got {n}")
+    return n
+
+
+def _serve_tier_cold_dir_env() -> Optional[Path]:
+    raw = _env("ANOMOD_SERVE_TIER_COLD_DIR", "")
+    if not raw or raw.lower() in _CACHE_OFF:
+        return None
+    return Path(raw).expanduser()
+
+
+def _serve_tier_prefetch_env() -> int:
+    raw = _env("ANOMOD_SERVE_TIER_PREFETCH", "4")
+    try:
+        n = int(raw)
+    except ValueError:
+        raise ValueError(
+            f"ANOMOD_SERVE_TIER_PREFETCH must be a positive integer, "
+            f"got {raw!r}")
+    if not 1 <= n <= 256:
+        raise ValueError(
+            f"ANOMOD_SERVE_TIER_PREFETCH must be in [1, 256], got {n}")
+    return n
+
+
 def _flight_env() -> bool:
     return _env("ANOMOD_FLIGHT", "1").strip().lower() \
         not in ("0", "false", "off", "no")
@@ -428,7 +620,8 @@ def _flight_dump_dir_env() -> Optional[Path]:
 @dataclasses.dataclass
 class Config:
     """Where experiments come from and how they are loaded; the telemetry,
-    online-RCA, shard, supervision and flight-recorder knobs."""
+    online-RCA, shard, supervision, elastic-policy, deferred-commit,
+    tiering and flight-recorder knobs."""
 
     data_root: Optional[Path] = dataclasses.field(
         default_factory=_data_root_env)
@@ -472,6 +665,32 @@ class Config:
         default_factory=_serve_retry_backoff_s_env)
     serve_max_respawns: int = dataclasses.field(
         default_factory=_serve_max_respawns_env)
+    serve_policy: str = dataclasses.field(default_factory=_serve_policy_env)
+    serve_policy_script: str = dataclasses.field(
+        default_factory=_serve_policy_script_env)
+    serve_policy_min_shards: int = dataclasses.field(
+        default_factory=lambda: _serve_policy_int_env(
+            "ANOMOD_SERVE_POLICY_MIN_SHARDS", "1", 1, 256))
+    serve_policy_max_shards: int = dataclasses.field(
+        default_factory=lambda: _serve_policy_int_env(
+            "ANOMOD_SERVE_POLICY_MAX_SHARDS", "8", 1, 256))
+    serve_policy_target_imbalance: float = dataclasses.field(
+        default_factory=_serve_policy_target_imbalance_env)
+    serve_policy_cooldown_ticks: int = dataclasses.field(
+        default_factory=lambda: _serve_policy_int_env(
+            "ANOMOD_SERVE_POLICY_COOLDOWN_TICKS", "8", 1, 100_000))
+    serve_async_commit: bool = dataclasses.field(
+        default_factory=_serve_async_commit_env)
+    serve_tier_hot: int = dataclasses.field(
+        default_factory=_serve_tier_hot_env)
+    serve_tier_demote_after: int = dataclasses.field(
+        default_factory=_serve_tier_demote_after_env)
+    serve_tier_warm_bytes: int = dataclasses.field(
+        default_factory=_serve_tier_warm_bytes_env)
+    serve_tier_cold_dir: Optional[Path] = dataclasses.field(
+        default_factory=_serve_tier_cold_dir_env)
+    serve_tier_prefetch: int = dataclasses.field(
+        default_factory=_serve_tier_prefetch_env)
     flight: bool = dataclasses.field(default_factory=_flight_env)
     flight_digest_every: int = dataclasses.field(
         default_factory=lambda: _flight_int_env(

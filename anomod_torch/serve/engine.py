@@ -81,9 +81,38 @@ recovered run's decisions and journal equal a fault-free run's.
 ``ckpt_every=0`` turns supervision off: a shard fault then fails the
 tick.
 
-The JAX package's other planes (elastic policy, async commit, tiering,
-perf and census, the multimodal sidecar) are not part of this engine,
-nor are their metric series.
+The elastic policy (``policy`` or ``ANOMOD_SERVE_POLICY``, ``off`` by
+default, :mod:`anomod_torch.serve.policy`): at every tick end an
+``ElasticPolicy`` folds the tick's canonical signals (served spans, the
+runners' staged-chunk books, backlog, shed) and its scale-up,
+scale-down, rebalance and brownout decisions run through the
+live-migration seams (a tenant's state copied out of its old pool on
+the old runner's stream and put into the new pool on the new runner's
+stream); a new shard is a new runner with its own stream, pool,
+registry, RCA plane and worker (a spawned child with process workers).
+The scaling schedule is a function of the seed, and an elastic run's
+decisions and canonical journal equal a static run's.
+
+The deferred-commit tick (``async_commit`` or
+``ANOMOD_SERVE_ASYNC_COMMIT``, off by default): tick t's lane dispatches
+are issued on the shard streams and left in flight; tick t+1's
+admission, drain, shed and SLO (host state) run meanwhile, and tick t
+commits (drain, fold, scoring, then its RCA, journal record and policy
+step) at a barrier before tick t+1 issues.  Checkpoint ticks commit at
+once.  Decisions and the canonical journal equal the synchronous
+engine's.
+
+State tiering (``tier_hot`` or ``ANOMOD_SERVE_TIER_HOT``, 0 = off,
+:mod:`anomod_torch.serve.tiering`): past ``tier_hot`` pool-resident
+tenants, the coldest idle ones demote at tick end to a host warm tier
+and, past its byte budget, to a content-addressed disk cold tier; a
+demoted tenant's next batch promotes it (a cold one one tick later, its
+batches parked).  States, alerts, SLO and shed equal a never-evicted
+run's.  Tiering refuses the deferred commit; process workers refuse
+both.
+
+The JAX package's perf and census observatories and its multimodal
+sidecar are not part of this engine, nor are their metric series.
 """
 
 from __future__ import annotations
@@ -194,6 +223,18 @@ def _merged_quantiles(slos: Sequence[_TenantSLO],
             round(float(tdigest_quantile(merged, q)), 6) for q in qs}
 
 
+def _runner_stats(r) -> dict:
+    """One runner's cumulative book and walls: the one shape the report
+    sums and an elastic scale-down keeps of the runner it retires."""
+    return {"book": r.book_snapshot(),
+            "compile_s": r.compile_s,
+            "lane_compile_s": r.lane_compile_s,
+            "stage_wall_s": r.stage_wall_s,
+            "dispatch_wall_s": r.dispatch_wall_s,
+            "fold_wall_s": r.fold_wall_s,
+            "score_wall_s": r.score_wall_s}
+
+
 def _plane_col_gather(work):
     """The ``gather_cols`` backend of one batched scoring pass
     (:func:`~anomod_torch.stream.score_closed_windows_batched`): ONE pool
@@ -291,9 +332,32 @@ class ServeReport:
     #                                              consecutive failures
     n_migrated_tenants: int                      # moved off dead shards
     recovery_wall_s: float                       # restore + re-exec wall
+    policy: str                                  # elastic mode: off|auto|
+    #                                              script
+    n_scale_ups: int                             # executed up episodes
+    n_scale_downs: int                           # executed down episodes
+    n_rebalances: int                            # executed rebalances
+    n_policy_migrations: int                     # tenants moved by policy
+    brownout_ticks: int                          # ticks at ladder level>=1
+    peak_shards: int                             # most workers the run held
+    policy_wall_s: float                         # policy step + migration
+    #                                              wall
     flight_enabled: bool                         # flight recorder on?
     flight_recorded_ticks: int                   # journal records written
     flight_dropped_ticks: int                    # ring evictions
+    tier_hot: int                                # hot-pool tenant capacity
+    #                                              (0 = tiering off)
+    n_tier_demotions_warm: int                   # pool -> host demotions
+    n_tier_demotions_cold: int                   # warm -> disk spills
+    n_tier_promotions: int                       # tier -> pool re-admissions
+    n_tier_misses: int                           # one-tick cold deferrals
+    tier_prefetch_hidden: int                    # cold joins already read
+    tier_wall_s: float                           # gate + demote-step wall
+    async_commit: bool                           # deferred-commit tick on?
+    async_ticks: int                             # ticks that deferred
+    commit_defer_wall_s: float                   # wall dispatches stayed in
+    #                                              flight under the next
+    #                                              tick's coordinator work
     fold_payload_bytes: int                      # barrier registry deltas
     worker: str                                  # shard workers: thread|
     #                                              process
@@ -333,7 +397,29 @@ VARIANT_REPORT_FIELDS = (
     "serve_wall_s", "sustained_spans_per_sec", "rca_latency", "rca_wall_s",
     "shards", "shard_tenants", "shard_spans", "shard_imbalance",
     "fold_payload_bytes", "ckpt_wall_s", "recovery_wall_s", "worker",
-    "fold")
+    "fold",
+    # elastic topology (a static run's peak is its shard count) and the
+    # policy, deferral and tiering walls; whether a cold read had
+    # finished before its join is wall luck
+    "peak_shards", "policy_wall_s", "commit_defer_wall_s",
+    "tier_prefetch_hidden", "tier_wall_s")
+
+#: the elastic policy's report fields: they differ between a policy-on
+#: and a policy-off run of one seed (``n_checkpoints`` too: every scale
+#: edge takes a fresh baseline checkpoint)
+POLICY_REPORT_FIELDS = ("policy", "n_scale_ups", "n_scale_downs",
+                        "n_rebalances", "n_policy_migrations",
+                        "brownout_ticks", "n_checkpoints")
+
+#: the deferred-commit tick's report fields (the mode and its tick count)
+ASYNC_REPORT_FIELDS = ("async_commit", "async_ticks")
+
+#: state tiering's configuration and canonical counters; a tiered run's
+#: other fields equal a never-evicted run's (``dispatches_by_width``
+#: aside when a cold miss regroups the lanes of a deferred tick)
+TIERING_REPORT_FIELDS = ("tier_hot", "n_tier_demotions_warm",
+                         "n_tier_demotions_cold", "n_tier_promotions",
+                         "n_tier_misses")
 
 #: the supervision configuration's report fields: they differ between a
 #: supervised and an unsupervised run of one seed
@@ -446,7 +532,19 @@ def run_power_law(n_tenants: int = 200, n_services: int = 8,
                   retries: Optional[int] = None,
                   retry_backoff_s: Optional[float] = None,
                   max_respawns: Optional[int] = None,
-                  worker: Optional[str] = None
+                  worker: Optional[str] = None,
+                  policy: Optional[str] = None,
+                  policy_script: Optional[str] = None,
+                  min_shards: Optional[int] = None,
+                  max_shards: Optional[int] = None,
+                  target_imbalance: Optional[float] = None,
+                  cooldown_ticks: Optional[int] = None,
+                  async_commit: Optional[bool] = None,
+                  tier_hot: Optional[int] = None,
+                  tier_demote_after: Optional[int] = None,
+                  tier_warm_bytes: Optional[int] = None,
+                  tier_cold_dir=None,
+                  tier_prefetch: Optional[int] = None
                   ) -> Tuple["ServeEngine", "ServeReport"]:
     """The canonical seeded serve run: :func:`power_law_traffic` against
     an engine of ``capacity_spans_per_s``, so one run measures sustained
@@ -472,8 +570,18 @@ def run_power_law(n_tenants: int = 200, n_services: int = 8,
                          flight_max_ticks=flight_max_ticks, chaos=chaos,
                          ckpt_every=ckpt_every, retries=retries,
                          retry_backoff_s=retry_backoff_s,
-                         max_respawns=max_respawns, worker=worker)
+                         max_respawns=max_respawns, worker=worker,
+                         policy=policy, policy_script=policy_script,
+                         min_shards=min_shards, max_shards=max_shards,
+                         target_imbalance=target_imbalance,
+                         cooldown_ticks=cooldown_ticks,
+                         async_commit=async_commit, tier_hot=tier_hot,
+                         tier_demote_after=tier_demote_after,
+                         tier_warm_bytes=tier_warm_bytes,
+                         tier_cold_dir=tier_cold_dir,
+                         tier_prefetch=tier_prefetch)
     if engine.flight_recorder is not None:
+        pol = engine.policy
         # native_stage and drain_engine stay as passed: their oracles are
         # byte-identical, so they cannot move a canonical plane
         engine.flight_recorder.header["run"] = dict(
@@ -498,7 +606,25 @@ def run_power_law(n_tenants: int = 200, n_services: int = 8,
                    else ""),
             ckpt_every=engine.ckpt_every, retries=engine.retries,
             retry_backoff_s=engine.retry_backoff_s,
-            max_respawns=engine.max_respawns, worker=engine.worker_mode)
+            max_respawns=engine.max_respawns, worker=engine.worker_mode,
+            # the policy knobs resolved: a replay re-evaluates the same
+            # canonical signals and scales on the same schedule
+            policy=pol.mode if pol is not None else "off",
+            policy_script=pol.script if pol is not None else "",
+            min_shards=pol.min_shards if pol is not None else None,
+            max_shards=pol.max_shards if pol is not None else None,
+            target_imbalance=(pol.target_imbalance if pol is not None
+                              else None),
+            cooldown_ticks=pol.cooldown_ticks if pol is not None else None,
+            async_commit=engine.async_commit,
+            # the tier geometry decides demotions, spills and which tick
+            # a missed tenant's deltas land in: a replay serves with it
+            tier_hot=engine.tier_hot,
+            tier_demote_after=engine.tier_demote_after,
+            tier_warm_bytes=engine.tier_warm_bytes,
+            tier_cold_dir=(str(engine.tier_cold_dir)
+                           if engine.tier_cold_dir is not None else None),
+            tier_prefetch=engine.tier_prefetch)
     report = engine.run(traffic, duration_s=duration_s)
     return engine, report
 
@@ -507,7 +633,8 @@ class ServeEngine:
     """Multi-tenant serving plane over the streaming detectors, on one
     device (``cuda`` unless the caller asks for ``cpu``).  ``rca``,
     ``shards``, ``fold``, ``worker``, ``flight``, ``chaos``,
-    ``ckpt_every`` and the ``rca_*`` / ``flight_*`` / supervision knobs
+    ``ckpt_every``, ``policy``, ``async_commit``, ``tier_hot`` and the
+    ``rca_*`` / ``flight_*`` / supervision / policy / ``tier_*`` knobs
     default from ``anomod_torch.config``; ``tracer`` defaults to a
     ``Tracer("anomod-serve")`` when the process registry is enabled."""
 
@@ -536,7 +663,19 @@ class ServeEngine:
                  retries: Optional[int] = None,
                  retry_backoff_s: Optional[float] = None,
                  max_respawns: Optional[int] = None,
-                 worker: Optional[str] = None):
+                 worker: Optional[str] = None,
+                 policy: Optional[str] = None,
+                 policy_script: Optional[str] = None,
+                 min_shards: Optional[int] = None,
+                 max_shards: Optional[int] = None,
+                 target_imbalance: Optional[float] = None,
+                 cooldown_ticks: Optional[int] = None,
+                 async_commit: Optional[bool] = None,
+                 tier_hot: Optional[int] = None,
+                 tier_demote_after: Optional[int] = None,
+                 tier_warm_bytes: Optional[int] = None,
+                 tier_cold_dir=None,
+                 tier_prefetch: Optional[int] = None):
         if capacity_spans_per_s <= 0:
             raise ValueError("capacity must be positive")
         self.device = resolve_device(device)
@@ -572,6 +711,116 @@ class ServeEngine:
             raise ValueError(f"unknown serve fold mode {fold_mode!r} "
                              "(dense|sparse)")
         self.fold_mode = fold_mode
+        #: the deferred-commit tick: tick t's dispatches are issued and
+        #: left in flight on the shard streams while tick t+1's
+        #: admission, drain, shed and SLO run; tick t commits at a
+        #: barrier before tick t+1 issues.  Every decision input is taken
+        #: at tick t, so decisions and the canonical journal equal the
+        #: synchronous engine's (the oracle); only walls move
+        self.async_commit = bool(app_cfg.serve_async_commit
+                                 if async_commit is None else async_commit)
+        #: the deferred tick's snapshotted context (None: nothing
+        #: deferred): every input its commit tail reads, taken at issue
+        self._deferred: Optional[dict] = None
+        #: ticks whose commit deferred past issue
+        self.async_ticks = 0
+        #: wall the issued dispatches stayed in flight under coordinator
+        #: work before their barrier read them
+        self.commit_defer_wall_s = 0.0
+        #: the elastic policy (anomod_torch.serve.policy): ``off`` is the
+        #: static engine; ``auto`` / ``script`` evaluate an ElasticPolicy
+        #: at every tick end and run its decisions through the
+        #: live-migration seams
+        policy_mode = (app_cfg.serve_policy if policy is None
+                       else str(policy).strip().lower() or "off")
+        if policy_mode not in ("off", "auto", "script"):
+            raise ValueError(f"unknown serve policy mode "
+                             f"{policy_mode!r} (off|auto|script)")
+        self._elastic = policy_mode != "off"
+        self.policy = None
+        if self._elastic:
+            from anomod_torch.serve.policy import ElasticPolicy
+            self.policy = ElasticPolicy(
+                policy_mode,
+                int(app_cfg.serve_policy_min_shards
+                    if min_shards is None else min_shards),
+                int(app_cfg.serve_policy_max_shards
+                    if max_shards is None else max_shards),
+                float(app_cfg.serve_policy_target_imbalance
+                      if target_imbalance is None else target_imbalance),
+                int(app_cfg.serve_policy_cooldown_ticks
+                    if cooldown_ticks is None else cooldown_ticks),
+                script=(app_cfg.serve_policy_script
+                        if policy_script is None else policy_script))
+            if not (self.policy.min_shards <= self.shards
+                    <= self.policy.max_shards):
+                raise ValueError(
+                    f"shards={self.shards} is outside the elastic "
+                    f"envelope [{self.policy.min_shards}, "
+                    f"{self.policy.max_shards}] "
+                    "(ANOMOD_SERVE_POLICY_MIN/MAX_SHARDS)")
+        self.policy_wall_s = 0.0
+        #: spans resident in the states the policy's migrations moved
+        self.policy_migrated_spans = 0
+        self._peak_shards = self.shards
+        self._policy_events: List[dict] = []
+        self._policy_prev_chunks: Optional[List[int]] = None
+        self._policy_prev_shed = 0
+        #: books and walls of the runners a scale-down retired: the
+        #: report's dispatch counts and walls cover the whole run
+        self._retired_runners: List[dict] = []
+        #: state tiering (anomod_torch.serve.tiering): past ``tier_hot``
+        #: pool-resident tenants the coldest idle ones demote to the host
+        #: warm tier and on to the disk cold tier.  The deferred commit
+        #: would demote states with folds in flight: tiering refuses it
+        #: (an explicit request raises, an env-sourced one is off)
+        tier_hot_n = (app_cfg.serve_tier_hot if tier_hot is None
+                      else int(tier_hot))
+        if tier_hot is not None and tier_hot_n < 0:
+            raise ValueError("tier_hot must be >= 0 (0 = tiering off)")
+        if tier_hot_n > 0 and self.async_commit:
+            if tier_hot is not None:
+                raise ValueError(
+                    "state tiering demotes tenants through the "
+                    "bucket-runner snapshot seams; the deferred-commit "
+                    "tick leaves folds in flight at the demotion point "
+                    "(ANOMOD_SERVE_TIER_HOT=0)")
+            tier_hot_n = 0
+        self.tier_hot = int(tier_hot_n)
+        self.tier_demote_after = int(
+            app_cfg.serve_tier_demote_after if tier_demote_after is None
+            else tier_demote_after)
+        if self.tier_demote_after < 1:
+            raise ValueError("tier_demote_after must be >= 1 tick")
+        self.tier_warm_bytes = int(
+            app_cfg.serve_tier_warm_bytes if tier_warm_bytes is None
+            else tier_warm_bytes)
+        if self.tier_warm_bytes < 0:
+            raise ValueError("tier_warm_bytes must be >= 0")
+        cold = (app_cfg.serve_tier_cold_dir if tier_cold_dir is None
+                else tier_cold_dir)
+        from pathlib import Path
+        self.tier_cold_dir = Path(cold).expanduser() if cold else None
+        self.tier_prefetch = int(app_cfg.serve_tier_prefetch
+                                 if tier_prefetch is None else tier_prefetch)
+        if not 1 <= self.tier_prefetch <= 256:
+            raise ValueError("tier_prefetch must be in [1, 256]")
+        self._tier = None
+        #: a cold-promoting tenant's drained batches, parked one tick and
+        #: scored first at the next tick's gate, in park order
+        self._tier_parked: Dict[int, list] = {}
+        self.tier_wall_s = 0.0
+        #: the demotion order's input (last-served ticks, served EWMAs)
+        self._census_tracker = None
+        if self.tier_hot:
+            from anomod_torch.obs.census import CensusTracker
+            from anomod_torch.serve.tiering import TierPlane
+            self._tier = TierPlane(
+                self.tier_warm_bytes, self.tier_cold_dir,
+                self.tier_prefetch,
+                slot_nbytes=self.cfg.sw
+                * (N_FEATS + self.cfg.n_hist_buckets) * 4)
+            self._census_tracker = CensusTracker()
         #: the shard workers' kind: ``thread`` (the byte-parity oracle)
         #: or ``process`` (anomod_torch.serve.procshard: each shard's
         #: whole score plane in a spawned process, behind the same
@@ -606,7 +855,10 @@ class ServeEngine:
         #: wall of the children's start-up (spawn, imports, the
         #: sub-engine, the kernel libraries' load), outside the serve wall
         self.worker_start_s = 0.0
-        self._use_workers = self.shards > 1 or self.worker_mode == "process"
+        #: elastic engines run the sharded machinery at every count, so a
+        #: scale-up never converts an inline engine mid-run
+        self._use_workers = (self.shards > 1 or self._elastic
+                             or self.worker_mode == "process")
         self._proc_registry = obs.get_registry()
         #: structural bytes the barrier's registry folds shipped
         #: (``obs.registry.delta_nbytes``)
@@ -617,10 +869,11 @@ class ServeEngine:
         pipeline = (DEFAULT_SERVE_PIPELINE if pipeline is None
                     else int(pipeline))
         # each runner owns (and validates) the pipeline depth and the
-        # state mode
-        runner_kw = dict(lane_buckets=lane_buckets, pipeline=pipeline,
-                         state=state, device=self.device,
-                         native_stage=native_stage)
+        # state mode; the recipe a scale-up builds a runner from
+        self._runner_kw = dict(lane_buckets=lane_buckets, pipeline=pipeline,
+                               state=state, device=self.device,
+                               native_stage=native_stage)
+        self._buckets_arg = buckets
         self._shard_regs = []
         if self._use_workers:
             from anomod_torch.serve.shard import plan_shards
@@ -636,12 +889,14 @@ class ServeEngine:
             # the children's barrier replies (their registry deltas come
             # over the pipe, so there are no coordinator shard registries)
             from anomod_torch.serve.procshard import RunnerMirror
-            self._runners = [RunnerMirror(self.cfg, buckets, **runner_kw)
+            self._runners = [RunnerMirror(self.cfg, buckets,
+                                          **self._runner_kw)
                              for _ in range(self.shards)]
         elif self._use_workers:
             # each shard owns a whole scoring plane: its runner (scratch,
-            # a pool sized to the tenants it owns, on the card a stream of
-            # its own) records into its own registry, folded into the
+            # a pool sized to the tenants it owns, or to its share of the
+            # hot capacity under tiering, on the card a stream of its
+            # own) records into its own registry, folded into the
             # process registry at the tick barrier
             self._shard_regs = [
                 obs.Registry(enabled=self._proc_registry.enabled)
@@ -651,13 +906,18 @@ class ServeEngine:
                 owned[sh] += 1
             self._runners = [
                 BucketRunner(self.cfg, buckets, registry=reg,
-                             pool_slots=max(owned[s], 1), own_stream=True,
-                             **runner_kw)
+                             pool_slots=max(min(owned[s], self.tier_hot)
+                                            if self.tier_hot else owned[s],
+                                            1),
+                             own_stream=True, **self._runner_kw)
                 for s, reg in enumerate(self._shard_regs)]
         else:
+            n = len(self.specs)
             self._runners = [BucketRunner(
-                self.cfg, buckets, pool_slots=max(len(self.specs), 1),
-                **runner_kw)]
+                self.cfg, buckets,
+                pool_slots=max(min(n, self.tier_hot) if self.tier_hot
+                               else n, 1),
+                **self._runner_kw)]
         self._fold_state = [dict() for _ in self._shard_regs]
         self.runner = self._runners[0]
         self._workers = None
@@ -697,7 +957,6 @@ class ServeEngine:
         # registers no RCA series
         self._rca_slo = None
         if self.rca:
-            from anomod_torch.serve.rca import OnlineRCA, RcaRunner
             self._rca_slo = _TenantSLO("anomod_serve_rca_seconds")
             self._obs_rca_queued = obs.counter(
                 "anomod_serve_rca_queued_total")
@@ -706,18 +965,16 @@ class ServeEngine:
             # coordinator plane recording into the process registry (the
             # evidence is buffered on the coordinator, so it survives a
             # child's crash)
-            self._rca_planes = [
-                OnlineRCA(
-                    self.services, self.cfg.window_us, self.t0_us,
-                    RcaRunner(app_cfg.serve_rca_buckets if rca_buckets is None
-                              else rca_buckets, registry=reg,
-                              device=self.device),
-                    topk=int(app_cfg.serve_rca_topk if rca_topk is None
-                             else rca_topk),
-                    windows=int(app_cfg.serve_rca_windows
-                                if rca_windows is None else rca_windows))
-                for reg in (self._shard_regs or [None])]
-        self._rca_plane = self._rca_planes[0] if self._rca_planes else None
+            #: the RCA-plane recipe a scale-up builds a shard plane from
+            self._rca_kw = dict(
+                buckets=(app_cfg.serve_rca_buckets if rca_buckets is None
+                         else rca_buckets),
+                topk=int(app_cfg.serve_rca_topk if rca_topk is None
+                         else rca_topk),
+                windows=int(app_cfg.serve_rca_windows
+                            if rca_windows is None else rca_windows))
+            self._rca_planes = [self._make_rca_plane(reg)
+                                for reg in (self._shard_regs or [None])]
         # tracing is on by default, gated on the one telemetry switch, so
         # "telemetry off" means off end to end; an explicit Tracer forces
         # it on
@@ -761,11 +1018,18 @@ class ServeEngine:
                     "drain_engine": self.admission.drain_engine,
                     "fold": self.fold_mode,
                     "worker": self.worker_mode,
+                    "policy": (self.policy.mode
+                               if self.policy is not None else "off"),
+                    "async_commit": self.async_commit,
+                    "tier_hot": self.tier_hot,
                     "device": device_name(self.device)},
                  "config": config_snapshot(),
                  "versions": versions(self.device)},
                 max_ticks=flight_max_ticks,
                 digest_every=flight_digest_every)
+            #: the brownout ladder's restore point: level 2 coarsens the
+            #: digest cadence 4x, relaxing back to this
+            self._flight_digest_base = self.flight_recorder.digest_every
             self._flight_prev_tot = None
             self._flight_prev_legs = None
             self._flight_alert_seen: Dict[int, int] = {}
@@ -788,14 +1052,16 @@ class ServeEngine:
             # warned, not refused (`audit replay --shards 1` re-executes a
             # 2-shard chaos journal, whose extra faults are inert); the
             # serve CLI refuses it
+            reachable = (self.policy.max_shards
+                         if self.policy is not None else self.shards)
             bad = sorted({f.shard for f in self._chaos.faults
-                          if f.kind != "surge" and f.shard >= self.shards})
+                          if f.kind != "surge" and f.shard >= reachable})
             if bad:
                 import warnings
                 warnings.warn(
                     f"chaos script targets shard(s) {bad} but the "
-                    f"engine has {self.shards} shard(s) (ids 0.."
-                    f"{self.shards - 1}); those faults will never "
+                    f"engine has {reachable} shard(s) (ids 0.."
+                    f"{reachable - 1}); those faults will never "
                     "fire", RuntimeWarning, stacklevel=2)
         #: shard supervision (anomod_torch.serve.supervise), on unless
         #: ckpt_every is 0: cadenced checkpoints and a served-batch log
@@ -829,12 +1095,33 @@ class ServeEngine:
 
     def _process_blockers(self) -> List[str]:
         """The planes of this engine that cannot cross a process boundary
-        (each keeps state the score plane shares in-process).  The JAX
-        engine refuses process workers beside its mesh plane, multimodal
-        sidecar, deferred commit, state tiering and the perf and census
-        observatories; none of those planes is ported, so the list is
-        empty until one lands and adds its reason here."""
-        return []
+        (each keeps state the score plane shares in-process), in the JAX
+        engine's order and words.  The JAX engine also refuses process
+        workers beside its mesh plane, multimodal sidecar and perf and
+        census observatories, which the port does not have."""
+        out = []
+        if self.async_commit:
+            out.append("the deferred-commit seam keeps folds in flight "
+                       "inside one interpreter")
+        if self.tier_hot:
+            out.append("state tiering's demotion copier reads the pool "
+                       "in-process")
+        return out
+
+    @property
+    def _rca_plane(self):
+        """Shard 0's (or the one coordinator) online-RCA plane."""
+        return self._rca_planes[0] if self._rca_planes else None
+
+    def _make_rca_plane(self, registry):
+        """One online-RCA plane recording into ``registry`` (None: the
+        process registry), from the constructor's recipe."""
+        from anomod_torch.serve.rca import OnlineRCA, RcaRunner
+        kw = self._rca_kw
+        return OnlineRCA(self.services, self.cfg.window_us, self.t0_us,
+                         RcaRunner(kw["buckets"], registry=registry,
+                                   device=self.device),
+                         topk=kw["topk"], windows=kw["windows"])
 
     # -- per-tenant plane construction ------------------------------------
 
@@ -858,6 +1145,91 @@ class ServeEngine:
                 replay=self._replay_for(tenant_id), **self._det_kw)
         return got
 
+    # -- state tiering (anomod_torch.serve.tiering) -----------------------
+
+    def _tier_gate(self, served: List[QueuedBatch]) -> List[QueuedBatch]:
+        """The promotion gate between drain and scoring.  Returns what
+        scores this tick: last tick's parked batches first, in park order
+        (their tenants' cold reads join here), then this tick's batches,
+        less those of a tenant still cold (parked, its read issued, one
+        ``tier_miss`` counted a tenant and tick).  A warm tenant promotes
+        in place."""
+        tier = self._tier
+        score_list: List[QueuedBatch] = []
+        if self._tier_parked:
+            parked, self._tier_parked = self._tier_parked, {}
+            for tid, batches in parked.items():
+                # a supervised restore may have reinstalled the tenant
+                # from a checkpoint: its batches still score
+                if tid in tier:
+                    self._tier_promote(tid, deferred=True)
+                score_list.extend(batches)
+        fresh = self._tier_parked
+        for qb in served:
+            tid = qb.tenant_id
+            if tid in fresh:
+                fresh[tid].append(qb)
+            elif tid not in tier:
+                score_list.append(qb)
+            elif tier.status(tid) == "warm":
+                self._tier_promote(tid, deferred=False)
+                score_list.append(qb)
+            else:
+                tier.prefetch(tid)
+                fresh[tid] = [qb]
+        for tid, batches in fresh.items():
+            tier.miss(self.clock.ticks, tid, len(batches),
+                      sum(qb.n_spans for qb in batches))
+        return score_list
+
+    def _tier_promote(self, tid: int, deferred: bool) -> None:
+        """Re-admit one demoted tenant: its snapshot from the tier (a cold
+        entry's read joined), put into a fresh pool slot on the owning
+        runner's stream, and the kept detector pointed at the new
+        plane."""
+        from anomod_torch.serve.supervise import restore_replay
+        snap, det = self._tier.take(self.clock.ticks, tid, deferred)
+        with self._runners[self.shard_of.get(tid, 0)].on_stream():
+            rep = self._replay_for(tid)
+            restore_replay(rep, snap)
+        if det is not None:
+            det.replay = rep
+            self._tenant_det[tid] = det
+
+    def _tier_demote_step(self) -> None:
+        """Tick-end eviction: while more than ``tier_hot`` tenants are
+        pool-resident, demote the coldest residents past
+        ``tier_demote_after`` idle ticks, in the census tracker's
+        ``coldest_candidates`` order.  A tenant with queued backlog or
+        parked batches is skipped (it would promote straight back), so
+        every input is coordinator state and the schedule is a function
+        of seed and config.  The read-out is one device-to-host copy on
+        the owning runner's stream, the slot released after it."""
+        resident = self._tenant_replay
+        n_over = len(resident) - self.tier_hot
+        if n_over <= 0:
+            return
+        from anomod_torch.serve.supervise import snapshot_replay
+        tracker = self._census_tracker
+        t_idx = self.clock.ticks
+        for tid in tracker.coldest_candidates(t_idx, resident):
+            idle = t_idx - tracker.last_served[tid]
+            if idle < self.tier_demote_after:
+                break                  # coldest first: the rest is hotter
+            if (self.admission.tenant_backlog(tid)
+                    or tid in self._tier_parked):
+                continue
+            rep = resident.pop(tid)
+            with self._runners[self.shard_of.get(tid, 0)].on_stream():
+                snap = snapshot_replay(rep)
+                if hasattr(rep, "release"):
+                    rep.release()      # hand the pool slot back
+            det = self._tenant_det.pop(tid, None)
+            self._tier.demote(t_idx, tid, snap, det, idle)
+            n_over -= 1
+            if n_over <= 0:
+                return
+
     # -- the tick loop ----------------------------------------------------
 
     def _span(self, name: str, **tags):
@@ -867,7 +1239,10 @@ class ServeEngine:
     def tick(self, arrivals) -> List[QueuedBatch]:
         """One virtual tick: admit this tick's arrivals, drain up to the
         tick's capacity budget in weighted-fair order, score every drained
-        batch, advance the clock.  Returns the served batches."""
+        batch, advance the clock.  Returns the served batches.  Under the
+        deferred commit the second half is :meth:`_tick_async_tail`: this
+        tick's dispatches are issued and the previous tick commits first,
+        with the same decisions."""
         t_wall = time.perf_counter()
         now = self.clock.now_s + self.clock.tick_s   # decisions at tick end
         if self._chaos is not None:
@@ -903,22 +1278,31 @@ class ServeEngine:
             budget)
         if -1e-9 < self._credit < 1e-9:
             self._credit = 0.0
-        if served:
+        if self.async_commit:
+            # admission, drain and shed above ran while the previous
+            # tick's dispatches were in flight
+            return self._tick_async_tail(t_wall, now, served)
+        # the tiering gate: a demoted tenant is pool-resident before its
+        # batches score (warm: at once; cold: parked one tick while its
+        # read runs).  Only the scoring list changes: ``served`` feeds
+        # SLO, RCA, the journal and the policy below, and parked batches
+        # score first next tick, so each tenant's push order is kept
+        if self._tier is not None:
+            t0 = time.perf_counter()
+            with self._span("serve.tier"):
+                score_list = self._tier_gate(served)
+            self.tier_wall_s += time.perf_counter() - t0
+        else:
+            score_list = served
+        if score_list:
             sup = self._supervisor
             if sup is not None:
-                # the log holds this tick's slices before scoring: a
-                # failed tick re-executes them
-                sup.begin_tick(served)
+                # the log holds this tick's scoring slices before they
+                # score: a failed tick re-executes them
+                sup.begin_tick(score_list)
             self._last_failures = None
             try:
-                if self._use_workers:
-                    with self._span("serve.score_sharded"):
-                        self._score_sharded(served)
-                elif self.fuse:
-                    with self._span("serve.score_fused"):
-                        self._score_fused(served)
-                else:
-                    self._score_shard(0, served)
+                self._score_now(score_list)
             except BaseException as e:
                 # an interrupt is the operator stopping the run, never a
                 # shard fault; unsupervised, the failure list stays
@@ -938,15 +1322,74 @@ class ServeEngine:
         for qb in served:
             self._slo[qb.tenant_id].record(now - qb.enqueued_s)
             self.n_spans_served += qb.n_spans
+        self._tick_tail(self._tail_ctx(now, served, 0.0), t_wall)
+        self._end_tick(t_wall, now)
+        return served
+
+    def _tail_ctx(self, now: float, served: List[QueuedBatch],
+                  coord_wall: float) -> dict:
+        """What a tick's tail (:meth:`_tick_tail`) reads, taken once the
+        tick's admission and drain are done: the tick index, admission
+        totals and backlog.  The deferred commit keeps it across the
+        next tick's admission, which moves the live values."""
+        return {"tick": self.clock.ticks, "now": now, "served": served,
+                "tot": self.admission.totals(),
+                "backlog": self.admission.backlog_spans,
+                "coord_wall": coord_wall}
+
+    def _tick_tail(self, d: dict, t_from: float) -> None:
+        """A tick's tail once its folds have committed, in one order for
+        the synchronous tick and the deferred commit's barrier: RCA, the
+        census tracker, the journal record, the policy step, then tier
+        demotion.  ``d`` is :meth:`_tail_ctx`'s context; the journal's
+        wall is ``d["coord_wall"]`` plus the time since ``t_from``."""
+        now, served = d["now"], d["served"]
         if self.rca:
             self._rca_step(now, served)
+        if self._census_tracker is not None:
+            # the demotion order's bookkeeping: tiering's wall
+            t0 = time.perf_counter()
+            self._census_tracker.observe(d["tick"], served)
+            self.tier_wall_s += time.perf_counter() - t0
         if self.flight_recorder is not None:
             # the journal entry rides inside the measured wall: the
             # recorder's cost is priced, never hidden
-            self._flight_tick(now, served, time.perf_counter() - t_wall)
+            self._flight_tick(now, served,
+                              d["coord_wall"]
+                              + (time.perf_counter() - t_from),
+                              t_idx=d["tick"], tot=d["tot"])
+        if self.policy is not None:
+            # after the journal record (a scale-down must not retire a
+            # runner whose deltas are not journaled yet); its events ride
+            # the next record's ``scaling`` key, its wall the tick's
+            t0 = time.perf_counter()
+            with self._span("serve.policy"):
+                self._policy_step(served, d["tick"], d["backlog"],
+                                  d["tot"].shed_spans)
+            self.policy_wall_s += time.perf_counter() - t0
+        if self._tier is not None:
+            # demotion at the tick end, after the journal record and the
+            # policy step; its events ride the next record's ``tiering``
+            t0 = time.perf_counter()
+            with self._span("serve.tier_demote"):
+                self._tier_demote_step()
+            self.tier_wall_s += time.perf_counter() - t0
+
+    def _score_now(self, score_list: List[QueuedBatch]) -> None:
+        """Score a tick's slices synchronously on the engine's path."""
+        if self._use_workers:
+            with self._span("serve.score_sharded"):
+                self._score_sharded(score_list)
+        elif self.fuse:
+            with self._span("serve.score_fused"):
+                self._score_fused(score_list)
+        else:
+            self._score_shard(0, score_list)
+
+    def _end_tick(self, t_wall: float, now: float) -> None:
+        """Advance the clock and record the tick's telemetry, inside the
+        measured wall (the on/off overhead prices the scrape)."""
         self.clock.advance()
-        # telemetry stays INSIDE the measured wall: the on/off overhead
-        # prices the scrape
         self._obs_tick.observe(time.perf_counter() - t_wall)
         self._obs_ticks.inc()
         self._obs_tenants.set(len(self._tenant_det)
@@ -954,7 +1397,181 @@ class ServeEngine:
         if self.clock.ticks % self._scrape_every == 0:
             self._registry.scrape(now_s=now)
         self.serve_wall_s += time.perf_counter() - t_wall
+
+    # -- the deferred-commit tick ------------------------------------------
+
+    def _tick_async_tail(self, t_wall: float, now: float,
+                         served: List[QueuedBatch]) -> List[QueuedBatch]:
+        """The second half of a deferred-commit tick.
+
+        1. SLO first: its samples are functions of admission times and
+           the tick clock, recorded in the same order.
+        2. The barrier (:meth:`_commit_deferred`): the previous tick's
+           dispatches ran under this tick's admission, drain, shed and
+           SLO; they commit now, then that tick's RCA, journal record and
+           policy step run on its snapshotted inputs.  The barrier comes
+           before this tick's issue, so no pinned scratch slot is
+           refilled under a dispatch still in flight.
+        3. Issue: this tick's lane dispatches are staged and submitted on
+           the shard streams, not drained.  The unfused path has no seam
+           to split and scores in place.
+        4. The tail's context (:meth:`_tail_ctx`) is taken now.
+
+        Stage and dispatch faults surface at issue, as in the synchronous
+        tick; fold, score and commit faults at the barrier, keyed and
+        recovered on their origin tick.  A checkpoint tick commits at
+        once, so the snapshot holds its folds."""
+        for qb in served:
+            self._slo[qb.tenant_id].record(now - qb.enqueued_s)
+            self.n_spans_served += qb.n_spans
+        self._commit_deferred()
+        pending = None
+        sup = self._supervisor
+        if served:
+            if sup is not None:
+                sup.begin_tick(served)
+            self._last_failures = None
+            try:
+                if self.fuse:
+                    pending = self._dispatch_tick(served)
+                else:
+                    self._score_now(served)
+            except BaseException as e:
+                if sup is None or not isinstance(e, Exception):
+                    raise
+                failures = self._last_failures or [(0, e)]
+                self._last_failures = None
+                with self._span("serve.recover"):
+                    sup.recover(failures)
+                # recovery re-executed the tick synchronously
+                pending = None
+        t_issue = time.perf_counter()
+        self._deferred = dict(self._tail_ctx(now, served, t_issue - t_wall),
+                              pending=pending, t_issue=t_issue)
+        self.async_ticks += 1
+        if sup is not None and (self.clock.ticks + 1) % self.ckpt_every == 0:
+            # end_tick checkpoints on this cadence: commit first, so the
+            # snapshot holds this tick's folds
+            self._commit_deferred()
+        if sup is not None:
+            sup.end_tick()
+        self._end_tick(t_wall, now)
         return served
+
+    def _commit_deferred(self) -> None:
+        """The deferred tick's barrier (a no-op when nothing is deferred):
+        drain, fold and score its dispatches, then run its tail
+        (:meth:`_tick_tail`) on the context taken at issue.  The policy
+        runs here, not at issue, so a scale-down never retires a runner
+        with work in flight."""
+        d = self._deferred
+        if d is None:
+            return
+        self._deferred = None
+        t_barrier = time.perf_counter()
+        pending = d["pending"]
+        if pending is not None and any(pending):
+            self.commit_defer_wall_s += max(0.0, t_barrier - d["t_issue"])
+            sup = self._supervisor
+            self._last_failures = None
+            try:
+                if self._use_workers:
+                    self._join_commits(pending, d["tick"])
+                else:
+                    self._commit_shard(0, pending[0], d["tick"])
+            except BaseException as e:
+                if sup is None or not isinstance(e, Exception):
+                    raise
+                failures = self._last_failures or [(0, e)]
+                self._last_failures = None
+                with self._span("serve.recover"):
+                    sup.recover(failures, origin_tick=d["tick"])
+        self._tick_tail(d, t_barrier)
+
+    def _dispatch_tick(self, served: List[QueuedBatch]) -> list:
+        """The issue half of a fused tick: every shard stages and submits
+        its lane dispatches under its runner's stream, WITHOUT waiting for
+        them; returns the per-shard pending work lists the barrier
+        completes.  Shard registries fold at the join; a failure list is
+        parked for the supervisor and the first failure raised."""
+        origin = self.clock.ticks
+        if not self._use_workers:
+            with self._span("serve.issue_tick"):
+                return [self._dispatch_shard(0, served, origin)]
+        parts: Dict[int, List[QueuedBatch]] = {}
+        for qb in served:
+            parts.setdefault(self.shard_of[qb.tenant_id], []).append(qb)
+        pending: list = [None] * self.shards
+
+        def issue(s: int, part: List[QueuedBatch]) -> None:
+            pending[s] = self._dispatch_shard(s, part, origin)
+
+        with self._span("serve.issue_tick"):
+            failures = self._fan_out({s: (issue, s, part)
+                                      for s, part in parts.items()},
+                                     sync=False)
+        if failures:
+            self._last_failures = failures
+            raise failures[0][1]
+        return pending
+
+    def _dispatch_shard(self, shard_id: int, served: List[QueuedBatch],
+                        origin_tick: int) -> list:
+        """One shard's stage and submit with the drain deferred; the
+        chaos ``stage`` and ``dispatch`` points fire here, at issue, as in
+        :meth:`_score_shard`."""
+        hook = self._chaos_hook(shard_id, origin_tick)
+        if hook is not None:
+            hook("stage")
+        with self._span("serve.dispatch_shard", shard=shard_id,
+                        pipeline=self.pipeline):
+            pending = self._stage_pending(served)
+            self._dispatch_rounds(pending, self._runners[shard_id],
+                                  chaos_hook=hook, defer=True)
+        return pending
+
+    def _commit_shard(self, shard_id: int, pending: list,
+                      origin_tick: int) -> None:
+        """One shard's barrier: drain the deferred dispatches (the wait
+        the deferral hides; a failure discards them unfolded), then the
+        window scoring.  The chaos ``fold``, ``score`` and ``commit``
+        points fire here, keyed on the origin tick."""
+        runner = self._runners[shard_id]
+        hook = self._chaos_hook(shard_id, origin_tick)
+        try:
+            with self._span("serve.commit_shard", shard=shard_id):
+                runner.drain_lanes()
+        except BaseException:
+            runner.abort_lanes()
+            raise
+        if hook is not None:
+            hook("fold")
+        self._commit_pending(pending, runner, chaos_hook=hook)
+        if hook is not None:
+            hook("commit")
+
+    def _join_commits(self, pending: list, origin_tick: int) -> None:
+        """The barrier on thread shards: each shard with deferred work
+        commits on its worker under its stream, synced before the join;
+        registries fold, a failure list is parked and the first raised."""
+        failures = self._fan_out({
+            s: (self._commit_shard, s, work, origin_tick)
+            for s, work in enumerate(pending) if work})
+        if failures:
+            self._last_failures = failures
+            raise failures[0][1]
+
+    def _chaos_hook(self, shard_id: int, tick: Optional[int]):
+        """The chaos injector's hook for one shard's slice of ``tick``
+        (the clock's tick when None), or None without a script."""
+        chaos = self._chaos
+        if chaos is None:
+            return None
+        tick = self.clock.ticks if tick is None else tick
+
+        def hook(phase):
+            chaos.hit(phase, tick, shard_id)
+        return hook
 
     def _score_fused(self, served: List[QueuedBatch]) -> None:
         """Tenant-fused scoring of one tick's drained batches on the
@@ -973,13 +1590,8 @@ class ServeEngine:
         through the shard's runner, then batched window scoring (the
         commit).  Unfused: one push per batch, in served order."""
         runner = self._runners[shard_id]
-        chaos = self._chaos
-        hook = None
-        if chaos is not None:
-            tick = self.clock.ticks if origin_tick is None else origin_tick
-
-            def hook(phase):
-                chaos.hit(phase, tick, shard_id)
+        hook = self._chaos_hook(shard_id, origin_tick)
+        if hook is not None:
             hook("stage")
         if self.fuse:
             with self._span("serve.score_shard", shard=shard_id,
@@ -1034,13 +1646,15 @@ class ServeEngine:
         return pending
 
     def _dispatch_rounds(self, pending: list, runner: BucketRunner,
-                         chaos_hook=None) -> None:
+                         chaos_hook=None, defer: bool = False) -> None:
         """Per chunk round (a tenant's own chunks apply in order),
         same-width chunks lane-stack into fused dispatches through the
-        runner's pipelined submit path, drained before scoring.  The
-        chaos ``dispatch`` point fires after the submits, with up to
-        ``pipeline - 1`` dispatches in flight.  A failure discards the
-        in-flight dispatches unfolded."""
+        runner's pipelined submit path, drained before scoring unless
+        ``defer`` (the deferred commit's issue half: up to ``pipeline -
+        1`` dispatches stay in the runner's in-flight queue for the
+        barrier's drain).  The chaos ``dispatch`` point fires after the
+        submits, with up to ``pipeline - 1`` dispatches in flight.  A
+        failure discards the in-flight dispatches unfolded."""
         try:
             rnd = 0
             while True:
@@ -1057,7 +1671,8 @@ class ServeEngine:
                 rnd += 1
             if chaos_hook is not None:
                 chaos_hook("dispatch")
-            runner.drain_lanes()
+            if not defer:
+                runner.drain_lanes()
         except BaseException:
             runner.abort_lanes()
             raise
@@ -1090,13 +1705,19 @@ class ServeEngine:
 
     # -- the sharded score path (anomod_torch.serve.shard / procshard) ----
 
-    def _on_shard(self, shard_id: int, fn, *args) -> None:
+    def _on_shard(self, shard_id: int, fn, *args,
+                  sync: bool = True) -> None:
         """Run ``fn(*args)`` as shard ``shard_id``'s work: under its
         runner's stream, which it waits for before returning (failed or
         not), so the coordinator reads nothing the shard still has in
-        flight."""
+        flight.  ``sync=False`` is the deferred commit's issue half: the
+        launches stay in flight, their events in the runner's queue,
+        until the barrier's drain."""
         runner = self._runners[shard_id]
         with runner.on_stream():
+            if not sync:
+                fn(*args)
+                return
             try:
                 fn(*args)
             finally:
@@ -1173,18 +1794,19 @@ class ServeEngine:
                     self._workers[s] = self._make_worker(s)
             return
         if self._workers is not None:
-            self.close()
+            self._close_workers()
         self._workers = [self._make_worker(s) for s in range(self.shards)]
 
-    def _fan_out(self, tasks: Dict[int, tuple]) -> list:
+    def _fan_out(self, tasks: Dict[int, tuple], sync: bool = True) -> list:
         """Submit ``{shard: (fn, *args)}`` to the shard worker threads and
         join them all (the barrier completes before any error
         propagates), then fold the shard registries.  Returns ``[(shard,
-        exc), ...]`` in shard order."""
+        exc), ...]`` in shard order.  ``sync`` as :meth:`_on_shard`."""
         self._ensure_workers()
         submitted = []
         for s, task in sorted(tasks.items()):
-            self._workers[s].submit(partial(self._on_shard, s, *task))
+            self._workers[s].submit(partial(self._on_shard, s, *task,
+                                            sync=sync))
             submitted.append(s)
         failures = []
         for s in submitted:
@@ -1468,9 +2090,21 @@ class ServeEngine:
             self._rca_planes[shard_id].runner.warm()
 
     def close(self) -> None:
-        """Stop the shard workers (idempotent; the next sharded tick
-        starts them again).  Every worker closes before a deferred task
-        error propagates."""
+        """Stop the shard workers and the tier's prefetch lane
+        (idempotent; the next sharded tick starts the workers again).  A
+        deferred tick not yet committed is aborted: its dispatches are
+        waited for and never folded (``run`` always commits first).
+        Every worker closes before a deferred task error propagates."""
+        if self._deferred is not None:
+            self._deferred = None
+            for r in self._runners:
+                with r.on_stream():
+                    r.abort_lanes()
+        if self._tier is not None:
+            self._tier.close()
+        self._close_workers()
+
+    def _close_workers(self) -> None:
         workers, self._workers = self._workers or [], None
         errs = []
         for w in workers:
@@ -1480,6 +2114,255 @@ class ServeEngine:
                 errs.append(e)
         if errs:
             raise errs[0]
+
+    # -- the elastic policy (anomod_torch.serve.policy) --------------------
+
+    def _policy_step(self, served: List[QueuedBatch], tick: int,
+                     backlog_spans: int, shed_spans: int) -> None:
+        """One tick-end policy evaluation on the coordinator: fold the
+        tick's canonical signals (served spans, the runners' staged-chunk
+        books, backlog, shed, never a wall) into the EWMAs, execute the
+        decisions through the migration seams, journal what ran.
+        ``tick``, ``backlog_spans`` and ``shed_spans`` are taken at the
+        origin tick (:meth:`_tail_ctx`), so the schedule does not depend
+        on the deferral."""
+        from anomod_torch.serve.policy import TickSignals
+        served_by_tenant: Dict[int, int] = {}
+        for qb in served:
+            served_by_tenant[qb.tenant_id] = \
+                served_by_tenant.get(qb.tenant_id, 0) + qb.n_spans
+        chunks = [r.n_dispatches for r in self._runners]
+        # re-read after every topology change below, so never stale
+        prev = self._policy_prev_chunks or [0] * len(chunks)
+        self.policy.observe(TickSignals(
+            tick=tick, served_by_tenant=served_by_tenant,
+            per_shard_chunks=[c - p for c, p in zip(chunks, prev)],
+            backlog_spans=backlog_spans, max_backlog=self.max_backlog,
+            shed_delta=shed_spans - self._policy_prev_shed,
+            budget_spans=self.capacity_spans_per_s * self.clock.tick_s))
+        self._policy_prev_shed = shed_spans
+        topology_changed = False
+        for d in self.policy.decide(tick, self.shards):
+            topology_changed |= self._execute_decision(d, tick)
+        if topology_changed and self._supervisor is not None:
+            # the recovery log never spans a topology change
+            self._supervisor.note_topology_change()
+        self._policy_prev_chunks = [r.n_dispatches for r in self._runners]
+        if self.flight_recorder is None and self._policy_events:
+            # no journal drains them: the counters carry the story
+            self._policy_events.clear()
+
+    def _execute_decision(self, d: dict, tick: int) -> bool:
+        """Execute one decision against the live envelope; returns
+        whether the shard set changed.  A decision the envelope refuses
+        is journaled as skipped, never counted."""
+        pol = self.policy
+        act = d["action"]
+        if act == "up":
+            if self.shards >= pol.max_shards:
+                self._policy_events.append(
+                    {"kind": "scale_up", "tick": tick,
+                     "skipped": f"at max_shards={pol.max_shards}"})
+                return False
+            moved = self._scale_up()
+            self._peak_shards = max(self._peak_shards, self.shards)
+            self._policy_events.append(
+                {"kind": "scale_up", "tick": tick,
+                 "from": self.shards - 1, "to": self.shards,
+                 "tenants": len(moved), "moved": moved})
+            pol.note_executed("up", tick, migrated=len(moved),
+                              shards=self.shards)
+            return True
+        if act == "down":
+            if self.shards <= pol.min_shards:
+                self._policy_events.append(
+                    {"kind": "scale_down", "tick": tick,
+                     "skipped": f"at min_shards={pol.min_shards}"})
+                return False
+            moved = self._scale_down()
+            self._policy_events.append(
+                {"kind": "scale_down", "tick": tick,
+                 "from": self.shards + 1, "to": self.shards,
+                 "tenants": len(moved), "moved": moved})
+            pol.note_executed("down", tick, migrated=len(moved),
+                              shards=self.shards)
+            return True
+        if act == "rebalance":
+            from anomod_torch.serve.policy import plan_rebalance
+            dead = (self._supervisor.dead_shards
+                    if self._supervisor is not None else ())
+            moves = plan_rebalance(self.shard_of, self.shards, self.specs,
+                                   pol.rate_ewma, self.capacity_spans_per_s,
+                                   int(d.get("k", 1)), dead=dead)
+            if not moves:
+                pol.note_noop(tick)
+                self._policy_events.append(
+                    {"kind": "rebalance", "tick": tick,
+                     "skipped": "already balanced"})
+                return False
+            imb_before = pol.imbalance()
+            for tid, dst in moves:
+                self._move_tenant(tid, dst)
+            self._policy_events.append(
+                {"kind": "rebalance", "tick": tick, "tenants": len(moves),
+                 "moved": [t for t, _ in moves],
+                 "imbalance_ewma": round(imb_before, 4)})
+            pol.note_executed("rebalance", tick, migrated=len(moves))
+            return True
+        # brownout: the RCA budget at level >= 1 (applied at the
+        # _rca_tick call), the digest cadence at level >= 2 (here)
+        from anomod_torch.serve.policy import MAX_BROWNOUT_LEVEL
+        level = max(0, min(int(d.get("level", 1)), MAX_BROWNOUT_LEVEL))
+        prev = pol.brownout_level
+        if level == prev:
+            self._policy_events.append(
+                {"kind": "brownout", "tick": tick,
+                 "skipped": f"already at level {prev}"})
+            return False
+        fr = self.flight_recorder
+        if fr is not None:
+            fr.digest_every = (self._flight_digest_base * 4 if level >= 2
+                               else self._flight_digest_base)
+        self._policy_events.append(
+            {"kind": "brownout", "tick": tick, "from": prev, "to": level})
+        pol.note_executed("brownout", tick, level=level)
+        return False
+
+    def _scale_up(self) -> List[int]:
+        """Grow the shard set by one and migrate the rendezvous delta:
+        only the tenants the new shard wins under the grown set move.  A
+        thread shard gets a new runner (its own stream, pool and
+        registry), RCA plane and worker, warmed on that worker inside the
+        tick wall; a process shard a runner mirror and a spawned child,
+        warmed the same way.  Returns the moved tenant ids."""
+        from anomod_torch.serve.shard import rendezvous_shard
+        s = self.shards
+        moved = [tid for tid in sorted(self.shard_of)
+                 if rendezvous_shard(tid, s + 1) == s]
+        if self.worker_mode == "process":
+            from anomod_torch.serve.procshard import RunnerMirror
+            self._runners.append(RunnerMirror(self.cfg, self._buckets_arg,
+                                              **self._runner_kw))
+            self.shards = s + 1
+            if self._workers is not None:
+                w = self._make_worker(s)
+                self._workers.append(w)
+                self._apply_shard_reply(s, w.call({"op": "warm"}))
+        else:
+            reg = obs.Registry(enabled=self._proc_registry.enabled)
+            self._runners.append(BucketRunner(
+                self.cfg, self._buckets_arg, registry=reg,
+                pool_slots=max(len(moved), 1), own_stream=True,
+                **self._runner_kw))
+            self._shard_regs.append(reg)
+            self._fold_state.append(dict())
+            if self.rca:
+                self._rca_planes.append(self._make_rca_plane(reg))
+            self.shards = s + 1
+            if self._workers is not None:
+                self._workers.append(self._make_worker(s))
+                self._workers[s].submit(partial(self._on_shard, s,
+                                                self._warm_shard, s))
+                self._workers[s].join()
+            else:
+                self._on_shard(s, self._warm_shard, s)
+        for tid in moved:
+            self._move_tenant(tid, s)
+        return moved
+
+    def _scale_down(self) -> List[int]:
+        """Drain the highest shard through the migration seam and retire
+        it: its tenants re-place by rendezvous over the survivors (only
+        they move), its registry takes a final fold (a child's over the
+        pipe before it exits), and its book and walls are kept for the
+        report.  Returns the moved tenant ids."""
+        from anomod_torch.serve.shard import rendezvous_shard
+        s = self.shards - 1
+        dead = (self._supervisor.dead_shards
+                if self._supervisor is not None else set())
+        candidates = [x for x in range(s) if x not in dead]
+        moved = sorted(tid for tid, sh in self.shard_of.items() if sh == s)
+        for tid in moved:
+            self._move_tenant(
+                tid, rendezvous_shard(tid, s, candidates=candidates))
+        errs = []
+        if self.worker_mode == "process" and self._workers is not None:
+            w = self._workers[s]
+            if w.alive:
+                try:
+                    rep = w.call({"op": "reg_delta", "fold": self.fold_mode,
+                                  "final": True})
+                    if rep.get("delta") is not None:
+                        self._fold_shard_registries(
+                            deltas=[(s, rep["delta"])], final=True)
+                except RuntimeError:
+                    pass                      # died mid-drain: close it
+        if self._workers is not None:
+            try:
+                self._workers.pop().close()
+            except BaseException as e:        # noqa: BLE001 - re-raised
+                errs.append(e)
+        if self.worker_mode != "process":
+            self._proc_registry.fold_from(self._shard_regs.pop(),
+                                          self._fold_state.pop(),
+                                          shard=str(s), final=True,
+                                          mode=self.fold_mode)
+            if self.rca:
+                self._rca_planes.pop()
+        self._retired_runners.append(_runner_stats(self._runners.pop()))
+        if self._supervisor is not None:
+            self._supervisor.dead_shards.discard(s)
+        self.shards = s
+        if errs:
+            raise errs[0]
+        return moved
+
+    def _move_tenant(self, tid: int, dst: int) -> None:
+        """Live-migrate one tenant between shards through the state
+        seams: its state copied out of the old pool on the old runner's
+        stream (the slot released after the copy), put into the new pool
+        on the new runner's stream, that stream synced; the detector
+        repointed and its RCA evidence carried.  Across children the same
+        seams run in them (``take_tenant`` / ``put_tenant``).  Tenant
+        bits do not depend on placement, so no scored byte moves."""
+        src = self.shard_of.get(tid, 0)
+        if src == dst:
+            return
+        self.shard_of[tid] = dst
+        if self.worker_mode == "process":
+            if self._workers is not None:
+                self._ensure_workers()
+                taken = self._workers[src].call({"op": "take_tenant",
+                                                 "tid": tid})
+                self._apply_shard_reply(src, taken)
+                snap = taken.get("snap")
+                if snap is not None:
+                    rep_snap, det_snap = snap
+                    self.policy_migrated_spans += int(rep_snap["n_spans"])
+                    self._apply_shard_reply(dst, self._workers[dst].call(
+                        {"op": "put_tenant", "tid": tid,
+                         "replay": rep_snap, "det": det_snap}))
+            return
+        rep = self._tenant_replay.pop(tid, None)
+        if rep is not None:
+            from anomod_torch.serve.supervise import (restore_replay,
+                                                      snapshot_replay)
+            with self._runners[src].on_stream():
+                snap = snapshot_replay(rep)
+                if hasattr(rep, "release"):
+                    rep.release()            # hand the pool slot back
+            self.policy_migrated_spans += int(snap["n_spans"])
+            dst_runner = self._runners[dst]
+            with dst_runner.on_stream():
+                new_rep = self._replay_for(tid)
+                restore_replay(new_rep, snap)
+            dst_runner.sync()
+            det = self._tenant_det.get(tid)
+            if det is not None:
+                det.replay = new_rep
+        if self.rca and len(self._rca_planes) > max(src, dst):
+            self._rca_planes[src].move_tenant_evidence(
+                self._rca_planes[dst], tid)
 
     # -- the online alert->culprit pass (anomod_torch.serve.rca) -----------
 
@@ -1498,7 +2381,12 @@ class ServeEngine:
         for qb in served:
             self._rca_planes[0 if one else self.shard_of[qb.tenant_id]].buffer(
                 qb.tenant_id, qb.spans, keep_window=floor.get(qb.tenant_id))
-        self._rca_tick(now)
+        # brownout level >= 1 tightens the budget to one run a tick: the
+        # item set and verdicts do not depend on the budget, only
+        # ``scored_s`` moves
+        self._rca_tick(now, budget=(
+            1 if self.policy is not None
+            and self.policy.brownout_level >= 1 else None))
 
     def _rca_enqueue(self, now: float) -> None:
         """Queue one RCA item per (tenant, batch of new alerts), keyed by
@@ -1532,7 +2420,7 @@ class ServeEngine:
         items = [self._rca_queue.popleft() for _ in range(burst)]
         folded: list = []
         with self._span("serve.rca"):
-            if len(self._rca_planes) > 1:
+            if self._use_workers and self.worker_mode == "thread":
                 from anomod_torch.serve.shard import fold_verdicts
                 parts: Dict[int, list] = {}
                 for it in items:
@@ -1565,7 +2453,8 @@ class ServeEngine:
     # -- the flight recorder (anomod_torch.obs.flight) ----------------------
 
     def _flight_tick(self, now: float, served: List[QueuedBatch],
-                     tick_wall_s: float, final: bool = False) -> None:
+                     tick_wall_s: float, final: bool = False,
+                     t_idx: Optional[int] = None, tot=None) -> None:
         """Journal one tick.  The canonical planes: the admission deltas
         and a crc32 over the served decision set in drain order, the
         staged-chunk counts per width (the one staging definition, so
@@ -1575,12 +2464,17 @@ class ServeEngine:
         engine's, in its order.  The variant keys: the tick's wall legs
         and the per-shard leg records, folded in shard order.
         ``final=True`` is the run-end settlement record, with a forced
-        state digest."""
+        state digest.  The deferred commit's barrier passes ``t_idx`` and
+        ``tot`` as taken at the origin tick (by then the next tick's
+        admission has moved the live ones): the same values, so the
+        canonical journal does not depend on the deferral."""
         from anomod_torch.obs.flight import crc_text, state_digest
         from anomod_torch.serve.shard import fold_leg_records
         fr = self.flight_recorder
-        t_idx = self.clock.ticks
-        tot = self.admission.totals()
+        if t_idx is None:
+            t_idx = self.clock.ticks
+        if tot is None:
+            tot = self.admission.totals()
         prev = self._flight_prev_tot
 
         def delta(field):
@@ -1601,6 +2495,10 @@ class ServeEngine:
         self._flight_prev_tot = tot
         legs = [r.leg_walls() for r in self._runners]
         prev_legs = self._flight_prev_legs or [{} for _ in legs]
+        if len(prev_legs) < len(legs):
+            # a scale-up added runners since the last record: their whole
+            # books are this tick's delta
+            prev_legs = prev_legs + [{}] * (len(legs) - len(prev_legs))
         by_width: Dict[int, int] = {}
         chunks = 0
         shard_legs = []
@@ -1626,13 +2524,24 @@ class ServeEngine:
                                "fused": dfused, "native_staged": dnative,
                                **{k: round(v, 6) for k, v in dwalls.items()}})
         self._flight_prev_legs = legs
+        # the fold plane covers the whole fleet: pool-resident planes and
+        # the demoted ones, read through the tier's shims (a cold entry
+        # from disk) only on a digest tick
         do_digest = final or fr.digest_tick(t_idx)
+        reps = self._tenant_replay
+        n_states = len(reps)
+        if self._tier is not None and len(self._tier):
+            n_states += len(self._tier)
+            if do_digest:
+                reps = dict(reps)
+                for tid in self._tier.tids():
+                    reps[tid] = self._tier.state_shim(tid)
         digest = None
         if do_digest:
             digest = (self._state_digest_proc()
                       if self.worker_mode == "process"
-                      else state_digest(self._tenant_replay))
-        fold = {"tenants": len(self._tenant_replay), "state_digest": digest}
+                      else state_digest(reps))
+        fold = {"tenants": n_states, "state_digest": digest}
         new_alerts = 0
         crc = self._flight_score_crc
         for tid in sorted(self._tenant_det):
@@ -1660,6 +2569,7 @@ class ServeEngine:
                "verdicts_total": self._flight_rca_seen,
                "digest": crc}
         leg_sum = sum(walls.values())
+        scaling, self._policy_events = self._policy_events, []
         rec = {
             "tick": t_idx, "now_s": now,
             "admission": admission,
@@ -1678,11 +2588,18 @@ class ServeEngine:
             # fault-free run's
             "recovery": (self._supervisor.drain_events()
                          if self._supervisor is not None else []),
+            # what scaled, when, and which tenants moved: topology, so
+            # the canonical planes stay equal to a static run's
+            "scaling": scaling,
             # the JAX record's planes the port has not ported, present
             # and empty as the JAX engine writes them when they are off
-            "scaling": [],
             "perf": {"events": [], "headroom_s": 0.0, "wait_s": 0.0},
-            "census": {"planes": [], "hot": {}}, "tiering": [],
+            "census": {"planes": [], "hot": {}},
+            # demotions, spills, promotions and misses: a function of
+            # seed and config, variant because a miss moves the tick a
+            # parked tenant's deltas land in
+            "tiering": (self._tier.drain_events()
+                        if self._tier is not None else []),
         }
         if final:
             rec["final"] = True
@@ -1702,16 +2619,16 @@ class ServeEngine:
             warm: bool = True) -> "ServeReport":
         """Drive the engine from a traffic source for ``duration_s``
         virtual seconds, then close every tenant's last window.  A failed
-        run stops its shard workers (process children included) before
-        its error propagates."""
+        run stops its shard workers (process children included) and the
+        tier's prefetch lane, and aborts a deferred tick, before its error
+        propagates."""
         try:
             return self._run(traffic, duration_s, warm)
         except BaseException:
-            if self._workers is not None:
-                try:
-                    self.close()
-                except Exception:     # noqa: BLE001 - the run's error wins
-                    pass
+            try:
+                self.close()
+            except Exception:         # noqa: BLE001 - the run's error wins
+                pass
             raise
 
     def _run(self, traffic, duration_s: float, warm: bool) -> "ServeReport":
@@ -1738,7 +2655,15 @@ class ServeEngine:
             for _ in range(n_ticks):
                 lo = self.clock.now_s
                 self.tick(traffic.arrivals(lo, lo + self.clock.tick_s))
+        if self._deferred is not None:
+            # the last deferred tick commits before finish() reads any
+            # state; its wall joins the serve wall
+            t0 = time.perf_counter()
+            self._commit_deferred()
+            self.serve_wall_s += time.perf_counter() - t0
         t_wall = time.perf_counter()
+        if self._tier is not None:
+            self._tier_settle()
         if self.score and self.worker_mode == "process":
             # the detectors live in the children; the replies carry the
             # closing windows' alerts back
@@ -1769,7 +2694,32 @@ class ServeEngine:
             else:
                 self._fold_shard_registries(final=True)
             self.close()
+        elif self._tier is not None:
+            self._tier.close()
         return self.report(traffic=traffic)
+
+    def _tier_settle(self) -> None:
+        """The run-end tier settlement: batches whose one-tick deferral
+        crossed the run's end score through the tick's own path, in park
+        order, and every demoted tenant promotes back (sorted), so
+        ``finish`` closes the whole fleet's last windows and the
+        settlement record's digest covers every state."""
+        if self._tier_parked:
+            parked, self._tier_parked = self._tier_parked, {}
+            leftovers: List[QueuedBatch] = []
+            for tid, batches in parked.items():
+                if tid in self._tier:
+                    self._tier_promote(tid, deferred=True)
+                leftovers.extend(batches)
+            if leftovers:
+                sup = self._supervisor
+                if sup is not None:
+                    sup.begin_tick(leftovers)
+                self._score_now(leftovers)
+                if sup is not None:
+                    sup.end_tick()
+        for tid in sorted(self._tier.tids()):
+            self._tier_promote(tid, deferred=False)
 
     # -- reporting --------------------------------------------------------
 
@@ -1857,18 +2807,24 @@ class ServeEngine:
                 **_merged_quantiles(pri_slos.get(pri, ())),
             }
         # runner books sum over the shard runners (the inline engine's
-        # list is [self.runner]); lane grouping depends on shard
+        # list is [self.runner]) and the runners a scale-down retired, so
+        # they cover the whole run; lane grouping depends on shard
         # membership, the staged chunks per width do not
-        runners = self._runners
+        stats = [_runner_stats(r) for r in self._runners] \
+            + self._retired_runners
+        books = [st["book"] for st in stats]
         by_width: Dict[int, int] = {}
         lanes_by_bucket: Dict[int, int] = {}
-        for r in runners:
-            for w, n in r.dispatches_by_width.items():
+        for book in books:
+            for w, n in book["dispatches_by_width"].items():
                 by_width[w] = by_width.get(w, 0) + n
-            for b, n in r.lanes_by_bucket.items():
+            for b, n in book["lanes_by_bucket"].items():
                 lanes_by_bucket[b] = lanes_by_bucket.get(b, 0) + n
-        staged_lanes = sum(r.staged_lanes for r in runners)
-        live_lanes = sum(r.live_lanes for r in runners)
+        staged_lanes = sum(b["staged_lanes"] for b in books)
+        live_lanes = sum(b["live_lanes"] for b in books)
+
+        def total(key):
+            return round(sum(st[key] for st in stats), 4)
         shard_tenants = {s: 0 for s in range(self.shards)}
         shard_spans = {s: 0 for s in range(self.shards)}
         shard_tenants[0] += len(self.specs) - len(self.shard_of)
@@ -1892,6 +2848,11 @@ class ServeEngine:
             rca_lat[q] = round(got, 6) if got is not None else None
         fr = self.flight_recorder
         sup = self._supervisor
+        pol = self.policy
+        tier = self._tier
+        tier_n = ((tier.demotions_warm, tier.demotions_cold,
+                   tier.promotions, tier.misses, tier.prefetch_hits)
+                  if tier is not None else (0,) * 5)
         return ServeReport(
             n_tenants=len(self.specs),
             duration_s=round(self.clock.now_s, 6),
@@ -1908,21 +2869,20 @@ class ServeEngine:
             buckets=self.runner.buckets,
             dispatches_by_width=by_width,
             fused=self.fuse,
-            fused_dispatches=sum(r.fused_dispatches for r in runners),
+            fused_dispatches=sum(b["fused_dispatches"] for b in books),
             lane_buckets=self.runner.lane_buckets,
             lanes_by_bucket=lanes_by_bucket,
             lane_pad_waste=round(1.0 - live_lanes / staged_lanes
                                  if staged_lanes else 0.0, 6),
-            compile_s=round(sum(r.compile_s for r in runners), 4),
-            lane_compile_s=round(sum(r.lane_compile_s for r in runners), 4),
+            compile_s=total("compile_s"),
+            lane_compile_s=total("lane_compile_s"),
             native_staging=self.runner.native_stage,
-            native_staged_dispatches=sum(r.native_staged for r in runners),
+            native_staged_dispatches=sum(b["native_staged"] for b in books),
             serve_state=self.serve_state,
-            stage_wall_s=round(sum(r.stage_wall_s for r in runners), 4),
-            dispatch_wall_s=round(sum(r.dispatch_wall_s for r in runners),
-                                  4),
-            fold_wall_s=round(sum(r.fold_wall_s for r in runners), 4),
-            score_wall_s=round(sum(r.score_wall_s for r in runners), 4),
+            stage_wall_s=total("stage_wall_s"),
+            dispatch_wall_s=total("dispatch_wall_s"),
+            fold_wall_s=total("fold_wall_s"),
+            score_wall_s=total("score_wall_s"),
             pipeline=self.pipeline,
             shards=self.shards,
             shard_tenants=shard_tenants,
@@ -1953,9 +2913,25 @@ class ServeEngine:
             n_migrated_tenants=sup.n_migrated if sup is not None else 0,
             recovery_wall_s=round(sup.recovery_wall_s if sup is not None
                                   else 0.0, 4),
+            policy=pol.mode if pol is not None else "off",
+            n_scale_ups=pol.n_scale_ups if pol is not None else 0,
+            n_scale_downs=pol.n_scale_downs if pol is not None else 0,
+            n_rebalances=pol.n_rebalances if pol is not None else 0,
+            n_policy_migrations=pol.n_migrated if pol is not None else 0,
+            brownout_ticks=pol.brownout_ticks if pol is not None else 0,
+            peak_shards=max(self._peak_shards, self.shards),
+            policy_wall_s=round(self.policy_wall_s, 4),
             flight_enabled=self.flight,
             flight_recorded_ticks=fr.n_recorded if fr is not None else 0,
             flight_dropped_ticks=fr.n_dropped if fr is not None else 0,
+            tier_hot=self.tier_hot,
+            n_tier_demotions_warm=tier_n[0], n_tier_demotions_cold=tier_n[1],
+            n_tier_promotions=tier_n[2], n_tier_misses=tier_n[3],
+            tier_prefetch_hidden=tier_n[4],
+            tier_wall_s=round(self.tier_wall_s, 4),
+            async_commit=self.async_commit,
+            async_ticks=self.async_ticks,
+            commit_defer_wall_s=round(self.commit_defer_wall_s, 6),
             fold_payload_bytes=self.fold_payload_bytes,
             worker=self.worker_mode,
             fold=self.fold_mode,

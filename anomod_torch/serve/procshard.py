@@ -427,7 +427,8 @@ class _ShardPlane:
             native_stage=init["native"], drain_engine=init["drain_engine"],
             rca=False, shards=1, fold="sparse", flight=False,
             chaos=self.chaos if self.chaos is not None else "",
-            ckpt_every=0, worker="thread", **init["det_kw"])
+            ckpt_every=0, worker="thread", policy="off",
+            async_commit=False, tier_hot=0, **init["det_kw"])
         self._kernels = serve_kernels
         self._launch_mark = dict(serve_kernels.launches)
         self._fold_state: Dict[tuple, float] = {}

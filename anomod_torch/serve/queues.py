@@ -492,3 +492,8 @@ class AdmissionController:
 
     def priority_of(self, tenant_id: int) -> int:
         return self.specs.priority_of(tenant_id)
+
+    def tenant_backlog(self, tenant_id: int) -> int:
+        """Queued spans of one tenant (0 when it never offered): state
+        tiering skips a queued tenant at demotion."""
+        return self._tenant_backlog.get(tenant_id, 0)

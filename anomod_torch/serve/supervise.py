@@ -239,6 +239,13 @@ class ShardSupervisor:
         ev, self._events = self._events, []
         return ev
 
+    def note_topology_change(self) -> None:
+        """The elastic policy changed the shard set (a scale edge or a
+        rebalance): take a fresh baseline checkpoint now.  The
+        checkpoint's runner books and placements index the current shard
+        set, so the recovery log never spans a topology change."""
+        self._checkpoint()
+
     # -- checkpointing -----------------------------------------------------
 
     def _checkpoint(self) -> None:
@@ -254,6 +261,17 @@ class ShardSupervisor:
             for tid, snap in reps.items():
                 det = eng._tenant_det.get(tid)
                 tenants[tid] = (snap, snapshot_detector(det)
+                                if det is not None else None)
+        tier = eng._tier
+        if tier is not None:
+            # demoted tenants are fleet state too: warm snapshots by
+            # reference (never written after demotion), cold entries by
+            # content address (the store only grows); the detector
+            # bookkeeping is copied, it mutates once the tenant promotes
+            for tid in tier.tids():
+                det = tier.ckpt_det(tid)
+                tenants[tid] = (tier.ckpt_snap(tid),
+                                snapshot_detector(det)
                                 if det is not None else None)
         books = [r.book_snapshot() for r in eng._runners]
         self._ckpt = _Checkpoint(eng.clock.ticks, tenants, books)
@@ -378,6 +396,14 @@ class ShardSupervisor:
             eng._install_tenant_proc(tid, snap)
             return
         rep_snap, det_snap = snap
+        tier = eng._tier
+        if tier is not None:
+            # the checkpoint supersedes any live tier entry: the restore
+            # rebuilds the tenant resident, and a stale entry would
+            # shadow it at the tenant's next scoring gate
+            tier.discard(tid)
+            if "__tier_cold__" in rep_snap:
+                rep_snap = tier.load_cold(rep_snap["__tier_cold__"])
         with eng._runners[eng.shard_of.get(tid, 0)].on_stream():
             rep = eng._replay_for(tid)
             restore_replay(rep, rep_snap)

@@ -124,9 +124,24 @@ drives the data layer and every ported path:
   kernels launched in the children only, serve wall, the children's
   start wall and each run's busy share (every child profiles its own
   device work); and a 2-shard process run whose child is killed at tick
-  40, respawned and restored with no score gap.
+  40, respawned and restored with no score gap;
+- the deferred-commit tick, the elastic policy and state tiering (phase
+  22): the serve bench deployment, RCA on, at pipeline 2 and 1, each
+  synchronous and deferred, and 2 thread shards deferred, every run
+  holding the pins, the synchronous run's states, alerts, verdicts and
+  decisions and the CPU twin's journal, with ``commit_defer_wall_s`` > 0,
+  lane dispatches still in flight at the depth-2 barriers (each
+  barrier's in-flight, finished and drain wall printed) and the lane
+  kernel launched from the shard streams only; the JAX
+  bench's elastic legs (0.6x load, ``surge@30:factor=4:ticks=15``)
+  static and ``auto`` on 1-2 thread shards and 1-2 process children,
+  each elastic run scaling up and down, equal to the static run and
+  scaling on the CPU twin's schedule; the JAX bench's tiering pair (48
+  tenants, hot 12) off, on and on again, every counter non-zero and the
+  CPU twin's, states, alerts and SLO the off run's, the rerun's journal
+  the first's.
 
-The serve runs of phases 8 and 16-21 run with the flight recorder on and
+The serve runs of phases 8 and 16-22 run with the flight recorder on and
 supervised (a checkpoint every 32 ticks), the engine's defaults.
 
 Phase 1 also prints how each kernel's shared atomics compiled (from
@@ -2952,6 +2967,371 @@ def supervise_proc_phase(dev, card, cpu_journal, fs20) -> dict:
     return out
 
 
+#: phase 22's elastic legs: the JAX serve bench's (``bench.py:368-392``)
+#: at its 120 ticks, a 4x surge over ticks 30-44 at 0.6x load
+ELASTIC_SURGE = "surge@30:factor=4:ticks=15"
+ELASTIC_POLICY = dict(shards=1, chaos=ELASTIC_SURGE, policy="auto",
+                      min_shards=1, max_shards=2, cooldown_ticks=5)
+#: phase 22's tiering pair: the JAX serve bench's (``bench.py:440-470``)
+TIER_KW = dict(n_tenants=48, n_services=8, capacity_spans_per_s=800.0,
+               overload=0.5, duration_s=24.0, tick_s=1.0, seed=7,
+               window_s=5.0, baseline_windows=2, fault_tenants=2,
+               buckets=(64, 256), lane_buckets=(1, 2, 4), max_backlog=6400,
+               n_windows=16)
+TIER_ON = dict(tier_hot=12, tier_demote_after=2, tier_warm_bytes=4096,
+               tier_prefetch=2)
+
+
+@contextlib.contextmanager
+def lane_streams(dev):
+    """Record the current CUDA stream of every ``lane_delta`` call the
+    serve runners make inside the block."""
+    import torch
+
+    from anomod_torch.serve import batcher
+    real = batcher.lane_delta
+    seen = []
+
+    def lane(*a, **k):
+        seen.append(torch.cuda.current_stream(dev).cuda_stream)
+        return real(*a, **k)
+    batcher.lane_delta = lane
+    try:
+        yield seen
+    finally:
+        batcher.lane_delta = real
+
+
+@contextlib.contextmanager
+def barrier_probe():
+    """Read each deferred-commit barrier inside the block: how many lane
+    dispatches were still in the runners' in-flight queues as it began,
+    how many of those the card had already finished (their events
+    queried, not waited on), and the wall of the barrier's
+    ``drain_lanes`` calls (summed over shards: the wait plus the folds
+    it enqueues).  Yields the running totals."""
+    import threading
+
+    from anomod_torch.serve import engine as eng_mod
+    from anomod_torch.serve.batcher import BucketRunner
+    real_commit = eng_mod.ServeEngine._commit_deferred
+    real_drain = BucketRunner.drain_lanes
+    got = {"barriers": 0, "inflight": 0, "done": 0, "drain_s": 0.0}
+    lock = threading.Lock()
+    inside = threading.Event()
+
+    def commit(self):
+        d = self._deferred
+        if d is None or not d["pending"] or not any(d["pending"]):
+            return real_commit(self)
+        got["barriers"] += 1
+        for r in self._runners:
+            evs = [e[3] for e in r._inflight]
+            got["inflight"] += len(evs)
+            got["done"] += sum(1 for e in evs if e is not None and e.query())
+        inside.set()
+        try:
+            return real_commit(self)
+        finally:
+            inside.clear()
+
+    def drain(self):
+        if not inside.is_set():
+            return real_drain(self)
+        t0 = time.perf_counter()
+        try:
+            return real_drain(self)
+        finally:
+            with lock:
+                got["drain_s"] += time.perf_counter() - t0
+    eng_mod.ServeEngine._commit_deferred = commit
+    BucketRunner.drain_lanes = drain
+    try:
+        yield got
+    finally:
+        eng_mod.ServeEngine._commit_deferred = real_commit
+        BucketRunner.drain_lanes = real_drain
+
+
+def elastic_async_tier_phase(dev, card, cpu_journal) -> dict:
+    """Phase 22: the deferred-commit tick, the elastic policy and state
+    tiering in the serve tick, on the card.  (1) The serve bench
+    deployment, RCA on, supervised: pipeline 2 and 1, each synchronous
+    and deferred, and 2 thread shards deferred; every run holds the
+    decision and RCA pins, equals the synchronous depth-2 run on states,
+    alerts, verdicts and decisions, and its canonical journal equals the
+    CPU twin's (phase 16's); the deferred runs defer every tick with
+    ``commit_defer_wall_s`` > 0, the depth-2 ones with lane dispatches
+    in flight at their barriers (:func:`barrier_probe`), and the 2-shard
+    run launches the lane
+    kernel from its shard runners' streams only.  (2) The JAX bench's
+    elastic legs: static, then ``auto`` on 1-2 thread shards and on 1-2
+    process children; each elastic run scales up and down, equals the
+    static run on states, alerts, decisions and the journal, and its
+    scaling events equal the CPU twin's; launches a shard, and the
+    spawned child's start inside ``policy_wall_s``.  (3) The JAX bench's
+    tiering pair, off, on and on again (a temporary cold directory
+    each): all four counters non-zero and equal to the CPU twin's,
+    states, alerts and SLO equal to the off run's, the rerun's journal
+    equal to the first.  Launch counts are reset before each block and
+    read after it."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from anomod_torch.obs.flight import state_digest
+    from anomod_torch.ops import serve_kernels as sk
+    from anomod_torch.serve import engine as eng_mod
+    from anomod_torch.serve.engine import (ASYNC_REPORT_FIELDS,
+                                           POLICY_REPORT_FIELDS,
+                                           TIERING_REPORT_FIELDS,
+                                           VARIANT_REPORT_FIELDS,
+                                           run_power_law)
+    t_phase = time.perf_counter()
+
+    def decisions(r, skip=()):
+        return {k: v for k, v in dataclasses.asdict(r).items()
+                if k not in VARIANT_REPORT_FIELDS + tuple(skip)
+                and k != "device"}
+
+    def verdicts(eng):
+        return [repr(v.to_dict()) for v in eng.rca_verdicts]
+
+    def scaling(eng):
+        return [ev for t in eng.flight_recorder.records()
+                for ev in t["scaling"]]
+
+    # -- (1) the deferred-commit tick --------------------------------------
+    kw = dict(SERVE_KW, device=dev, rca=True, flight=True)
+    sk.reset_launches()
+    runs, probes = {}, {}
+    for depth in (2, 1):
+        for defer in (False, True):
+            name = f"p{depth}-{'deferred' if defer else 'sync'}"
+            with barrier_probe() as probes[name]:
+                runs[name] = run_power_law(pipeline=depth,
+                                           async_commit=defer, **kw)
+    with lane_streams(dev) as seen, \
+            barrier_probe() as probes["2shards-deferred"]:
+        runs["2shards-deferred"] = run_power_law(shards=2,
+                                                 async_commit=True, **kw)
+    async_launches = dict(sk.launches)
+    e_ref, r_ref = runs["p2-sync"]
+    want_fp, want_v = serve_fingerprint(e_ref), verdicts(e_ref)
+    out = {"async": {}}
+    for name, (eng, rep) in runs.items():
+        got = {"p99_latency_s": rep.latency["p99_latency_s"],
+               "shed_fraction": rep.shed_fraction, "n_alerts": rep.n_alerts}
+        check(got == SERVE_PINS, f"{name}: pins {got} != {SERVE_PINS}")
+        rca = {"n_rca_runs": rep.n_rca_runs, "rca_eligible": rep.rca_eligible,
+               "rca_topk_hits": rep.rca_topk_hits}
+        check(rca == RCA_PINS, f"{name}: rca pins {rca} != {RCA_PINS}")
+        got, want = (decisions(r, ASYNC_REPORT_FIELDS) for r in (rep, r_ref))
+        check(serve_fingerprint(eng) == want_fp and verdicts(eng) == want_v
+              and got == want,
+              f"{name}: states, alerts, verdicts or decisions differ from "
+              f"the synchronous run's: {field_diff(got, want)}")
+        check(eng.flight_recorder.canonical_bytes() == cpu_journal,
+              f"{name}: canonical journal differs from the CPU twin's")
+        deferred = "deferred" in name
+        check(rep.async_commit == deferred
+              and rep.async_ticks == (rep.ticks if deferred else 0)
+              and (rep.commit_defer_wall_s > 0) == deferred,
+              f"{name}: async {rep.async_commit}, {rep.async_ticks} of "
+              f"{rep.ticks} ticks deferred, {rep.commit_defer_wall_s} s")
+        out["async"][name] = dict(
+            async_ticks=rep.async_ticks,
+            commit_defer_wall_s=rep.commit_defer_wall_s,
+            serve_wall_s=rep.serve_wall_s, stage_wall_s=rep.stage_wall_s,
+            dispatch_wall_s=rep.dispatch_wall_s,
+            fold_wall_s=rep.fold_wall_s, score_wall_s=rep.score_wall_s,
+            n_checkpoints=rep.n_checkpoints,
+            barriers=probes[name]["barriers"],
+            inflight_at_barrier=probes[name]["inflight"],
+            done_at_barrier=probes[name]["done"],
+            barrier_drain_s=probes[name]["drain_s"])
+        if deferred and not name.startswith("p1"):
+            # depth 1 retires each dispatch before the next is issued:
+            # only depth 2 can leave one in flight under the deferral
+            check(probes[name]["inflight"] > 0,
+                  f"{name}: no lane dispatch was in flight at any barrier")
+    e2 = runs["2shards-deferred"][0]
+    own = {r.stream.cuda_stream for r in e2._runners}
+    check(set(seen) == own and len(own) == 2
+          and torch.cuda.default_stream(dev).cuda_stream not in own,
+          f"2 shards deferred: lane_delta launched on {set(seen)}, the "
+          f"runners' streams are {own}")
+    for k, v in async_launches.items():
+        check(v > 0, f"deferred block: kernel {k} was not launched")
+    out["async_launches"] = async_launches
+    for name, r in out["async"].items():
+        log(f"[22] {name} on {card}: pins, states, alerts, verdicts, "
+            f"decisions and the CPU twin's journal held; deferred ticks "
+            f"{r['async_ticks']}, commit_defer_wall_s "
+            f"{r['commit_defer_wall_s']:.6f}; at {r['barriers']} "
+            f"barriers {r['inflight_at_barrier']} dispatches in flight, "
+            f"{r['done_at_barrier']} of them done, barrier drain "
+            f"{r['barrier_drain_s']:.6f} s; serve wall "
+            f"{r['serve_wall_s']:.4f} s (stage {r['stage_wall_s']}, "
+            f"dispatch {r['dispatch_wall_s']}, fold {r['fold_wall_s']}, "
+            f"score {r['score_wall_s']})")
+    log(f"[22] deferred block launches {async_launches}; the 2-shard "
+        f"deferred run launched lane_delta on its two shard streams only")
+
+    # -- (2) the elastic policy --------------------------------------------
+    kw = dict(SERVE_KW, overload=0.6, device=dev, rca=False, flight=True)
+    sk.reset_launches()
+    e_st, r_st = run_power_law(shards=1, chaos=ELASTIC_SURGE, **kw)
+    with lane_streams(dev) as seen:
+        e_th, r_th = run_power_law(**ELASTIC_POLICY, **kw)
+    stream0 = e_th._runners[0].stream.cuda_stream
+    by_shard_th = {"0": sum(1 for x in seen if x == stream0),
+                   "1": sum(1 for x in seen if x != stream0)}
+    thread_launches = dict(sk.launches)
+    child = {}
+    real_apply = eng_mod.ServeEngine._apply_shard_reply
+
+    def apply(self, s, rep):
+        for k, n in rep.get("launches", {}).items():
+            child.setdefault(str(s), {}).setdefault(k, 0)
+            child[str(s)][k] += n
+        return real_apply(self, s, rep)
+    sk.reset_launches()
+    eng_mod.ServeEngine._apply_shard_reply = apply
+    try:
+        with child_hellos() as hellos:
+            e_pr, r_pr = run_power_law(worker="process", **ELASTIC_POLICY,
+                                       **kw)
+    finally:
+        eng_mod.ServeEngine._apply_shard_reply = real_apply
+    coord_launches = dict(sk.launches)
+    t0 = time.perf_counter()
+    e_cpu, r_cpu = run_power_law(**{**ELASTIC_POLICY, **kw,
+                                    "device": "cpu"})
+    cpu_s = time.perf_counter() - t0
+    want_fp = serve_fingerprint(e_st)
+    want_alerts = {t: e_st.alerts_for(t) for t in e_st._tenant_det}
+    journal = e_st.flight_recorder.canonical_bytes()
+    events = scaling(e_cpu)
+    out["elastic"] = {"static_serve_wall_s": r_st.serve_wall_s,
+                      "cpu_twin_wall_s": cpu_s,
+                      "events": [{k: ev[k] for k in ("kind", "tick")
+                                  if k in ev} for ev in events]}
+    for name, eng, rep in (("thread", e_th, r_th), ("process", e_pr, r_pr)):
+        check(rep.n_scale_ups >= 1 and rep.n_scale_downs >= 1
+              and rep.peak_shards == 2 and rep.worker == name,
+              f"elastic {name}: {rep.n_scale_ups} up, {rep.n_scale_downs} "
+              f"down, peak {rep.peak_shards}, worker {rep.worker}")
+        # the children hold the process run's states: its journal's
+        # digests stand for them
+        got, want = (decisions(r, POLICY_REPORT_FIELDS) for r in (rep, r_st))
+        check((serve_fingerprint(eng) == want_fp if name == "thread" else
+               {t: eng.alerts_for(t) for t in eng._tenant_det}
+               == want_alerts) and got == want,
+              f"elastic {name}: states, alerts or decisions differ from "
+              f"the static run's: {field_diff(got, want)}")
+        check(eng.flight_recorder.canonical_bytes() == journal,
+              f"elastic {name}: journal differs from the static run's")
+        check(scaling(eng) == events,
+              f"elastic {name}: scaling events {scaling(eng)} differ from "
+              f"the CPU twin's {events}")
+        out["elastic"][name] = dict(
+            n_scale_ups=rep.n_scale_ups, n_scale_downs=rep.n_scale_downs,
+            n_rebalances=rep.n_rebalances, peak_shards=rep.peak_shards,
+            n_policy_migrations=rep.n_policy_migrations,
+            brownout_ticks=rep.brownout_ticks,
+            policy_wall_s=rep.policy_wall_s, serve_wall_s=rep.serve_wall_s,
+            migrated_spans=eng.policy_migrated_spans)
+    out["elastic"]["thread"]["launches_by_shard"] = {
+        "lane_delta": by_shard_th}
+    out["elastic"]["thread"]["launches"] = thread_launches
+    check(coord_launches["lane_delta"] == 0
+          and child.get("1", {}).get("lane_delta", 0) > 0,
+          f"elastic process: coordinator launches {coord_launches}, the "
+          f"children's {child}")
+    spawned = [dict(boot_s=h["boot_s"], init_s=h["init_s"])
+               for h in hellos[1:]]
+    out["elastic"]["process"].update(
+        launches_by_shard=child, worker_start_s=e_pr.worker_start_s,
+        child_start_in_policy_wall_s=spawned)
+    for k, v in thread_launches.items():
+        check(v > 0, f"elastic block: kernel {k} was not launched")
+    for name in ("thread", "process"):
+        r = out["elastic"][name]
+        log(f"[22] elastic {name} on {card} ({ELASTIC_SURGE}, auto, 1-2 "
+            f"shards, cooldown 5): {r['n_scale_ups']} up, "
+            f"{r['n_scale_downs']} down, {r['n_rebalances']} rebalances, "
+            f"peak {r['peak_shards']} shards, {r['n_policy_migrations']} "
+            f"tenants migrated ({r['migrated_spans']} spans), brownout "
+            f"ticks {r['brownout_ticks']}; states, alerts, decisions and "
+            f"the journal equal the static run's, scaling events the CPU "
+            f"twin's; policy_wall_s {r['policy_wall_s']} of a "
+            f"{r['serve_wall_s']} s serve wall (static "
+            f"{r_st.serve_wall_s}); launches by shard "
+            f"{r['launches_by_shard']}"
+            + (f"; the scale-up's child start (interpreter and imports, "
+               f"shard plane) {spawned} inside policy_wall_s"
+               if name == "process" else ""))
+
+    # -- (3) state tiering -------------------------------------------------
+    sk.reset_launches()
+    e_off, r_off = run_power_law(shards=1, device=dev, **TIER_KW)
+    tiered = []
+    for _ in range(2):
+        with tempfile.TemporaryDirectory() as cold:
+            tiered.append(run_power_law(shards=1, device=dev,
+                                        tier_cold_dir=cold, **TIER_ON,
+                                        **TIER_KW))
+    tier_launches = dict(sk.launches)
+    with tempfile.TemporaryDirectory() as cold:
+        _, r_tcpu = run_power_law(shards=1, device="cpu",
+                                  tier_cold_dir=cold, **TIER_ON, **TIER_KW)
+    want = [getattr(r_tcpu, k) for k in TIERING_REPORT_FIELDS]
+    (e_on, r_on), (e_on2, r_on2) = tiered
+    for name, eng, rep in (("on", e_on, r_on), ("rerun", e_on2, r_on2)):
+        got = [getattr(rep, k) for k in TIERING_REPORT_FIELDS]
+        check(min(got[1:]) > 0 and got == want,
+              f"tiering {name}: counters {got}, the CPU twin's {want}")
+        check(len(eng._tier) == 0
+              and state_digest(eng._tenant_replay)
+              == state_digest(e_off._tenant_replay)
+              and {t: eng.alerts_for(t) for t in e_off._tenant_det}
+              == {t: e_off.alerts_for(t) for t in e_off._tenant_det}
+              and (rep.latency, rep.shed_spans, rep.served_spans)
+              == (r_off.latency, r_off.shed_spans, r_off.served_spans),
+              f"tiering {name}: states, alerts or SLO differ from the "
+              "never-evicted run's")
+    check(e_on2.flight_recorder.canonical_bytes()
+          == e_on.flight_recorder.canonical_bytes(),
+          "tiering: the rerun's journal differs from the first")
+    for k, v in tier_launches.items():
+        check(v > 0, f"tiering block: kernel {k} was not launched")
+    out["tiering"] = dict(
+        counters=dict(zip(TIERING_REPORT_FIELDS, want)),
+        tier_wall_s=[r_on.tier_wall_s, r_on2.tier_wall_s],
+        tier_prefetch_hidden=[r_on.tier_prefetch_hidden,
+                              r_on2.tier_prefetch_hidden],
+        serve_wall_s={"off": r_off.serve_wall_s, "on": r_on.serve_wall_s,
+                      "rerun": r_on2.serve_wall_s},
+        launches=tier_launches)
+    log(f"[22] tiering on {card} (48 tenants, hot 12, demote after 2, "
+        f"warm 4096 B, prefetch 2): counters {out['tiering']['counters']} "
+        f"equal the CPU twin's; states, alerts and SLO equal the off run's; "
+        f"the rerun's journal equals the first; tier_wall_s "
+        f"{out['tiering']['tier_wall_s']}, prefetch hidden "
+        f"{out['tiering']['tier_prefetch_hidden']} of "
+        f"{want[4]} misses; serve wall {out['tiering']['serve_wall_s']}")
+    out["launches"] = {
+        k: async_launches.get(k, 0) + thread_launches.get(k, 0)
+        + sum(c.get(k, 0) for c in child.values()) + tier_launches.get(k, 0)
+        for k in ("lane_delta", "window_gather")}
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    log(f"[22] phase 22 in {out['phase_wall_s']:.1f} s; serve kernel "
+        f"launches {out['launches']}")
+    return {"elastic_async_tier": out}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3267,6 +3647,7 @@ def main() -> int:
     s19 = shift_phase(dev, card)
     fs20 = flight_shard_phase(dev, card, cpu_journal)
     ps21 = supervise_proc_phase(dev, card, cpu_journal, fs20)
+    p22 = elastic_async_tier_phase(dev, card, cpu_journal)
 
     # -- report -----------------------------------------------------------
     # the dense kernel's top-level times are the corpus pass's; each path
@@ -3317,6 +3698,9 @@ def main() -> int:
                 name: r["launches"].get(k["name"], 0)
                 for name, r in ps21["process"].items()
                 if name.startswith("process")}
+            # phase 22's deferred, elastic and tiered runs
+            k["launches_phase22"] = \
+                p22["elastic_async_tier"]["launches"][k["name"]]
     log(json.dumps({"replay_spans_per_sec": rates, "replicate": replicate,
                     "stream_top1": sum(hits) / len(hits),
                     "stream_wall_s": stream_s,
@@ -3327,7 +3711,7 @@ def main() -> int:
                     "sorted_ends_ms": end_ms, "dense_ends_ms": dense_end_ms,
                     "l2_eviction_ms": flush, **data, **serve,
                     **sketch, **roof, **det13, **rca14, **mm15, **rca16,
-                    **tele17, **q18, **s19, **fs20, **ps21,
+                    **tele17, **q18, **s19, **fs20, **ps21, **p22,
                     "wall_s": time.perf_counter() - t_all}))
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -1018,3 +1018,147 @@ def test_lane_delta_from_threads_at_mixed_lane_counts(cuda_device):
     assert errors == []
     for out, (_, _, want) in zip(outs, cases):
         assert torch.equal(out, want)
+
+
+@pytest.mark.cuda
+def test_deferred_tick_on_card_leaves_dispatches_in_flight(cuda_device,
+                                                           monkeypatch):
+    """The deferred-commit tick on the card, 2 shard threads at pipeline
+    2: at each barrier the issued tick's last dispatches are still in
+    their runners' in-flight queues (the issue half submitted on the
+    shard streams without waiting), the deferral wall is above 0, and
+    states, alerts, decisions and the canonical journal equal the
+    synchronous card run's."""
+    from anomod_torch.serve import engine as eng_mod
+    from anomod_torch.serve.engine import (ASYNC_REPORT_FIELDS,
+                                           run_power_law)
+    seen = []
+    real = eng_mod.ServeEngine._commit_deferred
+
+    def commit(self):
+        if self._deferred is not None and self._deferred["pending"]:
+            seen.append(sum(r.inflight_dispatches for r in self._runners))
+        return real(self)
+    monkeypatch.setattr(eng_mod.ServeEngine, "_commit_deferred", commit)
+    ea, ra = run_power_law(device=cuda_device, shards=2, pipeline=2,
+                           async_commit=True, **_SMALL_SERVE)
+    monkeypatch.undo()
+    es, rs = run_power_law(device=cuda_device, shards=2, pipeline=2,
+                           async_commit=False, **_SMALL_SERVE)
+    assert ra.async_commit and ra.async_ticks == ra.ticks
+    assert ra.commit_defer_wall_s > 0 and rs.commit_defer_wall_s == 0
+    assert seen and max(seen) > 0
+    assert all(r.inflight_dispatches == 0 for r in ea._runners)
+    assert _serve_fingerprint(ea) == _serve_fingerprint(es)
+    assert _decisions(ra, ASYNC_REPORT_FIELDS) \
+        == _decisions(rs, ASYNC_REPORT_FIELDS)
+    assert ea.flight_recorder.canonical_bytes() \
+        == es.flight_recorder.canonical_bytes()
+
+
+@pytest.mark.cuda
+def test_scale_up_on_card_builds_runner_on_own_stream(cuda_device,
+                                                      monkeypatch):
+    """A scripted scale-up mid-run on the card builds shard 1's runner on
+    a stream of its own (not shard 0's, not the default one), the lane
+    kernel launches from both shard streams only, and the elastic run
+    (up at tick 5, down at tick 15) equals the static card run on states,
+    alerts, decisions and the canonical journal."""
+    from anomod_torch.serve import batcher
+    from anomod_torch.serve import engine as eng_mod
+    from anomod_torch.serve.engine import (POLICY_REPORT_FIELDS,
+                                           run_power_law)
+    built, launched = [], []
+    real = eng_mod.ServeEngine._scale_up
+
+    def scale_up(self):
+        moved = real(self)
+        built.append(self._runners[-1].stream.cuda_stream)
+        return moved
+
+    def spy(*a, **k):
+        launched.append(torch.cuda.current_stream(cuda_device).cuda_stream)
+        return lane_delta(*a, **k)
+    lane_delta = batcher.lane_delta
+    monkeypatch.setattr(eng_mod.ServeEngine, "_scale_up", scale_up)
+    monkeypatch.setattr(batcher, "lane_delta", spy)
+    ee, re_ = run_power_law(device=cuda_device, shards=1, policy="script",
+                            policy_script="up@5;down@15", min_shards=1,
+                            max_shards=2, **_SMALL_SERVE)
+    stream0 = ee._runners[0].stream.cuda_stream
+    monkeypatch.undo()
+    default = torch.cuda.default_stream(cuda_device).cuda_stream
+    assert re_.n_scale_ups == 1 and re_.n_scale_downs == 1
+    assert re_.peak_shards == 2 and re_.n_policy_migrations > 0
+    assert len(built) == 1 and built[0] not in (stream0, default)
+    assert set(launched) == {stream0, built[0]}
+    es, rs = run_power_law(device=cuda_device, shards=1, **_SMALL_SERVE)
+    assert _serve_fingerprint(ee) == _serve_fingerprint(es)
+    assert _decisions(re_, POLICY_REPORT_FIELDS) \
+        == _decisions(rs, POLICY_REPORT_FIELDS)
+    assert ee.flight_recorder.canonical_bytes() \
+        == es.flight_recorder.canonical_bytes()
+
+
+@pytest.mark.cuda
+def test_tier_round_trip_through_card_pool_is_bit_equal(cuda_device,
+                                                        tmp_path):
+    """A tenant state demoted out of the card's pool and promoted back
+    into another slot (through the host warm tier, then through a cold
+    entry on disk) is bit-equal; and a tiered run on the card (warm and
+    cold demotions, promotions and misses all firing) equals the
+    never-evicted card run on every state, alert and the SLO."""
+    import dataclasses
+
+    from anomod_torch.obs.flight import state_digest
+    from anomod_torch.serve.batcher import BucketRunner, PooledStreamReplay
+    from anomod_torch.serve.engine import run_power_law, serve_plane_cfg
+    from anomod_torch.serve.supervise import restore_replay, snapshot_replay
+    from anomod_torch.serve.tiering import TierPlane
+    cfg = serve_plane_cfg(4, 5.0, 16)
+    runner = BucketRunner(cfg, (64, 256), pool_slots=2, device=cuda_device,
+                          own_stream=True)
+    rng = np.random.default_rng(11)
+    rep = PooledStreamReplay(cfg, 0, runner)
+    with runner.on_stream():
+        rep.set_state(type(rep.get_state())(
+            agg=rng.random((cfg.sw, 6), dtype=np.float32),
+            hist=rng.random((cfg.sw, H), dtype=np.float32)))
+        want = snapshot_replay(rep)
+    for cold in (False, True):
+        tier = TierPlane(0 if cold else 1 << 20,
+                         tmp_path / "cold" if cold else None, 1,
+                         slot_nbytes=cfg.sw * (6 + H) * 4)
+        with runner.on_stream():
+            snap = snapshot_replay(rep)
+            rep.release()
+        tier.demote(0, 7, snap, None, 1)
+        assert tier.status(7) == ("cold" if cold else "warm")
+        tier.prefetch(7)
+        back, _ = tier.take(1, 7)
+        rep = PooledStreamReplay(cfg, 0, runner)
+        with runner.on_stream():
+            restore_replay(rep, back)
+            got = snapshot_replay(rep)
+        runner.sync()
+        tier.close()
+        for a, b in zip(got["state"], want["state"]):
+            assert (a is None and b is None) or np.array_equal(a, b)
+    kw = dict(n_tenants=24, n_services=4, capacity_spans_per_s=400,
+              overload=0.4, duration_s=24, tick_s=1.0, seed=7, window_s=5.0,
+              baseline_windows=2, fault_tenants=0, buckets=(64, 256),
+              lane_buckets=(1, 2, 4), max_backlog=1500, n_windows=16,
+              flight_digest_every=4)
+    e0, r0 = run_power_law(device=cuda_device, **kw)
+    e1, r1 = run_power_law(device=cuda_device, tier_hot=4,
+                           tier_demote_after=2, tier_warm_bytes=4096,
+                           tier_prefetch=2,
+                           tier_cold_dir=str(tmp_path / "run"), **kw)
+    assert min(r1.n_tier_demotions_warm, r1.n_tier_demotions_cold,
+               r1.n_tier_promotions, r1.n_tier_misses) > 0
+    assert len(e1._tier) == 0
+    assert state_digest(e1._tenant_replay) == state_digest(e0._tenant_replay)
+    for tid in e0._tenant_det:
+        assert [dataclasses.asdict(a) for a in e1.alerts_for(tid)] \
+            == [dataclasses.asdict(a) for a in e0.alerts_for(tid)]
+    assert r1.latency == r0.latency and r1.shed_spans == r0.shed_spans

@@ -284,7 +284,78 @@ def test_worker_knobs_equal_jax(monkeypatch):
     cfg = ReplayConfig(n_services=1)
     with pytest.raises(ValueError, match="thread|process"):
         ServeEngine([], ["a"], cfg, device="cpu", worker="greenlet")
-    # no plane of the port blocks process workers yet
+    # with no in-process plane asked for, nothing blocks process workers
+    # (the blockers: test_process_workers_refused_beside_in_process_planes)
     eng = ServeEngine([], ["a"], cfg, device="cpu", worker="process")
     assert eng.worker_mode == "process" and eng._process_blockers() == []
     assert eng._use_workers and eng._workers is None
+
+
+def test_policy_scales_across_process_children():
+    """The elastic policy across process children (the JAX package's
+    ``test_policy_scales_across_process_workers``): under the scripted
+    surge a child is spawned at the scale-up, tenants move out of one
+    child and into another, the dying child's registry drains before it
+    retires, and the run equals the static thread run on every alert,
+    decision and the canonical journal, and the JAX engine's elastic
+    thread run on the scaling events, decisions and canonical journal."""
+    from anomod_torch.serve.engine import POLICY_REPORT_FIELDS
+    pkw = dict(overload=0.6, duration_s=24, window_s=5.0, fault_tenants=0,
+               chaos="surge@6:factor=6:ticks=6")
+    elastic = dict(shards=1, policy="auto", min_shards=1, max_shards=2,
+                   cooldown_ticks=3)
+    es, rs = _run(shards=1, worker="thread", **pkw)
+    ee, re_ = _run(worker="process", **elastic, **pkw)
+    jee, jre = jrun_power_law(worker="thread", **elastic, **{**KW, **pkw})
+    assert re_.worker == "process" and re_.peak_shards == 2
+    assert re_.n_scale_ups >= 1 and re_.n_scale_downs >= 1
+    assert re_.n_policy_migrations >= 1
+    assert len(ee._runners) == 1 and ee._workers is None
+    skip = set(VARIANT_REPORT_FIELDS) | set(POLICY_REPORT_FIELDS) \
+        | set(RECOVERY_REPORT_FIELDS) | {"device"}
+    assert {k: v for k, v in re_.to_dict().items() if k not in skip} \
+        == {k: v for k, v in rs.to_dict().items() if k not in skip}
+    for tid in es._tenant_det:
+        assert [dataclasses.asdict(a) for a in ee.alerts_for(tid)] \
+            == [dataclasses.asdict(a) for a in es.alerts_for(tid)]
+    assert ee.flight_recorder.canonical_bytes() \
+        == es.flight_recorder.canonical_bytes()
+
+    def scaling(eng):
+        return [ev for t in eng.flight_recorder.records()
+                for ev in t.get("scaling", ())]
+    assert scaling(ee) == scaling(jee) and scaling(ee)
+    assert_equals_jax_thread(
+        (jee, jre, _journal(jcanonical_ticks(jee.flight_recorder.records()))),
+        ee, re_, skip=RECOVERY_REPORT_FIELDS)
+
+
+@pytest.mark.parametrize("plane", ["async_commit", "tier_hot"])
+def test_process_workers_refused_beside_in_process_planes(plane,
+                                                          monkeypatch):
+    """The deferred commit and state tiering keep state the score plane
+    shares in-process: an explicit ``worker="process"`` beside either
+    raises with the JAX engine's text, an env-sourced one degrades to
+    threads."""
+    from anomod.serve.engine import ServeEngine as JEngine
+    from anomod_torch.config import Config, set_config
+    from anomod_torch.replay import ReplayConfig
+    from anomod_torch.serve.engine import ServeEngine
+    kw = {"async_commit": True} if plane == "async_commit" \
+        else {"tier_hot": 4}
+    cfg = ReplayConfig(n_services=1)
+    with pytest.raises(ValueError) as got:
+        ServeEngine([], ["a"], cfg, device="cpu", worker="process", **kw)
+    with pytest.raises(ValueError) as want:
+        JEngine([], ["a"], cfg, worker="process", **kw)
+    assert str(got.value) == str(want.value)
+    assert ("deferred-commit seam" if plane == "async_commit"
+            else "demotion copier") in str(got.value)
+    monkeypatch.setenv("ANOMOD_SERVE_WORKER", "process")
+    prev = set_config(Config())
+    try:
+        eng = ServeEngine([], ["a"], cfg, device="cpu", **kw)
+        assert eng.worker_mode == "thread" and len(eng._process_blockers())
+        eng.close()
+    finally:
+        set_config(prev)

@@ -37,12 +37,22 @@
   barrier's registry merge); the flight recorder is on unless
   ``ANOMOD_FLIGHT=0``.  Supervision is on (``--ckpt-every``, default 32
   ticks; 0 turns it off) and ``--chaos`` injects a fault script.
+  ``--from-live URL|self`` drives the tick from a live text-exposition
+  endpoint instead (``self``: the port's own ``/metrics``, the dogfood
+  loop), ``--live-replay JOURNAL`` re-runs a recorded wire journal;
+  ``--feed-lag`` and ``--feed-journal`` set the feed's lag budget and
+  where its wire journal goes (``anomod_torch.serve.feed``).
 - ``audit record | replay | diff``: the flight recorder's forensics (the
   counterpart of ``anomod audit``): ``record`` serves seeded traffic and
   dumps the journal, ``replay`` re-executes a journal from its header's
   ``run`` (``--shards``, ``--pipeline``, ``--state`` and
-  ``--digest-every`` override it), ``diff`` compares two journals tick by
-  tick and exits 1 naming the first divergent tick and plane.
+  ``--digest-every`` override it; a live-feed journal replays through its
+  wire journal), ``diff`` compares two journals tick by tick and exits 1
+  naming the first divergent tick and plane.
+- ``collect prometheus | jaeger | skywalking | es``: pull from a running
+  endpoint and write the artifact the loaders read (the counterpart of
+  ``anomod collect``'s four HTTP kinds, ``anomod_torch.io.live``); prints
+  the ``CollectReport`` as one JSON line.
 - ``obs snapshot | export | score``: the telemetry plane (the
   counterpart of ``anomod obs``): a seeded self-exercise serve run fills
   a fresh registry, then its point-in-time state prints (JSON or
@@ -197,8 +207,9 @@ def _parser() -> argparse.ArgumentParser:
     v.add_argument("--max-backlog", type=int, default=None,
                    help="global backlog bound in spans (default 200000)")
     v.add_argument("--fault-tenants", type=int, default=2)
-    v.add_argument("--state", choices=["host", "device"], default="device",
-                   help="tenant states in the device pool or on the host")
+    v.add_argument("--state", choices=["host", "device"], default=None,
+                   help="tenant states in the device pool (the default) or "
+                        "on the host")
     v.add_argument("--no-score", action="store_true",
                    help="fold only; no detectors")
     v.add_argument("--rca", action="store_true",
@@ -256,8 +267,54 @@ def _parser() -> argparse.ArgumentParser:
     v.add_argument("--no-async-commit", action="store_true",
                    help="force the synchronous tick even when "
                         "ANOMOD_SERVE_ASYNC_COMMIT is on")
+    v.add_argument("--from-live", default=None, metavar="URL",
+                   help="drive the tick from a live Prometheus "
+                        "text-exposition endpoint instead of the seeded "
+                        "fleet; 'self' serves this process's own registry "
+                        "on /metrics and scrapes it (the dogfood loop)")
+    v.add_argument("--live-replay", default=None, metavar="JOURNAL",
+                   help="re-run a recorded live-feed wire journal through "
+                        "the replay transport: the same planes, no "
+                        "network; the feed's shape comes from the "
+                        "journal's header (--tenants/--services are "
+                        "ignored)")
+    v.add_argument("--feed-lag", type=float, default=None,
+                   help="live-feed wall-to-virtual lag budget in seconds "
+                        "(default: ANOMOD_SERVE_FEED_LAG_S)")
+    v.add_argument("--feed-journal", default=None,
+                   help="record the live feed's wire journal to this path "
+                        "(default: ANOMOD_FEED_JOURNAL)")
     v.add_argument("--device", default=None,
                    help="cuda (default) or cpu (plain PyTorch versions)")
+
+    c = sub.add_parser(
+        "collect", help="live-transport collection: pull from a running "
+        "Prometheus / Jaeger / SkyWalking / Elasticsearch endpoint and "
+        "write loader-compatible artifacts (the exec kinds kube-logs, "
+        "docker-logs, jacoco and gcov wait for the port of "
+        "io/live_exec.py)")
+    c.add_argument("kind", choices=["prometheus", "jaeger", "skywalking",
+                                    "es"])
+    c.add_argument("--url",
+                   help="base URL (prometheus/jaeger/es) or the GraphQL "
+                        "endpoint (skywalking)")
+    c.add_argument("--out", required=True,
+                   help="output dir (prometheus --testbed SN) or artifact "
+                        "file path (the others)")
+    c.add_argument("--testbed", choices=["SN", "TT"], default="SN",
+                   help="prometheus only: SN = per-query CSV dir from the "
+                        "SN catalog; TT = one long CSV from the TT catalog")
+    c.add_argument("--hours-back", type=float, default=1.0)
+    c.add_argument("--step", default="15s",
+                   help="prometheus query_range step")
+    c.add_argument("--limit", type=int, default=1000,
+                   help="jaeger: traces per service; skywalking: total "
+                        "trace budget; es: segment budget")
+    c.add_argument("--experiment", default="live",
+                   help="skywalking: experiment name stamped into the "
+                        "artifact metadata")
+    c.add_argument("--timeout", type=float, default=30.0)
+    c.add_argument("--retries", type=int, default=3)
 
     a = sub.add_parser(
         "audit", help="flight-recorder forensics: `record` serves seeded "
@@ -407,6 +464,8 @@ def _serve(args, parser) -> int:
             p for p in args.lane_buckets.split(",") if p.strip()))
     except ValueError as e:
         parser.error(str(e))
+    if args.from_live or args.live_replay:
+        return _serve_live(args, parser, buckets, lanes)
     from anomod_torch.obs.http import maybe_serve
     from anomod_torch.utils.tracing import Tracer
     tracer = Tracer("anomod-serve") if args.trace_out else None
@@ -424,7 +483,8 @@ def _serve(args, parser) -> int:
             max_backlog=args.max_backlog,
             fault_tenants=args.fault_tenants, score=not args.no_score,
             fuse=not args.no_fuse, lane_buckets=lanes,
-            pipeline=args.pipeline, state=args.state, device=args.device,
+            pipeline=args.pipeline, state=args.state or "device",
+            device=args.device,
             # --no-score forces RCA off even under ANOMOD_SERVE_RCA=1
             rca=True if args.rca else (False if args.no_score else None),
             tracer=tracer, shards=args.shards, fold=args.fold,
@@ -439,6 +499,58 @@ def _serve(args, parser) -> int:
             endpoint.stop()
     if tracer is not None:
         tracer.dump(args.trace_out)
+    print(json.dumps(report.to_dict()))
+    return 0
+
+
+def _serve_live(args, parser, buckets, lanes) -> int:
+    """``serve --from-live`` / ``--live-replay``: the live feed's run
+    (``run_live_feed``), with the JAX CLI's checks."""
+    if args.from_live and args.live_replay:
+        parser.error("--from-live contradicts --live-replay")
+    for flag, bad in (("--chaos", args.chaos), ("--rca", args.rca),
+                      ("--policy", args.policy),
+                      ("--policy-script", args.policy_script),
+                      ("--async-commit", args.async_commit),
+                      ("--worker", args.worker), ("--fold", args.fold),
+                      ("--state", args.state),
+                      ("--ckpt-every", args.ckpt_every),
+                      ("--trace-out", args.trace_out)):
+        if bad:
+            parser.error(f"{flag} is not supported on the live-feed path")
+    from anomod_torch.serve.feed import run_live_feed
+    endpoint = None
+    scrape_url = args.from_live
+    if scrape_url and scrape_url.strip().lower() == "self":
+        # the dogfood loop: serve this process's own registry over real
+        # HTTP and point the feed at it
+        from anomod_torch.config import get_config
+        from anomod_torch.obs.http import ObsHttpServer
+        endpoint = ObsHttpServer(port=get_config().obs_http_port).start()
+        scrape_url = f"{endpoint.url}/metrics"
+    elif scrape_url and "://" not in scrape_url:
+        parser.error("--from-live takes a URL (or 'self')")
+    common = dict(capacity_spans_per_s=args.capacity,
+                  duration_s=args.duration, tick_s=args.tick,
+                  lag_s=args.feed_lag, window_s=args.window_seconds,
+                  baseline_windows=args.baseline_windows,
+                  z_threshold=args.threshold, buckets=buckets,
+                  lane_buckets=lanes, max_backlog=args.max_backlog,
+                  score=not args.no_score,
+                  fuse=False if args.no_fuse else None,
+                  shards=args.shards, pipeline=args.pipeline,
+                  device=args.device)
+    try:
+        if args.live_replay:
+            _, report, _ = run_live_feed(replay=args.live_replay, **common)
+        else:
+            _, report, _ = run_live_feed(
+                scrape_url=scrape_url, n_tenants=args.tenants,
+                n_services=args.services, journal=args.feed_journal,
+                **common)
+    finally:
+        if endpoint is not None:
+            endpoint.stop()
     print(json.dumps(report.to_dict()))
     return 0
 
@@ -518,9 +630,15 @@ def _audit(args, parser) -> int:
         kw = dict(run)
         for key in ("buckets", "lane_buckets"):
             kw[key] = tuple(kw[key]) if kw.get(key) else None
-        # a journal recorded before state tiering carries no tier
-        # geometry: replay it untiered, never under this process's env
-        kw.setdefault("tier_hot", 0)
+        if kw.get("traffic") != "live_feed":
+            # a journal recorded before state tiering carries no tier
+            # geometry: replay it untiered, never under this process's
+            # env
+            kw.setdefault("tier_hot", 0)
+        elif args.state is not None:
+            parser.error("--state applies to power-law journals; "
+                         "live-feed replays take the engine shape from "
+                         "the journal header")
         # the forensic overrides: the same decisions at another shard
         # count / depth / residency, which diff then holds equal
         for name, val in (("shards", args.shards),
@@ -531,8 +649,23 @@ def _audit(args, parser) -> int:
     if args.digest_every is not None:
         kw["flight_digest_every"] = args.digest_every
     kw["flight"] = True
-    from anomod_torch.serve.engine import run_power_law
-    eng, rep = run_power_law(device=args.device, **kw)
+    if kw.pop("traffic", None) == "live_feed":
+        # a live-feed run replays through its wire journal (the response
+        # sequence is the ground truth), not by polling again
+        from pathlib import Path
+        feed_journal = kw.pop("feed_journal", "")
+        if not feed_journal or not Path(feed_journal).exists():
+            parser.error(
+                "the run's wire journal is missing "
+                f"({feed_journal or 'not recorded'}) — record live runs "
+                "with ANOMOD_FEED_JOURNAL/--feed-journal to make them "
+                "replayable")
+        from anomod_torch.serve.feed import run_live_feed
+        eng, rep, _ = run_live_feed(replay=feed_journal, device=args.device,
+                                    **kw)
+    else:
+        from anomod_torch.serve.engine import run_power_law
+        eng, rep = run_power_law(device=args.device, **kw)
     doc = eng.flight_recorder.dump(args.out)
     print(json.dumps({
         "action": args.action, "out": args.out,
@@ -835,6 +968,45 @@ def _quality(args, parser) -> int:
     return 0
 
 
+def _collect(args, parser) -> int:
+    import time
+
+    from anomod_torch.io.live import (ElasticsearchClient, HttpTransport,
+                                      JaegerClient, PrometheusClient,
+                                      SkyWalkingClient)
+    if not args.url:
+        parser.error(f"--url is required for kind {args.kind}")
+    tp = HttpTransport(timeout=args.timeout, max_retries=args.retries)
+    now = time.time()
+    start = now - args.hours_back * 3600.0
+    if args.kind == "prometheus":
+        client = PrometheusClient(args.url, transport=tp)
+        if args.testbed == "SN":
+            # catalog names double as identity queries against a stub or
+            # relabeling proxy; a real deployment maps names to the
+            # recorded PromQL (collect_metric.sh's query table)
+            from anomod_torch.metrics_catalog import SN_METRIC_FILES
+            rep = client.collect_sn({n: n for n in SN_METRIC_FILES},
+                                    args.out, start, now, step=args.step)
+        else:
+            from anomod_torch.metrics_catalog import TT_ALL_QUERIES
+            rep = client.collect_tt(TT_ALL_QUERIES, args.out, start, now,
+                                    step=args.step)
+    elif args.kind == "jaeger":
+        rep = JaegerClient(args.url, transport=tp).collect_all(
+            args.out, limit=args.limit,
+            lookback_ms=int(args.hours_back * 3_600_000))
+    elif args.kind == "skywalking":
+        rep = SkyWalkingClient(args.url, transport=tp).collect(
+            args.out, experiment=args.experiment, limit=args.limit,
+            hours_back=args.hours_back)
+    else:
+        rep = ElasticsearchClient(args.url, transport=tp).collect(
+            args.out, size=args.limit, hours_back=args.hours_back)
+    print(json.dumps(rep.to_json()))
+    return 0
+
+
 def _roofline(args, parser) -> int:
     from anomod_torch.roofline import kernel_roofline
     if args.traces < 1 or args.replicate < 1:
@@ -864,6 +1036,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         return _audit(args, parser)
     if args.cmd == "quality":
         return _quality(args, parser)
+    if args.cmd == "collect":
+        return _collect(args, parser)
     return _stream(args, parser)
 
 

@@ -68,6 +68,11 @@ The flight recorder (``anomod_torch.obs.flight``): ``ANOMOD_FLIGHT``
 cadence in ticks, default 16), ``ANOMOD_FLIGHT_MAX_TICKS`` (the ring,
 default 65536) and ``ANOMOD_FLIGHT_DUMP_DIR`` (the alert-triggered
 forensic bundle's directory, default none).
+
+The live feed (``anomod_torch.serve.feed``): ``ANOMOD_SERVE_FEED_LAG_S``
+(the wall-to-virtual lag budget in seconds, [0, 3600], default 2.0) and
+``ANOMOD_FEED_JOURNAL`` (the wire journal's path; unset or ``off``: no
+recording).
 """
 
 from __future__ import annotations
@@ -617,11 +622,34 @@ def _flight_dump_dir_env() -> Optional[Path]:
     return Path(raw).expanduser()
 
 
+def _serve_feed_lag_s_env() -> float:
+    """The live feed's lag budget: a sample collected at wall time ``w``
+    maps to virtual time ``w - t0_wall + lag``, so a tick never asks for
+    data the polls have not fetched yet."""
+    raw = _env("ANOMOD_SERVE_FEED_LAG_S", "2.0")
+    try:
+        v = float(raw)
+    except ValueError:
+        raise ValueError(
+            f"ANOMOD_SERVE_FEED_LAG_S must be a number, got {raw!r}")
+    if not 0 <= v <= 3600:
+        raise ValueError(
+            f"ANOMOD_SERVE_FEED_LAG_S must be in [0, 3600], got {v}")
+    return v
+
+
+def _feed_journal_env() -> Optional[Path]:
+    raw = _env("ANOMOD_FEED_JOURNAL", "")
+    if not raw or raw.lower() in _CACHE_OFF:
+        return None
+    return Path(raw).expanduser()
+
+
 @dataclasses.dataclass
 class Config:
     """Where experiments come from and how they are loaded; the telemetry,
     online-RCA, shard, supervision, elastic-policy, deferred-commit,
-    tiering and flight-recorder knobs."""
+    tiering, flight-recorder and live-feed knobs."""
 
     data_root: Optional[Path] = dataclasses.field(
         default_factory=_data_root_env)
@@ -700,6 +728,10 @@ class Config:
             "ANOMOD_FLIGHT_MAX_TICKS", "65536", 10_000_000))
     flight_dump_dir: Optional[Path] = dataclasses.field(
         default_factory=_flight_dump_dir_env)
+    serve_feed_lag_s: float = dataclasses.field(
+        default_factory=_serve_feed_lag_s_env)
+    feed_journal: Optional[Path] = dataclasses.field(
+        default_factory=_feed_journal_env)
 
     @property
     def sn_data(self) -> Optional[Path]:

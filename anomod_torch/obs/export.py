@@ -114,9 +114,9 @@ def to_metric_batch(registry: Registry):
 
 def rows_to_metric_batch(rows):
     """Journal-shaped rows ``(t_s, sample_name, labels_str, value)`` ->
-    ``MetricBatch``: the row-level core of :func:`to_metric_batch` (the
-    JAX package's live feed shares it for rows scraped off an endpoint;
-    the port has no live feed yet)."""
+    ``MetricBatch``: the row-level core of :func:`to_metric_batch`, shared
+    by the live feed (:mod:`anomod_torch.serve.feed`) for rows scraped
+    off an endpoint."""
     from anomod_torch.schemas import MetricBatch
     metric_names: Dict[str, int] = {}
     series_keys: Dict[str, int] = {}

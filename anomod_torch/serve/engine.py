@@ -32,7 +32,7 @@ and the registry is scraped once per virtual second on the virtual
 clock, inside the measured wall; admission and the runner mirror their
 books into the registry.  With the registry on, a
 ``Tracer("anomod-serve")`` times the tick's legs (``serve.run``,
-``serve.admit``, ``serve.drain``, ``serve.score_fused``,
+``serve.modality``, ``serve.admit``, ``serve.drain``, ``serve.score_fused``,
 ``serve.score_shard``, ``serve.score``, ``serve.rca``).
 
 Online RCA (``rca=True`` or ``ANOMOD_SERVE_RCA``): when a tenant's
@@ -111,8 +111,15 @@ batches parked).  States, alerts, SLO and shed equal a never-evicted
 run's.  Tiering refuses the deferred commit; process workers refuse
 both.
 
-The JAX package's perf and census observatories and its multimodal
-sidecar are not part of this engine, nor are their metric series.
+The multimodal sidecar (``multimodal`` with ``testbed``): each tenant's
+detector is a ``MultimodalDetector`` on its pooled replay, and
+:meth:`offer_modality` pushes log / metric / API batches (a traffic
+source's ``modality_arrivals``) into its host planes before the tick's
+span admission, counted in ``modality_events``.  The policy, tiering,
+supervision and process workers turn themselves off beside it.
+
+The JAX package's perf and census observatories are not part of this
+engine, nor are their metric series.
 """
 
 from __future__ import annotations
@@ -311,6 +318,7 @@ class ServeReport:
     shard_imbalance: float                       # max shard load / mean
     latency: Dict[str, Optional[float]]          # aggregate p50/p99
     per_priority: Dict[int, dict]
+    modality_events: Dict[str, int]              # multimodal sidecar volume
     n_alerts: int
     n_tenants_alerted: int
     fault_detection: Optional[dict]
@@ -645,7 +653,8 @@ class ServeEngine:
                  max_backlog: Optional[int] = None,
                  score: bool = True, baseline_windows: int = 4,
                  z_threshold: float = 4.0, consecutive: int = 1,
-                 min_count: float = 5.0, fuse: bool = True,
+                 min_count: float = 5.0, multimodal: bool = False,
+                 testbed: Optional[str] = None, fuse: bool = True,
                  lane_buckets: Optional[Tuple[int, ...]] = None,
                  pipeline: Optional[int] = None, state: str = "device",
                  device: DeviceLike = None, native_stage: bool = True,
@@ -695,6 +704,16 @@ class ServeEngine:
                                              max_backlog=self.max_backlog,
                                              drain_engine=drain_engine)
         self.score = bool(score)
+        #: the multimodal sidecar: each tenant's detector is a
+        #: ``MultimodalDetector`` whose log / metric / API planes take
+        #: :meth:`offer_modality` batches beside the span queue.  Its
+        #: planes live outside the runner's snapshot and migration seams,
+        #: so the policy, tiering, supervision and process workers each
+        #: turn themselves off beside it (an explicit request raises)
+        self.multimodal = bool(multimodal)
+        self.testbed = testbed
+        #: pushed log / metric / API events per modality kind
+        self.modality_events: Dict[str, int] = {}
         #: tenant-fused scoring: per tick, drained same-tenant batches
         #: coalesce into one staging and same-width chunks across tenants
         #: run as lane-stacked dispatches
@@ -736,6 +755,14 @@ class ServeEngine:
         if policy_mode not in ("off", "auto", "script"):
             raise ValueError(f"unknown serve policy mode "
                              f"{policy_mode!r} (off|auto|script)")
+        if self.multimodal and policy_mode != "off":
+            if policy is not None:
+                raise ValueError(
+                    "the elastic policy migrates tenants through the "
+                    "bucket-runner state seams; the multimodal sidecar "
+                    "planes are not covered by the migration seams "
+                    "(ANOMOD_SERVE_POLICY=off)")
+            policy_mode = "off"
         self._elastic = policy_mode != "off"
         self.policy = None
         if self._elastic:
@@ -771,20 +798,25 @@ class ServeEngine:
         self._retired_runners: List[dict] = []
         #: state tiering (anomod_torch.serve.tiering): past ``tier_hot``
         #: pool-resident tenants the coldest idle ones demote to the host
-        #: warm tier and on to the disk cold tier.  The deferred commit
-        #: would demote states with folds in flight: tiering refuses it
-        #: (an explicit request raises, an env-sourced one is off)
+        #: warm tier and on to the disk cold tier.  The multimodal
+        #: sidecar's planes have no demotion copier and the deferred
+        #: commit would demote states with folds in flight: tiering
+        #: refuses both (an explicit request raises, an env-sourced one
+        #: is off)
         tier_hot_n = (app_cfg.serve_tier_hot if tier_hot is None
                       else int(tier_hot))
         if tier_hot is not None and tier_hot_n < 0:
             raise ValueError("tier_hot must be >= 0 (0 = tiering off)")
-        if tier_hot_n > 0 and self.async_commit:
+        if tier_hot_n > 0 and (self.multimodal or self.async_commit):
             if tier_hot is not None:
                 raise ValueError(
                     "state tiering demotes tenants through the "
-                    "bucket-runner snapshot seams; the deferred-commit "
-                    "tick leaves folds in flight at the demotion point "
-                    "(ANOMOD_SERVE_TIER_HOT=0)")
+                    "bucket-runner snapshot seams; "
+                    + ("the multimodal sidecar planes are not covered by "
+                       "the demotion copier" if self.multimodal else
+                       "the deferred-commit tick leaves folds in flight "
+                       "at the demotion point")
+                    + " (ANOMOD_SERVE_TIER_HOT=0)")
             tier_hot_n = 0
         self.tier_hot = int(tier_hot_n)
         self.tier_demote_after = int(
@@ -1015,6 +1047,7 @@ class ServeEngine:
                     "score": self.score,
                     "rca": self.rca,
                     "native_staging": self.runner.native_stage,
+                    "multimodal": self.multimodal,
                     "drain_engine": self.admission.drain_engine,
                     "fold": self.fold_mode,
                     "worker": self.worker_mode,
@@ -1072,6 +1105,15 @@ class ServeEngine:
         if self.ckpt_every < 0:
             raise ValueError("ckpt_every must be >= 0 (0 = supervision "
                              "off)")
+        if self.multimodal and self.ckpt_every:
+            # the sidecar's modality planes live outside the snapshot
+            # seams
+            if ckpt_every is not None:
+                raise ValueError(
+                    "shard supervision cannot checkpoint the multimodal "
+                    "sidecar state; run with ckpt_every=0 "
+                    "(ANOMOD_SERVE_CKPT_EVERY=0)")
+            self.ckpt_every = 0
         self.retries = int(app_cfg.serve_retries if retries is None
                            else retries)
         if self.retries < 1:
@@ -1097,9 +1139,12 @@ class ServeEngine:
         """The planes of this engine that cannot cross a process boundary
         (each keeps state the score plane shares in-process), in the JAX
         engine's order and words.  The JAX engine also refuses process
-        workers beside its mesh plane, multimodal sidecar and perf and
-        census observatories, which the port does not have."""
+        workers beside its mesh plane and perf and census observatories,
+        which the port does not have."""
         out = []
+        if self.multimodal:
+            out.append("the multimodal sidecar planes share coordinator "
+                       "memory")
         if self.async_commit:
             out.append("the deferred-commit seam keeps folds in flight "
                        "inside one interpreter")
@@ -1140,10 +1185,46 @@ class ServeEngine:
     def _detector_for(self, tenant_id: int) -> OnlineDetector:
         got = self._tenant_det.get(tenant_id)
         if got is None:
-            got = self._tenant_det[tenant_id] = OnlineDetector(
-                self.services, self.cfg, self.t0_us,
-                replay=self._replay_for(tenant_id), **self._det_kw)
+            if self.multimodal:
+                from anomod_torch.stream import MultimodalDetector
+                got = MultimodalDetector(
+                    self.services, self.cfg, self.t0_us,
+                    testbed=self.testbed,
+                    replay=self._replay_for(tenant_id), **self._det_kw)
+            else:
+                got = OnlineDetector(self.services, self.cfg, self.t0_us,
+                                     replay=self._replay_for(tenant_id),
+                                     **self._det_kw)
+            self._tenant_det[tenant_id] = got
         return got
+
+    # -- the multimodal sidecar --------------------------------------------
+
+    def offer_modality(self, tenant_id: int, kind: str, batch) -> None:
+        """Admit a tenant's log / metric / API micro-batch.
+
+        Modality planes are per-window host aggregates, a fraction of
+        the span volume: they bypass the weighted-fair span queue and
+        push straight into the tenant's ``MultimodalDetector``.  A window
+        closes only when a later span is pushed, and queued spans can
+        only delay that, so a modality batch admitted on arrival is in
+        place before its window scores."""
+        if not (self.multimodal and self.score):
+            raise ValueError("offer_modality needs multimodal=True and "
+                             "score=True")
+        det = self._detector_for(tenant_id)
+        if kind == "logs":
+            n = batch.n_lines
+            det.push_logs(batch)
+        elif kind == "metrics":
+            n = batch.n_samples
+            det.push_metrics(batch)
+        elif kind == "api":
+            n = batch.n_records
+            det.push_api(batch)
+        else:
+            raise ValueError(f"unknown modality kind {kind!r}")
+        self.modality_events[kind] = self.modality_events.get(kind, 0) + n
 
     # -- state tiering (anomod_torch.serve.tiering) -----------------------
 
@@ -1236,10 +1317,12 @@ class ServeEngine:
         return (self.tracer.span(name, **tags) if self.tracer is not None
                 else contextlib.nullcontext())
 
-    def tick(self, arrivals) -> List[QueuedBatch]:
-        """One virtual tick: admit this tick's arrivals, drain up to the
-        tick's capacity budget in weighted-fair order, score every drained
-        batch, advance the clock.  Returns the served batches.  Under the
+    def tick(self, arrivals, modality_arrivals=()) -> List[QueuedBatch]:
+        """One virtual tick: admit this tick's arrivals (the multimodal
+        sidecar's batches first: their windows must be filled before a
+        span push can close them), drain up to the tick's capacity budget
+        in weighted-fair order, score every drained batch, advance the
+        clock.  Returns the served batches.  Under the
         deferred commit the second half is :meth:`_tick_async_tail`: this
         tick's dispatches are issued and the previous tick commits first,
         with the same decisions."""
@@ -1252,6 +1335,10 @@ class ServeEngine:
             if factor > 1:
                 arrivals = [(tid, concat_span_batches([spans] * factor))
                             for tid, spans in arrivals]
+        if modality_arrivals:
+            with self._span("serve.modality"):
+                for tenant_id, kind, batch in modality_arrivals:
+                    self.offer_modality(tenant_id, kind, batch)
         with self._span("serve.admit"):
             for tenant_id, spans in arrivals:
                 # one shared service table per engine
@@ -2651,10 +2738,14 @@ class ServeEngine:
             else:
                 self._warm_shard(0)
         n_ticks = max(int(round(duration_s / self.clock.tick_s)), 1)
+        mod_src = (getattr(traffic, "modality_arrivals", None)
+                   if self.multimodal else None)
         with self._span("serve.run"):
             for _ in range(n_ticks):
                 lo = self.clock.now_s
-                self.tick(traffic.arrivals(lo, lo + self.clock.tick_s))
+                hi = lo + self.clock.tick_s
+                self.tick(traffic.arrivals(lo, hi),
+                          mod_src(lo, hi) if mod_src is not None else ())
         if self._deferred is not None:
             # the last deferred tick commits before finish() reads any
             # state; its wall joins the serve wall
@@ -2890,6 +2981,7 @@ class ServeEngine:
             shard_imbalance=round(imbalance, 6),
             latency=_merged_quantiles(list(self._slo.values())),
             per_priority=per_pri,
+            modality_events=dict(self.modality_events),
             n_alerts=sum(len(d.alerts) for d in self._tenant_det.values()),
             n_tenants_alerted=sum(1 for d in self._tenant_det.values()
                                   if d.alerts),

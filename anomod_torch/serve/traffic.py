@@ -135,10 +135,15 @@ class ScriptedTraffic:
     """Replay pre-built per-tenant SpanBatches on the virtual clock: the
     parity harness's traffic source.  ``streams`` maps tenant_id to an
     arrival-ordered SpanBatch; each ``arrivals`` call slices every stream
-    to [t_lo_s, t_hi_s) relative to ``t0_us``."""
+    to [t_lo_s, t_hi_s) relative to ``t0_us``.  ``experiments``
+    (optional, tenant_id -> Experiment) also feeds the tenants' log,
+    metric and API planes through ``modality_arrivals``: the multimodal
+    sidecar's counterpart of ``stream_experiment_multimodal``'s
+    one-clock slicing."""
 
     def __init__(self, streams: Dict[int, SpanBatch],
-                 specs: Sequence[TenantSpec], t0_us: int):
+                 specs: Sequence[TenantSpec], t0_us: int,
+                 experiments: Optional[Dict[int, object]] = None):
         self.specs = list(specs)
         self.t0_us = int(t0_us)
         ids = {s.tenant_id for s in self.specs}
@@ -148,6 +153,7 @@ class ScriptedTraffic:
         self.streams = {
             t: take_spans(b, np.argsort(b.start_us, kind="stable"))
             for t, b in streams.items()}
+        self.experiments = dict(experiments or {})
 
     def end_s(self) -> float:
         """Last span's arrival, in virtual seconds past t0."""
@@ -165,4 +171,26 @@ class ScriptedTraffic:
             m = (b.start_us >= lo) & (b.start_us < hi)
             if m.any():
                 out.append((tid, take_spans(b, m)))
+        return out
+
+    def modality_arrivals(self, t_lo_s: float, t_hi_s: float) -> List[tuple]:
+        """The tick's ``(tenant_id, kind, batch)`` log / metric / API
+        slices, on the serving clock."""
+        from anomod_torch.stream import _take_nt
+        lo = self.t0_us / 1e6 + t_lo_s
+        hi = self.t0_us / 1e6 + t_hi_s
+        out: List[tuple] = []
+        for tid in sorted(self.experiments):
+            exp = self.experiments[tid]
+            for kind, b, n in (("logs", exp.logs,
+                                getattr(exp.logs, "n_lines", 0)),
+                               ("metrics", exp.metrics,
+                                getattr(exp.metrics, "n_samples", 0)),
+                               ("api", exp.api,
+                                getattr(exp.api, "n_records", 0))):
+                if b is None or not n:
+                    continue
+                m = (b.t_s >= lo) & (b.t_s < hi)
+                if m.any():
+                    out.append((tid, kind, _take_nt(b, m)))
         return out

@@ -139,9 +139,22 @@ drives the data layer and every ported path:
   scaling on the CPU twin's schedule; the JAX bench's tiering pair (48
   tenants, hot 12) off, on and on again, every counter non-zero and the
   CPU twin's, states, alerts and SLO the off run's, the rerun's journal
-  the first's.
+  the first's;
+- the live feed and the multimodal sidecar (phase 23): the JAX bench's
+  live-feed leg (the dogfood loop: the port's own ``/metrics`` scraped
+  into the tick, 4 tenants, 10 s) live and recorded, replayed on the
+  card and by a CPU twin in a spawned process, equal on the canonical
+  journal, states, alerts, latency and shed; the feed at the TT
+  deployment's full width (a Jaeger stub serving one TT fault experiment
+  at 400 traces, 45 tenants and services, 60 s windows, the anchor pinned
+  to the corpus start) live, card replay and CPU-twin replay, equal
+  gap counts too; the sidecar (the 13 TT labels one tenant each, logs,
+  metrics and API, 60 s ticks) held to the port's sequential
+  ``MultimodalDetector`` on the card and to the CPU twin, supervision
+  and the policy off; each run's serve wall, the traffic's own wall,
+  polls / samples / spans / gaps, launches, and a profiled busy share.
 
-The serve runs of phases 8 and 16-22 run with the flight recorder on and
+The serve runs of phases 8 and 16-23 run with the flight recorder on and
 supervised (a checkpoint every 32 ticks), the engine's defaults.
 
 Phase 1 also prints how each kernel's shared atomics compiled (from
@@ -3332,6 +3345,473 @@ def elastic_async_tier_phase(dev, card, cpu_journal) -> dict:
     return {"elastic_async_tier": out}
 
 
+#: phase 23a: the JAX serve bench's live-feed leg (``bench.py:468-493``):
+#: the dogfood loop, 4 tenants and services, 10 s in 1 s ticks
+FEED_DOGFOOD = dict(n_tenants=4, n_services=4, capacity_spans_per_s=2000.0,
+                    duration_s=10.0, tick_s=1.0, window_s=2.0,
+                    baseline_windows=2, buckets=(64,), n_windows=16,
+                    flight=True, flight_digest_every=2)
+#: phase 23b: the feed at the TT deployment's full width (45 tenants and
+#: services, the stream's 60 s windows, 32 windows), over one TT fault
+#: experiment at phase 15's 400 traces served by a Jaeger stub
+FEED_TT_LABEL = "Lv_P_CPU_preserve"
+FEED_TT = dict(n_tenants=45, n_services=45, window_s=60.0, n_windows=32,
+               tick_s=60.0, lag_s=2.0)
+#: phase 23c: the sidecar's ticks
+SIDECAR_TICK_S = 60.0
+
+
+class JaegerStub:
+    """A Jaeger query service on ``127.0.0.1`` over one Jaeger document,
+    in the form of the JAX tests' ``JsonStub`` (``tests/test_live.py``):
+    ``/api/services`` and ``/api/traces?service=&start=&end=``, a trace
+    served for each service it touches once its latest span has started
+    inside the ``[start, end]`` window (epoch µs)."""
+
+    def __init__(self, doc):
+        import bisect
+        import threading
+        import urllib.parse
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+        by_svc = {}
+        for tr in doc["data"]:
+            last = max(int(sp["startTime"]) for sp in tr["spans"])
+            for svc in sorted({p["serviceName"]
+                               for p in tr["processes"].values()}):
+                by_svc.setdefault(svc, []).append((last, tr["traceID"], tr))
+        for rows in by_svc.values():
+            rows.sort(key=lambda r: (r[0], r[1]))
+        self.n_requests = 0
+        stub = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_GET(self):
+                stub.n_requests += 1
+                parsed = urllib.parse.urlparse(self.path)
+                q = {k: v[0] for k, v in
+                     urllib.parse.parse_qs(parsed.query).items()}
+                if parsed.path == "/api/services":
+                    body = {"data": sorted(by_svc)}
+                elif parsed.path == "/api/traces":
+                    rows = by_svc.get(q.get("service"), [])
+                    keys = [r[0] for r in rows]
+                    lo = bisect.bisect_left(keys, int(q["start"]))
+                    hi = bisect.bisect_right(keys, int(q["end"]))
+                    body = {"data": [r[2] for r in rows[lo:hi]]}
+                else:
+                    self.send_error(404)
+                    return
+                payload = json.dumps(body).encode()
+                self.send_response(200)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(payload)))
+                self.end_headers()
+                self.wfile.write(payload)
+
+            def log_message(self, *a):
+                pass
+
+        self.server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.thread = threading.Thread(target=self.server.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+        self.url = f"http://127.0.0.1:{self.server.server_port}"
+
+    def close(self):
+        self.server.shutdown()
+        self.server.server_close()
+
+
+@contextlib.contextmanager
+def traffic_walls():
+    """The traffic source's own wall inside the block, summed over every
+    call the engine's run loop makes: ``LiveFeed.arrivals`` (the feed's
+    polls, span synthesis and windowing) and ``ScriptedTraffic``'s
+    ``arrivals`` / ``modality_arrivals`` (the sidecar's slicing)."""
+    from anomod_torch.serve.feed import LiveFeed
+    from anomod_torch.serve.traffic import ScriptedTraffic
+    walls = {"s": 0.0, "calls": 0}
+    patched = [(cls, name, getattr(cls, name))
+               for cls, name in ((LiveFeed, "arrivals"),
+                                 (ScriptedTraffic, "arrivals"),
+                                 (ScriptedTraffic, "modality_arrivals"))]
+
+    def timed_method(real):
+        def method(self, lo, hi):
+            t0 = time.perf_counter()
+            try:
+                return real(self, lo, hi)
+            finally:
+                walls["s"] += time.perf_counter() - t0
+                walls["calls"] += 1
+        return method
+    for cls, name, real in patched:
+        setattr(cls, name, timed_method(real))
+    try:
+        yield walls
+    finally:
+        for cls, name, real in patched:
+            setattr(cls, name, real)
+
+
+def feed_tt_run(f, device):
+    """Phase 23b's engine over feed ``f``, built the way ``run_live_feed``
+    builds it (its defaults, 60 s ticks, 32 windows): ``(engine,
+    report)``."""
+    from anomod_torch.serve.engine import ServeEngine, serve_plane_cfg
+    eng = ServeEngine(f.specs, f.services,
+                      serve_plane_cfg(len(f.services), FEED_TT["window_s"],
+                                      FEED_TT["n_windows"]),
+                      capacity_spans_per_s=2000.0,
+                      tick_s=FEED_TT["tick_s"], device=device, flight=True)
+    rep = eng.run(f, duration_s=FEED_TT["n_windows"] * FEED_TT["tick_s"])
+    return eng, rep
+
+
+def sidecar_corpus():
+    """Phase 23c's fleet: each of the 13 TT labels one tenant, at phase
+    15's corpus (``stream_quality("TT", 400, multimodal=True)``'s
+    experiments, logs, metrics and API), as a ``ScriptedTraffic``."""
+    from anomod_torch import synth
+    from anomod_torch.quality import SHIFTS
+    from anomod_torch.rca import experiment_plan
+    from anomod_torch.serve.queues import TenantSpec
+    from anomod_torch.serve.traffic import ScriptedTraffic
+    hard = synth.HardMode(severity=1.0, noise=0.0, **SHIFTS["in-dist"])
+    exps = [synth.generate_experiment(label, n_traces=400, seed=gen_seed,
+                                      hard=mode)
+            for label, mode, gen_seed in experiment_plan("TT", 0, hard=hard)]
+    services = exps[0].spans.services
+    check(all(e.spans.services == services for e in exps),
+          "sidecar: the TT experiments do not share one service table")
+    t0 = min(int(e.spans.start_us.min()) for e in exps)
+    specs = [TenantSpec(tenant_id=i, name=e.name) for i, e in enumerate(exps)]
+    return ScriptedTraffic({i: e.spans for i, e in enumerate(exps)},
+                           specs, t0, experiments=dict(enumerate(exps)))
+
+
+def sidecar_run(device, traffic=None):
+    """Phase 23c's sidecar engine (``multimodal=True``, ``testbed="TT"``,
+    60 s ticks, every span served) over :func:`sidecar_corpus`, under an
+    ``ANOMOD_SERVE_POLICY=auto`` setting it turns off:
+    ``(engine, report, traffic)``."""
+    import dataclasses
+
+    from anomod_torch.config import get_config, set_config
+    from anomod_torch.replay import ReplayConfig
+    from anomod_torch.serve.engine import ServeEngine
+    if traffic is None:
+        traffic = sidecar_corpus()
+    services = next(iter(traffic.streams.values())).services
+    prev = set_config(dataclasses.replace(get_config(), serve_policy="auto"))
+    try:
+        eng = ServeEngine(traffic.specs, services,
+                          ReplayConfig(n_services=len(services),
+                                       chunk_size=4096),
+                          t0_us=traffic.t0_us,
+                          capacity_spans_per_s=10_000_000,
+                          tick_s=SIDECAR_TICK_S, max_backlog=10_000_000,
+                          multimodal=True, testbed="TT", device=device)
+    finally:
+        set_config(prev)
+    rep = eng.run(traffic, duration_s=traffic.end_s() + SIDECAR_TICK_S)
+    return eng, rep, traffic
+
+
+def _run_digest(eng, rep, f=None) -> dict:
+    """What phase 23 holds equal across a run and its twins: the
+    canonical journal, states and alerts, latency, shed and the feed's
+    counts."""
+    out = dict(journal=eng.flight_recorder.canonical_bytes(),
+               fingerprint=serve_fingerprint(eng), latency=rep.latency,
+               shed_fraction=rep.shed_fraction,
+               served_spans=rep.served_spans,
+               modality_events=rep.modality_events)
+    if f is not None:
+        out.update(n_polls=f.n_polls, n_samples=f.n_samples,
+                   n_spans=f.n_spans, n_gaps=f.n_gaps)
+    return out
+
+
+def feed_cpu_twin(job: str, wire: str = "") -> tuple:
+    """Phase 23's CPU twin, run in a spawned process: ``dogfood`` /
+    ``tt`` replay the wire journal at ``wire``, ``sidecar`` builds the
+    sidecar run's corpus and serves it; returns the run's digest
+    (:func:`_run_digest`) and its wall."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from anomod_torch.obs.registry import Registry, set_registry
+    from anomod_torch.serve import feed
+    set_registry(Registry(enabled=True))
+    t0 = time.perf_counter()
+    if job == "dogfood":
+        kw = {k: v for k, v in FEED_DOGFOOD.items()
+              if k not in ("n_tenants", "n_services")}
+        eng, rep, f = feed.run_live_feed(replay=wire, device="cpu", **kw)
+        return _run_digest(eng, rep, f), time.perf_counter() - t0
+    if job == "tt":
+        f = feed.LiveFeed.from_journal(wire)
+        eng, rep = feed_tt_run(f, "cpu")
+        return _run_digest(eng, rep, f), time.perf_counter() - t0
+    import dataclasses
+    eng, rep, _ = sidecar_run("cpu")
+    d = _run_digest(eng, rep)
+    d["alerts"] = {t: [dataclasses.asdict(a) for a in eng.alerts_for(t)]
+                   for t in sorted(eng._tenant_det)}
+    return d, time.perf_counter() - t0
+
+
+def _held(name, got, want, keys):
+    for k in keys:
+        check(got[k] == want[k], f"{name}: {k} differs ({str(got[k])[:200]} "
+              f"against {str(want[k])[:200]})")
+
+
+def live_feed_phase(dev, card) -> dict:
+    """Phase 23: the live feed and the multimodal sidecar in the serve
+    tick, on the card.  (a) The JAX serve bench's live-feed leg: the
+    dogfood loop (an ``ObsHttpServer`` on a fresh registry scraped by
+    ``run_live_feed``) live and recorded, replayed on the card, and
+    replayed by a CPU twin in a spawned process: equal canonical
+    journals, states, alerts, latency and shed, ``n_polls`` wire entries.
+    (b) The feed at the TT deployment's full width: a Jaeger stub serving
+    one TT fault experiment (400 traces), a ``LiveFeed`` of 45 tenants
+    and services pinned to the corpus start, the engine ``run_live_feed``
+    builds in 60 s ticks; live, card replay and CPU-twin replay equal,
+    gap counts too.  (c) The sidecar: the 13 TT labels one tenant each
+    (phase 15's corpus, logs, metrics and API), ``multimodal=True``,
+    held to the port's sequential ``MultimodalDetector`` fed the same
+    slices on the card (alert lists and first-alert windows; scores
+    within ``RTOL_CARD``) and to the CPU twin (alerts and
+    ``modality_events`` exactly); supervision and the policy off.  Each
+    run's serve wall, the feed's own wall, polls / samples / spans /
+    gaps and the serve kernels' launches (counts reset before each run,
+    read after) are printed; (b) and (c) give a profiled busy share."""
+    import dataclasses
+    import multiprocessing
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from anomod_torch import synth
+    from anomod_torch.labels import label_for
+    from anomod_torch.obs.http import ObsHttpServer
+    from anomod_torch.obs.registry import (Registry, get_registry,
+                                           set_registry)
+    from anomod_torch.ops import serve_kernels as sk
+    from anomod_torch.serve import feed
+    from anomod_torch.stream import MultimodalDetector, StreamReplay
+    t_phase = time.perf_counter()
+    out = {}
+    tmp = tempfile.TemporaryDirectory()
+    prev_reg = get_registry()
+    pool = multiprocessing.get_context("spawn").Pool(2)
+    try:
+        twin_sidecar = pool.apply_async(feed_cpu_twin, ("sidecar",))
+
+        def kernel_run(fn):
+            sk.reset_launches()
+            with traffic_walls() as walls:
+                got = fn()
+            return got, dict(sk.launches), walls
+
+        def profiled(fn):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            busy = device_busy_ms(prof)
+            return dict(profiled_wall_s=wall, device_busy_ms=busy,
+                        device_busy_share=None if busy is None
+                        else busy / 1e3 / wall)
+
+        def record(name, rep, f, launches, walls):
+            r = dict(serve_wall_s=rep.serve_wall_s, feed_wall_s=walls["s"],
+                     feed_calls=walls["calls"],
+                     served_spans=rep.served_spans, n_alerts=rep.n_alerts,
+                     modality_events=rep.modality_events,
+                     launches=launches)
+            if f is not None:
+                r.update(n_polls=f.n_polls, n_samples=f.n_samples,
+                         n_spans=f.n_spans, n_gaps=f.n_gaps)
+            out.setdefault(name[:3], {})[name] = r
+            log(f"[23] {name} on {card}: serve wall {rep.serve_wall_s:.4f} "
+                f"s, traffic's own wall {walls['s']:.4f} s over "
+                f"{walls['calls']} calls; " + (f"polls {f.n_polls}, samples {f.n_samples}, "
+                              f"spans {f.n_spans}, gaps {f.n_gaps}; "
+                              if f is not None else "")
+                + f"served {rep.served_spans}, alerts {rep.n_alerts}; "
+                + (f"modality events {rep.modality_events}; "
+                   if rep.modality_events else "")
+                + f"launches {launches}")
+
+        # -- (a) the dogfood loop ----------------------------------------
+        kw = {k: v for k, v in FEED_DOGFOOD.items()
+              if k not in ("n_tenants", "n_services")}
+        wire = str(Path(tmp.name) / "dogfood_wire.json")
+        set_registry(Registry(enabled=True))
+        with ObsHttpServer(port=0) as srv:
+            (ea, ra, fa), la, wa = kernel_run(lambda: feed.run_live_feed(
+                scrape_url=f"{srv.url}/metrics", n_tenants=4, n_services=4,
+                journal=wire, device=dev, **kw))
+        twin_a = pool.apply_async(feed_cpu_twin, ("dogfood", wire))
+        (eb, rb, fb), lb, wb = kernel_run(lambda: feed.run_live_feed(
+            replay=wire, device=dev, **kw))
+        doc = feed.load_feed_journal(wire)
+        check(len(doc["entries"]) == fa.n_polls == 10,
+              f"dogfood: {len(doc['entries'])} wire entries, {fa.n_polls} "
+              "polls")
+        check(fb.transport.n_served == fa.n_polls,
+              "dogfood: the replay served another entry count")
+        live_d, rep_d = _run_digest(ea, ra, fa), _run_digest(eb, rb, fb)
+        check(ra.served_spans > 0, "dogfood: nothing served")
+        keys = ("journal", "fingerprint", "latency", "shed_fraction",
+                "served_spans", "n_polls", "n_samples", "n_spans", "n_gaps")
+        _held("dogfood card replay", rep_d, live_d, keys)
+        for name, launches in (("live", la), ("replay", lb)):
+            check(launches["lane_delta"] > 0,
+                  f"dogfood {name}: lane_delta was not launched")
+        record("23a-live", ra, fa, la, wa)
+        record("23a-card-replay", rb, fb, lb, wb)
+
+        # -- (b) the feed at the TT deployment's width -------------------
+        exp_spans = synth.generate_spans(label_for(FEED_TT_LABEL),
+                                         n_traces=400, seed=0)
+        jdoc = synth.spans_to_jaeger_json(exp_spans)
+        t0_wall = int(exp_spans.start_us.min()) / 1e6
+        stub = JaegerStub(jdoc)
+        tt_wire = str(Path(tmp.name) / "tt_wire.json")
+        try:
+            set_registry(Registry(enabled=True))
+            f_live = feed.LiveFeed(jaeger_url=stub.url,
+                                   n_tenants=FEED_TT["n_tenants"],
+                                   n_services=FEED_TT["n_services"],
+                                   lag_s=FEED_TT["lag_s"],
+                                   t0_wall_s=t0_wall)
+            (ec, rc), lc, wc = kernel_run(lambda: feed_tt_run(f_live, dev))
+            f_live.dump_journal(tt_wire)
+        finally:
+            stub.close()
+        twin_b = pool.apply_async(feed_cpu_twin, ("tt", tt_wire))
+        f_rep = feed.LiveFeed.from_journal(tt_wire)
+        (ed, rd), ld, wd = kernel_run(lambda: feed_tt_run(f_rep, dev))
+        live_tt, rep_tt = _run_digest(ec, rc, f_live), _run_digest(ed, rd,
+                                                                    f_rep)
+        check(rc.served_spans > 0 and f_live.n_spans > 0,
+              f"tt feed: {f_live.n_spans} spans, {rc.served_spans} served")
+        _held("tt feed card replay", rep_tt, live_tt, keys)
+        for name, launches in (("live", lc), ("replay", ld)):
+            for k in ("lane_delta", "window_gather"):
+                check(launches[k] > 0,
+                      f"tt feed {name}: {k} was not launched")
+        record("23b-live", rc, f_live, lc, wc)
+        record("23b-card-replay", rd, f_rep, ld, wd)
+        out["23b"]["stub_requests"] = stub.n_requests
+        out["23b"]["wire_bytes"] = Path(tt_wire).stat().st_size
+        set_registry(Registry(enabled=True))
+        out["23b"]["profile"] = profiled(
+            lambda: feed_tt_run(feed.LiveFeed.from_journal(tt_wire), dev))
+
+        # -- (c) the sidecar -----------------------------------------------
+        set_registry(Registry(enabled=True))
+        traffic = sidecar_corpus()
+        (ee, re_, _), le, we = kernel_run(lambda: sidecar_run(dev, traffic))
+        check(le["lane_delta"] > 0, "sidecar: lane_delta was not launched")
+        check(min(re_.modality_events.get(k, 0)
+                  for k in ("logs", "metrics", "api")) > 0,
+              f"sidecar: modality events {re_.modality_events}")
+        check(not re_.supervised and re_.policy == "off"
+              and ee.policy is None and ee.ckpt_every == 0,
+              f"sidecar: supervised {re_.supervised}, policy {re_.policy}")
+        record("23c-sidecar", re_, None, le, we)
+        # the sequential oracle on the card: one MultimodalDetector a
+        # tenant on a card StreamReplay (dense_slice_fold), fed the same
+        # one-clock slices, modalities first
+        t0 = time.perf_counter()
+        solo = {t: MultimodalDetector(
+            ee.services, ee.cfg, ee.t0_us, testbed="TT",
+            replay=StreamReplay(ee.cfg, ee.t0_us, device=dev),
+            **ee._det_kw) for t in traffic.streams}
+        duration = traffic.end_s() + SIDECAR_TICK_S
+        lo = 0.0
+        while lo < round(duration / SIDECAR_TICK_S) * SIDECAR_TICK_S:
+            hi = lo + SIDECAR_TICK_S
+            for tid, kind, mb in traffic.modality_arrivals(lo, hi):
+                getattr(solo[tid], f"push_{kind}")(mb)
+            for tid, mb in traffic.arrivals(lo, hi):
+                solo[tid].push(mb)
+            lo = hi
+        for det in solo.values():
+            det.finish()
+        oracle_s = time.perf_counter() - t0
+        worst = 0.0
+        for tid, det in solo.items():
+            got, want = ee.alerts_for(tid), det.alerts
+            check([(a.window, a.service, a.evidence) for a in got]
+                  == [(a.window, a.service, a.evidence) for a in want],
+                  f"sidecar tenant {tid}: alert list differs from the "
+                  "sequential detector's")
+            check(ee._tenant_det[tid].first_alert_window()
+                  == det.first_alert_window(),
+                  f"sidecar tenant {tid}: first-alert window differs")
+            for a, b in zip(got, want):
+                err = abs(a.score - b.score) / max(abs(b.score), 1e-12)
+                worst = max(worst, err)
+        check(worst <= RTOL_CARD,
+              f"sidecar: scores {worst:.3g} from the oracle's")
+        out["23c"]["oracle"] = dict(wall_s=oracle_s, score_rtol=worst,
+                                    n_alerts=sum(len(d.alerts)
+                                                 for d in solo.values()))
+        log(f"[23] sidecar vs the sequential MultimodalDetector on the "
+            f"card ({oracle_s:.3f} s): alert lists and first-alert windows "
+            f"equal, scores within {worst:.3g} (limit {RTOL_CARD})")
+        set_registry(Registry(enabled=True))
+        out["23c"]["profile"] = profiled(lambda: sidecar_run(dev, traffic))
+
+        # -- the CPU twins ------------------------------------------------
+        t0 = time.perf_counter()
+        (ta, ta_s), (tb, tb_s), (tc, tc_s) = (
+            j.get(timeout=600) for j in (twin_a, twin_b, twin_sidecar))
+        wait_s = time.perf_counter() - t0
+        _held("dogfood CPU twin", ta, live_d, keys)
+        _held("tt feed CPU twin", tb, live_tt, keys)
+        got_alerts = {t: [dataclasses.asdict(a) for a in ee.alerts_for(t)]
+                      for t in sorted(ee._tenant_det)}
+        check(got_alerts == tc["alerts"],
+              "sidecar: alerts differ from the CPU twin's")
+        _held("sidecar CPU twin", _run_digest(ee, re_), tc,
+              ("modality_events", "journal", "fingerprint", "latency",
+               "shed_fraction", "served_spans"))
+        out["cpu_twin_wall_s"] = {"23a": ta_s, "23b": tb_s, "23c": tc_s,
+                                  "wait_s": wait_s}
+        log(f"[23] CPU twins (a spawned process): dogfood {ta_s:.2f} s, tt "
+            f"feed {tb_s:.2f} s, sidecar {tc_s:.2f} s (waited {wait_s:.2f} "
+            f"s): every journal, state, alert, latency, shed, gap count and "
+            f"modality count equal the card's")
+    finally:
+        pool.terminate()
+        pool.join()
+        set_registry(prev_reg)
+        tmp.cleanup()
+    for part in ("23b", "23c"):
+        p = out[part]["profile"]
+        busy = p["device_busy_ms"]
+        log(f"[23] {part} profiled on {card}: device busy "
+            + ("not measured (no device events)" if busy is None else
+               f"{busy:.3f} ms in {p['profiled_wall_s']:.3f} s, share "
+               f"{p['device_busy_share']:.4g}"))
+    out["launches"] = {
+        k: sum(r["launches"].get(k, 0) for part in ("23a", "23b", "23c")
+               for r in out[part].values() if isinstance(r, dict)
+               and "launches" in r)
+        for k in ("lane_delta", "window_gather")}
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    log(f"[23] phase 23 in {out['phase_wall_s']:.1f} s; serve kernel "
+        f"launches {out['launches']}")
+    return {"live_feed": out}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3648,6 +4128,7 @@ def main() -> int:
     fs20 = flight_shard_phase(dev, card, cpu_journal)
     ps21 = supervise_proc_phase(dev, card, cpu_journal, fs20)
     p22 = elastic_async_tier_phase(dev, card, cpu_journal)
+    p23 = live_feed_phase(dev, card)
 
     # -- report -----------------------------------------------------------
     # the dense kernel's top-level times are the corpus pass's; each path
@@ -3701,6 +4182,8 @@ def main() -> int:
             # phase 22's deferred, elastic and tiered runs
             k["launches_phase22"] = \
                 p22["elastic_async_tier"]["launches"][k["name"]]
+            # phase 23's feed and sidecar runs
+            k["launches_phase23"] = p23["live_feed"]["launches"][k["name"]]
     log(json.dumps({"replay_spans_per_sec": rates, "replicate": replicate,
                     "stream_top1": sum(hits) / len(hits),
                     "stream_wall_s": stream_s,
@@ -3711,7 +4194,7 @@ def main() -> int:
                     "sorted_ends_ms": end_ms, "dense_ends_ms": dense_end_ms,
                     "l2_eviction_ms": flush, **data, **serve,
                     **sketch, **roof, **det13, **rca14, **mm15, **rca16,
-                    **tele17, **q18, **s19, **fs20, **ps21, **p22,
+                    **tele17, **q18, **s19, **fs20, **ps21, **p22, **p23,
                     "wall_s": time.perf_counter() - t_all}))
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -1162,3 +1162,81 @@ def test_tier_round_trip_through_card_pool_is_bit_equal(cuda_device,
         assert [dataclasses.asdict(a) for a in e1.alerts_for(tid)] \
             == [dataclasses.asdict(a) for a in e0.alerts_for(tid)]
     assert r1.latency == r0.latency and r1.shed_spans == r0.shed_spans
+
+
+@pytest.mark.cuda
+def test_dogfood_feed_on_card_live_equals_replay(cuda_device, tmp_path):
+    """The live feed's dogfood loop on the card (the port's own
+    ``/metrics`` scraped each tick, ``tests/test_feed.py``'s sizes):
+    recorded live, then replayed from its wire journal on the card, with
+    the lane kernel launched; both give the same canonical journal,
+    states, alerts, latency and shed."""
+    from anomod_torch.obs.http import ObsHttpServer
+    from anomod_torch.obs.registry import Registry, get_registry, set_registry
+    from anomod_torch.ops import serve_kernels as sk
+    from anomod_torch.serve.feed import run_live_feed
+    kw = dict(capacity_spans_per_s=2000.0, duration_s=6.0, tick_s=1.0,
+              window_s=2.0, baseline_windows=2, buckets=(64,), n_windows=16,
+              flight=True, flight_digest_every=2, device=cuda_device)
+    wire = tmp_path / "wire.json"
+    prev = get_registry()
+    set_registry(Registry(enabled=True))
+    try:
+        sk.reset_launches()
+        with ObsHttpServer(port=0) as srv:
+            ea, ra, fa = run_live_feed(scrape_url=f"{srv.url}/metrics",
+                                       n_tenants=4, n_services=4,
+                                       journal=wire, **kw)
+        eb, rb, fb = run_live_feed(replay=wire, **kw)
+    finally:
+        set_registry(prev)
+    assert sk.launches["lane_delta"] > 0 and ra.served_spans > 0
+    assert fb.transport.n_served == fa.n_polls == 6
+    assert ea.flight_recorder.canonical_bytes() \
+        == eb.flight_recorder.canonical_bytes()
+    assert (ra.served_spans, ra.shed_fraction, ra.latency) \
+        == (rb.served_spans, rb.shed_fraction, rb.latency)
+    assert _serve_fingerprint(ea) == _serve_fingerprint(eb)
+
+
+@pytest.mark.cuda
+def test_multimodal_sidecar_on_card_equals_cpu(cuda_device):
+    """The multimodal sidecar on the card (``tests/test_serve.py``'s run:
+    ``Svc_Kill_UserTimeline``, 100 traces, 60 s ticks) equals its CPU
+    twin on the alert list, ``modality_events`` and the canonical
+    journal, with the lane kernel launched."""
+    import dataclasses
+
+    from anomod_torch import labels, synth
+    from anomod_torch.ops import serve_kernels as sk
+    from anomod_torch.replay import ReplayConfig
+    from anomod_torch.serve.engine import ServeEngine
+    from anomod_torch.serve.queues import TenantSpec
+    from anomod_torch.serve.traffic import ScriptedTraffic
+    label = labels.label_for("Svc_Kill_UserTimeline")
+    exp = synth.generate_experiment(label, n_traces=100, seed=0)
+    t0 = int(exp.spans.start_us.min())
+    specs = [TenantSpec(tenant_id=0, name="t0")]
+    runs = []
+    for dev in (cuda_device, "cpu"):
+        traffic = ScriptedTraffic({0: exp.spans}, specs, t0,
+                                  experiments={0: exp})
+        eng = ServeEngine(
+            specs, exp.spans.services,
+            ReplayConfig(n_services=len(exp.spans.services),
+                         chunk_size=4096),
+            t0_us=t0, capacity_spans_per_s=10_000_000, tick_s=60.0,
+            buckets=(256, 1024), max_backlog=10_000_000, baseline_windows=8,
+            multimodal=True, testbed=label.testbed, device=dev)
+        sk.reset_launches()
+        rep = eng.run(traffic, duration_s=traffic.end_s() + 60.0)
+        runs.append((eng, rep, dict(sk.launches)))
+    (ec, rc, lc), (eh, rh, _) = runs
+    assert lc["lane_delta"] > 0
+    assert rc.modality_events == rh.modality_events
+    assert min(rc.modality_events.values()) > 0
+    assert ec.alerts_for(0) and [dataclasses.asdict(a)
+                                 for a in ec.alerts_for(0)] \
+        == [dataclasses.asdict(a) for a in eh.alerts_for(0)]
+    assert ec.flight_recorder.canonical_bytes() \
+        == eh.flight_recorder.canonical_bytes()

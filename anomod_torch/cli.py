@@ -62,6 +62,21 @@
 - ``roofline``: the sorted replay kernel's roofline probe (the
   counterpart of ``scripts/bench_kernel_roofline.py``): rates of the
   kernel and its two ablations, one JSON line, one capture.
+- ``perf record | diff | history``: the perf observatory (the
+  counterpart of ``anomod perf``): ``record`` serves seeded traffic with
+  the dispatch-lifecycle timeline on and dumps it (``--chrome``: a
+  Perfetto trace too), ``diff`` compares two captures (exit 2 on a
+  decision drift or a coverage gap, 1 on a significant wall regression),
+  ``history`` indexes a runs directory.  ``serve --perf`` turns the
+  timeline on in a serve run.
+- ``census record | probe | diff``: the fleet census (the counterpart of
+  ``anomod census``): ``record`` dumps a run's census timeline, ``probe``
+  runs the registered-fleet sweep, ``diff`` compares two captures'
+  census blocks (exit 1 on a regression, 2 on a missing block).
+- ``list``, ``synth``, ``ingest`` and ``logscan``: the labels, one
+  synthetic experiment's summary, the ingest cache (``--warm-cache``,
+  ``--clear``) and a directory's per-file log summaries (the Python
+  scanner), as their ``anomod`` counterparts print them.
 """
 
 from __future__ import annotations
@@ -139,6 +154,20 @@ def _parser() -> argparse.ArgumentParser:
     s.add_argument("--shift", default="in-dist", choices=list(SHIFTS),
                    help="--all only: evaluate under a shifted generator "
                         "(quality.SHIFTS axes)")
+    s.add_argument("--slice-seconds", type=float, default=60.0,
+                   help="micro-batch width of the simulated feed")
+    s.add_argument("--threshold", type=float, default=4.0,
+                   help="z-score alert threshold")
+    s.add_argument("--baseline-windows", type=int, default=8)
+    s.add_argument("--consecutive", type=int, default=1,
+                   help="windows above threshold before alerting")
+    s.add_argument("--from-data", action="store_true",
+                   help="single-experiment mode: replay the experiment "
+                        "from the dataset tree (io.dataset loaders; LFS "
+                        "stubs -> synth) instead of generating it")
+    s.add_argument("--no-edge-attribution", action="store_true",
+                   help="turn off the out-edge attribution plane (default "
+                        "on)")
     s.add_argument("--device", default=None,
                    help="cuda (default) or cpu (plain PyTorch versions)")
 
@@ -197,19 +226,36 @@ def _parser() -> argparse.ArgumentParser:
     v.add_argument("--baseline-windows", type=int, default=4)
     v.add_argument("--threshold", type=float, default=4.0)
     v.add_argument("--pipeline", type=int, default=None,
-                   help="in-flight fused dispatches plus one (default 2)")
+                   help="in-flight fused dispatches plus one (default: "
+                        "ANOMOD_SERVE_PIPELINE, 2)")
     v.add_argument("--no-fuse", action="store_true",
                    help="one dispatch per tenant micro-batch")
     v.add_argument("--buckets", default=None,
-                   help="comma-separated micro-batch bucket widths")
+                   help="comma-separated micro-batch bucket widths "
+                        "(default: ANOMOD_SERVE_BUCKETS)")
     v.add_argument("--lane-buckets", default=None,
-                   help="comma-separated fused-dispatch lane counts")
+                   help="comma-separated fused-dispatch lane counts "
+                        "(default: ANOMOD_SERVE_LANE_BUCKETS)")
     v.add_argument("--max-backlog", type=int, default=None,
-                   help="global backlog bound in spans (default 200000)")
+                   help="global backlog bound in spans (default: "
+                        "ANOMOD_SERVE_MAX_BACKLOG, 200000)")
     v.add_argument("--fault-tenants", type=int, default=2)
-    v.add_argument("--state", choices=["host", "device"], default=None,
-                   help="tenant states in the device pool (the default) or "
-                        "on the host")
+    v.add_argument("--state", choices=["auto", "host", "device"],
+                   default=None,
+                   help="tenant states in the device pool or on the host "
+                        "(default: ANOMOD_SERVE_STATE, auto = device)")
+    v.add_argument("--no-native", action="store_true",
+                   help="the interpreter scratch fill instead of the C++ "
+                        "one (byte-identical; default: ANOMOD_NATIVE)")
+    v.add_argument("--native-drain", choices=["auto", "on", "off"],
+                   default=None,
+                   help="the admission drain: auto / on = the C++ "
+                        "columnar engine, off = the Python heap loop (the "
+                        "oracle; default: ANOMOD_SERVE_NATIVE_DRAIN)")
+    v.add_argument("--perf", action="store_true",
+                   help="the dispatch-lifecycle timeline and overlap "
+                        "accounting (anomod_torch.obs.perf; default: "
+                        "ANOMOD_PERF); decisions byte-identical either way")
     v.add_argument("--no-score", action="store_true",
                    help="fold only; no detectors")
     v.add_argument("--rca", action="store_true",
@@ -354,7 +400,8 @@ def _parser() -> argparse.ArgumentParser:
                         "recorded one")
     a.add_argument("--pipeline", type=int, default=None,
                    help="record: dispatch pipeline depth; replay: override")
-    a.add_argument("--state", choices=["host", "device"], default=None,
+    a.add_argument("--state", choices=["auto", "host", "device"],
+                   default=None,
                    help="record: tenant-state residency; replay: override")
     a.add_argument("--device", default=None,
                    help="record / replay: cuda (default) or cpu")
@@ -389,6 +436,115 @@ def _parser() -> argparse.ArgumentParser:
     o.add_argument("--threshold", type=float, default=4.0)
     o.add_argument("--device", default=None,
                    help="cuda (default) or cpu (plain PyTorch versions)")
+
+    pf = sub.add_parser(
+        "perf", help="the perf observatory (anomod_torch.obs.perf): "
+        "`record` serves seeded traffic with the dispatch-lifecycle "
+        "timeline on and dumps it with its overlap analysis (--chrome adds "
+        "a Chrome / Perfetto trace, one lane a shard and scratch slot); "
+        "`diff` compares two captures, decisions byte-exact and walls by "
+        "bootstrap CIs of their raw_wall_s samples against the noise "
+        "floor, exiting 2 on a decision drift or coverage gap and 1 on a "
+        "significant wall regression; `history` indexes a runs directory")
+    pf.add_argument("action", choices=["record", "diff", "history"])
+    pf.add_argument("paths", nargs="*",
+                    help="diff: the two capture JSONs (A then B); history: "
+                         "the runs directory (default bench_runs/)")
+    pf.add_argument("--out", default=None,
+                    help="record: timeline JSON output path (required)")
+    pf.add_argument("--chrome", default=None,
+                    help="record: also dump the timeline as a Chrome "
+                         "trace-event array")
+    pf.add_argument("--tenants", type=int, default=24)
+    pf.add_argument("--duration", type=float, default=30.0,
+                    help="record: virtual seconds to serve")
+    pf.add_argument("--tick", type=float, default=0.5)
+    pf.add_argument("--capacity", type=float, default=4000.0)
+    pf.add_argument("--overload", type=float, default=1.5)
+    pf.add_argument("--seed", type=int, default=0)
+    pf.add_argument("--shards", type=int, default=None,
+                    help="record: shard count (default: ANOMOD_SERVE_SHARDS)")
+    pf.add_argument("--pipeline", type=int, default=None,
+                    help="record: pipeline depth (default: "
+                         "ANOMOD_SERVE_PIPELINE)")
+    pf.add_argument("--noise-floor", type=float, default=None,
+                    help="diff: the noise fraction the wall-ratio CIs must "
+                         "clear (default: ANOMOD_PERF_NOISE_FLOOR, 0.35)")
+    pf.add_argument("--device", default=None,
+                    help="record: cuda (default) or cpu")
+
+    ce = sub.add_parser(
+        "census", help="the fleet census (anomod_torch.obs.census): "
+        "`record` serves seeded traffic with the resident-bytes and "
+        "hot-set census on and dumps its timeline; `probe` sweeps "
+        "registered-fleet sizes at fixed hot traffic and fits the tick "
+        "wall and resident bytes against them; `diff` compares two "
+        "captures' census blocks, bytes exactly and the wall slope within "
+        "the noise tolerance, exiting nonzero on a regression")
+    ce.add_argument("action", choices=["record", "probe", "diff"])
+    ce.add_argument("paths", nargs="*",
+                    help="diff: the two capture JSONs (A then B)")
+    ce.add_argument("--out", default=None,
+                    help="record: census-timeline JSON output path "
+                         "(required); probe: optional sweep output path")
+    # the shape flags default to None so the other actions can refuse
+    # them: a silently ignored flag parameterizes nothing
+    for flag, kind, hlp in (
+            ("--tenants", int, "record only (default 24)"),
+            ("--duration", float, "record: virtual seconds (default 30)"),
+            ("--tick", float, "record only (default 0.5)"),
+            ("--capacity", float, "record only (default 4000)"),
+            ("--overload", float, "record only (default 1.5)"),
+            ("--seed", int, "record / probe (default 0)"),
+            ("--shards", int, "record: shard count (default: "
+                              "ANOMOD_SERVE_SHARDS)"),
+            ("--every", int, "record: census cadence in ticks (default: "
+                             "ANOMOD_CENSUS_EVERY)"),
+            ("--hot", int, "probe: hot-traffic tenant count (default 1000)"),
+            ("--ticks", int, "probe: measured ticks a size (default 8)"),
+            ("--tolerance", float, "diff: the wall-slope noise tolerance "
+                                   "(default: ANOMOD_PERF_NOISE_FLOOR)")):
+        ce.add_argument(flag, type=kind, default=None, help=hlp)
+    ce.add_argument("--sizes", default=None,
+                    help="probe: comma-separated registered-fleet sizes "
+                         "(default: ANOMOD_CENSUS_SWEEP)")
+    ce.add_argument("--device", default=None,
+                    help="record / probe: cuda (default) or cpu")
+
+    ls = sub.add_parser("list", help="list experiments + fault labels")
+    ls.add_argument("--testbed", choices=["SN", "TT"], default=None)
+
+    sy = sub.add_parser("synth",
+                        help="generate a synthetic experiment summary")
+    sy.add_argument("experiment")
+    sy.add_argument("--traces", type=int, default=100)
+
+    ig = sub.add_parser(
+        "ingest", help="ingest-cache management (anomod_torch.io.cache): "
+        "warm the corpus cache, report its state, or clear it")
+    ig.add_argument("--warm-cache", action="store_true",
+                    help="load the full corpus (and the replay bench "
+                         "corpus) through the cache so later runs are warm")
+    ig.add_argument("--testbed", choices=["SN", "TT", "both"], default="TT")
+    ig.add_argument("--traces", type=int, default=200,
+                    help="n_synth_traces for the corpus loaders")
+    ig.add_argument("--bench-traces", type=int, default=2_000,
+                    help="n_traces of the replay bench corpus to warm (0 "
+                         "skips it)")
+    ig.add_argument("--workers", type=int, default=None,
+                    help="process-pool size for the corpus load (default: "
+                         "ANOMOD_INGEST_WORKERS)")
+    ig.add_argument("--cache-dir", default=None,
+                    help="override ANOMOD_CACHE_DIR for this invocation")
+    ig.add_argument("--data-root", default=None,
+                    help="override ANOMOD_DATA_ROOT for this invocation")
+    ig.add_argument("--clear", action="store_true",
+                    help="delete every cache entry first")
+
+    lg = sub.add_parser("logscan", help="per-file log summary sweep over a "
+                        "directory (the Python scanner)")
+    lg.add_argument("dir")
+    lg.add_argument("--glob", default="**/*.log")
     return parser
 
 
@@ -482,9 +638,13 @@ def _serve(args, parser) -> int:
             z_threshold=args.threshold, buckets=buckets,
             max_backlog=args.max_backlog,
             fault_tenants=args.fault_tenants, score=not args.no_score,
-            fuse=not args.no_fuse, lane_buckets=lanes,
-            pipeline=args.pipeline, state=args.state or "device",
+            fuse=False if args.no_fuse else None, lane_buckets=lanes,
+            pipeline=args.pipeline,
+            state="device" if args.state == "auto" else args.state,
             device=args.device,
+            native_stage=False if args.no_native else None,
+            native_drain=args.native_drain,
+            perf=True if args.perf else None,
             # --no-score forces RCA off even under ANOMOD_SERVE_RCA=1
             rca=True if args.rca else (False if args.no_score else None),
             tracer=tracer, shards=args.shards, fold=args.fold,
@@ -515,7 +675,10 @@ def _serve_live(args, parser, buckets, lanes) -> int:
                       ("--worker", args.worker), ("--fold", args.fold),
                       ("--state", args.state),
                       ("--ckpt-every", args.ckpt_every),
-                      ("--trace-out", args.trace_out)):
+                      ("--trace-out", args.trace_out),
+                      ("--perf", args.perf),
+                      ("--no-native", args.no_native),
+                      ("--native-drain", args.native_drain)):
         if bad:
             parser.error(f"{flag} is not supported on the live-feed path")
     from anomod_torch.serve.feed import run_live_feed
@@ -617,7 +780,7 @@ def _audit(args, parser) -> int:
         kw = {name: default if given[flag] is None else given[flag]
               for flag, name, default in _AUDIT_RECORD}
         kw.update(shards=args.shards, pipeline=args.pipeline,
-                  state=args.state or "device",
+                  state="device" if args.state == "auto" else args.state,
                   rca=True if args.rca else None)
     else:
         if len(args.journals) != 1:
@@ -643,7 +806,8 @@ def _audit(args, parser) -> int:
         # count / depth / residency, which diff then holds equal
         for name, val in (("shards", args.shards),
                           ("pipeline", args.pipeline),
-                          ("state", args.state)):
+                          ("state", "device" if args.state == "auto"
+                           else args.state)):
             if val is not None:
                 kw[name] = val
     if args.digest_every is not None:
@@ -808,6 +972,9 @@ def _stream(args, parser) -> int:
     from anomod_torch.stream import stream_quality
     if bool(args.experiment) == bool(args.all):
         parser.error("give an experiment name OR --all")
+    if args.all and args.from_data:
+        parser.error("--from-data is single-experiment only; --all sweeps "
+                     "the generator taxonomy")
     experiments = None
     testbed = args.testbed
     if args.experiment:
@@ -820,12 +987,25 @@ def _stream(args, parser) -> int:
     if args.shift != "in-dist" and not args.all:
         parser.error("--shift applies to --all; it would be silently "
                      "ignored in single-experiment mode")
-    rows = stream_quality(testbed, n_traces=args.traces, seed=args.seed,
-                          experiments=experiments,
-                          multimodal=args.multimodal,
-                          severity=args.severity, noise=args.noise,
-                          n_confounders=args.confounders, shift=args.shift,
-                          device=args.device)
+    if args.from_data and (args.severity != 1.0 or args.noise != 0.0
+                           or args.seed != 0 or args.confounders):
+        parser.error("--severity/--noise/--seed/--confounders shape the "
+                     "generator; with --from-data the archived experiment "
+                     "is what it is")
+    kw = dict(slice_s=args.slice_seconds, z_threshold=args.threshold,
+              baseline_windows=args.baseline_windows,
+              consecutive=args.consecutive, device=args.device)
+    if args.no_edge_attribution:
+        kw["edge_attribution"] = False
+    if args.from_data:
+        rows = [_stream_from_data(label, args, kw)]
+    else:
+        rows = stream_quality(testbed, n_traces=args.traces, seed=args.seed,
+                              experiments=experiments,
+                              multimodal=args.multimodal,
+                              severity=args.severity, noise=args.noise,
+                              n_confounders=args.confounders,
+                              shift=args.shift, **kw)
     for r in rows:
         r["alerts"] = [dataclasses.asdict(a) for a in r["alerts"]]
         print(json.dumps(r))
@@ -846,6 +1026,33 @@ def _stream(args, parser) -> int:
         if path:
             print(f"capture: {path}", file=sys.stderr)
     return 0
+
+
+def _stream_from_data(label, args, kw) -> dict:
+    """``stream EXPERIMENT --from-data``: the experiment from the dataset
+    tree (LFS stubs and missing modalities synthesized), its row in
+    ``stream_quality``'s shape.  No detection latency: an archived
+    experiment's fault timing is its own."""
+    from anomod_torch.io import dataset
+    from anomod_torch.stream import (stream_experiment,
+                                     stream_experiment_multimodal)
+    mods = (["traces", "metrics", "logs", "api"] if args.multimodal
+            else ["traces"])
+    exp = dataset.load_experiment(label.experiment, modalities=mods,
+                                  n_synth_traces=args.traces)
+    det = (stream_experiment_multimodal(exp, **kw) if args.multimodal
+           else stream_experiment(exp.spans, **kw))
+    ranked = det.ranked_services()
+    row = dict(experiment=label.experiment, testbed=label.testbed,
+               target_service=label.target_service,
+               n_alerts=len(det.alerts), ranked=ranked,
+               first_alert_window=det.first_alert_window(),
+               alerts=list(det.alerts))
+    if label.is_anomaly and label.target_service:
+        row.update(top1_hit=bool(ranked)
+                   and ranked[0] == label.target_service,
+                   top3_hit=label.target_service in ranked[:3])
+    return row
 
 
 def stream_summary(testbed: str, rows: list) -> dict:
@@ -1017,6 +1224,331 @@ def _roofline(args, parser) -> int:
     return 0
 
 
+def _perf(args, parser) -> int:
+    """``perf record | diff | history`` (the JAX CLI's flags, defaults,
+    refusals and exit codes)."""
+    from pathlib import Path
+    if args.action == "history":
+        if len(args.paths) > 1:
+            parser.error("perf history takes at most one runs directory")
+        for flag, val in (("--out", args.out), ("--chrome", args.chrome),
+                          ("--noise-floor", args.noise_floor)):
+            if val is not None:
+                parser.error(f"{flag} applies to perf "
+                             + ("diff" if flag == "--noise-floor"
+                                else "record") + ", not history")
+        from anomod_torch.obs.perf import capture_history
+        rows = capture_history(args.paths[0] if args.paths
+                               else "bench_runs")
+        print(json.dumps({"check": "anomod_perf_history",
+                          "n_captures": len(rows), "runs": rows},
+                         indent=2))
+        return 0
+    if args.action == "diff":
+        if len(args.paths) != 2:
+            parser.error("perf diff takes exactly two capture paths "
+                         "(A then B)")
+        if args.out or args.chrome:
+            parser.error("--out/--chrome apply to perf record")
+        from anomod_torch.obs.perf import diff_captures
+        try:
+            a = json.loads(Path(args.paths[0]).read_text())
+            b = json.loads(Path(args.paths[1]).read_text())
+        except (OSError, ValueError) as e:
+            parser.error(f"cannot load capture: {e}")
+        doc = diff_captures(a, b, noise_floor=args.noise_floor)
+        print(json.dumps(doc, indent=2))
+        if doc["decision_mismatches"]:
+            m = doc["decision_mismatches"][0]
+            print(f"perf diff: decision drift at {m['path']} "
+                  f"(a={m['a']!r}, b={m['b']!r}): decision metrics are "
+                  "byte-exact across same-seed captures; this is not "
+                  "noise", file=sys.stderr)
+            return 2
+        if doc["status"] == "decision-coverage-gap":
+            print("perf diff: the two captures share no decision metric, "
+                  "so nothing was compared byte-exact", file=sys.stderr)
+            return 2
+        if doc["regressions"]:
+            r = doc["regressions"][0]
+            print(f"perf diff: significant wall regression at {r['path']}"
+                  f": B/A mean ratio {r['ratio']} (95% CI {r['ci95']}) "
+                  f"clears the 1+{doc['noise_model']['floor_fraction']} "
+                  "noise floor", file=sys.stderr)
+            return 1
+        return 0
+    if not args.out:
+        parser.error("perf record needs --out")
+    if args.paths:
+        parser.error("perf record takes no positional paths")
+    if args.noise_floor is not None:
+        parser.error("--noise-floor applies to perf diff")
+    from anomod_torch.obs.flight import _atomic_write_json
+    from anomod_torch.obs.perf import (PERF_FORMAT, analyze_events,
+                                       perf_tracer, round_events)
+    from anomod_torch.serve.engine import run_power_law
+    eng, rep = run_power_law(
+        n_tenants=args.tenants, n_services=8,
+        capacity_spans_per_s=args.capacity, overload=args.overload,
+        duration_s=args.duration, tick_s=args.tick, seed=args.seed,
+        shards=args.shards, pipeline=args.pipeline, perf=True,
+        device=args.device)
+    stats = analyze_events(eng.perf_events, eng.pipeline)
+    _atomic_write_json(args.out, {
+        "perf_format": PERF_FORMAT,
+        "engine": {"shards": rep.shards, "pipeline": rep.pipeline,
+                   "seed": args.seed, "tick_s": args.tick,
+                   "device": rep.device},
+        "report": {
+            "perf_events_recorded": rep.perf_events_recorded,
+            "events_dropped": eng.perf_events_dropped,
+            "overlap_headroom_s": rep.overlap_headroom_s,
+            "fold_wait_s": rep.fold_wait_s,
+            "bubble_fractions": rep.bubble_fractions,
+            "stage_wall_s": rep.stage_wall_s,
+            "dispatch_wall_s": rep.dispatch_wall_s,
+            "fold_wall_s": rep.fold_wall_s,
+            "score_wall_s": rep.score_wall_s,
+            "serve_wall_s": rep.serve_wall_s},
+        "raw_wall_s": [round(t, 6) for t in eng.tick_walls],
+        "events": round_events(eng.perf_events)})
+    out = {"action": "record", "out": args.out,
+           "events": rep.perf_events_recorded,
+           "overlap_headroom_s": rep.overlap_headroom_s,
+           "fold_wait_s": rep.fold_wait_s,
+           "fold_wall_s": rep.fold_wall_s,
+           "headroom_of_fold": rep.bubble_fractions.get("headroom_of_fold"),
+           "analysis": {k: round(v, 6) if isinstance(v, float) else v
+                        for k, v in stats.items()}}
+    if args.chrome:
+        tr = perf_tracer(eng.perf_events)
+        tr.dump_chrome(Path(args.chrome))
+        out["chrome"] = {"out": args.chrome, "spans": tr.n_spans}
+    print(json.dumps(out, indent=2))
+    return 0
+
+
+def _census(args, parser) -> int:
+    """``census record | probe | diff`` (the JAX CLI's flags, defaults,
+    refusals and exit codes)."""
+    from pathlib import Path
+    record_only = (("--tenants", args.tenants), ("--duration", args.duration),
+                   ("--tick", args.tick), ("--capacity", args.capacity),
+                   ("--overload", args.overload), ("--shards", args.shards),
+                   ("--every", args.every))
+    probe_only = (("--sizes", args.sizes), ("--hot", args.hot),
+                  ("--ticks", args.ticks))
+    if args.action != "record":
+        for flag, got in record_only:
+            if got is not None:
+                parser.error(f"{flag} applies to census record, "
+                             f"not {args.action}")
+    if args.action != "probe":
+        for flag, got in probe_only:
+            if got is not None:
+                parser.error(f"{flag} applies to census probe, "
+                             f"not {args.action}")
+    if args.action == "diff":
+        if len(args.paths) != 2:
+            parser.error("census diff takes exactly two capture paths "
+                         "(A then B)")
+        for flag, val in (("--out", args.out), ("--seed", args.seed),
+                          ("--device", args.device)):
+            if val is not None:
+                parser.error(f"{flag} applies to census record/probe")
+        from anomod_torch.obs.census import diff_census
+        try:
+            a = json.loads(Path(args.paths[0]).read_text())
+            b = json.loads(Path(args.paths[1]).read_text())
+        except (OSError, ValueError) as e:
+            parser.error(f"cannot load capture: {e}")
+        doc = diff_census(a, b, tolerance=args.tolerance)
+        print(json.dumps(doc, indent=2))
+        if doc["status"] == "census-missing":
+            print("census diff: capture(s) carry no census block (missing "
+                  f"in {doc['missing_in']}), so nothing was compared",
+                  file=sys.stderr)
+            return 2
+        if doc["status"] == "bytes-regression":
+            r = doc["bytes_regressions"][0]
+            print(f"census diff: resident bytes grew on the {r['plane']!r} "
+                  f"plane ({r['a']} -> {r['b']}); byte counts are "
+                  "deterministic, so this is real growth", file=sys.stderr)
+            return 1
+        if doc["status"] == "slope-regression":
+            r = doc["slope_regressions"][0]
+            if r["exact"]:
+                print(f"census diff: the {r['slope']} baseline grew "
+                      f"(a={r['a']}, b={r['b']}); this slope is "
+                      "deterministic", file=sys.stderr)
+            else:
+                print(f"census diff: the {r['slope']} baseline regressed "
+                      f"(a={r['a']}, b={r['b']}) past the "
+                      f"1+{doc['tolerance']} noise tolerance",
+                      file=sys.stderr)
+            return 1
+        return 0
+    if args.tolerance is not None:
+        parser.error("--tolerance applies to census diff")
+    if args.paths:
+        parser.error(f"census {args.action} takes no positional paths")
+    from anomod_torch.obs.census import CENSUS_FORMAT
+    from anomod_torch.obs.flight import _atomic_write_json
+    seed = 0 if args.seed is None else args.seed
+    if args.action == "probe":
+        sizes = None
+        if args.sizes is not None:
+            try:
+                sizes = tuple(int(p.strip()) for p in args.sizes.split(",")
+                              if p.strip())
+                if len(sizes) < 2 or any(x < 1 for x in sizes) \
+                        or any(a >= b for a, b in zip(sizes, sizes[1:])):
+                    raise ValueError("need >= 2 strictly ascending positive "
+                                     "sizes")
+            except ValueError as e:
+                parser.error(f"--sizes: {e}")
+        if args.ticks is not None and args.ticks < 1:
+            parser.error("--ticks must be >= 1")
+        if args.hot is not None and args.hot < 1:
+            parser.error("--hot must be >= 1")
+        from anomod_torch.obs.census import fleet_probe
+        doc = {"census_format": CENSUS_FORMAT,
+               "sweep": fleet_probe(
+                   sizes=sizes, hot=1000 if args.hot is None else args.hot,
+                   ticks=8 if args.ticks is None else args.ticks,
+                   seed=seed, device=args.device)}
+        if args.out:
+            _atomic_write_json(args.out, doc)
+            doc["out"] = args.out
+        print(json.dumps(doc, indent=2))
+        return 0
+    if not args.out:
+        parser.error("census record needs --out")
+
+    def _or(v, default):
+        return default if v is None else v
+
+    from anomod_torch.serve.engine import run_power_law
+    eng, rep = run_power_law(
+        n_tenants=_or(args.tenants, 24), n_services=8,
+        capacity_spans_per_s=_or(args.capacity, 4000.0),
+        overload=_or(args.overload, 1.5),
+        duration_s=_or(args.duration, 30.0),
+        tick_s=_or(args.tick, 0.5), seed=seed, shards=args.shards,
+        census=True, census_every=args.every, flight=True,
+        device=args.device)
+    stream = [rec["census"] for rec in eng.flight_recorder.records()
+              if rec["census"]["planes"]]
+    _atomic_write_json(args.out, {
+        "census_format": CENSUS_FORMAT,
+        "engine": {"shards": rep.shards, "seed": seed,
+                   "tick_s": _or(args.tick, 0.5),
+                   "census_every": eng.census_every, "device": rep.device},
+        "report": {"census_ticks": rep.census_ticks,
+                   "census_hot_set": rep.census_hot_set,
+                   "census_resident_bytes": rep.census_resident_bytes},
+        "stream": stream})
+    print(json.dumps({
+        "action": "record", "out": args.out,
+        "census_ticks": rep.census_ticks,
+        "resident_bytes": rep.census_resident_bytes.get("total"),
+        "pool_reconciled": rep.census_resident_bytes.get("pool_reconciled"),
+        "hot_set": rep.census_hot_set}, indent=2))
+    return 0
+
+
+def _list(args) -> int:
+    from anomod_torch import labels
+    rows = labels.ALL_LABELS if args.testbed is None else \
+        labels.labels_for_testbed(args.testbed)
+    for lab in rows:
+        print(f"{lab.testbed}  {lab.experiment:40s} {lab.anomaly_level:12s} "
+              f"{lab.anomaly_type:28s} {lab.target_service}")
+    return 0
+
+
+def _synth(args) -> int:
+    from anomod_torch import synth
+    exp = synth.generate_experiment(args.experiment, n_traces=args.traces)
+    print(json.dumps({
+        "experiment": exp.name, "testbed": exp.testbed,
+        "spans": exp.spans.n_spans, "traces": exp.spans.n_traces,
+        "services": exp.spans.n_services,
+        "metric_samples": exp.metrics.n_samples,
+        "log_lines": exp.logs.n_lines,
+        "api_records": exp.api.n_records}))
+    return 0
+
+
+def _ingest(args) -> int:
+    """``ingest``: warm, report or clear the ingest cache."""
+    import time
+    from pathlib import Path
+
+    from anomod_torch.config import get_config
+    from anomod_torch.io import cache as ingest_cache
+    from anomod_torch.io import dataset
+    cfg = get_config()
+    if args.cache_dir is not None:
+        cfg = dataclasses.replace(cfg, cache_dir=Path(args.cache_dir))
+    if args.data_root is not None:
+        cfg = dataclasses.replace(cfg, data_root=Path(args.data_root))
+    root = ingest_cache.cache_root(cfg)
+    out = {"cache_dir": str(root) if root else None}
+    if root is None:
+        print(json.dumps({**out, "error":
+                          "caching disabled (ANOMOD_CACHE_DIR=off)"}))
+        return 1
+    if args.clear:
+        out["cleared"] = ingest_cache.clear(root)
+    if args.warm_cache:
+        ingest_cache.reset_stats()
+        testbeds = ["SN", "TT"] if args.testbed == "both" else [args.testbed]
+        t0 = time.perf_counter()
+        for tb in testbeds:
+            dataset.load_corpus(tb, cfg=cfg, n_synth_traces=args.traces,
+                                workers=args.workers)
+            if args.bench_traces:
+                dataset.load_bench_corpus(tb, args.bench_traces, cfg)
+        out.update(warmed=testbeds,
+                   wall_s=round(time.perf_counter() - t0, 3),
+                   **ingest_cache.stats().to_dict())
+    out["entries"] = ingest_cache.entry_count(root)
+    print(json.dumps(out))
+    return 0
+
+
+def _logscan(args) -> int:
+    """``logscan``: per-file log summaries over a directory, through the
+    Python scanner (``native`` is false: the port has no native log
+    scanner yet)."""
+    from pathlib import Path
+
+    from anomod_torch.io.lfs import is_lfs_pointer
+    from anomod_torch.io.logs import summarize_log_files
+    root = Path(args.dir)
+    if not root.is_dir():
+        print(f"not a directory: {root}", file=sys.stderr)
+        return 1
+    candidates = sorted(root.glob(args.glob))
+    paths = [p for p in candidates if not is_lfs_pointer(p)]
+    summaries = summarize_log_files(paths)
+    print(json.dumps({
+        "dir": str(root), "n_files": len(paths),
+        "n_lfs_stubs": len(candidates) - len(paths),
+        "native": False,
+        "totals": {"lines": sum(x.n_lines for x in summaries),
+                   "errors": sum(x.n_error for x in summaries),
+                   "warnings": sum(x.n_warn for x in summaries),
+                   "bytes": sum(x.size_bytes for x in summaries)},
+        "files": [{"path": str(p.relative_to(root)), "service": x.service,
+                   "lines": x.n_lines, "errors": x.n_error,
+                   "warnings": x.n_warn, "info": x.n_info,
+                   "bytes": x.size_bytes}
+                  for p, x in zip(paths, summaries)]}, indent=2))
+    return 0
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     parser = _parser()
     args = parser.parse_args(argv)
@@ -1038,6 +1570,18 @@ def main(argv: Optional[List[str]] = None) -> int:
         return _quality(args, parser)
     if args.cmd == "collect":
         return _collect(args, parser)
+    if args.cmd == "perf":
+        return _perf(args, parser)
+    if args.cmd == "census":
+        return _census(args, parser)
+    if args.cmd == "list":
+        return _list(args)
+    if args.cmd == "synth":
+        return _synth(args)
+    if args.cmd == "ingest":
+        return _ingest(args)
+    if args.cmd == "logscan":
+        return _logscan(args)
     return _stream(args, parser)
 
 

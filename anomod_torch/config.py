@@ -73,6 +73,27 @@ The live feed (``anomod_torch.serve.feed``): ``ANOMOD_SERVE_FEED_LAG_S``
 (the wall-to-virtual lag budget in seconds, [0, 3600], default 2.0) and
 ``ANOMOD_FEED_JOURNAL`` (the wire journal's path; unset or ``off``: no
 recording).
+
+The serve plane's shape (``anomod_torch.serve``): ``ANOMOD_SERVE_BUCKETS``
+and ``ANOMOD_SERVE_LANE_BUCKETS`` (comma-separated, strictly ascending),
+``ANOMOD_SERVE_FUSE`` (default on), ``ANOMOD_SERVE_PIPELINE`` (1-64,
+default 2), ``ANOMOD_SERVE_STATE`` (``auto`` = ``device``, or ``host``),
+``ANOMOD_SERVE_MAX_BACKLOG`` (spans, default 200,000),
+``ANOMOD_SERVE_NATIVE_DRAIN`` and ``ANOMOD_NATIVE`` (``auto``, ``on`` or
+``off``: the admission drain's and the scratch fill's C++ routes; ``off``
+picks the Python oracle, and ``auto`` and ``on`` both build the C++
+library, a failed build raising) and ``ANOMOD_SEED`` (default 1).
+
+The observatories: ``ANOMOD_PERF`` (the dispatch-lifecycle timeline,
+:mod:`anomod_torch.obs.perf`, default off), ``ANOMOD_PERF_MAX_EVENTS``
+(retained events, default 262,144) and ``ANOMOD_PERF_NOISE_FLOOR`` (the
+noise fraction ``perf diff`` tests wall ratios against, default 0.35);
+``ANOMOD_CENSUS`` (the resident-bytes census,
+:mod:`anomod_torch.obs.census`, default off), ``ANOMOD_CENSUS_EVERY``
+(cadence in ticks, default 8), ``ANOMOD_CENSUS_DECAY_TICKS`` (hot-set
+thresholds, default ``4,16,64,256``), ``ANOMOD_CENSUS_SWEEP`` (the probe's
+registered-fleet sizes, at least two, default ``1000,10000,100000``) and
+``ANOMOD_CENSUS_COLDEST_K`` (the coldest-candidate preview, default 8).
 """
 
 from __future__ import annotations
@@ -222,6 +243,87 @@ def _serve_rca_int_env(name: str, default: str, lo: int, hi: int) -> int:
         raise ValueError(f"{name} must be an integer, got {raw!r}")
     if not lo <= n <= hi:
         raise ValueError(f"{name} must be in [{lo}, {hi}], got {n}")
+    return n
+
+
+def _serve_buckets_env() -> tuple:
+    from anomod_torch.serve.config import (DEFAULT_SERVE_BUCKETS,
+                                           validate_serve_buckets)
+    raw = _env("ANOMOD_SERVE_BUCKETS", "")
+    if not raw:
+        return DEFAULT_SERVE_BUCKETS
+    parts = [p.strip() for p in raw.split(",") if p.strip()]
+    try:
+        return validate_serve_buckets(parts)
+    except ValueError as e:
+        raise ValueError(f"ANOMOD_SERVE_BUCKETS: {e}") from e
+
+
+def _serve_lane_buckets_env() -> tuple:
+    from anomod_torch.serve.config import (DEFAULT_SERVE_LANE_BUCKETS,
+                                           validate_lane_buckets)
+    raw = _env("ANOMOD_SERVE_LANE_BUCKETS", "")
+    if not raw:
+        return DEFAULT_SERVE_LANE_BUCKETS
+    parts = [p.strip() for p in raw.split(",") if p.strip()]
+    try:
+        return validate_lane_buckets(parts)
+    except ValueError as e:
+        raise ValueError(f"ANOMOD_SERVE_LANE_BUCKETS: {e}") from e
+
+
+def _serve_fuse_env() -> bool:
+    return _env("ANOMOD_SERVE_FUSE", "1").strip().lower() \
+        not in ("0", "false", "off", "no")
+
+
+def _serve_pipeline_env() -> int:
+    raw = _env("ANOMOD_SERVE_PIPELINE", "2")
+    try:
+        n = int(raw)
+    except ValueError:
+        raise ValueError(
+            f"ANOMOD_SERVE_PIPELINE must be a positive integer, got {raw!r}")
+    if not 1 <= n <= 64:
+        raise ValueError(
+            f"ANOMOD_SERVE_PIPELINE must be in [1, 64], got {n}")
+    return n
+
+
+def _serve_state_env() -> str:
+    raw = _env("ANOMOD_SERVE_STATE", "auto").strip().lower()
+    if raw in ("auto", ""):
+        return "auto"
+    if raw in ("host", "device"):
+        return raw
+    raise ValueError(
+        f"ANOMOD_SERVE_STATE must be auto, host or device, got {raw!r}")
+
+
+def _auto_on_off_env(name: str) -> str:
+    """``auto`` (the default), ``on`` (``1``/``true``/``yes``) or ``off``
+    (``0``/``false``/``no``)."""
+    raw = _env(name, "auto").strip().lower()
+    if raw in ("auto", ""):
+        return "auto"
+    if raw in ("1", "on", "true", "yes"):
+        return "on"
+    if raw in ("0", "off", "false", "no"):
+        return "off"
+    raise ValueError(f"{name} must be auto, on/1 or off/0, got {raw!r}")
+
+
+def _serve_max_backlog_env() -> int:
+    raw = _env("ANOMOD_SERVE_MAX_BACKLOG", "200000")
+    try:
+        n = int(raw)
+    except ValueError:
+        raise ValueError(
+            f"ANOMOD_SERVE_MAX_BACKLOG must be a positive integer, "
+            f"got {raw!r}")
+    if n < 1:
+        raise ValueError(
+            f"ANOMOD_SERVE_MAX_BACKLOG must be >= 1, got {n}")
     return n
 
 
@@ -645,11 +747,83 @@ def _feed_journal_env() -> Optional[Path]:
     return Path(raw).expanduser()
 
 
+def _switch_off_env(name: str) -> bool:
+    """An observatory switch, off by default: anything but ``0`` /
+    ``false`` / ``off`` / ``no`` / empty turns it on."""
+    return _env(name, "0").strip().lower() \
+        not in ("0", "false", "off", "no", "")
+
+
+def _bounded_int_env(name: str, default: str, lo: int, hi: int) -> int:
+    raw = _env(name, default)
+    try:
+        n = int(raw)
+    except ValueError:
+        raise ValueError(f"{name} must be a positive integer, got {raw!r}")
+    if not lo <= n <= hi:
+        raise ValueError(f"{name} must be in [{lo}, {hi}], got {n}")
+    return n
+
+
+def _perf_noise_floor_env() -> float:
+    raw = _env("ANOMOD_PERF_NOISE_FLOOR", "0.35")
+    try:
+        v = float(raw)
+    except ValueError:
+        raise ValueError(
+            f"ANOMOD_PERF_NOISE_FLOOR must be a number, got {raw!r}")
+    if not 0 <= v <= 10:
+        raise ValueError(
+            f"ANOMOD_PERF_NOISE_FLOOR must be in [0, 10], got {v}")
+    return v
+
+
+#: hot-set decay thresholds in ticks: the census reports how many tenants
+#: were served within the last N ticks, for each
+DEFAULT_CENSUS_DECAY_TICKS = (4, 16, 64, 256)
+
+#: registered-fleet sizes of the census probe's sweep
+DEFAULT_CENSUS_SWEEP = (1_000, 10_000, 100_000)
+
+
+def _census_int_tuple_env(name: str, default: tuple, lo: int,
+                          hi: int) -> tuple:
+    """Comma-separated integers in ``[lo, hi]``, strictly ascending."""
+    raw = _env(name, "")
+    if not raw:
+        return default
+    parts = [p.strip() for p in raw.split(",") if p.strip()]
+    try:
+        out = tuple(int(p) for p in parts)
+    except ValueError:
+        raise ValueError(f"{name} must be comma-separated integers, "
+                         f"got {raw!r}")
+    if not out:
+        raise ValueError(f"{name} must not be empty")
+    if any(not lo <= v <= hi for v in out):
+        raise ValueError(f"{name} entries must be in [{lo}, {hi}], "
+                         f"got {out}")
+    if any(a >= b for a, b in zip(out, out[1:])):
+        raise ValueError(f"{name} must be strictly ascending: {out}")
+    return out
+
+
+def _census_sweep_env() -> tuple:
+    out = _census_int_tuple_env("ANOMOD_CENSUS_SWEEP",
+                                DEFAULT_CENSUS_SWEEP, 1, 10_000_000)
+    if len(out) < 2:
+        raise ValueError(
+            f"ANOMOD_CENSUS_SWEEP needs >= 2 sizes (a slope fit needs "
+            f"two points), got {out}")
+    return out
+
+
 @dataclasses.dataclass
 class Config:
     """Where experiments come from and how they are loaded; the telemetry,
     online-RCA, shard, supervision, elastic-policy, deferred-commit,
-    tiering, flight-recorder and live-feed knobs."""
+    tiering, flight-recorder, live-feed, serve-plane and observatory
+    knobs."""
 
     data_root: Optional[Path] = dataclasses.field(
         default_factory=_data_root_env)
@@ -732,6 +906,43 @@ class Config:
         default_factory=_serve_feed_lag_s_env)
     feed_journal: Optional[Path] = dataclasses.field(
         default_factory=_feed_journal_env)
+    seed: int = dataclasses.field(
+        default_factory=lambda: int(_env("ANOMOD_SEED", "1")))
+    serve_buckets: tuple = dataclasses.field(
+        default_factory=_serve_buckets_env)
+    serve_lane_buckets: tuple = dataclasses.field(
+        default_factory=_serve_lane_buckets_env)
+    serve_fuse: bool = dataclasses.field(default_factory=_serve_fuse_env)
+    serve_pipeline: int = dataclasses.field(
+        default_factory=_serve_pipeline_env)
+    serve_state: str = dataclasses.field(default_factory=_serve_state_env)
+    serve_native_drain: str = dataclasses.field(
+        default_factory=lambda: _auto_on_off_env("ANOMOD_SERVE_NATIVE_DRAIN"))
+    serve_max_backlog: int = dataclasses.field(
+        default_factory=_serve_max_backlog_env)
+    native: str = dataclasses.field(
+        default_factory=lambda: _auto_on_off_env("ANOMOD_NATIVE"))
+    perf: bool = dataclasses.field(
+        default_factory=lambda: _switch_off_env("ANOMOD_PERF"))
+    perf_max_events: int = dataclasses.field(
+        default_factory=lambda: _bounded_int_env(
+            "ANOMOD_PERF_MAX_EVENTS", "262144", 1, 100_000_000))
+    perf_noise_floor: float = dataclasses.field(
+        default_factory=_perf_noise_floor_env)
+    census: bool = dataclasses.field(
+        default_factory=lambda: _switch_off_env("ANOMOD_CENSUS"))
+    census_every: int = dataclasses.field(
+        default_factory=lambda: _bounded_int_env(
+            "ANOMOD_CENSUS_EVERY", "8", 1, 1_000_000))
+    census_decay_ticks: tuple = dataclasses.field(
+        default_factory=lambda: _census_int_tuple_env(
+            "ANOMOD_CENSUS_DECAY_TICKS", DEFAULT_CENSUS_DECAY_TICKS,
+            1, 10_000_000))
+    census_sweep: tuple = dataclasses.field(
+        default_factory=_census_sweep_env)
+    census_coldest_k: int = dataclasses.field(
+        default_factory=lambda: _bounded_int_env(
+            "ANOMOD_CENSUS_COLDEST_K", "8", 1, 4096))
 
     @property
     def sn_data(self) -> Optional[Path]:

@@ -21,9 +21,11 @@ Two tiers a record, as in the JAX package:
   lane / shard topology; they ride the dump for forensics and stay out
   of the canonical bytes and of :func:`diff_journals`.  ``recovery``
   carries the supervisor's events (a crash recovered, a quarantine, a
-  migration); the keys of planes the port has not ported (``scaling``,
-  ``perf``, ``census``, ``tiering``) are present and empty, as the JAX
-  record makes them when those planes are off.
+  migration), ``scaling`` the elastic policy's, ``perf`` the dispatch
+  timeline (:mod:`anomod_torch.obs.perf`), ``census`` the resident-bytes
+  census (:mod:`anomod_torch.obs.census`, wall-free) and ``tiering`` the
+  tier plane's events; a plane that is off writes its key empty, as the
+  JAX record does.
 
 The ring is bounded (``ANOMOD_FLIGHT_MAX_TICKS``) and every eviction is
 counted (``anomod_flight_dropped_ticks_total`` and ``n_dropped``).
@@ -52,9 +54,9 @@ FLIGHT_FORMAT = 1
 PLANES: Tuple[str, ...] = ("admission", "dispatch", "fold", "score", "rca")
 
 #: per-tick keys excluded from the canonical bytes and from ``diff``:
-#: walls, lane / shard topology, the supervisor's recovery events, and
-#: the JAX package's scaling, perf, census and tiering planes (empty in
-#: the port)
+#: walls, lane / shard topology, the supervisor's recovery events, the
+#: elastic policy's scaling events, the perf timeline, the census and the
+#: tier plane's events
 FLIGHT_VARIANT_KEYS: Tuple[str, ...] = ("walls", "topology", "recovery",
                                         "scaling", "perf", "census",
                                         "tiering")

@@ -297,6 +297,11 @@ class TenantStatePool:
     def capacity(self) -> int:
         return int(self.agg.shape[0]) - 1
 
+    @property
+    def live_slots(self) -> int:
+        """Slots held by a tenant now."""
+        return self._next - 1 - len(self._free)
+
     def acquire(self) -> int:
         """Map a new tenant to a zeroed slot (>= 1); the pool doubles when
         full (existing rows keep their bits)."""

@@ -40,6 +40,15 @@ lane twins, the ``_fused_lanes`` histogram, the stage / dispatch / fold /
 score seconds and ``_native_staged_total``); each shape's first-launch
 wall counts as its ``anomod_serve_compile_total`` /
 ``anomod_serve_fused_compile_total`` (with ``_seconds_total``).
+
+With a perf recorder (``perf``, :mod:`anomod_torch.obs.perf`) every fused
+dispatch stamps its lifecycle from the clock reads its wall legs already
+take: ``refill`` and ``staged`` at the scratch fill, ``submitted`` around
+the copies and the launch, ``retire`` / ``materialized`` / ``folded`` at
+the retire (which enqueues the pool fold and then waits on the dispatch's
+event, so ``materialized`` and ``folded`` are the read after that wait),
+``deferred`` at the deferred commit's barrier and ``aborted`` at
+:meth:`BucketRunner.abort_lanes`.  No stamp synchronizes anything.
 """
 
 from __future__ import annotations
@@ -61,9 +70,8 @@ from anomod_torch.replay import (N_FEATS, ReplayConfig, ReplayState,
                                  TenantStatePool, fold_delta,
                                  stage_columns_fused, zero_state)
 from anomod_torch.schemas import SpanBatch
-from anomod_torch.serve.config import (DEFAULT_SERVE_BUCKETS,
-                                       DEFAULT_SERVE_LANE_BUCKETS,
-                                       validate_lane_buckets,
+from anomod_torch.config import get_config
+from anomod_torch.serve.config import (validate_lane_buckets,
                                        validate_serve_buckets)
 from anomod_torch.stream import StreamReplay
 
@@ -102,10 +110,15 @@ class BucketRunner:
     stage/dispatch/fold/score walls, the first-launch wall per shape) feed
     the :class:`~anomod_torch.serve.engine.ServeReport`.
 
-    ``native_stage`` (the default) fills scratch through the C++ entry of
+    ``native_stage`` fills scratch through the C++ entry of
     :mod:`anomod_torch.io.native`, built at first use (a failed build
-    raises); ``native_stage=False`` keeps the interpreter fill.
-    ``registry`` is the metric sink (default: the process registry).
+    raises); ``native_stage=False`` keeps the interpreter fill; None
+    follows ``ANOMOD_NATIVE`` (on unless ``off``).  ``buckets`` and
+    ``lane_buckets`` default to ``ANOMOD_SERVE_BUCKETS`` /
+    ``ANOMOD_SERVE_LANE_BUCKETS``.  ``registry`` is the metric sink
+    (default: the process registry); ``perf`` a
+    :class:`~anomod_torch.obs.perf.PerfRecorder` for the fused path's
+    dispatch-lifecycle stamps.
 
     ``own_stream`` (on the card) gives the runner a CUDA stream of its
     own: its pool is allocated on it, its scratch-reuse events are
@@ -119,8 +132,8 @@ class BucketRunner:
                  lane_buckets: Optional[Tuple[int, ...]] = None,
                  pipeline: int = 1, state: str = "device",
                  pool_slots: int = 32, device: DeviceLike = None,
-                 native_stage: bool = True, registry=None,
-                 own_stream: bool = False):
+                 native_stage: Optional[bool] = None, registry=None,
+                 own_stream: bool = False, perf=None):
         if pipeline < 1:
             raise ValueError("pipeline depth must be >= 1")
         if state not in ("host", "device"):
@@ -138,14 +151,19 @@ class BucketRunner:
                                          device=self.device)
                          if state == "device" else None)
         self.pipeline = int(pipeline)
-        self.native_stage = bool(native_stage)
+        app_cfg = get_config()
+        self.native_stage = bool(app_cfg.native != "off"
+                                 if native_stage is None else native_stage)
         if self.native_stage:
             native.library()
         self.buckets = validate_serve_buckets(
-            DEFAULT_SERVE_BUCKETS if buckets is None else buckets)
+            app_cfg.serve_buckets if buckets is None else buckets)
         self.lane_buckets = validate_lane_buckets(
-            DEFAULT_SERVE_LANE_BUCKETS if lane_buckets is None
+            app_cfg.serve_lane_buckets if lane_buckets is None
             else lane_buckets)
+        #: the perf observatory's recorder (anomod_torch.obs.perf), or
+        #: None: the fused path's stamps reuse the wall legs' clock reads
+        self.perf = perf
         #: first-launch wall of the one-lane dispatch per width, and of
         #: the fused dispatch per (width, lane-bucket) shape
         self.compile_s_by_width: Dict[int, float] = {}
@@ -336,12 +354,13 @@ class BucketRunner:
         return out
 
     def _fill_slot(self, width: int, lanes: int,
-                   group: List[native.StagedChunk]):
+                   group: List[native.StagedChunk], perf=None):
         """Stage ``group`` (one unpadded chunk per live lane) into the
         next scratch slot of the (width, lanes) shape, dead-padding the
         row tails and the dead lanes, natively unless ``native_stage`` is
         off.  Any in-flight dispatch still reading the slot is retired
-        first."""
+        first.  ``perf`` (the fused path's recorder) takes the slot's
+        refill and staged stamps."""
         shape = (width, lanes)
         slot = self._slot_next.get(shape, 0)
         self._slot_next[shape] = (slot + 1) % self.pipeline
@@ -360,6 +379,9 @@ class BucketRunner:
             if self.native_stage:
                 self._stage_plans[key] = native.StagePlan(
                     scratch[0].numpy(), scratch[1].numpy(), self.cfg.sw)
+        elif perf is not None:
+            # a reused slot: stamp the dispatch that last held it
+            perf.note_refill(key, t0)
         if self.native_stage:
             self._stage_plans[key].stage(group)
         else:
@@ -367,6 +389,8 @@ class BucketRunner:
         dt = time.perf_counter() - t0
         self.stage_wall_s += dt
         self._obs_stage_s.inc(dt)
+        if perf is not None:
+            perf.note_staged(key, t0, t0 + dt)
         return scratch, key
 
     def _fill_slot_py(self, scratch, group) -> None:
@@ -480,7 +504,8 @@ class BucketRunner:
             group = work[pos:pos + n_live]
             pos += n_live
             scratch, key = self._fill_slot(width, lanes,
-                                           [cols for _, cols in group])
+                                           [cols for _, cols in group],
+                                           perf=self.perf)
             t0 = time.perf_counter()
             out = self._launch(scratch)
             self._inflight.append(([replay for replay, _ in group], out,
@@ -488,6 +513,8 @@ class BucketRunner:
             dt = time.perf_counter() - t0
             self.dispatch_wall_s += dt
             self._obs_dispatch_s.inc(dt)
+            if self.perf is not None:
+                self.perf.note_submitted(key, t0, t0 + dt)
             self._account_group(n_live, lanes)
             if self.native_stage:
                 self.native_staged += 1
@@ -497,8 +524,11 @@ class BucketRunner:
 
     def _retire_one(self) -> None:
         """Retire the OLDEST in-flight dispatch: fold its deltas, then
-        wait on its event, after which its scratch slot may refill."""
-        replays, out, _, ev = self._inflight.popleft()
+        wait on its event, after which its scratch slot may refill.  The
+        perf stamps reuse the fold leg's two clock reads: ``retire`` at
+        the first, ``materialized`` and ``folded`` at the read after the
+        wait (the fold was enqueued before it)."""
+        replays, out, key, ev = self._inflight.popleft()
         t0 = time.perf_counter()
         self._fold(replays, out)
         if ev is not None:
@@ -506,20 +536,38 @@ class BucketRunner:
         dt = time.perf_counter() - t0
         self.fold_wall_s += dt
         self._obs_fold_s.inc(dt)
+        prf = self.perf
+        if prf is not None:
+            prf.note_retire(key, t0)
+            prf.note_materialized(key, t0 + dt)
+            prf.note_folded(key, t0 + dt)
 
     def drain_lanes(self) -> None:
         """Retire every in-flight dispatch (the tick-end barrier)."""
         while self._inflight:
             self._retire_one()
 
+    def mark_deferred(self, t0: float, t1: float) -> None:
+        """Stamp every in-flight dispatch's deferred leg: issued at
+        ``t0``, left in flight under the next tick's coordinator work
+        until the commit barrier read it at ``t1`` (the deferred-commit
+        engine calls this at the barrier, before :meth:`drain_lanes`)."""
+        if self.perf is None:
+            return
+        for _, _, key, _ in self._inflight:
+            self.perf.note_deferred(key, t0, t1)
+
     def abort_lanes(self) -> None:
         """Failed-tick cleanup: wait for every in-flight dispatch (its
         scratch must not refill under it) WITHOUT folding, so the planes
-        keep their last-folded states."""
+        keep their last-folded states; an aborted dispatch's perf record
+        is dropped and counted."""
         while self._inflight:
-            _, _, _, ev = self._inflight.popleft()
+            _, _, key, ev = self._inflight.popleft()
             if ev is not None:
                 ev.synchronize()
+            if self.perf is not None:
+                self.perf.note_aborted(key)
 
     @property
     def inflight_dispatches(self) -> int:

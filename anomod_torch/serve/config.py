@@ -1,8 +1,8 @@
 """Serving-plane defaults and their validators (the serve half of
 ``anomod/config.py``).
 
-The port reads no environment knobs for the serve plane: every setting is
-a constructor argument whose default is the JAX package's default.
+``ANOMOD_SERVE_BUCKETS`` and ``ANOMOD_SERVE_LANE_BUCKETS``, which override
+the defaults, are read by :class:`anomod_torch.config.Config`.
 """
 
 from __future__ import annotations
@@ -13,12 +13,6 @@ DEFAULT_SERVE_BUCKETS = (64, 256, 1024, 4096, 16384)
 
 #: lane counts of the fused (lane-stacked) dispatch
 DEFAULT_SERVE_LANE_BUCKETS = (1, 2, 4, 8, 16, 32)
-
-#: global admission backlog bound (spans): the backpressure/shed budget
-DEFAULT_SERVE_MAX_BACKLOG = 200_000
-
-#: in-flight fused dispatches per runner plus one (depth 1 = synchronous)
-DEFAULT_SERVE_PIPELINE = 2
 
 
 def validate_serve_buckets(buckets) -> tuple:

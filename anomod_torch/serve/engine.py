@@ -118,8 +118,27 @@ source's ``modality_arrivals``) into its host planes before the tick's
 span admission, counted in ``modality_events``.  The policy, tiering,
 supervision and process workers turn themselves off beside it.
 
-The JAX package's perf and census observatories are not part of this
-engine, nor are their metric series.
+The observatories, both read-side (every decision and the canonical
+journal are byte-identical with them on or off) and both refused by
+process workers:
+
+- the perf observatory (``perf`` or ``ANOMOD_PERF``, off by default,
+  :mod:`anomod_torch.obs.perf`): one ``PerfRecorder`` a shard runner
+  stamps every fused dispatch's lifecycle from the wall legs' own clock
+  reads; the tick barrier drains the recorders in shard order, inside
+  the measured wall, runs the overlap analyzer and puts the events on
+  the journal's ``perf`` variant key (``fold_wait_s``,
+  ``overlap_headroom_s`` and ``bubble_fractions`` in the report);
+- the census (``census`` or ``ANOMOD_CENSUS``, off by default, every
+  ``census_every`` ticks and at the run's end,
+  :mod:`anomod_torch.obs.census`): a resident-bytes census of every plane
+  from shapes and container lengths, and the hot-set document, onto the
+  journal's ``census`` variant key (wall-free: byte-equal across reruns)
+  and eleven ``anomod_census_*`` gauges.
+
+The serve plane's shape knobs (buckets, lane buckets, fuse, pipeline,
+state, backlog bound, the native fill and drain) default from
+:class:`anomod_torch.config.Config` when left None.
 """
 
 from __future__ import annotations
@@ -142,8 +161,6 @@ from anomod_torch.replay import N_FEATS, ReplayConfig
 from anomod_torch.schemas import concat_span_batches
 from anomod_torch.serve.batcher import (BucketedStreamReplay, BucketRunner,
                                         PooledStreamReplay)
-from anomod_torch.serve.config import (DEFAULT_SERVE_MAX_BACKLOG,
-                                       DEFAULT_SERVE_PIPELINE)
 from anomod_torch.serve.queues import (AdmissionController, QueuedBatch,
                                        TenantSpec)
 from anomod_torch.serve.traffic import PowerLawTraffic, TenantFault
@@ -353,6 +370,21 @@ class ServeReport:
     flight_enabled: bool                         # flight recorder on?
     flight_recorded_ticks: int                   # journal records written
     flight_dropped_ticks: int                    # ring evictions
+    perf_enabled: bool                           # dispatch timeline on?
+    perf_events_recorded: int                    # lifecycle events taken
+    overlap_headroom_s: float                    # retire wait the next
+    #                                              dispatches' staging
+    #                                              could hide (upper bound)
+    fold_wait_s: float                           # measured retire wait
+    bubble_fractions: Dict[str, float]           # per-leg dead-time shares
+    census_enabled: bool                         # fleet census on?
+    census_ticks: int                            # census drains taken
+    census_hot_set: Dict[str, object]            # hot-set document
+    #                                              (canonical)
+    census_resident_bytes: Dict[str, object]     # resident bytes (follow
+    #                                              the pool and scratch
+    #                                              topology)
+    census_wall_s: float                         # census drain wall
     tier_hot: int                                # hot-pool tenant capacity
     #                                              (0 = tiering off)
     n_tier_demotions_warm: int                   # pool -> host demotions
@@ -410,7 +442,13 @@ VARIANT_REPORT_FIELDS = (
     # policy, deferral and tiering walls; whether a cold read had
     # finished before its join is wall luck
     "peak_shards", "policy_wall_s", "commit_defer_wall_s",
-    "tier_prefetch_hidden", "tier_wall_s")
+    "tier_prefetch_hidden", "tier_wall_s",
+    # the perf observatory's counts follow the lane grouping and its
+    # waits are walls; the census's bytes follow the pool and scratch
+    # topology and its wall is a wall (the hot-set document and the
+    # census tick count are decisions)
+    "perf_events_recorded", "overlap_headroom_s", "fold_wait_s",
+    "bubble_fractions", "census_resident_bytes", "census_wall_s")
 
 #: the elastic policy's report fields: they differ between a policy-on
 #: and a policy-off run of one seed (``n_checkpoints`` too: every scale
@@ -525,16 +563,22 @@ def run_power_law(n_tenants: int = 200, n_services: int = 8,
                   buckets: Optional[Tuple[int, ...]] = None,
                   max_backlog: Optional[int] = None,
                   fault_tenants: int = 2, score: bool = True,
-                  n_windows: int = 32, fuse: bool = True,
+                  n_windows: int = 32, fuse: Optional[bool] = None,
                   lane_buckets: Optional[Tuple[int, ...]] = None,
-                  pipeline: Optional[int] = None, state: str = "device",
-                  device: DeviceLike = None, native_stage: bool = True,
-                  drain_engine: str = "native", rca: Optional[bool] = None,
+                  pipeline: Optional[int] = None,
+                  state: Optional[str] = None, device: DeviceLike = None,
+                  native_stage: Optional[bool] = None,
+                  drain_engine: str = "native",
+                  native_drain: Optional[str] = None,
+                  rca: Optional[bool] = None,
                   tracer=None, shards: Optional[int] = None,
                   fold: Optional[str] = None,
                   flight: Optional[bool] = None,
                   flight_digest_every: Optional[int] = None,
                   flight_max_ticks: Optional[int] = None,
+                  perf: Optional[bool] = None,
+                  census: Optional[bool] = None,
+                  census_every: Optional[int] = None,
                   chaos: Optional[str] = None,
                   ckpt_every: Optional[int] = None,
                   retries: Optional[int] = None,
@@ -572,11 +616,13 @@ def run_power_law(n_tenants: int = 200, n_services: int = 8,
                          lane_buckets=lane_buckets, pipeline=pipeline,
                          state=state, device=device,
                          native_stage=native_stage,
-                         drain_engine=drain_engine, rca=rca, tracer=tracer,
+                         drain_engine=drain_engine, native_drain=native_drain,
+                         rca=rca, tracer=tracer,
                          shards=shards, fold=fold, flight=flight,
                          flight_digest_every=flight_digest_every,
-                         flight_max_ticks=flight_max_ticks, chaos=chaos,
-                         ckpt_every=ckpt_every, retries=retries,
+                         flight_max_ticks=flight_max_ticks, perf=perf,
+                         census=census, census_every=census_every,
+                         chaos=chaos, ckpt_every=ckpt_every, retries=retries,
                          retry_backoff_s=retry_backoff_s,
                          max_respawns=max_respawns, worker=worker,
                          policy=policy, policy_script=policy_script,
@@ -603,10 +649,15 @@ def run_power_law(n_tenants: int = 200, n_services: int = 8,
             lane_buckets=list(engine.runner.lane_buckets),
             pipeline=engine.pipeline, state=engine.serve_state,
             native_stage=native_stage, drain_engine=drain_engine,
+            native_drain=native_drain,
             rca=engine.rca, shards=engine.shards, fold=engine.fold_mode,
             flight=True,
             flight_digest_every=engine.flight_recorder.digest_every,
             flight_max_ticks=engine.flight_recorder.max_ticks,
+            # the observatories resolved: a replay re-records the timeline
+            # and re-takes the same census
+            perf=engine.perf, census=engine.census,
+            census_every=engine.census_every,
             # a replay of a chaos run re-injects the script and recovers
             # again: its journal equals the original's (both equal the
             # fault-free journal)
@@ -639,12 +690,15 @@ def run_power_law(n_tenants: int = 200, n_services: int = 8,
 
 class ServeEngine:
     """Multi-tenant serving plane over the streaming detectors, on one
-    device (``cuda`` unless the caller asks for ``cpu``).  ``rca``,
-    ``shards``, ``fold``, ``worker``, ``flight``, ``chaos``,
+    device (``cuda`` unless the caller asks for ``cpu``).  ``buckets``,
+    ``lane_buckets``, ``fuse``, ``pipeline``, ``state``, ``max_backlog``,
+    ``native_stage``, ``native_drain``, ``rca``, ``shards``, ``fold``,
+    ``worker``, ``flight``, ``perf``, ``census``, ``chaos``,
     ``ckpt_every``, ``policy``, ``async_commit``, ``tier_hot`` and the
-    ``rca_*`` / ``flight_*`` / supervision / policy / ``tier_*`` knobs
-    default from ``anomod_torch.config``; ``tracer`` defaults to a
-    ``Tracer("anomod-serve")`` when the process registry is enabled."""
+    ``rca_*`` / ``flight_*`` / ``census_every`` / supervision / policy /
+    ``tier_*`` knobs default from ``anomod_torch.config`` when None;
+    ``tracer`` defaults to a ``Tracer("anomod-serve")`` when the process
+    registry is enabled."""
 
     def __init__(self, specs: Sequence[TenantSpec], services: Sequence[str],
                  cfg: Optional[ReplayConfig] = None, t0_us: int = 0,
@@ -654,11 +708,14 @@ class ServeEngine:
                  score: bool = True, baseline_windows: int = 4,
                  z_threshold: float = 4.0, consecutive: int = 1,
                  min_count: float = 5.0, multimodal: bool = False,
-                 testbed: Optional[str] = None, fuse: bool = True,
+                 testbed: Optional[str] = None,
+                 fuse: Optional[bool] = None,
                  lane_buckets: Optional[Tuple[int, ...]] = None,
-                 pipeline: Optional[int] = None, state: str = "device",
-                 device: DeviceLike = None, native_stage: bool = True,
-                 drain_engine: str = "native", tracer=None,
+                 pipeline: Optional[int] = None,
+                 state: Optional[str] = None, device: DeviceLike = None,
+                 native_stage: Optional[bool] = None,
+                 drain_engine: str = "native",
+                 native_drain: Optional[str] = None, tracer=None,
                  rca: Optional[bool] = None,
                  rca_buckets: Optional[tuple] = None,
                  rca_topk: Optional[int] = None,
@@ -668,6 +725,9 @@ class ServeEngine:
                  flight: Optional[bool] = None,
                  flight_digest_every: Optional[int] = None,
                  flight_max_ticks: Optional[int] = None,
+                 perf: Optional[bool] = None,
+                 census: Optional[bool] = None,
+                 census_every: Optional[int] = None,
                  chaos=None, ckpt_every: Optional[int] = None,
                  retries: Optional[int] = None,
                  retry_backoff_s: Optional[float] = None,
@@ -698,11 +758,19 @@ class ServeEngine:
         self.t0_us = int(t0_us)
         self.capacity_spans_per_s = float(capacity_spans_per_s)
         self.clock = VirtualClock(tick_s)
-        self.max_backlog = int(DEFAULT_SERVE_MAX_BACKLOG
+        app_cfg = get_config()
+        self.max_backlog = int(app_cfg.serve_max_backlog
                                if max_backlog is None else max_backlog)
-        self.admission = AdmissionController(self.specs,
-                                             max_backlog=self.max_backlog,
-                                             drain_engine=drain_engine)
+        # ANOMOD_SERVE_NATIVE_DRAIN (or ``native_drain``) ``off`` picks the
+        # heap oracle; ``auto`` and ``on`` keep ``drain_engine``
+        native_drain = (app_cfg.serve_native_drain if native_drain is None
+                        else str(native_drain).strip().lower())
+        if native_drain not in ("auto", "on", "off"):
+            raise ValueError(f"native_drain must be auto, on or off, got "
+                             f"{native_drain!r}")
+        self.admission = AdmissionController(
+            self.specs, max_backlog=self.max_backlog,
+            drain_engine="heap" if native_drain == "off" else drain_engine)
         self.score = bool(score)
         #: the multimodal sidecar: each tenant's detector is a
         #: ``MultimodalDetector`` whose log / metric / API planes take
@@ -717,8 +785,7 @@ class ServeEngine:
         #: tenant-fused scoring: per tick, drained same-tenant batches
         #: coalesce into one staging and same-width chunks across tenants
         #: run as lane-stacked dispatches
-        self.fuse = bool(fuse)
-        app_cfg = get_config()
+        self.fuse = bool(app_cfg.serve_fuse if fuse is None else fuse)
         #: tenant sharding: the score plane fans out to ``shards``
         #: workers by tenant ownership; 1 is the inline engine
         self.shards = int(app_cfg.serve_shards if shards is None else shards)
@@ -842,17 +909,82 @@ class ServeEngine:
         #: scored first at the next tick's gate, in park order
         self._tier_parked: Dict[int, list] = {}
         self.tier_wall_s = 0.0
-        #: the demotion order's input (last-served ticks, served EWMAs)
-        self._census_tracker = None
         if self.tier_hot:
-            from anomod_torch.obs.census import CensusTracker
             from anomod_torch.serve.tiering import TierPlane
             self._tier = TierPlane(
                 self.tier_warm_bytes, self.tier_cold_dir,
                 self.tier_prefetch,
                 slot_nbytes=self.cfg.sw
-                * (N_FEATS + self.cfg.n_hist_buckets) * 4)
-            self._census_tracker = CensusTracker()
+                * (N_FEATS + self.cfg.n_hist_buckets) * 4,
+                hot_capacity=self.tier_hot,
+                demote_after=self.tier_demote_after)
+        #: the perf observatory (anomod_torch.obs.perf): one recorder a
+        #: shard runner, drained at the tick barrier in shard order; the
+        #: retained timeline is bounded and every eviction counted
+        self.perf = bool(app_cfg.perf if perf is None else perf)
+        self.perf_max_events = int(app_cfg.perf_max_events)
+        self.perf_events: list = []
+        self.perf_events_recorded = 0
+        self.perf_events_dropped = 0
+        self.perf_headroom_s = 0.0
+        self.perf_wait_s = 0.0
+        #: undrained events of the runners a scale-down retired
+        self._perf_pending: list = []
+        self._perf_tick_doc: Optional[dict] = None
+        self._perf_recs: list = []
+        if self.perf:
+            from anomod_torch.obs.perf import PerfRecorder
+            self._perf_recs = [PerfRecorder(s) for s in range(self.shards)]
+            # metric handles only when the plane is live: a perf-off run
+            # registers no perf series
+            self._obs_perf_events = obs.counter("anomod_perf_events_total")
+            self._obs_perf_dropped = obs.counter(
+                "anomod_perf_dropped_events_total")
+            self._obs_fold_wait = obs.counter(
+                "anomod_serve_fold_wait_seconds_total")
+            self._obs_headroom = obs.counter(
+                "anomod_serve_overlap_headroom_seconds_total")
+        #: the fleet census (anomod_torch.obs.census): every
+        #: ``census_every``-th tick and at the run's end, resident bytes
+        #: from shapes and the hot-set document
+        self.census = bool(app_cfg.census if census is None else census)
+        self.census_every = int(app_cfg.census_every
+                                if census_every is None else census_every)
+        if self.census_every < 1:
+            raise ValueError("census_every must be >= 1 tick")
+        self._census_tick_doc: Optional[dict] = None
+        self.census_ticks = 0
+        self.census_hot_set: Dict[str, object] = {}
+        self.census_resident: Dict[str, object] = {}
+        self.census_peak_bytes = 0
+        self.census_wall_s = 0.0
+        self._census_reconciled = True
+        #: the hot-set bookkeeping: the census's, and under tiering the
+        #: demotion order's input (the drain stays gated on ``census``)
+        self._census_tracker = None
+        if self.census or self.tier_hot:
+            from anomod_torch.obs.census import CensusTracker
+            self._census_tracker = CensusTracker(
+                app_cfg.census_decay_ticks, app_cfg.census_coldest_k,
+                self.census_every)
+        if self.census:
+            self._obs_census = {
+                "total": obs.gauge("anomod_census_resident_bytes"),
+                "pool": obs.gauge("anomod_census_pool_bytes"),
+                "scratch": obs.gauge("anomod_census_scratch_bytes"),
+                "admission": obs.gauge("anomod_census_admission_bytes"),
+                "slo": obs.gauge("anomod_census_slo_bytes"),
+                "rca": obs.gauge("anomod_census_rca_bytes"),
+                "recorder": obs.gauge("anomod_census_recorder_bytes"),
+                "registered": obs.gauge(
+                    "anomod_census_registered_tenants"),
+                "resident": obs.gauge("anomod_census_resident_tenants"),
+                "hot": obs.gauge("anomod_census_hot_tenants"),
+                "occupancy": obs.gauge(
+                    "anomod_census_slot_occupancy_fraction"),
+            }
+            self._obs_census_ticks = obs.counter(
+                "anomod_census_ticks_total")
         #: the shard workers' kind: ``thread`` (the byte-parity oracle)
         #: or ``process`` (anomod_torch.serve.procshard: each shard's
         #: whole score plane in a spawned process, behind the same
@@ -898,13 +1030,21 @@ class ServeEngine:
         self._obs_fold_payload = (
             obs.counter("anomod_serve_fold_payload_bytes_total")
             if self._use_workers else None)
-        pipeline = (DEFAULT_SERVE_PIPELINE if pipeline is None
-                    else int(pipeline))
+        pipeline = int(app_cfg.serve_pipeline if pipeline is None
+                       else pipeline)
+        if state is None:
+            # ANOMOD_SERVE_STATE: ``auto`` is the device pool
+            state = app_cfg.serve_state
+            state = "device" if state == "auto" else state
         # each runner owns (and validates) the pipeline depth and the
         # state mode; the recipe a scale-up builds a runner from
-        self._runner_kw = dict(lane_buckets=lane_buckets, pipeline=pipeline,
-                               state=state, device=self.device,
-                               native_stage=native_stage)
+        self._runner_kw = dict(
+            lane_buckets=(app_cfg.serve_lane_buckets if lane_buckets is None
+                          else lane_buckets),
+            pipeline=pipeline, state=state, device=self.device,
+            native_stage=bool(app_cfg.native != "off" if native_stage is None
+                              else native_stage))
+        buckets = app_cfg.serve_buckets if buckets is None else buckets
         self._buckets_arg = buckets
         self._shard_regs = []
         if self._use_workers:
@@ -941,7 +1081,9 @@ class ServeEngine:
                              pool_slots=max(min(owned[s], self.tier_hot)
                                             if self.tier_hot else owned[s],
                                             1),
-                             own_stream=True, **self._runner_kw)
+                             own_stream=True,
+                             perf=self._perf_recs[s] if self.perf else None,
+                             **self._runner_kw)
                 for s, reg in enumerate(self._shard_regs)]
         else:
             n = len(self.specs)
@@ -949,6 +1091,7 @@ class ServeEngine:
                 self.cfg, buckets,
                 pool_slots=max(min(n, self.tier_hot) if self.tier_hot
                                else n, 1),
+                perf=self._perf_recs[0] if self.perf else None,
                 **self._runner_kw)]
         self._fold_state = [dict() for _ in self._shard_regs]
         self.runner = self._runners[0]
@@ -969,6 +1112,9 @@ class ServeEngine:
         #: the per-tick credit clamp
         self._max_served_batch = 0
         self.serve_wall_s = 0.0
+        #: per-tick serve walls (the ``raw_wall_s`` samples ``perf diff``
+        #: bootstraps over, and the fleet probe's medians)
+        self.tick_walls: List[float] = []
         self.n_spans_served = 0
         #: online RCA: a pure read-side consumer of the alert stream
         self.rca = bool(app_cfg.serve_rca if rca is None else rca)
@@ -1055,6 +1201,8 @@ class ServeEngine:
                                if self.policy is not None else "off"),
                     "async_commit": self.async_commit,
                     "tier_hot": self.tier_hot,
+                    "perf": self.perf,
+                    "census": self.census,
                     "device": device_name(self.device)},
                  "config": config_snapshot(),
                  "versions": versions(self.device)},
@@ -1139,8 +1287,7 @@ class ServeEngine:
         """The planes of this engine that cannot cross a process boundary
         (each keeps state the score plane shares in-process), in the JAX
         engine's order and words.  The JAX engine also refuses process
-        workers beside its mesh plane and perf and census observatories,
-        which the port does not have."""
+        workers beside its mesh plane, which the port does not have."""
         out = []
         if self.multimodal:
             out.append("the multimodal sidecar planes share coordinator "
@@ -1151,6 +1298,10 @@ class ServeEngine:
         if self.tier_hot:
             out.append("state tiering's demotion copier reads the pool "
                        "in-process")
+        if self.perf:
+            out.append("the perf observatory rides the runners in-process")
+        if self.census:
+            out.append("the census walks resident planes in-process")
         return out
 
     @property
@@ -1381,6 +1532,9 @@ class ServeEngine:
             self.tier_wall_s += time.perf_counter() - t0
         else:
             score_list = served
+        # the recorders' tick stamp, written while the workers are idle
+        for rec_ in self._perf_recs:
+            rec_.tick = self.clock.ticks
         if score_list:
             sup = self._supervisor
             if sup is not None:
@@ -1427,17 +1581,28 @@ class ServeEngine:
     def _tick_tail(self, d: dict, t_from: float) -> None:
         """A tick's tail once its folds have committed, in one order for
         the synchronous tick and the deferred commit's barrier: RCA, the
-        census tracker, the journal record, the policy step, then tier
-        demotion.  ``d`` is :meth:`_tail_ctx`'s context; the journal's
+        perf drain, the census, the journal record, the policy step, then
+        tier demotion.  ``d`` is :meth:`_tail_ctx`'s context; the journal's
         wall is ``d["coord_wall"]`` plus the time since ``t_from``."""
         now, served = d["now"], d["served"]
         if self.rca:
             self._rca_step(now, served)
+        if self.perf:
+            # inside the measured wall: the recorder's cost is priced
+            self._perf_tick_doc = self._perf_drain()
         if self._census_tracker is not None:
-            # the demotion order's bookkeeping: tiering's wall
+            # hot-set bookkeeping every tick, the census drain on its
+            # cadence (after the perf drain, so the retentions it counts
+            # are this tick's); without the census the tracker is
+            # tiering's demotion input and its wall tiering's
             t0 = time.perf_counter()
             self._census_tracker.observe(d["tick"], served)
-            self.tier_wall_s += time.perf_counter() - t0
+            if self.census and self._census_tracker.due(d["tick"]):
+                self._census_tick_doc = self._census_drain(d["tick"])
+            if self.census:
+                self.census_wall_s += time.perf_counter() - t0
+            else:
+                self.tier_wall_s += time.perf_counter() - t0
         if self.flight_recorder is not None:
             # the journal entry rides inside the measured wall: the
             # recorder's cost is priced, never hidden
@@ -1483,7 +1648,9 @@ class ServeEngine:
                               or len(self._tenant_replay))
         if self.clock.ticks % self._scrape_every == 0:
             self._registry.scrape(now_s=now)
-        self.serve_wall_s += time.perf_counter() - t_wall
+        t_tick = time.perf_counter() - t_wall
+        self.serve_wall_s += t_tick
+        self.tick_walls.append(t_tick)
 
     # -- the deferred-commit tick ------------------------------------------
 
@@ -1512,6 +1679,9 @@ class ServeEngine:
             self._slo[qb.tenant_id].record(now - qb.enqueued_s)
             self.n_spans_served += qb.n_spans
         self._commit_deferred()
+        # the recorders' tick stamp, after the barrier joined the workers
+        for rec_ in self._perf_recs:
+            rec_.tick = self.clock.ticks
         pending = None
         sup = self._supervisor
         if served:
@@ -1559,6 +1729,9 @@ class ServeEngine:
         pending = d["pending"]
         if pending is not None and any(pending):
             self.commit_defer_wall_s += max(0.0, t_barrier - d["t_issue"])
+            if self.perf:
+                for r in self._runners:
+                    r.mark_deferred(d["t_issue"], t_barrier)
             sup = self._supervisor
             self._last_failures = None
             try:
@@ -2337,9 +2510,15 @@ class ServeEngine:
                 self._apply_shard_reply(s, w.call({"op": "warm"}))
         else:
             reg = obs.Registry(enabled=self._proc_registry.enabled)
+            prec = None
+            if self.perf:
+                from anomod_torch.obs.perf import PerfRecorder
+                prec = PerfRecorder(s)
+                prec.tick = self.clock.ticks
+                self._perf_recs.append(prec)
             self._runners.append(BucketRunner(
                 self.cfg, self._buckets_arg, registry=reg,
-                pool_slots=max(len(moved), 1), own_stream=True,
+                pool_slots=max(len(moved), 1), own_stream=True, perf=prec,
                 **self._runner_kw))
             self._shard_regs.append(reg)
             self._fold_state.append(dict())
@@ -2397,6 +2576,10 @@ class ServeEngine:
             if self.rca:
                 self._rca_planes.pop()
         self._retired_runners.append(_runner_stats(self._runners.pop()))
+        if len(self._perf_recs) > s:
+            # the retired runner's undrained events join the next drain,
+            # so the timeline covers the whole run
+            self._perf_pending.extend(self._perf_recs.pop().drain())
         if self._supervisor is not None:
             self._supervisor.dead_shards.discard(s)
         self.shards = s
@@ -2537,6 +2720,73 @@ class ServeEngine:
                                       scored_s=now)
             out.append((seq, verdict, wall))
 
+    # -- the observatories (anomod_torch.obs.perf, anomod_torch.obs.census)
+
+    def _perf_drain(self) -> Optional[dict]:
+        """The tick barrier's drain of the shard recorders: fold in
+        (shard, seq) order, run the overlap analyzer, accumulate the run's
+        totals, retain the events (bounded, evictions counted) and return
+        the journal's ``perf`` doc, or None with no flight recorder."""
+        from anomod_torch.obs.perf import (analyze_events, fold_perf_records,
+                                           round_events)
+        parts = [self._perf_pending] + [r.drain() for r in self._perf_recs]
+        self._perf_pending = []
+        events = fold_perf_records(parts)
+        stats = analyze_events(events, self.pipeline)
+        n = len(events)
+        self.perf_events_recorded += n
+        self.perf_headroom_s += stats["headroom_s"]
+        self.perf_wait_s += stats["wait_s"]
+        if n:
+            self._obs_perf_events.inc(n)
+            self._obs_fold_wait.inc(stats["wait_s"])
+            self._obs_headroom.inc(stats["headroom_s"])
+        self.perf_events.extend(events)
+        over = len(self.perf_events) - self.perf_max_events
+        if over > 0:
+            del self.perf_events[:over]
+            self.perf_events_dropped += over
+            self._obs_perf_dropped.inc(over)
+        if self.flight_recorder is None:
+            return None
+        return {"events": round_events(events),
+                "headroom_s": round(stats["headroom_s"], 6),
+                "wait_s": round(stats["wait_s"], 6)}
+
+    def _census_drain(self, t_idx: int) -> dict:
+        """One census at the tick barrier (the workers are idle): the
+        resident-bytes walk over shapes and container lengths, the hot-set
+        document, the gauges, and the journal's ``census`` doc for tick
+        ``t_idx``.  No clock, no RNG, no tensor read."""
+        from anomod_torch.obs.census import collect_resident_bytes
+        planes, by_plane, total, reconciled = collect_resident_bytes(self)
+        tracker = self._census_tracker
+        hot = tracker.hot_doc(t_idx, len(self.specs),
+                              list(self._tenant_replay))
+        self.census_ticks += 1
+        self._census_reconciled = self._census_reconciled and reconciled
+        self.census_peak_bytes = max(self.census_peak_bytes, total)
+        self.census_hot_set = hot
+        self.census_resident = {
+            "total": total, "peak_total": self.census_peak_bytes,
+            "by_plane": by_plane,
+            "pool_reconciled": self._census_reconciled}
+        g = self._obs_census
+        g["total"].set(total)
+        for plane in ("pool", "scratch", "admission", "slo", "rca"):
+            g[plane].set(by_plane.get(plane, 0))
+        g["recorder"].set(by_plane.get("flight", 0)
+                          + by_plane.get("perf", 0))
+        g["registered"].set(len(self.specs))
+        g["resident"].set(hot["resident"])
+        g["hot"].set(hot["hot_by_decay"].get(
+            str(min(tracker.decay_ticks)), 0))
+        g["occupancy"].set(hot["occupancy_vs_registered"])
+        self._obs_census_ticks.inc()
+        return {"tick": t_idx, "planes": planes,
+                "total_bytes": total, "pool_reconciled": reconciled,
+                "hot": hot}
+
     # -- the flight recorder (anomod_torch.obs.flight) ----------------------
 
     def _flight_tick(self, now: float, served: List[QueuedBatch],
@@ -2657,6 +2907,8 @@ class ServeEngine:
                "digest": crc}
         leg_sum = sum(walls.values())
         scaling, self._policy_events = self._policy_events, []
+        perf_doc, self._perf_tick_doc = self._perf_tick_doc, None
+        census_doc, self._census_tick_doc = self._census_tick_doc, None
         rec = {
             "tick": t_idx, "now_s": now,
             "admission": admission,
@@ -2678,10 +2930,13 @@ class ServeEngine:
             # what scaled, when, and which tenants moved: topology, so
             # the canonical planes stay equal to a static run's
             "scaling": scaling,
-            # the JAX record's planes the port has not ported, present
-            # and empty as the JAX engine writes them when they are off
-            "perf": {"events": [], "headroom_s": 0.0, "wait_s": 0.0},
-            "census": {"planes": [], "hot": {}},
+            # the perf timeline (walls) and the census (wall-free, but
+            # its bytes follow the pool and scratch topology): present
+            # and empty off-cadence or with the plane off
+            "perf": (perf_doc if perf_doc is not None else
+                     {"events": [], "headroom_s": 0.0, "wait_s": 0.0}),
+            "census": (census_doc if census_doc is not None else
+                       {"planes": [], "hot": {}}),
             # demotions, spills, promotions and misses: a function of
             # seed and config, variant because a miss moves the tick a
             # parked tenant's deltas land in
@@ -2773,6 +3028,15 @@ class ServeEngine:
                 self._rca_tick(self.clock.now_s,
                                budget=len(self._rca_queue))
         self.serve_wall_s += time.perf_counter() - t_wall
+        if self.perf:
+            # events the last drain window left, into the settlement
+            self._perf_tick_doc = self._perf_drain()
+        if self.census:
+            # every census-on run ends on a full census, whatever the
+            # cadence
+            t0 = time.perf_counter()
+            self._census_tick_doc = self._census_drain(self.clock.ticks)
+            self.census_wall_s += time.perf_counter() - t0
         if self.flight_recorder is not None:
             # the settlement record: finish() alerts and drained verdicts
             # land here, and its forced digest anchors the full end state
@@ -2944,6 +3208,8 @@ class ServeEngine:
         tier_n = ((tier.demotions_warm, tier.demotions_cold,
                    tier.promotions, tier.misses, tier.prefetch_hits)
                   if tier is not None else (0,) * 5)
+        from anomod_torch.obs.perf import bubble_fractions
+        fold_wall = sum(st["fold_wall_s"] for st in stats)
         return ServeReport(
             n_tenants=len(self.specs),
             duration_s=round(self.clock.now_s, 6),
@@ -3016,6 +3282,18 @@ class ServeEngine:
             flight_enabled=self.flight,
             flight_recorded_ticks=fr.n_recorded if fr is not None else 0,
             flight_dropped_ticks=fr.n_dropped if fr is not None else 0,
+            perf_enabled=self.perf,
+            perf_events_recorded=self.perf_events_recorded,
+            overlap_headroom_s=round(self.perf_headroom_s, 6),
+            fold_wait_s=round(self.perf_wait_s, 6),
+            bubble_fractions=(bubble_fractions(
+                self.perf_wait_s, self.perf_headroom_s, fold_wall,
+                self.serve_wall_s) if self.perf else {}),
+            census_enabled=self.census,
+            census_ticks=self.census_ticks,
+            census_hot_set=dict(self.census_hot_set),
+            census_resident_bytes=dict(self.census_resident),
+            census_wall_s=round(self.census_wall_s, 4),
             tier_hot=self.tier_hot,
             n_tier_demotions_warm=tier_n[0], n_tier_demotions_cold=tier_n[1],
             n_tier_promotions=tier_n[2], n_tier_misses=tier_n[3],

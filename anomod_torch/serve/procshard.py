@@ -58,9 +58,8 @@ import time
 import traceback
 from typing import Dict, List, Optional, Set, Tuple
 
-from anomod_torch.serve.config import (DEFAULT_SERVE_BUCKETS,
-                                       DEFAULT_SERVE_LANE_BUCKETS,
-                                       validate_lane_buckets,
+from anomod_torch.config import get_config
+from anomod_torch.serve.config import (validate_lane_buckets,
                                        validate_serve_buckets)
 
 __all__ = ["DetMirror", "ProcShardWorker", "RunnerMirror", "rebuild_exc",
@@ -126,10 +125,11 @@ class RunnerMirror:
         self.pipeline = int(pipeline)
         self.state_mode = state
         self.native_stage = bool(native_stage)
+        app_cfg = get_config()
         self.buckets = validate_serve_buckets(
-            DEFAULT_SERVE_BUCKETS if buckets is None else buckets)
+            app_cfg.serve_buckets if buckets is None else buckets)
         self.lane_buckets = validate_lane_buckets(
-            DEFAULT_SERVE_LANE_BUCKETS if lane_buckets is None
+            app_cfg.serve_lane_buckets if lane_buckets is None
             else lane_buckets)
         self.pool = None               # the pool lives in the child
         self.n_dispatches = 0

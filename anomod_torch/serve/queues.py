@@ -99,11 +99,12 @@ class _LazyCounters(dict):
 
 
 class _SpecTable:
-    """The registered fleet as columns: tenant id, priority and resolved
-    SFQ weight as parallel arrays.  Dense ids (0..n-1, every generated
-    fleet) index the arrays directly; others go through a side index."""
+    """The registered fleet as columns: tenant id, priority, resolved SFQ
+    weight and the rate hint as parallel arrays, names as a tuple of
+    references.  Dense ids (0..n-1, every generated fleet) index the
+    arrays directly; others go through a side index."""
 
-    __slots__ = ("ids", "pri", "wt", "_index")
+    __slots__ = ("ids", "pri", "wt", "rate", "names", "_index")
 
     def __init__(self, tenants: Sequence[TenantSpec]):
         self.ids = np.asarray([t.tenant_id for t in tenants], np.int64)
@@ -112,6 +113,9 @@ class _SpecTable:
         self.pri = np.asarray([t.priority for t in tenants], np.int16)
         self.wt = np.asarray([t.effective_weight() for t in tenants],
                              np.float64)
+        self.rate = np.asarray([t.rate_spans_per_s for t in tenants],
+                               np.float64)
+        self.names = tuple(t.name for t in tenants)
         n = len(self.ids)
         dense = n > 0 and bool((self.ids == np.arange(n)).all())
         self._index: Optional[Dict[int, int]] = None if dense \
@@ -129,6 +133,20 @@ class _SpecTable:
 
     def weight_of(self, tid: int) -> float:
         return float(self.wt[self._row(tid)])
+
+    def __len__(self) -> int:
+        return len(self.ids)
+
+    def nbytes(self) -> int:
+        """Exact column bytes + 8 nominal a name reference (the strings
+        are the caller's) + the side index's entries where ids are not
+        dense: the census admission plane's per-registered price, 34 B a
+        tenant on a dense fleet."""
+        b = int(self.ids.nbytes + self.pri.nbytes + self.wt.nbytes
+                + self.rate.nbytes) + 8 * len(self.names)
+        if self._index is not None:
+            b += 64 * len(self._index)
+        return b
 
 
 class _ColumnarSFQ:
@@ -492,6 +510,10 @@ class AdmissionController:
 
     def priority_of(self, tenant_id: int) -> int:
         return self.specs.priority_of(tenant_id)
+
+    def spec_table_nbytes(self) -> int:
+        """Exact resident bytes of the registered fleet's spec table."""
+        return self.specs.nbytes()
 
     def tenant_backlog(self, tenant_id: int) -> int:
         """Queued spans of one tenant (0 when it never offered): state

@@ -44,6 +44,8 @@ import numpy as np
 
 from anomod_torch.io.cache import (_atomic_publish, _read_payload,
                                    _write_payload, cache_key, entry_paths)
+from anomod_torch.obs.census import (TIER_COLD_INDEX_BYTES,
+                                     TIER_WARM_ENTRY_BYTES)
 
 __all__ = ["TierPlane", "TIER_FORMAT"]
 
@@ -77,7 +79,12 @@ class TierPlane:
     publish/load and the prefetch lane."""
 
     def __init__(self, warm_budget_bytes: int, cold_dir: Optional[Path],
-                 prefetch_depth: int, slot_nbytes: int):
+                 prefetch_depth: int, slot_nbytes: int,
+                 hot_capacity: int = 0, demote_after: int = 0):
+        #: the engine's tier geometry, as the JAX plane carries it (0:
+        #: not given); the engine decides what demotes and when
+        self.hot_capacity = int(hot_capacity)
+        self.demote_after = int(demote_after)
         self.warm_budget_bytes = int(warm_budget_bytes)
         self.cold_dir = Path(cold_dir) if cold_dir else None
         self.prefetch_depth = int(prefetch_depth)
@@ -99,8 +106,9 @@ class TierPlane:
         self.promotions = 0
         self.misses = 0
         # wall-side telemetry (variant surface): how many cold joins
-        # found the fetch already complete
+        # found the fetch already complete, of how many
         self.prefetch_hits = 0
+        self.prefetch_joins = 0
         #: demote/promote/miss events for the flight journal's
         #: ``tiering`` VARIANT key (drained per tick by the engine);
         #: wall-free, so the stream is byte-equal across reruns
@@ -118,11 +126,29 @@ class TierPlane:
     def tids(self):
         return self._entries.keys()
 
+    @property
+    def n_warm(self) -> int:
+        return sum(1 for e in self._entries.values()
+                   if e["cold_key"] is None)
+
+    @property
+    def n_cold(self) -> int:
+        return sum(1 for e in self._entries.values()
+                   if e["cold_key"] is not None)
+
     def status(self, tid: int) -> Optional[str]:
         e = self._entries.get(tid)
         if e is None:
             return None
         return "cold" if e["cold_key"] is not None else "warm"
+
+    def resident_nbytes(self) -> int:
+        """Deterministic host-resident bytes for the census tier plane:
+        warm state arrays exact + nominal per-entry bookkeeping; cold
+        entries price as index entries only (their arrays are on disk)."""
+        return (self.warm_state_bytes
+                + self.n_warm * TIER_WARM_ENTRY_BYTES
+                + self.n_cold * TIER_COLD_INDEX_BYTES)
 
     # -- demotion ---------------------------------------------------------
 
@@ -245,6 +271,7 @@ class TierPlane:
         else:
             fut = self._fetching.pop(tid, None)
             if fut is not None:
+                self.prefetch_joins += 1
                 if fut.done():
                     self.prefetch_hits += 1
                 arrays, meta = fut.result()

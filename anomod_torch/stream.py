@@ -21,12 +21,17 @@
   plane-corroboration tier.  The pair accumulators behind the verdicts
   fill only in the multimodal detector: on span evidence alone the
   verdicts are never read.
+
+As in the JAX package, ``ANOMOD_RANK_TIER=0`` turns the corroboration
+tier's reorder off and ``ANOMOD_EDGE_DEBUG`` prints the out-edge plane's
+leader each scored window.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 import time
 from typing import Callable, List, Optional, Sequence
 
@@ -702,6 +707,12 @@ class OnlineDetector:
                 # plane on a structurally thin baseline
                 hot[S:] = span_z[S:] >= self.z_threshold
                 out_z = span_z[2 * S:]
+                if os.environ.get("ANOMOD_EDGE_DEBUG"):
+                    # the out-edge plane's leader a scored window
+                    _t = int(out_z.argmax())
+                    print(f"[edge] w{w} top={self.services[_t]} "
+                          f"z={out_z[_t]:.2f} "
+                          f"2nd={float(np.partition(out_z, -2)[-2]):.2f}")
                 hot_hi = out_z >= self.z_threshold - 0.5
                 if out_z.size >= 2:
                     top = int(out_z.argmax())
@@ -869,8 +880,10 @@ class OnlineDetector:
         # pair heat concentrates on, and sustained only under a spread
         # refutation — is "uncorroborated"; each edge-dominant candidate
         # is bubbled above adjacent uncorroborated services below.
+        # ``ANOMOD_RANK_TIER=0`` turns the reorder off.
         uncorroborated: set = set()
-        if edge_dom and len(set().union(*plane_groups.values())) >= 2:
+        if (edge_dom and os.environ.get("ANOMOD_RANK_TIER", "1") != "0"
+                and len(set().union(*plane_groups.values())) >= 2):
             conc_exempt = {v[1] for v in verdicts.values()
                            if v is not None and v[0] == "concentrated"}
             spread_callees: set = set()

@@ -96,6 +96,20 @@ class Tracer:
             stack.pop()
             rec["dur"] = time.time() - start
 
+    def add_span(self, name: str, start_s: float, dur_s: float,
+                 tid: int = 0, **tags) -> None:
+        """Append a root span timed elsewhere (explicit start, duration
+        and lane), e.g. the perf observatory's dispatch-lifecycle events
+        (:func:`anomod_torch.obs.perf.perf_tracer`), so they export
+        through the same chrome / Jaeger pipeline.  Never touches the
+        thread-local span stack."""
+        rec = {"name": name, "start": float(start_s),
+               "dur": float(dur_s), "parent": None, "tid": int(tid),
+               "tags": {str(k): v for k, v in tags.items()},
+               "events": []}
+        with self._lock:
+            self._spans.append(rec)
+
     def event(self, message: str, **fields) -> None:
         """Attach an event to the CURRENT thread's innermost open span
         (no-op outside any span — callers never need to guard)."""

@@ -78,8 +78,8 @@ drives the data layer and every ported path:
   verdict stream equals the CPU twin's; one RCA run is traced for its
   device events;
 - telemetry (phase 17) at the same deployment: the registry off, then on
-  (twice each, alternating), decisions identical, the overhead and the
-  journal's size printed; the on-run's journal exported to TT-CSV, loaded
+  (once each), decisions identical, the overhead and the journal's size
+  printed; the on-run's journal exported to TT-CSV, loaded
   back through ``load_tt_metric_csv`` and scored by ``score_self_scrape``
   on the card (the dense kernel, launches counted) against the same
   scoring through the plain fold on the card (the scorings' own chunks,
@@ -102,15 +102,16 @@ drives the data layer and every ported path:
   distribution and under the edge-locus shift, with each family's
   figures an epoch;
 - the flight recorder and thread shards (phase 20) at the serve bench
-  deployment, RCA on: flight off and on in three alternating turns, the
+  deployment, RCA on: flight off and on in two alternating turns, the
   decision and RCA pins on every run, decisions equal off / on, the
   card's canonical journal byte-identical to the CPU twin's (phase 16's),
   no ring drop, the overhead fraction with the state digest's and the
   tick record's own walls; 2 and 4 shards on the card equal to the
   1-shard run (states, alerts, verdicts, decisions, canonical journal,
   staged chunks per width), ``lane_delta`` launched from the shard
-  runners' own streams only, serve wall, launches and a profiled busy
-  share per shard count; ``audit record``, ``audit replay --shards 2``
+  runners' own streams only, serve wall and launches per shard count, a
+  profiled busy share at 1 and 2 shards; ``audit record``, ``audit
+  replay --shards 2``
   and ``audit diff`` (exit 0) through the CLI on the card, and a journal
   with one tick's admission digest edited, which ``diff`` names (exit
   1);
@@ -152,7 +153,22 @@ drives the data layer and every ported path:
   metrics and API, 60 s ticks) held to the port's sequential
   ``MultimodalDetector`` on the card and to the CPU twin, supervision
   and the policy off; each run's serve wall, the traffic's own wall,
-  polls / samples / spans / gaps, launches, and a profiled busy share.
+  polls / samples / spans / gaps, launches, and a profiled busy share;
+- the perf and census observatories (phase 24) at the serve bench
+  deployment, RCA on: perf off and on in three alternating turns, the
+  pins and the CPU twin's journal on every run, decisions equal off /
+  on, events recorded and none dropped, the timeline's dispatch and fold
+  stamps summing to the report's legs, the wait, the headroom and the
+  bubble fractions printed with the overhead's median; the same at 2
+  thread shards (shard tags, a Chrome trace written and parsed back, one
+  lane a shard and scratch slot) and with the deferred commit
+  (``deferred`` stamps); the census every 8 ticks, its pool reconciled,
+  its stream byte-equal to a rerun's and to a CPU twin's (a spawned
+  process), its hot-set document the twin's and its eleven gauges in
+  the scrape journal; the registered-fleet sweep (1e3, 1e4 and 1e5
+  registered, 1e3 hot, 8 ticks) and the tiered one (plus 1e6, hot 1000,
+  demotion after 2 idle ticks), each row's bytes the twin's, beside the
+  JAX engine's committed CPU capture of the sweep.
 
 The serve runs of phases 8 and 16-23 run with the flight recorder on and
 supervised (a checkpoint every 32 ticks), the engine's defaults.
@@ -2076,7 +2092,7 @@ def rca_serve_phase(dev, card) -> dict:
 
 def telemetry_phase(dev, card, plain_factory) -> dict:
     """Phase 17: the serve bench deployment with the registry off, then
-    on (twice each, alternating): identical decisions, the overhead; the
+    on (once each): identical decisions, the overhead; the
     on-run's journal through TT-CSV, ``load_tt_metric_csv`` and
     ``score_self_scrape`` on the card, against the same scoring through
     the plain fold on the card; the injected-stall registry through the
@@ -2108,7 +2124,7 @@ def telemetry_phase(dev, card, plain_factory) -> dict:
     walls = {"off": [], "on": []}
     runs = {}
     try:
-        for leg in ("off", "on", "off", "on"):
+        for leg in ("off", "on"):
             reg = Registry(enabled=leg == "on")
             set_registry(reg)
             eng, rep = run_power_law(device=dev, **SERVE_KW)
@@ -2420,9 +2436,12 @@ def shift_phase(dev, card) -> dict:
 
 
 #: flight off / on turns of phase 20 (alternating, the median fraction)
-FLIGHT_TURNS = 3
+FLIGHT_TURNS = 2
 #: shard counts of phase 20 beside the 1-shard run
 SHARD_COUNTS = (2, 4)
+#: shard counts phase 20 reruns under the profiler for a busy share (2
+#: is phase 21's thread oracle)
+PROFILED_SHARD_COUNTS = (1, 2)
 
 
 def flight_shard_phase(dev, card, cpu_journal) -> dict:
@@ -2609,7 +2628,7 @@ def flight_shard_phase(dev, card, cpu_journal) -> dict:
             f"interpreter lock): " + ", ".join(
                 f"{k} {v['sum_s']:.4f} ({v['calls']})"
                 for k, v in split.items() if isinstance(v, dict)))
-    for n in (1,) + SHARD_COUNTS:
+    for n in PROFILED_SHARD_COUNTS:
         sk.reset_launches()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             _, rep = run_power_law(shards=n, **kw)
@@ -3812,6 +3831,368 @@ def live_feed_phase(dev, card) -> dict:
     return {"live_feed": out}
 
 
+#: phase 24a: perf off / on turns (alternating; the overhead is the median
+#: of the turns' fractions)
+PERF_TURNS = 3
+#: phase 24b: the census cadence (the engine's default)
+CENSUS_EVERY = 8
+#: phase 24c: the tiered sweep's tier geometry (the JAX bench's,
+#: ``bench.py:426-438``); its sizes are the untiered sweep's and 10x its
+#: largest
+SWEEP_TIER = dict(tier_hot=1_000, tier_demote_after=2)
+#: the JAX package's committed serve capture
+#: (``bench_runs/20260807T091231Z_serve_sustained_throughput_cpu.json``):
+#: the JAX engine's CPU figures of the same sweep, printed beside the
+#: port's, never compared
+JAX_SWEEP_CPU = {"bytes_slope_per_registered": 34.0,
+                 "resident_bytes": {1000: 5493112, 10000: 5799112,
+                                    100000: 8859112}}
+#: the eleven census gauges
+CENSUS_GAUGES = ("anomod_census_resident_bytes", "anomod_census_pool_bytes",
+                 "anomod_census_scratch_bytes",
+                 "anomod_census_admission_bytes", "anomod_census_slo_bytes",
+                 "anomod_census_rca_bytes", "anomod_census_recorder_bytes",
+                 "anomod_census_registered_tenants",
+                 "anomod_census_resident_tenants",
+                 "anomod_census_hot_tenants",
+                 "anomod_census_slot_occupancy_fraction")
+
+
+def census_stream(eng) -> str:
+    """A run's journal ``census`` stream (census ticks only), serialized
+    deterministically: the byte-equality surface."""
+    return json.dumps([rec["census"] for rec in eng.flight_recorder.records()
+                       if rec["census"]["planes"]],
+                      sort_keys=True, separators=(",", ":"))
+
+
+def sweep_bytes(doc) -> list:
+    """The bytes rows of a fleet sweep (what does not depend on walls)."""
+    return [(r["registered"], r["resident_bytes"], r["bytes_by_plane"],
+             r["pool_reconciled"]) for r in doc["rows"]]
+
+
+def census_cpu_twin() -> tuple:
+    """Phase 24's CPU twin, run in a spawned process: the census run's
+    stream and hot-set document, and both sweeps' bytes rows.  One torch
+    thread: the plain lane fold's ``index_add_`` piles every padding row
+    onto one segment, and those adds contend under torch's thread pool."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import torch
+    torch.set_num_threads(1)
+    from anomod_torch.obs.census import fleet_probe
+    from anomod_torch.serve.engine import run_power_law
+    t0 = time.perf_counter()
+    eng, rep = run_power_law(device="cpu", rca=True, census=True,
+                             census_every=CENSUS_EVERY, **SERVE_KW)
+    sweep = fleet_probe(device="cpu")
+    tiered = fleet_probe(device="cpu", sizes=[*sweep["sizes"],
+                                              10 * max(sweep["sizes"])],
+                         **SWEEP_TIER)
+    return ({"stream": census_stream(eng), "hot": rep.census_hot_set,
+             "sweep": sweep_bytes(sweep), "tiered": sweep_bytes(tiered)},
+            time.perf_counter() - t0)
+
+
+def perf_reconciles(name, eng, rep) -> dict:
+    """Phase 24a's timeline checks on one perf-on run: every event
+    complete and in lifecycle order, the dispatch and fold stamps summing
+    to the report's legs within their 4-digit rounding, the stage stamps
+    inside the stage leg (the bucket plan is not a dispatch event), the
+    wait inside the fold leg and equal to ``fold_wait_s``."""
+    from anomod_torch.obs.perf import EVENT_FIELDS
+    evs = eng.perf_events
+    check(rep.perf_events_recorded > 0 and eng.perf_events_dropped == 0
+          and len(evs) == rep.perf_events_recorded,
+          f"{name}: {rep.perf_events_recorded} events recorded, "
+          f"{eng.perf_events_dropped} dropped, {len(evs)} kept")
+    check(all(set(EVENT_FIELDS) == set(e) for e in evs),
+          f"{name}: an event lacks a field")
+    sums = {leg: sum(e[b] - e[a] for e in evs) for leg, a, b in (
+        ("dispatch", "submitted_t0", "submitted"),
+        ("fold", "retire_t0", "folded"), ("stage", "staged_t0", "staged"),
+        ("wait", "retire_t0", "materialized"))}
+    for leg, wall in (("dispatch", rep.dispatch_wall_s),
+                      ("fold", rep.fold_wall_s)):
+        check(abs(sums[leg] - wall) <= 1e-3 + 0.01 * sums[leg],
+              f"{name}: the {leg} stamps sum to {sums[leg]:.6f} s against "
+              f"the report's {wall} s")
+    check(0.0 < sums["stage"] <= rep.stage_wall_s + 1e-3
+          and 0.0 < sums["wait"] <= sums["fold"] + 1e-9
+          and abs(sums["wait"] - rep.fold_wait_s) < 1e-6
+          and 0.0 <= rep.overlap_headroom_s <= rep.fold_wait_s + 1e-9,
+          f"{name}: stage {sums['stage']}, wait {sums['wait']} against the "
+          f"legs {rep.stage_wall_s} / {rep.fold_wall_s}, headroom "
+          f"{rep.overlap_headroom_s}")
+    check(all(e["staged_t0"] <= e["staged"] <= e["submitted_t0"]
+              <= e["submitted"] <= e["retire_t0"] <= e["materialized"]
+              <= e["folded"] for e in evs),
+          f"{name}: an event's stamps are out of lifecycle order")
+    return {k: round(v, 6) for k, v in sums.items()}
+
+
+def observatory_phase(dev, card, cpu_journal) -> dict:
+    """Phase 24: the perf and census observatories in the serve tick, on
+    the card, at the serve bench deployment, RCA on, the engine's
+    defaults.  (a) Perf off and on in alternating turns: the decision
+    and RCA pins on every run, decisions, states, alerts and verdicts
+    equal off / on, the canonical journal the CPU twin's (phase 16's),
+    events recorded and none dropped, the timeline reconciled with the
+    report's legs (:func:`perf_reconciles`); the same at 2 thread shards
+    (shard tags on the events and the trace's lanes) and with the
+    deferred commit (``deferred`` stamps); one Chrome trace written to a
+    temporary directory and parsed back, one lane a (shard, scratch
+    slot).  (b) The census every 8 ticks: ``pool_reconciled``, the
+    ``census`` stream byte-equal to a rerun's and to the CPU twin's, the
+    hot-set document the twin's, the eleven gauges in the scrape
+    journal.  (c) The registered-fleet sweep at ``ANOMOD_CENSUS_SWEEP``'s
+    sizes and the tiered one up to 1e6 registered, each row's bytes the
+    twin's.  The twin runs in a spawned process meanwhile.  Launch counts
+    are reset at the start and read at the end."""
+    import dataclasses
+    import multiprocessing
+    import statistics
+    import tempfile
+
+    from anomod_torch import obs
+    from anomod_torch.obs.census import fleet_probe
+    from anomod_torch.obs.perf import perf_tracer
+    from anomod_torch.obs.registry import Registry
+    from anomod_torch.ops import serve_kernels as sk
+    from anomod_torch.serve.engine import VARIANT_REPORT_FIELDS, run_power_law
+    from anomod_torch.utils.tracing import spans_from_chrome
+    t_phase = time.perf_counter()
+    kw = dict(SERVE_KW, device=dev, rca=True)
+
+    def decisions(r, skip=()):
+        return {k: v for k, v in dataclasses.asdict(r).items()
+                if k not in VARIANT_REPORT_FIELDS + tuple(skip)
+                and k != "device"}
+
+    def held(eng, rep, what):
+        got = {"p99_latency_s": rep.latency["p99_latency_s"],
+               "shed_fraction": rep.shed_fraction, "n_alerts": rep.n_alerts}
+        check(got == SERVE_PINS, f"{what}: pins {got} != {SERVE_PINS}")
+        rca = {"n_rca_runs": rep.n_rca_runs, "rca_eligible": rep.rca_eligible,
+               "rca_topk_hits": rep.rca_topk_hits}
+        check(rca == RCA_PINS, f"{what}: rca pins {rca} != {RCA_PINS}")
+        check(eng.flight_recorder.canonical_bytes() == cpu_journal,
+              f"{what}: the canonical journal differs from the CPU twin's")
+
+    out = {"24a": {}, "24b": {}, "24c": {}}
+    sk.reset_launches()
+    pool = multiprocessing.get_context("spawn").Pool(1)
+    try:
+        twin_job = pool.apply_async(census_cpu_twin)
+
+        # -- 24a: perf off / on ---------------------------------------------
+        walls = {"off": [], "on": []}
+        runs = {}
+        for leg in ("off", "on") * PERF_TURNS:
+            eng, rep = run_power_law(perf=leg == "on", **kw)
+            held(eng, rep, f"perf {leg}")
+            walls[leg].append(rep.serve_wall_s)
+            runs.setdefault(leg, []).append((eng, rep))
+        (e_off, r_off), (e_on, r_on) = runs["off"][0], runs["on"][0]
+        check(serve_fingerprint(e_on) == serve_fingerprint(e_off)
+              and decisions(r_on, ("perf_enabled",))
+              == decisions(r_off, ("perf_enabled",))
+              and [repr(v.to_dict()) for v in e_on.rca_verdicts]
+              == [repr(v.to_dict()) for v in e_off.rca_verdicts],
+              "perf: states, alerts, verdicts or decisions differ off / on")
+        recon = [perf_reconciles(f"perf on, turn {i}", e, r)
+                 for i, (e, r) in enumerate(runs["on"])]
+        overhead = [on / off - 1.0 for on, off in zip(walls["on"],
+                                                      walls["off"])]
+        on_runs = [dict(fold_wait_s=r.fold_wait_s,
+                        overlap_headroom_s=r.overlap_headroom_s,
+                        fold_wall_s=r.fold_wall_s,
+                        bubble_fractions=r.bubble_fractions,
+                        events=r.perf_events_recorded, sums=rc)
+                   for (_, r), rc in zip(runs["on"], recon)]
+        out["24a"] = dict(serve_wall_off_s=walls["off"],
+                          serve_wall_on_s=walls["on"],
+                          overhead_fraction=overhead,
+                          overhead_median=statistics.median(overhead),
+                          on_runs=on_runs)
+        log(f"[24a] perf on {card}: pins held off and on, states, alerts, "
+            f"verdicts and decisions equal, the canonical journal the CPU "
+            f"twin's; serve wall off {walls['off']} s, on {walls['on']} s "
+            f"(alternating), overhead {overhead}, median "
+            f"{out['24a']['overhead_median']:.4g}; each on run: " + "; ".join(
+                f"{d['events']} events, fold_wait_s {d['fold_wait_s']} of "
+                f"fold_wall_s {d['fold_wall_s']}, overlap_headroom_s "
+                f"{d['overlap_headroom_s']}, bubble_fractions "
+                f"{d['bubble_fractions']}, stamp sums {d['sums']}"
+                for d in on_runs))
+        del runs
+
+        for name, extra in (("2 shards", dict(shards=2)),
+                            ("deferred", dict(async_commit=True))):
+            eng, rep = run_power_law(perf=True, **kw, **extra)
+            held(eng, rep, f"perf {name}")
+            mode = ("async_commit", "async_ticks")
+            check(serve_fingerprint(eng) == serve_fingerprint(e_off)
+                  and decisions(rep, mode) == decisions(r_on, mode),
+                  f"perf {name}: states, alerts or decisions differ from "
+                  f"the 1-shard run")
+            sums = perf_reconciles(f"perf {name}", eng, rep)
+            shards = sorted({e["shard"] for e in eng.perf_events})
+            deferred = sum(e["deferred"] is not None for e in eng.perf_events)
+            if name == "2 shards":
+                check(shards == [0, 1], f"perf 2 shards: events of {shards}")
+                with tempfile.TemporaryDirectory() as tmp:
+                    path = Path(tmp) / "perf_trace.json"
+                    perf_tracer(eng.perf_events).dump_chrome(path)
+                    spans = spans_from_chrome(json.loads(path.read_text()))
+                lanes = {}
+                for sp in spans:
+                    t = sp["tags"]
+                    lanes.setdefault(sp["tid"], set()).add(
+                        (t["shard"], t["width"], t["lanes"], t["slot"]))
+                check(spans and all(len(v) == 1 for v in lanes.values())
+                      and {next(iter(v))[0] for v in lanes.values()}
+                      == {"0", "1"},
+                      "perf 2 shards: the trace's lanes do not map one to "
+                      "one onto (shard, scratch slot)")
+                trace = dict(spans=len(spans), lanes=len(lanes),
+                             names=sorted({sp["name"] for sp in spans}))
+            else:
+                check(deferred > 0 and rep.async_ticks == rep.ticks,
+                      f"perf deferred: {deferred} deferred stamps over "
+                      f"{rep.async_ticks} deferred ticks")
+            out["24a"][name] = dict(
+                serve_wall_s=rep.serve_wall_s, fold_wait_s=rep.fold_wait_s,
+                overlap_headroom_s=rep.overlap_headroom_s,
+                fold_wall_s=rep.fold_wall_s,
+                bubble_fractions=rep.bubble_fractions,
+                events=rep.perf_events_recorded, shards=shards,
+                deferred_stamps=deferred,
+                commit_defer_wall_s=rep.commit_defer_wall_s, sums=sums)
+            log(f"[24a] perf {name} on {card}: pins and the journal held; "
+                f"events {rep.perf_events_recorded} on shards {shards}, "
+                f"deferred stamps {deferred}; serve wall "
+                f"{rep.serve_wall_s:.4f} s, fold_wait_s {rep.fold_wait_s} "
+                f"of fold_wall_s {rep.fold_wall_s}, overlap_headroom_s "
+                f"{rep.overlap_headroom_s}, bubble_fractions "
+                f"{rep.bubble_fractions}, commit_defer_wall_s "
+                f"{rep.commit_defer_wall_s}")
+        out["24a"]["trace"] = trace
+        log(f"[24a] Chrome trace of the 2-shard run: {trace['spans']} spans "
+            f"on {trace['lanes']} lanes, one a (shard, scratch slot), parsed "
+            f"back; span kinds {trace['names']}")
+
+        # -- 24b: the census ------------------------------------------------
+        prev = obs.get_registry()
+        reg = Registry(enabled=True)
+        obs.set_registry(reg)
+        try:
+            e_c, r_c = run_power_law(census=True, census_every=CENSUS_EVERY,
+                                     **kw)
+        finally:
+            obs.set_registry(prev)
+        held(e_c, r_c, "census")
+        skip = ("census_enabled", "census_ticks", "census_hot_set")
+        check(serve_fingerprint(e_c) == serve_fingerprint(e_off)
+              and decisions(r_c, skip) == decisions(r_off, skip),
+              "census: states, alerts or decisions differ from census off")
+        rb = r_c.census_resident_bytes
+        check(rb.get("pool_reconciled") is True,
+              f"census: the pool does not reconcile: {rb}")
+        names = {sample[1] for sample in reg.journal()}
+        missing = [g for g in CENSUS_GAUGES if g not in names]
+        check(not missing, f"census: gauges missing from the scrape "
+              f"journal: {missing}")
+        stream = census_stream(e_c)
+        e_r, r_r = run_power_law(census=True, census_every=CENSUS_EVERY, **kw)
+        check(census_stream(e_r) == stream,
+              "census: the stream differs from a rerun's on the card")
+        out["24b"] = dict(census_ticks=r_c.census_ticks,
+                          census_wall_s=[r_c.census_wall_s, r_r.census_wall_s],
+                          serve_wall_s=[r_c.serve_wall_s, r_r.serve_wall_s],
+                          resident_bytes=rb,
+                          hot_set=r_c.census_hot_set,
+                          stream_bytes=len(stream))
+        log(f"[24b] census every {CENSUS_EVERY} ticks on {card}: pins and "
+            f"the journal held, decisions equal to census off; "
+            f"{r_c.census_ticks} censuses, pool reconciled, stream "
+            f"({len(stream)} B) byte-equal to a rerun's; the "
+            f"{len(CENSUS_GAUGES)} gauges in the scrape journal; resident "
+            f"bytes {rb}; "
+            f"census_wall_s {r_c.census_wall_s} / {r_r.census_wall_s} of "
+            f"serve walls {r_c.serve_wall_s:.4f} / {r_r.serve_wall_s:.4f} s; "
+            f"hot set {r_c.census_hot_set}")
+
+        # -- 24c: the registered-fleet sweep -------------------------------
+        sweeps = {}
+        obs.set_registry(Registry(enabled=True))
+        try:
+            t0 = time.perf_counter()
+            sweeps["untiered"] = fleet_probe(device=dev)
+            sizes = [*sweeps["untiered"]["sizes"],
+                     10 * max(sweeps["untiered"]["sizes"])]
+            sweeps["tiered"] = fleet_probe(device=dev, sizes=sizes,
+                                           **SWEEP_TIER)
+            sweep_s = time.perf_counter() - t0
+        finally:
+            obs.set_registry(prev)
+        for name, doc in sweeps.items():
+            check(all(r["pool_reconciled"] is True for r in doc["rows"]),
+                  f"sweep {name}: a pool does not reconcile")
+            out["24c"][name] = dict(
+                rows=[{k: r[k] for k in ("registered", "hot",
+                                         "median_tick_wall_s",
+                                         "mean_tick_wall_s",
+                                         "resident_bytes", "bytes_by_plane")}
+                      for r in doc["rows"]],
+                **{k: doc[k] for k in ("bytes_slope_per_registered",
+                                       "bytes_intercept",
+                                       "wall_slope_s_per_registered",
+                                       "wall_intercept_s")})
+            log(f"[24c] {name} sweep on {card}: " + "; ".join(
+                f"{r['registered']} registered: median tick "
+                f"{r['median_tick_wall_s']} s, {r['resident_bytes']} B "
+                f"{r['bytes_by_plane']}" for r in doc["rows"])
+                + f"; slopes {doc['bytes_slope_per_registered']} B and "
+                f"{doc['wall_slope_s_per_registered']} s a registered tenant")
+        out["24c"]["wall_s"] = sweep_s
+        log(f"[24c] beside it, the JAX engine's committed CPU capture of "
+            f"the untiered sweep: "
+            f"{JAX_SWEEP_CPU['bytes_slope_per_registered']} B a registered "
+            f"tenant, resident bytes "
+            f"{JAX_SWEEP_CPU['resident_bytes']} (the JAX engine's CPU "
+            f"figures, not the port's)")
+
+        # -- the CPU twin ---------------------------------------------------
+        t0 = time.perf_counter()
+        twin, twin_s = twin_job.get(timeout=900)
+        wait_s = time.perf_counter() - t0
+    finally:
+        pool.terminate()
+        pool.join()
+    check(stream == twin["stream"],
+          "census: the card's stream differs from the CPU twin's")
+    check(r_c.census_hot_set == twin["hot"],
+          "census: the hot-set document differs from the CPU twin's")
+    for name in ("untiered", "tiered"):
+        check(sweep_bytes(sweeps[name]) == twin[name if name == "tiered"
+                                                else "sweep"],
+              f"sweep {name}: the bytes rows differ from the CPU twin's")
+    out["cpu_twin_wall_s"] = twin_s
+    out["cpu_twin_wait_s"] = wait_s
+    log(f"[24] CPU twin (a spawned process) {twin_s:.2f} s, waited "
+        f"{wait_s:.2f} s: the census stream, the hot-set document and both "
+        f"sweeps' bytes rows equal the card's")
+    out["launches"] = {k: sk.launches.get(k, 0)
+                       for k in ("lane_delta", "window_gather")}
+    for k, v in out["launches"].items():
+        check(v > 0, f"phase 24: kernel {k} was not launched")
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    log(f"[24] phase 24 in {out['phase_wall_s']:.1f} s; serve kernel "
+        f"launches {out['launches']}")
+    return {"observatories": out}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4129,6 +4510,7 @@ def main() -> int:
     ps21 = supervise_proc_phase(dev, card, cpu_journal, fs20)
     p22 = elastic_async_tier_phase(dev, card, cpu_journal)
     p23 = live_feed_phase(dev, card)
+    p24 = observatory_phase(dev, card, cpu_journal)
 
     # -- report -----------------------------------------------------------
     # the dense kernel's top-level times are the corpus pass's; each path
@@ -4184,6 +4566,9 @@ def main() -> int:
                 p22["elastic_async_tier"]["launches"][k["name"]]
             # phase 23's feed and sidecar runs
             k["launches_phase23"] = p23["live_feed"]["launches"][k["name"]]
+            # phase 24's perf, census and sweep runs
+            k["launches_phase24"] = \
+                p24["observatories"]["launches"][k["name"]]
     log(json.dumps({"replay_spans_per_sec": rates, "replicate": replicate,
                     "stream_top1": sum(hits) / len(hits),
                     "stream_wall_s": stream_s,
@@ -4195,7 +4580,7 @@ def main() -> int:
                     "l2_eviction_ms": flush, **data, **serve,
                     **sketch, **roof, **det13, **rca14, **mm15, **rca16,
                     **tele17, **q18, **s19, **fs20, **ps21, **p22, **p23,
-                    "wall_s": time.perf_counter() - t_all}))
+                    **p24, "wall_s": time.perf_counter() - t_all}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -5,6 +5,12 @@
   corpus p50/p95/p99 from the per-segment t-digest plane,
   ``--edge-percentiles`` the five slowest cross edges by p99 with their
   HLL distinct-trace counts.
+- ``replay``, ``stream`` and ``serve`` take ``--devices N``: the run goes
+  over an N-device mesh (``anomod_torch.parallel``), one rank a device
+  (``nccl`` on the cards, ``gloo`` ranks with ``--device cpu``), each rank
+  folding its shard and merging through collectives; the sharded replay,
+  the sharded streaming plane under the detector, the serve mesh plane.
+  Rank 0's result is printed.  N above the attached cards is an error.
 - ``detect``: the offline five-modality z-score detector over a
   testbed's 13 experiments (synthetic, or ``--from-data`` through the
   loaders), evaluated against the chaos labels: one JSON document (the
@@ -110,6 +116,13 @@ def _parser() -> argparse.ArgumentParser:
                    help="also report the slowest call-graph edges by p99 "
                         "from the per-edge t-digest plane, with their HLL "
                         "distinct-trace counts")
+    p.add_argument("--devices", type=int, default=0,
+                   help="shard the corpus over an N-device mesh (one rank "
+                        "a device, an all_reduce merge) instead of the "
+                        "single-device path; needs N attached cards, or "
+                        "--device cpu for N gloo ranks.  --percentiles "
+                        "still builds its digest plane in a separate "
+                        "single-device pass")
 
     d = sub.add_parser("detect", help="run the z-score detector + RCA "
                        "ranking over a corpus")
@@ -168,6 +181,10 @@ def _parser() -> argparse.ArgumentParser:
     s.add_argument("--no-edge-attribution", action="store_true",
                    help="turn off the out-edge attribution plane (default "
                         "on)")
+    s.add_argument("--devices", type=int, default=0,
+                   help="shard the streaming replay plane (incl. the "
+                        "edge-attribution id space) over an N-device mesh "
+                        "(--device cpu: N gloo ranks)")
     s.add_argument("--device", default=None,
                    help="cuda (default) or cpu (plain PyTorch versions)")
 
@@ -330,6 +347,10 @@ def _parser() -> argparse.ArgumentParser:
     v.add_argument("--feed-journal", default=None,
                    help="record the live feed's wire journal to this path "
                         "(default: ANOMOD_FEED_JOURNAL)")
+    v.add_argument("--devices", type=int, default=0,
+                   help="serve over an N-device mesh plane (a "
+                        "ShardedStreamReplay a tenant; --device cpu: N "
+                        "gloo ranks)")
     v.add_argument("--device", default=None,
                    help="cuda (default) or cpu (plain PyTorch versions)")
 
@@ -551,7 +572,6 @@ def _parser() -> argparse.ArgumentParser:
 def _serve(args, parser) -> int:
     from anomod_torch.serve.config import (validate_lane_buckets,
                                            validate_serve_buckets)
-    from anomod_torch.serve.engine import run_power_law
     for flag, val in (("--tenants", args.tenants),
                       ("--services", args.services)):
         if val < 1:
@@ -572,6 +592,11 @@ def _serve(args, parser) -> int:
                      "it cannot combine with --no-score")
     if args.ckpt_every is not None and args.ckpt_every < 0:
         parser.error("--ckpt-every must be >= 0 (0 = supervision off)")
+    _check_devices(args, parser)
+    if args.devices and args.ckpt_every:
+        parser.error("shard supervision cannot checkpoint the mesh "
+                     "plane's sharded state; --devices runs with "
+                     "--ckpt-every 0")
     from anomod_torch.config import get_config
     policy_mode = (args.policy if args.policy is not None
                    else get_config().serve_policy)
@@ -592,8 +617,28 @@ def _serve(args, parser) -> int:
                              "(--policy auto|script)")
             if val < 1:
                 parser.error(f"{flag} must be >= 1")
+    if args.devices and args.policy is not None and args.policy != "off":
+        # an env-sourced policy is off at the engine beside the mesh
+        parser.error("the elastic policy migrates tenants through the "
+                     "bucket-runner state seams; --devices runs with "
+                     "--policy off")
     if args.async_commit and args.no_async_commit:
         parser.error("--async-commit contradicts --no-async-commit")
+    if args.devices and args.async_commit:
+        parser.error("the deferred-commit tick splits the bucket-runner "
+                     "issue/commit seam; --devices runs with the "
+                     "synchronous tick (drop --async-commit)")
+    if args.devices and args.worker == "process":
+        parser.error("the mesh plane shards across devices inside one "
+                     "process; --devices runs with the thread worker "
+                     "engine (drop --worker process)")
+    if args.devices and args.shards is not None and args.shards > 1:
+        parser.error("the mesh plane manages its own sharded dispatch; "
+                     "run it with shards=1 (ANOMOD_SERVE_SHARDS=1)")
+    if args.devices and args.state == "device":
+        parser.error("the mesh plane manages its own sharded state; a "
+                     "device state pool cannot apply "
+                     "(ANOMOD_SERVE_STATE=host or auto)")
     if args.chaos:
         from anomod_torch.config import validate_chaos_script
         try:
@@ -622,45 +667,66 @@ def _serve(args, parser) -> int:
         parser.error(str(e))
     if args.from_live or args.live_replay:
         return _serve_live(args, parser, buckets, lanes)
+    kw = dict(
+        n_tenants=args.tenants, n_services=args.services,
+        capacity_spans_per_s=args.capacity, overload=args.overload,
+        duration_s=args.duration, tick_s=args.tick, seed=args.seed,
+        alpha=args.alpha, window_s=args.window_seconds,
+        baseline_windows=args.baseline_windows,
+        z_threshold=args.threshold, buckets=buckets,
+        max_backlog=args.max_backlog,
+        fault_tenants=args.fault_tenants, score=not args.no_score,
+        fuse=False if args.no_fuse else None, lane_buckets=lanes,
+        pipeline=args.pipeline, device=args.device,
+        # ``auto`` is the device pool, or beside the mesh the host seam
+        state=("device" if args.state == "auto" and not args.devices
+               else args.state),
+        native_stage=False if args.no_native else None,
+        native_drain=args.native_drain,
+        perf=True if args.perf else None,
+        # --no-score forces RCA off even under ANOMOD_SERVE_RCA=1
+        rca=True if args.rca else (False if args.no_score else None),
+        shards=args.shards, fold=args.fold,
+        worker=args.worker, chaos=args.chaos,
+        ckpt_every=args.ckpt_every, policy=args.policy,
+        policy_script=args.policy_script, min_shards=args.min_shards,
+        max_shards=args.max_shards,
+        async_commit=(True if args.async_commit
+                      else (False if args.no_async_commit else None)))
+    if args.devices:
+        from anomod_torch.parallel import launch
+        report = launch(_serve_rank, args.devices, device=args.device,
+                        args=(kw, args.devices, args.trace_out))[0]
+    else:
+        report = _serve_rank(kw, 0, args.trace_out)
+    print(json.dumps(report))
+    return 0
+
+
+def _serve_rank(kw: dict, devices: int, trace_out: Optional[str]) -> dict:
+    """One serve run (a rank's, over a ``devices`` mesh, when
+    ``devices``): the report as a dict.  The endpoint and the trace dump
+    ride rank 0."""
     from anomod_torch.obs.http import maybe_serve
+    from anomod_torch.serve.engine import run_power_law
     from anomod_torch.utils.tracing import Tracer
-    tracer = Tracer("anomod-serve") if args.trace_out else None
+    mesh = None
+    if devices:
+        from anomod_torch.parallel import make_mesh
+        mesh = make_mesh(devices, device=kw["device"])
+    lead = mesh is None or mesh.rank == 0
+    tracer = Tracer("anomod-serve") if trace_out else None
     # the endpoint rides the run when ANOMOD_OBS_HTTP is on: pure
     # registry reads, decisions byte-identical either way
-    endpoint = maybe_serve()
+    endpoint = maybe_serve() if lead else None
     try:
-        _, report = run_power_law(
-            n_tenants=args.tenants, n_services=args.services,
-            capacity_spans_per_s=args.capacity, overload=args.overload,
-            duration_s=args.duration, tick_s=args.tick, seed=args.seed,
-            alpha=args.alpha, window_s=args.window_seconds,
-            baseline_windows=args.baseline_windows,
-            z_threshold=args.threshold, buckets=buckets,
-            max_backlog=args.max_backlog,
-            fault_tenants=args.fault_tenants, score=not args.no_score,
-            fuse=False if args.no_fuse else None, lane_buckets=lanes,
-            pipeline=args.pipeline,
-            state="device" if args.state == "auto" else args.state,
-            device=args.device,
-            native_stage=False if args.no_native else None,
-            native_drain=args.native_drain,
-            perf=True if args.perf else None,
-            # --no-score forces RCA off even under ANOMOD_SERVE_RCA=1
-            rca=True if args.rca else (False if args.no_score else None),
-            tracer=tracer, shards=args.shards, fold=args.fold,
-            worker=args.worker, chaos=args.chaos,
-            ckpt_every=args.ckpt_every, policy=args.policy,
-            policy_script=args.policy_script, min_shards=args.min_shards,
-            max_shards=args.max_shards,
-            async_commit=(True if args.async_commit
-                          else (False if args.no_async_commit else None)))
+        _, report = run_power_law(tracer=tracer, mesh=mesh, **kw)
     finally:
         if endpoint is not None:
             endpoint.stop()
-    if tracer is not None:
-        tracer.dump(args.trace_out)
-    print(json.dumps(report.to_dict()))
-    return 0
+    if tracer is not None and lead:
+        tracer.dump(trace_out)
+    return report.to_dict()
 
 
 def _serve_live(args, parser, buckets, lanes) -> int:
@@ -668,7 +734,8 @@ def _serve_live(args, parser, buckets, lanes) -> int:
     (``run_live_feed``), with the JAX CLI's checks."""
     if args.from_live and args.live_replay:
         parser.error("--from-live contradicts --live-replay")
-    for flag, bad in (("--chaos", args.chaos), ("--rca", args.rca),
+    for flag, bad in (("--devices", args.devices),
+                      ("--chaos", args.chaos), ("--rca", args.rca),
                       ("--policy", args.policy),
                       ("--policy-script", args.policy_script),
                       ("--async-commit", args.async_commit),
@@ -909,25 +976,77 @@ def _obs(args, parser) -> int:
     return 0
 
 
-def _replay(args) -> int:
+def _check_devices(args, parser) -> None:
+    """``--devices``: >= 0, and on the cards at most the attached count
+    (the mesh's own refusal, before any rank starts)."""
+    if args.devices < 0:
+        parser.error("--devices must be >= 0")
+    if args.devices:
+        from anomod_torch.device import resolve_device
+        from anomod_torch.parallel.mesh import (attached_devices,
+                                                check_mesh_size)
+        dev = resolve_device(args.device)
+        if dev.type == "cuda":
+            try:
+                check_mesh_size(args.devices, attached_devices("cuda"))
+            except ValueError as e:
+                parser.error(str(e))
+
+
+def _replay(args, parser) -> int:
+    _check_devices(args, parser)
+    if args.devices and args.replicate != 1:
+        parser.error("--replicate is not supported with --devices")
+    if args.devices and args.kernel == "numpy":
+        parser.error("--kernel numpy is the single-chip host engine; "
+                     "the sharded path needs a device kernel")
+    if args.devices and args.kernel == "cuda-sorted":
+        parser.error("--kernel cuda-sorted stages on the host for one "
+                     "chip; the sharded path uses 'cuda' or 'matmul'")
+    if args.devices:
+        from anomod_torch.parallel import launch
+        out = launch(_replay_rank, args.devices, device=args.device,
+                     args=(vars(args),))[0]
+    else:
+        out = _replay_rank(vars(args))
+    print(json.dumps(out))
+    return 0
+
+
+def _replay_rank(a: dict) -> dict:
+    """The replay's JSON document, from one device or (``devices``) one
+    rank of the mesh; the digest planes in a single-device pass on rank
+    0 only."""
     from anomod_torch.io.dataset import load_bench_corpus
     from anomod_torch.replay import ReplayConfig, measure_throughput
+    args = argparse.Namespace(**a)
     batch = load_bench_corpus(args.testbed, args.traces)
     cfg = ReplayConfig(n_services=batch.n_services)
-    r = measure_throughput(batch, cfg, repeats=args.repeats,
-                           replicate=args.replicate, kernel=args.kernel,
-                           device=args.device)
+    device = args.device
+    if args.devices:
+        from anomod_torch.parallel import make_mesh, sharded_throughput
+        mesh = make_mesh(args.devices, device=args.device)
+        r = sharded_throughput(batch, mesh, cfg, repeats=args.repeats,
+                               kernel=args.kernel)
+        device = mesh.device
+        if mesh.rank:
+            return {}
+    else:
+        r = measure_throughput(batch, cfg, repeats=args.repeats,
+                               replicate=args.replicate, kernel=args.kernel,
+                               device=device)
     out = {
         "n_spans": r.n_spans, "wall_s": round(r.wall_s, 6),
         "spans_per_sec": round(r.spans_per_sec, 1),
         "compile_s": round(r.compile_s, 3), "kernel": r.kernel,
         "device": r.device}
+    if args.devices:
+        out["devices"] = int(mesh.devices.size)
     if args.percentiles:
-        out["latency_us"] = corpus_latency_us(batch, cfg, args.device)
+        out["latency_us"] = corpus_latency_us(batch, cfg, device)
     if args.edge_percentiles:
-        out["edge_p99_us_top"] = edge_p99_top(batch, cfg, args.device)
-    print(json.dumps(out))
-    return 0
+        out["edge_p99_us_top"] = edge_p99_top(batch, cfg, device)
+    return out
 
 
 def corpus_latency_us(batch, cfg, device=None) -> dict:
@@ -969,7 +1088,6 @@ def edge_p99_top(batch, cfg, device=None, top: int = 5) -> list:
 
 def _stream(args, parser) -> int:
     from anomod_torch import labels
-    from anomod_torch.stream import stream_quality
     if bool(args.experiment) == bool(args.all):
         parser.error("give an experiment name OR --all")
     if args.all and args.from_data:
@@ -992,22 +1110,14 @@ def _stream(args, parser) -> int:
         parser.error("--severity/--noise/--seed/--confounders shape the "
                      "generator; with --from-data the archived experiment "
                      "is what it is")
-    kw = dict(slice_s=args.slice_seconds, z_threshold=args.threshold,
-              baseline_windows=args.baseline_windows,
-              consecutive=args.consecutive, device=args.device)
-    if args.no_edge_attribution:
-        kw["edge_attribution"] = False
-    if args.from_data:
-        rows = [_stream_from_data(label, args, kw)]
+    _check_devices(args, parser)
+    if args.devices:
+        from anomod_torch.parallel import launch
+        rows = launch(_stream_rank, args.devices, device=args.device,
+                      args=(vars(args), testbed, experiments))[0]
     else:
-        rows = stream_quality(testbed, n_traces=args.traces, seed=args.seed,
-                              experiments=experiments,
-                              multimodal=args.multimodal,
-                              severity=args.severity, noise=args.noise,
-                              n_confounders=args.confounders,
-                              shift=args.shift, **kw)
+        rows = _stream_rank(vars(args), testbed, experiments)
     for r in rows:
-        r["alerts"] = [dataclasses.asdict(a) for a in r["alerts"]]
         print(json.dumps(r))
     summary = stream_summary(testbed, rows)
     print(json.dumps({"summary": summary}))
@@ -1026,6 +1136,36 @@ def _stream(args, parser) -> int:
         if path:
             print(f"capture: {path}", file=sys.stderr)
     return 0
+
+
+def _stream_rank(a: dict, testbed: str, experiments) -> list:
+    """The stream's rows (alerts as dicts), from one device or
+    (``devices``) one rank of the mesh, every rank's detector on the
+    sharded plane."""
+    from anomod_torch import labels
+    from anomod_torch.stream import stream_quality
+    args = argparse.Namespace(**a)
+    kw = dict(slice_s=args.slice_seconds, z_threshold=args.threshold,
+              baseline_windows=args.baseline_windows,
+              consecutive=args.consecutive, device=args.device)
+    if args.no_edge_attribution:
+        kw["edge_attribution"] = False
+    if args.devices:
+        from anomod_torch.parallel import make_mesh
+        kw["mesh"] = make_mesh(args.devices, device=args.device)
+    if args.from_data:
+        rows = [_stream_from_data(labels.label_for(args.experiment), args,
+                                  kw)]
+    else:
+        rows = stream_quality(testbed, n_traces=args.traces, seed=args.seed,
+                              experiments=experiments,
+                              multimodal=args.multimodal,
+                              severity=args.severity, noise=args.noise,
+                              n_confounders=args.confounders,
+                              shift=args.shift, **kw)
+    for r in rows:
+        r["alerts"] = [dataclasses.asdict(a) for a in r["alerts"]]
+    return rows
 
 
 def _stream_from_data(label, args, kw) -> dict:
@@ -1553,7 +1693,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     parser = _parser()
     args = parser.parse_args(argv)
     if args.cmd == "replay":
-        return _replay(args)
+        return _replay(args, parser)
     if args.cmd == "serve":
         return _serve(args, parser)
     if args.cmd == "roofline":

@@ -6,9 +6,12 @@ Every model maps a batch of graphs to per-service culprit logits
 these run ``[B, S, F]`` directly: GCN multiplies by the batch of
 normalized adjacencies, and message passing (GraphSAGE, GAT) runs over the
 ``B*S`` flattened nodes, each graph's padded edge list offset by ``b*S``,
-with ``index_add_`` (segment sum) and ``scatter_reduce_(reduce="amax")``
-(segment max).  Edges carry the call direction (caller -> callee);
-messages flow both ways through the symmetrized edge list.
+with ``index_add_`` (segment sum; on the card the sorted
+``index_put_(accumulate=True)``, since the CUDA ``index_add_`` adds with
+atomics in an order that changes from run to run) and
+``scatter_reduce_(reduce="amax")`` (segment max).  Edges carry the call
+direction (caller -> callee); messages flow both ways through the
+symmetrized edge list.
 
 Parameters start as flax initializes them, drawn from an explicit
 ``torch.Generator`` (:func:`init_params`, which every family's model
@@ -61,8 +64,15 @@ def normalized_adjacency(adj_counts: torch.Tensor,
 
 def segment_sum(messages: torch.Tensor, dst: torch.Tensor,
                 num_segments: int) -> torch.Tensor:
-    """``jax.ops.segment_sum`` over the leading axis."""
+    """``jax.ops.segment_sum`` over the leading axis.  On a CUDA tensor
+    the sum goes through ``index_put_(accumulate=True)``, which sorts the
+    indices and adds each segment's terms in a fixed order: the CUDA
+    ``index_add_`` adds them with atomics, whose order changes from run to
+    run, and training amplifies those last bits into losses that drift
+    apart over a few epochs."""
     out = messages.new_zeros((num_segments,) + messages.shape[1:])
+    if out.is_cuda:
+        return out.index_put_((dst,), messages, accumulate=True)
     return out.index_add(0, dst, messages)
 
 

@@ -118,6 +118,16 @@ source's ``modality_arrivals``) into its host planes before the tick's
 span admission, counted in ``modality_events``.  The policy, tiering,
 supervision and process workers turn themselves off beside it.
 
+The mesh plane (``mesh``, an ``anomod_torch.parallel.Mesh``, every rank
+of the group running the same engine): each tenant's replay is a
+:class:`~anomod_torch.parallel.stream.ShardedStreamReplay`, its chunks
+folded across the ranks and merged by an ``all_reduce``, so every rank
+holds every state and takes every decision.  Fusion is off beside it, and
+it refuses what touches the runners' seams as the JAX engine does: more
+than one shard, the deferred commit, the policy, the device state pool,
+tiering, process workers and supervision (an explicit request raises, an
+env-sourced one is off; ``shards`` and ``state="device"`` always raise).
+
 The observatories, both read-side (every decision and the canonical
 journal are byte-identical with them on or off) and both refused by
 process workers:
@@ -596,7 +606,7 @@ def run_power_law(n_tenants: int = 200, n_services: int = 8,
                   tier_demote_after: Optional[int] = None,
                   tier_warm_bytes: Optional[int] = None,
                   tier_cold_dir=None,
-                  tier_prefetch: Optional[int] = None
+                  tier_prefetch: Optional[int] = None, mesh=None
                   ) -> Tuple["ServeEngine", "ServeReport"]:
     """The canonical seeded serve run: :func:`power_law_traffic` against
     an engine of ``capacity_spans_per_s``, so one run measures sustained
@@ -633,7 +643,7 @@ def run_power_law(n_tenants: int = 200, n_services: int = 8,
                          tier_demote_after=tier_demote_after,
                          tier_warm_bytes=tier_warm_bytes,
                          tier_cold_dir=tier_cold_dir,
-                         tier_prefetch=tier_prefetch)
+                         tier_prefetch=tier_prefetch, mesh=mesh)
     if engine.flight_recorder is not None:
         pol = engine.policy
         # native_stage and drain_engine stay as passed: their oracles are
@@ -744,10 +754,18 @@ class ServeEngine:
                  tier_demote_after: Optional[int] = None,
                  tier_warm_bytes: Optional[int] = None,
                  tier_cold_dir=None,
-                 tier_prefetch: Optional[int] = None):
+                 tier_prefetch: Optional[int] = None, mesh=None):
         if capacity_spans_per_s <= 0:
             raise ValueError("capacity must be positive")
-        self.device = resolve_device(device)
+        #: the mesh plane (an ``anomod_torch.parallel.Mesh``): every
+        #: tenant's replay is a ShardedStreamReplay over it, on its device
+        self.mesh = mesh
+        if mesh is not None and device is not None \
+                and resolve_device(device).type != mesh.device.type:
+            raise ValueError(f"device {device} disagrees with the mesh's "
+                             f"{mesh.device}")
+        self.device = (mesh.device if mesh is not None
+                       else resolve_device(device))
         self.specs = list(specs)
         self.services = tuple(services)
         self.cfg = cfg or ReplayConfig(n_services=len(self.services),
@@ -784,13 +802,20 @@ class ServeEngine:
         self.modality_events: Dict[str, int] = {}
         #: tenant-fused scoring: per tick, drained same-tenant batches
         #: coalesce into one staging and same-width chunks across tenants
-        #: run as lane-stacked dispatches
+        #: run as lane-stacked dispatches.  The mesh plane manages its own
+        #: sharded dispatch, so fusion applies to the bucket-runner plane
+        #: only
         self.fuse = bool(app_cfg.serve_fuse if fuse is None else fuse)
+        self._fused = self.fuse and mesh is None
         #: tenant sharding: the score plane fans out to ``shards``
         #: workers by tenant ownership; 1 is the inline engine
         self.shards = int(app_cfg.serve_shards if shards is None else shards)
         if self.shards < 1:
             raise ValueError("shards must be >= 1")
+        if mesh is not None and self.shards > 1:
+            raise ValueError(
+                "the mesh plane manages its own sharded dispatch; "
+                "run it with shards=1 (ANOMOD_SERVE_SHARDS=1)")
         fold_mode = (app_cfg.serve_fold if fold is None
                      else str(fold).strip().lower() or "sparse")
         if fold_mode not in ("dense", "sparse"):
@@ -802,9 +827,19 @@ class ServeEngine:
         #: admission, drain, shed and SLO run; tick t commits at a
         #: barrier before tick t+1 issues.  Every decision input is taken
         #: at tick t, so decisions and the canonical journal equal the
-        #: synchronous engine's (the oracle); only walls move
-        self.async_commit = bool(app_cfg.serve_async_commit
-                                 if async_commit is None else async_commit)
+        #: synchronous engine's (the oracle); only walls move.  The mesh
+        #: plane has no issue / commit seam to split: an explicit request
+        #: beside it raises, an env-sourced one is off
+        async_on = bool(app_cfg.serve_async_commit if async_commit is None
+                        else async_commit)
+        if mesh is not None and async_on:
+            if async_commit is not None:
+                raise ValueError(
+                    "the deferred-commit tick splits the bucket-runner "
+                    "issue/commit seam; the mesh plane manages its own "
+                    "sharded dispatch (ANOMOD_SERVE_ASYNC_COMMIT=0)")
+            async_on = False
+        self.async_commit = async_on
         #: the deferred tick's snapshotted context (None: nothing
         #: deferred): every input its commit tail reads, taken at issue
         self._deferred: Optional[dict] = None
@@ -816,19 +851,24 @@ class ServeEngine:
         #: the elastic policy (anomod_torch.serve.policy): ``off`` is the
         #: static engine; ``auto`` / ``script`` evaluate an ElasticPolicy
         #: at every tick end and run its decisions through the
-        #: live-migration seams
+        #: live-migration seams (the mesh plane and the multimodal sidecar
+        #: keep state outside them: beside either, an explicit policy
+        #: raises and an env-sourced one is off)
         policy_mode = (app_cfg.serve_policy if policy is None
                        else str(policy).strip().lower() or "off")
         if policy_mode not in ("off", "auto", "script"):
             raise ValueError(f"unknown serve policy mode "
                              f"{policy_mode!r} (off|auto|script)")
-        if self.multimodal and policy_mode != "off":
+        if (mesh is not None or self.multimodal) and policy_mode != "off":
             if policy is not None:
                 raise ValueError(
                     "the elastic policy migrates tenants through the "
-                    "bucket-runner state seams; the multimodal sidecar "
-                    "planes are not covered by the migration seams "
-                    "(ANOMOD_SERVE_POLICY=off)")
+                    "bucket-runner state seams; "
+                    + ("the mesh plane manages its own sharded state"
+                       if mesh is not None else
+                       "the multimodal sidecar planes are not covered "
+                       "by the migration seams")
+                    + " (ANOMOD_SERVE_POLICY=off)")
             policy_mode = "off"
         self._elastic = policy_mode != "off"
         self.policy = None
@@ -865,21 +905,24 @@ class ServeEngine:
         self._retired_runners: List[dict] = []
         #: state tiering (anomod_torch.serve.tiering): past ``tier_hot``
         #: pool-resident tenants the coldest idle ones demote to the host
-        #: warm tier and on to the disk cold tier.  The multimodal
-        #: sidecar's planes have no demotion copier and the deferred
-        #: commit would demote states with folds in flight: tiering
-        #: refuses both (an explicit request raises, an env-sourced one
-        #: is off)
+        #: warm tier and on to the disk cold tier.  The mesh plane keeps
+        #: its state outside the snapshot seams, the multimodal sidecar's
+        #: planes have no demotion copier and the deferred commit would
+        #: demote states with folds in flight: tiering refuses all three
+        #: (an explicit request raises, an env-sourced one is off)
         tier_hot_n = (app_cfg.serve_tier_hot if tier_hot is None
                       else int(tier_hot))
         if tier_hot is not None and tier_hot_n < 0:
             raise ValueError("tier_hot must be >= 0 (0 = tiering off)")
-        if tier_hot_n > 0 and (self.multimodal or self.async_commit):
+        if tier_hot_n > 0 and (mesh is not None or self.multimodal
+                               or self.async_commit):
             if tier_hot is not None:
                 raise ValueError(
                     "state tiering demotes tenants through the "
                     "bucket-runner snapshot seams; "
-                    + ("the multimodal sidecar planes are not covered by "
+                    + ("the mesh plane manages its own sharded state"
+                       if mesh is not None else
+                       "the multimodal sidecar planes are not covered by "
                        "the demotion copier" if self.multimodal else
                        "the deferred-commit tick leaves folds in flight "
                        "at the demotion point")
@@ -1032,7 +1075,21 @@ class ServeEngine:
             if self._use_workers else None)
         pipeline = int(app_cfg.serve_pipeline if pipeline is None
                        else pipeline)
-        if state is None:
+        if mesh is not None:
+            # the mesh plane keeps its own sharded state: beside it
+            # ``device`` (passed or from ANOMOD_SERVE_STATE) raises and
+            # ``auto`` is the host seam
+            state = app_cfg.serve_state if state is None else state
+            if state == "device":
+                raise ValueError(
+                    "the mesh plane manages its own sharded state; "
+                    "a device state pool cannot apply "
+                    "(ANOMOD_SERVE_STATE=host or auto)")
+            if state not in ("auto", "host"):
+                raise ValueError(f"unknown serve state mode {state!r} "
+                                 "(auto|host|device)")
+            state = "host"
+        elif state is None:
             # ANOMOD_SERVE_STATE: ``auto`` is the device pool
             state = app_cfg.serve_state
             state = "device" if state == "auto" else state
@@ -1189,7 +1246,7 @@ class ServeEngine:
                     "shards": self.shards,
                     "pipeline": self.pipeline,
                     "serve_state": self.serve_state,
-                    "fused": self.fuse,
+                    "fused": self._fused,
                     "score": self.score,
                     "rca": self.rca,
                     "native_staging": self.runner.native_stage,
@@ -1253,13 +1310,15 @@ class ServeEngine:
         if self.ckpt_every < 0:
             raise ValueError("ckpt_every must be >= 0 (0 = supervision "
                              "off)")
-        if self.multimodal and self.ckpt_every:
-            # the sidecar's modality planes live outside the snapshot
-            # seams
+        if (mesh is not None or self.multimodal) and self.ckpt_every:
+            # the mesh plane's state and the sidecar's modality planes
+            # live outside the snapshot seams
             if ckpt_every is not None:
                 raise ValueError(
-                    "shard supervision cannot checkpoint the multimodal "
-                    "sidecar state; run with ckpt_every=0 "
+                    "shard supervision cannot checkpoint the "
+                    + ("mesh plane's sharded" if mesh is not None
+                       else "multimodal sidecar") +
+                    " state; run with ckpt_every=0 "
                     "(ANOMOD_SERVE_CKPT_EVERY=0)")
             self.ckpt_every = 0
         self.retries = int(app_cfg.serve_retries if retries is None
@@ -1286,9 +1345,10 @@ class ServeEngine:
     def _process_blockers(self) -> List[str]:
         """The planes of this engine that cannot cross a process boundary
         (each keeps state the score plane shares in-process), in the JAX
-        engine's order and words.  The JAX engine also refuses process
-        workers beside its mesh plane, which the port does not have."""
+        engine's order and words."""
         out = []
+        if self.mesh is not None:
+            out.append("the mesh plane manages its own sharded dispatch")
         if self.multimodal:
             out.append("the multimodal sidecar planes share coordinator "
                        "memory")
@@ -1323,7 +1383,11 @@ class ServeEngine:
 
     def _replay_for(self, tenant_id: int):
         got = self._tenant_replay.get(tenant_id)
-        if got is None:
+        if got is None and self.mesh is not None:
+            from anomod_torch.parallel.stream import ShardedStreamReplay
+            got = self._tenant_replay[tenant_id] = ShardedStreamReplay(
+                self.cfg, self.t0_us, self.mesh)
+        elif got is None:
             # the tenant's plane rides its shard's runner (its pool slot
             # in device mode)
             runner = self._runners[self.shard_of.get(tenant_id, 0)]
@@ -1632,7 +1696,7 @@ class ServeEngine:
         if self._use_workers:
             with self._span("serve.score_sharded"):
                 self._score_sharded(score_list)
-        elif self.fuse:
+        elif self._fused:
             with self._span("serve.score_fused"):
                 self._score_fused(score_list)
         else:
@@ -1689,7 +1753,7 @@ class ServeEngine:
                 sup.begin_tick(served)
             self._last_failures = None
             try:
-                if self.fuse:
+                if self._fused:
                     pending = self._dispatch_tick(served)
                 else:
                     self._score_now(served)
@@ -1853,7 +1917,7 @@ class ServeEngine:
         hook = self._chaos_hook(shard_id, origin_tick)
         if hook is not None:
             hook("stage")
-        if self.fuse:
+        if self._fused:
             with self._span("serve.score_shard", shard=shard_id,
                             pipeline=self.pipeline):
                 pending = self._stage_pending(served)
@@ -2974,7 +3038,8 @@ class ServeEngine:
             raise
 
     def _run(self, traffic, duration_s: float, warm: bool) -> "ServeReport":
-        if warm:
+        # the mesh plane builds its kernels at each plane's first push
+        if warm and self.mesh is None:
             # first launches outside the wall, shard by shard: shard 0
             # alone (the kernel libraries load there), then the others
             # together on their own workers
@@ -3225,7 +3290,7 @@ class ServeEngine:
             max_backlog=self.admission.max_backlog,
             buckets=self.runner.buckets,
             dispatches_by_width=by_width,
-            fused=self.fuse,
+            fused=self._fused,
             fused_dispatches=sum(b["fused_dispatches"] for b in books),
             lane_buckets=self.runner.lane_buckets,
             lanes_by_bucket=lanes_by_bucket,

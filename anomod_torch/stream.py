@@ -278,7 +278,10 @@ class OnlineDetector:
     the same contract; otherwise the detector builds its own as
     ``replay_factory(cfg, t0_us, device=device, with_hll=with_hll)`` (a
     :class:`StreamReplay` unless the caller supplies another);
-    ``with_hll`` gives that plane distinct-trace registers.
+    ``with_hll`` gives that plane distinct-trace registers.  ``mesh`` (an
+    ``anomod_torch.parallel.Mesh``) builds the detector's own plane as a
+    :class:`~anomod_torch.parallel.stream.ShardedStreamReplay` over it,
+    on the mesh's device.
     """
 
     def __init__(self, batch_services: Sequence[str], cfg: ReplayConfig,
@@ -290,7 +293,7 @@ class OnlineDetector:
                  edge_attribution: Optional[bool] = None,
                  edge_pool: int = 12, edge_mass: float = 8.0,
                  device: DeviceLike = None,
-                 replay_factory: Callable = StreamReplay):
+                 replay_factory: Callable = StreamReplay, mesh=None):
         if baseline_windows < 2:
             raise ValueError("need >= 2 baseline windows for a sigma")
         if baseline_windows >= cfg.n_windows:
@@ -303,6 +306,15 @@ class OnlineDetector:
             raise ValueError("with_hll configures the detector's OWN "
                              "plane; an injected replay manages its own "
                              "HLL state")
+        if mesh is not None and replay is not None:
+            raise ValueError("give a mesh OR a pre-built replay, not both")
+        if mesh is not None and with_hll:
+            raise ValueError("the mesh streaming plane carries no HLL "
+                             "state (psum-merged agg/hist only)")
+        if mesh is not None and device is not None \
+                and resolve_device(device).type != mesh.device.type:
+            raise ValueError(f"device {device} disagrees with the mesh's "
+                             f"{mesh.device}")
         self.services = tuple(batch_services)
         S = len(self.services)
         self._n_svc = S
@@ -334,6 +346,9 @@ class OnlineDetector:
                 + (" (edge attribution widens the id space: build the "
                    f"replay with n_services = 3*S = {K})"
                    if self.edge_attribution else ""))
+        if replay is None and mesh is not None:
+            from anomod_torch.parallel.stream import ShardedStreamReplay
+            replay = ShardedStreamReplay(cfg, t0_us, mesh)
         self.replay = replay if replay is not None else \
             replay_factory(cfg, t0_us, device=device, with_hll=with_hll)
         #: spans fed by the caller (the combined-id replay counts each
@@ -1503,7 +1518,9 @@ def stream_quality(testbed: str = "TT", n_traces: int = 400, seed: int = 0,
     (``quality.SHIFTS``: effect shape, fault timing, fault locus).
     ``multimodal`` generates each experiment's logs, metrics and API
     records and runs :func:`stream_experiment_multimodal`; otherwise only
-    the spans are generated and :func:`stream_experiment` runs."""
+    the spans are generated and :func:`stream_experiment` runs.  The
+    remaining ``detector_kw`` (``mesh`` among them) reach every
+    detector."""
     from anomod_torch import synth
     from anomod_torch.quality import SHIFTS
     from anomod_torch.rca import experiment_plan

@@ -168,7 +168,19 @@ drives the data layer and every ported path:
   the scrape journal; the registered-fleet sweep (1e3, 1e4 and 1e5
   registered, 1e3 hot, 8 ticks) and the tiered one (plus 1e6, hot 1000,
   demotion after 2 idle ticks), each row's bytes the twin's, beside the
-  JAX engine's committed CPU capture of the sweep.
+  JAX engine's committed CPU capture of the sweep;
+- the parallel planes (phase 25) at world size 1 over NCCL (one card;
+  NCCL puts no two ranks on one GPU): a mesh or launch past the attached
+  cards refused before any spawn; each collective on card tensors
+  returning its input; the sharded replay of the bench corpus (the dense
+  kernel's cluster fold and the HLL kernel, replicated and scattered)
+  equal to ``make_replay_fn``'s, its spans/s beside the single card's and
+  the NCCL merge's device time; the detector on the sharded plane over
+  phase 5's 13 labels equal to phase 5; the serve mesh plane at the serve
+  bench deployment (RCA off) holding the admission pins, every tenant's
+  alerts equal to phase 8's unfused run's; no plain version called on any
+  of them; ``replay`` and ``stream --devices 1`` through the CLI and
+  ``replay --devices 2`` refused.
 
 The serve runs of phases 8 and 16-23 run with the flight recorder on and
 supervised (a checkpoint every 32 ticks), the engine's defaults.
@@ -1033,7 +1045,10 @@ def serve_phases(dev, card) -> dict:
             "serve_lanes_by_bucket": rep_prof.lanes_by_bucket,
             "lane_delta_adversarial_ms": adv_ms,
             "serve_profiled_wall_s": rep_prof.serve_wall_s,
-            "serve_device_busy_share": busy_share}
+            "serve_device_busy_share": busy_share,
+            # phase 25's oracle for the serve mesh plane (popped by main)
+            "serve_unfused_alerts": {tid: fp_t[0]
+                                     for tid, fp_t in unfused.items()}}
 
 
 def sorted_ends(dev, card, SW, block) -> dict:
@@ -2288,7 +2303,9 @@ def quality_phase(dev, card) -> dict:
     to the same sweep's CPU twin (run in a spawned process meanwhile);
     each learned family trained from one draw on the card and on the CPU
     for :data:`SWEEP_LOSS_EPOCHS` epochs, the losses within
-    :data:`RTOL_SWEEP_LOSS` of the first; and each family's ms an
+    :data:`RTOL_SWEEP_LOSS` of the first, and trained twice on the card
+    with losses equal bit for bit (the GNN segment sums add in a fixed
+    order on the card); and each family's ms an
     epoch, device events and busy share from one profiled epoch."""
     import dataclasses
     import multiprocessing
@@ -2353,14 +2370,18 @@ def quality_phase(dev, card) -> dict:
         if name in quality.TRAINING_FREE:
             continue
         runs = {}
-        for where in (dev, torch.device("cpu")):
+        for key, where in (("cuda", dev), ("cuda_again", dev),
+                           ("cpu", torch.device("cpu"))):
             model = rca.init_model(name, train, seed=0, device=where)
             t0 = time.perf_counter()
-            runs[where.type] = rca.train_loop(
+            runs[key] = rca.train_loop(
                 name, model, rca.make_optimizer(model),
                 rca.to_device(train, where), 0, SWEEP_LOSS_EPOCHS)
-            runs[where.type + "_s"] = time.perf_counter() - t0
+            runs[key + "_s"] = time.perf_counter() - t0
         got, want = np.asarray(runs["cuda"]), np.asarray(runs["cpu"])
+        check(np.array_equal(got, np.asarray(runs["cuda_again"])),
+              f"quality {name}: two trainings on the card from one draw "
+              f"differ: {got.tolist()} vs {runs['cuda_again']}")
         err = float(np.max(np.abs(got - want)) / abs(want[0]))
         check(err <= RTOL_SWEEP_LOSS,
               f"quality {name}: {SWEEP_LOSS_EPOCHS} losses on the card "
@@ -2373,7 +2394,8 @@ def quality_phase(dev, card) -> dict:
             last_loss=[float(got[-1]), float(want[-1])],
             cpu_s_for_loss_epochs=runs["cpu_s"], **prof)
         log(f"[18] {name}: {SWEEP_LOSS_EPOCHS} losses card vs CPU, max "
-            f"difference {err:.3g} of the first loss (first "
+            f"difference {err:.3g} of the first loss, two card runs equal "
+            f"bit for bit (first "
             f"{got[0]:.6f} / {want[0]:.6f}, last "
             f"{got[-1]:.6f} / {want[-1]:.6f}; CPU {runs['cpu_s']:.3f} s); "
             f"{prof['ms_per_epoch']:.3f} ms an epoch on the card; one "
@@ -4193,6 +4215,340 @@ def observatory_phase(dev, card, cpu_journal) -> dict:
     return {"observatories": out}
 
 
+#: phase 25: the kernels of the sharded paths, as the profiler names them
+MESH_KERNELS = ("dense_cluster_fold", "dense_reduce", "dense_slice_fold",
+                "hll_update_kernel")
+
+
+@contextlib.contextmanager
+def plain_calls():
+    """Count the calls of the dense fold's and the HLL update's plain
+    versions (a wrapper takes one for a CPU tensor) while the block
+    runs: phase 25 holds the sharded paths on the card to none."""
+    from anomod_torch.ops import replay_kernels as rk
+    from anomod_torch.ops import sketch_kernels as skk
+    calls = {"replay_dense_plain": 0, "hll_update_plain": 0}
+    saved = {}
+    for mod, name in ((rk, "replay_dense_plain"), (skk, "hll_update_plain")):
+        fn = getattr(mod, name)
+        saved[(mod, name)] = fn
+
+        def counted(*a, _fn=fn, _name=name, **k):
+            calls[_name] += 1
+            return _fn(*a, **k)
+        setattr(mod, name, counted)
+    try:
+        yield calls
+    finally:
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+
+
+def run_main(argv):
+    """``python -m anomod_torch ARGV`` in this process: (exit code, JSON
+    lines of its stdout)."""
+    import io
+    from anomod_torch.cli import main as cli_main
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf), \
+            contextlib.redirect_stderr(io.StringIO()):
+        try:
+            rc = cli_main(argv)
+        except SystemExit as e:
+            rc = e.code
+    return rc, [json.loads(x) for x in buf.getvalue().splitlines()
+                if x.startswith("{")]
+
+
+def parallel_phase(dev, card, batch, cfg, rates, stream_rows,
+                   unfused_alerts) -> dict:
+    """Phase 25: the parallel planes at world size 1 over NCCL on the one
+    card.  A mesh or a launch past the attached cards is refused before
+    anything spawns.  Inside one world-1 group: each collective on card
+    tensors returns its input; the sharded replay (the dense fold in one
+    launch, the HLL plane, replicated and scattered) equals
+    ``make_replay_fn``'s on the bench corpus (exact planes exactly,
+    moments within ``RTOL_CARD``, registers exactly) with the dense fold
+    and the HLL kernel launched and no plain version; its spans/s beside
+    the single card's and the NCCL merge's device time; the detector on
+    the sharded plane (``OnlineDetector(mesh=...)``) over phase 5's 13
+    labels equals phase 5 (ranked lists, first-alert windows), its chunk
+    fold ``dense_slice_fold``; the serve mesh plane at the bench
+    deployment holds the admission pins and every tenant's alerts equal
+    phase 8's unfused run's.  Then ``replay`` and ``stream --devices 1``
+    through the CLI, and ``replay --devices 2`` refused."""
+    import dataclasses
+    import functools
+    import multiprocessing
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from anomod_torch.ops import replay_kernels as rk
+    from anomod_torch.ops import serve_kernels as sk
+    from anomod_torch.ops import sketch_kernels as skk
+    from anomod_torch.ops.tdigest import tdigest_build
+    from anomod_torch.parallel import (launch, make_mesh,
+                                       make_sharded_replay_fn,
+                                       sharded_throughput, stage_sharded)
+    from anomod_torch.parallel import collectives as coll
+    from anomod_torch.replay import (make_replay_fn, measure_throughput,
+                                     stage_columns)
+    from anomod_torch.serve.engine import run_power_law
+    from anomod_torch.stream import stream_quality
+    t_phase = time.perf_counter()
+    out = {}
+
+    # -- (1) past the attached cards: refused, nothing spawned -------------
+    n_cards = torch.cuda.device_count()
+    want_msg = (f"requested a {n_cards + 1}-device mesh but {n_cards} "
+                "device(s) are attached")
+    before = set(multiprocessing.active_children())
+    for name, call in (("make_mesh", lambda: make_mesh(n_cards + 1)),
+                       ("launch", lambda: launch(print, n_cards + 1))):
+        try:
+            call()
+        except ValueError as e:
+            check(str(e) == want_msg, f"{name}: {e}")
+        else:
+            raise SmokeFailure(f"{name}({n_cards + 1}) was not refused")
+    check(set(multiprocessing.active_children()) == before,
+          "a refused launch spawned a process")
+    log(f"[25] make_mesh and launch at {n_cards + 1} devices refused before "
+        f"any spawn: {want_msg!r}")
+
+    chunks, n_real = stage_columns(batch, cfg)
+    single = make_replay_fn(cfg, device=dev, with_hll=True)(chunks)
+    single_acc = torch.cat([single.agg, single.hist], 1).cpu()
+    single_hll = single.hll.cpu()
+    torch.cuda.synchronize()
+
+    idx = torch.cuda.current_device()
+
+    def plan(n, sw):
+        # the dense wrapper's grid for n staged rows into sw segments
+        return rk.dense_plan(n, sw, H, rk._sm_count(idx),
+                             functools.partial(rk._cluster_capacity, idx))
+
+    def body():
+        mesh = make_mesh(1)
+        check(mesh.backend == "nccl" and mesh.device.type == "cuda"
+              and mesh.world_size == 1, f"world-1 mesh: {mesh}")
+        res = {}
+        # -- (2) the collectives at world size 1 --------------------------
+        g = torch.Generator(device=dev).manual_seed(25)
+        x = torch.randn((cfg.sw, 6 + H), device=dev, generator=g)
+        regs = torch.randint(0, 20, (cfg.n_services, 256), device=dev,
+                             dtype=torch.int32, generator=g)
+        mean = torch.sort(torch.randn((4, K_DIGEST), device=dev,
+                                      generator=g), -1).values
+        weight = torch.randint(1, 5, (4, K_DIGEST), device=dev,
+                               generator=g).float()
+        for name, got in (("psum", coll.psum(x, mesh)),
+                          ("ring_allreduce", coll.ring_allreduce(x, mesh)),
+                          ("reduce_scatter_state",
+                           coll.reduce_scatter_state(x, mesh))):
+            check(torch.equal(got, x), f"{name} at world 1 is not its input")
+        check(torch.equal(coll.pmax_merge_hll(regs, mesh), regs),
+              "pmax_merge_hll at world 1 is not its input")
+        m, w = coll.allgather_merge_tdigests(mean, weight, mesh)
+        ref = tdigest_build(mean.cpu().numpy(), k=K_DIGEST,
+                            weights=weight.cpu().numpy())
+        check(np.array_equal(m.cpu().numpy(), ref.mean)
+              and np.array_equal(w.cpu().numpy(), ref.weight),
+              "allgather_merge_tdigests at world 1 differs from the host "
+              "rebuild of its input")
+        log("[25] collectives at world 1 on the card (nccl): psum, ring "
+            "(zero steps), reduce_scatter_tensor, all_reduce(MAX) each "
+            "return their input; all_gather_into_tensor + the host "
+            "rebuild equal tdigest_build of the input")
+        # the first profiler trace after the group's first collective
+        # read no device events on the card: pay it on a throw-away one
+        with profile(activities=[ProfilerActivity.CUDA]):
+            torch.ones(1, device=dev).add_(1)
+            torch.cuda.synchronize()
+
+        # -- (3) the sharded replay -----------------------------------------
+        shard, n = stage_sharded(batch, mesh, cfg)
+        check(n == n_real, f"sharded staging: {n} spans != {n_real}")
+        rk.reset_launches()
+        skk.reset_launches()
+        errs = {}
+        with plain_calls() as plain:
+            for merge in ("replicated", "scattered"):
+                fn = make_sharded_replay_fn(cfg, mesh, kernel="cuda",
+                                            with_hll=True, merge=merge)
+                st = fn(shard)
+                errs[merge] = compare(
+                    f"sharded replay {merge}",
+                    torch.cat([st.agg, st.hist], 1).cpu(), single_acc,
+                    RTOL_CARD)
+                check(torch.equal(st.hll.cpu(), single_hll),
+                      f"sharded replay {merge}: HLL registers differ")
+                check(float(st.agg[:, 0].double().sum()) == n_real,
+                      f"sharded replay {merge}: span count")
+        launches = {"replay_dense": rk.launches["replay_dense"],
+                    "hll_update": skk.launches["hll_update"]}
+        check(launches == {"replay_dense": 2, "hll_update": 2}
+              and not any(plain.values()),
+              f"sharded replay: launches {launches}, plain calls {plain}")
+        # the shard's one launch takes the cluster fold; a trace, where it
+        # reads device events, names it
+        n_rows = int(shard["sid"].numel())
+        check(plan(n_rows, cfg.sw).clustered,
+              f"sharded replay: {n_rows} rows do not take the cluster fold")
+        traced = traced_ms(lambda: fn(shard), MESH_KERNELS, iters=3)
+        check(not traced or (traced.get("dense_cluster_fold", [0, 0])[1] >= 1
+                             and traced.get("hll_update_kernel",
+                                            [0, 0])[1] >= 1),
+              f"sharded replay trace: {traced}")
+        res["replay"] = dict(max_abs_err=errs, launches=launches,
+                             plain_calls=dict(plain),
+                             traced=traced or "not measured (no device "
+                             "events)")
+        log(f"[25] sharded replay (world 1, kernel cuda, with_hll) on the "
+            f"bench corpus ({n_real} spans): replicated and scattered equal "
+            f"make_replay_fn's (max_abs_err {errs}), registers exact; "
+            f"launches {launches}, plain calls {dict(plain)}; {n_rows} "
+            f"staged rows a launch: the cluster plan; traced device ms and "
+            f"launches a call by kernel {res['replay']['traced']}")
+        r = sharded_throughput(batch, mesh, cfg, repeats=3, kernel="cuda")
+        one = measure_throughput(batch, cfg, repeats=3, replicate=1,
+                                 kernel="cuda", device=dev)
+        acc = torch.zeros((cfg.sw, 6 + H), device=dev)
+        merge_ms = cuda_ms(lambda: coll.psum(acc, mesh))
+        res["throughput"] = dict(
+            sharded_spans_per_sec=r.spans_per_sec,
+            sharded_wall_s=r.wall_s, sharded_raw_wall_s=r.raw_wall_s,
+            single_spans_per_sec=one.spans_per_sec,
+            single_wall_s=one.wall_s, single_raw_wall_s=one.raw_wall_s,
+            phase4_spans_per_sec=rates["cuda"], merge_ms=merge_ms,
+            merge_share=merge_ms / 1e3 / r.wall_s)
+        log(f"[25] sharded_throughput at world 1: {r.spans_per_sec:.6g} "
+            f"spans/s (median wall {r.wall_s:.6f} s of {r.raw_wall_s}); "
+            f"the single card at replicate 1 in this phase "
+            f"{one.spans_per_sec:.6g} (median {one.wall_s:.6f} s), phase "
+            f"4's at its replicate {rates['cuda']:.6g}; the NCCL merge "
+            f"(all_reduce of [{cfg.sw}, {6 + H}] f32) {merge_ms:.4f} ms, "
+            f"{merge_ms / 1e3 / r.wall_s:.4g} of the sharded wall, on {card}")
+
+        # -- (4) the detector on the sharded plane --------------------------
+        rk.reset_launches()
+        t0 = time.perf_counter()
+        with plain_calls() as plain:
+            rows = stream_quality("TT", n_traces=400, seed=0, device=dev,
+                                  mesh=mesh)
+        stream_s = time.perf_counter() - t0
+        dense = rk.launches["replay_dense"]
+        check(len(rows) == len(stream_rows), "sharded stream: row count")
+        same_alerts = 0
+        for got, want in zip(rows, stream_rows):
+            check(got["ranked"] == want["ranked"],
+                  f"sharded stream {got['experiment']}: ranked lists differ")
+            check(got["first_alert_window"] == want["first_alert_window"],
+                  f"sharded stream {got['experiment']}: first alert "
+                  "windows differ")
+            same_alerts += [(a.window, a.service) for a in got["alerts"]] \
+                == [(a.window, a.service) for a in want["alerts"]]
+        check(dense > 0 and not any(plain.values()),
+              f"sharded stream: dense launches {dense}, plain {plain}")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            stream_quality("TT", n_traces=400, seed=0, device=dev,
+                           mesh=mesh, experiments=[rows[0]["experiment"]])
+            torch.cuda.synchronize()
+        by_kernel = {k: v for k, v in kernel_device_ms(
+            prof, MESH_KERNELS).items() if v[1]}
+        # a 4096-span chunk at the 3S id space takes the slice fold
+        ecfg_sw = 3 * cfg.sw
+        check(not plan(4096, ecfg_sw).clustered,
+              "sharded stream: a chunk does not take the slice fold")
+        check(not by_kernel
+              or (by_kernel.get("dense_slice_fold", [0, 0])[1] > 0
+                  and "dense_cluster_fold" not in by_kernel),
+              f"sharded stream trace: {by_kernel}")
+        by_kernel = by_kernel or "not measured (no device events)"
+        res["stream"] = dict(wall_s=stream_s, dense_launches=dense,
+                             plain_calls=dict(plain),
+                             labels_same_alerts=same_alerts,
+                             trace_one_label=by_kernel)
+        log(f"[25] OnlineDetector(mesh=...) over 13 TT labels x 400 traces: "
+            f"ranked lists and first-alert windows equal phase 5's, alert "
+            f"lists equal on {same_alerts} of {len(rows)} labels; "
+            f"{dense} dense launches, plain calls {dict(plain)}; wall "
+            f"{stream_s:.3f} s (phase 5's single-card run is in its log "
+            f"line); one label's trace by kernel {by_kernel}")
+
+        # -- (5) the serve mesh plane ---------------------------------------
+        rk.reset_launches()
+        sk_before = dict(sk.launches)
+        t0 = time.perf_counter()
+        with plain_calls() as plain:
+            eng, rep = run_power_law(device=dev, mesh=mesh, **SERVE_KW)
+        call_s = time.perf_counter() - t0
+        got = {"p99_latency_s": rep.latency["p99_latency_s"],
+               "shed_fraction": rep.shed_fraction}
+        check(got == {k: SERVE_PINS[k] for k in got},
+              f"serve mesh pins: {got}")
+        check(sorted(unfused_alerts) == sorted(eng._tenant_replay),
+              "serve mesh: the served tenants differ from the unfused run")
+        keys = ("window", "service", "evidence")
+        for tid, want in unfused_alerts.items():
+            mine = [tuple(dataclasses.asdict(a)[k] for k in keys)
+                    for a in eng.alerts_for(tid)]
+            check(mine == [tuple(a[k] for k in keys) for a in want],
+                  f"serve mesh: tenant {tid}'s alerts differ from the "
+                  "unfused run's")
+        score_diff = max(
+            (abs(a.score - b["score"]) for tid, want in unfused_alerts.items()
+             for a, b in zip(eng.alerts_for(tid), want)), default=0.0)
+        dense = rk.launches["replay_dense"]
+        lane = {k: v - sk_before[k] for k, v in sk.launches.items()}
+        check(dense > 0 and not any(lane.values())
+              and not any(plain.values()) and rep.fused is False,
+              f"serve mesh: dense {dense}, serve kernels {lane}, plain "
+              f"{plain}, fused {rep.fused}")
+        res["serve"] = dict(pins=got, serve_wall_s=rep.serve_wall_s,
+                            call_s=call_s, n_alerts=rep.n_alerts,
+                            dense_launches=dense, serve_kernels=lane,
+                            max_score_diff=score_diff,
+                            served_spans=rep.served_spans)
+        log(f"[25] serve mesh plane at the bench deployment: p99 "
+            f"{got['p99_latency_s']} s, shed {got['shed_fraction']} (pins "
+            f"held), every tenant's alerts (window, service, evidence) equal "
+            f"the unfused card run's ({rep.n_alerts} alerts, scores within "
+            f"{score_diff:.3g}); {dense} dense launches, lane kernels "
+            f"{lane}; serve wall {rep.serve_wall_s:.4f} s (call "
+            f"{call_s:.2f} s) on {card}")
+        return res
+
+    out.update(launch(body, 1)[0])
+
+    # -- (6) the CLI --------------------------------------------------------
+    t0 = time.perf_counter()
+    rc, docs = run_main(["replay", "--devices", "1"])
+    check(rc == 0 and docs and docs[0].get("devices") == 1
+          and docs[0]["n_spans"] == n_real,
+          f"replay --devices 1: rc {rc}, {docs}")
+    # a fault label's row: its ranked list is not empty
+    want = next(r for r in stream_rows if r.get("top1_hit") is not None)
+    label = want["experiment"]
+    rc_s, rows = run_main(["stream", label, "--devices", "1"])
+    check(rc_s == 0 and rows and rows[0]["ranked"] == want["ranked"]
+          and rows[0]["first_alert_window"] == want["first_alert_window"],
+          f"stream {label} --devices 1: rc {rc_s}, {rows[:1]}")
+    rc2, _ = run_main(["replay", "--devices", str(n_cards + 1)])
+    check(rc2 not in (0, None), f"replay --devices {n_cards + 1}: rc {rc2}")
+    out["cli"] = dict(replay=docs[0], stream_ranked=rows[0]["ranked"],
+                      refused_rc=rc2, wall_s=time.perf_counter() - t0)
+    log(f"[25] CLI: replay --devices 1 {docs[0]}; stream {label} --devices "
+        f"1 ranked {rows[0]['ranked'][:3]} = phase 5's; replay --devices "
+        f"{n_cards + 1} exit {rc2}")
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    log(f"[25] phase 25 in {out['phase_wall_s']:.1f} s on {card}")
+    return {"parallel": out}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4493,6 +4849,7 @@ def main() -> int:
 
     data = data_phase(card)
     serve = serve_phases(dev, card)
+    unfused_alerts = serve.pop("serve_unfused_alerts")
     sketch = sketch_phases(dev, card, batch, cfg)
     roof = roofline_phases(dev, card, kind, sid_np, planes_np, n_real, SW)
     det13 = detect_phase(dev, card)
@@ -4511,6 +4868,8 @@ def main() -> int:
     p22 = elastic_async_tier_phase(dev, card, cpu_journal)
     p23 = live_feed_phase(dev, card)
     p24 = observatory_phase(dev, card, cpu_journal)
+    p25 = parallel_phase(dev, card, batch, cfg, rates, rows, unfused_alerts)
+    par = p25["parallel"]
 
     # -- report -----------------------------------------------------------
     # the dense kernel's top-level times are the corpus pass's; each path
@@ -4540,6 +4899,11 @@ def main() -> int:
                                    "library_ms_unspun")},
          "bit_identical_launches": {"corpus": dense_bits,
                                     "stream_chunk": chunk_bits},
+         # phase 25's sharded replay, sharded stream and serve mesh plane
+         "launches_phase25": {
+             "sharded_replay": par["replay"]["launches"]["replay_dense"],
+             "sharded_stream": par["stream"]["dense_launches"],
+             "serve_mesh": par["serve"]["dense_launches"]},
          "shapes": {"corpus": corpus, "stream_chunk": chunk}},
         {"name": "replay_sorted", "route": "cuda",
          "source": "anomod_torch/csrc/replay.cu",
@@ -4569,6 +4933,9 @@ def main() -> int:
             # phase 24's perf, census and sweep runs
             k["launches_phase24"] = \
                 p24["observatories"]["launches"][k["name"]]
+        if k["name"] == "hll_update":
+            # phase 25's sharded replay (with_hll)
+            k["launches_phase25"] = par["replay"]["launches"]["hll_update"]
     log(json.dumps({"replay_spans_per_sec": rates, "replicate": replicate,
                     "stream_top1": sum(hits) / len(hits),
                     "stream_wall_s": stream_s,
@@ -4580,7 +4947,7 @@ def main() -> int:
                     "l2_eviction_ms": flush, **data, **serve,
                     **sketch, **roof, **det13, **rca14, **mm15, **rca16,
                     **tele17, **q18, **s19, **fs20, **ps21, **p22, **p23,
-                    **p24, "wall_s": time.perf_counter() - t_all}))
+                    **p24, **p25, "wall_s": time.perf_counter() - t_all}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -1240,3 +1240,47 @@ def test_multimodal_sidecar_on_card_equals_cpu(cuda_device):
         == [dataclasses.asdict(a) for a in eh.alerts_for(0)]
     assert ec.flight_recorder.canonical_bytes() \
         == eh.flight_recorder.canonical_bytes()
+
+
+@pytest.mark.cuda
+def test_sharded_replay_world_1_nccl_equals_single_card(cuda_device):
+    """A world-1 NCCL group on the card: the sharded replay (the dense
+    kernel and the one-hot product a rank, the HLL plane) equals the
+    single-card fold, the dense kernel and the HLL kernel launched from
+    the sharded path."""
+    from anomod_torch import labels, synth
+    from anomod_torch.ops import sketch_kernels as skk
+    from anomod_torch.parallel import (launch, make_mesh,
+                                       make_sharded_replay_fn, stage_sharded)
+    from anomod_torch.replay import ReplayConfig, make_replay_fn, stage_columns
+    from anomod_torch.schemas import concat_span_batches
+    batch = concat_span_batches([synth.generate_spans(l, n_traces=30)
+                                 for l in labels.labels_for_testbed("TT")])
+    cfg = ReplayConfig(n_services=batch.n_services, chunk_size=512)
+    chunks, n = stage_columns(batch, cfg)
+    single = make_replay_fn(cfg, device=cuda_device, with_hll=True)(chunks)
+
+    def body():
+        mesh = make_mesh(1)
+        assert (mesh.backend, mesh.device.type) == ("nccl", "cuda")
+        shard, n_shard = stage_sharded(batch, mesh, cfg)
+        assert n_shard == n
+        out = {}
+        for kernel in ("cuda", "matmul"):
+            before = (rk.launches["replay_dense"], skk.launches["hll_update"])
+            st = make_sharded_replay_fn(cfg, mesh, kernel=kernel,
+                                        with_hll=True)(shard)
+            out[kernel] = (torch.cat([st.agg, st.hist], 1).cpu(),
+                           st.hll.cpu(),
+                           (rk.launches["replay_dense"] - before[0],
+                            skk.launches["hll_update"] - before[1]))
+        return out
+
+    res = launch(body, 1, device=cuda_device)[0]
+    want = torch.cat([single.agg, single.hist], 1)
+    for kernel, (acc, hll, launched) in res.items():
+        _assert_planes(acc, want)
+        assert torch.equal(hll, single.hll.cpu()), kernel
+        assert float(acc[:, 0].double().sum()) == n
+        assert launched == ((1, 1) if kernel == "cuda" else (0, 1)), kernel
+    assert not torch.distributed.is_initialized()

@@ -53,10 +53,16 @@ class MoEBlock(nn.Module):
         kth = torch.sort(gates, dim=-1).values[..., -self.top_k, None]
         combine = gates * (gates >= kth).to(gates.dtype)
         combine = combine / combine.sum(dim=-1, keepdim=True).clamp(min=1e-9)
+        return tokens + self.mix(h, combine)
+
+    def mix(self, h, combine):
+        """Every expert on every token, combined by the gate weights
+        ``combine [B, T, E]`` (an expert-parallel block runs its own
+        experts here)."""
         eh = gelu(torch.einsum("btd,edh->beth", h, self.w1)
                   + self.b1[:, None, :])
         ey = torch.einsum("beth,ehd->betd", eh, self.w2) + self.b2[:, None, :]
-        return tokens + torch.einsum("betd,bte->btd", ey, combine)
+        return torch.einsum("betd,bte->btd", ey, combine)
 
 
 class MoERCA(nn.Module):

@@ -75,11 +75,17 @@ class TokenEmbed(nn.Module):
         self.svc_emb.copy_(torch.empty(self.svc_emb.shape).normal_(
             0.0, 0.02, generator=gen))
 
+    def service_embedding(self) -> torch.Tensor:
+        """The ``[S, d_model]`` service embedding (a tensor-parallel
+        embed gathers its column slices here)."""
+        return self.svc_emb
+
     def forward(self, x_swf):
         B, S, W, _ = x_swf.shape
-        d = self.svc_emb.shape[1]
+        svc_emb = self.service_embedding()
+        d = svc_emb.shape[1]
         pos = torch.from_numpy(sinusoidal_positions(W, d)).to(x_swf.device)
-        tok = self.dense(x_swf) + self.svc_emb[:, None, :] + pos[None]
+        tok = self.dense(x_swf) + svc_emb[:, None, :] + pos[None]
         return tok.reshape(B, S * W, d)
 
 
@@ -104,12 +110,16 @@ class ScoreHead(nn.Module):
 
 
 class AttentionBlock(nn.Module):
-    """Pre-LN block over ``[B, L, d_model]``: ``full_attention`` a sample,
-    then a tanh-GELU MLP, each with its residual."""
+    """Pre-LN block over ``[B, L, d_model]``: ``attention_fn`` a sample
+    (``[..., L, H, D]``; ``full_attention``, which
+    ``parallel.sp_transformer`` swaps for a sequence-parallel plane on
+    its copies of the blocks), then a tanh-GELU MLP, each with its
+    residual."""
 
     def __init__(self, d_model: int, n_heads: int, mlp_hidden: int):
         super().__init__()
         self.n_heads = n_heads
+        self.attention_fn = full_attention
         self.ln0 = LayerNorm(d_model)
         self.qkv = Dense(d_model, 3 * d_model, bias=False)
         self.proj = Dense(d_model, d_model)
@@ -121,8 +131,8 @@ class AttentionBlock(nn.Module):
         B, L, d = seq.shape
         q, k, v = self.qkv(self.ln0(seq)).split(d, dim=-1)
         shape = (B, L, self.n_heads, d // self.n_heads)
-        attn = full_attention(q.reshape(shape), k.reshape(shape),
-                              v.reshape(shape)).reshape(B, L, d)
+        attn = self.attention_fn(q.reshape(shape), k.reshape(shape),
+                                 v.reshape(shape)).reshape(B, L, d)
         seq = seq + self.proj(attn)
         h = gelu(self.mlp_in(self.ln1(seq)))
         return seq + self.mlp_out(h)

@@ -10,11 +10,16 @@ rank holds the same state and runs the same detector and serve logic.
 
 - :class:`Mesh` is what the JAX code asks of a mesh (``mesh.shape[axis]``,
   ``mesh.devices.size``) plus the rank's own place in it: its rank, its
-  ``torch.device``, the backend and the process group.
-- :func:`make_mesh` builds a rank's mesh inside a launched group: on
+  ``torch.device``, the backend and the process group.  A mesh has one
+  axis or several named ones; the ranks fill a multi-axis mesh in
+  row-major order, as ``np.asarray(devices).reshape(shape)`` orders JAX
+  devices, and each slice of the mesh along an axis (or a tuple of axes)
+  has its own process group (:meth:`Mesh.axis_group`).
+- :func:`make_mesh` builds a rank's 1-D mesh inside a launched group: on
   ``cuda`` (the default; ``nccl``, one card a rank) unless the caller
   asks for ``cpu`` (``gloo``).  A mesh of more devices than are attached
-  is an error, never a silent shrink.
+  is an error, never a silent shrink.  :func:`make_named_mesh` builds a
+  multi-axis one (``train.make_mesh2d``, ``multihost.make_hybrid_mesh``).
 - :func:`launch` starts the ranks: the calling process at world size 1,
   N spawned processes above, each with the group initialized through a
   ``FileStore`` in a fresh temporary directory (no TCP port, no network),
@@ -31,6 +36,8 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import itertools
+import math
 import os
 import pickle
 import queue
@@ -38,7 +45,7 @@ import shutil
 import tempfile
 import time
 import traceback
-from typing import Callable, Optional, Sequence
+from typing import Callable, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -50,10 +57,21 @@ from anomod_torch.device import DeviceLike, resolve_device
 BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
 
 
+#: one mesh axis name, or a tuple of them
+Axes = Union[str, Sequence[str]]
+
+
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """One rank's view of a 1-D device mesh."""
-    axis: str
+    """One rank's view of a device mesh.
+
+    A 1-D mesh names its one axis in ``axis``; a multi-axis mesh has its
+    axes in ``axis_names`` / ``axis_sizes`` (row-major over the ranks) and
+    the tuple of names in ``axis``.  ``group`` is the process group of
+    the whole mesh (None: the default group); ``slices`` holds the rank's
+    process group along every proper sub-tuple of the axes, made by
+    :func:`make_named_mesh`."""
+    axis: Union[str, Tuple[str, ...]]
     world_size: int
     rank: int
     device: torch.device
@@ -61,10 +79,21 @@ class Mesh:
     #: the process group the collectives run over (None: the default
     #: group)
     group: object = None
+    axis_names: Tuple[str, ...] = ()
+    axis_sizes: Tuple[int, ...] = ()
+    #: ``(axes, group)`` of the rank's slice along each proper sub-tuple
+    #: of ``axis_names`` (empty at world size 1: every group is the world)
+    slices: tuple = dataclasses.field(default=(), repr=False,
+                                      compare=False)
+
+    def __post_init__(self):
+        if not self.axis_names:
+            object.__setattr__(self, "axis_names", (self.axis,))
+            object.__setattr__(self, "axis_sizes", (self.world_size,))
 
     @property
     def shape(self) -> dict:
-        return {self.axis: self.world_size}
+        return dict(zip(self.axis_names, self.axis_sizes))
 
     @property
     def devices(self) -> np.ndarray:
@@ -72,6 +101,50 @@ class Mesh:
         if self.device.type == "cuda":
             return np.array([f"cuda:{r}" for r in range(self.world_size)])
         return np.array(["cpu"] * self.world_size)
+
+    @property
+    def coords(self) -> dict:
+        """This rank's index along each axis."""
+        return dict(zip(self.axis_names, (int(i) for i in np.unravel_index(
+            self.rank, self.axis_sizes))))
+
+    def axes(self, axes: Axes) -> Tuple[str, ...]:
+        """``axes`` (one name or several) in the mesh's order; an unknown
+        or repeated name raises ``ValueError``."""
+        want = (axes,) if isinstance(axes, str) else tuple(axes)
+        if len(set(want)) != len(want) or not set(want) <= set(
+                self.axis_names):
+            raise ValueError(f"axes {want} are not distinct axes of the "
+                             f"mesh {self.axis_names}")
+        return tuple(a for a in self.axis_names if a in want)
+
+    def axis_size(self, axes: Axes) -> int:
+        return math.prod(self.shape[a] for a in self.axes(axes))
+
+    def axis_ranks(self, axes: Axes) -> Tuple[int, ...]:
+        """The global ranks of this rank's slice along ``axes``, in the
+        slice's row-major order."""
+        axes = self.axes(axes)
+        coords = self.coords
+        grid = np.arange(self.world_size).reshape(self.axis_sizes)
+        idx = tuple(slice(None) if a in axes else coords[a]
+                    for a in self.axis_names)
+        return tuple(int(r) for r in grid[idx].reshape(-1))
+
+    def axis_index(self, axes: Axes) -> int:
+        """This rank's place in its slice along ``axes``."""
+        return self.axis_ranks(axes).index(self.rank)
+
+    def axis_group(self, axes: Axes):
+        """The process group of this rank's slice along ``axes``: the
+        mesh's own group when the slice is the whole mesh."""
+        axes = self.axes(axes)
+        if self.axis_size(axes) == self.world_size:
+            return self.group
+        for key, group in self.slices:
+            if key == axes:
+                return group
+        raise ValueError(f"the mesh has no process group along {axes}")
 
 
 def attached_devices(device_type: str) -> int:
@@ -115,6 +188,54 @@ def make_mesh(n_devices: Optional[int] = None, axis: str = "data",
     return Mesh(axis=axis, world_size=n, rank=rank,
                 device=torch.device("cuda", rank) if dev.type == "cuda"
                 else dev, backend=backend)
+
+
+def make_named_mesh(axes: Sequence[Tuple[str, int]],
+                    device: DeviceLike = None) -> Mesh:
+    """This rank's multi-axis mesh: ``axes`` is ``[(name, size), ...]``,
+    outer axis first, the sizes' product the launched group's world size.
+    Every rank creates every slice's process group, in the same order
+    (``dist.new_group`` requires it); at world size 1 every group is the
+    world.  On ``cuda`` the rank's device is its current card (``launch``
+    and ``multihost.initialize_distributed`` set it)."""
+    dev = resolve_device(device)
+    names = tuple(str(a) for a, _ in axes)
+    sizes = tuple(int(n) for _, n in axes)
+    if not names or len(set(names)) != len(names) or min(sizes) < 1:
+        raise ValueError(f"a mesh needs distinct axis names and sizes >= 1, "
+                         f"got {list(axes)}")
+    if not dist.is_initialized():
+        raise RuntimeError("make_named_mesh needs a process group: run the "
+                           "rank body under anomod_torch.parallel.launch")
+    world = dist.get_world_size()
+    if math.prod(sizes) != world:
+        raise ValueError(f"a {'x'.join(map(str, sizes))} mesh needs "
+                         f"{math.prod(sizes)} ranks; the process group has "
+                         f"{world}")
+    backend = dist.get_backend()
+    if backend != BACKENDS[dev.type]:
+        raise ValueError(f"a {dev.type} mesh runs over "
+                         f"{BACKENDS[dev.type]}, not {backend}")
+    rank = dist.get_rank()
+    slices = []
+    if world > 1:
+        grid = np.arange(world).reshape(sizes)
+        for k in range(1, len(names)):
+            for dims in itertools.combinations(range(len(names)), k):
+                rest = [i for i in range(len(names)) if i not in dims]
+                slabs = grid.transpose(rest + list(dims)).reshape(
+                    -1, math.prod(sizes[i] for i in dims))
+                mine = None
+                for ranks in slabs:
+                    group = dist.new_group([int(r) for r in ranks])
+                    if rank in ranks:
+                        mine = group
+                slices.append((tuple(names[i] for i in dims), mine))
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return Mesh(axis=names[0] if len(names) == 1 else names,
+                world_size=world, rank=rank, device=dev, backend=backend,
+                axis_names=names, axis_sizes=sizes, slices=tuple(slices))
 
 
 def shard_chunks(chunks: dict, n_shards: int, dead_sid: int) -> dict:

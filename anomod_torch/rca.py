@@ -260,19 +260,28 @@ def topk_eval(scores: np.ndarray,
     return top1, top3, auc, int(rca_mask.sum())
 
 
-def rca_loss(scores: torch.Tensor, batch: Dict[str, torch.Tensor]
+def rca_loss(scores: torch.Tensor, batch: Dict[str, torch.Tensor],
+             totals: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
              ) -> torch.Tensor:
     """Training objective: CE over culprit services (where a chaos label
-    names one) + 0.3 x detection BCE on the max score."""
+    names one) + 0.3 x detection BCE on the max score.
+
+    ``totals`` = ``(samples with a target, samples)`` of the whole batch
+    when ``batch`` is one data-parallel shard of it: the shard's terms are
+    then divided by the whole batch's counts, so the shards' values sum
+    to the loss of the whole batch (shards hold different numbers of
+    targets, and the mean of their own losses is another function)."""
     target = batch["target"].long()
     has_target = (target >= 0).to(scores.dtype)
     logp = F.log_softmax(scores, dim=-1)
     tgt = target.clamp(0, scores.shape[-1] - 1)
     ce = -logp.gather(1, tgt[:, None])[:, 0]
-    rca = (ce * has_target).sum() / has_target.sum().clamp(min=1.0)
+    n_target, n_samples = ((has_target.sum(), scores.shape[0])
+                           if totals is None else totals)
+    rca = (ce * has_target).sum() / n_target.clamp(min=1.0)
     # amax, like jnp.max, shares the gradient among tied maxima
     det = F.binary_cross_entropy_with_logits(
-        scores.amax(dim=-1), batch["is_anomaly"])
+        scores.amax(dim=-1), batch["is_anomaly"], reduction="sum") / n_samples
     return rca + 0.3 * det
 
 
@@ -335,6 +344,16 @@ _NEEDS_EDGE_X = ("the linegraph model needs per-edge features "
                  "edge_aware)")
 
 
+def fused_features(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """``[B, S, W, Ft + F]``: the windowed features with the static ones
+    repeated into every window (the temporal and sequence families'
+    input)."""
+    x_t = batch["x_t"]
+    return torch.cat(
+        [x_t, batch["x"][:, :, None, :].expand(-1, -1, x_t.shape[2], -1)],
+        dim=-1)
+
+
 def apply_model(model_name: str, model: torch.nn.Module,
                 batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """[B, S] culprit logits of a batch.  The temporal and sequence
@@ -349,11 +368,7 @@ def apply_model(model_name: str, model: torch.nn.Module,
         return model(batch["x"], batch["x_t"], batch["edge_x"],
                      batch["edge_src"], batch["edge_dst"], batch["edge_mask"])
     if model_name in TEMPORAL:
-        x_t = batch["x_t"]
-        fused = torch.cat(
-            [x_t, batch["x"][:, :, None, :].expand(-1, -1, x_t.shape[2], -1)],
-            dim=-1)
-        return model(fused, batch["adj"])
+        return model(fused_features(batch), batch["adj"])
     return model(batch["x"], batch["edge_src"], batch["edge_dst"],
                  batch["edge_mask"])
 

@@ -11,7 +11,10 @@ whole with :func:`load_pool`, or tenant by tenant with
 of numpy arrays, as ``flax.linen.Module.init`` returns them read back to
 the host), for any of the eight families, moves into the port's
 ``state_dict`` with :func:`params_from_flax`, and back with
-:func:`params_to_flax`.
+:func:`params_to_flax`.  The parallel planes' shapes: the JAX pipeline's
+stacked tree goes to a stage rank's ``state_dict`` with
+:func:`pipeline_params_from_flax`; the column and expert slices of a full
+``state_dict`` go to a tensor-parallel rank with :func:`shard_state_dict`.
 """
 
 from __future__ import annotations
@@ -207,15 +210,9 @@ def _flax_layers(model_name: str, tree: dict) -> int:
     return sum(k.startswith(prefix) for k in tree) if prefix else 0
 
 
-def params_from_flax(model_name: str, params) -> Dict[str, torch.Tensor]:
-    """A flax parameter tree of the JAX package's model ``model_name``
-    (with or without its top ``"params"`` key; leaves numpy) -> a
-    ``state_dict`` for the port's model of the same name.  A flax kernel is
-    ``[in, out]``; the port's dense weight is ``[out, in]``."""
-    tree = params.get("params", params)
+def _from_tree(tree: dict, names) -> Dict[str, torch.Tensor]:
     out = {}
-    for key, path, kernel in _param_names(model_name,
-                                          _flax_layers(model_name, tree)):
+    for key, path, kernel in names:
         leaf = tree
         for p in path:
             leaf = leaf[p]
@@ -225,13 +222,67 @@ def params_from_flax(model_name: str, params) -> Dict[str, torch.Tensor]:
     return out
 
 
+def params_from_flax(model_name: str, params) -> Dict[str, torch.Tensor]:
+    """A flax parameter tree of the JAX package's model ``model_name``
+    (with or without its top ``"params"`` key; leaves numpy) -> a
+    ``state_dict`` for the port's model of the same name.  A flax kernel is
+    ``[in, out]``; the port's dense weight is ``[out, in]``."""
+    tree = params.get("params", params)
+    return _from_tree(tree, _param_names(model_name,
+                                         _flax_layers(model_name, tree)))
+
+
+def flax_names(model_name: str, state_dict
+               ) -> List[Tuple[str, Tuple[str, ...], bool]]:
+    """``(state_dict key, flax path, is a dense kernel)`` of every
+    parameter of the port's model ``model_name`` whose ``state_dict`` is
+    given (its layer count read from the keys)."""
+    layers = {k.split(".")[1] for k in state_dict
+              if k.startswith(("layers.", "blocks."))}
+    return _param_names(model_name, len(layers))
+
+
+def pipeline_params_from_flax(params, stage: int) -> Dict[str, torch.Tensor]:
+    """The JAX pipeline's tree ``{embed, stages, head}`` (``stages``
+    leaves ``[P, layers_per_stage, ...]``, each part with its ``"params"``
+    key; leaves numpy) -> the ``state_dict`` of stage ``stage``'s
+    ``TraceTransformer`` (``parallel.pipeline.init_pipeline``): the embed
+    and the head whole, that stage's blocks as ``blocks.0 ...``."""
+    def body(part):
+        return part.get("params", part)
+    stages = body(params["stages"])
+    lps = int(np.asarray(stages["Dense_0"]["kernel"]).shape[1])
+    tree = {"TokenEmbed_0": body(params["embed"]),
+            "ScoreHead_0": body(params["head"])}
+
+    def pick(node, j):
+        if isinstance(node, dict):
+            return {k: pick(v, j) for k, v in node.items()}
+        return np.asarray(node)[stage, j]
+    for j in range(lps):
+        tree[f"AttentionBlock_{j}"] = pick(stages, j)
+    return _from_tree(tree, _sequence_names(lps, "attention"))
+
+
+def shard_state_dict(full, specs: Dict[str, Optional[int]], index: int,
+                     n: int) -> Dict[str, torch.Tensor]:
+    """Place ``index`` of ``n``'s slice of a full ``state_dict``: a key
+    whose spec is a dimension keeps its ``index``-th of ``n`` equal
+    blocks along it (a column slice, or a block of experts); a key whose
+    spec is None (replicated) is copied whole."""
+    out = {}
+    for key, t in full.items():
+        dim = specs.get(key)
+        out[key] = (t.clone() if dim is None
+                    else t.chunk(n, dim=dim)[index].clone())
+    return out
+
+
 def params_to_flax(model_name: str, state_dict) -> dict:
     """The inverse of :func:`params_from_flax`: ``{"params": ...}`` with
     numpy leaves."""
     tree: dict = {}
-    layers = {k.split(".")[1] for k in state_dict
-              if k.startswith(("layers.", "blocks."))}
-    for key, path, kernel in _param_names(model_name, len(layers)):
+    for key, path, kernel in flax_names(model_name, state_dict):
         arr = state_dict[key].detach().cpu().numpy()
         node = tree
         for p in path[:-1]:

@@ -180,7 +180,17 @@ drives the data layer and every ported path:
   bench deployment (RCA off) holding the admission pins, every tenant's
   alerts equal to phase 8's unfused run's; no plain version called on any
   of them; ``replay`` and ``stream --devices 1`` through the CLI and
-  ``replay --devices 2`` refused.
+  ``replay --devices 2`` refused;
+- the rest of the parallel planes (phase 26) at world size 1 over NCCL:
+  ``graft_entry.dryrun_multichip(1)`` (every plane of the JAX dry run at
+  its shapes) with the dense fold's and the HLL kernel's launches counted
+  and no plain version called; at full width on phase 14's TT batch, the
+  dp x tp train step of ``gcn``, ``moe`` and ``linegraph`` on a ``(1,
+  1)`` mesh against ``train_loop``, the pipeline step at
+  ``PipelineConfig()`` against ``reference_forward``'s, the
+  sequence-parallel transformer (ring, Ulysses) against the one-card
+  forward, the sequence-parallel scan over one day of 15 s windows, and
+  the hybrid mesh's checks under ``torchrun --standalone``.
 
 The serve runs of phases 8 and 16-23 run with the flight recorder on and
 supervised (a checkpoint every 32 ticks), the engine's defaults.
@@ -1905,7 +1915,8 @@ def rca_phase(dev, card) -> dict:
         f"parameters and held-out metrics equal to the straight run, bit "
         f"for bit")
     out["resume_equals_straight"] = True
-    return {"rca": out}
+    # phase 26's full-width batch (popped by main)
+    return {"rca": out, "rca_train_batch": train}
 
 
 def multimodal_phase(dev, card, plain_factory) -> dict:
@@ -4549,6 +4560,282 @@ def parallel_phase(dev, card, batch, cfg, rates, stream_rows,
     return {"parallel": out}
 
 
+#: phase 26: steps a plane at full width, each beside its one-card oracle
+PLANE_STEPS = 5
+#: phase 26: one day of 15 s windows through the sequence-parallel scan
+SCAN_T = 24 * 3600 // 15
+
+
+def _step_walls(step, n):
+    """``n`` calls of ``step()``, each synchronized: (results, ms each)."""
+    import torch
+    out, ms = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        out.append(float(step()))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return out, ms
+
+
+def _held_losses(name, got, want):
+    """Every loss of a plane's run within 1e-6 of the first loss of its
+    one-card oracle's; returns the largest difference."""
+    diff = max(abs(a - b) for a, b in zip(got, want))
+    check(len(got) == len(want) and diff <= 1e-6 * abs(want[0]),
+          f"{name}: losses {got} vs the one-card run's {want}")
+    return diff
+
+
+def start_torchrun():
+    """Start ``python -m torch.distributed.run --standalone
+    --nproc-per-node 1 -m anomod_torch.parallel.multihost``: the hybrid
+    mesh's checks (``initialize_distributed``, ``make_hybrid_mesh``, the
+    psum, the HLL merge, one GCN step) in a world-1 NCCL group started by
+    torchrun.  Returns ``(process, start time)``; :func:`torchrun_checks`
+    reads it."""
+    import os
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(Path(__file__).resolve().parent)]
+        + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    return subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "1", "-m", "anomod_torch.parallel.multihost"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=env), time.perf_counter()
+
+
+def torchrun_checks(dev, started) -> dict:
+    """The torchrun run's ``MHRESULT`` held to a world-1 hybrid mesh: its
+    shape, the psum, the HLL registers of its 500 items equal to this
+    process's plane of them, a finite loss."""
+    import torch
+
+    from anomod_torch.ops.hll import hll_add, hll_init
+    proc, t0 = started
+    try:
+        stdout, stderr = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    wall = time.perf_counter() - t0
+    lines = [l for l in stdout.splitlines() if l.startswith("MHRESULT ")]
+    check(proc.returncode == 0 and lines,
+          f"torchrun multihost: rc {proc.returncode}\n{stdout[-2000:]}\n"
+          f"{stderr[-4000:]}")
+    doc = json.loads(lines[0][len("MHRESULT "):])
+    union = hll_add(hll_init(10, device=dev),
+                    torch.arange(0, 500, dtype=torch.int32, device=dev),
+                    p=10).cpu().tolist()
+    check(doc["shape"] == {"dcn": 1, "data": 1} and doc["backend"] == "nccl"
+          and doc["psum"] == doc["expected_psum"] == 0.0
+          and doc["hll"] == union and doc["train_loss"] > 0,
+          f"torchrun multihost: {dict(doc, hll='...')}")
+    doc.pop("hll")
+    return dict(doc, wall_s=wall)
+
+
+def planes_phase(dev, card, train) -> dict:
+    """Phase 26 (:func:`_planes_phase`), with its torchrun process stopped
+    whatever the phase's outcome."""
+    torchrun = start_torchrun()
+    try:
+        return _planes_phase(dev, card, train, torchrun)
+    finally:
+        if torchrun[0].poll() is None:
+            torchrun[0].kill()
+            torchrun[0].wait(timeout=30)
+
+
+def _planes_phase(dev, card, train, torchrun) -> dict:
+    """Phase 26: the rest of the parallel planes at world size 1 over NCCL
+    on the one card.  ``graft_entry.dryrun_multichip(1)`` on ``cuda``, with
+    the dense fold's and the HLL kernel's launches counted and no plain
+    version called.  Then, at full width on the rca CLI's TT batch (phase
+    14's: 6 train seeds x 80 traces, 8 windows; the line graph's with the
+    per-edge features) with the zoo widths: the distributed train step of
+    ``gcn``, ``moe`` and ``linegraph`` on a ``(1, 1)`` ``make_mesh2d``
+    against ``train_loop`` from the same parameters; the pipeline train
+    step at ``PipelineConfig()`` on one stage against
+    ``reference_forward``'s; ``make_sp_transformer`` with ring and with
+    Ulysses against the one-card ``TraceTransformer`` forward (``L = S W``
+    tokens); ``make_seqpar_recurrence`` over one day of 15 s windows
+    against ``linear_recurrence``; and the hybrid mesh under torchrun (a
+    process of its own, started with the phase and read at its end)."""
+    import copy
+    import dataclasses
+    import functools
+
+    import numpy as np
+    import torch
+
+    from anomod_torch import rca
+    from anomod_torch.graft_entry import dryrun_multichip
+    from anomod_torch.ops import replay_kernels as rk
+    from anomod_torch.ops import sketch_kernels as skk
+    from anomod_torch.parallel import launch, make_mesh, make_sp_transformer
+    from anomod_torch.parallel.pipeline import (PipelineConfig,
+                                                make_pipe_mesh,
+                                                make_pipeline_forward,
+                                                make_pipeline_train_step)
+    from anomod_torch.parallel.seqscan import (linear_recurrence,
+                                               make_seqpar_recurrence)
+    from anomod_torch.parallel.train import (LR, make_distributed_train_step,
+                                             make_mesh2d)
+    t_phase = time.perf_counter()
+    out = {}
+
+    # -- (1) the dry run at world size 1 on the card ------------------------
+    rk.reset_launches()
+    skk.reset_launches()
+    t0 = time.perf_counter()
+    with plain_calls() as plain:
+        run = dryrun_multichip(1)
+    launches = {"replay_dense": rk.launches["replay_dense"],
+                "hll_update": skk.launches["hll_update"]}
+    check(launches["replay_dense"] > 0 and launches["hll_update"] > 0
+          and not any(plain.values()),
+          f"dryrun_multichip(1): launches {launches}, plain calls {plain}")
+    idx = torch.cuda.current_device()
+    # the dry run's shard: its spans staged in 256-span chunks
+    rows = -(-run["n_spans"] // 256) * 256
+    clustered = rk.dense_plan(rows, run["sw"], 8, rk._sm_count(idx),
+                              functools.partial(rk._cluster_capacity, idx)
+                              ).clustered
+    # the dry run reaches rows 1b (the slice fold) and 6; row 1a's cluster
+    # fold is held on phase 25's full-width sharded replay
+    check(not clustered, f"dryrun_multichip(1): the sharded replay's {rows} "
+          f"staged rows take the cluster fold (row 1a), not row 1b's")
+    out["dryrun"] = dict(run, wall_s=time.perf_counter() - t0,
+                         launches=launches, plain_calls=dict(plain),
+                         shard_rows=rows, shard_plan_clustered=clustered)
+    log(f"[26] dryrun_multichip(1) on the card: {run}; launches {launches}, "
+        f"plain calls {dict(plain)}; the sharded replay's {rows} staged rows "
+        f"take the slice fold (row 1b); wall "
+        f"{out['dryrun']['wall_s']:.2f} s on {card}")
+
+    # -- (2) the planes at full width -----------------------------------------
+    samples, _ = rca.build_dataset("TT", range(6), 80, edge_features=True)
+    e_train = rca._stack(samples)
+    rca.standardize_features(e_train, [])
+    batches = {"gcn": train, "moe": train, "linegraph": e_train}
+
+    def body():
+        res = {}
+        mesh2d = make_mesh2d(1)
+        check(mesh2d.shape == {"data": 1, "model": 1}
+              and mesh2d.backend == "nccl", f"make_mesh2d(1): {mesh2d}")
+        for name, batch in batches.items():
+            model, _, step, put_batch = make_distributed_train_step(
+                name, batch, mesh2d)
+            dev_batch = put_batch(batch)
+            got, ms = _step_walls(lambda: step(dev_batch), PLANE_STEPS)
+            one = rca.init_model(name, batch, seed=0, device=dev)
+            opt = rca.make_optimizer(one, lr=LR)
+            one_batch = rca.to_device(batch, dev)
+            want, one_ms = _step_walls(
+                lambda: rca.train_loop(name, one, opt, one_batch, 0, 1)[0],
+                PLANE_STEPS)
+            diff = _held_losses(f"train step {name}", got, want)
+            res[name] = dict(losses=got, one_card_losses=want,
+                             max_loss_diff=diff, ms=ms, one_card_ms=one_ms,
+                             batch=int(batch["target"].shape[0]))
+            log(f"[26] {name} train step on (data 1, model 1), batch "
+                f"{res[name]['batch']}: losses {got} == train_loop's "
+                f"(max diff {diff:.3g}); ms a step {np.round(ms, 3).tolist()}"
+                f" vs one card {np.round(one_ms, 3).tolist()} on {card}")
+
+        # the pipeline on one stage against reference_forward's step
+        cfg = PipelineConfig()
+        pipe = make_pipe_mesh(1)
+        stage, _, step, put_batch = make_pipeline_train_step(pipe, cfg, train)
+        ref = copy.deepcopy(stage)
+        dev_batch = put_batch(train)
+        got, ms = _step_walls(lambda: step(dev_batch), PLANE_STEPS)
+        S, W = train["x_t"].shape[1:3]
+        _, reference_forward = make_pipeline_forward(pipe, cfg, S, W)
+        opt = rca.make_optimizer(ref, lr=LR)
+
+        def ref_step():
+            opt.zero_grad()
+            loss = rca.rca_loss(reference_forward(
+                ref, rca.fused_features(dev_batch), dev_batch["adj"]),
+                dev_batch)
+            loss.backward()
+            opt.step()
+            return loss.detach()
+        want, ref_ms = _step_walls(ref_step, PLANE_STEPS)
+        diff = _held_losses("pipeline step", got, want)
+        res["pipeline"] = dict(losses=got, reference_losses=want,
+                               max_loss_diff=diff, ms=ms, reference_ms=ref_ms,
+                               config=dataclasses.asdict(cfg))
+        log(f"[26] pipeline train step, PipelineConfig() on 1 stage: losses "
+            f"{got} == reference_forward's (max diff {diff:.3g}); ms a step "
+            f"{np.round(ms, 3).tolist()} vs {np.round(ref_ms, 3).tolist()}")
+
+        # the sequence-parallel transformer against the one-card forward
+        mesh = make_mesh(1)
+        model = rca.init_model("transformer", train, seed=0, device=dev)
+        x = rca.fused_features(rca.to_device(train, dev))
+        adj = torch.as_tensor(train["adj"], device=dev)
+        with torch.no_grad():
+            want = model(x, adj)
+            ref_ms = _step_walls(lambda: model(x, adj)[0, 0], 3)[1]
+            sp = {}
+            for plane in ("ring", "ulysses"):
+                sp_model = make_sp_transformer(mesh, model, plane=plane)
+                got = sp_model(x, adj)
+                err = float((got - want).abs().max())
+                check(torch.allclose(got, want, rtol=2e-4, atol=2e-5),
+                      f"sp transformer {plane}: max_abs_err {err}")
+                sp[plane] = dict(max_abs_err=err, ms=_step_walls(
+                    lambda: sp_model(x, adj)[0, 0], 3)[1])
+        res["sp_transformer"] = dict(sp, tokens=int(x.shape[1] * x.shape[2]),
+                                     batch=int(x.shape[0]),
+                                     one_card_ms=ref_ms)
+        log(f"[26] sp transformer at L = S*W = {x.shape[1] * x.shape[2]} "
+            f"tokens x {x.shape[0]}: ring / ulysses == the one-card forward "
+            f"(max_abs_err {sp['ring']['max_abs_err']:.3g} / "
+            f"{sp['ulysses']['max_abs_err']:.3g}); ms a forward ring "
+            f"{np.round(sp['ring']['ms'], 3).tolist()}, ulysses "
+            f"{np.round(sp['ulysses']['ms'], 3).tolist()}, one card "
+            f"{np.round(ref_ms, 3).tolist()}")
+
+        # the sequence-parallel scan over one day of 15 s windows
+        g = torch.Generator(device=dev).manual_seed(26)
+        xs = torch.randn((SCAN_T, 45, 8), device=dev, generator=g)
+        decay = torch.rand((45, 8), device=dev, generator=g) * 0.49 + 0.5
+        t0 = time.perf_counter()
+        got = make_seqpar_recurrence(mesh)(xs, decay)
+        torch.cuda.synchronize()
+        scan_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        want = linear_recurrence(xs, decay)
+        torch.cuda.synchronize()
+        one_ms = (time.perf_counter() - t0) * 1e3
+        err = float((got - want).abs().max())
+        check(torch.allclose(got, want, rtol=1e-4, atol=1e-5),
+              f"seqpar recurrence: max_abs_err {err}")
+        res["seqscan"] = dict(T=SCAN_T, max_abs_err=err, ms=scan_ms,
+                              one_card_ms=one_ms)
+        log(f"[26] seqpar recurrence over T={SCAN_T} x [45, 8]: == "
+            f"linear_recurrence (max_abs_err {err:.3g}); {scan_ms:.1f} ms vs "
+            f"{one_ms:.1f} ms")
+        return res
+
+    out.update(launch(body, 1)[0])
+
+    # -- (3) the hybrid mesh under torchrun ---------------------------------
+    out["torchrun"] = torchrun_checks(dev, torchrun)
+    log(f"[26] torchrun --standalone --nproc-per-node 1 -m "
+        f"anomod_torch.parallel.multihost: {out['torchrun']}")
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    log(f"[26] phase 26 in {out['phase_wall_s']:.1f} s on {card}")
+    return {"planes": out}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4854,6 +5141,7 @@ def main() -> int:
     roof = roofline_phases(dev, card, kind, sid_np, planes_np, n_real, SW)
     det13 = detect_phase(dev, card)
     rca14 = rca_phase(dev, card)
+    rca_train = rca14.pop("rca_train_batch")
     mm15 = multimodal_phase(dev, card, PlainFoldReplay)
     mm_launches = mm15["multimodal_stream"]["dense_launches"]
     rca16 = rca_serve_phase(dev, card)
@@ -4870,6 +5158,8 @@ def main() -> int:
     p24 = observatory_phase(dev, card, cpu_journal)
     p25 = parallel_phase(dev, card, batch, cfg, rates, rows, unfused_alerts)
     par = p25["parallel"]
+    p26 = planes_phase(dev, card, rca_train)
+    planes = p26["planes"]
 
     # -- report -----------------------------------------------------------
     # the dense kernel's top-level times are the corpus pass's; each path
@@ -4904,6 +5194,8 @@ def main() -> int:
              "sharded_replay": par["replay"]["launches"]["replay_dense"],
              "sharded_stream": par["stream"]["dense_launches"],
              "serve_mesh": par["serve"]["dense_launches"]},
+         # phase 26's dry run (the sharded replay and the stream pushes)
+         "launches_phase26": planes["dryrun"]["launches"]["replay_dense"],
          "shapes": {"corpus": corpus, "stream_chunk": chunk}},
         {"name": "replay_sorted", "route": "cuda",
          "source": "anomod_torch/csrc/replay.cu",
@@ -4936,6 +5228,9 @@ def main() -> int:
         if k["name"] == "hll_update":
             # phase 25's sharded replay (with_hll)
             k["launches_phase25"] = par["replay"]["launches"]["hll_update"]
+            # phase 26's dry run (the sharded replay's two routes)
+            k["launches_phase26"] = \
+                planes["dryrun"]["launches"]["hll_update"]
     log(json.dumps({"replay_spans_per_sec": rates, "replicate": replicate,
                     "stream_top1": sum(hits) / len(hits),
                     "stream_wall_s": stream_s,
@@ -4947,7 +5242,8 @@ def main() -> int:
                     "l2_eviction_ms": flush, **data, **serve,
                     **sketch, **roof, **det13, **rca14, **mm15, **rca16,
                     **tele17, **q18, **s19, **fs20, **ps21, **p22, **p23,
-                    **p24, **p25, "wall_s": time.perf_counter() - t_all}))
+                    **p24, **p25, **p26,
+                    "wall_s": time.perf_counter() - t_all}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -1284,3 +1284,65 @@ def test_sharded_replay_world_1_nccl_equals_single_card(cuda_device):
         assert float(acc[:, 0].double().sum()) == n
         assert launched == ((1, 1) if kernel == "cuda" else (0, 1)), kernel
     assert not torch.distributed.is_initialized()
+
+
+#: the sends and collectives a group of one must never issue
+_COMM_OPS = ("batch_isend_irecv", "isend", "irecv", "send", "recv",
+             "all_reduce", "all_gather", "all_gather_into_tensor",
+             "all_to_all_single", "reduce_scatter_tensor")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["ppermute", "all_to_all", "copy_to",
+                                  "reduce_from", "gather_from"])
+def test_differentiable_collective_at_group_size_1_sends_nothing(
+        cuda_device, monkeypatch, name):
+    """In a world-1 NCCL group on the card each differentiable collective
+    is the identity forward and backward, and issues no send, receive or
+    collective (NCCL is never asked to send to itself)."""
+    import torch.distributed as dist
+    from anomod_torch.parallel import collectives as coll
+    from anomod_torch.parallel import launch
+    from anomod_torch.parallel.train import make_mesh2d
+    calls = []
+
+    def body():
+        mesh = make_mesh2d(1)
+        group = mesh.axis_group("model")
+        fn = {"ppermute": lambda x: coll.ppermute(x, mesh, "data"),
+              "all_to_all": lambda x: coll.all_to_all(x, mesh, "model", 1, 0),
+              "copy_to": lambda x: coll.copy_to(x, group),
+              "reduce_from": lambda x: coll.reduce_from(x, group),
+              "gather_from": lambda x: coll.gather_from(x, group, 1)}[name]
+        g = torch.Generator(device=cuda_device).manual_seed(7)
+        x = torch.randn((8, 6, 4), device=cuda_device, generator=g,
+                        requires_grad=True)
+        up = torch.randn((8, 6, 4), device=cuda_device, generator=g)
+        for op in _COMM_OPS:
+            monkeypatch.setattr(dist, op,
+                                lambda *a, _op=op, **k: calls.append(_op))
+        try:
+            y = fn(x)
+            (grad,) = torch.autograd.grad(y, x, up)
+        finally:
+            monkeypatch.undo()
+        return torch.equal(y, x), torch.equal(grad, up)
+
+    assert launch(body, 1, device=cuda_device)[0] == (True, True)
+    assert calls == []
+
+
+@pytest.mark.cuda
+def test_dryrun_multichip_world_1_on_card_launches_the_kernels(cuda_device):
+    """``graft_entry.dryrun_multichip(1)`` on the card: every plane's
+    step passes its check, the dense fold and the HLL kernel launched
+    from its sharded replay and stream."""
+    from anomod_torch.graft_entry import dryrun_multichip
+    from anomod_torch.ops import sketch_kernels as skk
+    before = (rk.launches["replay_dense"], skk.launches["hll_update"])
+    run = dryrun_multichip(1, device=cuda_device)
+    assert (run["n_devices"], run["device"]) == (1, "cuda")
+    assert run["mesh2d"] == {"data": 1, "model": 1}
+    assert rk.launches["replay_dense"] > before[0]
+    assert skk.launches["hll_update"] > before[1]
+    assert not torch.distributed.is_initialized()

@@ -83,6 +83,19 @@
   synthetic experiment's summary, the ingest cache (``--warm-cache``,
   ``--clear``) and a directory's per-file log summaries (the Python
   scanner), as their ``anomod`` counterparts print them.
+
+Every subcommand that runs on the card probes it (:func:`_probe_backend`,
+a subprocess with a deadline: ``ANOMOD_PROBE_DEADLINE``, skipped under
+``ANOMOD_SKIP_PROBE=1``), started once its flags are validated and run
+beside its host work, joined before the card is first touched; a dead or
+missing card exits non-zero with the diagnostic and never moves the run
+to the host.  The host is asked for with ``--device cpu``, or with
+``ANOMOD_PLATFORM=cpu``, which sets ``--device cpu`` wherever no
+``--device`` was given (and then bounds ``--devices`` by
+``ANOMOD_CPU_DEVICES``, default 1, as the JAX package sizes its CPU
+mesh).  ``rca --cpu-failover`` and ``quality --cpu-failover`` let a run
+that loses its card mid-run finish on the CPU
+(:mod:`anomod_torch.utils.platform`), and say so (``device_failover``).
 """
 
 from __future__ import annotations
@@ -90,8 +103,51 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import sys
 from typing import List, Optional
+
+#: the actions that read no device (they refuse ``--device``):
+#: ``ANOMOD_PLATFORM=cpu`` leaves them alone
+_HOST_ONLY = {("audit", "diff"), ("perf", "diff"), ("perf", "history"),
+              ("census", "diff")}
+
+
+def _platform_cpu() -> bool:
+    return os.environ.get("ANOMOD_PLATFORM", "").strip().lower() == "cpu"
+
+
+def _pin_platform(args) -> None:
+    """``ANOMOD_PLATFORM=cpu``: ``--device cpu`` wherever the caller gave
+    no ``--device``, said on stderr.  Only the CLI reads the variable."""
+    if not _platform_cpu() or getattr(args, "device", "") is not None \
+            or (args.cmd, getattr(args, "action", None)) in _HOST_ONLY:
+        return
+    args.device = "cpu"
+    print("[anomod_torch] ANOMOD_PLATFORM=cpu: running on the host "
+          "(--device cpu)", file=sys.stderr)
+
+
+def _probe_backend(args) -> None:
+    """Start the bounded probe of the card, called after the subcommand's
+    flag validation so usage errors stay instant.  It runs beside the
+    subcommand's host work and is joined before the card is first touched
+    (``device.resolve_device``), or at the end of :func:`main`.  Skipped
+    when the run will not use the card (``--device cpu``, which
+    ``ANOMOD_PLATFORM=cpu`` sets) and under ``ANOMOD_SKIP_PROBE=1``.  A
+    dead or missing card raises ``RuntimeError`` with the diagnostic (a
+    non-zero exit): the run is never moved to the host.  One probe a
+    call."""
+    if getattr(args, "probed", False):
+        return
+    args.probed = True
+    device = getattr(args, "device", None)
+    if device is not None:
+        import torch
+        if torch.device(device).type == "cpu":
+            return
+    from anomod_torch.utils.platform import start_probe
+    start_probe()
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -111,7 +167,12 @@ def _parser() -> argparse.ArgumentParser:
                    help="cuda (default) or cpu (plain PyTorch versions)")
     p.add_argument("--percentiles", action="store_true",
                    help="also report corpus-wide p50/p95/p99 from the "
-                        "per-segment t-digest plane")
+                        "per-segment t-digest plane, built by the "
+                        "tdigest_reduce kernel on the card "
+                        "(ANOMOD_TDIGEST_ENGINE: auto or pallas there; "
+                        "host and xla name JAX formulations and are "
+                        "refused on the card; on the CPU every value "
+                        "runs the plain version)")
     p.add_argument("--edge-percentiles", action="store_true",
                    help="also report the slowest call-graph edges by p99 "
                         "from the per-edge t-digest plane, with their HLL "
@@ -146,6 +207,10 @@ def _parser() -> argparse.ArgumentParser:
                    help="continue from the epoch saved in --checkpoint-dir")
     g.add_argument("--device", default=None,
                    help="cuda (default) or cpu")
+    g.add_argument("--cpu-failover", action="store_true",
+                   help="if the card is lost mid-train, rerun once on the "
+                        "CPU (from this run's last checkpoint, else from "
+                        "scratch) and add device_failover to the JSON")
 
     s = sub.add_parser("stream", help="online detection: replay an "
                        "experiment's spans in arrival order")
@@ -215,6 +280,10 @@ def _parser() -> argparse.ArgumentParser:
                    help="emit one JSON object per sweep point")
     q.add_argument("--device", default=None,
                    help="cuda (default) or cpu")
+    q.add_argument("--cpu-failover", action="store_true",
+                   help="if the card is lost mid-sweep, redo that learned "
+                        "row and run the rest on the CPU, and label the "
+                        "capture (device_failover)")
 
     r = sub.add_parser("roofline", help="the sorted replay kernel against "
                        "its count-only and no-histogram ablations")
@@ -667,6 +736,7 @@ def _serve(args, parser) -> int:
         parser.error(str(e))
     if args.from_live or args.live_replay:
         return _serve_live(args, parser, buckets, lanes)
+    _probe_backend(args)
     kw = dict(
         n_tenants=args.tenants, n_services=args.services,
         capacity_spans_per_s=args.capacity, overload=args.overload,
@@ -771,6 +841,7 @@ def _serve_live(args, parser, buckets, lanes) -> int:
                   shards=args.shards, pipeline=args.pipeline,
                   device=args.device)
     try:
+        _probe_backend(args)
         if args.live_replay:
             _, report, _ = run_live_feed(replay=args.live_replay, **common)
         else:
@@ -880,6 +951,7 @@ def _audit(args, parser) -> int:
     if args.digest_every is not None:
         kw["flight_digest_every"] = args.digest_every
     kw["flight"] = True
+    _probe_backend(args)
     if kw.pop("traffic", None) == "live_feed":
         # a live-feed run replays through its wire journal (the response
         # sequence is the ground truth), not by polling again
@@ -926,6 +998,7 @@ def _obs(args, parser) -> int:
                      "jaeger; `obs snapshot` is the JSON view")
     if args.action == "score" and args.format in ("chrome", "jaeger"):
         parser.error("--format chrome/jaeger applies to obs export")
+    _probe_backend(args)
     from anomod_torch.obs import export
     from anomod_torch.obs.selfscrape import score_self_scrape, self_exercise
     score_kw = dict(window_s=args.window_seconds,
@@ -985,10 +1058,19 @@ def _check_devices(args, parser) -> None:
         from anomod_torch.device import resolve_device
         from anomod_torch.parallel.mesh import (attached_devices,
                                                 check_mesh_size)
+        from anomod_torch.utils.platform import env_number
+        # the probe comes before the card's count is read (resolve_device
+        # joins it)
+        _probe_backend(args)
         dev = resolve_device(args.device)
-        if dev.type == "cuda":
+        # on the host under ANOMOD_PLATFORM=cpu, ANOMOD_CPU_DEVICES is the
+        # count of attached devices (gloo ranks), as the JAX CPU mesh's
+        attached = (attached_devices("cuda") if dev.type == "cuda"
+                    else env_number("ANOMOD_CPU_DEVICES", 1)
+                    if _platform_cpu() else None)
+        if attached is not None:
             try:
-                check_mesh_size(args.devices, attached_devices("cuda"))
+                check_mesh_size(args.devices, attached)
             except ValueError as e:
                 parser.error(str(e))
 
@@ -1003,6 +1085,11 @@ def _replay(args, parser) -> int:
     if args.devices and args.kernel == "cuda-sorted":
         parser.error("--kernel cuda-sorted stages on the host for one "
                      "chip; the sharded path uses 'cuda' or 'matmul'")
+    # a host-only run (numpy engine, no mesh, no digest plane) touches no
+    # card: it pays no probe
+    if args.kernel != "numpy" or args.devices or args.percentiles \
+            or args.edge_percentiles:
+        _probe_backend(args)
     if args.devices:
         from anomod_torch.parallel import launch
         out = launch(_replay_rank, args.devices, device=args.device,
@@ -1111,6 +1198,7 @@ def _stream(args, parser) -> int:
                      "generator; with --from-data the archived experiment "
                      "is what it is")
     _check_devices(args, parser)
+    _probe_backend(args)
     if args.devices:
         from anomod_torch.parallel import launch
         rows = launch(_stream_rank, args.devices, device=args.device,
@@ -1214,6 +1302,7 @@ def stream_summary(testbed: str, rows: list) -> dict:
 def _detect(args) -> int:
     from anomod_torch import detect, labels, synth
     from anomod_torch.io import dataset
+    _probe_backend(args)
     if args.from_data:
         corpus = dataset.load_corpus(args.testbed,
                                      n_synth_traces=args.traces)
@@ -1236,23 +1325,31 @@ def _detect(args) -> int:
 
 
 def _rca(args, parser) -> int:
-    from anomod_torch.rca import train_rca
+    from anomod_torch.rca import train_rca_resilient
     if args.resume and not args.checkpoint_dir:
         parser.error("--resume requires --checkpoint-dir")
-    r = train_rca(args.testbed, args.model,
-                  train_seeds=range(args.train_seeds),
-                  eval_seeds=range(100, 100 + args.eval_seeds),
-                  epochs=args.epochs,
-                  checkpoint_dir=args.checkpoint_dir, resume=args.resume,
-                  device=args.device)
-    print(json.dumps({
+    _probe_backend(args)
+    r, failover = train_rca_resilient(
+        args.testbed, args.model,
+        train_seeds=range(args.train_seeds),
+        eval_seeds=range(100, 100 + args.eval_seeds),
+        epochs=args.epochs,
+        checkpoint_dir=args.checkpoint_dir, resume=args.resume,
+        failover=args.cpu_failover, device=args.device)
+    if failover:
+        print(f"[anomod_torch] {failover}", file=sys.stderr)
+    out = {
         "testbed": args.testbed, "model": r.model_name,
         "top1": r.top1, "top3": r.top3,
-        "detection_auc": r.detection_auc, "n_eval": r.n_eval}))
+        "detection_auc": r.detection_auc, "n_eval": r.n_eval}
+    if failover:
+        out["device_failover"] = failover
+    print(json.dumps(out))
     return 0
 
 
 def _quality(args, parser) -> int:
+    from anomod_torch import quality
     from anomod_torch.device import device_name, resolve_device
     from anomod_torch.provenance import capture_record, write_capture
     from anomod_torch.quality import (SEVERITIES, TRAINING_FREE,
@@ -1274,6 +1371,7 @@ def _quality(args, parser) -> int:
         parser.error("--shift-severity applies to --sweep shift")
     if args.sweep == "severity" and args.edge_aware:
         parser.error("--edge-aware applies to --sweep shift")
+    _probe_backend(args)
     dev = resolve_device(args.device)
     common = dict(
         testbed=args.testbed, model_names=args.models,
@@ -1283,12 +1381,16 @@ def _quality(args, parser) -> int:
         n_confounders=args.confounders, verbose=not args.json)
     if args.sweep == "shift":
         pts = shift_sweep(severity=args.shift_severity,
-                          edge_aware=args.edge_aware, device=dev, **common)
+                          edge_aware=args.edge_aware, device=dev,
+                          failover=args.cpu_failover, **common)
         render = render_shift_markdown
     else:
         pts = severity_sweep(severities=args.severities, device=dev,
-                             **common)
+                             failover=args.cpu_failover, **common)
         render = render_markdown
+    # a sweep that lost its card and finished on the CPU is labeled so
+    failover = ({"device_failover": quality.LAST_FAILOVER}
+                if quality.LAST_FAILOVER else {})
     rec = capture_record(
         f"quality_{args.sweep}_sweep", float(len(pts)), "points",
         device=device_name(dev), testbed=args.testbed,
@@ -1300,7 +1402,7 @@ def _quality(args, parser) -> int:
                     "edge_aware": bool(args.edge_aware)}
                    if args.sweep == "shift"
                    else {"severities": args.severities})},
-        points=[dataclasses.asdict(p) for p in pts])
+        points=[dataclasses.asdict(p) for p in pts], **failover)
     path = write_capture(rec)
     if args.json:
         # one QualityPoint a stdout line; the capture path to stderr
@@ -1358,6 +1460,7 @@ def _roofline(args, parser) -> int:
     from anomod_torch.roofline import kernel_roofline
     if args.traces < 1 or args.replicate < 1:
         parser.error("--traces and --replicate must be >= 1")
+    _probe_backend(args)
     print(json.dumps(kernel_roofline(n_traces=args.traces,
                                      replicate=args.replicate,
                                      device=args.device)))
@@ -1423,6 +1526,7 @@ def _perf(args, parser) -> int:
         parser.error("perf record takes no positional paths")
     if args.noise_floor is not None:
         parser.error("--noise-floor applies to perf diff")
+    _probe_backend(args)
     from anomod_torch.obs.flight import _atomic_write_json
     from anomod_torch.obs.perf import (PERF_FORMAT, analyze_events,
                                        perf_tracer, round_events)
@@ -1551,6 +1655,7 @@ def _census(args, parser) -> int:
             parser.error("--ticks must be >= 1")
         if args.hot is not None and args.hot < 1:
             parser.error("--hot must be >= 1")
+        _probe_backend(args)
         from anomod_torch.obs.census import fleet_probe
         doc = {"census_format": CENSUS_FORMAT,
                "sweep": fleet_probe(
@@ -1568,6 +1673,7 @@ def _census(args, parser) -> int:
     def _or(v, default):
         return default if v is None else v
 
+    _probe_backend(args)
     from anomod_torch.serve.engine import run_power_law
     eng, rep = run_power_law(
         n_tenants=_or(args.tenants, 24), n_services=8,
@@ -1690,8 +1796,21 @@ def _logscan(args) -> int:
 
 
 def main(argv: Optional[List[str]] = None) -> int:
+    from anomod_torch.utils.platform import await_probe
     parser = _parser()
     args = parser.parse_args(argv)
+    _pin_platform(args)
+    try:
+        rc = _run(args, parser)
+    except BaseException:
+        await_probe(quiet=True)
+        raise
+    # the probe's verdict holds even where no card was resolved
+    await_probe()
+    return rc
+
+
+def _run(args, parser) -> int:
     if args.cmd == "replay":
         return _replay(args, parser)
     if args.cmd == "serve":

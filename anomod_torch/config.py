@@ -78,6 +78,8 @@ The serve plane's shape (``anomod_torch.serve``): ``ANOMOD_SERVE_BUCKETS``
 and ``ANOMOD_SERVE_LANE_BUCKETS`` (comma-separated, strictly ascending),
 ``ANOMOD_SERVE_FUSE`` (default on), ``ANOMOD_SERVE_PIPELINE`` (1-64,
 default 2), ``ANOMOD_SERVE_STATE`` (``auto`` = ``device``, or ``host``),
+``ANOMOD_SERVE_LANE_ENGINE`` (``auto``, the default, ``matmul``,
+``scatter`` or ``pallas``, as the JAX package parses it),
 ``ANOMOD_SERVE_MAX_BACKLOG`` (spans, default 200,000),
 ``ANOMOD_SERVE_NATIVE_DRAIN`` and ``ANOMOD_NATIVE`` (``auto``, ``on`` or
 ``off``: the admission drain's and the scratch fill's C++ routes; ``off``
@@ -94,6 +96,15 @@ noise fraction ``perf diff`` tests wall ratios against, default 0.35);
 thresholds, default ``4,16,64,256``), ``ANOMOD_CENSUS_SWEEP`` (the probe's
 registered-fleet sizes, at least two, default ``1000,10000,100000``) and
 ``ANOMOD_CENSUS_COLDEST_K`` (the coldest-candidate preview, default 8).
+
+The t-digest plane (``anomod_torch.replay``): ``ANOMOD_TDIGEST_ENGINE``
+(``auto``, the default, ``host``, ``xla`` or ``pallas``, case-folded as
+the JAX package does, an unknown value raising ``unknown t-digest
+engine``).  Both engine knobs keep the JAX values; on the card only the
+port's kernels run, so a card path takes ``auto`` or ``pallas`` and
+refuses the values that name JAX formulations before anything launches
+(:func:`refuse_on_card`).  On the CPU every value runs the plain
+versions.
 """
 
 from __future__ import annotations
@@ -298,6 +309,49 @@ def _serve_state_env() -> str:
         return raw
     raise ValueError(
         f"ANOMOD_SERVE_STATE must be auto, host or device, got {raw!r}")
+
+
+def validate_serve_lane_engine(raw: Optional[str]) -> str:
+    """An ``ANOMOD_SERVE_LANE_ENGINE`` value, normalized as the JAX
+    package does (``auto`` when empty)."""
+    raw = (raw or "auto").strip().lower()
+    if raw in ("auto", ""):
+        return "auto"
+    if raw in ("matmul", "scatter", "pallas"):
+        return raw
+    raise ValueError(
+        "ANOMOD_SERVE_LANE_ENGINE must be auto, matmul, scatter or "
+        f"pallas, got {raw!r}")
+
+
+def validate_tdigest_engine(raw: Optional[str]) -> str:
+    """An ``ANOMOD_TDIGEST_ENGINE`` value, normalized as the JAX package
+    does (``auto`` when empty)."""
+    raw = (raw or "auto").strip().lower()
+    if raw in ("auto", ""):
+        return "auto"
+    if raw in ("host", "xla", "pallas"):
+        return raw
+    raise ValueError(f"unknown t-digest engine {raw!r}")
+
+
+#: the engine knobs' values a card path takes: both name the port's
+#: kernels (``pallas`` is the counterpart of the JAX package's Mosaic
+#: kernel); the other values name JAX formulations the port does not carry
+CARD_ENGINES = ("auto", "pallas")
+
+
+def refuse_on_card(knob: str, value: str, device) -> None:
+    """Raise ``ValueError`` when ``device`` is a card and ``value`` (of the
+    engine knob ``knob``) names a JAX formulation: no knob value routes
+    the card to a plain version.  ``device`` (a device, its name, or None
+    for the card) is only looked at."""
+    kind = ("cuda" if device is None
+            else getattr(device, "type", str(device).split(":")[0]))
+    if kind == "cuda" and value not in CARD_ENGINES:
+        raise ValueError(
+            f"{knob}={value!r} names a JAX formulation; on the card it "
+            "takes auto or pallas (the port's kernels)")
 
 
 def _auto_on_off_env(name: str) -> str:
@@ -916,6 +970,12 @@ class Config:
     serve_pipeline: int = dataclasses.field(
         default_factory=_serve_pipeline_env)
     serve_state: str = dataclasses.field(default_factory=_serve_state_env)
+    serve_lane_engine: str = dataclasses.field(
+        default_factory=lambda: validate_serve_lane_engine(
+            _env("ANOMOD_SERVE_LANE_ENGINE", "auto")))
+    tdigest_engine: str = dataclasses.field(
+        default_factory=lambda: validate_tdigest_engine(
+            _env("ANOMOD_TDIGEST_ENGINE", "auto")))
     serve_native_drain: str = dataclasses.field(
         default_factory=lambda: _auto_on_off_env("ANOMOD_SERVE_NATIVE_DRAIN"))
     serve_max_backlog: int = dataclasses.field(

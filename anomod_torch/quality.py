@@ -13,14 +13,17 @@ corpora (``rca.experiment_stream``).
 
 Training and scoring run on the card (``cuda`` unless the caller passes
 ``device="cpu"``); corpora and the finished cells stay in numpy.  A
-failure on the card raises: there is no fallback to the CPU (the JAX
-package's ``with_cpu_failover`` is not ported).
+failure on the card raises, unless the caller asked for the failover
+(``failover=True``): then a learned row whose card was lost mid-row
+(``utils.platform.with_cpu_failover``) is redone on the CPU, the rows
+after it run on the CPU too, and :data:`LAST_FAILOVER` says so.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Sequence, Tuple
+import sys
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -31,9 +34,16 @@ from anomod_torch.rca import (_stack, apply_model, build_dataset,
                               experiment_stream, init_model, make_optimizer,
                               standardize_features, to_device, topk_eval,
                               train_loop)
+from anomod_torch.utils.platform import with_cpu_failover
 
 #: The default sweep grid: full-strength down to the hard regime.
 SEVERITIES = (1.0, 0.4, 0.2, 0.1, 0.05)
+
+#: Set to a one-line note when the most recent sweep lost its card
+#: mid-run and completed on the CPU (``failover=True`` only); the CLI
+#: copies it into the capture record so a mixed-device table is labeled
+#: as such.  Reset at each sweep's start.
+LAST_FAILOVER: Optional[str] = None
 
 #: The de-saturated operating point: mild effects + decoys + noise.
 HARD_POINT = dict(severity=0.12, noise=0.5, n_confounders=2)
@@ -166,15 +176,17 @@ def severity_sweep(testbed: str = "TT",
                    n_traces: int = 60, epochs: int = 120,
                    noise: float = 0.5, n_confounders: int = 2,
                    verbose: bool = False,
-                   device: DeviceLike = None) -> List[QualityPoint]:
+                   device: DeviceLike = None,
+                   failover: bool = False) -> List[QualityPoint]:
     """Degradation curves: train once on mixed severity, evaluate at each
     severity with noise and confounders.  One QualityPoint per (model,
-    severity)."""
+    severity).  ``failover``: the opt-in CPU failover of the learned
+    rows (module docstring)."""
     eval_modes = {sev: synth.HardMode(severity=sev, noise=noise)
                   for sev in severities}
     cells = _eval_grid(testbed, model_names, eval_modes, train_seeds,
                        eval_seeds, n_traces, epochs, noise, n_confounders,
-                       verbose, device=device)
+                       verbose, device=device, failover=failover)
     return [QualityPoint(name, sev, noise, n_confounders, *cell)
             for (name, sev), cell in cells.items()]
 
@@ -188,13 +200,14 @@ def shift_sweep(testbed: str = "TT",
                 n_traces: int = 60, epochs: int = 120,
                 noise: float = 0.5, n_confounders: int = 2,
                 verbose: bool = False, edge_aware: bool = False,
-                device: DeviceLike = None) -> List[QualityPoint]:
+                device: DeviceLike = None,
+                failover: bool = False) -> List[QualityPoint]:
     """Train-shift/eval-shift table: models train ONCE on the default
     effect model (the mixed-severity corpus of :func:`severity_sweep`)
     and are evaluated under each generator of :data:`SHIFTS` at one
     severity.  ``edge_aware``: out-edge feature blocks, per-edge features
     and a node + edge mixed-locus training corpus (the line graph's
-    setting)."""
+    setting); ``failover`` as in :func:`severity_sweep`."""
     eval_modes = {name: synth.HardMode(severity=severity, noise=noise,
                                        **SHIFTS[name])
                   for name in shifts}
@@ -202,7 +215,7 @@ def shift_sweep(testbed: str = "TT",
                        eval_seeds, n_traces, epochs, noise, n_confounders,
                        verbose, edge_features=edge_aware,
                        train_loci=("node", "edge") if edge_aware
-                       else ("node",), device=device)
+                       else ("node",), device=device, failover=failover)
     return [QualityPoint(name, severity, noise, n_confounders, *cell,
                          shift=shift)
             for (name, shift), cell in cells.items()]
@@ -253,17 +266,45 @@ def _eval_grid(testbed, model_names, eval_modes: Dict[object,
                                                       synth.HardMode],
                train_seeds, eval_seeds, n_traces, epochs, noise,
                n_confounders, verbose=False, edge_features=False,
-               train_loci=("node",), device: DeviceLike = None
+               train_loci=("node",), device: DeviceLike = None,
+               failover: bool = False
                ) -> Dict[Tuple[str, object], Cell]:
     """The sweep engine: one mixed-severity training pass a learned model
     (:func:`_grid_batches`), then every model evaluated on every
     eval-mode corpus.  Returns ``{(model, mode_key): (top1, top3, auc,
-    n_eval)}``; the corpora a cell scores are the same for every model."""
+    n_eval)}``; the corpora a cell scores are the same for every model.
+
+    Each learned row (train + every eval) runs under
+    ``with_cpu_failover(allow=failover)``: host input, host output, so a
+    row whose card was lost is redone wholesale on the CPU.  A card that
+    lost its context does not come back in this process, so every row
+    after a failover runs on the CPU too.  The training-free rows are not
+    wrapped."""
+    global LAST_FAILOVER
+    LAST_FAILOVER = None
     dev = resolve_device(device)
     if any(name not in TRAINING_FREE for name in model_names):
         train, eval_batches = _grid_batches(
             testbed, eval_modes, train_seeds, eval_seeds, n_traces, noise,
             n_confounders, edge_features, train_loci)
+
+    def _train_and_eval(name, where):
+        row = {}
+        model = _train_model(name, train, epochs=epochs, device=where)
+        with torch.no_grad():
+            for key, ev in eval_batches.items():
+                scores = apply_model(name, model,
+                                     to_device(ev, where)).cpu().numpy()
+                row[(name, key)] = topk_eval(scores, ev)
+        return row
+
+    def _note_failover(exc, model):
+        global LAST_FAILOVER
+        LAST_FAILOVER = (f"device backend lost mid-sweep at model "
+                         f"{model!r} ({type(exc).__name__}); remaining "
+                         f"rows completed on the CPU failover backend")
+        print(f"[anomod_torch.quality] {LAST_FAILOVER}", file=sys.stderr)
+
     cells: Dict[Tuple[str, object], Cell] = {}
     for name in model_names:
         if name in TRAINING_FREE:
@@ -275,14 +316,16 @@ def _eval_grid(testbed, model_names, eval_modes: Dict[object,
                 if verbose:
                     print(f"{name} {key}: top1={cells[(name, key)][0]:.2f}")
             continue
-        model = _train_model(name, train, epochs=epochs, device=dev)
-        with torch.no_grad():
-            for key, ev in eval_batches.items():
-                scores = apply_model(name, model,
-                                     to_device(ev, dev)).cpu().numpy()
-                cells[(name, key)] = topk_eval(scores, ev)
-                if verbose:
-                    print(f"{name} {key}: top1={cells[(name, key)][0]:.2f}")
+        row = with_cpu_failover(
+            lambda where, _n=name: _train_and_eval(_n, where), dev,
+            allow=failover,
+            on_failover=lambda e, _n=name: _note_failover(e, _n))
+        if LAST_FAILOVER is not None:
+            dev = torch.device("cpu")
+        cells.update(row)
+        if verbose:
+            for (n, key), cell in row.items():
+                print(f"{n} {key}: top1={cell[0]:.2f}")
     return cells
 
 

@@ -10,7 +10,8 @@ baseline.  Targets: the culprit service from the chaos metadata
 The dataset is built on the host (``detect.extract_features``,
 ``rca_features``); the model, the loss and the optimizer run on the card
 (``cuda`` unless the caller passes ``device="cpu"``).  A failure on the
-card raises: there is no fallback to the host.
+card raises; :func:`train_rca_resilient` reruns a run that lost its card
+on the CPU, once, when its caller asks for it (``failover=True``).
 """
 
 from __future__ import annotations
@@ -507,13 +508,66 @@ def train_rca(testbed: str = "TT", model_name: str = "gcn",
     seed 0 (the JAX package's ``PRNGKey(0)``), trains on ``device``
     (``cuda`` unless ``cpu`` is asked for) and evaluates on
     ``eval_seeds``.  ``checkpoint_dir`` / ``resume`` / ``save_every`` as
-    in :func:`fit`."""
-    dev = resolve_device(device)
+    in :func:`fit`.  The device is resolved after the host dataset is
+    built, so that a probe of the card runs beside that work."""
     _check_model(model_name)
     train, evalb = prepare_data(testbed, train_seeds, eval_seeds, n_traces,
                                 edge_features=model_name == "linegraph")
-    model = init_model(model_name, train, 0, dev)
+    model = init_model(model_name, train, 0, resolve_device(device))
     return fit(model_name, train, evalb, model, epochs=epochs, lr=lr,
                verbose=verbose, checkpoint_dir=checkpoint_dir, resume=resume,
                save_every=save_every,
                meta={"model": model_name, "testbed": testbed})
+
+
+def train_rca_resilient(*args, resume: bool = False, checkpoint_dir=None,
+                        failover: bool = False, device: DeviceLike = None,
+                        **kwargs) -> Tuple[TrainResult, Optional[str]]:
+    """:func:`train_rca` with the opt-in CPU failover.
+
+    With ``failover=True``, a training run on the card that dies because
+    the card was lost (``utils.platform.is_backend_loss``) reruns once on
+    the CPU.  The retry resumes ONLY from a checkpoint this call itself
+    published (its ``checkpoint_mtime`` at or after the call's start): a
+    stale checkpoint left by an earlier run is not resumed into a
+    "freshly trained" result, and with none the retry trains from
+    scratch.  With ``failover=False`` (the default) a loss raises.
+
+    Returns ``(result, failover_note)``: the note is None on the clean
+    path and one line saying where the retry ran from when it ran."""
+    import time
+
+    from anomod_torch.utils.checkpoint import checkpoint_mtime
+    from anomod_torch.utils.platform import with_cpu_failover
+
+    t_start = time.time()
+    tried = []
+    note = []
+
+    def _saved_this_run() -> bool:
+        if not checkpoint_dir:
+            return False
+        m = checkpoint_mtime(checkpoint_dir)
+        return m is not None and m >= t_start
+
+    def _attempt(dev):
+        do_resume = resume if not tried else (resume or _saved_this_run())
+        tried.append(1)
+        return train_rca(*args, resume=do_resume,
+                         checkpoint_dir=checkpoint_dir, device=dev, **kwargs)
+
+    def _on_failover(exc):
+        # the retry resumes only when a restorable checkpoint exists at
+        # retry time AND the resume gate passes: "--resume with an empty
+        # dir, died before the first save" trains from scratch, and says so
+        will_resume = ((resume or _saved_this_run())
+                       and checkpoint_dir is not None
+                       and checkpoint_mtime(checkpoint_dir) is not None)
+        note.append(f"device backend lost mid-train ({type(exc).__name__});"
+                    f" retried on the CPU failover backend"
+                    + (" from the last checkpoint"
+                       if will_resume else " from scratch"))
+
+    result = with_cpu_failover(_attempt, device, allow=failover,
+                               on_failover=_on_failover)
+    return result, (note[0] if note else None)

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from anomod_torch import obs
+from anomod_torch.config import get_config, refuse_on_card
 from anomod_torch.device import DeviceLike, device_name, resolve_device
 from anomod_torch.ops.hll import hll_add, hll_estimate, hll_init
 from anomod_torch.ops.replay_kernels import (PLANES, recombine_moments,
@@ -521,11 +522,15 @@ def _digests_from_staged(chunks, cfg: ReplayConfig, k: int,
     """Per-segment t-digest plane from already-staged host chunk columns:
     the log1p-µs durations of the real rows, staged per segment on the
     host, built on ``device`` through the ``tdigest_reduce`` kernel, read
-    back as host numpy ``[SW, K]``."""
+    back as host numpy ``[SW, K]``.  On the card an
+    ``ANOMOD_TDIGEST_ENGINE`` that names a JAX formulation (``host``,
+    ``xla``) is refused first."""
+    dev = resolve_device(device)
+    refuse_on_card("ANOMOD_TDIGEST_ENGINE", get_config().tdigest_engine, dev)
     sid = chunks["sid"].reshape(-1)
     dur = chunks["dur"].reshape(-1)       # log1p(duration_us), staged
     real = sid < cfg.sw
-    d = tdigest_by_segment(dur[real], sid[real], cfg.sw, k=k, device=device)
+    d = tdigest_by_segment(dur[real], sid[real], cfg.sw, k=k, device=dev)
     return TDigest(mean=d.mean.cpu().numpy(), weight=d.weight.cpu().numpy())
 
 

@@ -70,7 +70,7 @@ from anomod_torch.replay import (N_FEATS, ReplayConfig, ReplayState,
                                  TenantStatePool, fold_delta,
                                  stage_columns_fused, zero_state)
 from anomod_torch.schemas import SpanBatch
-from anomod_torch.config import get_config
+from anomod_torch.config import get_config, refuse_on_card
 from anomod_torch.serve.config import (validate_lane_buckets,
                                        validate_serve_buckets)
 from anomod_torch.stream import StreamReplay
@@ -78,7 +78,6 @@ from anomod_torch.stream import StreamReplay
 #: the staged columns a lane dispatch copies; the sixth plane, dur², is
 #: computed at fill
 PLANE_KEYS = PLANES[:5]
-
 
 def split_plan(n_spans: int, chunk_size: int,
                buckets: Tuple[int, ...]) -> List[Tuple[int, int, int]]:
@@ -125,7 +124,11 @@ class BucketRunner:
     recorded on it and :meth:`sync` waits for it alone.  The caller runs
     every use of the runner under :meth:`on_stream`, so its copies,
     launches, pool folds and gathers stay ordered on that stream while
-    other runners' work runs on theirs."""
+    other runners' work runs on theirs.
+
+    A card runner refuses an ``ANOMOD_SERVE_LANE_ENGINE`` value that names
+    a JAX formulation (``matmul``, ``scatter``) before anything is
+    allocated or launched."""
 
     def __init__(self, cfg: ReplayConfig,
                  buckets: Optional[Tuple[int, ...]] = None,
@@ -142,6 +145,8 @@ class BucketRunner:
         self.cfg = cfg
         self.device = resolve_device(device)
         self._cuda = self.device.type == "cuda"
+        refuse_on_card("ANOMOD_SERVE_LANE_ENGINE",
+                       get_config().serve_lane_engine, self.device)
         self.state_mode = state
         self.stream = (torch.cuda.Stream(self.device)
                        if own_stream and self._cuda else None)

@@ -58,7 +58,7 @@ import time
 import traceback
 from typing import Dict, List, Optional, Set, Tuple
 
-from anomod_torch.config import get_config
+from anomod_torch.config import get_config, refuse_on_card
 from anomod_torch.serve.config import (validate_lane_buckets,
                                        validate_serve_buckets)
 
@@ -126,6 +126,10 @@ class RunnerMirror:
         self.state_mode = state
         self.native_stage = bool(native_stage)
         app_cfg = get_config()
+        # the children read ANOMOD_SERVE_LANE_ENGINE from the environment
+        # they inherit: a value the card refuses fails here, first
+        refuse_on_card("ANOMOD_SERVE_LANE_ENGINE", app_cfg.serve_lane_engine,
+                       device)
         self.buckets = validate_serve_buckets(
             app_cfg.serve_buckets if buckets is None else buckets)
         self.lane_buckets = validate_lane_buckets(

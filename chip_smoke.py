@@ -190,7 +190,20 @@ drives the data layer and every ported path:
   ``PipelineConfig()`` against ``reference_forward``'s, the
   sequence-parallel transformer (ring, Ulysses) against the one-card
   forward, the sequence-parallel scan over one day of 15 s windows, and
-  the hybrid mesh's checks under ``torchrun --standalone``.
+  the hybrid mesh's checks under ``torchrun --standalone``;
+- the device decisions (phase 27): the bounded probe of the card;
+  ``with_cpu_failover`` re-raising a loss without
+  ``allow``, retrying it once on the CPU with it, and leaving a real out
+  of memory, an illegal-address error and a real ``nvcc`` failure
+  alone; ``train_rca_resilient(failover=True)`` clean and after a loss
+  injected past its first save (equal to the CPU run resumed from that
+  checkpoint); a small ``severity_sweep(failover=True)`` clean and with
+  a loss at ``gcn``; both engine knobs (the card's values launch the
+  kernels with the unset run's results, the JAX formulations' values
+  are refused before any launch); ``rca --cpu-failover`` and
+  ``ANOMOD_PLATFORM=cpu detect`` through the CLI, the same ``rca``
+  call timed with the probe and without it.  The earlier phases' CLI
+  calls run with ``ANOMOD_SKIP_PROBE=1`` (:func:`probe_skipped`).
 
 The serve runs of phases 8 and 16-23 run with the flight recorder on and
 supervised (a checkpoint every 32 ticks), the engine's defaults.
@@ -251,6 +264,25 @@ HLL_OPS_PER_ITEM = 26
 
 class SmokeFailure(Exception):
     pass
+
+
+@contextlib.contextmanager
+def probe_skipped():
+    """``ANOMOD_SKIP_PROBE=1`` around an earlier phase's CLI call: each
+    probe is a subprocess importing torch (7.8-9.3 s each on an H100
+    host, 42.6 s for the five calls of phases 11, 20 and 25), and the
+    script runs near its time limit; phase 27 times the probe inside a
+    CLI call."""
+    import os
+    prev = os.environ.get("ANOMOD_SKIP_PROBE")
+    os.environ["ANOMOD_SKIP_PROBE"] = "1"
+    try:
+        yield
+    finally:
+        if prev is None:
+            os.environ.pop("ANOMOD_SKIP_PROBE", None)
+        else:
+            os.environ["ANOMOD_SKIP_PROBE"] = prev
 
 
 def check(cond, msg):
@@ -664,10 +696,42 @@ def data_phase(card) -> dict:
     return {"data_load_corpus_s": out}
 
 
+#: phase 8's variants on the host's plain versions: they run in a spawned
+#: process beside the card's variants (:func:`serve_cpu_twins`)
+SERVE_CPU_VARIANTS = (("cpu plain", dict(device="cpu")),
+                      ("unfused cpu plain", dict(fuse=False, device="cpu")))
+
+
+def serve_cpu_twins() -> dict:
+    """Phase 8's CPU variants, run in a spawned process: for each its
+    report, fingerprint, drain engine and call wall.  One torch thread
+    (:func:`census_cpu_twin` says why)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import torch
+    torch.set_num_threads(1)
+    from anomod_torch.serve.engine import run_power_law
+    out = {}
+    for name, variant in SERVE_CPU_VARIANTS:
+        t0 = time.perf_counter()
+        e2, r2 = run_power_law(**dict(SERVE_KW, **variant))
+        out[name] = (r2, serve_fingerprint(e2), e2.admission.drain_engine,
+                     time.perf_counter() - t0)
+    return out
+
+
 def serve_phases(dev, card) -> dict:
     """Phases 6-8: the serve kernels against their plain versions, then
     the serve path at the bench deployment with its launches counted.
-    Returns the summary fields and the two kernels' report entries."""
+    Returns the summary fields and the two kernels' report entries.  The
+    CPU variants of phase 8 run in a spawned process from the start."""
+    import multiprocessing
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        return _serve_phases(dev, card, pool.apply_async(serve_cpu_twins))
+
+
+def _serve_phases(dev, card, twin_job) -> dict:
+    """:func:`serve_phases`, with ``twin_job`` the CPU variants' result
+    (:func:`serve_cpu_twins`)."""
     import dataclasses
 
     import numpy as np
@@ -941,9 +1005,11 @@ def serve_phases(dev, card) -> dict:
 
     twins = {}
     unfused = None
+    cpu_twins = {}
+    cpu_variants = dict(SERVE_CPU_VARIANTS)
     for name, variant in (("pipeline=1", dict(pipeline=1)),
                           ("host state", dict(state="host")),
-                          ("cpu plain", dict(device="cpu")),
+                          ("cpu plain", cpu_variants["cpu plain"]),
                           ("interpreter fill", dict(native_stage=False)),
                           ("heap drain", dict(drain_engine="heap")),
                           ("numpy drain", dict(drain_engine="numpy")),
@@ -951,13 +1017,22 @@ def serve_phases(dev, card) -> dict:
                                                     drain_engine="heap")),
                           ("native again", {}),
                           ("unfused", dict(fuse=False)),
-                          ("unfused cpu plain", dict(fuse=False,
-                                                     device="cpu"))):
+                          ("unfused cpu plain",
+                           cpu_variants["unfused cpu plain"])):
         t0 = time.perf_counter()
-        stack, walls = serve_split()
-        with stack:
-            e2, r2 = run_power_law(**dict(dict(SERVE_KW, device=dev),
-                                          **variant))
+        if name in cpu_variants:
+            # run in the spawned process since phase 6 began
+            cpu_twins = cpu_twins or twin_job.get(timeout=900)
+            r2, fp, drain, call_s = cpu_twins[name]
+            where = (f"in its own process: call {call_s:.3f} s, waited "
+                     f"{time.perf_counter() - t0:.3f} s")
+        else:
+            stack, walls = serve_split()
+            with stack:
+                e2, r2 = run_power_law(**dict(dict(SERVE_KW, device=dev),
+                                              **variant))
+            fp, drain = serve_fingerprint(e2), e2.admission.drain_engine
+            where = f"call {time.perf_counter() - t0:.3f} s"
         if name in ("interpreter/heap", "native again"):
             split[name] = split_sums(walls, r2)
         # unfused runs push each batch alone, where the fused tick
@@ -969,7 +1044,6 @@ def serve_phases(dev, card) -> dict:
         diff = [k for k in fields
                 if getattr(r2, k) != getattr(rep, k)]
         check(not diff, f"serve {name}: report fields {diff} differ")
-        fp = serve_fingerprint(e2)
         if name == "unfused":
             unfused = fp
             same = sum(fp[t] == want[t] for t in want)
@@ -982,15 +1056,13 @@ def serve_phases(dev, card) -> dict:
                     + ("unfused" if ref is unfused else "fused")
                     + " card run")
         twins[name] = r2.serve_wall_s
-        check(e2.admission.drain_engine == variant.get("drain_engine",
-                                                       "native")
+        check(drain == variant.get("drain_engine", "native")
               and r2.native_staging == variant.get("native_stage", True),
-              f"serve {name}: engines {e2.admission.drain_engine}, "
+              f"serve {name}: engines {drain}, "
               f"native staging {r2.native_staging}")
         log(f"[8] serve {name}: {what}, equal "
             f"{'admission and SLO fields' if fields is ADMISSION_FIELDS else 'decisions'}"
-            f"; serve wall {r2.serve_wall_s:.4f} s "
-            f"(call {time.perf_counter() - t0:.3f} s)")
+            f"; serve wall {r2.serve_wall_s:.4f} s ({where})")
 
     for name, legs in split.items():
         log(f"[8] serve host split, {name} (s summed over calls, warm-up "
@@ -1534,7 +1606,7 @@ def sketch_phases(dev, card, batch, cfg) -> dict:
         f"kernel (device ms, kernels in the trace) {sketch_trace}")
     buf = io.StringIO()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(buf):
+    with contextlib.redirect_stdout(buf), probe_skipped():
         rc = cli.main(["replay", "--percentiles", "--edge-percentiles",
                        "--repeats", "1"])
     cli_s = time.perf_counter() - t0
@@ -1803,14 +1875,48 @@ def detect_phase(dev, card) -> dict:
     return {"detect": out}
 
 
-def rca_phase(dev, card) -> dict:
+#: phase 14's learned families, each trained on the card and on the CPU
+RCA_FAMILIES = ("gcn", "sage", "gat")
+
+
+def rca_cpu_twins() -> dict:
+    """Phases 14's and 16's CPU runs, in a spawned process started before
+    phase 5b: phase 14's three trainings from the same dataset and draws
+    (two torch threads), then phase 16's serve run with RCA on (one
+    thread: :func:`census_cpu_twin` says why).  Each with its wall."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import torch
+    from anomod_torch import rca
+    from anomod_torch.serve.engine import run_power_law
+    torch.set_num_threads(2)
+    train, evalb = rca.prepare_data("TT", range(6), range(100, 102), 80)
+    out = {}
+    for name in RCA_FAMILIES:
+        model = rca.init_model(name, train["x"].shape[-1], seed=0,
+                               device=torch.device("cpu"))
+        t0 = time.perf_counter()
+        r = rca.fit(name, train, evalb, model, epochs=RCA_EPOCHS,
+                    meta={"model": name, "testbed": "TT"})
+        r.wall_s, r.params = time.perf_counter() - t0, None
+        out[name] = r
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    e_cpu, r_cpu = run_power_law(device="cpu", rca=True, **SERVE_KW)
+    out["serve"] = ([v.to_dict() for v in e_cpu.rca_verdicts],
+                    e_cpu.flight_recorder.canonical_bytes(),
+                    r_cpu.serve_wall_s, time.perf_counter() - t0)
+    return out
+
+
+def rca_phase(dev, card, twins) -> dict:
     """Phase 14: RCA training at full width on TT (the CLI's 300 epochs, 6
     train seeds, 2 eval seeds, 80 traces), ``gcn``, ``sage`` and ``gat``,
     each from one ``torch.Generator`` draw on the card and on the CPU: the
     first epoch's loss within ``RTOL_LOSS``, the card's held-out top-1
     within one eval case of the CPU's; a slice of epochs traced for the
     device-busy share; and a GCN run resumed from a checkpoint written
-    here equal to the straight run, bit for bit."""
+    here equal to the straight run, bit for bit.  The CPU trainings come
+    from ``twins`` (:func:`rca_cpu_twins`)."""
     import tempfile
 
     import torch
@@ -1831,18 +1937,18 @@ def rca_phase(dev, card) -> dict:
     out = {"dataset_build_s": build_s}
     meta = {"model": None, "testbed": "TT"}
     straight_gcn = None
-    for name in ("gcn", "sage", "gat"):
+    for name in RCA_FAMILIES:
         meta["model"] = name
-        runs = {}
-        for key, where in (("card", dev), ("cpu", torch.device("cpu"))):
-            model = rca.init_model(name, F, seed=0, device=where)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            runs[key] = r = rca.fit(name, train, evalb, model,
-                                    epochs=RCA_EPOCHS, meta=meta)
-            torch.cuda.synchronize()
-            r.wall_s = time.perf_counter() - t0
-        got, want = runs["card"], runs["cpu"]
+        model = rca.init_model(name, F, seed=0, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = rca.fit(name, train, evalb, model, epochs=RCA_EPOCHS,
+                      meta=meta)
+        torch.cuda.synchronize()
+        got.wall_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = twins.get(timeout=900)[name]
+        wait_s = time.perf_counter() - t0
         check(abs(got.losses[0] - want.losses[0])
               <= RTOL_LOSS * abs(want.losses[0]),
               f"rca {name}: first-epoch loss {got.losses[0]} on the card "
@@ -1885,7 +1991,8 @@ def rca_phase(dev, card) -> dict:
             f"{want.detection_auc:.4f} over {got.n_eval} cases; train wall "
             f"(fit: copy, {RCA_EPOCHS} epochs, eval) {got.wall_s:.3f} s on "
             f"the card ({got.wall_s / RCA_EPOCHS * 1e3:.3f} ms an epoch), "
-            f"{want.wall_s:.3f} s on the CPU; 50 traced epochs "
+            f"{want.wall_s:.3f} s on the CPU (its own process, two "
+            f"threads, {wait_s:.3f} s waited); 50 traced epochs "
             f"{prof_s / 50 * 1e3:.3f} ms each, device busy "
             f"{'not measured' if busy is None else f'{busy:.3f} ms'} over "
             f"{n_kernels} device events, busy share "
@@ -1982,7 +2089,7 @@ def multimodal_phase(dev, card, plain_factory) -> dict:
         profiled_wall_s=prof_s, device_busy_share=share)}
 
 
-def rca_serve_phase(dev, card) -> dict:
+def rca_serve_phase(dev, card, twins) -> dict:
     """Phase 16: online RCA at the serve bench deployment (phase 8's,
     nothing cut).  RCA off, then on, on the card: the on-run holds the
     decision pins, equals the off-run's states and alerts byte for byte
@@ -2048,12 +2155,12 @@ def rca_serve_phase(dev, card) -> dict:
         f"{r_on.rca_alert_to_culprit_s}; serve wall RCA on "
         f"{r_on.serve_wall_s:.4f} s against off {r_off.serve_wall_s:.4f} s")
 
-    # the CPU twin: the same run through the plain versions on the host
+    # the CPU twin: the same run through the plain versions on the host,
+    # in its own process since phase 5b (rca_cpu_twins)
     t0 = time.perf_counter()
-    e_cpu, r_cpu = run_power_law(device="cpu", rca=True, **SERVE_KW)
-    cpu_s = time.perf_counter() - t0
-    want, have = ([v.to_dict() for v in e.rca_verdicts]
-                  for e in (e_cpu, e_on))
+    want, cpu_journal, cpu_wall_s, cpu_s = twins.get(timeout=900)["serve"]
+    wait_s = time.perf_counter() - t0
+    have = [v.to_dict() for v in e_on.rca_verdicts]
     check(len(want) == len(have), f"rca: {len(have)} verdicts on the card, "
           f"{len(want)} on the CPU")
     err = 0.0
@@ -2069,7 +2176,8 @@ def rca_serve_phase(dev, card) -> dict:
     log(f"[16] verdict stream equal to the CPU twin's ({len(have)} "
         f"verdicts; services, windows, n_spans, n_edges, buckets exact; "
         f"scores within {err:.3g} <= {ATOL_RCA_SCORE}); CPU twin "
-        f"{cpu_s:.3f} s, its serve wall {r_cpu.serve_wall_s:.4f} s")
+        f"{cpu_s:.3f} s in its own process ({wait_s:.3f} s waited), its "
+        f"serve wall {cpu_wall_s:.4f} s")
 
     # one RCA run traced: the newest verdict, whose evidence the buffer
     # still holds, run again on the card under the profiler
@@ -2096,14 +2204,13 @@ def rca_serve_phase(dev, card) -> dict:
         f"{'not measured' if busy is None else f'{busy:.4f} ms'} in a "
         f"{wall * 1e3:.3f} ms run wall; events by name {kinds}")
     check(e_on.flight_recorder is not None
-          and e_on.flight_recorder.canonical_bytes()
-          == e_cpu.flight_recorder.canonical_bytes(),
+          and e_on.flight_recorder.canonical_bytes() == cpu_journal,
           "rca serve: the card's canonical flight journal differs from the "
           "CPU twin's")
     log(f"[16] flight recorder on (the default): canonical journal of "
         f"{r_on.flight_recorded_ticks} records byte-identical to the CPU "
         f"twin's, {r_on.flight_dropped_ticks} dropped")
-    return {"cpu_journal": e_cpu.flight_recorder.canonical_bytes(),
+    return {"cpu_journal": cpu_journal,
             "rca_serve": dict(
                 pins=got, rca=rca_got, rca_wall_s=r_on.rca_wall_s,
                 rca_latency=r_on.rca_latency,
@@ -2687,7 +2794,7 @@ def flight_shard_phase(dev, card, cpu_journal) -> dict:
     def main_rc(argv):
         buf_out, buf_err = io.StringIO(), io.StringIO()
         with contextlib.redirect_stdout(buf_out), \
-                contextlib.redirect_stderr(buf_err):
+                contextlib.redirect_stderr(buf_err), probe_skipped():
             rc = cli.main(argv)
         return rc, buf_out.getvalue(), buf_err.getvalue()
     with tempfile.TemporaryDirectory() as tmp:
@@ -4262,7 +4369,7 @@ def run_main(argv):
     from anomod_torch.cli import main as cli_main
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf), \
-            contextlib.redirect_stderr(io.StringIO()):
+            contextlib.redirect_stderr(io.StringIO()), probe_skipped():
         try:
             rc = cli_main(argv)
         except SystemExit as e:
@@ -4836,6 +4943,487 @@ def _planes_phase(dev, card, train, torchrun) -> dict:
     return {"planes": out}
 
 
+#: every probe of the card this script's CLI calls make (the probe
+#: function wrapped by :func:`count_probes`): (platform, wall s)
+PROBES = []
+#: the loss phase 27 injects: CUDA's words for an uncorrectable ECC error
+LOSS_MSG = "CUDA error: uncorrectable ECC error encountered"
+#: phase 27's small RCA shape (TT, gcn; save every 2 epochs) and sweep
+#: (SN: its stream row costs a fifth of TT's on the host)
+DD_RCA = dict(train_seeds=range(2), eval_seeds=range(100, 101), epochs=6,
+              n_traces=12, save_every=2)
+DD_SWEEP = dict(testbed="SN", model_names=("zscore", "stream", "gcn"),
+                severities=(0.12,), train_seeds=range(3), eval_seeds=(100,),
+                n_traces=12, epochs=5)
+#: phase 27's serve run: 20 tenants, 16 virtual seconds
+DD_SERVE = dict(n_tenants=20, n_services=8, capacity_spans_per_s=4000,
+                overload=1.5, duration_s=16, tick_s=0.5, seed=3,
+                flight=False)
+
+
+def count_probes():
+    """Wrap the card probe so every CLI call's probe is timed into
+    :data:`PROBES` (the probe itself runs unchanged)."""
+    from anomod_torch.utils import platform
+    probe = platform.probe_device_platform
+
+    def timed_probe(*a, **k):
+        t0 = time.perf_counter()
+        out = probe(*a, **k)
+        PROBES.append((out[0], time.perf_counter() - t0))
+        return out
+    platform.probe_device_platform = timed_probe
+
+
+@contextlib.contextmanager
+def env_set(name, value):
+    """``os.environ[name] = value`` (None: unset) while the block runs,
+    with both packages' settings re-read at its start and end."""
+    import os
+
+    from anomod_torch.config import set_config
+    prev = os.environ.get(name)
+    if value is None:
+        os.environ.pop(name, None)
+    else:
+        os.environ[name] = value
+    set_config(None)
+    try:
+        yield
+    finally:
+        if prev is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = prev
+        set_config(None)
+
+
+def all_launches() -> dict:
+    from anomod_torch.ops import replay_kernels as rk
+    from anomod_torch.ops import serve_kernels as sk
+    from anomod_torch.ops import sketch_kernels as skk
+    return {**rk.launches, **sk.launches, **skk.launches}
+
+
+def reset_all_launches() -> None:
+    from anomod_torch.ops import replay_kernels as rk
+    from anomod_torch.ops import serve_kernels as sk
+    from anomod_torch.ops import sketch_kernels as skk
+    for mod in (rk, sk, skk):
+        mod.reset_launches()
+
+
+def _raises(fn, exc_type, words) -> str:
+    """The message of the ``exc_type`` that ``fn()`` raises (which must
+    hold ``words``); fails the phase when it raises nothing."""
+    try:
+        fn()
+    except exc_type as e:
+        check(words in str(e), f"expected {words!r} in {e!r}")
+        return str(e)
+    raise SmokeFailure(f"expected {exc_type.__name__} ({words!r})")
+
+
+def start_probe():
+    """Phase 27 (a)'s probe, started in a thread beside items (b)-(e) (it
+    waits on a subprocess and reads no setting they change): returns a
+    function that joins it and gives ``(note, wall s)``."""
+    import threading
+
+    from anomod_torch.utils import platform
+    box = {}
+
+    def run():
+        t0 = time.perf_counter()
+        try:
+            box["note"] = platform.ensure_live_backend()
+        except BaseException as e:
+            box["error"] = e
+        box["wall"] = time.perf_counter() - t0
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+
+    def join():
+        thread.join(timeout=300)
+        if "error" in box:
+            raise box["error"]
+        check("note" in box, "probe: no answer within 300 s")
+        return box["note"], box["wall"]
+    return join
+
+
+def _probe_item(card, note, wall) -> dict:
+    """Phase 27 (a): the probe's answer."""
+    check(note == "probe ok: cuda", f"probe: {note} {PROBES}")
+    log(f"[27a] probe: {note} in {wall:.3f} s (a subprocess: import torch, "
+        f"torch.cuda.init(); beside items b-e), on {card}")
+    return {"probe_wall_s": wall, "note": note}
+
+
+def _failover_item(dev, card) -> dict:
+    """Phase 27 (b): ``with_cpu_failover`` alone on the card."""
+    import tempfile
+
+    import torch
+
+    from anomod_torch.ops import _build
+    from anomod_torch.utils import platform
+    t0 = time.perf_counter()
+    loss = RuntimeError(LOSS_MSG)
+
+    def flaky(seen):
+        def fn(d):
+            seen.append(d.type)
+            if len(seen) == 1 and d.type == "cuda":
+                raise loss
+            return float(torch.arange(4.0, device=d).sum())
+        return fn
+    seen = []
+    try:
+        platform.with_cpu_failover(flaky(seen), dev)
+        raise SmokeFailure("failover: a loss without allow did not raise")
+    except RuntimeError as e:
+        check(e is loss and seen == ["cuda"],
+              f"failover: allow=False gave {e!r}, calls {seen}")
+    seen, notes = [], []
+    got = platform.with_cpu_failover(flaky(seen), dev, allow=True,
+                                     on_failover=notes.append)
+    check(got == 6.0 and seen == ["cuda", "cpu"] and notes == [loss],
+          f"failover: allow=True gave {got}, calls {seen}, notes {notes}")
+
+    def oom(d):
+        free, total = torch.cuda.mem_get_info(d)
+        return torch.empty(2 * total, dtype=torch.uint8, device=d)
+
+    def illegal(d):
+        raise RuntimeError("CUDA error: an illegal memory access was "
+                           "encountered")
+
+    def build_error(d):
+        # a real nvcc failure of ops/_build.py, on a broken source
+        csrc, build_dir = _build.CSRC, _build.BUILD_DIR
+        with tempfile.TemporaryDirectory() as tmp:
+            _build.CSRC = _build.BUILD_DIR = Path(tmp)
+            (Path(tmp) / "broken.cu").write_text(
+                "__global__ void k() { this is not CUDA }\n")
+            try:
+                _build.build(["broken"])
+            finally:
+                _build.CSRC, _build.BUILD_DIR = csrc, build_dir
+                _build.build_logs.pop("broken", None)
+    propagated = {}
+    for name, fn, exc_type in (("oom", oom, torch.cuda.OutOfMemoryError),
+                               ("illegal_address", illegal, RuntimeError),
+                               ("build_error", build_error, RuntimeError)):
+        calls = []
+
+        def counted(d, _fn=fn):
+            calls.append(d.type)
+            return _fn(d)
+        try:
+            platform.with_cpu_failover(counted, dev, allow=True,
+                                       on_failover=lambda e: check(
+                                           False, f"failover on {e!r}"))
+            raise SmokeFailure(f"failover: {name} did not raise")
+        except exc_type as e:
+            check(calls == ["cuda"] and not platform.is_backend_loss(e),
+                  f"failover: {name} retried ({calls})")
+            propagated[name] = f"{type(e).__name__}: {str(e)[:120]}"
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    log(f"[27b] with_cpu_failover on the card: a loss re-raised unchanged "
+        f"without allow, retried once on the CPU with allow (on_failover "
+        f"saw the original); propagated with allow: {propagated}; "
+        f"{wall:.3f} s; a real loss of the card is not provoked (one card "
+        f"cannot lose its device on request), on {card}")
+    return {"wall_s": wall, "propagated": propagated}
+
+
+def _same_result(a, b) -> bool:
+    import torch
+    return (a.losses == b.losses
+            and (a.top1, a.top3, a.detection_auc, a.n_eval)
+            == (b.top1, b.top3, b.detection_auc, b.n_eval)
+            and a.params.keys() == b.params.keys()
+            and all(torch.equal(v.cpu(), b.params[k].cpu())
+                    for k, v in a.params.items()))
+
+
+def _rca_item(dev, card) -> dict:
+    """Phase 27 (c): ``train_rca_resilient(failover=True)`` on the card,
+    clean and with a loss injected after its first save."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from anomod_torch import rca
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        got, note = rca.train_rca_resilient(
+            "TT", "gcn", checkpoint_dir=f"{tmp}/clean", failover=True,
+            device=dev, **DD_RCA)
+        out["clean_s"] = time.perf_counter() - t0
+        want = rca.train_rca("TT", "gcn", device=dev, **DD_RCA)
+        check(note is None and _same_result(got, want),
+              f"rca failover: the clean run ({note}) differs from "
+              "train_rca on the card")
+        orig_save = rca.save_train_state
+        snap = Path(tmp) / "at_loss"
+
+        def failing_save(path, params, opt_state, step, meta=None):
+            done = orig_save(path, params, opt_state, step, meta=meta)
+            if not snap.exists() and any(t.is_cuda
+                                         for t in params.values()):
+                shutil.copytree(path, snap)
+                raise RuntimeError(LOSS_MSG)
+            return done
+        rca.save_train_state = failing_save
+        try:
+            t0 = time.perf_counter()
+            got, note = rca.train_rca_resilient(
+                "TT", "gcn", checkpoint_dir=f"{tmp}/lost", failover=True,
+                device=dev, **DD_RCA)
+            out["failover_s"] = time.perf_counter() - t0
+        finally:
+            rca.save_train_state = orig_save
+        check(snap.exists() and note is not None
+              and "from the last checkpoint" in note,
+              f"rca failover: note {note!r}")
+        want = rca.train_rca("TT", "gcn", device="cpu", resume=True,
+                             checkpoint_dir=str(snap), **DD_RCA)
+        check(_same_result(got, want)
+              and all(v.device.type == "cpu" for v in got.params.values()),
+              "rca failover: the retry differs from train_rca(device='cpu',"
+              " resume=True) from the checkpoint")
+    log(f"[27c] train_rca_resilient(failover=True) TT gcn "
+        f"{DD_RCA['epochs']} epochs, save every {DD_RCA['save_every']}: "
+        f"clean {out['clean_s']:.3f} s, no note, == train_rca on the card; "
+        f"loss after the first save: {out['failover_s']:.3f} s, note "
+        f"{note!r}, == train_rca(cpu, resume=True) from that checkpoint, "
+        f"bit for bit, on {card}")
+    return dict(out, note=note)
+
+
+def _sweep_item(dev, card) -> dict:
+    """Phase 27 (d): a small ``severity_sweep(failover=True)`` on the
+    card, clean and with a loss injected at ``gcn``."""
+    import dataclasses
+
+    import torch
+
+    from anomod_torch import quality
+
+    def rows(pts):
+        return {(p.model, p.severity): dataclasses.asdict(p) for p in pts}
+    reset_all_launches()
+    t0 = time.perf_counter()
+    with plain_calls() as calls:
+        clean = quality.severity_sweep(device=dev, failover=True,
+                                       **DD_SWEEP)
+    clean_s = time.perf_counter() - t0
+    launches = all_launches()
+    check(quality.LAST_FAILOVER is None and launches["replay_dense"] > 0
+          and not any(calls.values()),
+          f"sweep failover: clean run {quality.LAST_FAILOVER}, launches "
+          f"{launches}, plain calls {calls}")
+    check(rows(clean) == rows(quality.severity_sweep(device=dev,
+                                                     **DD_SWEEP)),
+          "sweep failover: the clean run differs from the run without "
+          "the flag")
+    orig = quality._train_model
+
+    def lossy(*a, device=None, **k):
+        if torch.device(device).type == "cuda":
+            raise RuntimeError(LOSS_MSG)
+        return orig(*a, device=device, **k)
+    quality._train_model = lossy
+    try:
+        t0 = time.perf_counter()
+        lost = quality.severity_sweep(device=dev, failover=True,
+                                      **DD_SWEEP)
+        lost_s = time.perf_counter() - t0
+    finally:
+        quality._train_model = orig
+    note = quality.LAST_FAILOVER
+    twin = quality.severity_sweep(device="cpu",
+                                  **dict(DD_SWEEP, model_names=("gcn",)))
+    got, want = rows(lost), rows(clean)
+    check(note is not None and "'gcn'" in note
+          and {k: v for k, v in got.items() if k[0] == "gcn"} == rows(twin)
+          and {k: v for k, v in got.items() if k[0] != "gcn"}
+          == {k: v for k, v in want.items() if k[0] != "gcn"},
+          f"sweep failover: note {note!r}, rows {got} vs clean {want} and "
+          f"the CPU twin's {rows(twin)}")
+    log(f"[27d] severity_sweep(failover=True) SN zscore/stream/gcn at "
+        f"severity 0.12: clean {clean_s:.3f} s, LAST_FAILOVER None, "
+        f"dense_slice_fold launches {launches['replay_dense']}, no plain "
+        f"version, == the run without the flag; a loss at gcn: "
+        f"{lost_s:.3f} s, {note!r}, the gcn row == the CPU twin's, on "
+        f"{card}")
+    return {"clean_s": clean_s, "lost_s": lost_s, "note": note,
+            "dense_launches": launches["replay_dense"]}
+
+
+def _knobs_item(dev, card, batch, cfg) -> dict:
+    """Phase 27 (e): the two engine knobs on the card."""
+    import numpy as np
+
+    from anomod_torch.replay import replay_percentiles
+    from anomod_torch.serve.engine import run_power_law
+    out = {"serve_s": {}, "percentiles_s": {}}
+    runs = {}
+    for value in (None, "auto", "pallas", "PALLAS"):
+        with env_set("ANOMOD_SERVE_LANE_ENGINE", value):
+            reset_all_launches()
+            t0 = time.perf_counter()
+            eng, _ = run_power_law(device=dev, **DD_SERVE)
+            out["serve_s"][str(value)] = time.perf_counter() - t0
+            n = all_launches()
+            check(n["lane_delta"] > 0 and n["window_gather"] > 0,
+                  f"lane knob {value}: launches {n}")
+            runs[value] = serve_fingerprint(eng)
+            out.setdefault("serve_launches", {})[str(value)] = {
+                k: n[k] for k in ("lane_delta", "window_gather")}
+    check(all(runs[v] == runs[None] for v in runs),
+          "lane knob: a value's states or alerts differ from the unset run")
+    for value in ("matmul", "scatter"):
+        with env_set("ANOMOD_SERVE_LANE_ENGINE", value):
+            reset_all_launches()
+            _raises(lambda: run_power_law(device=dev, **DD_SERVE),
+                    ValueError, "names a JAX formulation")
+            check(not any(all_launches().values()),
+                  f"lane knob {value}: launched before the refusal")
+    pcts = {}
+    for value in (None, "auto", "pallas", "AUTO"):
+        with env_set("ANOMOD_TDIGEST_ENGINE", value):
+            reset_all_launches()
+            t0 = time.perf_counter()
+            pcts[value] = replay_percentiles(batch, cfg, device=dev)
+            out["percentiles_s"][str(value)] = time.perf_counter() - t0
+            n = all_launches()["tdigest_reduce"]
+            check(n > 0, f"t-digest knob {value}: no tdigest_reduce launch")
+            out.setdefault("tdigest_launches", {})[str(value)] = n
+    check(all(np.array_equal(p, pcts[None]) for p in pcts.values()),
+          "t-digest knob: a value's percentiles differ from the unset run")
+    for value, words in (("host", "names a JAX formulation"),
+                         ("xla", "names a JAX formulation"),
+                         ("exact", "unknown t-digest engine")):
+        with env_set("ANOMOD_TDIGEST_ENGINE", value):
+            reset_all_launches()
+            _raises(lambda: replay_percentiles(batch, cfg, device=dev),
+                    ValueError, words)
+            check(not any(all_launches().values()),
+                  f"t-digest knob {value}: launched before the refusal")
+    log(f"[27e] ANOMOD_SERVE_LANE_ENGINE unset / auto / pallas / PALLAS: "
+        f"serve walls {out['serve_s']} s, launches "
+        f"{out['serve_launches']}, states and alerts byte-equal; matmul and "
+        f"scatter refused before any launch, on {card}")
+    log(f"[27e] ANOMOD_TDIGEST_ENGINE unset / auto / pallas / AUTO: "
+        f"replay_percentiles walls {out['percentiles_s']} s (TT bench "
+        f"corpus, [{cfg.sw}, 3]), equal bit for bit; host and xla refused "
+        f"and exact unknown, before any launch, on {card}")
+    return out
+
+
+def _cli_item(card) -> dict:
+    """Phase 27 (f): ``rca --cpu-failover`` through the CLI, timed without
+    the probe (``ANOMOD_SKIP_PROBE=1``) and with it (the probe runs beside
+    the host dataset and is joined before the card), and
+    ``ANOMOD_PLATFORM=cpu detect``."""
+    import io
+
+    from anomod_torch.cli import main as cli_main
+    from anomod_torch.utils import platform
+
+    def call(argv):
+        o, e = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(o), contextlib.redirect_stderr(e):
+            rc = cli_main(argv)
+        return rc, o.getvalue(), e.getvalue()
+    rca_argv = ["rca", "--cpu-failover", "--testbed", "TT", "--epochs", "6",
+                "--train-seeds", "2", "--eval-seeds", "1"]
+    rca_s, docs = {}, {}
+    for mode in ("skipped", "probed", "skipped again"):
+        n0 = len(PROBES)
+        with env_set("ANOMOD_SKIP_PROBE",
+                     "1" if mode.startswith("skipped") else None):
+            t0 = time.perf_counter()
+            rc, text, err = call(rca_argv)
+            rca_s[mode] = time.perf_counter() - t0
+        doc = docs[mode] = json.loads(text.strip().splitlines()[-1])
+        probes = PROBES[n0:]
+        check(rc == 0 and "device_failover" not in doc
+              and "device backend lost" not in err
+              and [p for p, _ in probes] == (
+                  ["cuda"] if mode == "probed" else [])
+              and platform._PENDING is None,
+              f"cli rca --cpu-failover ({mode}): rc {rc}, {doc}, "
+              f"probes {probes}")
+        if mode == "probed":
+            probe_s = probes[0][1]
+    check(docs["probed"] == docs["skipped"],
+          "cli rca: the probed run's JSON differs from the skipped one's")
+    reset_all_launches()
+    n0 = len(PROBES)
+    with env_set("ANOMOD_PLATFORM", "cpu"):
+        t0 = time.perf_counter()
+        rc, text, err = call(["detect", "--testbed", "TT", "--traces", "20"])
+        detect_s = time.perf_counter() - t0
+    doc = json.loads(text)
+    check(rc == 0 and doc["backend"] == "cpu"
+          and "ANOMOD_PLATFORM=cpu" in err and len(PROBES) == n0
+          and not any(all_launches().values()),
+          f"cli ANOMOD_PLATFORM=cpu detect: rc {rc}, backend "
+          f"{doc.get('backend')}, launches {all_launches()}")
+    skipped = min(rca_s["skipped"], rca_s["skipped again"])
+    log(f"[27f] rca --cpu-failover (TT gcn, 6 epochs) on the card, s: "
+        f"{ {k: round(v, 3) for k, v in rca_s.items()} } (the probe "
+        f"{probe_s:.3f} s beside the host dataset; its cost in the call "
+        f"{rca_s['probed'] - skipped:.3f} s against the faster skipped "
+        f"call); no device_failover in its JSON, equal with and without "
+        f"the probe; ANOMOD_PLATFORM=cpu detect: backend cpu, no kernel "
+        f"launched, no probe, {detect_s:.3f} s, on {card}")
+    return {"rca_cli_s": rca_s, "rca_cli_probe_s": probe_s,
+            "probe_cost_s": rca_s["probed"] - skipped,
+            "detect_cpu_s": detect_s}
+
+
+def device_decisions_phase(dev, card, batch, cfg) -> dict:
+    """Phase 27: the device decisions.  (a) the probe of the card; (b)
+    ``with_cpu_failover`` alone: a loss re-raised without ``allow``,
+    retried once on the CPU with it, and a real out of memory, an
+    illegal-address error and a real build error propagated; (c)
+    ``train_rca_resilient(failover=True)`` (TT, gcn), clean (==
+    ``train_rca`` on the card) and with a loss after its first save (== ``train_rca``
+    on the CPU resumed from that checkpoint); (d) a small
+    ``severity_sweep(failover=True)`` (SN), clean (``dense_slice_fold``
+    launched, no plain version, == the sweep without the flag) and with
+    a loss at ``gcn`` (that row == its CPU twin's); (e) both engine knobs:
+    each value the card takes launches the kernels with the unset run's
+    results, the others are refused before any launch; (f) ``rca
+    --cpu-failover`` through the CLI with and without the probe, and
+    ``ANOMOD_PLATFORM=cpu detect``.
+    The earlier phases' CLI calls skip the probe (:func:`probe_skipped`);
+    their count of probes is printed, 0."""
+    t_phase = time.perf_counter()
+    earlier = list(PROBES)
+    log(f"[27] probes run by the earlier phases' CLI calls: {len(earlier)} "
+        f"(ANOMOD_SKIP_PROBE=1 around them, probe_skipped)")
+    join_probe = start_probe()
+    out = {"earlier_probes": len(earlier),
+           "failover": _failover_item(dev, card),
+           "rca": _rca_item(dev, card),
+           "sweep": _sweep_item(dev, card),
+           "knobs": _knobs_item(dev, card, batch, cfg)}
+    out["probe"] = _probe_item(card, *join_probe())
+    out["cli"] = _cli_item(card)
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"[27] device decisions: {out['wall_s']:.3f} s on {card}")
+    return {"device_decisions": out}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4851,6 +5439,7 @@ def main() -> int:
     check(Path(anomod_torch.__file__).resolve().parent.parent == here,
           f"anomod_torch imported from {anomod_torch.__file__}, not from "
           f"the checkout at {here}")
+    count_probes()
     from anomod_torch.io.dataset import load_bench_corpus
     from anomod_torch.ops import _build
     from anomod_torch.ops import replay_kernels as rk
@@ -5134,32 +5723,55 @@ def main() -> int:
         f"{stream_kernels}; {chunk_trace_ms:.6f} ms of dense-kernel device "
         f"time a chunk over {stream_launches} chunks")
 
-    data = data_phase(card)
-    serve = serve_phases(dev, card)
+    # each later phase's wall, for the script's time budget
+    phase_walls = {"1-5": time.perf_counter() - t_all}
+
+    def run_phase(name, fn, *args):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            phase_walls[name] = time.perf_counter() - t0
+
+    # phases 14's and 16's CPU runs go on in a spawned process from here
+    import multiprocessing
+    twin_pool = multiprocessing.get_context("spawn").Pool(1)
+    twins = twin_pool.apply_async(rca_cpu_twins)
+    data = run_phase("5b", data_phase, card)
+    serve = run_phase("6-8", serve_phases, dev, card)
     unfused_alerts = serve.pop("serve_unfused_alerts")
-    sketch = sketch_phases(dev, card, batch, cfg)
-    roof = roofline_phases(dev, card, kind, sid_np, planes_np, n_real, SW)
-    det13 = detect_phase(dev, card)
-    rca14 = rca_phase(dev, card)
+    sketch = run_phase("9-11", sketch_phases, dev, card, batch, cfg)
+    roof = run_phase("12", roofline_phases, dev, card, kind, sid_np,
+                     planes_np, n_real, SW)
+    det13 = run_phase("13", detect_phase, dev, card)
+    rca14 = run_phase("14", rca_phase, dev, card, twins)
     rca_train = rca14.pop("rca_train_batch")
-    mm15 = multimodal_phase(dev, card, PlainFoldReplay)
+    mm15 = run_phase("15", multimodal_phase, dev, card, PlainFoldReplay)
     mm_launches = mm15["multimodal_stream"]["dense_launches"]
-    rca16 = rca_serve_phase(dev, card)
+    rca16 = run_phase("16", rca_serve_phase, dev, card, twins)
     cpu_journal = rca16.pop("cpu_journal")
-    tele17 = telemetry_phase(dev, card, PlainFoldReplay)
+    twin_pool.close()
+    twin_pool.join()
+    tele17 = run_phase("17", telemetry_phase, dev, card, PlainFoldReplay)
     ss_launches = tele17["telemetry"]["selfscrape_dense_launches"]
-    q18 = quality_phase(dev, card)
+    q18 = run_phase("18", quality_phase, dev, card)
     q_launches = q18["quality"]["dense_launches"]
-    s19 = shift_phase(dev, card)
-    fs20 = flight_shard_phase(dev, card, cpu_journal)
-    ps21 = supervise_proc_phase(dev, card, cpu_journal, fs20)
-    p22 = elastic_async_tier_phase(dev, card, cpu_journal)
-    p23 = live_feed_phase(dev, card)
-    p24 = observatory_phase(dev, card, cpu_journal)
-    p25 = parallel_phase(dev, card, batch, cfg, rates, rows, unfused_alerts)
+    s19 = run_phase("19", shift_phase, dev, card)
+    fs20 = run_phase("20", flight_shard_phase, dev, card, cpu_journal)
+    ps21 = run_phase("21", supervise_proc_phase, dev, card, cpu_journal,
+                     fs20)
+    p22 = run_phase("22", elastic_async_tier_phase, dev, card, cpu_journal)
+    p23 = run_phase("23", live_feed_phase, dev, card)
+    p24 = run_phase("24", observatory_phase, dev, card, cpu_journal)
+    p25 = run_phase("25", parallel_phase, dev, card, batch, cfg, rates,
+                    rows, unfused_alerts)
     par = p25["parallel"]
-    p26 = planes_phase(dev, card, rca_train)
+    p26 = run_phase("26", planes_phase, dev, card, rca_train)
     planes = p26["planes"]
+    p27 = run_phase("27", device_decisions_phase, dev, card, batch, cfg)
+    dd = p27["device_decisions"]
+    log(f"[walls] s by phase: "
+        f"{ {k: round(v, 1) for k, v in phase_walls.items()} }")
 
     # -- report -----------------------------------------------------------
     # the dense kernel's top-level times are the corpus pass's; each path
@@ -5231,6 +5843,15 @@ def main() -> int:
             # phase 26's dry run (the sharded replay's two routes)
             k["launches_phase26"] = \
                 planes["dryrun"]["launches"]["hll_update"]
+        # phase 27's runs under the knobs and its small sweep
+        if k["name"] in ("lane_delta", "window_gather"):
+            k["launches_phase27"] = sum(
+                n[k["name"]] for n in dd["knobs"]["serve_launches"].values())
+        if k["name"] == "tdigest_reduce":
+            k["launches_phase27"] = sum(
+                dd["knobs"]["tdigest_launches"].values())
+        if k["name"] == "replay_dense":
+            k["launches_phase27"] = dd["sweep"]["dense_launches"]
     log(json.dumps({"replay_spans_per_sec": rates, "replicate": replicate,
                     "stream_top1": sum(hits) / len(hits),
                     "stream_wall_s": stream_s,
@@ -5242,7 +5863,8 @@ def main() -> int:
                     "l2_eviction_ms": flush, **data, **serve,
                     **sketch, **roof, **det13, **rca14, **mm15, **rca16,
                     **tele17, **q18, **s19, **fs20, **ps21, **p22, **p23,
-                    **p24, **p25, **p26,
+                    **p24, **p25, **p26, **p27,
+                    "phase_walls_s": phase_walls,
                     "wall_s": time.perf_counter() - t_all}))
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -1346,3 +1346,76 @@ def test_dryrun_multichip_world_1_on_card_launches_the_kernels(cuda_device):
     assert rk.launches["replay_dense"] > before[0]
     assert skk.launches["hll_update"] > before[1]
     assert not torch.distributed.is_initialized()
+
+
+# -- the device decisions -------------------------------------------------------
+
+@pytest.mark.cuda
+def test_probe_answers_cuda_on_the_card(cuda_device, monkeypatch):
+    from anomod_torch.utils import platform
+    monkeypatch.delenv("ANOMOD_SKIP_PROBE", raising=False)
+    assert platform.probe_device_platform()[0] == "cuda"
+    assert platform.ensure_live_backend() == "probe ok: cuda"
+
+
+@pytest.mark.cuda
+def test_failover_leaves_a_real_out_of_memory_on_the_card(cuda_device):
+    from anomod_torch.utils import platform
+    calls = []
+
+    def oom(d):
+        calls.append(d.type)
+        total = torch.cuda.get_device_properties(d).total_memory
+        return torch.empty(2 * total, dtype=torch.uint8, device=d)
+    with pytest.raises(torch.cuda.OutOfMemoryError):
+        platform.with_cpu_failover(oom, cuda_device, allow=True)
+    assert calls == ["cuda"]
+
+
+@pytest.mark.cuda
+def test_knobs_refuse_jax_formulations_before_a_launch(cuda_device,
+                                                       monkeypatch):
+    from anomod_torch import replay
+    from anomod_torch.config import set_config
+    from anomod_torch.ops import serve_kernels as sk
+    from anomod_torch.ops import sketch_kernels as skk
+    from anomod_torch.serve.batcher import BucketRunner
+    cfg = replay.ReplayConfig(n_services=4)
+    batch = replay_corpus_for_knobs()
+    prev = set_config(None)
+    try:
+        sk.reset_launches()
+        skk.reset_launches()
+        for v in ("matmul", "scatter"):
+            monkeypatch.setenv("ANOMOD_SERVE_LANE_ENGINE", v)
+            set_config(None)
+            with pytest.raises(ValueError, match="names a JAX formulation"):
+                BucketRunner(cfg, device=cuda_device)
+        for v in ("auto", "pallas", "PALLAS"):
+            monkeypatch.setenv("ANOMOD_SERVE_LANE_ENGINE", v)
+            set_config(None)
+            BucketRunner(cfg, device=cuda_device)
+        for v in ("host", "xla"):
+            monkeypatch.setenv("ANOMOD_TDIGEST_ENGINE", v)
+            set_config(None)
+            with pytest.raises(ValueError, match="ANOMOD_TDIGEST_ENGINE"):
+                replay.replay_percentiles(batch, device=cuda_device)
+        assert not any(sk.launches.values()) \
+            and not any(skk.launches.values())
+        monkeypatch.setenv("ANOMOD_TDIGEST_ENGINE", "PALLAS")
+        set_config(None)
+        got = replay.replay_percentiles(batch, device=cuda_device)
+        assert skk.launches["tdigest_reduce"] > 0
+        monkeypatch.delenv("ANOMOD_TDIGEST_ENGINE")
+        set_config(None)
+        np.testing.assert_array_equal(
+            got, replay.replay_percentiles(batch, device=cuda_device))
+    finally:
+        set_config(prev)
+
+
+def replay_corpus_for_knobs():
+    from anomod_torch import labels, synth
+    from anomod_torch.schemas import concat_span_batches
+    return concat_span_batches([synth.generate_spans(l, n_traces=10)
+                                for l in labels.labels_for_testbed("TT")])

@@ -83,6 +83,15 @@
   synthetic experiment's summary, the ingest cache (``--warm-cache``,
   ``--clear``) and a directory's per-file log summaries (the Python
   scanner), as their ``anomod`` counterparts print them.
+- ``chaos``, ``deploy``, ``scenario`` and ``monitor``: the fault and
+  workload planes, host only (no ``--device``, no probe): an
+  experiment's fault-injection plan (Chaos Mesh CRD, ChaosBlade or docker
+  argv; YAML through ``utils.yamlsafe``, no PyYAML), the TT helm /
+  kubectl plan (``--secrets``: the per-service DB secrets) or the SN
+  compose lifecycle, the TT user-journey workload against the synthetic
+  SUT (``--chaos``: under a TT fault), and the SN API-response capture
+  (``--out``: the artifact family); each prints what its ``anomod``
+  counterpart prints.
 
 Every subcommand that runs on the card probes it (:func:`_probe_backend`,
 a subprocess with a deadline: ``ANOMOD_PROBE_DEADLINE``, skipped under
@@ -635,6 +644,49 @@ def _parser() -> argparse.ArgumentParser:
                         "directory (the Python scanner)")
     lg.add_argument("dir")
     lg.add_argument("--glob", default="**/*.log")
+
+    p_chaos = sub.add_parser(
+        "chaos", help="render the fault-injection plan for an experiment "
+        "(Chaos Mesh CRD YAML / ChaosBlade argv / docker argv)")
+    p_chaos.add_argument("experiment")
+    p_chaos.add_argument("--format", choices=["yaml", "json"], default="yaml")
+
+    p_scen = sub.add_parser(
+        "scenario", help="drive the TT user-journey workload against the "
+        "synthetic SUT (optionally under an injected fault)")
+    p_scen.add_argument("--iterations", type=int, default=1)
+    p_scen.add_argument("--seed", type=int, default=0)
+    p_scen.add_argument("--chaos", default=None,
+                        help="experiment name to inject during the run")
+
+    p_deploy = sub.add_parser(
+        "deploy", help="render the deployment plan (helm/kubectl action "
+        "list for TT, compose lifecycle for SN)")
+    p_deploy.add_argument("--testbed", choices=["SN", "TT"], default="TT")
+    # the deploy.sh argument surface, as real flags
+    p_deploy.add_argument("--all", action="store_true", dest="deploy_all")
+    p_deploy.add_argument("--independent-db", action="store_true")
+    p_deploy.add_argument("--with-monitoring", action="store_true")
+    p_deploy.add_argument("--with-tracing", action="store_true")
+    p_deploy.add_argument("--down", action="store_true",
+                          help="SN only: render the teardown instead")
+    p_deploy.add_argument("--secrets", action="store_true",
+                          help="TT only: print the 27 per-service DB secrets")
+
+    p_mon = sub.add_parser(
+        "monitor", help="SN API-response monitor over the synthetic SUT "
+        "(active: 12 wrk2-api endpoints; passive: GET-only fallback)")
+    p_mon.add_argument("--mode", choices=["active", "passive"],
+                       default="active")
+    p_mon.add_argument("--cycles", type=int, default=10)
+    p_mon.add_argument("--seed", type=int, default=0)
+    p_mon.add_argument("--chaos", default=None,
+                       help="experiment name to inject during the capture")
+    p_mon.add_argument("--out", default=None,
+                       help="materialize the api_responses artifact family")
+    p_mon.add_argument("--wrk2-requests", type=int, default=0,
+                       help="interleave N wrk2 mixed-workload requests "
+                            "(full compose content model) with the capture")
     return parser
 
 
@@ -1795,6 +1847,117 @@ def _logscan(args) -> int:
     return 0
 
 
+def _chaos(args) -> int:
+    """``chaos``: the fault-injection plan of one experiment."""
+    from anomod_torch import chaos, labels
+    from anomod_torch.utils import yamlsafe
+    label = labels.label_for(args.experiment)
+    if label is None:
+        print(f"unknown experiment: {args.experiment}", file=sys.stderr)
+        return 1
+    plan = {"experiment": label.experiment, "tool": label.chaos_tool}
+    if label.chaos_tool == "chaosmesh":
+        if args.format == "yaml":
+            print(chaos.mesh_crd_yaml(label))
+            return 0
+        plan["crd"] = chaos.build_mesh_crd(label)
+    elif label.chaos_tool == "chaosblade":
+        cmd = chaos.blade_create_command(label)
+        if cmd is not None:
+            plan["blade"] = list(cmd.args)
+            plan["needs_sudo"] = cmd.needs_sudo
+        dc = chaos.docker_command(label)
+        if dc is not None:
+            plan["docker"] = list(dc)
+    if args.format == "yaml":
+        print(yamlsafe.dump(plan), end="")
+    else:
+        print(json.dumps(plan, indent=2))
+    return 0
+
+
+def _scenario(args) -> int:
+    """``scenario``: the TT user-journey workload, optionally under a
+    fault."""
+    import numpy as np
+
+    from anomod_torch import labels, scenario
+    from anomod_torch.chaos import ChaosController
+    if args.iterations < 1:
+        print("--iterations must be >= 1", file=sys.stderr)
+        return 1
+    ctl = None
+    if args.chaos:
+        label = labels.label_for(args.chaos)
+        if label is None:
+            print(f"unknown experiment: {args.chaos}", file=sys.stderr)
+            return 1
+        if label.testbed != "TT":
+            print(f"{label.experiment} is an {label.testbed} fault; the "
+                  "scenario workload drives the TT testbed", file=sys.stderr)
+            return 1
+        ctl = ChaosController()
+        ctl.create(label)
+    batch = scenario.run_scenario(iterations=args.iterations,
+                                  seed=args.seed, controller=ctl)
+    by_status = {str(c): int((batch.status == c).sum())
+                 for c in np.unique(batch.status)}
+    print(json.dumps({
+        "requests": batch.n_records,
+        "endpoints": len(batch.endpoints),
+        "status_codes": by_status,
+        "error_rate": round(float((batch.status >= 500).mean()), 4),
+        "avg_latency_ms": round(float(batch.latency_ms.mean()), 2),
+        "p99_latency_ms": round(float(np.percentile(batch.latency_ms, 99)), 2),
+        "chaos": args.chaos,
+    }))
+    return 0
+
+
+def _deploy(args) -> int:
+    """``deploy``: the TT helm / kubectl plan (or its secrets), the SN
+    compose lifecycle."""
+    from anomod_torch import deploy
+    from anomod_torch.utils import yamlsafe
+    if args.testbed == "SN":
+        print(deploy.render_plan(deploy.sn_compose_plan(up=not args.down)),
+              end="")
+        return 0
+    flags = deploy.DeployFlags(
+        all=args.deploy_all, independent_db=args.independent_db,
+        with_monitoring=args.with_monitoring,
+        with_tracing=args.with_tracing)
+    if args.secrets:
+        host = None if flags.independent_db else "tsdb-mysql-leader"
+        print(yamlsafe.dump_all(deploy.gen_mysql_secrets(host)), end="")
+        return 0
+    print(deploy.render_plan(deploy.tt_deploy_plan(flags)), end="")
+    return 0
+
+
+def _monitor(args) -> int:
+    """``monitor``: the SN API-response capture, active or passive."""
+    import numpy as np
+
+    from anomod_torch.monitor import capture_openapi_responses
+    report = capture_openapi_responses(
+        args.out, mode=args.mode, cycles=args.cycles,
+        seed=args.seed, chaos=args.chaos,
+        wrk2_requests=args.wrk2_requests)
+    b = report.batch
+    print(json.dumps({
+        "mode": report.mode, "cycles": report.n_cycles,
+        "requests": b.n_records, "endpoints": len(b.endpoints),
+        "reachable": sum(report.connectivity.values()),
+        "status_codes": {str(c): int((b.status == c).sum())
+                         for c in np.unique(b.status)},
+        "error_rate": round(float((b.status >= 500).mean()), 4),
+        "p99_latency_ms": round(float(np.percentile(b.latency_ms, 99)), 2),
+        "out": args.out, "chaos": args.chaos,
+    }))
+    return 0
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     from anomod_torch.utils.platform import await_probe
     parser = _parser()
@@ -1841,6 +2004,14 @@ def _run(args, parser) -> int:
         return _ingest(args)
     if args.cmd == "logscan":
         return _logscan(args)
+    if args.cmd == "chaos":
+        return _chaos(args)
+    if args.cmd == "scenario":
+        return _scenario(args)
+    if args.cmd == "deploy":
+        return _deploy(args)
+    if args.cmd == "monitor":
+        return _monitor(args)
     return _stream(args, parser)
 
 

@@ -26,7 +26,6 @@ from anomod_torch.device import DeviceLike, resolve_device
 from anomod_torch.graph import service_stats
 from anomod_torch.metrics_catalog import level_metric_names
 from anomod_torch.schemas import LOG_ERROR, Experiment
-from anomod_torch.synth import endpoint_owner
 
 
 class ServiceFeatures(NamedTuple):
@@ -100,6 +99,7 @@ def extract_features(exp: Experiment,
                 x[:, 10 + li] = np.where(cnt_l > 0,
                                          tot_l / np.maximum(cnt_l, 1), 0.0)
     if exp.api is not None and exp.api.n_records:
+        from anomod_torch.suite import endpoint_owner
         owner = np.array([svc_index.get(endpoint_owner(e, exp.testbed), -1)
                           for e in exp.api.endpoints], np.int32)
         rec_svc = owner[exp.api.endpoint]

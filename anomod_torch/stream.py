@@ -46,7 +46,6 @@ from anomod_torch.replay import (F_COUNT, F_ERR, F_LOGLAT, F_LOGLAT2,
                                  dead_chunk, make_chunk_step, stage_columns,
                                  zero_state)
 from anomod_torch.schemas import LOG_ERROR, SpanBatch, take_spans
-from anomod_torch.synth import endpoint_owner
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1167,6 +1166,7 @@ class MultimodalDetector(OnlineDetector):
         if ab is None or ab.n_records == 0:
             return
         t0 = time.perf_counter()
+        from anomod_torch.suite import endpoint_owner
         owner = np.empty(len(ab.endpoints), np.int32)
         for i, e in enumerate(ab.endpoints):
             if e not in self._owner_cache:

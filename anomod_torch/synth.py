@@ -18,7 +18,6 @@ import dataclasses
 import functools
 import hashlib
 from typing import Dict, List, Optional, Tuple
-from urllib.parse import urlparse
 
 import numpy as np
 
@@ -35,15 +34,6 @@ from anomod_torch.schemas import (
 #: entries: the JAX package's generator version, whose output this module
 #: reproduces byte for byte (bump both together).
 SYNTH_VERSION = 1
-
-#: the wrk2 workload distribution (mixed-workload.lua:113-115 — 60%
-#: home-timeline read, 30% user-timeline read, 10% compose), used by the
-#: SN template weighting
-SN_REQUEST_MIX = {
-    "home-timeline-service": 0.60,
-    "user-timeline-service": 0.30,
-    "compose-post-service": 0.10,
-}
 
 # ---------------------------------------------------------------------------
 # Service topologies.
@@ -191,86 +181,6 @@ SN_API_ENDPOINTS: Tuple[str, ...] = tuple(
         "user-mention/upload",
     )
 )  # enhanced_openapi_monitor.py:36-49
-
-# wrk2-api path -> SN owning service (the nginx route table; the JAX
-# package keeps it in anomod/suite.py)
-SN_ROUTE = {
-    "/wrk2-api/user/register": "user-service",
-    "/wrk2-api/user/follow": "social-graph-service",
-    "/wrk2-api/user/unfollow": "social-graph-service",
-    "/wrk2-api/user/login": "user-service",
-    "/wrk2-api/post/compose": "compose-post-service",
-    "/wrk2-api/home-timeline/read": "home-timeline-service",
-    "/wrk2-api/user-timeline/read": "user-timeline-service",
-    "/wrk2-api/user/profile": "user-service",
-    "/wrk2-api/media/upload": "media-service",
-    "/wrk2-api/text/upload": "text-service",
-    "/wrk2-api/url/shorten": "url-shorten-service",
-    "/wrk2-api/user-mention/upload": "user-mention-service",
-}
-
-
-def endpoint_owner(endpoint: str, testbed: str) -> str:
-    """Owning service for a monitored endpoint: SN through the nginx route
-    table over the wrk2-api surface (full URLs reduced to their path), TT
-    by the gateway's ``/api/v1/<short>service`` convention inverted back to
-    the ``ts-*-service`` name."""
-    if testbed == "SN":
-        path = urlparse(endpoint).path if "://" in endpoint else endpoint
-        return SN_ROUTE.get(path, "nginx-web-server")
-    for s in TT_SERVICES:
-        short = s.replace("ts-", "").replace("-service", "")
-        if endpoint.rstrip("/").endswith(f"/{short}service"):
-            return s
-    return "ts-gateway-service"
-
-
-# The wrk2 compose-post body model (mixed-workload.lua:33-83; the JAX
-# package keeps it in anomod/workload.py): the body's byte length as an
-# analytic sum, drawn vectorized for the synthetic API records.
-WRK2_MAX_USER_INDEX = 962       # :15 (env default)
-WRK2_TEXT_LEN = 256             # :37 stringRandom(256)
-WRK2_MENTION_RANGE = (1, 6)     # :38 math.random(0,5), loop 0..n
-WRK2_URL_RANGE = (1, 6)         # :39
-WRK2_MEDIA_RANGE = (1, 5)       # :40 math.random(0,4), loop 0..n
-WRK2_URL_LEN = 64               # :56 " http://" .. stringRandom(64)
-WRK2_MEDIA_ID_LEN = 18          # :60 decRandom(18)
-_MENTION_PREFIX = " @username_"  # :52
-_URL_PREFIX = " http://"         # :56
-_FORM_OVERHEAD = len("username=username_&user_id=&text=&media_ids="
-                     "&media_types=&post_type=0")
-_PNG_LEN = len('"png"')
-
-
-def _media_lists_len(k):
-    """len(media_ids) + len(media_types) for ``k`` media entries."""
-    return (2 + k * (WRK2_MEDIA_ID_LEN + 2) + (k - 1)) \
-        + (2 + k * _PNG_LEN + (k - 1))
-
-
-def _text_len(m, mention_digits, u):
-    """len(text): base + mentions + urls; elementwise."""
-    return (WRK2_TEXT_LEN
-            + m * len(_MENTION_PREFIX) + mention_digits
-            + u * (len(_URL_PREFIX) + WRK2_URL_LEN))
-
-
-def sample_compose_lengths(rng: np.random.Generator, n: int) -> np.ndarray:
-    """Vectorized draw of ``n`` compose content-lengths."""
-    idx = rng.integers(0, WRK2_MAX_USER_INDEX, n)
-    idx_d = np.char.str_len(idx.astype(str))
-    m = rng.integers(WRK2_MENTION_RANGE[0], WRK2_MENTION_RANGE[1] + 1, n)
-    # per-mention id digit counts: draw all at max fan-out and mask
-    mention_ids = rng.integers(0, WRK2_MAX_USER_INDEX,
-                               (n, WRK2_MENTION_RANGE[1]))
-    mention_d = np.char.str_len(mention_ids.astype(str))
-    mask = np.arange(WRK2_MENTION_RANGE[1])[None, :] < m[:, None]
-    mention_digits = (mention_d * mask).sum(axis=1)
-    u = rng.integers(WRK2_URL_RANGE[0], WRK2_URL_RANGE[1] + 1, n)
-    k = rng.integers(WRK2_MEDIA_RANGE[0], WRK2_MEDIA_RANGE[1] + 1, n)
-    return (_FORM_OVERHEAD + 2 * idx_d
-            + _text_len(m, mention_digits, u)
-            + _media_lists_len(k)).astype(np.int32)
 
 
 def _seed_for(name: str, salt: int = 0) -> int:
@@ -459,6 +369,7 @@ def generate_spans(label: FaultLabel, n_traces: int = 200,
     # weighted by the wrk2 request mix (mixed-workload.lua:113-115).
     weights = np.ones(len(templates))
     if label.testbed == "SN":
+        from anomod_torch.workload import SN_REQUEST_MIX
         svc_of_root_child = [services[tpl[2][0]] if len(tpl) > 2 else ""
                              for tpl in templates]
         for i, svc in enumerate(svc_of_root_child):
@@ -835,6 +746,7 @@ def _host_family_values(name: str, label: FaultLabel, rng, t, in_window,
     if name == "jaeger_sampling_rate":
         return np.clip(gauge(1.0, 0.01), 0, 1)
     if name in ("post_creation_rate", "timeline_read_rate"):
+        from anomod_torch.workload import SN_REQUEST_MIX
         mix = (SN_REQUEST_MIX["compose-post-service"]
                if name == "post_creation_rate"
                else SN_REQUEST_MIX["home-timeline-service"]
@@ -1163,6 +1075,7 @@ def generate_api(label: FaultLabel, n_records: int = 600,
         # host-level fault (no target) hits the whole surface (matches how
         # the reference's monitor sees chaos: per-endpoint p95/p99 spikes on
         # affected routes, enhanced_openapi_monitor.py:318-397)
+        from anomod_torch.suite import endpoint_owner  # suite imports synth
         owners = np.array([endpoint_owner(e, label.testbed) for e in eps])
         on_target = (owners == label.target_service)[ep] \
             if label.target_service else np.ones(n_records, bool)
@@ -1181,6 +1094,7 @@ def generate_api(label: FaultLabel, n_records: int = 600,
         # compose-post records carry the wrk2 content model's body-length
         # distribution (mixed-workload.lua:33-83) instead of the generic
         # response-size draw.
+        from anomod_torch.workload import sample_compose_lengths
         compose = np.array(["post/compose" in e for e in eps])[ep]
         if compose.any():
             clen[compose] = sample_compose_lengths(rng, int(compose.sum()))

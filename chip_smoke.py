@@ -60,7 +60,8 @@ drives the data layer and every ported path:
   full size (replicate = 4096) with the launches counted, its capture
   written to a temporary directory and read back;
 - detect (phase 13): ``detect.evaluate_corpus`` of both testbeds at the
-  CLI's 100 traces, the scores on the card against the numpy oracle;
+  CLI's 100 traces, the scores on the card against the numpy oracle
+  (the CPU runs in a spawned process beside the card's);
 - RCA training (phase 14) at full width on TT (45 services; GCN 2 x 64,
   GraphSAGE 2 x 64, GAT 2 x 32 x 4 heads; the CLI's 300 epochs, 6 train
   and 2 eval seeds, 80 traces; the dataset built once on the host): each
@@ -123,9 +124,10 @@ drives the data layer and every ported path:
   workers at 2 shards (sparse fold), 1, 2 (dense) and 4, each equal to
   the threads on every decision and the canonical journal, the lane
   kernels launched in the children only, serve wall, the children's
-  start wall and each run's busy share (every child profiles its own
-  device work); and a 2-shard process run whose child is killed at tick
-  40, respawned and restored with no score gap;
+  start wall and the 2-shard sparse run's busy share (its children
+  profile their own device work); and a 2-shard process run whose child
+  is killed at tick 40, respawned and restored with no score gap; each
+  run's wall split into serve wall, children's start and the rest;
 - the deferred-commit tick, the elastic policy and state tiering (phase
   22): the serve bench deployment, RCA on, at pipeline 2 and 1, each
   synchronous and deferred, and 2 thread shards deferred, every run
@@ -140,7 +142,8 @@ drives the data layer and every ported path:
   scaling on the CPU twin's schedule; the JAX bench's tiering pair (48
   tenants, hot 12) off, on and on again, every counter non-zero and the
   CPU twin's, states, alerts and SLO the off run's, the rerun's journal
-  the first's;
+  the first's (both CPU twins in a spawned process beside the card's
+  work);
 - the live feed and the multimodal sidecar (phase 23): the JAX bench's
   live-feed leg (the dogfood loop: the port's own ``/metrics`` scraped
   into the tick, 4 tenants, 10 s) live and recorded, replayed on the
@@ -155,7 +158,7 @@ drives the data layer and every ported path:
   and the policy off; each run's serve wall, the traffic's own wall,
   polls / samples / spans / gaps, launches, and a profiled busy share;
 - the perf and census observatories (phase 24) at the serve bench
-  deployment, RCA on: perf off and on in three alternating turns, the
+  deployment, RCA on: perf off and on in two alternating turns, the
   pins and the CPU twin's journal on every run, decisions equal off /
   on, events recorded and none dropped, the timeline's dispatch and fold
   stamps summing to the report's legs, the wait, the headroom and the
@@ -203,7 +206,17 @@ drives the data layer and every ported path:
   are refused before any launch); ``rca --cpu-failover`` and
   ``ANOMOD_PLATFORM=cpu detect`` through the CLI, the same ``rca``
   call timed with the probe and without it.  The earlier phases' CLI
-  calls run with ``ANOMOD_SKIP_PROBE=1`` (:func:`probe_skipped`).
+  calls run with ``ANOMOD_SKIP_PROBE=1`` (:func:`probe_skipped`);
+- the fault and workload planes (phase 28), host only: ``chaos`` for
+  all 26 labels in YAML and JSON, ``deploy`` (TT and its flags, the
+  secrets, SN up and down), ``scenario`` bare, under a TT Chaos Mesh and
+  a TT ChaosBlade fault and refused for an SN one, ``monitor`` active
+  (with wrk2 traffic, into a temporary artifact tree) and passive, all
+  through the CLI in this process with no probe skipped, then
+  ``run_with_recovery``, a TT suite under an injected fault and a spec's
+  endpoint pool: each output's sha256 equal to the JAX package's
+  (:data:`FAULT_PLANE_DIGESTS`), with ``yaml`` blocked, no probe, no
+  launch and no device memory taken.
 
 The serve runs of phases 8 and 16-23 run with the flight recorder on and
 supervised (a checkpoint every 32 ticks), the engine's defaults.
@@ -1797,17 +1810,39 @@ RTOL_LOSS = 1e-5
 RCA_EPOCHS = 300
 
 
-def detect_phase(dev, card) -> dict:
+def detect_cpu_twin() -> dict:
+    """Phase 13's CPU runs of ``evaluate_corpus`` (both testbeds, 100
+    traces), one torch thread: for each testbed the result and its wall.
+    They run in the spawned process started before phase 5b, ahead of
+    :func:`rca_cpu_twins` (a process of their own would start slower
+    than the 0.1 s they take)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import torch
+    torch.set_num_threads(1)
+    from anomod_torch import detect, labels, synth
+    out = {}
+    for testbed in ("TT", "SN"):
+        corpus = [synth.generate_experiment(l, n_traces=100)
+                  for l in labels.labels_for_testbed(testbed)]
+        t0 = time.perf_counter()
+        want = detect.evaluate_corpus(corpus, device="cpu")
+        out[testbed] = (want, time.perf_counter() - t0)
+    return out
+
+
+def detect_phase(dev, card, twin_job) -> dict:
     """Phase 13: ``evaluate_corpus`` of both testbeds at the CLI's 100
     traces, the scores on the card and by the numpy oracle: summary rows
     equal, scores within ``RTOL_DETECT``, each ranking equal to the
     oracle's but for services whose oracle scores differ by less than
-    that."""
+    that.  ``twin_job`` is the CPU runs' result (:func:`detect_cpu_twin`,
+    in a spawned process)."""
     import numpy as np
     import torch
     from anomod_torch import detect, labels, synth
 
     out = {}
+    twins = None
     for testbed in ("TT", "SN"):
         t0 = time.perf_counter()
         corpus = [synth.generate_experiment(l, n_traces=100)
@@ -1818,8 +1853,10 @@ def detect_phase(dev, card) -> dict:
         torch.cuda.synchronize()
         card_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        want = detect.evaluate_corpus(corpus, device="cpu")
-        oracle_s = time.perf_counter() - t0
+        if twins is None:
+            twins = twin_job.get()
+        wait_s = time.perf_counter() - t0
+        want, oracle_s = twins[testbed]
         rows = ("top1", "top3", "top5", "detection_accuracy", "n_rca_cases")
         check([getattr(got, k) for k in rows]
               == [getattr(want, k) for k in rows],
@@ -1862,6 +1899,7 @@ def detect_phase(dev, card) -> dict:
                             detection_accuracy=got.detection_accuracy,
                             n_rca_cases=got.n_rca_cases,
                             card_wall_s=card_s, oracle_wall_s=oracle_s,
+                            oracle_wait_s=wait_s,
                             corpus_gen_s=gen_s, max_abs_err=err,
                             rankings_with_near_tie_swaps=swapped)
         log(f"[13] detect {testbed} (100 traces): top1 {got.top1:.4f} top3 "
@@ -1870,8 +1908,8 @@ def detect_phase(dev, card) -> dict:
             f"rows equal to the numpy oracle (scores max_abs_err "
             f"{err:.3g}, {swapped} rankings with near-tie swaps); "
             f"evaluate_corpus wall {card_s:.3f} s on the "
-            f"card, {oracle_s:.3f} s numpy (corpus generation "
-            f"{gen_s:.3f} s) on {card}")
+            f"card, {oracle_s:.3f} s numpy in a spawned process (waited "
+            f"{wait_s:.3f} s; corpus generation {gen_s:.3f} s) on {card}")
     return {"detect": out}
 
 
@@ -2847,6 +2885,10 @@ PROC_RUNS = ((2, "sparse"), (1, "sparse"), (2, "dense"), (4, "sparse"))
 #: a spawned process worker of phase 21 profiles its device work for its
 #: whole life and writes its busy ms into the directory this names
 CHILD_PROFILE_ENV = "ANOMOD_SMOKE_CHILD_PROFILE_DIR"
+#: the one process run of phase 21 whose children profile themselves (the
+#: others' busy share is not measured: a profiled child spends seconds
+#: closing its trace)
+PROFILED_PROC_RUN = "process-2-sparse"
 
 
 def _child_profiler(out_dir: str) -> None:
@@ -2878,10 +2920,13 @@ def _child_profiler(out_dir: str) -> None:
         finally:
             if started:
                 import torch
+                t0 = time.perf_counter()
                 torch.cuda.synchronize()
                 started[0].__exit__(None, None, None)
+                busy = device_busy_ms(started[0])
                 Path(out_dir, f"busy_{os.getpid()}.json").write_text(
-                    json.dumps({"busy_ms": device_busy_ms(started[0])}))
+                    json.dumps({"busy_ms": busy,
+                                "profile_s": time.perf_counter() - t0}))
     procshard._ShardPlane.handle = handle
     procshard._shard_main = profiled
 
@@ -2916,7 +2961,8 @@ def supervise_proc_phase(dev, card, cpu_journal, fs20) -> dict:
     ticks, nothing quarantined or migrated, no respawn, and no score gap
     (everything above equal to the fault-free run's); the recovery wall.
     (3) Process workers at 2 shards (sparse fold), 1, 2 (dense) and 4,
-    each child profiling its own device work, against phase 20's 2-shard
+    the 2-shard sparse run's children profiling their own device work
+    (:data:`PROFILED_PROC_RUN`), against phase 20's 2-shard
     thread run (the oracle): every alert stream, verdict,
     decision and the canonical journal equal the oracle's, the sparse
     payload at most half the dense one, every lane-kernel launch made in
@@ -2962,7 +3008,12 @@ def supervise_proc_phase(dev, card, cpu_journal, fs20) -> dict:
 
     # -- (1) the supervised default against supervision off ---------------
     e_sup, r_sup = runs20["flight_on"]
+    # each run's wall from start to end, for the phase's split
+    split = {}
+    t0 = time.perf_counter()
     e_off, r_off = run_power_law(ckpt_every=0, **kw)
+    split["unsupervised"] = dict(wall_s=time.perf_counter() - t0,
+                                 serve_wall_s=r_off.serve_wall_s)
     pins(r_off, "unsupervised")
     check(r_sup.supervised and r_sup.ckpt_every == 32
           and r_sup.n_checkpoints == 4 and not r_off.supervised
@@ -2998,7 +3049,10 @@ def supervise_proc_phase(dev, card, cpu_journal, fs20) -> dict:
         f"{r_off.serve_wall_s:.4f} s")
 
     # -- (2) the JAX bench's chaos leg -------------------------------------
+    t0 = time.perf_counter()
     e_ch, r_ch = run_power_law(chaos=CHAOS_SCRIPT, **kw)
+    split["chaos"] = dict(wall_s=time.perf_counter() - t0,
+                          serve_wall_s=r_ch.serve_wall_s)
     pins(r_ch, "chaos")
     got = {k: getattr(r_ch, k) for k in CHAOS_WANT}
     check(got == CHAOS_WANT, f"chaos: {got} != {CHAOS_WANT}")
@@ -3038,16 +3092,25 @@ def supervise_proc_phase(dev, card, cpu_journal, fs20) -> dict:
     prev_env = os.environ.get(CHILD_PROFILE_ENV)
     try:
         for n, fold in PROC_RUNS:
+            name = f"process-{n}-{fold}"
             with tempfile.TemporaryDirectory() as tmp, \
                     child_hellos() as hellos:
-                os.environ[CHILD_PROFILE_ENV] = tmp
+                if name == PROFILED_PROC_RUN:
+                    os.environ[CHILD_PROFILE_ENV] = tmp
+                else:
+                    os.environ.pop(CHILD_PROFILE_ENV, None)
                 sk.reset_launches()
+                t0 = time.perf_counter()
                 eng, rep = run_power_law(shards=n, worker="process",
                                          fold=fold, **kw)
-                files = sorted(Path(tmp).glob("busy_*.json"))
-                busy_each = [json.loads(f.read_text())["busy_ms"]
-                             for f in files]
-            name = f"process-{n}-{fold}"
+                run_s = time.perf_counter() - t0
+                docs = [json.loads(f.read_text())
+                        for f in sorted(Path(tmp).glob("busy_*.json"))]
+                busy_each = [d["busy_ms"] for d in docs]
+            split[name] = dict(wall_s=run_s, serve_wall_s=rep.serve_wall_s,
+                               worker_start_s=eng.worker_start_s,
+                               child_profile_s=[d["profile_s"]
+                                                for d in docs])
             pins(rep, name)
             check(rep.worker == "process" and rep.fold == fold
                   and rep.shards == n, f"{name}: ran as {rep.worker}, "
@@ -3113,8 +3176,12 @@ def supervise_proc_phase(dev, card, cpu_journal, fs20) -> dict:
     out["process"] = runs
 
     # -- (4) a child killed and respawned ----------------------------------
+    t0 = time.perf_counter()
     eng, rep = run_power_law(shards=2, worker="process",
                              chaos="crash@40:shard=1", **kw)
+    split["respawn"] = dict(wall_s=time.perf_counter() - t0,
+                            serve_wall_s=rep.serve_wall_s,
+                            worker_start_s=eng.worker_start_s)
     pins(rep, "respawn")
     check(rep.n_respawns >= 1 and rep.n_shard_crashes >= 1,
           f"respawn: {rep.n_respawns} respawns, {rep.n_shard_crashes} "
@@ -3131,6 +3198,23 @@ def supervise_proc_phase(dev, card, cpu_journal, fs20) -> dict:
                           recovery_wall_s=rep.recovery_wall_s,
                           serve_wall_s=rep.serve_wall_s)
     out["phase_wall_s"] = time.perf_counter() - t_phase
+    # where the phase's wall goes: each run's wall from start to end, its
+    # serve wall, its children's start and (profiled children) the time
+    # each took to close its trace and write its busy ms
+    for name, r in split.items():
+        rest = r["wall_s"] - r["serve_wall_s"] - r.get("worker_start_s", 0.0)
+        r["rest_s"] = rest
+        prof = r.get("child_profile_s")
+        log(f"[21] split {name} on {card}: wall {r['wall_s']:.3f} s = serve "
+            f"{r['serve_wall_s']:.3f} s"
+            + (f" + children's start {r['worker_start_s']:.3f} s"
+               if "worker_start_s" in r else "")
+            + f" + the rest {rest:.3f} s"
+            + ("" if prof is None else
+               f"; children's profile close and write "
+               f"{[round(x, 3) for x in prof] if prof else 'not profiled'}"
+               f" s"))
+    out["phase21_split"] = split
     log(f"[21] respawn on {card}: shard 1's child killed at tick 40, "
         f"{rep.n_respawns} respawn(s), {rep.n_restored_ticks} restored "
         f"ticks, recovery wall {rep.recovery_wall_s:.4f} s, serve wall "
@@ -3144,6 +3228,8 @@ def supervise_proc_phase(dev, card, cpu_journal, fs20) -> dict:
 ELASTIC_SURGE = "surge@30:factor=4:ticks=15"
 ELASTIC_POLICY = dict(shards=1, chaos=ELASTIC_SURGE, policy="auto",
                       min_shards=1, max_shards=2, cooldown_ticks=5)
+#: phase 22's elastic deployment: the serve bench's at 0.6x, RCA off
+ELASTIC_KW = dict(SERVE_KW, overload=0.6, rca=False, flight=True)
 #: phase 22's tiering pair: the JAX serve bench's (``bench.py:440-470``)
 TIER_KW = dict(n_tenants=48, n_services=8, capacity_spans_per_s=800.0,
                overload=0.5, duration_s=24.0, tick_s=1.0, seed=7,
@@ -3225,7 +3311,43 @@ def barrier_probe():
         BucketRunner.drain_lanes = real_drain
 
 
+def elastic_tier_cpu_twins() -> dict:
+    """Phase 22's CPU twins, in a spawned process started before the
+    phase's card work, one torch thread: the elastic policy's run (its
+    scaling events) and the tiering run (its counters), each with its
+    wall."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import tempfile
+
+    import torch
+    torch.set_num_threads(1)
+    from anomod_torch.serve.engine import (TIERING_REPORT_FIELDS,
+                                           run_power_law)
+    t0 = time.perf_counter()
+    e_cpu, _ = run_power_law(**ELASTIC_POLICY, **ELASTIC_KW, device="cpu")
+    out = {"elastic": ([ev for t in e_cpu.flight_recorder.records()
+                        for ev in t["scaling"]],
+                       time.perf_counter() - t0)}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as cold:
+        _, r_tcpu = run_power_law(shards=1, device="cpu",
+                                  tier_cold_dir=cold, **TIER_ON, **TIER_KW)
+    out["tiering"] = ([getattr(r_tcpu, k) for k in TIERING_REPORT_FIELDS],
+                      time.perf_counter() - t0)
+    return out
+
+
 def elastic_async_tier_phase(dev, card, cpu_journal) -> dict:
+    """Phase 22 (:func:`_elastic_async_tier_phase`), its CPU twins run in
+    a spawned process (:func:`elastic_tier_cpu_twins`) beside the card's
+    work."""
+    import multiprocessing
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        return _elastic_async_tier_phase(
+            dev, card, cpu_journal, pool.apply_async(elastic_tier_cpu_twins))
+
+
+def _elastic_async_tier_phase(dev, card, cpu_journal, twin_job) -> dict:
     """Phase 22: the deferred-commit tick, the elastic policy and state
     tiering in the serve tick, on the card.  (1) The serve bench
     deployment, RCA on, supervised: pipeline 2 and 1, each synchronous
@@ -3352,7 +3474,7 @@ def elastic_async_tier_phase(dev, card, cpu_journal) -> dict:
         f"deferred run launched lane_delta on its two shard streams only")
 
     # -- (2) the elastic policy --------------------------------------------
-    kw = dict(SERVE_KW, overload=0.6, device=dev, rca=False, flight=True)
+    kw = dict(ELASTIC_KW, device=dev)
     sk.reset_launches()
     e_st, r_st = run_power_law(shards=1, chaos=ELASTIC_SURGE, **kw)
     with lane_streams(dev) as seen:
@@ -3379,15 +3501,15 @@ def elastic_async_tier_phase(dev, card, cpu_journal) -> dict:
         eng_mod.ServeEngine._apply_shard_reply = real_apply
     coord_launches = dict(sk.launches)
     t0 = time.perf_counter()
-    e_cpu, r_cpu = run_power_law(**{**ELASTIC_POLICY, **kw,
-                                    "device": "cpu"})
-    cpu_s = time.perf_counter() - t0
+    twins = twin_job.get()
+    wait_s = time.perf_counter() - t0
+    events, cpu_s = twins["elastic"]
     want_fp = serve_fingerprint(e_st)
     want_alerts = {t: e_st.alerts_for(t) for t in e_st._tenant_det}
     journal = e_st.flight_recorder.canonical_bytes()
-    events = scaling(e_cpu)
     out["elastic"] = {"static_serve_wall_s": r_st.serve_wall_s,
                       "cpu_twin_wall_s": cpu_s,
+                      "cpu_twins_wait_s": wait_s,
                       "events": [{k: ev[k] for k in ("kind", "tick")
                                   if k in ev} for ev in events]}
     for name, eng, rep in (("thread", e_th, r_th), ("process", e_pr, r_pr)):
@@ -3456,10 +3578,7 @@ def elastic_async_tier_phase(dev, card, cpu_journal) -> dict:
                                         tier_cold_dir=cold, **TIER_ON,
                                         **TIER_KW))
     tier_launches = dict(sk.launches)
-    with tempfile.TemporaryDirectory() as cold:
-        _, r_tcpu = run_power_law(shards=1, device="cpu",
-                                  tier_cold_dir=cold, **TIER_ON, **TIER_KW)
-    want = [getattr(r_tcpu, k) for k in TIERING_REPORT_FIELDS]
+    want, tier_cpu_s = twins["tiering"]
     (e_on, r_on), (e_on2, r_on2) = tiered
     for name, eng, rep in (("on", e_on, r_on), ("rerun", e_on2, r_on2)):
         got = [getattr(rep, k) for k in TIERING_REPORT_FIELDS]
@@ -3486,7 +3605,7 @@ def elastic_async_tier_phase(dev, card, cpu_journal) -> dict:
                               r_on2.tier_prefetch_hidden],
         serve_wall_s={"off": r_off.serve_wall_s, "on": r_on.serve_wall_s,
                       "rerun": r_on2.serve_wall_s},
-        launches=tier_launches)
+        cpu_twin_wall_s=tier_cpu_s, launches=tier_launches)
     log(f"[22] tiering on {card} (48 tenants, hot 12, demote after 2, "
         f"warm 4096 B, prefetch 2): counters {out['tiering']['counters']} "
         f"equal the CPU twin's; states, alerts and SLO equal the off run's; "
@@ -3972,8 +4091,9 @@ def live_feed_phase(dev, card) -> dict:
 
 
 #: phase 24a: perf off / on turns (alternating; the overhead is the median
-#: of the turns' fractions)
-PERF_TURNS = 3
+#: of the turns' fractions).  Two: on one host the fractions spread from
+#: -0.18 to 0.04, so a third turn does not make the median readable
+PERF_TURNS = 2
 #: phase 24b: the census cadence (the engine's default)
 CENSUS_EVERY = 8
 #: phase 24c: the tiered sweep's tier geometry (the JAX bench's,
@@ -5423,6 +5543,352 @@ def device_decisions_phase(dev, card, batch, cfg) -> dict:
     log(f"[27] device decisions: {out['wall_s']:.3f} s on {card}")
     return {"device_decisions": out}
 
+#: phase 28's scenario runs under a fault: a TT Chaos Mesh label, a TT
+#: ChaosBlade label and an SN label (which the CLI refuses, exit code 1)
+FAULT_SCENARIO_LABELS = ("Lv_P_CPU_preserve", "Lv_C_security_check",
+                         "Perf_CPU_Contention")
+#: the OpenAPI document phase 28 turns into an endpoint pool
+FAULT_SPEC = "tests/fixtures/tt_openapi_small.json"
+#: what stands for the monitor's temporary output directory in its stdout
+OUT_MARK = "<out>"
+#: the sha256 of each of phase 28's outputs (:func:`fault_plane_outputs`)
+#: as the JAX package gives them; tests/test_torch_workload.py holds this
+#: table to the JAX package on the CPU
+FAULT_PLANE_DIGESTS = {
+    "chaos Normal_Baseline --format yaml":
+        "963cf9fca87d293d8bf41d854e46991f9583e7082a347d480cf8dabb615ddd96",
+    "chaos Normal_Baseline --format json":
+        "b14df6eae1f6187a8de214fc0548e663147b45b53a7a7d551b8e10dcaa215423",
+    "chaos Perf_CPU_Contention --format yaml":
+        "54e8d453a5aa31d3fb7409b42eb2956ac9d734dd30b6941f86c3ca33b9da37fd",
+    "chaos Perf_CPU_Contention --format json":
+        "66403d2a722d2020546b9f9542f99b02048c3465e9347bb71fc46e49073c8b12",
+    "chaos Perf_Network_Loss --format yaml":
+        "4b5bf2835189a18c2cd86aa9769561d9d153111a5533cf4eb893100b353ccd63",
+    "chaos Perf_Network_Loss --format json":
+        "8537e99caa130cd9a63ea039fe3eec51db5010278173abef7ef3d26b7abeefff",
+    "chaos Perf_Disk_IO_Stress --format yaml":
+        "894a22aaaa330bbf4af7590d7314254a54a705789845819ffe7e53d213254984",
+    "chaos Perf_Disk_IO_Stress --format json":
+        "159bf2930bbc881bf78bf95dd0ec01dc05e9bd6b57bdc61c9be556b328892193",
+    "chaos Svc_Kill_UserTimeline --format yaml":
+        "7d1f8d526d40bc1b4041e801647ef20072d393643bf3c2ef677179c7a3a538a5",
+    "chaos Svc_Kill_UserTimeline --format json":
+        "851313eb14931d4961ed9c0cbbd6a60d9bbc8cd888d72d2df0967e310781012f",
+    "chaos Svc_Kill_Media --format yaml":
+        "3ecacb1fc144f1293f00515bf8253893d4eb5841e1e34f8a7b9211b89d45e541",
+    "chaos Svc_Kill_Media --format json":
+        "4ae2e116768023d5d9d09292cdcec08afed5ae7a35d02c61d68cfdfe84f86f36",
+    "chaos Svc_Kill_SocialGraph --format yaml":
+        "a76517704f6d15e34d543055fee549ac64cea989176668138af409a696b594a2",
+    "chaos Svc_Kill_SocialGraph --format json":
+        "ed3f5ab779f9636df631df558a33f4570570620d0dc95a3e32dfa11ed451af2d",
+    "chaos DB_Redis_CacheLimit_HomeTimeline --format yaml":
+        "ad9495b58673e0efc2ee7297fe284b646ea60041bdea3bd3d3874b01c816fe62",
+    "chaos DB_Redis_CacheLimit_HomeTimeline --format json":
+        "52ecd1f109f3c7381cee141d58ac108d430133aab81476c634457f50fd751ac4",
+    "chaos DB_Redis_CacheLimit_UserTimeline --format yaml":
+        "05d575a2ba7688274962eb30a6d88e5c895508fcf9fc992f8728c4649bf39177",
+    "chaos DB_Redis_CacheLimit_UserTimeline --format json":
+        "06baa4a85d9d5375bf568c475ae87d2ad102700230a2e647fe63048b2f61f283",
+    "chaos DB_Redis_CacheLimit_SocialGraph --format yaml":
+        "311d428b8cae4cb98f30bdae76697eaec912f8166a258a3072f51e8d7c87c019",
+    "chaos DB_Redis_CacheLimit_SocialGraph --format json":
+        "6d32c32b50270f74f805febdfc897f4cf8abb319950ee853497b6c5ba6b20fcc",
+    "chaos Code_Stop_UserService --format yaml":
+        "b20c65bfacc6aeb30ce5c553f3a1be78631723486f43872ebc7e2d33fd4892a8",
+    "chaos Code_Stop_UserService --format json":
+        "69dcb2200261f2702f702ffea7775b95a0514f77bd53b7134e487955727c3753",
+    "chaos Code_Stop_TextService --format yaml":
+        "916449bd39bdc6fc4bd7c4d0b4e619ef55ab1ff7c35cb4063649185bbb8bd40b",
+    "chaos Code_Stop_TextService --format json":
+        "7626a4d4eed941285bca08346241e1051a3e3f415aaf7800a79f69abca09aac6",
+    "chaos Code_Stop_MediaService --format yaml":
+        "97a63d6ce03acf4aa8e6c196ad5f63b4e7056a06bc88f97c3c896fccc402e35e",
+    "chaos Code_Stop_MediaService --format json":
+        "8b3dc1623ea696aa69f8e12a3dd2e92c9ee9c236b7663ad33e526d5dc3f10ea1",
+    "chaos Normal_case --format yaml":
+        "0707a10b4ae683f3f046876931337a184d0df5148c609b8e32e7535c613239f3",
+    "chaos Normal_case --format json":
+        "7e26b77a5bf244bff937210ab8acd5ad278f843a4362015ab0de41eb23d8d283",
+    "chaos Lv_P_CPU_preserve --format yaml":
+        "936cacf78895c417f5468178df282a28047c34f3b5cd1acac842bdb2f1b5af51",
+    "chaos Lv_P_CPU_preserve --format json":
+        "617d1bdef3455ec40d8b6732fe575aa4c18bbb64d67b461520a2ed4fe23232f2",
+    "chaos Lv_P_DISKIO_preserve --format yaml":
+        "b8e779c03dbdbf61e3a92b090c4d9471a80fb4db2215427d72171fe7cbb681e0",
+    "chaos Lv_P_DISKIO_preserve --format json":
+        "762e535bb7cb322f01128b9c4c7c3c422f0a1d477c90ca7ef97ddddd9d221dd7",
+    "chaos Lv_P_NETLOSS_preserve --format yaml":
+        "9e6a6deae37f1887f6f06f3ca9da221ad900cf9e054119b86adb7e15e24c01ff",
+    "chaos Lv_P_NETLOSS_preserve --format json":
+        "05b95f1f03bf6f7f00052f794eb0d370adb6011f18a55d8f1c664c63c4e2cc6c",
+    "chaos Lv_S_DNSFAIL_preserve_no_order --format yaml":
+        "9c13354d8e2eb33ffa3253e671a63b223c152d143038b0b9941710537f56a148",
+    "chaos Lv_S_DNSFAIL_preserve_no_order --format json":
+        "2600a29fa7e01aacc34b865c07ce61e6eccde83995d1f58923a4d528269079a2",
+    "chaos Lv_S_HTTPABORT_preserve --format yaml":
+        "75236d561b79135818ece54d6ed14f642552fa8a2f3082b3918170e49713f019",
+    "chaos Lv_S_HTTPABORT_preserve --format json":
+        "67706d2e30a2af033cd8a80e0b4422f9d29ac1472f3dced526cb9a16be78e117",
+    "chaos Lv_S_KILLPOD_preserve --format yaml":
+        "0eef51f4070eacfb4be56f294e3e3db533e9ff84d66bd7cb317e68e4370a4d14",
+    "chaos Lv_S_KILLPOD_preserve --format json":
+        "5ba839ef80fd0fa97b5b58bca949b55afc741d99aea3ac5015c909d01d6efeb4",
+    "chaos Lv_D_cachelimit --format yaml":
+        "c3962eb730b2261b1737831ded527e3687dcfbc04cfacc26deb692470e90983c",
+    "chaos Lv_D_cachelimit --format json":
+        "95a68d2521e6891997e78efa94b30ec062ac3b1fa5c8f2ce948a66eab8c4e8dc",
+    "chaos Lv_D_CONNECTION_POOL_exhaustion --format yaml":
+        "a2a319e89bd205969ed04f36a8b50d1a8ef8ef12c6b2440a7a2762f3b9717bdc",
+    "chaos Lv_D_CONNECTION_POOL_exhaustion --format json":
+        "79ae449cf4767ff66c0f270a9b2cf33d20206eeabe7065911ad64a16268d173b",
+    "chaos Lv_D_TRANSACTION_timeout --format yaml":
+        "14adb377009d4ce45ebf65348f141f4b9470e1ca526d834838025912c2246028",
+    "chaos Lv_D_TRANSACTION_timeout --format json":
+        "3e6b6064e349560c7f091a006e27621630e41bcf8d4ffb1514f81837e6918ea4",
+    "chaos Lv_C_security_check --format yaml":
+        "b01f8c8962064caf2c246a95b422a013a226c2ebef0bc6d4caa5984be6048c44",
+    "chaos Lv_C_security_check --format json":
+        "9637f5cea4ff7ff4de7040122ac684bf3bb2668ad157a3bdcd7bc08ed1f629d7",
+    "chaos Lv_C_exception_injection --format yaml":
+        "097f13a80fa81ef6ab79b4530065f00ba6af14ff5f83e36e06edf0751beab5d7",
+    "chaos Lv_C_exception_injection --format json":
+        "80d7474774431fb51ecb75a9ec101bdf6266c3fbeca98ae88d8e2348a1626879",
+    "chaos Lv_C_travel_detail_failure --format yaml":
+        "df872bee78c17dd4ea5a409e65a584eea724e30d3f9e045575cf6c87aa765e2d",
+    "chaos Lv_C_travel_detail_failure --format json":
+        "bc23960897297b739bade7da59274613646c3fd04b5f94235250f07360d64fc1",
+    "deploy":
+        "70af33b740547b595979c7e59d77433a686ef634d6da19284554922b6799f362",
+    "deploy --all":
+        "b291fe08fd1b1e12f6f52b40306fdc1757a62054aca02d17c5486d598fb01def",
+    "deploy --independent-db":
+        "207fd3aad422208aff70b651f72b947d8946ef86c5979eee7abb9511d9742e32",
+    "deploy --with-monitoring --with-tracing":
+        "02d9faf3e96c6f409c769ab99a2d77d749339077ecb04806ebd6bfad33fb7432",
+    "deploy --secrets":
+        "43229cfe6e72ebfa7ebb7a173a0f7ff43ba111da308e7c1d65bb25e879a86e93",
+    "deploy --secrets --independent-db":
+        "e57b89e4f712fd75b9949b959eb706af8d3adbef6074846b78f9459a1cda31a2",
+    "deploy --testbed SN":
+        "0e99c699fb5ee26e2b9d8c970b64d22b09a8067cfca31ae537effd842aeb6d2e",
+    "deploy --testbed SN --down":
+        "d85aacc9c0e448a7c9b10df36221b792571196c65e53797d0a4d76c0d52e96ce",
+    "scenario --iterations 2 --seed 0":
+        "3a6f56bece40d27fc4cfd096b692080b729ee5fe4c84fab92e520feb96fbf0f7",
+    "scenario --iterations 2 --seed 0 --chaos Lv_P_CPU_preserve":
+        "d0d98d21fdecef8c6462ab64be833774fd120d92e6fce9639de6d24f019ebeb2",
+    "scenario --iterations 2 --seed 0 --chaos Lv_C_security_check":
+        "2ec418caafce00b57b1086462ee2ef134fb1a6461c1394c174408ac173bce6ce",
+    "scenario --iterations 2 --seed 0 --chaos Perf_CPU_Contention":
+        "e340cdd9a64d0ed494bc9e66d18ff91f622b0c0862facbfc4001cfcbea64341d",
+    "monitor --cycles 10 --wrk2-requests 50 --out <out>":
+        "a527a35f10321ba9f4812d2cef028add158fb57bb12e28fc8e109be7553e58b3",
+    "monitor --mode passive":
+        "d8d09db8890eccaeb28a4016dbd240a633f4b82524e9bf07360fea8616919ce9",
+    "monitor file collection_report.json":
+        "8517ec1bae964173f2b0c38fe47daeb3cae2d4748273892c739b21f0be06be2e",
+    "monitor file endpoint_performance.json":
+        "5f4774b66ddab5c5ee4355abcd12a6464dfd5619de72dc768b192b72b2673b75",
+    "monitor file openapi_responses.jsonl":
+        "ef75027af59c3facb65661ef4e0ec29ecfd1ea42f2868d4cb7036aa6d5f4234e",
+    "monitor file response_summary.json":
+        "03342c34241ab2cffbb63cade38b105b895afa619bc4516518a3b1a97372395d",
+    "monitor file status_code_distribution.csv":
+        "8a35e78d640d18f916b59668fca61b719b87c27eab31c813d7613332757419e6",
+    "monitor file traffic_analysis.json":
+        "5de2df41f74d72fb7084ac15bbe25da3bb0bfd826fb58d73f8f59eb47106f982",
+    "run_with_recovery":
+        "40abc72f2fb8290fb26a477b62c1d3c1685b0581ab86cee08252cdf21d3dbc11",
+    "suite TT 120 s under Lv_S_HTTPABORT_preserve":
+        "46c245487eb69654a0d7ad050a358d2f2e16ebd048408fef21c9e83b8a6f2fb5",
+    "endpoint_pool_from_spec":
+        "a1a0a402340c28b72da92bb1257a66df88b6d974a46cf835e0c5c4d35f21d830",
+}
+
+
+def fault_plane_argvs(labels, out_dir) -> list:
+    """Phase 28's CLI calls: ``chaos`` for every label in both formats,
+    ``deploy`` (TT bare, ``--all``, ``--independent-db``, monitoring and
+    tracing, ``--secrets`` shared and independent; SN up and down),
+    ``scenario`` bare and under each of :data:`FAULT_SCENARIO_LABELS`,
+    ``monitor`` active (into ``out_dir``) and passive."""
+    argvs = [["chaos", lab.experiment, "--format", fmt]
+             for lab in labels.ALL_LABELS for fmt in ("yaml", "json")]
+    argvs += [["deploy"] + a for a in (
+        [], ["--all"], ["--independent-db"],
+        ["--with-monitoring", "--with-tracing"], ["--secrets"],
+        ["--secrets", "--independent-db"], ["--testbed", "SN"],
+        ["--testbed", "SN", "--down"])]
+    scen = ["scenario", "--iterations", "2", "--seed", "0"]
+    argvs += [scen] + [scen + ["--chaos", x] for x in FAULT_SCENARIO_LABELS]
+    argvs += [["monitor", "--cycles", "10", "--wrk2-requests", "50",
+               "--out", str(out_dir)], ["monitor", "--mode", "passive"]]
+    return argvs
+
+
+@contextlib.contextmanager
+def utc_clock():
+    """``TZ=UTC`` while the block runs: the monitor's artifact stamps its
+    records in local time (``datetime.fromtimestamp``)."""
+    import os
+    prev = os.environ.get("TZ")
+    os.environ["TZ"] = "UTC"
+    time.tzset()
+    try:
+        yield
+    finally:
+        if prev is None:
+            os.environ.pop("TZ", None)
+        else:
+            os.environ["TZ"] = prev
+        time.tzset()
+
+
+def _batch_bytes(batch) -> bytes:
+    """A named tuple of numpy columns and name tables, field by field."""
+    import numpy as np
+    parts = []
+    for name in batch._fields:
+        v = getattr(batch, name)
+        if isinstance(v, np.ndarray):
+            parts.append(f"{name} {v.dtype.str} {v.shape}\n".encode()
+                         + v.tobytes())
+        else:
+            parts.append(f"{name} {json.dumps(v)}\n".encode())
+    return b"\n".join(parts)
+
+
+def fault_plane_outputs(pkg, cli_main, root) -> dict:
+    """Phase 28's outputs, each as bytes: every call of
+    :func:`fault_plane_argvs` through ``cli_main`` in this process (its
+    exit code, stdout, and stderr where it fails), each file the active
+    monitor writes, and three direct calls: ``run_with_recovery`` on the
+    seeded TT cluster, a 120 s TT suite run under an injected fault, and
+    the endpoint pool of :data:`FAULT_SPEC` under ``root``.  ``pkg`` is
+    the package (its ``labels``, ``chaos``, ``recovery``, ``suite`` and
+    ``openapi`` imported); the JAX package's outputs give
+    :data:`FAULT_PLANE_DIGESTS` (``tests/test_torch_workload.py`` holds
+    them)."""
+    import dataclasses
+    import io
+    import tempfile
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp, utc_clock():
+        mon = Path(tmp, "monitor")
+        for argv in fault_plane_argvs(pkg.labels, mon):
+            stdout, stderr = io.StringIO(), io.StringIO()
+            with contextlib.redirect_stdout(stdout), \
+                    contextlib.redirect_stderr(stderr):
+                try:
+                    rc = cli_main(argv)
+                except SystemExit as e:
+                    rc = e.code
+            text = f"rc={rc}\n" + stdout.getvalue().replace(str(mon),
+                                                            OUT_MARK)
+            if rc:
+                text += "\nstderr:\n" + stderr.getvalue()
+            out[" ".join(argv).replace(str(mon), OUT_MARK)] = text.encode()
+        for f in sorted(mon.iterdir()):
+            out[f"monitor file {f.name}"] = f.read_bytes()
+
+        R = pkg.recovery
+        cluster = R.cluster_for_testbed("TT", seed=0)
+        ctl = pkg.chaos.ChaosController()
+        prom = R.PrometheusState(oom_killed=True, ready=False)
+        effects = []
+
+        def body():
+            effects.append(ctl.active_effects("ts-preserve-service"))
+            return "collected"
+        result, report = R.run_with_recovery(
+            cluster, ctl, "Lv_P_CPU_preserve", body, prometheus=prom)
+        out["run_with_recovery"] = json.dumps({
+            "result": result, "report": dataclasses.asdict(report),
+            "prometheus": dataclasses.asdict(prom), "effects": effects,
+            "active_after": len(ctl.status()), "now": cluster.now,
+            "pods": {n: dataclasses.asdict(p)
+                     for n, p in cluster.pods.items()}},
+            sort_keys=True).encode()
+
+        suite = pkg.suite.generate_suite("TT", budget_s=120)
+        with ctl.inject("Lv_S_HTTPABORT_preserve"):
+            run = pkg.suite.run_suite(suite, iterations=2, seed=5,
+                                      controller=ctl)
+        out["suite TT 120 s under Lv_S_HTTPABORT_preserve"] = json.dumps({
+            "run_id": suite.run_id, "n_tests": suite.n_tests,
+            "covered_targets": suite.covered_targets,
+            "tests": [[t.name, dataclasses.asdict(t.spec),
+                       list(t.expect_status)] for t in suite.tests],
+            "pass_rate": run.pass_rate}).encode() + b"\n" + b"\n".join(
+            [_batch_bytes(run.api), _batch_bytes(run.spans),
+             run.passed.tobytes(), run.trace_of_request.tobytes()])
+
+        spec = pkg.openapi.load_spec(Path(root, FAULT_SPEC))
+        out["endpoint_pool_from_spec"] = json.dumps(
+            [dataclasses.asdict(s)
+             for s in pkg.openapi.endpoint_pool_from_spec(spec)]).encode()
+    return out
+
+
+def fault_plane_phase(card) -> dict:
+    """Phase 28: the fault and workload planes, host only.
+    :func:`fault_plane_outputs` of the port, with ``yaml`` blocked (the
+    port renders its YAML itself) and no probe skipped: each output's
+    sha256 equals :data:`FAULT_PLANE_DIGESTS`; no probe of the card
+    started, no kernel launched, no device memory taken."""
+    import hashlib
+    import importlib.util
+
+    import torch
+
+    import anomod_torch
+    import anomod_torch.chaos  # noqa: F401  (the outputs' modules)
+    import anomod_torch.labels  # noqa: F401
+    import anomod_torch.openapi  # noqa: F401
+    import anomod_torch.recovery  # noqa: F401
+    import anomod_torch.suite  # noqa: F401
+    from anomod_torch.cli import main as cli_main
+    root = Path(__file__).resolve().parent
+    yaml_here = importlib.util.find_spec("yaml") is not None
+    n_probes, launches = len(PROBES), all_launches()
+    mem = torch.cuda.memory_allocated()
+    saved = sys.modules.get("yaml")
+    sys.modules["yaml"] = None        # import yaml raises
+    t0 = time.perf_counter()
+    try:
+        outs = fault_plane_outputs(anomod_torch, cli_main, root)
+    finally:
+        if saved is None:
+            sys.modules.pop("yaml", None)
+        else:
+            sys.modules["yaml"] = saved
+    wall = time.perf_counter() - t0
+    got = {k: hashlib.sha256(v).hexdigest() for k, v in outs.items()}
+    bad = sorted(k for k in set(got) | set(FAULT_PLANE_DIGESTS)
+                 if got.get(k) != FAULT_PLANE_DIGESTS.get(k))
+    check(not bad, f"phase 28: {len(bad)} outputs differ from the JAX "
+          f"package's: {bad[:8]}")
+    check(len(PROBES) == n_probes,
+          f"phase 28: {len(PROBES) - n_probes} probes of the card")
+    check(all_launches() == launches,
+          f"phase 28: launches {all_launches()} != {launches}")
+    check(torch.cuda.memory_allocated() == mem,
+          f"phase 28: device memory {torch.cuda.memory_allocated()} B, "
+          f"was {mem} B")
+    check(wall <= 15.0, f"phase 28: {wall:.1f} s, over 15 s")
+    out = dict(n_outputs=len(got), wall_s=wall, probes=0,
+               yaml_importable=yaml_here,
+               n_bytes=sum(len(v) for v in outs.values()))
+    log(f"[28] fault and workload planes: {len(got)} outputs (chaos, "
+        f"deploy, scenario, monitor through the CLI; the artifact tree; "
+        f"run_with_recovery, a TT suite under a fault, a spec's endpoint "
+        f"pool) == the JAX package's sha256, yaml blocked (importable on "
+        f"this machine: {yaml_here}); 0 probes, 0 launches, device memory "
+        f"unchanged; {wall:.3f} s on {card}")
+    return {"fault_planes": out}
+
 
 def main() -> int:
     import torch
@@ -5733,9 +6199,11 @@ def main() -> int:
         finally:
             phase_walls[name] = time.perf_counter() - t0
 
-    # phases 14's and 16's CPU runs go on in a spawned process from here
+    # phases 13's, 14's and 16's CPU runs go on in a spawned process from
+    # here
     import multiprocessing
     twin_pool = multiprocessing.get_context("spawn").Pool(1)
+    detect_twins = twin_pool.apply_async(detect_cpu_twin)
     twins = twin_pool.apply_async(rca_cpu_twins)
     data = run_phase("5b", data_phase, card)
     serve = run_phase("6-8", serve_phases, dev, card)
@@ -5743,7 +6211,7 @@ def main() -> int:
     sketch = run_phase("9-11", sketch_phases, dev, card, batch, cfg)
     roof = run_phase("12", roofline_phases, dev, card, kind, sid_np,
                      planes_np, n_real, SW)
-    det13 = run_phase("13", detect_phase, dev, card)
+    det13 = run_phase("13", detect_phase, dev, card, detect_twins)
     rca14 = run_phase("14", rca_phase, dev, card, twins)
     rca_train = rca14.pop("rca_train_batch")
     mm15 = run_phase("15", multimodal_phase, dev, card, PlainFoldReplay)
@@ -5770,6 +6238,7 @@ def main() -> int:
     planes = p26["planes"]
     p27 = run_phase("27", device_decisions_phase, dev, card, batch, cfg)
     dd = p27["device_decisions"]
+    p28 = run_phase("28", fault_plane_phase, card)
     log(f"[walls] s by phase: "
         f"{ {k: round(v, 1) for k, v in phase_walls.items()} }")
 
@@ -5863,7 +6332,7 @@ def main() -> int:
                     "l2_eviction_ms": flush, **data, **serve,
                     **sketch, **roof, **det13, **rca14, **mm15, **rca16,
                     **tele17, **q18, **s19, **fs20, **ps21, **p22, **p23,
-                    **p24, **p25, **p26, **p27,
+                    **p24, **p25, **p26, **p27, **p28,
                     "phase_walls_s": phase_walls,
                     "wall_s": time.perf_counter() - t_all}))
     log(json.dumps({"kernels": kernels}))

@@ -143,10 +143,11 @@ def test_catalog_and_constants_equal():
             assert metrics_catalog.level_metric_names(testbed, level) == \
                 jcatalog.level_metric_names(testbed, level)
     from anomod.suite import endpoint_owner
+    from anomod_torch import suite
     for e in synth.SN_API_ENDPOINTS + ("/api/v1/orderservice",
                                        "/api/v1/nope"):
         for tb in ("SN", "TT"):
-            assert synth.endpoint_owner(e, tb) == endpoint_owner(e, tb)
+            assert suite.endpoint_owner(e, tb) == endpoint_owner(e, tb)
 
 
 # -- fixture trees ------------------------------------------------------------

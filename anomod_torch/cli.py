@@ -56,9 +56,11 @@
   wire journal), ``diff`` compares two journals tick by tick and exits 1
   naming the first divergent tick and plane.
 - ``collect prometheus | jaeger | skywalking | es``: pull from a running
-  endpoint and write the artifact the loaders read (the counterpart of
-  ``anomod collect``'s four HTTP kinds, ``anomod_torch.io.live``); prints
-  the ``CollectReport`` as one JSON line.
+  endpoint and write the artifact the loaders read
+  (``anomod_torch.io.live``); ``collect kube-logs | docker-logs | jacoco |
+  gcov``: the same through kubectl / docker exec transports
+  (``anomod_torch.io.live_exec``); each prints the ``CollectReport`` as
+  one JSON line (the counterpart of ``anomod collect``).
 - ``obs snapshot | export | score``: the telemetry plane (the
   counterpart of ``anomod obs``): a seeded self-exercise serve run fills
   a fresh registry, then its point-in-time state prints (JSON or
@@ -92,6 +94,15 @@
   SUT (``--chaos``: under a TT fault), and the SN API-response capture
   (``--out``: the artifact family); each prints what its ``anomod``
   counterpart prints.
+- ``campaign``, ``golden``, ``validate`` and ``lint``: the collection
+  toolchain and the contract plane, host only as well: a testbed's
+  experiments archived in the reference tree shape, the census and
+  coverage / log detection over the data root's trees (``--markdown``:
+  the ``docs/GOLDEN_REPORT.md`` body), a corpus's data-quality report
+  with the host library's and the linter's health (``--from-data``: the
+  loaded tree), and the contract linter with the parity audit over the
+  port's tree (``--json``, ``--rules``, ``--update-baseline``; exit 1 on
+  a new finding); each prints what its ``anomod`` counterpart prints.
 
 Every subcommand that runs on the card probes it (:func:`_probe_backend`,
 a subprocess with a deadline: ``ANOMOD_PROBE_DEADLINE``, skipped under
@@ -434,18 +445,34 @@ def _parser() -> argparse.ArgumentParser:
 
     c = sub.add_parser(
         "collect", help="live-transport collection: pull from a running "
-        "Prometheus / Jaeger / SkyWalking / Elasticsearch endpoint and "
-        "write loader-compatible artifacts (the exec kinds kube-logs, "
-        "docker-logs, jacoco and gcov wait for the port of "
-        "io/live_exec.py)")
+        "Prometheus / Jaeger / SkyWalking / Elasticsearch endpoint "
+        "(anomod_torch.io.live) or through kubectl/docker exec transports "
+        "(anomod_torch.io.live_exec) and write loader-compatible "
+        "artifacts")
     c.add_argument("kind", choices=["prometheus", "jaeger", "skywalking",
-                                    "es"])
+                                    "es", "kube-logs", "docker-logs",
+                                    "jacoco", "gcov"])
     c.add_argument("--url",
                    help="base URL (prometheus/jaeger/es) or the GraphQL "
-                        "endpoint (skywalking)")
+                        "endpoint (skywalking); unused by the exec "
+                        "transports")
+    c.add_argument("--namespace", default="default",
+                   help="kube-logs/jacoco: kubernetes namespace")
+    c.add_argument("--tail", type=int, default=1000,
+                   help="kube-logs: lines per pod")
+    c.add_argument("--since", default=None,
+                   help="docker-logs: docker logs --since window (default: "
+                        "full history, the collect_log.sh default)")
+    c.add_argument("--report-dir", default=None,
+                   help="jacoco: coverage_report output tree (default: "
+                        "<out>/../coverage_report)")
+    c.add_argument("--mount-root", default="./coverage-reports",
+                   help="gcov: the compose-mounted coverage-reports dir the "
+                        "in-container collect scripts write into "
+                        "(collect_all_data.sh:535)")
     c.add_argument("--out", required=True,
-                   help="output dir (prometheus --testbed SN) or artifact "
-                        "file path (the others)")
+                   help="output dir (prometheus) or artifact file path "
+                        "(jaeger/skywalking/es)")
     c.add_argument("--testbed", choices=["SN", "TT"], default="SN",
                    help="prometheus only: SN = per-query CSV dir from the "
                         "SN catalog; TT = one long CSV from the TT catalog")
@@ -457,7 +484,8 @@ def _parser() -> argparse.ArgumentParser:
                         "trace budget; es: segment budget")
     c.add_argument("--experiment", default="live",
                    help="skywalking: experiment name stamped into the "
-                        "artifact metadata")
+                        "artifact metadata; gcov: the EXPERIMENT_BASE_NAME "
+                        "forwarded to the in-container collect scripts")
     c.add_argument("--timeout", type=float, default=30.0)
     c.add_argument("--retries", type=int, default=3)
 
@@ -672,6 +700,56 @@ def _parser() -> argparse.ArgumentParser:
                           help="SN only: render the teardown instead")
     p_deploy.add_argument("--secrets", action="store_true",
                           help="TT only: print the 27 per-service DB secrets")
+
+    p_camp = sub.add_parser(
+        "campaign", help="run the full 13-experiment collection campaign "
+        "and archive a reference-shaped dataset tree")
+    p_camp.add_argument("--testbed", choices=["SN", "TT"], default="TT")
+    p_camp.add_argument("--out", required=True)
+    p_camp.add_argument("--traces", type=int, default=200)
+    p_camp.add_argument("--experiments", nargs="*", default=None)
+
+    p_gold = sub.add_parser(
+        "golden", help="golden run over the REAL reference dataset trees: "
+        "loadability census + coverage-modality detection on the non-LFS "
+        "artifacts (anomod_torch.golden)")
+    p_gold.add_argument("--markdown", action="store_true",
+                        help="emit the docs/GOLDEN_REPORT.md body instead "
+                             "of JSON")
+
+    p_val = sub.add_parser("validate", help="data-quality validation report "
+                           "over a corpus (reference-style embedded checks)")
+    p_val.add_argument("--testbed", choices=["SN", "TT"], default="TT")
+    p_val.add_argument("--traces", type=int, default=60)
+    p_val.add_argument("--from-data", action="store_true")
+
+    p_lint = sub.add_parser(
+        "lint", help="contract-checking static analysis "
+        "(anomod_torch.analysis): AST lint of the determinism / "
+        "env-contract / seam / lock contracts plus the parity-surface "
+        "audit (ServeReport fields and flight-record keys vs their "
+        "declared variant lists).  Pure stdlib ast — never touches the "
+        "backend. Catalog: docs/CONTRACTS.md")
+    p_lint.add_argument("--root", default=None,
+                        help="repo root to scan (default: this checkout)")
+    p_lint.add_argument("--json", action="store_true",
+                        help="machine output only (one JSON document, "
+                             "findings inlined)")
+    p_lint.add_argument("--baseline", default=None,
+                        help="baseline file (default: "
+                             "anomod_torch/analysis/lint_baseline.json)")
+    p_lint.add_argument("--update-baseline", action="store_true",
+                        help="rewrite the baseline to exactly the current "
+                             "findings (the ratchet only shrinks unless "
+                             "you run this)")
+    p_lint.add_argument("--no-parity", action="store_true",
+                        help="skip the parity-surface audit (AST rule "
+                             "families only)")
+    p_lint.add_argument("--show-suppressed", action="store_true",
+                        help="also list suppressed findings with their "
+                             "reasons")
+    p_lint.add_argument("--rules", action="store_true",
+                        help="print the rule catalog and exit")
 
     p_mon = sub.add_parser(
         "monitor", help="SN API-response monitor over the synthetic SUT "
@@ -1469,12 +1547,48 @@ def _quality(args, parser) -> int:
     return 0
 
 
+def _collect_exec(args) -> int:
+    """``collect kube-logs | docker-logs | jacoco | gcov``: the exec
+    transports (``anomod_torch.io.live_exec``), stamped with the local
+    time."""
+    import time
+    from pathlib import Path
+
+    from anomod_torch.io.live_exec import (DockerLogCollector, ExecRunner,
+                                           GcovCoverageCollector,
+                                           JacocoCoverageCollector,
+                                           KubeLogCollector)
+    runner = ExecRunner(timeout=args.timeout)
+    stamp = time.strftime("%Y%m%d_%H%M%S")
+    out = Path(args.out)
+    if args.kind == "kube-logs":
+        rep = KubeLogCollector(runner=runner,
+                               namespace=args.namespace).collect(
+            out, stamp=stamp, tail=args.tail)
+    elif args.kind == "docker-logs":
+        rep = DockerLogCollector(runner=runner).collect(
+            out, stamp=stamp, time_range=args.since)
+    elif args.kind == "gcov":
+        rep = GcovCoverageCollector(runner=runner).collect(
+            Path(args.mount_root), out, base=args.experiment, stamp=stamp)
+    else:
+        report = (Path(args.report_dir) if args.report_dir
+                  else out.parent / "coverage_report")
+        rep = JacocoCoverageCollector(runner=runner,
+                                      namespace=args.namespace).collect(
+            out, report)
+    print(json.dumps(rep.to_json()))
+    return 0
+
+
 def _collect(args, parser) -> int:
     import time
 
     from anomod_torch.io.live import (ElasticsearchClient, HttpTransport,
                                       JaegerClient, PrometheusClient,
                                       SkyWalkingClient)
+    if args.kind in ("kube-logs", "docker-logs", "jacoco", "gcov"):
+        return _collect_exec(args)
     if not args.url:
         parser.error(f"--url is required for kind {args.kind}")
     tp = HttpTransport(timeout=args.timeout, max_retries=args.retries)
@@ -1958,6 +2072,96 @@ def _monitor(args) -> int:
     return 0
 
 
+def _campaign(args) -> int:
+    """``campaign``: archive a testbed's experiments in the reference tree
+    shape."""
+    from anomod_torch.campaign import run_campaign
+    done = run_campaign(args.testbed, args.out,
+                        experiments=args.experiments, n_traces=args.traces)
+    print(json.dumps({"testbed": args.testbed, "out": args.out,
+                      "experiments": done}))
+    return 0
+
+
+def _golden(args) -> int:
+    """``golden``: the census and the coverage and log detection over the
+    data root's trees."""
+    from anomod_torch.golden import format_markdown, golden_report
+    report = golden_report()
+    print(format_markdown(report) if args.markdown
+          else json.dumps(report, indent=1))
+    return 0
+
+
+def _validate(args) -> int:
+    """``validate``: the data-quality report of a testbed's corpus, with
+    the host library's health (``native``) and the contract linter's
+    (``lint``) beside it."""
+    from anomod_torch import labels, synth
+    from anomod_torch.analysis import status_block
+    from anomod_torch.io import cache as ingest_cache
+    from anomod_torch.io import dataset
+    from anomod_torch.io import native as native_io
+    from anomod_torch.validate import corpus_summary, validate_experiment
+    ingest_cache.reset_stats()
+    if args.from_data:
+        corpus = dataset.load_corpus(args.testbed,
+                                     n_synth_traces=args.traces)
+    else:
+        corpus = [synth.generate_experiment(lab, n_traces=args.traces)
+                  for lab in labels.labels_for_testbed(args.testbed)]
+    reports = [validate_experiment(e) for e in corpus]
+    cache_stats = None
+    if args.from_data:
+        # an unreadable counter degrades to zeros: the counters are a
+        # quality signal, never a dependency of the report
+        try:
+            cache_stats = ingest_cache.stats().to_dict()
+        except Exception:
+            cache_stats = ingest_cache.CacheStats().to_dict()
+    summary = corpus_summary(args.testbed, reports, cache_stats=cache_stats)
+    summary["native"] = native_io.status()
+    summary["lint"] = status_block()
+    print(json.dumps(summary, indent=2))
+    return 0
+
+
+def _lint(args) -> int:
+    """``lint``: the contract linter and the parity audit over the port's
+    tree (exit 1 on a finding neither suppressed nor baselined)."""
+    from anomod_torch.analysis import lint
+    if args.rules:
+        print(json.dumps({rid: dataclasses.asdict(r)
+                          for rid, r in sorted(lint.RULES.items())},
+                         indent=2))
+        return 0
+    root = lint.repo_root() if args.root is None else args.root
+    bpath = args.baseline or lint.baseline_path(root)
+    doc, findings = lint.run_gate(root, include_parity=not args.no_parity,
+                                  baseline_file=bpath)
+    if args.update_baseline:
+        lint.save_baseline(bpath, [f.key for f in findings
+                                   if not f.suppressed])
+        doc, findings = lint.run_gate(
+            root, include_parity=not args.no_parity, baseline_file=bpath)
+    if args.json:
+        if args.show_suppressed:
+            doc["suppressed_findings"] = [
+                {"finding": f.render(), "reason": f.reason}
+                for f in findings if f.suppressed]
+        print(json.dumps(doc))
+    else:
+        for line in doc["new"]:
+            print(line, file=sys.stderr)
+        if args.show_suppressed:
+            for f in findings:
+                if f.suppressed:
+                    print(f"{f.render()} [suppressed: {f.reason}]",
+                          file=sys.stderr)
+        print(json.dumps({k: v for k, v in doc.items() if k != "new"}))
+    return 0 if doc["status"] == "ok" else 1
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     from anomod_torch.utils.platform import await_probe
     parser = _parser()
@@ -2012,6 +2216,14 @@ def _run(args, parser) -> int:
         return _deploy(args)
     if args.cmd == "monitor":
         return _monitor(args)
+    if args.cmd == "campaign":
+        return _campaign(args)
+    if args.cmd == "golden":
+        return _golden(args)
+    if args.cmd == "validate":
+        return _validate(args)
+    if args.cmd == "lint":
+        return _lint(args)
     return _stream(args, parser)
 
 

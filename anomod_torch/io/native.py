@@ -115,6 +115,37 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
+def status() -> dict:
+    """The host library's health document, with the keys of the JAX
+    ``anomod.io.native.status()``: ``mode`` (the ``ANOMOD_NATIVE`` value
+    of the port's ``Config``), ``available``, ``so_path`` (None until
+    built), ``build_error`` (why the library is unusable, the compiler's
+    or the loader's words; None while it is fine) and ``staging`` (the
+    serve tick stages through it); ``mode`` ``on`` with no library adds
+    ``error``.  It builds the library if it must, and reports a failed
+    build rather than raising: it is a health document (``validate``
+    carries it).  The staging path itself still raises."""
+    from anomod_torch.config import get_config
+    m = get_config().native
+    so_path, build_error = None, None
+    try:
+        library()
+    except (RuntimeError, OSError) as e:
+        build_error = f"{type(e).__name__}: {e}"
+    try:
+        built = target()
+        so_path = str(built) if built.exists() else None
+    except RuntimeError:                # no compiler: nothing was built
+        pass
+    ok = build_error is None
+    out = {"mode": m, "available": ok, "so_path": so_path,
+           "build_error": build_error, "staging": bool(ok and m != "off")}
+    if m == "on" and not ok:
+        out["error"] = ("ANOMOD_NATIVE=on but the native runtime is "
+                        "unusable — see build_error")
+    return out
+
+
 # -- staging ----------------------------------------------------------------
 
 class StagedChunk:

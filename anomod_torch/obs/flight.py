@@ -89,9 +89,11 @@ def _state_chunks(replays: Dict[int, object]):
         runner = getattr(rep, "_runner", None)
         if getattr(rep, "_slot", None) is not None \
                 and getattr(runner, "pool", None) is not None:
+            # anomod-lint: disable=D104 — id(runner) only groups this call's tenants by their runner (each lives for the whole call); the groups keep insertion order and the chunks go out in sorted(replays) order, so no address reaches the bytes
             pooled.setdefault(id(runner), (runner, []))[1].append(tid)
     rows: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
     for runner, tids in pooled.values():
+        # anomod-lint: disable=S301 — the port reads a runner's resident rows in ONE device copy (BucketRunner.gather_rows, the seam's bulk read, always a copy) where the JAX recorder reads get_state a tenant; slots are only collected here
         agg, hist = runner.gather_rows([replays[t]._slot for t in tids])
         for i, t in enumerate(tids):
             rows[t] = (agg[i], hist[i])

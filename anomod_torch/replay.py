@@ -328,6 +328,7 @@ class TenantStatePool:
     def gather(self, slot: int) -> ReplayState:
         """Host copy of one tenant's state (the get_state seam)."""
         slot = int(slot)   # a None slot must raise, not broadcast
+        # anomod-lint: disable=S302 — torch's .cpu().clone() is the copy (a device-to-host copy, then a clone on the host); the rule knows numpy's .copy() only
         return ReplayState(agg=self.agg[slot].cpu().clone(),
                            hist=self.hist[slot].cpu().clone())
 
@@ -400,6 +401,7 @@ class TenantStatePool:
     def gather_rows(self, slots) -> np.ndarray:
         """``[T, SW, F]`` host copy of whole agg rows."""
         idx = torch.as_tensor(np.asarray(slots, np.int64), device=self.device)
+        # anomod-lint: disable=S302 — indexing by an index tensor is a gather: torch materializes new rows, never a view of the pool, before the host copy
         return self.agg[idx].cpu().numpy()
 
     def warm(self) -> float:

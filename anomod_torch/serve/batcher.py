@@ -251,6 +251,7 @@ class BucketRunner:
         with self.on_stream():
             idx = torch.as_tensor(np.asarray(slots, np.int64),
                                   device=self.device)
+            # anomod-lint: disable=S302 — indexing by an index tensor is a gather: torch materializes new rows, never a view of the pool, before the host copy
             return (self.pool.agg[idx].cpu().numpy(),
                     self.pool.hist[idx].cpu().numpy())
 

@@ -116,8 +116,7 @@ class ServeChaos:
             where = (f"@tick {tick} shard {shard} phase {phase} "
                      f"(attempt {f.fired})")
             if f.kind == "stall":
-                # the stall is a scripted wall delay: it moves walls,
-                # never a decision
+                # anomod-lint: disable=D101 — the stall FAULT is a scripted wall delay by definition; it perturbs walls (variant tier), never decisions
                 time.sleep(f.ms / 1000.0)
             elif f.kind == "crash":
                 raise ChaosWorkerCrash(f"chaos: shard-worker crash "

@@ -279,6 +279,7 @@ def _plane_col_gather(work):
 
     def gather(items):
         reps = [work[i][0].replay for i, _ in items]
+        # anomod-lint: disable=S301 — the one blessed fused-gather exception: slots are only COLLECTED here and handed to pool.gather_window, which owns the always-copy contract
         if reps and all(type(r) is PooledStreamReplay for r in reps) \
                 and all(r._runner is reps[0]._runner for r in reps):
             return reps[0]._runner.pool.gather_window(

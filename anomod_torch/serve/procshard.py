@@ -228,6 +228,7 @@ class ProcShardWorker:
         self._proc.start()
         child_conn.close()
         try:
+            # anomod-lint: disable=D101 — a wall stamp across processes (perf_counter does not compare between them) for the child's boot wall, a variant figure of the hello, never a decision
             self._conn.send({**init, "sent_at": time.time()})
         except BaseException:
             self.close(force=True)
@@ -358,6 +359,7 @@ def _shard_main(conn) -> None:
         return
     # the start-up split the handshake reports: interpreter, imports
     # and the pipe (from the parent's send), then the shard plane
+    # anomod-lint: disable=D101 — the boot wall against the parent's send stamp: a variant figure of the hello, never a decision
     boot_s = time.time() - init["sent_at"]
     t0 = time.perf_counter()
     try:

@@ -83,11 +83,13 @@ def snapshot_replays(replays: Dict[int, object]) -> Dict[int, dict]:
     out: Dict[int, dict] = {}
     for tid, rep in replays.items():
         if _pooled(rep):
+            # anomod-lint: disable=D104,S301 — the port snapshots a runner's resident rows in one device copy (BucketRunner.gather_rows) where the JAX supervisor reads get_state a tenant: id() only groups this call's tenants by runner, in insertion order, and the runner is only looked up, never written
             pooled.setdefault(id(rep._runner), (rep._runner, []))[1].append(
                 tid)
         else:
             out[tid] = snapshot_replay(rep)
     for runner, tids in pooled.values():
+        # anomod-lint: disable=S301 — slots are only collected here and handed to BucketRunner.gather_rows, the seam's one-copy bulk read
         agg, hist = runner.gather_rows([replays[t]._slot for t in tids])
         for i, t in enumerate(tids):
             out[t] = {"state": ReplayState(agg=agg[i], hist=hist[i]),

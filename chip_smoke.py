@@ -216,7 +216,25 @@ drives the data layer and every ported path:
   ``run_with_recovery``, a TT suite under an injected fault and a spec's
   endpoint pool: each output's sha256 equal to the JAX package's
   (:data:`FAULT_PLANE_DIGESTS`), with ``yaml`` blocked, no probe, no
-  launch and no device memory taken.
+  launch and no device memory taken;
+- the exec transports, the campaign, the golden run, the contract
+  linter and ``validate`` (phase 29), host only, through the CLI in a
+  spawned process started at the head of phase 24 with no probe
+  skipped: ``campaign`` SN and TT (the normal baseline and two faults
+  each, 60 traces), ``golden`` and ``golden --markdown`` over that tree
+  with LFS pointers laid over two payloads, ``validate`` on synth and
+  ``--from-data`` on the tree, ``lint --rules``, the four ``collect``
+  exec kinds against a scripted cluster at a fixed stamp: each output's
+  sha256 equal to the JAX package's (:data:`COLLECTION_PLANE_DIGESTS`,
+  wall-time fields stripped, :func:`collection_plane_outputs`); ``lint
+  --json`` clean over this checkout; no probe, no CUDA, no launch.
+
+Phase 18's CPU trainings and phase 29 run in spawned processes; phases
+6-8 and 20 print each serve run's wall and what lies between the runs;
+phase 21 splits its profiled run's rest (the children's profiler start,
+their closes with the trace's close and write and their exit, the
+parent's reading); a shard child's ``python -X importtime`` runs beside
+phases 28-29.
 
 The serve runs of phases 8 and 16-23 run with the flight recorder on and
 supervised (a checkpoint every 32 ticks), the engine's defaults.
@@ -2449,6 +2467,54 @@ def sweep_cpu_twin() -> tuple:
     return [dataclasses.asdict(p) for p in twin], time.perf_counter() - t0
 
 
+def batch_digest(batch: dict) -> str:
+    """sha256 over a training batch's arrays, key by key."""
+    import hashlib
+
+    import numpy as np
+    h = hashlib.sha256()
+    for k in sorted(batch):
+        v = np.asarray(batch[k])
+        h.update(f"{k} {v.dtype.str} {v.shape}".encode())
+        h.update(np.ascontiguousarray(v).tobytes())
+    return h.hexdigest()
+
+
+def sweep_loss_cpu_twin() -> dict:
+    """Phase 18's CPU trainings, in a spawned process started at the head
+    of the phase beside the card's sweep (two torch threads): the
+    training batch rebuilt here from :data:`SWEEP_SEEDS` (``_grid_batches``
+    is deterministic for its seeds; its digest goes back for the card's
+    batch to be held to), then each learned family's
+    :data:`SWEEP_LOSS_EPOCHS` losses from ``init_model(name, train,
+    seed=0, device="cpu")``, each with its wall."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import torch
+
+    from anomod_torch import quality, rca, synth
+    torch.set_num_threads(2)
+    t_all = time.perf_counter()
+    eval_modes = {sev: synth.HardMode(severity=sev, noise=0.5)
+                  for sev in SWEEP_SEVERITIES}
+    train, _ = quality._grid_batches(
+        "TT", eval_modes, SWEEP_SEEDS["train_seeds"],
+        SWEEP_SEEDS["eval_seeds"], 60, 0.5, 2)
+    out = dict(batch_digest=batch_digest(train),
+               build_s=time.perf_counter() - t_all, losses={}, walls={})
+    cpu = torch.device("cpu")
+    for name in SWEEP_MODELS:
+        if name in quality.TRAINING_FREE:
+            continue
+        model = rca.init_model(name, train, seed=0, device=cpu)
+        t0 = time.perf_counter()
+        out["losses"][name] = rca.train_loop(
+            name, model, rca.make_optimizer(model),
+            rca.to_device(train, cpu), 0, SWEEP_LOSS_EPOCHS)
+        out["walls"][name] = time.perf_counter() - t0
+    out["wall_s"] = time.perf_counter() - t_all
+    return out
+
+
 def quality_phase(dev, card) -> dict:
     """Phase 18: ``severity_sweep("TT")`` on the card at full width, every
     learned family the CLI trains plus the stream row and the z-score
@@ -2462,14 +2528,14 @@ def quality_phase(dev, card) -> dict:
     :data:`RTOL_SWEEP_LOSS` of the first, and trained twice on the card
     with losses equal bit for bit (the GNN segment sums add in a fixed
     order on the card); and each family's ms an
-    epoch, device events and busy share from one profiled epoch."""
-    import dataclasses
+    epoch, device events and busy share from one profiled epoch.  The
+    CPU trainings run in a spawned process (:func:`sweep_loss_cpu_twin`)
+    beside the sweep's CPU twin, from the head of the phase on."""
     import multiprocessing
 
-    import numpy as np
     import torch
 
-    from anomod_torch import quality, rca, synth
+    from anomod_torch import quality
     from anomod_torch.ops import replay_kernels as rk
 
     check(not torch.backends.cuda.matmul.allow_tf32,
@@ -2477,8 +2543,10 @@ def quality_phase(dev, card) -> dict:
     check(quality.HARD_POINT == {"severity": SWEEP_SEVERITIES[1],
                                  "noise": 0.5, "n_confounders": 2},
           f"quality: HARD_POINT {quality.HARD_POINT}")
-    with multiprocessing.get_context("spawn").Pool(1) as pool:
+    pool = multiprocessing.get_context("spawn").Pool(2)
+    try:
         twin_job = pool.apply_async(sweep_cpu_twin)
+        loss_job = pool.apply_async(sweep_loss_cpu_twin)
         rk.reset_launches()
         t0 = time.perf_counter()
         pts = quality.severity_sweep("TT", model_names=SWEEP_MODELS,
@@ -2490,6 +2558,22 @@ def quality_phase(dev, card) -> dict:
         t0 = time.perf_counter()
         twin, twin_s = twin_job.get(timeout=900)
         twin_wait_s = time.perf_counter() - t0
+        return _quality_rest(dev, card, pts, wall_s, launches, twin, twin_s,
+                             twin_wait_s, loss_job)
+    finally:
+        pool.terminate()
+        pool.join()
+
+
+def _quality_rest(dev, card, pts, wall_s, launches, twin, twin_s,
+                  twin_wait_s, loss_job) -> dict:
+    """Phase 18 after the sweep: its checks, then each learned family's
+    losses on the card against :func:`sweep_loss_cpu_twin`'s."""
+    import dataclasses
+
+    import numpy as np
+
+    from anomod_torch import quality, rca, synth
     check(launches > 0, "quality: the stream row launched no "
           "dense_slice_fold")
     check(len(pts) == len(SWEEP_MODELS) * len(SWEEP_SEVERITIES),
@@ -2521,13 +2605,25 @@ def quality_phase(dev, card) -> dict:
     log(f"[18] training batch {tuple(train['x'].shape)} x_t "
         f"{tuple(train['x_t'].shape)}, edges {train['edge_src'].shape[1]}, "
         f"rebuilt in {build_s:.3f} s on the host")
+    t0 = time.perf_counter()
+    cpu_twin = loss_job.get(timeout=900)
+    loss_wait_s = time.perf_counter() - t0
+    check(cpu_twin["batch_digest"] == batch_digest(train),
+          "quality: the CPU twin's rebuilt training batch differs from the "
+          "card's")
+    log(f"[18] CPU trainings in a spawned process (two torch threads): "
+        f"batch rebuilt in {cpu_twin['build_s']:.3f} s (equal to the "
+        f"card's), {len(cpu_twin['losses'])} families in "
+        f"{cpu_twin['wall_s']:.3f} s, "
+        f"{ {k: round(v, 3) for k, v in cpu_twin['walls'].items()} } s; "
+        f"{loss_wait_s:.3f} s waited for")
     families = {}
     for name in SWEEP_MODELS:
         if name in quality.TRAINING_FREE:
             continue
-        runs = {}
-        for key, where in (("cuda", dev), ("cuda_again", dev),
-                           ("cpu", torch.device("cpu"))):
+        runs = {"cpu": cpu_twin["losses"][name],
+                "cpu_s": cpu_twin["walls"][name]}
+        for key, where in (("cuda", dev), ("cuda_again", dev)):
             model = rca.init_model(name, train, seed=0, device=where)
             t0 = time.perf_counter()
             runs[key] = rca.train_loop(
@@ -2563,7 +2659,10 @@ def quality_phase(dev, card) -> dict:
         points=[dataclasses.asdict(p) for p in pts], table=table,
         wall_s=wall_s, cpu_twin_wall_s=twin_s, cpu_twin_wait_s=twin_wait_s,
         dense_launches=launches,
-        batch_build_s=build_s, families=families)}
+        batch_build_s=build_s, families=families,
+        cpu_loss_twin_wall_s=cpu_twin["wall_s"],
+        cpu_loss_twin_build_s=cpu_twin["build_s"],
+        cpu_loss_twin_wait_s=loss_wait_s)}
 
 
 def shift_phase(dev, card) -> dict:
@@ -2898,20 +2997,37 @@ def _child_profiler(out_dir: str) -> None:
     command (its warm-up), after the start-up handshake, and when the
     child exits its device busy ms (the union of its device event
     intervals) lands in ``out_dir/busy_<pid>.json``.  A profiler sees one
-    process's CUDA work only, so each child profiles its own."""
+    process's CUDA work only, so each child profiles its own.  The
+    profiler's one-time start-up runs once, empty, as the child builds
+    its shard plane (the children start side by side; they warm up in
+    turn), and a child whose numbers are written leaves at once."""
     import os
 
     from anomod_torch.serve import procshard
     real_main = procshard._shard_main
+    real_init = procshard._ShardPlane.__init__
     real_handle = procshard._ShardPlane.handle
-    started = []
+    started, prestart = [], []
+
+    def init(self, doc):
+        real_init(self, doc)
+        # the profiler's one-time start-up (CUPTI and the tracer) paid
+        # here, inside the children's start, where the children start
+        # side by side, and not at the warm-up, where they go in turn; the
+        # trace itself still starts at the warm-up
+        from torch.profiler import ProfilerActivity, profile
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]):
+            pass
+        prestart.append(time.perf_counter() - t0)
 
     def handle(self, msg):
         if not started:
             from torch.profiler import ProfilerActivity, profile
+            t0 = time.perf_counter()
             prof = profile(activities=[ProfilerActivity.CUDA])
             prof.__enter__()
-            started.append(prof)
+            started.extend([prof, time.perf_counter() - t0])
         return real_handle(self, msg)
 
     def profiled(conn):
@@ -2924,11 +3040,115 @@ def _child_profiler(out_dir: str) -> None:
                 torch.cuda.synchronize()
                 started[0].__exit__(None, None, None)
                 busy = device_busy_ms(started[0])
+                # the wall stamp lets the parent see how long the child
+                # took to exit after writing (perf_counter does not
+                # compare across processes)
                 Path(out_dir, f"busy_{os.getpid()}.json").write_text(
                     json.dumps({"busy_ms": busy,
-                                "profile_s": time.perf_counter() - t0}))
+                                "prestart_s": prestart[0] if prestart
+                                else None,
+                                "start_s": started[1],
+                                "profile_s": time.perf_counter() - t0,
+                                "written_at": time.time()}))
+        if started:
+            # a clean close with its numbers written: leave without the
+            # interpreter's and the tracer's teardown
+            os._exit(0)
+    procshard._ShardPlane.__init__ = init
     procshard._ShardPlane.handle = handle
     procshard._shard_main = profiled
+
+
+def _script_line() -> int:
+    """The line of this script's phase code that the current serve run
+    came from (the wrappers of :func:`serve_run_split` skipped)."""
+    here = str(Path(__file__).resolve())
+    f = sys._getframe(1)
+    while f is not None and not (
+            str(Path(f.f_code.co_filename).resolve()) == here
+            and f.f_code.co_name not in ("run", "run_power_law")):
+        f = f.f_back
+    return f.f_lineno if f is not None else 0
+
+
+@contextlib.contextmanager
+def serve_run_split():
+    """Record every serve run inside the block (a phase's split): each
+    ``run_power_law`` call's wall and each ``ServeEngine.run``'s wall
+    (warm-up, ticks, close) and serve wall, with the line of this script
+    it came from.  Runs in spawned processes are not seen."""
+    from anomod_torch.serve import engine
+    real_run, real_rpl = engine.ServeEngine.run, engine.run_power_law
+    runs = []
+
+    def run(self, traffic, duration_s, warm=True):
+        t0 = time.perf_counter()
+        rep = real_run(self, traffic, duration_s, warm)
+        runs.append({"line": _script_line(),
+                     "run_s": time.perf_counter() - t0,
+                     "serve_wall_s": rep.serve_wall_s})
+        return rep
+
+    def run_power_law(*a, **k):
+        n0 = len(runs)
+        t0 = time.perf_counter()
+        out = real_rpl(*a, **k)
+        wall = time.perf_counter() - t0
+        # the traffic and engine set-up around the call's one run
+        for r in runs[n0:]:
+            r["setup_s"] = wall - sum(x["run_s"] for x in runs[n0:])
+        return out
+    engine.ServeEngine.run = run
+    engine.run_power_law = run_power_law
+    try:
+        yield runs
+    finally:
+        engine.ServeEngine.run = real_run
+        engine.run_power_law = real_rpl
+
+
+def log_serve_split(phase: str, runs: list, wall_s: float, card) -> dict:
+    """Print a phase's serve runs and what lies between them."""
+    run_s = sum(r["run_s"] for r in runs)
+    serve_s = sum(r["serve_wall_s"] for r in runs)
+    setup_s = sum(r.get("setup_s", 0.0) for r in runs)
+    out = dict(n_runs=len(runs), runs=runs, run_s=run_s,
+               serve_wall_s=serve_s, setup_s=setup_s, phase_wall_s=wall_s,
+               between_runs_s=wall_s - run_s)
+    log(f"[{phase}] split on {card}: {len(runs)} serve runs in "
+        f"{run_s:.3f} s of a {wall_s:.3f} s phase (serve walls "
+        f"{serve_s:.3f} s, each run's warm-up and close the other "
+        f"{run_s - serve_s:.3f} s); between the runs {wall_s - run_s:.3f} "
+        f"s, of which run_power_law's traffic and engine set-up "
+        f"{setup_s:.3f} s and the rest the phase's own set-up, kernel "
+        f"checks and comparisons")
+    for r in runs:
+        log(f"[{phase}] split run at line {r['line']}: run "
+            f"{r['run_s']:.3f} s, serve wall {r['serve_wall_s']:.3f} s"
+            + (f", set-up {r['setup_s']:.3f} s" if "setup_s" in r else ""))
+    return out
+
+
+@contextlib.contextmanager
+def child_closes():
+    """Record every ``ProcShardWorker.close`` inside the block: its wall
+    (the ``close`` message, the join and any terminate), the wall stamp
+    when the child was reaped and its exit code (negative: terminated)."""
+    from anomod_torch.serve import procshard
+    real = procshard.ProcShardWorker.close
+    got = []
+
+    def close(self, force=False):
+        t0 = time.perf_counter()
+        real(self, force)
+        got.append({"close_s": time.perf_counter() - t0,
+                    "reaped_at": time.time(),
+                    "exitcode": self._proc.exitcode, "force": force})
+    procshard.ProcShardWorker.close = close
+    try:
+        yield got
+    finally:
+        procshard.ProcShardWorker.close = real
 
 
 @contextlib.contextmanager
@@ -3094,7 +3314,7 @@ def supervise_proc_phase(dev, card, cpu_journal, fs20) -> dict:
         for n, fold in PROC_RUNS:
             name = f"process-{n}-{fold}"
             with tempfile.TemporaryDirectory() as tmp, \
-                    child_hellos() as hellos:
+                    child_hellos() as hellos, child_closes() as closes:
                 if name == PROFILED_PROC_RUN:
                     os.environ[CHILD_PROFILE_ENV] = tmp
                 else:
@@ -3104,13 +3324,25 @@ def supervise_proc_phase(dev, card, cpu_journal, fs20) -> dict:
                 eng, rep = run_power_law(shards=n, worker="process",
                                          fold=fold, **kw)
                 run_s = time.perf_counter() - t0
+                t0 = time.perf_counter()
                 docs = [json.loads(f.read_text())
                         for f in sorted(Path(tmp).glob("busy_*.json"))]
+                read_s = time.perf_counter() - t0
                 busy_each = [d["busy_ms"] for d in docs]
-            split[name] = dict(wall_s=run_s, serve_wall_s=rep.serve_wall_s,
-                               worker_start_s=eng.worker_start_s,
-                               child_profile_s=[d["profile_s"]
-                                                for d in docs])
+            # each child's exit after it wrote its busy ms: from its stamp
+            # to the parent's reaping it (the children close in turn)
+            written = sorted(d["written_at"] for d in docs)
+            reaped = sorted(c["reaped_at"] for c in closes)
+            split[name] = dict(
+                wall_s=run_s, serve_wall_s=rep.serve_wall_s,
+                worker_start_s=eng.worker_start_s,
+                child_profile_s=[d["profile_s"] for d in docs],
+                child_profiler_prestart_s=[d["prestart_s"] for d in docs],
+                child_profiler_start_s=[d["start_s"] for d in docs],
+                child_exit_s=[r - w for w, r in zip(written, reaped)],
+                close_s=[c["close_s"] for c in closes],
+                close_exitcodes=[c["exitcode"] for c in closes],
+                read_s=read_s)
             pins(rep, name)
             check(rep.worker == "process" and rep.fold == fold
                   and rep.shards == n, f"{name}: ran as {rep.worker}, "
@@ -3201,10 +3433,19 @@ def supervise_proc_phase(dev, card, cpu_journal, fs20) -> dict:
     # where the phase's wall goes: each run's wall from start to end, its
     # serve wall, its children's start and (profiled children) the time
     # each took to close its trace and write its busy ms
+    def r3(xs):
+        return [round(x, 3) for x in xs]
     for name, r in split.items():
         rest = r["wall_s"] - r["serve_wall_s"] - r.get("worker_start_s", 0.0)
         r["rest_s"] = rest
         prof = r.get("child_profile_s")
+        if "close_s" in r:
+            # the rest in parts: the children's closes (the close message,
+            # each child's trace close and write and its exit, the join)
+            # happen in turn; what is left is the run's set-up around
+            # the serve wall, the children's profiler start (at the
+            # warm-up, before the serve wall) included
+            r["rest_outside_closes_s"] = rest - sum(r["close_s"])
         log(f"[21] split {name} on {card}: wall {r['wall_s']:.3f} s = serve "
             f"{r['serve_wall_s']:.3f} s"
             + (f" + children's start {r['worker_start_s']:.3f} s"
@@ -3212,8 +3453,19 @@ def supervise_proc_phase(dev, card, cpu_journal, fs20) -> dict:
             + f" + the rest {rest:.3f} s"
             + ("" if prof is None else
                f"; children's profile close and write "
-               f"{[round(x, 3) for x in prof] if prof else 'not profiled'}"
-               f" s"))
+               f"{r3(prof) if prof else 'not profiled'} s")
+            + ("" if "close_s" not in r else
+               f"; the profiler's start-up inside the children's start "
+               f"{r3(r['child_profiler_prestart_s'])} s; the rest in "
+               f"parts: children's profiler start "
+               f"{r3(r['child_profiler_start_s'])} s (at the warm-up, "
+               f"before the serve wall), closes (message, trace close and write, exit, "
+               f"join) {r3(r['close_s'])} s (exit codes "
+               f"{r['close_exitcodes']}), each child's exit after its "
+               f"write {r3(r['child_exit_s'])} s, the parent's reading of "
+               f"the children's busy files {r['read_s']:.4f} s, the run's "
+               f"set-up outside the closes "
+               f"{r['rest_outside_closes_s']:.3f} s"))
     out["phase21_split"] = split
     log(f"[21] respawn on {card}: shard 1's child killed at tick 40, "
         f"{rep.n_respawns} respawn(s), {rep.n_restored_ticks} restored "
@@ -5098,24 +5350,10 @@ def count_probes():
 @contextlib.contextmanager
 def env_set(name, value):
     """``os.environ[name] = value`` (None: unset) while the block runs,
-    with both packages' settings re-read at its start and end."""
-    import os
-
-    from anomod_torch.config import set_config
-    prev = os.environ.get(name)
-    if value is None:
-        os.environ.pop(name, None)
-    else:
-        os.environ[name] = value
-    set_config(None)
-    try:
+    with the port's settings re-read at its start and end."""
+    from anomod_torch import config
+    with package_env(config, {name: value}):
         yield
-    finally:
-        if prev is None:
-            os.environ.pop(name, None)
-        else:
-            os.environ[name] = prev
-        set_config(None)
 
 
 def all_launches() -> dict:
@@ -5772,23 +6010,12 @@ def fault_plane_outputs(pkg, cli_main, root) -> dict:
     :data:`FAULT_PLANE_DIGESTS` (``tests/test_torch_workload.py`` holds
     them)."""
     import dataclasses
-    import io
     import tempfile
     out = {}
     with tempfile.TemporaryDirectory() as tmp, utc_clock():
         mon = Path(tmp, "monitor")
         for argv in fault_plane_argvs(pkg.labels, mon):
-            stdout, stderr = io.StringIO(), io.StringIO()
-            with contextlib.redirect_stdout(stdout), \
-                    contextlib.redirect_stderr(stderr):
-                try:
-                    rc = cli_main(argv)
-                except SystemExit as e:
-                    rc = e.code
-            text = f"rc={rc}\n" + stdout.getvalue().replace(str(mon),
-                                                            OUT_MARK)
-            if rc:
-                text += "\nstderr:\n" + stderr.getvalue()
+            _, text, _ = _cli_text(cli_main, argv, mon)
             out[" ".join(argv).replace(str(mon), OUT_MARK)] = text.encode()
         for f in sorted(mon.iterdir()):
             out[f"monitor file {f.name}"] = f.read_bytes()
@@ -5888,6 +6115,539 @@ def fault_plane_phase(card) -> dict:
         f"this machine: {yaml_here}); 0 probes, 0 launches, device memory "
         f"unchanged; {wall:.3f} s on {card}")
     return {"fault_planes": out}
+
+
+#: phase 29's campaign: the normal baseline and two faults a testbed
+COLLECTION_EXPERIMENTS = {
+    "SN": ("Normal_Baseline", "Svc_Kill_Media", "Code_Stop_TextService"),
+    "TT": ("Normal_case", "Lv_P_CPU_preserve", "Lv_S_HTTPABORT_preserve")}
+COLLECTION_TRACES = 60
+#: the stamp phase 29's exec collectors write with (the CLI's local time)
+COLLECTION_STAMP = "20260731_120000"
+#: LFS pointer files phase 29 lays over its campaign tree before the
+#: golden run (the reference checkout's shape: payloads left as pointers)
+COLLECTION_LFS = (
+    ("TT_data/trace_data", "Lv_S_HTTPABORT_preserve",
+     "*_skywalking_traces_*.json"),
+    ("TT_data/metric_data", "Lv_P_CPU_preserve", "*.csv"),
+    ("TT_data/metric_data", "Lv_S_HTTPABORT_preserve", "*.csv"),
+    ("SN_data/metric_data", "Svc_Kill_Media", "*.csv"))
+LFS_POINTER = ("version https://git-lfs.github.com/spec/v1\n"
+               "oid sha256:" + "0" * 64 + "\nsize 4096\n")
+#: the sha256 of each of phase 29's outputs
+#: (:func:`collection_plane_outputs`) as the JAX package gives them;
+#: tests/test_torch_collection.py holds this table to the JAX package on
+#: the CPU
+COLLECTION_PLANE_DIGESTS = {
+    "campaign --testbed SN --out <out>/campaign --traces 60 "
+    "--experiments Normal_Baseline Svc_Kill_Media Code_Stop_TextService":
+        "fb30489902736f2298df235cd2ab3fb3aa82c99acbf2a2f3281e37730768ad6a",
+    "campaign --testbed TT --out <out>/campaign --traces 60 "
+    "--experiments Normal_case Lv_P_CPU_preserve Lv_S_HTTPABORT_"
+    "preserve":
+        "7de61c6b367c4a9b7dc6a3de173b4af050de62bcccd288bc248ac1269b66ca58",
+    "campaign tree SN_data/api_responses":
+        "24d487fe61746a2a834429f749da1e9ee812a9356af31115bd038cdbd0d56088",
+    "campaign tree SN_data/coverage_data":
+        "ed2af367b49ab8d51d302aeb302708643d05de2d2f83f73323fed6e321c6e2d4",
+    "campaign tree SN_data/log_data":
+        "e57d273905ceda51fea062735ce38838888bbfad0703033b130a92b6c8135426",
+    "campaign tree SN_data/metric_data":
+        "ec3db945f414ca441e467e24d1283300476221a6e5ba2cb77881e04e063bd434",
+    "campaign tree SN_data/trace_data":
+        "59a2ed43f5dff18f98669b843c453a1a309ce80f341cc3048cf7f4e34e39f4de",
+    "campaign tree TT_data/api_responses":
+        "5a92c39510fa5efed062dfe6c604ffc501285e2d8f0b7bb50c6e053beb269811",
+    "campaign tree TT_data/coverage_data":
+        "17035dc33e0555ec0f9c0462dd3466f067ece66437cbe7d9d3545810527d7da6",
+    "campaign tree TT_data/coverage_report":
+        "4527fdb1b5abf963f21cf26d1f4633e7823e50551f8480e41fac5d2a6af24b4b",
+    "campaign tree TT_data/log_data":
+        "b1ab5eddaf28724a8c0975828fc4e062599bd6ed0ccab7d07cb190a551a26c0d",
+    "campaign tree TT_data/metric_data":
+        "da04e31df95238488b730411c9d189bd17aa1b429e43bb4e12ea064dfe97ee43",
+    "campaign tree TT_data/trace_data":
+        "ee3807c6a8591cf336db41cf40c57d0768d454f4df13e4b566ee0460b97af32d",
+    "campaign tree campaign_trace_SN.json":
+        "a7e8bc3c3bfd7b695c870cdc25ba25992736c985a73b2c4e135827287440633b",
+    "campaign tree campaign_trace_TT.json":
+        "30760741e988cf2355db45a4de30f88355167a12b5b929529d51fac3850886bc",
+    "collect docker-logs --out <out>/docker":
+        "469a64c38f8bd20855a227b75e9d939b4182fef806123a4580d80a717ff51160",
+    "collect docker-logs --out <out>/docker-since --since 10m":
+        "5ee8a9428dcc186dd0161962e332d999ccd94ceeec7ed3de01071e0df5d87043",
+    "collect file docker-since/ComposePostService_20260731-120000.log":
+        "ae2c1d7681e8bf3eb211646695192167f284c92f53f8451256aed4b8218793da",
+    "collect file docker-since/PostStorageService_20260731-120000.log":
+        "ae2c1d7681e8bf3eb211646695192167f284c92f53f8451256aed4b8218793da",
+    "collect file docker-since/summary.txt":
+        "a1829ec5e80a1b955616598cc07f0ad479043ede9b1dcb6486ead6f663e4062d",
+    "collect file docker/ComposePostService_20260731-120000.log":
+        "ae2c1d7681e8bf3eb211646695192167f284c92f53f8451256aed4b8218793da",
+    "collect file docker/PostStorageService_20260731-120000.log":
+        "ae2c1d7681e8bf3eb211646695192167f284c92f53f8451256aed4b8218793da",
+    "collect file docker/summary.txt":
+        "eb291889cb3d59474af7e605f6aaa08a39e3476f756e46c36e51ae859c417056",
+    "collect file gcov/Exp_coverage/compose-post-service/"
+    "src#compose-post-service.cpp.gcov":
+        "f640913f6496083f94fc85e59e072b5c78db690bac902d38aedb9cd556a4adcf",
+    "collect file gcov/Exp_coverage/text-service/"
+    "src#text-service.cpp.gcov":
+        "e8fcc16e3b38731234d71bf3d68874fb9785729b4464b7976def00a729a361ce",
+    "collect file jacoco/coverage_data/"
+    "ts-order-service-86d6f7876-99bhf__"
+    "jacoco-ts-order-service-86d6f7876-99bhf-0.npz":
+        "918de01f49535fcc7f33f5541d8783ef93a0db3b7533040aaa8e5c3ff6b3f29c",
+    "collect file jacoco/coverage_data/"
+    "ts-order-service-86d6f7876-99bhf__"
+    "jacoco-ts-order-service-86d6f7876-99bhf.exec":
+        "eda5615690ca08637e800717d892d538fae5b1697bceadbe4aa4fcbf180b69b2",
+    "collect file jacoco/coverage_data/ts-travel-service-5f7b8-x2k4p__"
+    "jacoco-ts-travel-service-5f7b8-x2k4p-0.npz":
+        "d5dfcadc93bc8c7d556bc2fcc301f6057a0999694cbdbc357d0a48fe7f4efd56",
+    "collect file jacoco/coverage_data/ts-travel-service-5f7b8-x2k4p__"
+    "jacoco-ts-travel-service-5f7b8-x2k4p.exec":
+        "d399f90bd4c8d30564ce3a9c42dbdc1b131b371d854d5b076d389007bc8591ca",
+    "collect file jacoco/coverage_report/ts-order-service/"
+    "coverage-summary.txt":
+        "8b3e5229517c0092af448064272af912b329a97c3ca09cd3da2f76d9d051e55e",
+    "collect file jacoco/coverage_report/ts-order-service/coverage.xml":
+        "38b6715ebaf8f9a47a92d515aea69476b4419bccac6e95bac2f2ea3ecce99f9e",
+    "collect file jacoco/coverage_report/ts-order-service/merged.npz":
+        "918de01f49535fcc7f33f5541d8783ef93a0db3b7533040aaa8e5c3ff6b3f29c",
+    "collect file jacoco/coverage_report/ts-travel-service/"
+    "coverage-summary.txt":
+        "94ce6360311399b61df84d6b6bfb2726b2f0366fc927acf9554d0eea68908804",
+    "collect file jacoco/coverage_report/ts-travel-service/coverage.xml":
+        "36239e21fb7e7b7ad48b554283c49a2699d082f89bc54d1ebac9a9a9fc914cd5",
+    "collect file jacoco/coverage_report/ts-travel-service/merged.npz":
+        "d5dfcadc93bc8c7d556bc2fcc301f6057a0999694cbdbc357d0a48fe7f4efd56",
+    "collect file kube/kubernetes_events_20260731_120000.json":
+        "4c625f7dc50d5228d2af55b34914585af876a804cdcc26e4a5e303db7f7c1af9",
+    "collect file kube/nacos-0/nacos-0_20260731_120000.log":
+        "a4d23e01600de254e0c77ac5939096bdf0b5d9200f4a87ca3e59cd3fa7423f62",
+    "collect file kube/ts-order-service-86d6f7876-99bhf/"
+    "ts-order-service-86d6f7876-99bhf_20260731_120000.log":
+        "fe83c54211262f6d8c773731334f9a044e1af1322e1058ff02bc16d59d40de06",
+    "collect file kube/ts-order-service-86d6f7876-99bhf/"
+    "ts-order-service-86d6f7876-99bhf_previous_20260731_120000.log":
+        "b6268339d7ab8aa5298f46aa9572367367f2d31bd2b4e597740db996276673ed",
+    "collect file kube/ts-travel-service-5f7b8-x2k4p/"
+    "ts-travel-service-5f7b8-x2k4p_20260731_120000.log":
+        "495549ba3d20bb678c80c5f9a393545a080beca6722056067b9e37b9ff499473",
+    "collect gcov --out <out>/gcov/Exp_coverage --mount-root <out>/"
+    "mount --experiment Exp":
+        "8cd309cfdc049d66b0143d09a36c58754e7eef83f9755300410e13b70b4c806f",
+    "collect jacoco --out <out>/jacoco/coverage_data":
+        "6a2d6516a5dd3d103449928e6fb4b5f2d137b3105a47d504d6c9dbfa05af169e",
+    "collect kube-logs --out <out>/kube --tail 50":
+        "f06442a3202142a6d0990b213ffe5b3f25723173d22e9708127c31854b5713e8",
+    "golden":
+        "cdb2ea006c79c77c2974681e3523f504a65e5c4aa2f7fd06addc2c96f77d7207",
+    "golden --markdown":
+        "30d0b90aecede195a6c339e6b78a7d0d5d1e0d09204943a95a260867e377c456",
+    "lint --rules":
+        "893a5c3bf4087954bdafc8ec00f44b9d3edbe8d8bd3c944a115db14ccbb3d0fb",
+    "validate --from-data --testbed TT --traces 60":
+        "fd2164b3e89d276c6f75c5d221b978b10b9e2f3006b6e3f75d6dc00d327eb79f",
+    "validate --testbed TT --traces 60":
+        "5ee1b1aad5e0ef32ba163ea4d6081019c61d40c5c14f053baca8774ab95750d8",
+}
+
+
+class ScriptedCluster:
+    """Phase 29's kubectl / docker answers (the clusters of
+    ``tests/test_live_exec.py``): four pods (one crashed before, one
+    filtered out), two SN containers for ``docker logs``, two with gcov,
+    JaCoCo agents in the two ts- pods, whose ``kubectl cp`` writes a dump
+    through ``cov.save_dump`` (the package's own), and the collect script
+    writing ``.gcov`` text under ``mount``."""
+
+    pods = ("ts-order-service-86d6f7876-99bhf",
+            "ts-travel-service-5f7b8-x2k4p", "nacos-0", "other-pod-1")
+    crashed = ("ts-order-service-86d6f7876-99bhf",)
+    containers = {"compose-post-service": "c01",
+                  "post-storage-service": "c02"}
+    gcov_running = ("compose-post-service", "text-service")
+    #: the pods carrying the JaCoCo CLI (None: every ts- pod)
+    jar_pods = None
+
+    def __init__(self, live_exec, cov, mount: Path):
+        self.result, self.cov = live_exec.ExecResult, cov
+        self.mount = Path(mount)
+
+    def __call__(self, cmd):
+        import numpy as np
+        R = self.result
+        joined = " ".join(cmd)
+        if cmd[:3] == ["kubectl", "get", "pods"]:
+            return R(0, json.dumps({"items": [
+                {"metadata": {"name": p}} for p in self.pods]}))
+        if "jsonpath" in joined:
+            return R(0, " ".join(self.pods))
+        if cmd[:2] == ["kubectl", "logs"]:
+            if "--previous" in cmd:
+                return (R(0, "ERROR crash before restart\n")
+                        if cmd[2] in self.crashed
+                        else R(1, "", "no previous terminated container"))
+            return R(0, f"2026-07-31 12:00:00 INFO {cmd[2]} serving\n"
+                        f"2026-07-31 12:00:01 WARN {cmd[2]} slow\n")
+        if cmd[:2] == ["kubectl", "get"] and "events" in cmd:
+            return R(0, '{"items": [{"reason": "Killing"}]}')
+        if cmd[:2] == ["docker", "ps"] and "--filter" in cmd:
+            return R(0, "".join(f"socialnetwork_{s}_1\n"
+                                for s in self.gcov_running))
+        if cmd[:2] == ["docker", "ps"]:
+            return R(0, "".join(f"{cid} socialnetwork_{svc}_1\n"
+                                for svc, cid in self.containers.items()))
+        if cmd[:2] == ["docker", "logs"]:
+            return R(0, "2026-07-31T12:00:00 INFO ready\n"
+                        "2026-07-31T12:00:01 ERROR downstream failed\n")
+        if "kill -USR1 1" in joined:
+            return R(0)
+        if "collect_coverage.sh" in joined:
+            env = dict(kv.split("=", 1) for kv in cmd[3:-2:2])
+            svc = env["SERVICE_NAME"]
+            d = (self.mount / f"{env['EXPERIMENT_BASE_NAME']}_"
+                              f"{env['TIMESTAMP']}" / svc)
+            d.mkdir(parents=True, exist_ok=True)
+            covered = 7 if svc == "text-service" else 3
+            lines = [f"        -:    0:Source:src/{svc}.cpp"] + [
+                f"        {'5' if i <= covered else '#####'}:{i:5d}:line "
+                f"{i};" for i in range(1, 11)]
+            (d / f"src#{svc}.cpp.gcov").write_text("\n".join(lines) + "\n")
+            return R(0)
+        if "test -f /jacoco/jacococli.jar" in joined:
+            pod = cmd[cmd.index("exec") + 1]
+            return R(0 if (pod.startswith("ts-") if self.jar_pods is None
+                           else pod in self.jar_pods) else 1)
+        if "jacococli.jar dump" in joined:
+            return R(0)
+        if "ls -1 /coverage/*.exec" in joined:
+            return R(0, f"/coverage/jacoco-{cmd[cmd.index('exec') + 1]}"
+                        f".exec\n")
+        if cmd[:3] == ["kubectl", "-n", "default"] and cmd[3] == "cp":
+            pod, dst = cmd[4].split(":", 1)[0], Path(cmd[5])
+            mask = np.zeros(10, bool)
+            mask[:7 if pod.startswith("ts-order") else 3] = True
+            self.cov.save_dump(self.cov.CoverageDump(
+                service=pod, files={"src/Main.java": mask}), dst)
+            if not dst.exists():        # savez appended .npz
+                dst.with_name(dst.name + ".npz").rename(dst)
+            return R(0)
+        return R(1, "", f"unscripted command: {joined}")
+
+
+def _file_bytes(path: Path) -> bytes:
+    """A file's bytes for phase 29's digests; a zip (an ``.npz`` dump)
+    by its members' names and uncompressed bytes: the zip headers stamp
+    the wall time they were written at."""
+    import zipfile
+    raw = path.read_bytes()
+    if raw[:2] != b"PK":
+        return raw
+    with zipfile.ZipFile(path) as z:
+        return b"".join(n.encode() + b"\0" + z.read(n) + b"\0"
+                        for n in sorted(z.namelist()))
+
+
+def _trace_structure(path: Path) -> bytes:
+    """A campaign's self-trace without its walls: service, and each span's
+    id, name, parent references and tags (its trace id, start, duration
+    and log stamps are wall times)."""
+    doc = json.loads(path.read_text())
+    return json.dumps([
+        {"service": sorted(p["serviceName"]
+                           for p in t["processes"].values()),
+         "spans": [[sp["spanID"], sp["operationName"],
+                    [r["spanID"] for r in sp["references"]], sp["tags"],
+                    len(sp["logs"])] for sp in t["spans"]]}
+        for t in doc["data"]], sort_keys=True).encode()
+
+
+def _tree_bytes(root: Path) -> dict:
+    """``{relative path: bytes}`` of every file under ``root``
+    (:func:`_file_bytes`, self-traces by :func:`_trace_structure`)."""
+    out = {}
+    for f in sorted(p for p in Path(root).rglob("*") if p.is_file()):
+        rel = f.relative_to(root).as_posix()
+        out[rel] = (_trace_structure(f) if f.name.startswith(
+            "campaign_trace_") else _file_bytes(f))
+    return out
+
+
+def _digest_tree(files: dict) -> bytes:
+    """One blob over ``{path: bytes}``: each path with its sha256."""
+    import hashlib
+    return "".join(f"{k} {hashlib.sha256(v).hexdigest()}\n"
+                   for k, v in sorted(files.items())).encode()
+
+
+@contextlib.contextmanager
+def package_env(config_mod, values: dict):
+    """``os.environ`` updated with ``values`` (None: unset) while the block
+    runs, the package's settings re-read at its start and end."""
+    import os
+    prev = {k: os.environ.get(k) for k in values}
+    for k, v in values.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    config_mod.set_config(None)
+    try:
+        yield
+    finally:
+        for k, v in prev.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        config_mod.set_config(None)
+
+
+@contextlib.contextmanager
+def scripted_exec(live_exec, cluster):
+    """The package's exec collectors answered by ``cluster``, and the
+    CLI's stamp fixed at :data:`COLLECTION_STAMP`."""
+    real_runner, real_strftime = live_exec.ExecRunner, time.strftime
+
+    def runner(timeout=60.0):
+        return real_runner(timeout=timeout, run_fn=cluster)
+
+    def strftime(fmt, *a):
+        return (COLLECTION_STAMP if fmt == "%Y%m%d_%H%M%S" and not a
+                else real_strftime(fmt, *a))
+    live_exec.ExecRunner, time.strftime = runner, strftime
+    try:
+        yield
+    finally:
+        live_exec.ExecRunner, time.strftime = real_runner, real_strftime
+
+
+def _cli_text(cli_main, argv, tmp) -> tuple:
+    """One CLI call in this process: its exit code and output, the
+    temporary directory's path written as :data:`OUT_MARK`."""
+    import io
+    stdout, stderr = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(stdout), \
+            contextlib.redirect_stderr(stderr):
+        try:
+            rc = cli_main(argv)
+        except SystemExit as e:
+            rc = e.code
+    text = f"rc={rc}\n" + stdout.getvalue()
+    if rc:
+        text += "\nstderr:\n" + stderr.getvalue()
+    return rc, text.replace(str(tmp), OUT_MARK), stdout.getvalue()
+
+
+def collection_argvs(tmp) -> dict:
+    """Phase 29's CLI calls by step (``tmp``: the temporary tree)."""
+    t = str(tmp)
+    camp = {tb: ["campaign", "--testbed", tb, "--out", f"{t}/campaign",
+                 "--traces", str(COLLECTION_TRACES), "--experiments",
+                 *COLLECTION_EXPERIMENTS[tb]] for tb in ("SN", "TT")}
+    collect = [
+        ["collect", "kube-logs", "--out", f"{t}/kube", "--tail", "50"],
+        ["collect", "docker-logs", "--out", f"{t}/docker"],
+        ["collect", "docker-logs", "--out", f"{t}/docker-since",
+         "--since", "10m"],
+        ["collect", "jacoco", "--out", f"{t}/jacoco/coverage_data"],
+        ["collect", "gcov", "--out", f"{t}/gcov/Exp_coverage",
+         "--mount-root", f"{t}/mount", "--experiment", "Exp"]]
+    validate = [["validate", "--testbed", "TT", "--traces",
+                 str(COLLECTION_TRACES)],
+                ["validate", "--from-data", "--testbed", "TT", "--traces",
+                 str(COLLECTION_TRACES)]]
+    return dict(campaign=camp, collect=collect,
+                golden=[["golden"], ["golden", "--markdown"]],
+                validate=validate, rules=["lint", "--rules"])
+
+
+def collection_plane_outputs(pkg, cli_main, tmp) -> tuple:
+    """Phase 29's outputs, each as bytes, and the ``validate`` documents:
+    ``campaign`` SN and TT (:data:`COLLECTION_EXPERIMENTS` at
+    :data:`COLLECTION_TRACES` traces) and their tree, one digest a
+    modality directory; ``golden`` and ``golden --markdown`` over that
+    tree with :data:`COLLECTION_LFS` laid over it; ``validate`` on synth
+    and ``--from-data`` on the tree (a fresh ingest cache); ``lint
+    --rules``; the four ``collect`` exec kinds answered by
+    :class:`ScriptedCluster` at :data:`COLLECTION_STAMP`, with every file
+    they write.  The wall-time fields, stripped before the digest: the
+    campaign self-trace's trace id, span starts, durations and log stamps
+    (:func:`_trace_structure`) and the zip headers of the ``.npz`` dumps
+    (:func:`_file_bytes`).  ``validate``'s ``native`` and ``lint`` blocks
+    enter as their key lists (the values name each package's own library
+    and tree).  ``pkg`` is the package (``anomod`` or ``anomod_torch``)
+    and ``cli_main`` its CLI's ``main``; ``tmp`` an empty directory."""
+    import importlib
+    tmp = Path(tmp)
+    mod = {m: importlib.import_module(f"{pkg.__name__}.{m}")
+           for m in ("config", "io.live_exec", "io.coverage_report")}
+    argvs = collection_argvs(tmp)
+    out, docs = {}, {}
+
+    def call(argv):
+        rc, text, raw = _cli_text(cli_main, argv, tmp)
+        out[" ".join(argv).replace(str(tmp), OUT_MARK)] = text.encode()
+        return rc, raw
+
+    for tb, argv in argvs["campaign"].items():
+        call(argv)
+    tree = tmp / "campaign"
+    for f in sorted(tree.glob("campaign_trace_*.json")):
+        out[f"campaign tree {f.name}"] = _trace_structure(f)
+    for sub in sorted(tree.glob("*_data/*")):
+        out[f"campaign tree {sub.relative_to(tree).as_posix()}"] = \
+            _digest_tree(_tree_bytes(sub))
+    for sub, exp, glob in COLLECTION_LFS:
+        hits = sorted(p for d in (tree / sub).iterdir()
+                      if d.name.startswith(exp + "_") for p in d.glob(glob))
+        hits[0].write_text(LFS_POINTER)
+    env = {"ANOMOD_DATA_ROOT": str(tree),
+           "ANOMOD_CACHE_DIR": str(tmp / "cache"),
+           "ANOMOD_INGEST_WORKERS": "0", "ANOMOD_SYNTH_ON_LFS": None}
+    with package_env(mod["config"], env):
+        for argv in argvs["golden"]:
+            call(argv)
+        for argv in argvs["validate"]:
+            rc, raw = call(argv)
+            doc = json.loads(raw)
+            docs[" ".join(argv)] = doc
+            doc = dict(doc, native=sorted(doc["native"]),
+                       lint=sorted(doc["lint"]))
+            out[" ".join(argv)] = f"rc={rc}\n{json.dumps(doc)}".encode()
+    call(argvs["rules"])
+    cluster = ScriptedCluster(mod["io.live_exec"], mod["io.coverage_report"],
+                              tmp / "mount")
+    with scripted_exec(mod["io.live_exec"], cluster):
+        for argv in argvs["collect"]:
+            call(argv)
+    for sub in ("kube", "docker", "docker-since", "jacoco", "gcov"):
+        for rel, data in _tree_bytes(tmp / sub).items():
+            out[f"collect file {sub}/{rel}"] = data
+    return out, docs
+
+
+def importtime_probe():
+    """Start ``python -X importtime`` of a process shard child's imports
+    (``anomod_torch.serve.procshard``, as a spawned worker resolves its
+    entry); :func:`importtime_result` reads it."""
+    import os
+    return subprocess.Popen(
+        [sys.executable, "-X", "importtime", "-c",
+         "import anomod_torch.serve.procshard"],
+        cwd=str(Path(__file__).resolve().parent),
+        env=dict(os.environ, PYTHONPATH=str(Path(__file__).resolve()
+                                            .parent)),
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+
+
+def importtime_result(proc, t0) -> dict:
+    """The probe's total (the sum of every module's own time), its wall
+    and its five largest imports by cumulative time among the top-level
+    ones (a nesting depth of one) and by their own time."""
+    _, err = proc.communicate(timeout=300)
+    wall = time.perf_counter() - t0
+    rows = []
+    for line in err.splitlines():
+        if not line.startswith("import time:") or "self [us]" in line:
+            continue
+        self_us, cum_us, name = line[len("import time:"):].split("|", 2)
+        depth = (len(name) - len(name.lstrip())) // 2
+        rows.append((int(self_us), int(cum_us), depth, name.strip()))
+    top = sorted((r for r in rows if r[2] <= 1), key=lambda r: -r[1])[:5]
+    own = sorted(rows, key=lambda r: -r[0])[:5]
+    return dict(rc=proc.returncode, wall_s=wall, n_modules=len(rows),
+                total_self_s=sum(r[0] for r in rows) / 1e6,
+                top_cumulative_s={r[3]: r[1] / 1e6 for r in top},
+                top_self_s={r[3]: r[0] / 1e6 for r in own})
+
+
+def collection_plane_job() -> dict:
+    """Phase 29's work, in a spawned process started at the head of phase
+    24 (it needs no card, and at these sizes it takes half a minute):
+    :func:`collection_plane_outputs` of the port through its CLI, with the
+    card probe counted (:func:`count_probes`), then ``lint --json`` over
+    this checkout.  Returns each output's sha256, the ``validate``
+    documents, the lint document and exit code, the wall, and what the
+    process did to the card: probes started, CUDA initialized or not,
+    kernel launches."""
+    import hashlib
+    import tempfile
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import torch
+
+    import anomod_torch
+    from anomod_torch.cli import main as cli_main
+    import os
+    os.environ.pop("ANOMOD_SKIP_PROBE", None)
+    count_probes()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        outs, docs = collection_plane_outputs(anomod_torch, cli_main, tmp)
+        rc, _, raw = _cli_text(cli_main, ["lint", "--json"], tmp)
+    return dict(digests={k: hashlib.sha256(v).hexdigest()
+                         for k, v in outs.items()},
+                n_bytes=sum(len(v) for v in outs.values()), docs=docs,
+                lint_rc=rc, lint=json.loads(raw),
+                wall_s=time.perf_counter() - t0, probes=len(PROBES),
+                cuda_initialized=torch.cuda.is_initialized(),
+                launches=all_launches())
+
+
+def collection_plane_phase(card, job) -> dict:
+    """Phase 29: the exec transports, the campaign, the golden run, the
+    contract linter and ``validate``, host only
+    (:func:`collection_plane_job`, in its own process): each output's
+    sha256 equals :data:`COLLECTION_PLANE_DIGESTS` (the JAX package's);
+    ``validate``'s ``native`` block reads the host library available and
+    its ``lint`` block clean; ``lint --json`` over this checkout is clean
+    against the port's baseline with the JAX catalog's rule count; no
+    probe of the card started, CUDA never initialized and no kernel
+    launched in that process; this process's launches and device memory
+    unchanged while it waits."""
+    import torch
+
+    from anomod_torch.analysis import RULES
+    launches, mem = all_launches(), torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    r = job.get(timeout=600)
+    wait_s = time.perf_counter() - t0
+    got, lint_doc = r["digests"], r["lint"]
+    bad = sorted(k for k in set(got) | set(COLLECTION_PLANE_DIGESTS)
+                 if got.get(k) != COLLECTION_PLANE_DIGESTS.get(k))
+    check(not bad, f"phase 29: {len(bad)} outputs differ from the JAX "
+          f"package's: {bad[:8]}")
+    check(r["lint_rc"] == 0 and lint_doc["status"] == "ok"
+          and lint_doc["findings"] == 0 and lint_doc["rules"] == len(RULES),
+          f"phase 29: lint --json exit {r['lint_rc']}: {lint_doc}")
+    for argv, doc in r["docs"].items():
+        check(doc["native"]["available"] and doc["lint"]["status"] == "ok",
+              f"phase 29: {argv}: native {doc['native']}, lint "
+              f"{doc['lint']}")
+    check(r["probes"] == 0 and not r["cuda_initialized"]
+          and not any(r["launches"].values()),
+          f"phase 29: {r['probes']} probes, CUDA initialized "
+          f"{r['cuda_initialized']}, launches {r['launches']}")
+    check(all_launches() == launches
+          and torch.cuda.memory_allocated() == mem,
+          f"phase 29: launches {all_launches()} (were {launches}), device "
+          f"memory {torch.cuda.memory_allocated()} B (was {mem} B)")
+    out = dict(n_outputs=len(got), job_wall_s=r["wall_s"], wait_s=wait_s,
+               probes=0, launches=0, device_bytes=0, n_bytes=r["n_bytes"],
+               lint=lint_doc)
+    log(f"[29] exec transports, campaign, golden, lint and validate: "
+        f"{len(got)} outputs (campaign SN / TT trees, golden and --markdown "
+        f"over them with LFS pointers, validate on synth and --from-data, "
+        f"lint --rules, four collect exec kinds) == the JAX package's "
+        f"sha256; lint --json clean ({lint_doc['suppressed']} suppressed, "
+        f"baseline {lint_doc['baseline_size']}); native available; 0 "
+        f"probes, 0 launches, 0 device bytes; {r['wall_s']:.3f} s in its "
+        f"own process from the head of phase 24, {wait_s:.3f} s waited "
+        f"for, on {card}")
+    return {"collection_plane": out}
 
 
 def main() -> int:
@@ -6206,7 +6966,10 @@ def main() -> int:
     detect_twins = twin_pool.apply_async(detect_cpu_twin)
     twins = twin_pool.apply_async(rca_cpu_twins)
     data = run_phase("5b", data_phase, card)
-    serve = run_phase("6-8", serve_phases, dev, card)
+    with serve_run_split() as split68:
+        serve = run_phase("6-8", serve_phases, dev, card)
+    serve["phase68_split"] = log_serve_split("6-8", split68,
+                                             phase_walls["6-8"], card)
     unfused_alerts = serve.pop("serve_unfused_alerts")
     sketch = run_phase("9-11", sketch_phases, dev, card, batch, cfg)
     roof = run_phase("12", roofline_phases, dev, card, kind, sid_np,
@@ -6225,11 +6988,17 @@ def main() -> int:
     q18 = run_phase("18", quality_phase, dev, card)
     q_launches = q18["quality"]["dense_launches"]
     s19 = run_phase("19", shift_phase, dev, card)
-    fs20 = run_phase("20", flight_shard_phase, dev, card, cpu_journal)
+    with serve_run_split() as split20:
+        fs20 = run_phase("20", flight_shard_phase, dev, card, cpu_journal)
+    fs20["phase20_split"] = log_serve_split("20", split20,
+                                            phase_walls["20"], card)
     ps21 = run_phase("21", supervise_proc_phase, dev, card, cpu_journal,
                      fs20)
     p22 = run_phase("22", elastic_async_tier_phase, dev, card, cpu_journal)
     p23 = run_phase("23", live_feed_phase, dev, card)
+    # phase 29's host work goes on in a spawned process from here
+    coll_pool = multiprocessing.get_context("spawn").Pool(1)
+    coll_job = coll_pool.apply_async(collection_plane_job)
     p24 = run_phase("24", observatory_phase, dev, card, cpu_journal)
     p25 = run_phase("25", parallel_phase, dev, card, batch, cfg, rates,
                     rows, unfused_alerts)
@@ -6238,7 +7007,17 @@ def main() -> int:
     planes = p26["planes"]
     p27 = run_phase("27", device_decisions_phase, dev, card, batch, cfg)
     dd = p27["device_decisions"]
+    t_imp = time.perf_counter()
+    imp = importtime_probe()
     p28 = run_phase("28", fault_plane_phase, card)
+    try:
+        p29 = run_phase("29", collection_plane_phase, card, coll_job)
+    finally:
+        coll_pool.terminate()
+        coll_pool.join()
+    p29["shard_child_importtime"] = importtime_result(imp, t_imp)
+    log(f"[29] a shard child's imports (python -X importtime, run beside "
+        f"phases 28-29): {p29['shard_child_importtime']}")
     log(f"[walls] s by phase: "
         f"{ {k: round(v, 1) for k, v in phase_walls.items()} }")
 
@@ -6332,7 +7111,7 @@ def main() -> int:
                     "l2_eviction_ms": flush, **data, **serve,
                     **sketch, **roof, **det13, **rca14, **mm15, **rca16,
                     **tele17, **q18, **s19, **fs20, **ps21, **p22, **p23,
-                    **p24, **p25, **p26, **p27, **p28,
+                    **p24, **p25, **p26, **p27, **p28, **p29,
                     "phase_walls_s": phase_walls,
                     "wall_s": time.perf_counter() - t_all}))
     log(json.dumps({"kernels": kernels}))

@@ -1419,3 +1419,40 @@ def replay_corpus_for_knobs():
     from anomod_torch.schemas import concat_span_batches
     return concat_span_batches([synth.generate_spans(l, n_traces=10)
                                 for l in labels.labels_for_testbed("TT")])
+
+
+@pytest.mark.cuda
+def test_validate_native_block_reads_the_library_built(cuda_device):
+    """``validate`` on the card's machine: its ``native`` block reads the
+    host library built and available (the serve tick stages through it),
+    its ``lint`` block the port's tree clean; no probe is involved."""
+    import contextlib
+    import io
+    import json
+
+    from anomod_torch.cli import main
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert main(["validate", "--testbed", "SN", "--traces", "10"]) == 0
+    doc = json.loads(buf.getvalue())
+    native = doc["native"]
+    assert native["available"] is True and native["build_error"] is None
+    assert native["so_path"] and native["staging"] is True
+    assert doc["lint"]["status"] == "ok" and doc["lint"]["findings"] == 0
+
+
+@pytest.mark.cuda
+def test_lint_json_clean_over_the_checkout(cuda_device):
+    """``lint --json`` over this checkout on the card's machine: exit 0, no
+    finding outside the reasoned directives, the baseline empty."""
+    import contextlib
+    import io
+    import json
+
+    from anomod_torch.cli import main
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(["lint", "--json"])
+    doc = json.loads(buf.getvalue())
+    assert rc == 0 and doc["status"] == "ok" and doc["findings"] == 0
+    assert doc["baseline_size"] == 0 and doc["suppressed"] > 0

@@ -1932,10 +1932,10 @@ def _ingest(args) -> int:
 
 def _logscan(args) -> int:
     """``logscan``: per-file log summaries over a directory, through the
-    Python scanner (``native`` is false: the port has no native log
-    scanner yet)."""
+    C++ scanner unless ``ANOMOD_NATIVE=off`` (``native`` says which)."""
     from pathlib import Path
 
+    from anomod_torch.io import native
     from anomod_torch.io.lfs import is_lfs_pointer
     from anomod_torch.io.logs import summarize_log_files
     root = Path(args.dir)
@@ -1948,7 +1948,7 @@ def _logscan(args) -> int:
     print(json.dumps({
         "dir": str(root), "n_files": len(paths),
         "n_lfs_stubs": len(candidates) - len(paths),
-        "native": False,
+        "native": native.enabled(),
         "totals": {"lines": sum(x.n_lines for x in summaries),
                    "errors": sum(x.n_error for x in summaries),
                    "warnings": sum(x.n_warn for x in summaries),

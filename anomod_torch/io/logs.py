@@ -1,5 +1,7 @@
-"""Log loaders → LogBatch / LogSummary
-(counterpart of ``anomod/io/logs.py``, on its Python route).
+"""Log loaders → LogBatch / LogSummary (counterpart of
+``anomod/io/logs.py``): line scans and file summaries through the C++
+scanners of :mod:`anomod_torch.io.native` unless ``ANOMOD_NATIVE=off``,
+the Python loops below being their oracle.
 
 SN layout: ``<exp>/<Service>_<ts>.log`` + ``summary.txt`` with per-service
 line/error/warn counts (collect_log.sh:101-137; the shipped dataset's summary
@@ -77,7 +79,18 @@ _TS_PAT = re.compile(r"(\d{4})-(\d{2})-(\d{2})[T ](\d{2}):(\d{2}):(\d{2})")
 def parse_log_lines(text: str, service_idx: int,
                     default_t: float = 0.0) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Line-level classification, reproducing the reference's grep -c -i
-    info/warn/error counting (collect_log.sh:104-106)."""
+    info/warn/error counting (collect_log.sh:104-106).
+
+    Through the C++ scanner unless ``ANOMOD_NATIVE=off``; there a line
+    ends at ``\\n`` only and a timestamp the scan reads as 0 (none, or
+    the epoch itself) becomes ``default_t``, as in the JAX package's
+    native route.  The Python loop below is the oracle."""
+    from anomod_torch.io import native
+    if native.enabled():
+        lvl, t = native.scan_log(text.encode("utf-8", errors="replace"))
+        t = np.where(t == 0.0, default_t, t)
+        svc = np.full(lvl.shape[0], service_idx, np.int32)
+        return svc, t, lvl.astype(np.int8)
     import calendar
     lines = text.splitlines()
     n = len(lines)
@@ -100,8 +113,22 @@ def summarize_log_files(paths: List[Path],
                         service_of=lambda p: Path(p).stem.rsplit("_", 1)[0]
                         ) -> List[LogSummary]:
     """Per-file log summaries without building a LogBatch — the sweep of
-    collect_log.sh:101-137 over an arbitrary file list."""
+    collect_log.sh:101-137 over an arbitrary file list.
+
+    Unless ``ANOMOD_NATIVE=off``, one call into the C++ pool, a file a
+    task: an unreadable file gets zeros, an LFS pointer is summarized as
+    the text it is.  The Python loop below is the oracle (zeros for a
+    pointer)."""
+    from anomod_torch.io import native
     paths = [Path(p) for p in paths]
+    if native.enabled():
+        res = native.summarize_log_files(paths)
+        if res is not None:
+            counts, _ts = res
+            return [LogSummary(service=service_of(p), n_lines=int(c[0]),
+                               n_error=int(c[3]), n_warn=int(c[2]),
+                               n_info=int(c[1]), size_bytes=int(c[4]))
+                    for p, c in zip(paths, counts)]
     out = []
     for p in paths:
         text = read_text_or_none(p)

@@ -1,5 +1,6 @@
-"""Metric CSV loaders → MetricBatch
-(counterpart of ``anomod/io/metrics.py``, on its Python route).
+"""Metric CSV loaders → MetricBatch (counterpart of
+``anomod/io/metrics.py``; the TT CSV's numeric columns through the C++
+scanner of :mod:`anomod_torch.io.native` unless ``ANOMOD_NATIVE=off``).
 
 Two reference shapes:
   - SN per-query CSVs (one file per PromQL query, collect_metric.sh:24-125):
@@ -108,21 +109,62 @@ def load_sn_metric_dir(exp_dir: Path) -> Optional[MetricBatch]:
 
 
 def load_tt_metric_csv(path: Path) -> Optional[MetricBatch]:
-    """Load the TT long-format experiment CSV
-    (metric_name,timestamp,datetime,value,...; metric_collector.py:431-443)."""
+    """Load the TT long-format experiment CSV.
+
+    Numeric fast path: when the header is the canonical TT layout
+    (metric_name,timestamp,datetime,value,...; metric_collector.py:431-443)
+    and ``ANOMOD_NATIVE`` is not ``off``, the timestamp and value columns
+    are parsed by the C++ CSV scanner (``strtod``); Python keeps the
+    string columns.  The scanner is line-based, so its rows are trusted
+    only if their count equals the csv module's record count and the
+    first record's timestamp and value equal Python's parse; else the
+    whole file takes the Python route, as in the JAX package."""
     path = Path(path)
     if not path.is_file() or is_lfs_pointer(path):
         return None
+    num = None
+    raw = path.read_bytes()
+    header = raw.split(b"\n", 1)[0].decode(errors="replace").strip().split(",")
+    if header[:4] == ["metric_name", "timestamp", "datetime", "value"]:
+        from anomod_torch.io import native
+        if native.enabled():
+            num = native.scan_csv_columns(raw, [1, 3])
+    if num is not None:
+        with open(path, newline="") as f:
+            n_rec = sum(1 for r in csv.reader(f) if r) - 1  # minus header
+        if num.shape[1] != n_rec:
+            num = None
+    if num is not None and num.shape[1] > 0:
+        with open(path, newline="") as f:
+            first = next(csv.DictReader(f), None)
+        if first is not None:
+            py_t = _parse_ts(first.get("timestamp", "0"))
+            try:
+                py_v = float(first["value"]) if first.get("value") \
+                    else float("nan")
+            except (TypeError, ValueError):
+                py_v = float("nan")
+            nat_t = float(num[0, 0])
+            nat_t = 0.0 if np.isnan(nat_t) else nat_t
+            nat_v = float(num[1, 0])
+            if nat_t != py_t or not (nat_v == py_v
+                                     or (np.isnan(nat_v) and np.isnan(py_v))):
+                num = None
     rows: List[Tuple[str, float, float, Dict[str, str]]] = []
     with open(path, newline="") as f:
-        for rec in csv.DictReader(f):
+        for i, rec in enumerate(csv.DictReader(f)):
             labels = {k: v for k, v in rec.items()
                       if k not in ("metric_name", "timestamp", "datetime", "value") and v}
-            try:
-                val = float(rec["value"]) if rec.get("value") else float("nan")
-            except (TypeError, ValueError):
-                val = float("nan")
-            t = _parse_ts(rec.get("timestamp", "0"))
+            if num is not None and i < num.shape[1]:
+                t = float(num[0, i])
+                t = 0.0 if np.isnan(t) else t
+                val = float(num[1, i])
+            else:
+                try:
+                    val = float(rec["value"]) if rec.get("value") else float("nan")
+                except (TypeError, ValueError):
+                    val = float("nan")
+                t = _parse_ts(rec.get("timestamp", "0"))
             rows.append((rec.get("metric_name", ""), t, val, labels))
     return _build(rows) if rows else None
 

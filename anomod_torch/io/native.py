@@ -1,15 +1,29 @@
-"""The serve tick's host entries in C++ (``csrc/native.cpp``), bound with
-``ctypes`` (counterpart of the staging and SFQ half of
+"""The port's host entries in C++ (``csrc/native.cpp``), bound with
+``ctypes``: the ingest scanners and their thread pool, the serve tick's
+scratch fill and the admission plane's SFQ scans (counterpart of
 ``anomod/io/native.py``).
 
 The source builds at first use with ``g++ -O3 -shared -fPIC -pthread``
 into ``build/anomod_torch_native/`` beside the package, keyed by a hash
 of the source, the compiler and the flags, and published atomically (a
 per-process temporary renamed into place), so concurrent first uses in
-several processes race safely.  There is no quiet fallback: a failed
-build or load raises with the compiler's output, and a chunk that breaks
-the staging contract raises ``ValueError``.  ``ctypes`` releases the GIL
-for every call.
+several processes race safely.  ``ctypes`` releases the GIL for every
+call.
+
+``ANOMOD_NATIVE`` picks the route (:func:`enabled`): ``off`` takes the
+Python routes of the parsers (``io/logs.py``, ``io/metrics.py``) and the
+serve tick; ``auto`` (the default) and ``on`` take the library.  There
+is no quiet fallback, unlike the JAX package (whose ``auto`` drops to
+Python when its library does not load): a failed build or load raises
+with the compiler's output, and a chunk that breaks the staging contract
+raises ``ValueError``.
+
+Scanners: :func:`scan_log` (level and timestamp a line, threaded from 1
+MiB), :class:`Runtime` (a pool of C++ threads; ``summarize_logs`` reads
+and summarizes one file a task), :func:`default_runtime`,
+:func:`summarize_log_files`, :func:`scan_csv_columns` and
+:func:`scan_api_jsonl`; each returns the JAX library's arrays, byte for
+byte.
 
 Staging: :class:`StagedChunk` carries one chunk as a slice of the staged
 ``[7, n]`` matrix (``replay.stage_columns_fused``, rows in
@@ -29,7 +43,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -63,32 +77,53 @@ def cxx() -> str:
     return path
 
 
-def target(build_dir: Optional[Path] = None) -> Path:
-    """The library path for this source, compiler and flags."""
-    exe = cxx()
-    key = SOURCE.read_bytes() + "\0".join((exe,) + CXX_FLAGS).encode()
+def artifact(stem: str, sources: Sequence[Path], cmd: Sequence[str],
+             build_dir: Optional[Path] = None, suffix: str = "") -> Path:
+    """The path of what ``cmd`` (a compiler and its flags) builds from
+    ``sources``: ``<build_dir>/<stem>_<hash><suffix>``, the hash over
+    the sources' bytes and the command."""
+    key = b"".join(p.read_bytes() for p in sources) + "\0".join(cmd).encode()
     digest = hashlib.sha256(key).hexdigest()[:16]
-    return Path(build_dir or BUILD_DIR) / f"libanomod_torch_native_{digest}.so"
+    return Path(build_dir or BUILD_DIR) / f"{stem}_{digest}{suffix}"
 
 
-def build(build_dir: Optional[Path] = None) -> Path:
-    """Compile ``csrc/native.cpp`` unless built already; returns the
-    library path.  Raises ``RuntimeError`` with the compiler's output."""
-    out = target(build_dir)
+def compile_once(stem: str, sources: Sequence[Path], cmd: Sequence[str],
+                 build_dir: Optional[Path] = None, suffix: str = "",
+                 timeout: Optional[float] = None) -> Path:
+    """Run ``cmd`` over ``sources`` into :func:`artifact`'s path unless it
+    is there already, publishing by an atomic rename (a per-process
+    temporary), so concurrent first uses race safely.  Raises
+    ``RuntimeError`` with the compiler's output, ``TimeoutExpired`` past
+    ``timeout``."""
+    out = artifact(stem, sources, cmd, build_dir, suffix)
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}."
                         f"{threading.get_ident()}.tmp")
-    cmd = [cxx(), *CXX_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, stdout=subprocess.PIPE,
-                          stderr=subprocess.STDOUT, text=True)
+    full = [*cmd, "-o", str(tmp), *map(str, sources)]
+    proc = subprocess.run(full, stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True,
+                          timeout=timeout)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"{' '.join(cmd)} failed (exit "
+        raise RuntimeError(f"{' '.join(full)} failed (exit "
                            f"{proc.returncode}):\n{proc.stdout}")
     os.replace(tmp, out)                  # atomic publish
     return out
+
+
+def target(build_dir: Optional[Path] = None) -> Path:
+    """The library path for this source, compiler and flags."""
+    return artifact("libanomod_torch_native", (SOURCE,),
+                    (cxx(), *CXX_FLAGS), build_dir, ".so")
+
+
+def build(build_dir: Optional[Path] = None) -> Path:
+    """Compile ``csrc/native.cpp`` unless built already; returns the
+    library path.  Raises ``RuntimeError`` with the compiler's output."""
+    return compile_once("libanomod_torch_native", (SOURCE,),
+                        (cxx(), *CXX_FLAGS), build_dir, ".so")
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -103,6 +138,28 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.atn_sfq_victim.restype = ctypes.c_int64
     lib.atn_sfq_victim.argtypes = [_F64P, _I64P, _I64P, _U8P,
                                    ctypes.c_int64]
+    lib.atn_scan_log_mt.restype = ctypes.c_int64
+    lib.atn_scan_log_mt.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_int32]
+    lib.atn_scan_api_jsonl.restype = ctypes.c_int64
+    lib.atn_scan_api_jsonl.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int64]
+    lib.atn_scan_csv_cols.restype = ctypes.c_int64
+    lib.atn_scan_csv_cols.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int32,
+        ctypes.c_int32, ctypes.c_void_p, ctypes.c_int64]
+    lib.atn_rt_create.restype = ctypes.c_void_p
+    lib.atn_rt_create.argtypes = [ctypes.c_int32]
+    lib.atn_rt_destroy.restype = None
+    lib.atn_rt_destroy.argtypes = [ctypes.c_void_p]
+    lib.atn_rt_n_threads.restype = ctypes.c_int32
+    lib.atn_rt_n_threads.argtypes = [ctypes.c_void_p]
+    lib.atn_rt_summarize_logs.restype = ctypes.c_int64
+    lib.atn_rt_summarize_logs.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_char_p), ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p]
     return lib
 
 
@@ -121,10 +178,11 @@ def status() -> dict:
     of the port's ``Config``), ``available``, ``so_path`` (None until
     built), ``build_error`` (why the library is unusable, the compiler's
     or the loader's words; None while it is fine) and ``staging`` (the
-    serve tick stages through it); ``mode`` ``on`` with no library adds
-    ``error``.  It builds the library if it must, and reports a failed
-    build rather than raising: it is a health document (``validate``
-    carries it).  The staging path itself still raises."""
+    library serves the serve tick's staging and the scanners: true when
+    it loads and ``mode`` is not ``off``); ``mode`` ``on`` with no
+    library adds ``error``.  It builds the library if it must, and
+    reports a failed build rather than raising: it is a health document
+    (``validate`` carries it).  The staging and scanning paths raise."""
     from anomod_torch.config import get_config
     m = get_config().native
     so_path, build_error = None, None
@@ -144,6 +202,131 @@ def status() -> dict:
         out["error"] = ("ANOMOD_NATIVE=on but the native runtime is "
                         "unusable — see build_error")
     return out
+
+
+def enabled() -> bool:
+    """Whether the parsers take the library: False under
+    ``ANOMOD_NATIVE=off``; else the library, built and loaded now (a
+    failed build raises), and True."""
+    from anomod_torch.config import get_config
+    if get_config().native == "off":
+        return False
+    library()
+    return True
+
+
+# -- scanners ---------------------------------------------------------------
+
+def scan_log(text: bytes, n_threads: int = 4) -> Tuple[np.ndarray,
+                                                        np.ndarray]:
+    """(level codes int8, timestamps float64) a ``\\n``-separated line:
+    0 info, 1 warn, 2 error or exception, 3 other (case-insensitive
+    substrings); the first ``YYYY-MM-DD[T ]HH:MM:SS`` starting in a
+    line's first 64 bytes as epoch seconds, 0 where none.  From 1 MiB
+    the scan runs on ``n_threads`` threads."""
+    lib = library()
+    max_lines = text.count(b"\n") + 1
+    levels = np.empty(max_lines, np.int8)
+    ts = np.empty(max_lines, np.float64)
+    n = lib.atn_scan_log_mt(text, len(text), levels.ctypes.data,
+                            ts.ctypes.data, max_lines, n_threads)
+    return levels[:n], ts[:n]
+
+
+class Runtime:
+    """A pool of ``n_threads`` C++ worker threads (``atn_rt_*``), each
+    with a read buffer it reuses across files; one pool serves many
+    calls.  A context manager; :func:`default_runtime` is the process's
+    shared one."""
+
+    def __init__(self, n_threads: int = 4):
+        self._lib = library()
+        self._ptr = self._lib.atn_rt_create(n_threads)
+
+    @property
+    def n_threads(self) -> int:
+        return int(self._lib.atn_rt_n_threads(self._ptr))
+
+    def close(self) -> None:
+        if self._ptr:
+            self._lib.atn_rt_destroy(self._ptr)
+            self._ptr = None
+
+    def __enter__(self) -> "Runtime":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def summarize_logs(self, paths) -> Tuple[np.ndarray, np.ndarray, int]:
+        """``(counts [N, 5] int64, ts [N, 2] float64, n_readable)``, a
+        file a task on the pool: counts rows {n_lines, n_info, n_warn,
+        n_error, size_bytes}, ts rows {min_ts, max_ts} (0 when absent);
+        an unreadable file's rows are zeros."""
+        enc = [str(p).encode() for p in paths]
+        arr = (ctypes.c_char_p * len(enc))(*enc)
+        counts = np.zeros((len(enc), 5), np.int64)
+        ts = np.zeros((len(enc), 2), np.float64)
+        n = self._lib.atn_rt_summarize_logs(
+            self._ptr, arr, len(enc), counts.ctypes.data, ts.ctypes.data)
+        return counts, ts, int(n)
+
+
+_DEFAULT_RT: Optional[Runtime] = None
+_rt_lock = threading.Lock()
+
+
+def default_runtime() -> Runtime:
+    """The process's shared pool (4 workers), made at first use and
+    closed at exit."""
+    global _DEFAULT_RT
+    with _rt_lock:
+        if _DEFAULT_RT is None:
+            import atexit
+            _DEFAULT_RT = Runtime(4)
+            atexit.register(_DEFAULT_RT.close)
+        return _DEFAULT_RT
+
+
+def summarize_log_files(paths) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+    """``(counts [N, 5], ts [N, 2])`` of :meth:`Runtime.summarize_logs`
+    on the shared pool; None for no paths, as the JAX function."""
+    if not paths:
+        return None
+    counts, ts, _ = default_runtime().summarize_logs(paths)
+    return counts, ts
+
+
+def scan_csv_columns(text: bytes, cols,
+                     skip_header: bool = True) -> np.ndarray:
+    """Numeric CSV columns, ``[len(cols), n_rows]`` float64 by
+    ``strtod``, NaN where a field does not parse or is missing; an
+    empty line is no row, and quoted fields may hold commas but not
+    newlines (a caller that needs full CSV checks the row count, as
+    ``io/metrics.py`` does)."""
+    lib = library()
+    max_rows = text.count(b"\n") + 1
+    cols_arr = np.asarray(list(cols), np.int32)
+    out = np.empty((len(cols_arr), max_rows), np.float64)
+    n = lib.atn_scan_csv_cols(text, len(text), cols_arr.ctypes.data,
+                              len(cols_arr), int(skip_header),
+                              out.ctypes.data, max_rows)
+    return out[:, :n]
+
+
+def scan_api_jsonl(text: bytes) -> Tuple[np.ndarray, np.ndarray,
+                                         np.ndarray]:
+    """``(status int16, latency_ms float32, content_length int32)`` a
+    JSONL record (a line longer than 2 bytes), each the number after its
+    quoted key by ``strtod``, 0 where the key is absent."""
+    lib = library()
+    max_recs = text.count(b"\n") + 1
+    status = np.empty(max_recs, np.int16)
+    lat = np.empty(max_recs, np.float32)
+    clen = np.empty(max_recs, np.int32)
+    n = lib.atn_scan_api_jsonl(text, len(text), status.ctypes.data,
+                               lat.ctypes.data, clen.ctypes.data, max_recs)
+    return status[:n], lat[:n], clen[:n]
 
 
 # -- staging ----------------------------------------------------------------

@@ -90,22 +90,27 @@ drives the data layer and every ported path:
   the same round trip, alerting on ``serve`` alone;
 - the quality sweep (phase 18): ``severity_sweep("TT")`` at full width
   and the CLI's defaults (60 traces, 120 epochs, noise 0.5, two
-  confounders) but 3 train and 2 eval seeds, over nine rows (the z-score
+  confounders) but 3 train and 1 eval seed, over nine rows (the z-score
   and stream baselines, GCN, GAT, GraphSAGE, the temporal GRU, the LRU, the
   TraceTransformer, the MoE) at severities 1.0 and 0.12, its stream
   row's ``dense_slice_fold`` launches counted, the training-free rows
   held to the CPU twin's (run in a spawned process meanwhile), each
-  learned family's first 20 losses on the card held to the CPU's from
+  learned family's first 10 losses on the card held to the CPU's from
   one draw, and each family's ms an epoch, device events and busy share
   from one profiled epoch;
 - the edge-aware shift sweep (phase 19): ``shift_sweep("TT",
   edge_aware=True)`` for the line graph and the transformer, in
   distribution and under the edge-locus shift, with each family's
   figures an epoch;
-- the flight recorder and thread shards (phase 20) at the serve bench
-  deployment, RCA on: flight off and on in two alternating turns, the
-  decision and RCA pins on every run, decisions equal off / on, the
-  card's canonical journal byte-identical to the CPU twin's (phase 16's),
+- phases 20-22 and 24 repeat the serve bench deployment at a cut depth,
+  50 of its 60 virtual seconds (:data:`CUT_KW`; the elastic legs 45),
+  every width kept; each cut run holds the pins and the canonical
+  journal of the same cut run's CPU twin (a spawned process from the
+  head of phase 17) where a full run holds the JAX captures' pins;
+- the flight recorder and thread shards (phase 20) at the cut depth,
+  RCA on: flight off and on in two alternating turns, the
+  cut twin's pins on every run, decisions equal off / on, the
+  card's canonical journal byte-identical to the cut twin's,
   no ring drop, the overhead fraction with the state digest's and the
   tick record's own walls; 2 and 4 shards on the card equal to the
   1-shard run (states, alerts, verdicts, decisions, canonical journal,
@@ -116,34 +121,36 @@ drives the data layer and every ported path:
   and ``audit diff`` (exit 0) through the CLI on the card, and a journal
   with one tick's admission digest edited, which ``diff`` names (exit
   1);
-- supervision, chaos and process shard workers (phase 21) at the same
-  deployment, RCA and flight on: the supervised default (4 checkpoints)
-  held to supervision off and the CPU twin's journal, its checkpoint
-  wall; the JAX bench's chaos leg at 1 shard (3 crashes, 55 restored
-  ticks, no score gap), its recovery wall; 2 shard threads, then process
+- supervision, chaos and process shard workers (phase 21), RCA and
+  flight on: at the cut depth, the supervised default (checkpoints at
+  ticks 0, 32, 64 and 96) held to supervision off and the cut twin's
+  journal, its checkpoint wall; at the full depth, the JAX bench's chaos
+  leg at 1 shard (the JAX pins, 3 crashes, 55 restored ticks, no score
+  gap against phase 16's run), its recovery wall; at the cut depth, 2
+  shard threads, then process
   workers at 2 shards (sparse fold), 1, 2 (dense) and 4, each equal to
   the threads on every decision and the canonical journal, the lane
   kernels launched in the children only, serve wall, the children's
   start wall and the 2-shard sparse run's busy share (its children
-  profile their own device work); and a 2-shard process run whose child
-  is killed at tick 40, respawned and restored with no score gap; each
+  profile their own device work); and, at the full depth, a 2-shard
+  process run whose child is killed at tick 40, respawned and restored
+  with no score gap; each
   run's wall split into serve wall, children's start and the rest;
 - the deferred-commit tick, the elastic policy and state tiering (phase
-  22): the serve bench deployment, RCA on, at pipeline 2 and 1, each
-  synchronous and deferred, and 2 thread shards deferred, every run
-  holding the pins, the synchronous run's states, alerts, verdicts and
-  decisions and the CPU twin's journal, with ``commit_defer_wall_s`` > 0,
-  lane dispatches still in flight at the depth-2 barriers (each
+  22): the cut depth, RCA on, at pipeline 2 and 1, each synchronous and
+  deferred, and 2 thread shards deferred, every run holding the cut
+  twin's pins, the synchronous run's states, alerts, verdicts and
+  decisions and the cut twin's journal, with ``commit_defer_wall_s`` >
+  0, lane dispatches still in flight at the depth-2 barriers (each
   barrier's in-flight, finished and drain wall printed) and the lane
-  kernel launched from the shard streams only; the JAX
-  bench's elastic legs (0.6x load, ``surge@30:factor=4:ticks=15``)
-  static and ``auto`` on 1-2 thread shards and 1-2 process children,
-  each elastic run scaling up and down, equal to the static run and
-  scaling on the CPU twin's schedule; the JAX bench's tiering pair (48
-  tenants, hot 12) off, on and on again, every counter non-zero and the
-  CPU twin's, states, alerts and SLO the off run's, the rerun's journal
-  the first's (both CPU twins in a spawned process beside the card's
-  work);
+  kernel launched from the shard streams only; the JAX bench's elastic
+  legs (0.6x load, ``surge@30:factor=4:ticks=15``) static and ``auto``
+  on 1-2 thread shards and 1-2 process children, each elastic run
+  scaling up and down, equal to the static run and scaling on the CPU
+  twin's schedule; the JAX bench's tiering pair (48 tenants, hot 12)
+  off, on and on again, every counter non-zero and the CPU twin's,
+  states, alerts and SLO the off run's, the rerun's journal the first's
+  (both CPU twins in a spawned process beside the card's work);
 - the live feed and the multimodal sidecar (phase 23): the JAX bench's
   live-feed leg (the dogfood loop: the port's own ``/metrics`` scraped
   into the tick, 4 tenants, 10 s) live and recorded, replayed on the
@@ -157,9 +164,9 @@ drives the data layer and every ported path:
   ``MultimodalDetector`` on the card and to the CPU twin, supervision
   and the policy off; each run's serve wall, the traffic's own wall,
   polls / samples / spans / gaps, launches, and a profiled busy share;
-- the perf and census observatories (phase 24) at the serve bench
-  deployment, RCA on: perf off and on in two alternating turns, the
-  pins and the CPU twin's journal on every run, decisions equal off /
+- the perf and census observatories (phase 24) at the cut depth, RCA
+  on: perf off and on in two alternating turns, the cut twin's pins and
+  journal on every run, decisions equal off /
   on, events recorded and none dropped, the timeline's dispatch and fold
   stamps summing to the report's legs, the wait, the headroom and the
   bubble fractions printed with the overhead's median; the same at 2
@@ -227,7 +234,19 @@ drives the data layer and every ported path:
   exec kinds against a scripted cluster at a fixed stamp: each output's
   sha256 equal to the JAX package's (:data:`COLLECTION_PLANE_DIGESTS`,
   wall-time fields stripped, :func:`collection_plane_outputs`); ``lint
-  --json`` clean over this checkout; no probe, no CUDA, no launch.
+  --json`` clean over this checkout; no probe, no CUDA, no launch;
+- the native scanners (phase 30), host only, in a spawned process
+  started at the head of phase 20 at nice 19: a corpus at the size of a
+  collection run (~64 MiB of synthesized SN logs over 30 files, a TT
+  metric CSV of 990,360 rows, an API JSONL of 1 M records) made from a
+  seed and held to its sha256 first, then ``scan_log``,
+  ``summarize_log_files``, ``Runtime.summarize_logs``,
+  ``scan_csv_columns``, ``scan_api_jsonl`` and the parsers that dispatch
+  to them, each output's sha256 equal to the JAX package's native
+  outputs (:data:`NATIVE_SCAN_DIGESTS`, :func:`native_scan_digests`) and
+  to the Python route's bytes, both routes' host walls; the tsan and
+  asan legs of ``anomod_torch.io.sanitize`` (``ok`` or ``skip`` with its
+  reason); no probe, no CUDA, no launch.
 
 Phase 18's CPU trainings and phase 29 run in spawned processes; phases
 6-8 and 20 print each serve run's wall and what lies between the runs;
@@ -517,6 +536,20 @@ SERVE_KW = dict(n_tenants=200, n_services=12, capacity_spans_per_s=25_000.0,
                 overload=2.0, duration_s=60.0, tick_s=0.5, seed=7,
                 window_s=5.0, baseline_windows=4, fault_tenants=2,
                 max_backlog=200_000)
+#: the serve bench deployment at a cut depth, for the runs phases 20-22
+#: and 24 repeat: 50 virtual seconds (100 ticks) of its 60 (120 ticks),
+#: every width kept (tenants, services, capacity, overload, tick, seed).
+#: Phases 8 and 16 and phase 21's chaos leg and respawn keep the full
+#: depth and the JAX captures' pins.  The depth is the least round one
+#: that holds every event the cut runs check: the tenant faults start at
+#: 30 s and only in a run longer than 40 s (``power_law_traffic``), and
+#: under this overload a fault tenant's first onset-eligible RCA verdict
+#: comes at 48.5 s; read on the CPU, a cut run takes checkpoints at ticks
+#: 0, 32, 64 and 96, a census every 8 ticks, 103 alerts and 41 RCA
+#: verdicts, one fault tenant eligible and hit at top-1.  A cut run is
+#: held to the CPU twin of the same cut run (:func:`cut_serve_twin`), and
+#: to its phase's oracle run at the same depth
+CUT_KW = dict(SERVE_KW, duration_s=50.0)
 #: decision pins of every committed JAX serve capture at the bench seed
 SERVE_PINS = {"p99_latency_s": 22.998135, "shed_fraction": 0.437567,
               "n_alerts": 158}
@@ -547,12 +580,13 @@ SELFSCRAPE_REPEATS = 20
 #: default, the stream row and the z-score baseline, at full strength and
 #: at the hard point (severity 0.12 with the CLI's noise 0.5 and two
 #: confounders); every other argument at the CLI's defaults but the seeds:
-#: at its 6 train and 3 eval seeds the script ran 464-471 s, past its
-#: 420 s aim, so 3 train seeds (one a severity third) and 2 eval seeds
+#: 3 train seeds (one a severity third) and 1 eval seed keep the sweep's
+#: share of the script's 1200 s limit (the stream row's host work grows
+#: with the eval corpora: 38 s at 2 and 17 s at 1 on a CPU)
 SWEEP_MODELS = ("zscore", "stream", "gcn", "gat", "sage", "temporal", "lru",
                 "transformer", "moe")
 SWEEP_SEVERITIES = (1.0, 0.12)
-SWEEP_SEEDS = dict(train_seeds=range(3), eval_seeds=range(100, 102))
+SWEEP_SEEDS = dict(train_seeds=range(3), eval_seeds=range(100, 101))
 #: the edge-aware shift sweep (phase 19)
 SHIFT_MODELS = ("linegraph", "transformer")
 SHIFT_SHIFTS = ("in-dist", "edge-locus")
@@ -564,8 +598,9 @@ SHIFT_SHIFTS = ("in-dist", "edge-locus")
 #: as a model fits the batch (at 3 train seeds the transformer's reached
 #: 6e-4 by epoch 20, where the two devices' 1.5e-7 apart read 2.5e-4 of
 #: that epoch's own loss).  Read on an H100: the transformer's twenty at
-#: most 1.5e-6 of its first loss
-SWEEP_LOSS_EPOCHS = 20
+#: most 1.5e-6 of its first loss.  10 epochs keep the CPU's trainings,
+#: run in their own process, inside the card's sweep beside them
+SWEEP_LOSS_EPOCHS = 10
 RTOL_SWEEP_LOSS = 1e-5
 
 
@@ -645,6 +680,45 @@ def serve_fingerprint(eng):
                     np.asarray(st.agg).tobytes(),
                     np.asarray(st.hist).tobytes())
     return out
+
+
+def serve_pins(rep) -> dict:
+    """A serve run's decision and RCA pins."""
+    return {"p99_latency_s": rep.latency["p99_latency_s"],
+            "shed_fraction": rep.shed_fraction, "n_alerts": rep.n_alerts,
+            "n_rca_runs": rep.n_rca_runs, "rca_eligible": rep.rca_eligible,
+            "rca_topk_hits": rep.rca_topk_hits}
+
+
+def cut_serve_twin() -> dict:
+    """The CPU twin of phases 20-22 and 24's cut runs (:data:`CUT_KW`,
+    RCA on, the engine's defaults), in a spawned process from the head of
+    phase 17, one torch thread: its pins, its canonical flight journal,
+    its checkpoints and its walls."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import torch
+    torch.set_num_threads(1)
+    from anomod_torch.serve.engine import run_power_law
+    t0 = time.perf_counter()
+    eng, rep = run_power_law(device="cpu", rca=True, **CUT_KW)
+    return dict(pins=serve_pins(rep),
+                journal=eng.flight_recorder.canonical_bytes(),
+                ticks=rep.ticks, n_checkpoints=rep.n_checkpoints,
+                n_verdicts=len(eng.rca_verdicts),
+                serve_wall_s=rep.serve_wall_s,
+                wall_s=time.perf_counter() - t0)
+
+
+def held_cut(rep, cut: dict, what: str) -> None:
+    """A cut run's pins against its CPU twin's (:func:`cut_serve_twin`),
+    which must have served a fault tenant and found its culprit."""
+    got = serve_pins(rep)
+    check(cut["pins"]["rca_eligible"] >= 1
+          and cut["pins"]["rca_topk_hits"][5] >= 1,
+          f"{what}: the cut CPU twin served no fault tenant or missed its "
+          f"culprit: {cut['pins']}")
+    check(got == cut["pins"], f"{what}: pins {got} != the cut CPU twin's "
+          f"{cut['pins']}")
 
 
 def same_value(a, b) -> bool:
@@ -2266,7 +2340,9 @@ def rca_serve_phase(dev, card, twins) -> dict:
     log(f"[16] flight recorder on (the default): canonical journal of "
         f"{r_on.flight_recorded_ticks} records byte-identical to the CPU "
         f"twin's, {r_on.flight_dropped_ticks} dropped")
-    return {"cpu_journal": cpu_journal,
+    # phase 21's chaos leg and respawn are held to this run (popped by
+    # main): the full depth's fault-free run, flight on and supervised
+    return {"cpu_journal": cpu_journal, "_run": (e_on, r_on),
             "rca_serve": dict(
                 pins=got, rca=rca_got, rca_wall_s=r_on.rca_wall_s,
                 rca_latency=r_on.rca_latency,
@@ -2721,12 +2797,13 @@ SHARD_COUNTS = (2, 4)
 PROFILED_SHARD_COUNTS = (1, 2)
 
 
-def flight_shard_phase(dev, card, cpu_journal) -> dict:
+def flight_shard_phase(dev, card, cut) -> dict:
     """Phase 20: the flight recorder and thread shards at the serve bench
-    deployment, RCA on.  Flight off and on in alternating turns: the
-    decision and RCA pins on every run, decisions equal off / on, the
-    card's canonical journal byte-identical to the CPU twin's (phase
-    16's), no ring drop, the median overhead fraction with the digest's
+    deployment cut to 50 s (:data:`CUT_KW`), RCA on.  Flight off and on
+    in alternating turns: the cut CPU twin's decision and RCA pins on
+    every run (``cut``, :func:`cut_serve_twin`), decisions equal off /
+    on, the card's canonical journal byte-identical to the twin's, no
+    ring drop, the median overhead fraction with the digest's
     and the tick record's own walls split out.  Shards 2 and 4 on the
     card: states, alerts, verdicts, decisions and the canonical journal
     equal to the 1-shard run's, the staged chunks per width equal, each
@@ -2750,20 +2827,12 @@ def flight_shard_phase(dev, card, cpu_journal) -> dict:
     from anomod_torch.serve.engine import (FLIGHT_REPORT_FIELDS,
                                            VARIANT_REPORT_FIELDS,
                                            ServeEngine, run_power_law)
-    kw = dict(SERVE_KW, device=dev, rca=True)
+    kw = dict(CUT_KW, device=dev, rca=True)
 
     def decisions(r, skip=()):
         return {k: v for k, v in dataclasses.asdict(r).items()
                 if k not in VARIANT_REPORT_FIELDS + tuple(skip)
                 and k != "device"}
-
-    def pins(r, what):
-        got = {"p99_latency_s": r.latency["p99_latency_s"],
-               "shed_fraction": r.shed_fraction, "n_alerts": r.n_alerts}
-        check(got == SERVE_PINS, f"{what}: pins {got} != {SERVE_PINS}")
-        rca = {"n_rca_runs": r.n_rca_runs, "rca_eligible": r.rca_eligible,
-               "rca_topk_hits": r.rca_topk_hits}
-        check(rca == RCA_PINS, f"{what}: rca pins {rca} != {RCA_PINS}")
 
     # -- flight off / on ---------------------------------------------------
     walls = {"off": [], "on": []}
@@ -2788,7 +2857,7 @@ def flight_shard_phase(dev, card, cpu_journal) -> dict:
                 tick_rec_walls.append(sum(rec_walls))
             else:
                 digest_walls.pop()
-            pins(rep, f"flight {leg}")
+            held_cut(rep, cut, f"flight {leg}")
             runs.setdefault(leg, (eng, rep))
     finally:
         flight.state_digest = real_digest
@@ -2805,8 +2874,9 @@ def flight_shard_phase(dev, card, cpu_journal) -> dict:
           f"flight: {r_on.flight_recorded_ticks} records for "
           f"{r_on.ticks} ticks, {r_on.flight_dropped_ticks} dropped")
     journal = fr.canonical_bytes()
-    check(journal == cpu_journal,
-          "flight: the card's canonical journal differs from the CPU twin's")
+    check(journal == cut["journal"],
+          "flight: the card's canonical journal differs from the cut CPU "
+          "twin's")
     overhead = [on / off - 1.0 for on, off in zip(walls["on"], walls["off"])]
     digests = [len(w) for w in digest_walls]
     digest_s = [sum(w) for w in digest_walls]
@@ -2820,8 +2890,9 @@ def flight_shard_phase(dev, card, cpu_journal) -> dict:
         digest_wall_each_s=[d / max(n, 1) for d, n in zip(digest_s, digests)],
         tick_record_wall_s=tick_rec_walls,
         journal_bytes=len(journal))}
-    log(f"[20] flight on {card}: pins held off and on, decisions identical, "
-        f"canonical journal ({len(journal)} B, {r_on.flight_recorded_ticks} "
+    log(f"[20] flight on {card}: the cut twin's pins held off and on, "
+        f"decisions identical, canonical journal ({len(journal)} B, "
+        f"{r_on.flight_recorded_ticks} "
         f"records, {r_on.flight_dropped_ticks} dropped) byte-identical to "
         f"the CPU twin's; serve wall off {walls['off']} s, on "
         f"{walls['on']} s (alternating), overhead {overhead}, median "
@@ -2855,7 +2926,7 @@ def flight_shard_phase(dev, card, cpu_journal) -> dict:
                 batcher.lane_delta = real_lane
         launches = dict(sk.launches)
         split = split_sums(legs, rep)
-        pins(rep, f"{n} shards")
+        held_cut(rep, cut, f"{n} shards")
         if n == 1:
             check(streams == {torch.cuda.current_stream(dev).cuda_stream},
                   f"1 shard: lane_delta launched on {streams}")
@@ -2924,7 +2995,8 @@ def flight_shard_phase(dev, card, cpu_journal) -> dict:
 
     # -- audit record / replay / diff ---------------------------------------
     args = ["--tenants", "200", "--services", "12", "--capacity", "25000",
-            "--overload", "2", "--duration", "60", "--tick", "0.5",
+            "--overload", "2", "--duration", f"{CUT_KW['duration_s']:g}",
+            "--tick", "0.5",
             "--seed", "7", "--window-seconds", "5", "--baseline-windows",
             "4", "--fault-tenants", "2", "--rca", "--device", "cuda"]
 
@@ -3170,16 +3242,22 @@ def child_hellos():
         procshard.ProcShardWorker.wait_ready = real
 
 
-def supervise_proc_phase(dev, card, cpu_journal, fs20) -> dict:
+def supervise_proc_phase(dev, card, cut, fs20, cpu_journal,
+                         full_run) -> dict:
     """Phase 21: supervision, chaos and process shard workers at the serve
-    bench deployment, RCA on, flight on.  (1) The supervised default
-    (phase 20's first flight-on run, popped from ``fs20``): the pins, 4
-    checkpoints, states, alerts, verdicts, decisions and the canonical
-    journal equal an unsupervised run's and the CPU twin's journal; the
-    checkpoint wall and its fraction of the serve wall.
-    (2) The JAX bench's chaos leg at 1 shard: 3 crashes, 55 restored
-    ticks, nothing quarantined or migrated, no respawn, and no score gap
-    (everything above equal to the fault-free run's); the recovery wall.
+    bench deployment, RCA on, flight on; (1) and (3) cut to 50 s
+    (:data:`CUT_KW`), (2) and (4) at the full depth.  (1) The supervised
+    default (phase 20's first flight-on run, popped from ``fs20``): the
+    cut CPU twin's pins (``cut``), checkpoints at ticks 0, 32, 64 and 96,
+    states, alerts, verdicts, decisions and the canonical journal equal an
+    unsupervised run's and the cut twin's journal; the checkpoint wall
+    and its fraction of the serve wall.
+    (2) The JAX bench's chaos leg at 1 shard: the JAX captures' pins, 3
+    crashes, 55 restored ticks, nothing quarantined or migrated, no
+    respawn, and no score gap: states, alerts, verdicts, decisions and
+    the canonical journal equal phase 16's fault-free run's
+    (``full_run``, whose journal is the CPU twin's ``cpu_journal``); the
+    recovery wall.
     (3) Process workers at 2 shards (sparse fold), 1, 2 (dense) and 4,
     the 2-shard sparse run's children profiling their own device work
     (:data:`PROFILED_PROC_RUN`), against phase 20's 2-shard
@@ -3189,8 +3267,8 @@ def supervise_proc_phase(dev, card, cpu_journal, fs20) -> dict:
     the children; serve wall beside phase 20's thread walls, the
     children's start wall apart from it, launches summed over the
     children and the busy share.  (4) A 2-shard process run whose shard
-    1 child is killed at tick 40: respawned, restored, equal to the
-    fault-free run."""
+    1 child is killed at tick 40: respawned, restored, equal to phase
+    16's fault-free run."""
     import dataclasses
     import os
     import tempfile
@@ -3200,7 +3278,8 @@ def supervise_proc_phase(dev, card, cpu_journal, fs20) -> dict:
                                            SUPERVISION_REPORT_FIELDS,
                                            VARIANT_REPORT_FIELDS,
                                            run_power_law)
-    kw = dict(SERVE_KW, device=dev, rca=True, flight=True)
+    kw = dict(CUT_KW, device=dev, rca=True, flight=True)
+    full_kw = dict(SERVE_KW, device=dev, rca=True, flight=True)
     t_phase = time.perf_counter()
 
     def decisions(r, skip=()):
@@ -3209,6 +3288,7 @@ def supervise_proc_phase(dev, card, cpu_journal, fs20) -> dict:
                 and k != "device"}
 
     def pins(r, what):
+        """The JAX captures' pins, on a full-depth run."""
         got = {"p99_latency_s": r.latency["p99_latency_s"],
                "shed_fraction": r.shed_fraction, "n_alerts": r.n_alerts}
         check(got == SERVE_PINS, f"{what}: pins {got} != {SERVE_PINS}")
@@ -3234,9 +3314,12 @@ def supervise_proc_phase(dev, card, cpu_journal, fs20) -> dict:
     e_off, r_off = run_power_law(ckpt_every=0, **kw)
     split["unsupervised"] = dict(wall_s=time.perf_counter() - t0,
                                  serve_wall_s=r_off.serve_wall_s)
-    pins(r_off, "unsupervised")
+    held_cut(r_off, cut, "unsupervised")
+    # a checkpoint every 32 ticks from tick 0: ticks 0, 32, 64 and 96 of
+    # the cut run's 100 (and of the full run's 120)
     check(r_sup.supervised and r_sup.ckpt_every == 32
-          and r_sup.n_checkpoints == 4 and not r_off.supervised
+          and r_sup.n_checkpoints == len(range(0, r_sup.ticks, 32))
+          == cut["n_checkpoints"] >= 2 and not r_off.supervised
           and r_off.n_checkpoints == 0,
           f"supervision: {r_sup.n_checkpoints} checkpoints at cadence "
           f"{r_sup.ckpt_every}; off-run supervised={r_off.supervised}")
@@ -3250,39 +3333,47 @@ def supervise_proc_phase(dev, card, cpu_journal, fs20) -> dict:
           + str(field_diff(decisions(r_sup, SUPERVISION_REPORT_FIELDS),
                            decisions(r_off, SUPERVISION_REPORT_FIELDS)))
           + f"; recovery events {recovery_events(e_sup)}")
-    check(journal == e_off.flight_recorder.canonical_bytes() == cpu_journal,
+    check(journal == e_off.flight_recorder.canonical_bytes()
+          == cut["journal"],
           "supervision: canonical journal differs from the unsupervised "
-          "run's or the CPU twin's")
+          "run's or the cut CPU twin's")
     ckpt_s = e_sup._supervisor.ckpt_wall_s
     out = {"supervision": dict(
         n_checkpoints=r_sup.n_checkpoints, ckpt_wall_s=ckpt_s,
         serve_wall_s=r_sup.serve_wall_s,
         ckpt_fraction=ckpt_s / r_sup.serve_wall_s,
         serve_wall_unsupervised_s=r_off.serve_wall_s)}
-    log(f"[21] supervised (the default) on {card}: pins held, "
+    log(f"[21] supervised (the default, cut to {r_sup.ticks} ticks) on "
+        f"{card}: the cut twin's pins held, "
         f"{r_sup.n_checkpoints} checkpoints every {r_sup.ckpt_every} ticks, "
         f"states, alerts, {len(e_sup.rca_verdicts)} verdicts, decisions "
-        f"and the canonical journal equal supervision off and the CPU "
+        f"and the canonical journal equal supervision off and the cut CPU "
         f"twin's journal; checkpoint wall {ckpt_s:.4f} s of a "
         f"{r_sup.serve_wall_s:.4f} s serve wall (fraction "
         f"{out['supervision']['ckpt_fraction']:.4g}); supervision off "
         f"{r_off.serve_wall_s:.4f} s")
 
-    # -- (2) the JAX bench's chaos leg -------------------------------------
+    # -- (2) the JAX bench's chaos leg, at the full depth ----------------
+    e_full, r_full = full_run
+    full_journal = e_full.flight_recorder.canonical_bytes()
+    check(full_journal == cpu_journal,
+          "phase 16's run: its journal differs from the CPU twin's")
     t0 = time.perf_counter()
-    e_ch, r_ch = run_power_law(chaos=CHAOS_SCRIPT, **kw)
+    e_ch, r_ch = run_power_law(chaos=CHAOS_SCRIPT, **full_kw)
     split["chaos"] = dict(wall_s=time.perf_counter() - t0,
                           serve_wall_s=r_ch.serve_wall_s)
     pins(r_ch, "chaos")
     got = {k: getattr(r_ch, k) for k in CHAOS_WANT}
     check(got == CHAOS_WANT, f"chaos: {got} != {CHAOS_WANT}")
-    check(serve_fingerprint(e_ch) == want_fp
+    check(serve_fingerprint(e_ch) == serve_fingerprint(e_full)
           and decisions(r_ch, RECOVERY_REPORT_FIELDS)
-          == decisions(r_sup, RECOVERY_REPORT_FIELDS)
-          and verdicts(e_ch) == verdicts(e_sup),
+          == decisions(r_full, RECOVERY_REPORT_FIELDS)
+          and verdicts(e_ch) == verdicts(e_full),
           "chaos: states, alerts, verdicts or decisions differ from the "
-          "fault-free run's")
-    check(e_ch.flight_recorder.canonical_bytes() == journal,
+          "fault-free run's: "
+          + str(field_diff(decisions(r_ch, RECOVERY_REPORT_FIELDS),
+                           decisions(r_full, RECOVERY_REPORT_FIELDS))))
+    check(e_ch.flight_recorder.canonical_bytes() == full_journal,
           "chaos: the canonical journal differs from the fault-free run's")
     rec_s = e_ch._supervisor.recovery_wall_s
     events = [ev for t in e_ch.flight_recorder.records()
@@ -3293,8 +3384,9 @@ def supervise_proc_phase(dev, card, cpu_journal, fs20) -> dict:
                         events=[{k: ev[k] for k in ("tick", "kind",
                                                     "restored_ticks")}
                                 for ev in events])
-    log(f"[21] chaos leg on {card} ({CHAOS_SCRIPT}): {got}; no score gap "
-        f"(states, alerts, verdicts, decisions, canonical journal equal the "
+    log(f"[21] chaos leg on {card} ({CHAOS_SCRIPT}, {r_ch.ticks} ticks): "
+        f"the JAX captures' pins held, {got}; no score gap (states, alerts, "
+        f"verdicts, decisions, canonical journal equal phase 16's "
         f"fault-free run's); recovery wall {rec_s:.4f} s, serve wall "
         f"{r_ch.serve_wall_s:.4f} s; events {out['chaos']['events']}")
 
@@ -3343,7 +3435,7 @@ def supervise_proc_phase(dev, card, cpu_journal, fs20) -> dict:
                 close_s=[c["close_s"] for c in closes],
                 close_exitcodes=[c["exitcode"] for c in closes],
                 read_s=read_s)
-            pins(rep, name)
+            held_cut(rep, cut, name)
             check(rep.worker == "process" and rep.fold == fold
                   and rep.shards == n, f"{name}: ran as {rep.worker}, "
                   f"{rep.fold}, {rep.shards} shards")
@@ -3407,10 +3499,10 @@ def supervise_proc_phase(dev, card, cpu_journal, fs20) -> dict:
             f"payload {r['fold_payload_bytes']} B")
     out["process"] = runs
 
-    # -- (4) a child killed and respawned ----------------------------------
+    # -- (4) a child killed and respawned, at the full depth ------------
     t0 = time.perf_counter()
     eng, rep = run_power_law(shards=2, worker="process",
-                             chaos="crash@40:shard=1", **kw)
+                             chaos="crash@40:shard=1", **full_kw)
     split["respawn"] = dict(wall_s=time.perf_counter() - t0,
                             serve_wall_s=rep.serve_wall_s,
                             worker_start_s=eng.worker_start_s)
@@ -3418,10 +3510,11 @@ def supervise_proc_phase(dev, card, cpu_journal, fs20) -> dict:
     check(rep.n_respawns >= 1 and rep.n_shard_crashes >= 1,
           f"respawn: {rep.n_respawns} respawns, {rep.n_shard_crashes} "
           "crashes")
-    check(alerts(eng) == want_alerts and verdicts(eng) == want_verdicts
+    check(alerts(eng) == alerts(e_full)
+          and verdicts(eng) == verdicts(e_full)
           and decisions(rep, RECOVERY_REPORT_FIELDS)
-          == decisions(r_th, RECOVERY_REPORT_FIELDS)
-          and eng.flight_recorder.canonical_bytes() == journal,
+          == decisions(r_full, RECOVERY_REPORT_FIELDS)
+          and eng.flight_recorder.canonical_bytes() == full_journal,
           "respawn: a score gap (decisions or journal differ from the "
           "fault-free run's)")
     out["respawn"] = dict(n_respawns=rep.n_respawns,
@@ -3467,7 +3560,8 @@ def supervise_proc_phase(dev, card, cpu_journal, fs20) -> dict:
                f"set-up outside the closes "
                f"{r['rest_outside_closes_s']:.3f} s"))
     out["phase21_split"] = split
-    log(f"[21] respawn on {card}: shard 1's child killed at tick 40, "
+    log(f"[21] respawn on {card} ({rep.ticks} ticks, the JAX captures' "
+        f"pins held): shard 1's child killed at tick 40, "
         f"{rep.n_respawns} respawn(s), {rep.n_restored_ticks} restored "
         f"ticks, recovery wall {rep.recovery_wall_s:.4f} s, serve wall "
         f"{rep.serve_wall_s:.4f} s; no score gap; phase 21 in "
@@ -3475,13 +3569,18 @@ def supervise_proc_phase(dev, card, cpu_journal, fs20) -> dict:
     return out
 
 
-#: phase 22's elastic legs: the JAX serve bench's (``bench.py:368-392``)
-#: at its 120 ticks, a 4x surge over ticks 30-44 at 0.6x load
+#: phase 22's elastic legs: the JAX serve bench's (``bench.py:368-392``),
+#: a 4x surge over ticks 30-44 at 0.6x load
 ELASTIC_SURGE = "surge@30:factor=4:ticks=15"
 ELASTIC_POLICY = dict(shards=1, chaos=ELASTIC_SURGE, policy="auto",
                       min_shards=1, max_shards=2, cooldown_ticks=5)
-#: phase 22's elastic deployment: the serve bench's at 0.6x, RCA off
-ELASTIC_KW = dict(SERVE_KW, overload=0.6, rca=False, flight=True)
+#: phase 22's elastic deployment: the serve bench's at 0.6x, RCA off, cut
+#: to 45 s (90 of its 120 ticks), the least round depth past the 40 s a
+#: run needs for its tenant faults (:data:`CUT_KW`): read on the CPU, the
+#: policy scales up at tick 36 and down at tick 72 at any depth from 40 s,
+#: and both fault tenants alert from their onset window (6) on
+ELASTIC_KW = dict(SERVE_KW, overload=0.6, rca=False, flight=True,
+                  duration_s=45.0)
 #: phase 22's tiering pair: the JAX serve bench's (``bench.py:440-470``)
 TIER_KW = dict(n_tenants=48, n_services=8, capacity_spans_per_s=800.0,
                overload=0.5, duration_s=24.0, tick_s=1.0, seed=7,
@@ -3589,30 +3688,33 @@ def elastic_tier_cpu_twins() -> dict:
     return out
 
 
-def elastic_async_tier_phase(dev, card, cpu_journal) -> dict:
+def elastic_async_tier_phase(dev, card, cut) -> dict:
     """Phase 22 (:func:`_elastic_async_tier_phase`), its CPU twins run in
     a spawned process (:func:`elastic_tier_cpu_twins`) beside the card's
     work."""
     import multiprocessing
     with multiprocessing.get_context("spawn").Pool(1) as pool:
         return _elastic_async_tier_phase(
-            dev, card, cpu_journal, pool.apply_async(elastic_tier_cpu_twins))
+            dev, card, cut, pool.apply_async(elastic_tier_cpu_twins))
 
 
-def _elastic_async_tier_phase(dev, card, cpu_journal, twin_job) -> dict:
+def _elastic_async_tier_phase(dev, card, cut, twin_job) -> dict:
     """Phase 22: the deferred-commit tick, the elastic policy and state
     tiering in the serve tick, on the card.  (1) The serve bench
-    deployment, RCA on, supervised: pipeline 2 and 1, each synchronous
-    and deferred, and 2 thread shards deferred; every run holds the
-    decision and RCA pins, equals the synchronous depth-2 run on states,
-    alerts, verdicts and decisions, and its canonical journal equals the
-    CPU twin's (phase 16's); the deferred runs defer every tick with
+    deployment cut to 50 s (:data:`CUT_KW`), RCA on, supervised:
+    pipeline 2 and 1, each synchronous and deferred, and 2 thread shards
+    deferred; every run holds the cut CPU twin's decision and RCA pins
+    (``cut``), equals the synchronous depth-2 run on states, alerts,
+    verdicts and decisions, and its canonical journal equals the cut
+    twin's; the deferred runs defer every tick with
     ``commit_defer_wall_s`` > 0, the depth-2 ones with lane dispatches
     in flight at their barriers (:func:`barrier_probe`), and the 2-shard
     run launches the lane
     kernel from its shard runners' streams only.  (2) The JAX bench's
-    elastic legs: static, then ``auto`` on 1-2 thread shards and on 1-2
-    process children; each elastic run scales up and down, equals the
+    elastic legs (cut to 45 s, :data:`ELASTIC_KW`): static, each fault
+    tenant alerting from its onset window on, then
+    ``auto`` on 1-2 thread shards and on 1-2 process children; each
+    elastic run scales up and down, equals the
     static run on states, alerts, decisions and the journal, and its
     scaling events equal the CPU twin's; launches a shard, and the
     spawned child's start inside ``policy_wall_s``.  (3) The JAX bench's
@@ -3649,7 +3751,7 @@ def _elastic_async_tier_phase(dev, card, cpu_journal, twin_job) -> dict:
                 for ev in t["scaling"]]
 
     # -- (1) the deferred-commit tick --------------------------------------
-    kw = dict(SERVE_KW, device=dev, rca=True, flight=True)
+    kw = dict(CUT_KW, device=dev, rca=True, flight=True)
     sk.reset_launches()
     runs, probes = {}, {}
     for depth in (2, 1):
@@ -3667,19 +3769,14 @@ def _elastic_async_tier_phase(dev, card, cpu_journal, twin_job) -> dict:
     want_fp, want_v = serve_fingerprint(e_ref), verdicts(e_ref)
     out = {"async": {}}
     for name, (eng, rep) in runs.items():
-        got = {"p99_latency_s": rep.latency["p99_latency_s"],
-               "shed_fraction": rep.shed_fraction, "n_alerts": rep.n_alerts}
-        check(got == SERVE_PINS, f"{name}: pins {got} != {SERVE_PINS}")
-        rca = {"n_rca_runs": rep.n_rca_runs, "rca_eligible": rep.rca_eligible,
-               "rca_topk_hits": rep.rca_topk_hits}
-        check(rca == RCA_PINS, f"{name}: rca pins {rca} != {RCA_PINS}")
+        held_cut(rep, cut, name)
         got, want = (decisions(r, ASYNC_REPORT_FIELDS) for r in (rep, r_ref))
         check(serve_fingerprint(eng) == want_fp and verdicts(eng) == want_v
               and got == want,
               f"{name}: states, alerts, verdicts or decisions differ from "
               f"the synchronous run's: {field_diff(got, want)}")
-        check(eng.flight_recorder.canonical_bytes() == cpu_journal,
-              f"{name}: canonical journal differs from the CPU twin's")
+        check(eng.flight_recorder.canonical_bytes() == cut["journal"],
+              f"{name}: canonical journal differs from the cut CPU twin's")
         deferred = "deferred" in name
         check(rep.async_commit == deferred
               and rep.async_ticks == (rep.ticks if deferred else 0)
@@ -3712,8 +3809,9 @@ def _elastic_async_tier_phase(dev, card, cpu_journal, twin_job) -> dict:
         check(v > 0, f"deferred block: kernel {k} was not launched")
     out["async_launches"] = async_launches
     for name, r in out["async"].items():
-        log(f"[22] {name} on {card}: pins, states, alerts, verdicts, "
-            f"decisions and the CPU twin's journal held; deferred ticks "
+        log(f"[22] {name} on {card}: the cut twin's pins, states, alerts, "
+            f"verdicts, decisions and the cut twin's journal held; deferred "
+            f"ticks "
             f"{r['async_ticks']}, commit_defer_wall_s "
             f"{r['commit_defer_wall_s']:.6f}; at {r['barriers']} "
             f"barriers {r['inflight_at_barrier']} dispatches in flight, "
@@ -3758,6 +3856,13 @@ def _elastic_async_tier_phase(dev, card, cpu_journal, twin_job) -> dict:
     events, cpu_s = twins["elastic"]
     want_fp = serve_fingerprint(e_st)
     want_alerts = {t: e_st.alerts_for(t) for t in e_st._tenant_det}
+    # the tenant faults start at window baseline_windows + 2
+    onset_w = ELASTIC_KW["baseline_windows"] + 2
+    late = {t: [a.window for a in want_alerts.get(t, ())
+                if a.window >= onset_w]
+            for t in range(ELASTIC_KW["fault_tenants"])}
+    check(all(late.values()), f"elastic static: a fault tenant raised no "
+          f"alert from its onset window {onset_w} on: {late}")
     journal = e_st.flight_recorder.canonical_bytes()
     out["elastic"] = {"static_serve_wall_s": r_st.serve_wall_s,
                       "cpu_twin_wall_s": cpu_s,
@@ -4386,9 +4491,10 @@ def sweep_bytes(doc) -> list:
 
 def census_cpu_twin() -> tuple:
     """Phase 24's CPU twin, run in a spawned process: the census run's
-    stream and hot-set document, and both sweeps' bytes rows.  One torch
-    thread: the plain lane fold's ``index_add_`` piles every padding row
-    onto one segment, and those adds contend under torch's thread pool."""
+    (cut to 50 s, :data:`CUT_KW`) stream and hot-set document, and both
+    sweeps' bytes rows.  One torch thread: the plain lane fold's
+    ``index_add_`` piles every padding row onto one segment, and those
+    adds contend under torch's thread pool."""
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     import torch
     torch.set_num_threads(1)
@@ -4396,7 +4502,7 @@ def census_cpu_twin() -> tuple:
     from anomod_torch.serve.engine import run_power_law
     t0 = time.perf_counter()
     eng, rep = run_power_law(device="cpu", rca=True, census=True,
-                             census_every=CENSUS_EVERY, **SERVE_KW)
+                             census_every=CENSUS_EVERY, **CUT_KW)
     sweep = fleet_probe(device="cpu")
     tiered = fleet_probe(device="cpu", sizes=[*sweep["sizes"],
                                               10 * max(sweep["sizes"])],
@@ -4443,12 +4549,13 @@ def perf_reconciles(name, eng, rep) -> dict:
     return {k: round(v, 6) for k, v in sums.items()}
 
 
-def observatory_phase(dev, card, cpu_journal) -> dict:
+def observatory_phase(dev, card, cut) -> dict:
     """Phase 24: the perf and census observatories in the serve tick, on
-    the card, at the serve bench deployment, RCA on, the engine's
-    defaults.  (a) Perf off and on in alternating turns: the decision
-    and RCA pins on every run, decisions, states, alerts and verdicts
-    equal off / on, the canonical journal the CPU twin's (phase 16's),
+    the card, at the serve bench deployment cut to 50 s (:data:`CUT_KW`),
+    RCA on, the engine's defaults.  (a) Perf off and on in alternating
+    turns: the cut CPU twin's decision and RCA pins on every run
+    (``cut``), decisions, states, alerts and verdicts equal off / on,
+    the canonical journal the cut twin's,
     events recorded and none dropped, the timeline reconciled with the
     report's legs (:func:`perf_reconciles`); the same at 2 thread shards
     (shard tags on the events and the trace's lanes) and with the
@@ -4474,7 +4581,7 @@ def observatory_phase(dev, card, cpu_journal) -> dict:
     from anomod_torch.serve.engine import VARIANT_REPORT_FIELDS, run_power_law
     from anomod_torch.utils.tracing import spans_from_chrome
     t_phase = time.perf_counter()
-    kw = dict(SERVE_KW, device=dev, rca=True)
+    kw = dict(CUT_KW, device=dev, rca=True)
 
     def decisions(r, skip=()):
         return {k: v for k, v in dataclasses.asdict(r).items()
@@ -4482,14 +4589,10 @@ def observatory_phase(dev, card, cpu_journal) -> dict:
                 and k != "device"}
 
     def held(eng, rep, what):
-        got = {"p99_latency_s": rep.latency["p99_latency_s"],
-               "shed_fraction": rep.shed_fraction, "n_alerts": rep.n_alerts}
-        check(got == SERVE_PINS, f"{what}: pins {got} != {SERVE_PINS}")
-        rca = {"n_rca_runs": rep.n_rca_runs, "rca_eligible": rep.rca_eligible,
-               "rca_topk_hits": rep.rca_topk_hits}
-        check(rca == RCA_PINS, f"{what}: rca pins {rca} != {RCA_PINS}")
-        check(eng.flight_recorder.canonical_bytes() == cpu_journal,
-              f"{what}: the canonical journal differs from the CPU twin's")
+        held_cut(rep, cut, what)
+        check(eng.flight_recorder.canonical_bytes() == cut["journal"],
+              f"{what}: the canonical journal differs from the cut CPU "
+              f"twin's")
 
     out = {"24a": {}, "24b": {}, "24c": {}}
     sk.reset_launches()
@@ -4527,9 +4630,10 @@ def observatory_phase(dev, card, cpu_journal) -> dict:
                           overhead_fraction=overhead,
                           overhead_median=statistics.median(overhead),
                           on_runs=on_runs)
-        log(f"[24a] perf on {card}: pins held off and on, states, alerts, "
-            f"verdicts and decisions equal, the canonical journal the CPU "
-            f"twin's; serve wall off {walls['off']} s, on {walls['on']} s "
+        log(f"[24a] perf on {card}: the cut twin's pins held off and on, "
+            f"states, alerts, verdicts and decisions equal, the canonical "
+            f"journal the cut twin's; serve wall off {walls['off']} s, on "
+            f"{walls['on']} s "
             f"(alternating), overhead {overhead}, median "
             f"{out['24a']['overhead_median']:.4g}; each on run: " + "; ".join(
                 f"{d['events']} events, fold_wait_s {d['fold_wait_s']} of "
@@ -4888,21 +4992,35 @@ def parallel_phase(dev, card, batch, cfg, rates, stream_rows,
         n_rows = int(shard["sid"].numel())
         check(plan(n_rows, cfg.sw).clustered,
               f"sharded replay: {n_rows} rows do not take the cluster fold")
-        traced = traced_ms(lambda: fn(shard), MESH_KERNELS, iters=3)
-        check(not traced or (traced.get("dense_cluster_fold", [0, 0])[1] >= 1
-                             and traced.get("hll_update_kernel",
-                                            [0, 0])[1] >= 1),
-              f"sharded replay trace: {traced}")
+        # a trace can lose some calls' device records (a kernel read at a
+        # fraction of a launch a call, seen on an H100): such a trace is
+        # taken again, up to three times, until one is whole, which must
+        # name both; a trace with no device events stands as "not
+        # measured" only where no partial one came before it
+        partial = []
+        for _ in range(3):
+            traced = traced_ms(lambda: fn(shard), MESH_KERNELS, iters=3)
+            whole = all(c == int(c) for _, c in traced.values())
+            if (traced and whole) or not (traced or partial):
+                break
+            if traced:
+                partial.append(traced)
+        check((not traced and not partial)
+              or (whole and traced.get("dense_cluster_fold", [0, 0])[1] >= 1
+                  and traced.get("hll_update_kernel", [0, 0])[1] >= 1),
+              f"sharded replay trace: {traced or 'no device events'} "
+              f"(partial traces before it: {partial})")
         res["replay"] = dict(max_abs_err=errs, launches=launches,
                              plain_calls=dict(plain),
                              traced=traced or "not measured (no device "
-                             "events)")
+                             "events)", partial_traces=partial)
         log(f"[25] sharded replay (world 1, kernel cuda, with_hll) on the "
             f"bench corpus ({n_real} spans): replicated and scattered equal "
             f"make_replay_fn's (max_abs_err {errs}), registers exact; "
             f"launches {launches}, plain calls {dict(plain)}; {n_rows} "
             f"staged rows a launch: the cluster plan; traced device ms and "
-            f"launches a call by kernel {res['replay']['traced']}")
+            f"launches a call by kernel {res['replay']['traced']}; "
+            f"partial traces taken again: {partial}")
         r = sharded_throughput(batch, mesh, cfg, repeats=3, kernel="cuda")
         one = measure_throughput(batch, cfg, repeats=3, replicate=1,
                                  kernel="cuda", device=dev)
@@ -6650,6 +6768,412 @@ def collection_plane_phase(card, job) -> dict:
     return {"collection_plane": out}
 
 
+#: phase 30's corpus, made from :data:`NATIVE_SCAN_SEED` by the port's
+#: synth at the size of a collection run: SN logs over 30 files (the
+#: twelve services of the first three SN experiments, ~64 MiB), a TT
+#: metric CSV of one experiment's 917 series at 15 s over 16,200 s
+#: (990,360 rows) and an API JSONL of 1 M records
+NATIVE_SCAN_SEED = 23
+NATIVE_SCAN_SIZES = dict(log_files=30, lines_per_service=28_000,
+                         metric_duration_s=16_200, api_records=1_000_000)
+#: sha256 of phase 30's corpus (``corpus/...``) and of the JAX package's
+#: outputs on it (:func:`native_scan_outputs` of ``anomod``, its native
+#: library, ``ANOMOD_NATIVE`` unset); regenerate where both packages are:
+#:     chip_smoke.native_scan_digests(anomod)
+NATIVE_SCAN_DIGESTS = {
+    "corpus/logs":
+        "15e23d24406c8643d0c6d8d6c137ed32787f818422f422d951bd6d48140ed512",
+    "corpus/metrics":
+        "f67ed408034b0d75b1d09189cd360b6de059529cf99096863d2ca778187fa6b2",
+    "corpus/api":
+        "cd643e92074cd2389faba0d2c1cbff7271cbf6d3d3b65e9642bc51e3a3208500",
+    "scan_log":
+        "359bd7ba1073ca81b71896e89cd02593bebc8bf4758c1f8c8aa39108f6251ec9",
+    "summarize_log_files":
+        "cc2e2387bb24a780f381c8100c2ef0fdaa22fc767217c5eb54c09c1c6332f1a2",
+    "runtime_summarize_logs":
+        "e50915203905dfeb1492ea3ddff2f832fbaf64c102cd88a35735ea7da6c94d5b",
+    "scan_csv_columns":
+        "5ba68a60e698946c971d4f1aafe3cce2a74d2cb973fb132d8f34e96ce380fb8f",
+    "scan_api_jsonl":
+        "7f6268ba6fafe57e1456e932f0b4e5a1ca15657104297f5396b1872344298a0b",
+    "parse_log_lines":
+        "a964ae7203e596b2d44efdaba5802a4f231cd75903185e3b3aa4ad65e7eca36f",
+    "summaries":
+        "bb8b8ed0182dfcaf42ae3758cc604cc2c7ef714d0463f435f4138e9fae83e3bc",
+    "load_tt_metric_csv":
+        "c7307d5817d9045f72034df4ce268667bd52a3ffece175e0a7bd4ab61fa07930",
+}
+
+
+def native_scan_corpus(root, sizes=NATIVE_SCAN_SIZES,
+                       seed=NATIVE_SCAN_SEED) -> dict:
+    """Phase 30's corpus under ``root`` (see :data:`NATIVE_SCAN_SIZES`):
+    ``logs``, the log files (``<service>_<k>.log``, one line a
+    synthesized log line, stamped in UTC, an error line followed by a
+    stack line without a stamp), ``metrics``, the TT long CSV
+    (``metric_name,timestamp,datetime,value,labels``), and ``api``, the
+    JSONL of the monitor's records."""
+    import csv
+    import io
+
+    import numpy as np
+
+    from anomod_torch import labels, synth
+    from anomod_torch.schemas import LOG_ERROR, LOG_WARN
+
+    def utc(t):
+        return [x.replace("T", " ") for x in np.datetime_as_string(
+            np.asarray(t).astype(np.int64).astype("datetime64[s]")).tolist()]
+    root = Path(root)
+    (root / "logs").mkdir(parents=True, exist_ok=True)
+    logs = []
+    for k, label in enumerate(labels.labels_for_testbed("SN")):
+        if len(logs) == sizes["log_files"]:
+            break
+        batch, _ = synth.generate_logs(
+            label, lines_per_service=sizes["lines_per_service"],
+            seed=seed + k)
+        for i, svc in enumerate(batch.services):
+            if len(logs) == sizes["log_files"]:
+                break
+            m = batch.service == i
+            lines = []
+            for head, lvl in zip(utc(batch.t_s[m]), batch.level[m].tolist()):
+                if lvl == LOG_ERROR:
+                    lines.append(
+                        f"{head} ERROR {svc}: request failed: java.net."
+                        f"SocketTimeoutException: Read timed out\n    at "
+                        f"com.anomod.{svc}.Handler.call(Handler.java:88)\n")
+                elif lvl == LOG_WARN:
+                    lines.append(f"{head} WARN {svc}: slow response\n")
+                else:
+                    lines.append(f"{head} INFO {svc}: request handled\n")
+            path = root / "logs" / f"{svc}_{k}.log"
+            path.write_text("".join(lines))
+            logs.append(path)
+    tt = labels.labels_for_testbed("TT")[1]
+    mb = synth.generate_metrics(tt, duration_s=sizes["metric_duration_s"],
+                                step_s=15, seed=seed)
+    buf = io.StringIO()
+    w = csv.writer(buf, lineterminator="\n")
+    w.writerow(["metric_name", "timestamp", "datetime", "value", "labels"])
+    w.writerows(zip([mb.metric_names[i] for i in mb.metric.tolist()],
+                    mb.t_s.tolist(), utc(mb.t_s), mb.value.tolist(),
+                    [mb.series_keys[i] for i in mb.series.tolist()]))
+    metrics = root / "Lv_P_CPU_preserve_metrics_1.csv"
+    metrics.write_text(buf.getvalue())
+    ab = synth.generate_api(tt, n_records=sizes["api_records"], seed=seed)
+    api = root / "api_responses.jsonl"
+    with open(api, "w") as f:
+        for t, e, st, lat, cl in zip(
+                utc(ab.t_s), ab.endpoint.tolist(), ab.status.tolist(),
+                ab.latency_ms.tolist(), ab.content_length.tolist()):
+            f.write(json.dumps({
+                "timestamp": t, "endpoint": ab.endpoints[e],
+                "method": "GET", "status_code": st,
+                "latency_ms": round(lat, 2), "content_length": cl}) + "\n")
+    return {"logs": logs, "metrics": metrics, "api": api}
+
+
+def corpus_digests(corpus) -> dict:
+    """sha256 of phase 30's corpus: the log files (names and bytes, in
+    order), the CSV and the JSONL."""
+    import hashlib
+    h = hashlib.sha256()
+    for p in corpus["logs"]:
+        h.update(p.name.encode() + b"\0" + p.read_bytes())
+    return {"corpus/logs": h.hexdigest(),
+            "corpus/metrics": hashlib.sha256(
+                corpus["metrics"].read_bytes()).hexdigest(),
+            "corpus/api": hashlib.sha256(
+                corpus["api"].read_bytes()).hexdigest()}
+
+
+def parser_outputs(logs_io, metrics_io, corpus, walls=None) -> dict:
+    """The parsers' outputs on phase 30's corpus, as bytes, by whichever
+    route the package's ``ANOMOD_NATIVE`` takes: ``parse_log_lines`` of
+    each log (``default_t`` 1.0), ``summarize_log_files`` of all,
+    ``load_tt_metric_csv`` of the CSV; each call's wall into ``walls``."""
+    import dataclasses
+    walls = {} if walls is None else walls
+    paths = corpus["logs"]
+    texts = [p.read_text() for p in paths]
+    t0 = time.perf_counter()
+    parsed = [logs_io.parse_log_lines(x, i, 1.0)
+              for i, x in enumerate(texts)]
+    walls["parse_log_lines"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    summaries = logs_io.summarize_log_files(paths)
+    walls["summaries"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    b = metrics_io.load_tt_metric_csv(corpus["metrics"])
+    walls["load_tt_metric_csv"] = time.perf_counter() - t0
+    return {
+        "parse_log_lines": b"".join(a.tobytes() for r in parsed for a in r),
+        "summaries": json.dumps([dataclasses.astuple(x)
+                                 for x in summaries]).encode(),
+        "load_tt_metric_csv": b"".join(
+            a.tobytes() for a in (b.metric, b.series, b.t_s, b.value,
+                                  b.series_service))
+        + json.dumps([b.metric_names, b.series_keys, b.services]).encode()}
+
+
+def native_scan_outputs(pkg, corpus, walls=None) -> dict:
+    """Phase 30's outputs of one package (``anomod_torch`` or
+    ``anomod``), as bytes: its native scanners on the corpus
+    (``scan_log`` of each log, ``summarize_log_files``,
+    ``Runtime(3).summarize_logs``, ``scan_csv_columns`` of the CSV's
+    timestamp and value columns, ``scan_api_jsonl``) and
+    :func:`parser_outputs` with ``ANOMOD_NATIVE`` as set; each call's
+    wall into ``walls``."""
+    import importlib
+    name = pkg.__name__
+    native = importlib.import_module(f"{name}.io.native")
+    walls = {} if walls is None else walls
+    paths = corpus["logs"]
+    raw_logs = [p.read_bytes() for p in paths]
+    raw_csv = corpus["metrics"].read_bytes()
+    raw_api = corpus["api"].read_bytes()
+    out = {}
+    t0 = time.perf_counter()
+    scans = [native.scan_log(x) for x in raw_logs]
+    walls["scan_log"] = time.perf_counter() - t0
+    out["scan_log"] = b"".join(a.tobytes() for r in scans for a in r)
+    t0 = time.perf_counter()
+    counts, ts = native.summarize_log_files(paths)
+    walls["summarize_log_files"] = time.perf_counter() - t0
+    out["summarize_log_files"] = counts.tobytes() + ts.tobytes()
+    with native.Runtime(3) as rt:
+        counts, ts, n = rt.summarize_logs(paths)
+    out["runtime_summarize_logs"] = (counts.tobytes() + ts.tobytes()
+                                     + str(n).encode())
+    t0 = time.perf_counter()
+    cols = native.scan_csv_columns(raw_csv, [1, 3])
+    walls["scan_csv_columns"] = time.perf_counter() - t0
+    out["scan_csv_columns"] = cols.tobytes()
+    t0 = time.perf_counter()
+    recs = native.scan_api_jsonl(raw_api)
+    walls["scan_api_jsonl"] = time.perf_counter() - t0
+    out["scan_api_jsonl"] = b"".join(a.tobytes() for a in recs)
+    out.update(parser_outputs(
+        importlib.import_module(f"{name}.io.logs"),
+        importlib.import_module(f"{name}.io.metrics"), corpus, walls))
+    return out
+
+
+def native_scan_digests(pkg, sizes=NATIVE_SCAN_SIZES) -> dict:
+    """The corpus's and ``pkg``'s outputs' sha256 (``ANOMOD_NATIVE`` as
+    set), the form of :data:`NATIVE_SCAN_DIGESTS`."""
+    import hashlib
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        corpus = native_scan_corpus(tmp, sizes)
+        out = corpus_digests(corpus)
+        out.update({k: hashlib.sha256(v).hexdigest()
+                    for k, v in native_scan_outputs(pkg, corpus).items()})
+    return out
+
+
+def python_scan_outputs(corpus, walls) -> dict:
+    """The Python routes of phase 30's scanners, as the native outputs'
+    bytes: each log's levels and timestamps by ``parse_log_lines`` with
+    ``ANOMOD_NATIVE=off``, the CSV's two columns by ``csv`` and
+    ``float`` (NaN where it raises), the JSONL's three fields by
+    ``json``; each one's wall into ``walls``."""
+    import csv
+    import io
+
+    import numpy as np
+
+    from anomod_torch import config
+    from anomod_torch.io import logs as logs_io
+    texts = [p.read_text() for p in corpus["logs"]]
+    out = {}
+    with package_env(config, {"ANOMOD_NATIVE": "off"}):
+        t0 = time.perf_counter()
+        parsed = [logs_io.parse_log_lines(x, 0, 0.0) for x in texts]
+        walls["scan_log"] = time.perf_counter() - t0
+    out["scan_log"] = b"".join(lvl.tobytes() + t.tobytes()
+                               for _, t, lvl in parsed)
+
+    def num(x):
+        try:
+            return float(x)
+        except ValueError:
+            return float("nan")
+    text = corpus["metrics"].read_text()
+    t0 = time.perf_counter()
+    rows = csv.reader(io.StringIO(text))
+    next(rows)
+    cols = np.array([(num(r[1]), num(r[3])) for r in rows if r],
+                    np.float64).T.copy()
+    walls["scan_csv_columns"] = time.perf_counter() - t0
+    out["scan_csv_columns"] = cols.tobytes()
+    text = corpus["api"].read_text()
+    t0 = time.perf_counter()
+    recs = [json.loads(x) for x in text.splitlines() if len(x) > 2]
+    st = np.array([r.get("status_code", 0) for r in recs], np.int16)
+    lat = np.array([r.get("latency_ms", 0) for r in recs], np.float32)
+    cl = np.array([r.get("content_length", 0) for r in recs], np.int32)
+    walls["scan_api_jsonl"] = time.perf_counter() - t0
+    out["scan_api_jsonl"] = st.tobytes() + lat.tobytes() + cl.tobytes()
+    return out
+
+
+def native_scan_job() -> dict:
+    """Phase 30's work, in a spawned process started at the head of phase
+    20 at the lowest priority (``os.nice(19)``: the serve runs and shard
+    children beside it keep the host's cores), host only: the corpus
+    (:func:`native_scan_corpus`) and its sha256 first, then the port's
+    outputs (:func:`native_scan_outputs`, ``ANOMOD_NATIVE`` unset) and
+    their sha256, the Python routes (:func:`python_scan_outputs`, and
+    :func:`parser_outputs` with ``ANOMOD_NATIVE=off``) with each route's
+    wall, and both legs of the sanitizer smoke
+    (``anomod_torch.io.sanitize``, in a thread beside the rest), with the
+    card probe counted (:func:`count_probes`).  A corpus whose sha256
+    differs from :data:`NATIVE_SCAN_DIGESTS`'s stops the job before any
+    scanner runs."""
+    import hashlib
+    import os
+    import tempfile
+    import threading
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import torch
+
+    import anomod_torch
+    from anomod_torch import config
+    from anomod_torch.io import logs as logs_io
+    from anomod_torch.io import metrics as metrics_io
+    from anomod_torch.io import sanitize
+    os.nice(19)
+    os.environ.pop("ANOMOD_NATIVE", None)
+    config.set_config(None)
+    count_probes()
+    t_all = time.perf_counter()
+    verdicts = {}
+
+    def legs():
+        for leg in ("tsan", "asan"):
+            t0 = time.perf_counter()
+            verdicts[leg] = dict(sanitize.run(leg),
+                                 wall_s=time.perf_counter() - t0)
+    san = threading.Thread(target=legs)
+    san.start()
+    out = dict(sizes=NATIVE_SCAN_SIZES)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            corpus = native_scan_corpus(tmp)
+            out["corpus_s"] = time.perf_counter() - t0
+            out["corpus"] = corpus_digests(corpus)
+            out["bytes"] = dict(
+                logs=sum(p.stat().st_size for p in corpus["logs"]),
+                metrics=corpus["metrics"].stat().st_size,
+                api=corpus["api"].stat().st_size)
+            if any(NATIVE_SCAN_DIGESTS.get(k) != v
+                   for k, v in out["corpus"].items()):
+                return out
+            native_walls, py_walls = {}, {}
+            got = native_scan_outputs(anomod_torch, corpus, native_walls)
+            out["digests"] = {k: hashlib.sha256(v).hexdigest()
+                              for k, v in got.items()}
+            out["rows"] = dict(
+                lines=sum(p.read_bytes().count(b"\n")
+                          for p in corpus["logs"]),
+                csv_rows=len(got["scan_csv_columns"]) // 16,
+                records=len(got["scan_api_jsonl"]) // 10)
+            want = python_scan_outputs(corpus, py_walls)
+            with package_env(config, {"ANOMOD_NATIVE": "off"}):
+                want.update(parser_outputs(logs_io, metrics_io, corpus,
+                                           py_walls))
+            out["python_equal"] = {k: got[k] == v for k, v in want.items()}
+            out["walls"] = {"native": native_walls, "python": py_walls}
+    finally:
+        san.join()
+    out.update(sanitize=verdicts, wall_s=time.perf_counter() - t_all,
+               probes=len(PROBES),
+               cuda_initialized=torch.cuda.is_initialized(),
+               launches=all_launches())
+    return out
+
+
+def native_scan_phase(card, job) -> dict:
+    """Phase 30: the native scanners, host only
+    (:func:`native_scan_job`, in its own process): the corpus's sha256
+    equal to :data:`NATIVE_SCAN_DIGESTS`'s (a generator that differs
+    between this machine and the one the table was made on fails here,
+    not as a scanner fault), then every output's sha256 equal to the JAX
+    package's, the native route equal to the Python route on every
+    output, each route's host wall (MB/s and rows/s), the sanitizer
+    smoke's tsan and asan verdicts (``ok``, or ``skip`` with its
+    reason; ``fail`` fails the phase); no probe of the card started,
+    CUDA never initialized and no kernel launched in that process; this
+    process's launches and device memory unchanged while it waits."""
+    import torch
+    launches, mem = all_launches(), torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    r = job.get(timeout=600)
+    wait_s = time.perf_counter() - t0
+    bad = sorted(k for k, v in r["corpus"].items()
+                 if NATIVE_SCAN_DIGESTS.get(k) != v)
+    check(not bad, f"phase 30: the corpus differs from the one the digest "
+          f"table was made on ({bad}): its generator, not a scanner")
+    got = dict(r["corpus"], **r["digests"])
+    bad = sorted(k for k in set(got) | set(NATIVE_SCAN_DIGESTS)
+                 if got.get(k) != NATIVE_SCAN_DIGESTS.get(k))
+    check(not bad, f"phase 30: {len(bad)} outputs differ from the JAX "
+          f"package's: {bad}")
+    bad = sorted(k for k, v in r["python_equal"].items() if not v)
+    check(not bad, f"phase 30: the native route differs from the Python "
+          f"route on {bad}")
+    for leg, v in r["sanitize"].items():
+        check(v["status"] in ("ok", "skip") and (v["status"] == "ok"
+                                                 or v.get("reason")),
+              f"phase 30: sanitizer {leg}: {v}")
+    check(r["probes"] == 0 and not r["cuda_initialized"]
+          and not any(r["launches"].values()),
+          f"phase 30: {r['probes']} probes, CUDA initialized "
+          f"{r['cuda_initialized']}, launches {r['launches']}")
+    check(all_launches() == launches
+          and torch.cuda.memory_allocated() == mem,
+          f"phase 30: launches {all_launches()} (were {launches}), device "
+          f"memory {torch.cuda.memory_allocated()} B (was {mem} B)")
+    # each output's input: the logs, the CSV or the JSONL
+    source = dict(scan_log="logs", parse_log_lines="logs", summaries="logs",
+                  summarize_log_files="logs", scan_csv_columns="metrics",
+                  load_tt_metric_csv="metrics", scan_api_jsonl="api")
+    n_rows = dict(logs=r["rows"]["lines"], metrics=r["rows"]["csv_rows"],
+                  api=r["rows"]["records"])
+    rates = {}
+    for route, walls in r["walls"].items():
+        for k, w in walls.items():
+            rates.setdefault(k, {})[route] = dict(
+                wall_s=w, mb_per_s=r["bytes"][source[k]] / 1e6 / w,
+                rows_per_s=n_rows[source[k]] / w)
+    out = dict(corpus_bytes=r["bytes"], rows=r["rows"], corpus_s=r["corpus_s"],
+               job_wall_s=r["wall_s"], wait_s=wait_s, routes=rates,
+               sanitize=r["sanitize"], n_digests=len(got), probes=0,
+               launches=0, device_bytes=0)
+    log(f"[30] native scanners on the card's host ({card}): corpus "
+        f"{r['bytes']} B ({r['rows']}) made in {r['corpus_s']:.3f} s, its "
+        f"sha256 the table's; {len(got)} sha256 == the JAX package's "
+        f"native outputs; native == Python route on "
+        f"{sorted(r['python_equal'])}; 0 probes, 0 launches, 0 device "
+        f"bytes; {r['wall_s']:.3f} s in its own process (nice 19) from the "
+        f"head of phase 20, {wait_s:.3f} s waited for")
+    for k, v in rates.items():
+        ratio = ("" if len(v) < 2 else f"; Python / native "
+                 f"{v['python']['wall_s'] / v['native']['wall_s']:.2f}x")
+        log(f"[30] {k}: " + "; ".join(
+            f"{route} {x['wall_s']:.4f} s, {x['mb_per_s']:.2f} MB/s, "
+            f"{x['rows_per_s']:.4g} rows/s" for route, x in v.items())
+            + ratio + " (host walls at nice 19 beside the card's work)")
+    for leg, v in r["sanitize"].items():
+        log(f"[30] sanitizer {leg}: {v}")
+    return {"native_scan": out}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6981,25 +7505,47 @@ def main() -> int:
     mm_launches = mm15["multimodal_stream"]["dense_launches"]
     rca16 = run_phase("16", rca_serve_phase, dev, card, twins)
     cpu_journal = rca16.pop("cpu_journal")
+    full_run = rca16.pop("_run")
     twin_pool.close()
     twin_pool.join()
+    # the CPU twin of phases 20-22 and 24's cut runs goes on in a spawned
+    # process from here
+    cut_pool = multiprocessing.get_context("spawn").Pool(1)
+    cut_job = cut_pool.apply_async(cut_serve_twin)
     tele17 = run_phase("17", telemetry_phase, dev, card, PlainFoldReplay)
     ss_launches = tele17["telemetry"]["selfscrape_dense_launches"]
     q18 = run_phase("18", quality_phase, dev, card)
     q_launches = q18["quality"]["dense_launches"]
     s19 = run_phase("19", shift_phase, dev, card)
+    t0 = time.perf_counter()
+    try:
+        cut = cut_job.get(timeout=900)
+    finally:
+        cut_pool.terminate()
+        cut_pool.join()
+    log(f"[20] the cut runs' CPU twin ({CUT_KW['duration_s']:g} s, "
+        f"{cut['ticks']} ticks, RCA on): pins {cut['pins']}, "
+        f"{cut['n_checkpoints']} checkpoints, {cut['n_verdicts']} "
+        f"verdicts, journal {len(cut['journal'])} B; {cut['wall_s']:.3f} s "
+        f"in its own process from the head of phase 17, "
+        f"{time.perf_counter() - t0:.3f} s waited for")
+    # phase 30's host work goes on in a spawned process from here, at the
+    # lowest priority (no phase of the pace yardstick runs beside it)
+    scan_pool = multiprocessing.get_context("spawn").Pool(1)
+    scan_job = scan_pool.apply_async(native_scan_job)
     with serve_run_split() as split20:
-        fs20 = run_phase("20", flight_shard_phase, dev, card, cpu_journal)
+        fs20 = run_phase("20", flight_shard_phase, dev, card, cut)
     fs20["phase20_split"] = log_serve_split("20", split20,
                                             phase_walls["20"], card)
-    ps21 = run_phase("21", supervise_proc_phase, dev, card, cpu_journal,
-                     fs20)
-    p22 = run_phase("22", elastic_async_tier_phase, dev, card, cpu_journal)
+    ps21 = run_phase("21", supervise_proc_phase, dev, card, cut, fs20,
+                     cpu_journal, full_run)
+    del full_run
+    p22 = run_phase("22", elastic_async_tier_phase, dev, card, cut)
     p23 = run_phase("23", live_feed_phase, dev, card)
     # phase 29's host work goes on in a spawned process from here
     coll_pool = multiprocessing.get_context("spawn").Pool(1)
     coll_job = coll_pool.apply_async(collection_plane_job)
-    p24 = run_phase("24", observatory_phase, dev, card, cpu_journal)
+    p24 = run_phase("24", observatory_phase, dev, card, cut)
     p25 = run_phase("25", parallel_phase, dev, card, batch, cfg, rates,
                     rows, unfused_alerts)
     par = p25["parallel"]
@@ -7018,6 +7564,11 @@ def main() -> int:
     p29["shard_child_importtime"] = importtime_result(imp, t_imp)
     log(f"[29] a shard child's imports (python -X importtime, run beside "
         f"phases 28-29): {p29['shard_child_importtime']}")
+    try:
+        p30 = run_phase("30", native_scan_phase, card, scan_job)
+    finally:
+        scan_pool.terminate()
+        scan_pool.join()
     log(f"[walls] s by phase: "
         f"{ {k: round(v, 1) for k, v in phase_walls.items()} }")
 
@@ -7111,7 +7662,7 @@ def main() -> int:
                     "l2_eviction_ms": flush, **data, **serve,
                     **sketch, **roof, **det13, **rca14, **mm15, **rca16,
                     **tele17, **q18, **s19, **fs20, **ps21, **p22, **p23,
-                    **p24, **p25, **p26, **p27, **p28, **p29,
+                    **p24, **p25, **p26, **p27, **p28, **p29, **p30,
                     "phase_walls_s": phase_walls,
                     "wall_s": time.perf_counter() - t_all}))
     log(json.dumps({"kernels": kernels}))
